@@ -1,0 +1,771 @@
+"""Request-level continuous-batching engine over a *physically paged*,
+budgeted KV pool (port of ``repro.serve.engine``, single tenant).
+
+One ``Engine`` owns a shared device-side KV **page pool**
+(``KVBudget.tier1_pages`` physical pages of ``page_size`` tokens, plus
+one trash page that absorbs idle rows' writes), a slot array of decode
+rows, and a per-row page table (``int32[max_slots, pages_per_slot]``)
+mapping each sequence's logical pages onto arbitrary physical pages.
+Decode is ONE batched call into the model's paged path: the paged
+attention kernel gathers K/V through the page table, so a sequence
+needs neither contiguous pages nor a reserved slab.
+
+Scheduling per ``step()``:
+
+* pressure relief: if the running rows' next-token page demand exceeds
+  the pool, the newest-admitted rows are *paused* (their pages stay hot
+  until somebody needs them: lazy, page-granular eviction).  Growth
+  allocations then evict the **coldest pages** (least-recently-scheduled
+  paused sequence first; within it the lowest-logical pages first) to
+  the tier-2 cold store over the capacity fabric — or, with no tier-2
+  byte headroom, drop the victim's KV entirely and requeue it for
+  re-prefill;
+* swap-in: paused sequences re-enter in pause order (oldest first);
+  only their *cold* pages ride the fabric back, into whatever physical
+  pages are free;
+* admission: FIFO prefill, padded to a power-of-two page-aligned
+  *bucket*, with the next-token logits read at the last real position;
+* decode: every running row advances one token in a single call, rows
+  gathered into a power-of-two row bucket.
+
+Every event clock is the event's **modeled completion time**: a
+``ServeCostModel`` prices prefill/decode from the paper's fabric
+constants and page traffic is charged through a private degenerate
+``repro_torch.fabric.Transport``, so the schedule, the clocks and the
+trace events are the reference's exactly whenever the tokens are.
+
+The pool tensors are updated IN PLACE (``copy_``, ``index_copy_``,
+``index_put_``) where the reference builds functional copies; the pool
+contents are the same.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections import deque
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.tiering import KVBudget, PagedKV
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.api import Model
+from repro_torch.models.transformer import dtype_of
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.trace import CAT_ENGINE, CAT_KV, CAT_REQUEST, resolve
+from repro_torch.serve.api import (EngineConfig, Request, RequestHandle,
+                                   RequestStatus, ServeCostModel)
+
+
+def _pow2_buckets(start: int, cap: int) -> List[int]:
+    """Doubling sizes from ``start`` up to (and always including) ``cap``."""
+    out: List[int] = []
+    b = start
+    while b < cap:
+        out.append(b)
+        b *= 2
+    out.append(cap)
+    return out
+
+
+def evict_pages(pool, kv, st, logicals, engine, t) -> float:
+    """Spill one batch of ``st``'s hot logical pages to ``kv``'s tier-2
+    cold store: gather the physical pages from the device pool (one
+    bulk copy to the host), evict each, and record one swap episode on
+    the handle.  The transfer is charged on ``engine``'s transport at
+    modeled time ``t``; returns the modeled swap seconds."""
+    table = kv.page_table(st.rid)
+    idx = torch.as_tensor([table[lp] for lp in logicals],
+                          device=engine.device)
+    gathered = {name: leaf[:, idx].cpu() for name, leaf in pool.items()}
+    for i, lp in enumerate(logicals):
+        kv.evict(st.rid, lp, {name: g[:, i] for name, g in gathered.items()})
+    st.handle.swaps += 1        # one spill episode: len(logicals) pages,
+                                # one bulk transfer over the capacity fabric
+    cost = engine.charge_tier2(len(logicals) * kv.page_bytes, t)
+    if engine.tracer.enabled:
+        engine.tracer.span(engine._track, "spill", t, cost, cat=CAT_KV,
+                           rid=st.rid, pages=len(logicals),
+                           bytes=len(logicals) * kv.page_bytes)
+    return cost
+
+
+def slice_page(cache, i: int, page_size: int):
+    """Payload of logical page ``i`` of a dense ``(layers, 1, seq, ...)``
+    prefill cache: ``(layers, page_size, ...)`` leaves — the per-page
+    shape ``PagedKV.evict``/``fetch`` payloads use."""
+    return {name: leaf[:, 0, i * page_size:(i + 1) * page_size]
+            for name, leaf in cache.items()}
+
+
+@dataclasses.dataclass(eq=False)        # identity semantics: these live in
+class _SlotState:                        # queues/sets and are never "equal"
+    """Host-side bookkeeping for one in-flight request."""
+
+    handle: RequestHandle
+    index: int = 0                 # next KV write position (= current length)
+    cur_tok: int = 0               # last emitted token (decode input)
+    slot: Optional[int] = None     # row in the slot array, None when off
+    admit_seq: int = -1            # admission order (pressure pauses
+                                   # newest-admitted rows first)
+    last_sched: int = -1           # step() count of the last decode — the
+                                   # page-coldness signal for eviction
+
+    @property
+    def rid(self) -> int:
+        return self.handle.rid
+
+    @property
+    def request(self) -> Request:
+        return self.handle.request
+
+    def effective_prompt(self) -> Tuple[int, ...]:
+        """Prompt for (re-)prefill: original prompt plus everything
+        already generated (the recompute-preemption continuation)."""
+        return self.request.prompt_tokens + tuple(self.handle.tokens)
+
+    @property
+    def target_len(self) -> int:
+        return self.request.prompt_len + self.request.max_new_tokens
+
+
+class Engine:
+    """Continuous-batching serving engine.  Build with ``Engine.local``."""
+
+    _track = "engine"              # this engine's trace track
+
+    def __init__(self, model: Model, params, cfg: EngineConfig, *,
+                 device: torch.device,
+                 budget: Optional[KVBudget] = None,
+                 cost_model: Optional[ServeCostModel] = None,
+                 tracer=None):
+        if not model.supports_paged_kv:
+            raise NotImplementedError(
+                f"Engine serves through the paged decode kernel, which "
+                f"{model.cfg.family!r} does not implement")
+        self.model = model
+        self.device = device
+        self.params = model.load(params)       # cast once, at load
+        self.cfg = cfg
+        self._transport = None                 # private, built lazily
+        self.route = None
+        self.tracer = resolve(tracer)
+        self.cost = cost_model or ServeCostModel.from_fabric(
+            2.0 * model.cfg.param_count())
+
+        dt = dtype_of(cfg.cache_dtype)
+        self._cache_dtype = dt
+        slot_shapes = model.init_cache(1, cfg.max_seq, dtype=dt,
+                                       device="meta")
+        for leaf in slot_shapes.values():
+            if leaf.dim() < 3 or leaf.shape[1] != 1 \
+                    or leaf.shape[2] != cfg.max_seq:
+                raise NotImplementedError(
+                    f"paged serving expects (layers, batch=1, seq, ...) "
+                    f"KV cache leaves, got {tuple(leaf.shape)}")
+        slot_bytes = sum(l.numel() * l.element_size()
+                         for l in slot_shapes.values())
+        page_bytes = slot_bytes * cfg.page_size / max(1, cfg.max_seq)
+
+        full = budget or KVBudget(page_size=cfg.page_size)
+        tier1 = (full.tier1_pages if full.tier1_pages is not None
+                 else cfg.max_slots * cfg.pages_per_slot)
+        self.budget = KVBudget(tier1_pages=tier1,
+                               tier2_bytes=full.tier2_bytes,
+                               page_size=cfg.page_size)
+        self.kv = PagedKV(self.budget, page_bytes)
+
+        # shared physical page pool: leaf (layers, num_pages + 1, page,
+        # ...).  The extra page (id == num_pages) is the TRASH page: idle
+        # rows' page tables point at it, so their decode writes land
+        # somewhere harmless and their gathers stay in bounds.
+        self._trash = self.kv.num_pages
+        self._pool = {
+            name: torch.zeros((l.shape[0], self.kv.num_pages + 1,
+                               cfg.page_size) + tuple(l.shape[3:]),
+                              dtype=l.dtype, device=device)
+            for name, l in slot_shapes.items()}
+        self._table = np.full((cfg.max_slots, cfg.pages_per_slot),
+                              self._trash, np.int32)
+        self._lengths = np.zeros(cfg.max_slots, np.int32)
+        self._slot_tok = np.zeros(cfg.max_slots, np.int32)
+        self._slots: List[Optional[_SlotState]] = [None] * cfg.max_slots
+
+        self._queue: deque = deque()     # _SlotState, FIFO (+recompute front)
+        self._paused: deque = deque()    # insertion-ordered: pause order IS
+                                         # the resume order (oldest first)
+        self.handles: Dict[int, RequestHandle] = {}
+        self._next_rid = 0
+        self._admit_seq = 0
+
+        self.clock = 0.0
+        self.steps = 0
+        self.busy_s = 0.0          # sum of nonzero step() durations: the
+                                   # throughput denominator that idle
+                                   # inter-arrival gaps cannot dilute
+        self._decoded_tokens = 0
+
+        # prefill buckets: page-aligned powers of two capped at the slot
+        # capacity; decode row buckets: powers of two capped at max_slots
+        self._buckets = _pow2_buckets(cfg.page_size,
+                                      cfg.pages_per_slot * cfg.page_size)
+        self._buckets_used: set = set()
+        self._row_buckets = _pow2_buckets(1, cfg.max_slots)
+        self._row_buckets_used: set = set()
+
+    # ---- transfer pricing --------------------------------------------------
+    @property
+    def cost(self) -> ServeCostModel:
+        return self._cost
+
+    @cost.setter
+    def cost(self, cm: ServeCostModel) -> None:
+        # the private degenerate transport prices from the cost model's
+        # tier-2 scalars: rebuild lazily so ``eng.cost = replace(cm,
+        # tier2_bw=...)`` keeps swap pricing in sync
+        self._cost = cm
+        self._transport = None
+        self.route = None
+
+    @property
+    def transport(self):
+        """The private degenerate ``repro_torch.fabric.Transport`` tier-2
+        traffic is charged through (built lazily from the cost model)."""
+        if self._transport is None:
+            self._transport = self._cost.transport()
+            self.route = self._transport.topology.route("src", "dst")
+        return self._transport
+
+    def charge_tier2(self, nbytes: float, t: float) -> float:
+        """Modeled seconds for one bulk tier-2 transfer beginning at
+        modeled time ``t``."""
+        tx = self.transport            # materializes self.route too
+        return tx.transfer_s(self.route, nbytes, t, label="serve:engine")
+
+    # ---- construction ----------------------------------------------------
+    @classmethod
+    def local(cls, model: Model, cfg: EngineConfig = EngineConfig(), *,
+              params=None, generator: Optional[torch.Generator] = None,
+              budget: Optional[KVBudget] = None,
+              cost_model: Optional[ServeCostModel] = None,
+              tracer=None, device: DeviceLike = None) -> "Engine":
+        """Engine on one device (``None``: the card).  ``params`` default
+        to ``model.init(generator)``; the KV budget is whatever the
+        caller passes (default: unbudgeted tier-1, no tier-2)."""
+        dev = resolve_device(device)
+        if dev.type != model.device.type:
+            raise ValueError(f"engine device {dev} differs from the "
+                             f"model's {model.device}")
+        if params is None:
+            params = model.init(generator)
+        return cls(model, params, cfg, device=dev, budget=budget,
+                   cost_model=cost_model, tracer=tracer)
+
+    # ---- client API ------------------------------------------------------
+    def submit(self, request: Request) -> RequestHandle:
+        """Enqueue a request (deterministic FIFO admission order).
+
+        Token ids are validated against the model vocab here: on the card
+        an out-of-range id would be a device-side assert in the embedding
+        gather, not a clean error."""
+        if request.prompt_len + request.max_new_tokens > self.cfg.max_seq:
+            raise ValueError(
+                f"prompt {request.prompt_len} + max_new "
+                f"{request.max_new_tokens} exceeds max_seq {self.cfg.max_seq}")
+        vocab = self.model.cfg.vocab
+        bad = [t for t in request.prompt_tokens if not 0 <= t < vocab]
+        if bad:
+            raise ValueError(
+                f"prompt token id {bad[0]} outside the model vocab "
+                f"[0, {vocab})")
+        rid = self._next_rid
+        self._next_rid += 1
+        handle = RequestHandle(rid=rid, request=request,
+                               submit_clock=max(self.clock,
+                                                request.arrival_time))
+        self.handles[rid] = handle
+        self._queue.append(_SlotState(handle))
+        if self.tracer.enabled:
+            self.tracer.instant(self._track, "submit", handle.submit_clock,
+                                cat=CAT_REQUEST, rid=rid,
+                                prompt_len=request.prompt_len,
+                                max_new=request.max_new_tokens)
+        return handle
+
+    @property
+    def idle(self) -> bool:
+        return (not self._queue and not self._paused
+                and all(s is None for s in self._slots))
+
+    def advance_clock(self, t: float) -> None:
+        """Idle-advance modeled time (trace drivers jump to next arrival)."""
+        self.clock = max(self.clock, t)
+
+    def run_until_idle(self, max_steps: int = 100_000) -> None:
+        for _ in range(max_steps):
+            if self.idle:
+                return
+            self.step()
+        raise RuntimeError(f"engine not idle after {max_steps} steps")
+
+    # ---- the engine loop -------------------------------------------------
+    def step(self) -> float:
+        """One scheduling round: relieve page pressure, swap in, admit,
+        decode every running row one token.  Returns modeled seconds.
+        Sub-phases receive the seconds already elapsed *within* this
+        step so every event clock lands on the event's modeled time."""
+        dt = 0.0
+        dt += self._relieve_pressure(dt)
+        dt += self._swap_in(dt)
+        dt += self._admit(dt)
+        dt += self._decode_once(dt)
+        if (dt == 0.0 and self._queue and not self._paused
+                and all(s is None for s in self._slots)):
+            # nothing runnable and the FIFO head has not arrived yet:
+            # idle-advance to its arrival (the same jump run_trace makes)
+            nxt = self._queue[0].request.arrival_time
+            if nxt > self.clock:
+                self.advance_clock(nxt)
+        self.clock += dt
+        if dt > 0.0:
+            self.busy_s += dt
+        self.steps += 1
+        if self.tracer.enabled:
+            if self.steps == 1:
+                # pool geometry, once: the conservation baseline a trace
+                # sanitizer checks page counters against
+                self.tracer.instant(self._track, "kv_pool", self.clock,
+                                    cat=CAT_KV, pages=self.kv.num_pages)
+            self.tracer.counter(self._track, "free_pages", self.clock,
+                                float(self.kv.free_count), cat=CAT_KV)
+            self.tracer.counter(self._track, "paused", self.clock,
+                                float(len(self._paused)))
+            self.tracer.counter(self._track, "allowance", self.clock,
+                                float(self.kv.allowance()), cat=CAT_KV)
+            # hot_pages LAST in the step-end block: the residency sample
+            # checked as free + hot == pool against this block's
+            # free_pages value
+            self.tracer.counter(self._track, "hot_pages", self.clock,
+                                float(self.kv.hot_used()), cat=CAT_KV)
+        return dt
+
+    # ---- internals -------------------------------------------------------
+    def _running(self) -> List[_SlotState]:
+        return sorted((s for s in self._slots if s is not None),
+                      key=lambda s: s.admit_seq)
+
+    def _free_slot(self) -> Optional[int]:
+        for i, s in enumerate(self._slots):
+            if s is None:
+                return i
+        return None
+
+    def _pages_next(self, st: _SlotState) -> int:
+        # pages needed to write the next token at position st.index; under
+        # static reservation the full lifetime is held from admission on
+        if self.cfg.reserve_lifetime:
+            return self.budget.pages_for(st.target_len)
+        return self.budget.pages_for(st.index + 1)
+
+    def _bucket_len(self, plen: int) -> int:
+        for b in self._buckets:
+            if b >= plen:
+                return b
+        raise ValueError(f"prompt of {plen} exceeds slot capacity "
+                         f"{self._buckets[-1]}")
+
+    def prefill_compiles(self) -> int:
+        """Distinct prefill shapes run: the buckets used.  A fresh
+        reference engine compiles one XLA program per bucket, so the
+        two counts agree; the port runs eagerly and compiles nothing."""
+        return len(self._buckets_used)
+
+    def decode_compiles(self) -> int:
+        """Distinct decode row buckets run (see ``prefill_compiles``)."""
+        return len(self._row_buckets_used)
+
+    # ---- pressure relief / paging ----------------------------------------
+    def _relieve_pressure(self, elapsed: float) -> float:
+        """Deschedule newest-admitted rows until the remaining running
+        rows' next-token demand fits the pool, then allocate this step's
+        growth pages — evicting the coldest paused pages as needed."""
+        dt = 0.0
+        running = self._running()
+        allow = self.kv.allowance()
+        while running:
+            demand = sum(self._pages_next(s) for s in running)
+            if demand <= allow:
+                break
+            self._pause(running.pop(),          # newest admission
+                        self.clock + elapsed + dt)
+        for st in running:
+            want = self._pages_next(st)
+            have = self.kv.pages_of(st.rid)
+            if want > have:
+                dt += self._make_room(want - have, t=elapsed + dt)
+                new_phys = self.kv.grow(st.rid, want)
+                for lp, phys in zip(range(have, want), new_phys):
+                    self._table[st.slot, lp] = phys
+        return dt
+
+    def _pause(self, st: _SlotState, t: Optional[float] = None) -> None:
+        """Deschedule a running row at modeled time ``t`` (defaults to
+        the clock).  Costless: its pages STAY hot until an allocation
+        actually needs them (lazy eviction)."""
+        if self.tracer.enabled:
+            self.tracer.instant(self._track, "pause",
+                                self.clock if t is None else t,
+                                cat=CAT_KV, rid=st.rid,
+                                hot_pages=self.kv.hot_count(st.rid)
+                                if self.kv.holds(st.rid) else 0)
+        slot = st.slot
+        self._table[slot, :] = self._trash
+        self._lengths[slot] = 0
+        self._slots[slot] = None
+        st.slot = None
+        st.handle.status = RequestStatus.SWAPPED
+        st.handle.preempts += 1     # swaps counts actual tier-2 traffic,
+                                    # charged at eviction time
+        self._paused.append(st)     # insertion order == pause order
+
+    def _make_room(self, n_pages: int, protect: Sequence[_SlotState] = (),
+                   t: float = 0.0) -> float:
+        """Free physical pages by evicting the coldest paused pages to
+        tier-2 (or dropping victims for recompute when the byte budget
+        is exhausted).  Coldness: least-recently-scheduled sequence
+        first (admission order breaking ties); within a victim, the
+        lowest-logical pages go first.  ``t`` is the seconds already
+        elapsed within this step."""
+        dt = 0.0
+        while self.kv.free_count < n_pages:
+            victims = [s for s in self._paused
+                       if s not in protect and self.kv.hot_count(s.rid) > 0]
+            if not victims:
+                break               # nothing evictable; caller re-checks
+            victim = min(victims, key=lambda s: (s.last_sched, s.admit_seq))
+            dt += self._evict_or_drop(victim, n_pages - self.kv.free_count,
+                                      t + dt)
+        return dt
+
+    def _evict_or_drop(self, st: _SlotState, need: int, t: float) -> float:
+        hot = self.kv.hot_logicals(st.rid)
+        k = min(need, len(hot), self.kv.tier2_free_pages())
+        if k <= 0:
+            # no tier-2 headroom (or no tier-2 budget at all): drop the
+            # whole sequence's KV and requeue it for re-prefill
+            self._drop_for_recompute(st, self.clock + t)
+            return 0.0
+        return evict_pages(self._pool, self.kv, st, hot[:k], self,
+                           self.clock + t)
+
+    def _drop_for_recompute(self, st: _SlotState,
+                            t: Optional[float] = None) -> None:
+        if self.tracer.enabled:
+            self.tracer.instant(self._track, "recompute_drop",
+                                self.clock if t is None else t,
+                                cat=CAT_KV, rid=st.rid,
+                                generated=len(st.handle.tokens),
+                                pages=self.kv.hot_count(st.rid)
+                                if self.kv.holds(st.rid) else 0)
+        self.kv.free(st.rid)
+        st.index = 0
+        st.handle.status = RequestStatus.QUEUED
+        st.handle.recomputes += 1
+        self._paused.remove(st)
+        self._queue.appendleft(st)  # ahead of fresh arrivals
+
+    def _swap_in(self, elapsed: float) -> float:
+        """Paused sequences re-enter free rows in pause order (oldest
+        paused first).  Only their COLD pages ride the fabric; still-hot
+        pages never moved.  When nothing is running, the head of the
+        pause queue may evict newer-paused pages to fit."""
+        dt = 0.0
+        allow = self.kv.allowance()
+        run_demand = sum(self._pages_next(s) for s in self._slots
+                         if s is not None)
+        while self._paused:
+            st = self._paused[0]
+            slot = self._free_slot()
+            if slot is None:
+                break
+            want = self._pages_next(st)
+            if run_demand + want > allow:
+                break       # resuming would overshoot the pool (flap guard)
+            missing = (len(self.kv.cold_logicals(st.rid))
+                       + max(0, want - self.kv.pages_of(st.rid)))
+            if missing > self.kv.hot_free:
+                if any(s is not None for s in self._slots):
+                    break           # decode will free pages; wait
+                dt += self._make_room(missing, protect=(st,),
+                                      t=elapsed + dt)
+                if missing > self.kv.hot_free:
+                    break
+            dt += self._resume_into(st, slot, want, elapsed + dt)
+            self._paused.popleft()
+            run_demand += want
+        return dt
+
+    def _resume_into(self, st: _SlotState, slot: int, want: int,
+                     elapsed: float) -> float:
+        dt = 0.0
+        cold = self.kv.cold_logicals(st.rid)
+        if cold:
+            fetched = [self.kv.fetch(st.rid, lp) for lp in cold]
+            idx = torch.as_tensor([p for p, _ in fetched],
+                                  device=self.device)
+            for name, leaf in self._pool.items():   # one batched scatter
+                stacked = torch.stack([pl[name] for _, pl in fetched],
+                                      dim=1)
+                leaf.index_copy_(1, idx, stacked.to(leaf.device, leaf.dtype))
+            dt = self.charge_tier2(len(cold) * self.kv.page_bytes,
+                                   self.clock + elapsed)
+            if self.tracer.enabled:
+                self.tracer.span(self._track, "fetch",
+                                 self.clock + elapsed, dt, cat=CAT_KV,
+                                 rid=st.rid, pages=len(cold),
+                                 bytes=len(cold) * self.kv.page_bytes)
+        self.kv.grow(st.rid, want)
+        for lp, phys in enumerate(self.kv.page_table(st.rid)):
+            self._table[slot, lp] = phys
+        self._place(st, slot)
+        return dt
+
+    # ---- admission / prefill ---------------------------------------------
+    def _admit(self, elapsed: float) -> float:
+        """FIFO prefill admission (head-of-line blocking keeps the order
+        deterministic; a request that can never fit fails immediately).
+        Admission never runs past a blocked pause queue."""
+        dt = 0.0
+        while self._queue:
+            if self._paused:
+                break
+            st = self._queue[0]
+            if st.request.arrival_time > self.clock + elapsed + dt:
+                break   # not arrived yet on the modeled clock
+            if self.budget.pages_for(st.target_len) > self.kv.num_pages:
+                self._queue.popleft()
+                st.handle.status = RequestStatus.FAILED_OOM
+                st.handle.done_clock = self.clock + elapsed + dt
+                if self.tracer.enabled:
+                    self.tracer.instant(self._track, "failed_oom",
+                                        st.handle.done_clock,
+                                        cat=CAT_REQUEST, rid=st.rid)
+                continue
+            slot = self._free_slot()
+            eff = st.effective_prompt()
+            need = (self.budget.pages_for(st.target_len)
+                    if self.cfg.reserve_lifetime
+                    else self.budget.pages_for(len(eff) + 1))
+            if slot is None or need > self.kv.hot_free:
+                break
+            dt += self._prefill_into(st, slot, eff, elapsed + dt)
+            self._queue.popleft()
+        return dt
+
+    def _prefill_into(self, st: _SlotState, slot: int,
+                      eff: Tuple[int, ...], elapsed: float) -> float:
+        plen = len(eff)
+        bucket = self._bucket_len(plen)
+        self._buckets_used.add(bucket)
+        tokens = torch.zeros((1, bucket), dtype=torch.long)
+        tokens[0, :plen] = torch.as_tensor(eff)
+        slot_cache = self.model.init_cache(1, bucket,
+                                           dtype=self._cache_dtype)
+        logits, cache = self.model.prefill_at(
+            self.params, {"tokens": tokens.to(self.device)}, slot_cache,
+            plen - 1)
+        # the padded tail is real (wasted) compute on hardware: charge it
+        cost = self.cost.prefill_s(bucket)
+        if self.tracer.enabled:
+            self.tracer.span(self._track, "prefill",
+                             self.clock + elapsed, cost, cat=CAT_ENGINE,
+                             rid=st.rid, bucket=bucket, prompt_len=plen)
+        tok = int(torch.argmax(logits[0, -1]))
+        self._emit(st, tok, self.clock + elapsed + cost)
+        if st.handle.done:
+            return cost
+        need = (self.budget.pages_for(st.target_len)
+                if self.cfg.reserve_lifetime
+                else self.budget.pages_for(plen + 1))
+        phys = self.kv.alloc(st.rid, need)
+        self._write_prefill_pages(cache, phys, plen)
+        for lp, p in enumerate(phys):
+            self._table[slot, lp] = p
+        st.index = plen
+        st.cur_tok = tok
+        self._place(st, slot)
+        return cost
+
+    def _write_page(self, phys: int, payload) -> None:
+        """Write ONE page payload (the ``slice_page`` / ``PagedKV``
+        per-page format) into physical page ``phys`` of the pool, in
+        place and dtype-converting: prefill scatter and tier-2 fetch
+        land identical bits."""
+        for name, leaf in self._pool.items():
+            leaf[:, phys].copy_(payload[name])
+
+    def _write_prefill_pages(self, cache, phys: List[int],
+                             plen: int) -> None:
+        """Write the dense prefill cache into the allocated physical
+        pages one page at a time.  Only pages holding real tokens are
+        copied: the padded bucket tail (and any growth pages past the
+        prompt) is never read, by the length mask."""
+        ps = self.cfg.page_size
+        for i in range(-(-plen // ps)):
+            self._write_page(int(phys[i]), slice_page(cache, i, ps))
+
+    def _place(self, st: _SlotState, slot: int) -> None:
+        st.slot = slot
+        st.admit_seq = self._admit_seq
+        self._admit_seq += 1
+        self._slots[slot] = st
+        self._lengths[slot] = st.index
+        self._slot_tok[slot] = st.cur_tok
+        st.handle.status = RequestStatus.RUNNING
+
+    # ---- decode ----------------------------------------------------------
+    def _emit(self, st: _SlotState, tok: int, at: float) -> None:
+        """Record a generated token at its modeled completion time."""
+        st.handle.tokens.append(tok)
+        if st.handle.first_token_clock is None:
+            st.handle.first_token_clock = at
+        eos_hit = (self.cfg.eos_token is not None
+                   and tok == self.cfg.eos_token)
+        if len(st.handle.tokens) >= st.request.max_new_tokens or eos_hit:
+            st.handle.status = RequestStatus.DONE
+            st.handle.done_clock = at
+            if self.tracer.enabled:
+                h = st.handle
+                ttft = (h.first_token_clock - h.submit_clock
+                        if h.first_token_clock is not None else 0.0)
+                self.tracer.instant(self._track, "finish", at,
+                                    cat=CAT_REQUEST, rid=h.rid,
+                                    tokens=len(h.tokens))
+                # one span per request lifetime on the request row
+                self.tracer.span(f"{self._track}/requests", f"req{h.rid}",
+                                 h.submit_clock, at - h.submit_clock,
+                                 cat=CAT_REQUEST, rid=h.rid, ttft_s=ttft,
+                                 tokens=len(h.tokens), swaps=h.swaps,
+                                 preempts=h.preempts,
+                                 recomputes=h.recomputes)
+            if self.kv.holds(st.rid):
+                self.kv.free(st.rid)
+            if st.slot is not None:
+                self._table[st.slot, :] = self._trash
+                self._lengths[st.slot] = 0
+                self._slots[st.slot] = None
+                st.slot = None
+
+    def _row_bucket(self, n_live: int) -> int:
+        for b in self._row_buckets:
+            if b >= n_live:
+                return b
+        raise AssertionError(f"{n_live} live rows > max_slots")
+
+    def _decode_once(self, elapsed: float) -> float:
+        running = self._running()
+        if not running:
+            return 0.0
+        for st in running:
+            self._lengths[st.slot] = st.index
+            self._slot_tok[st.slot] = st.cur_tok
+            st.last_sched = self.steps
+        # gather live rows into a pow2 row bucket: pad with idle slots
+        # (trash page table, length 0), so the decode batch shrinks with
+        # occupancy while per-row outputs stay identical
+        bucket = self._row_bucket(len(running))
+        self._row_buckets_used.add(bucket)
+        rows = [st.slot for st in running]
+        if bucket < self.cfg.max_slots:
+            idle = [i for i, s in enumerate(self._slots) if s is None]
+            sel = np.asarray(rows + idle[:bucket - len(rows)], np.int64)
+        else:
+            sel = np.arange(self.cfg.max_slots, dtype=np.int64)
+            rows = list(sel)                # full array: row == slot
+        dev = self.device
+        toks = torch.as_tensor(self._slot_tok[sel][:, None],
+                               dtype=torch.long).to(dev)
+        table = torch.as_tensor(self._table[sel]).to(dev)
+        lengths = torch.as_tensor(self._lengths[sel]).to(dev)
+        logits, _ = self.model.decode_paged(self.params, toks, self._pool,
+                                            table, lengths)
+        new_toks = torch.argmax(logits[:, -1, :], dim=-1).cpu().numpy()
+        pos = {slot: i for i, slot in enumerate(rows)}
+        cost = self.cost.decode_s(len(running))
+        at = self.clock + elapsed + cost
+        if self.tracer.enabled:
+            self.tracer.span(self._track, "decode",
+                             self.clock + elapsed, cost, cat=CAT_ENGINE,
+                             rows=len(running), bucket=bucket)
+        for st in running:
+            tok = int(new_toks[pos[st.slot]])
+            st.index += 1
+            st.cur_tok = tok
+            self._decoded_tokens += 1
+            self._emit(st, tok, at)
+        return cost
+
+    # ---- observability ---------------------------------------------------
+    # flat scalar keys of the stats() dict; each maps 1:1 onto the
+    # registry path  serve/engine/<key>
+    _STATS_KEYS = ("clock_s", "steps", "busy_s", "queue_depth", "running",
+                   "swapped", "completed", "failed_oom", "tokens_decoded",
+                   "throughput_tok_s", "throughput_busy_tok_s", "preempts",
+                   "preempt_swaps", "preempt_recomputes", "prefill_buckets",
+                   "prefill_compiles", "decode_row_buckets",
+                   "decode_compiles")
+    _PREFIX = "serve/engine"
+
+    def metrics(self, registry: Optional[MetricsRegistry] = None,
+                prefix: Optional[str] = None) -> MetricsRegistry:
+        """Fill (and return) a metrics registry with this engine's state
+        under ``serve/engine/...``; ``stats()`` is a thin adapter."""
+        reg = registry if registry is not None else MetricsRegistry()
+        p = prefix if prefix is not None else self._PREFIX
+        statuses = [h.status for h in self.handles.values()]
+        pairs = (
+            ("clock_s", self.clock),
+            ("steps", self.steps),
+            ("busy_s", self.busy_s),
+            ("queue_depth", len(self._queue)),
+            ("running", sum(s is not None for s in self._slots)),
+            ("swapped", len(self._paused)),
+            ("completed", sum(s is RequestStatus.DONE for s in statuses)),
+            ("failed_oom",
+             sum(s is RequestStatus.FAILED_OOM for s in statuses)),
+            ("tokens_decoded", self._decoded_tokens),
+            # offered-load rate: clock_s includes idle inter-arrival gaps
+            ("throughput_tok_s", (self._decoded_tokens / self.clock
+                                  if self.clock > 0 else 0.0)),
+            # decode rate while the engine is actually working
+            ("throughput_busy_tok_s", (self._decoded_tokens / self.busy_s
+                                       if self.busy_s > 0 else 0.0)),
+            ("preempts",
+             sum(h.preempts for h in self.handles.values())),
+            ("preempt_swaps",
+             sum(h.swaps for h in self.handles.values())),
+            ("preempt_recomputes",
+             sum(h.recomputes for h in self.handles.values())),
+            ("prefill_buckets", list(self._buckets)),
+            ("prefill_compiles", self.prefill_compiles()),
+            ("decode_row_buckets", list(self._row_buckets)),
+            ("decode_compiles", self.decode_compiles()),
+        )
+        for key, value in pairs:
+            reg.set(f"{p}/{key}", value)
+        for key, value in self.kv.residency().items():
+            reg.set(f"{p}/kv/{key}", value)
+        # materializes the lazy private transport so the subtree is
+        # schema-stable whether or not a swap ever happened
+        self.transport.metrics(reg, prefix=f"{p}/transport")
+        return reg
+
+    def stats(self) -> Dict[str, Any]:
+        """Throughput, queue depth, page-pool residency, bucket counts."""
+        p = self._PREFIX
+        snap = self.metrics().snapshot(p + "/")
+        out: Dict[str, Any] = {k: snap[f"{p}/{k}"] for k in self._STATS_KEYS}
+        out["kv"] = self.kv.residency()
+        out["transport"] = self.transport.stats()
+        return out

@@ -1,0 +1,113 @@
+"""Rules of the port: ``repro_torch`` and ``chip_smoke.py`` import neither
+JAX nor the reference package, and no entry point runs on the CPU
+unless the caller asks for it by name."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "src" / "repro_torch"
+FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _module_names():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(PKG.parent).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def test_every_module_imports_with_jax_and_repro_blocked():
+    code = "\n".join([
+        "import sys, importlib, importlib.util",
+        "sys.modules['jax'] = None",
+        "sys.modules['repro'] = None",
+        f"sys.path.insert(0, {str(ROOT / 'src')!r})",
+        *[f"importlib.import_module({m!r})" for m in _module_names()],
+        f"spec = importlib.util.spec_from_file_location('chip_smoke', "
+        f"{str(ROOT / 'chip_smoke.py')!r})",
+        "mod = importlib.util.module_from_spec(spec)",
+        "spec.loader.exec_module(mod)",
+        "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]",
+        "print('ok')",
+    ])
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env, cwd=str(ROOT))
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: p.name)
+def test_no_jax_or_reference_import_in_source(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            root = name.split(".")[0]
+            assert root not in ("jax", "jaxlib", "repro"), (
+                f"{path}:{node.lineno} imports {name}")
+
+
+def test_entry_points_refuse_the_cpu_unless_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None is valid here")
+    from repro_torch.configs import get_config
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.serve import main
+    from repro_torch.models import transformer
+    from repro_torch.models.api import build_model
+    from repro_torch.serve import Engine
+
+    cfg = get_config("qwen1.5-0.5b", smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        transformer.init_params(cfg)
+    model = build_model(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine.local(model)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--smoke", "--requests", "1"])
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_non_dense_families_are_not_served_yet():
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    with pytest.raises(NotImplementedError):
+        build_model(get_config("mixtral-8x7b", smoke=True), device="cpu")
+
+
+def test_chip_smoke_refuses_to_run_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=str(ROOT))
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_cli_serves_on_the_cpu_when_asked(capsys):
+    import json
+    from repro_torch.launch.serve import main
+    rc = main(["--smoke", "--requests", "3", "--max-new", "4", "--slots",
+               "2", "--max-seq", "96", "--tier1-pages", "4",
+               "--tier2-kv-gb", "1", "--device", "cpu"])
+    out = json.loads(capsys.readouterr().out)
+    assert rc == 0 and out["requests"] == 3 and out["device"] == "cpu"
+    assert out["stats"]["completed"] == 3
