@@ -9,7 +9,7 @@ no result line):
 2. build    - the CUDA kernels of ``src/repro_torch/csrc`` compiled by
               nvcc, with the build time;
 3. kernels  - each kernel against its plain PyTorch version on the card
-              at the serving path's shapes, max errors beside their
+              at the serving paths' shapes, max errors beside their
               tolerances, and bitwise page-layout invariance;
 4. serve    - qwen1.5-0.5b at full width (24 layers, d=1024, vocab
               151,936, seeded random weights) served by
@@ -19,7 +19,15 @@ no result line):
               launch of the run is counted, and one prefill's and one
               decode step's logits are held against the plain path
               (gated with the weights upcast to fp32 compute; the
-              served bf16 comparison is reported beside it);
+              served bf16 comparison is reported beside it); 4b profiles
+              an engine window;
+4c/4d. batch - mamba2-780m (48 layers, d=1536, 8 x 500-token prompts,
+              32 tokens) and zamba2-7b (81 mamba layers, d=3584, the
+              shared attention block 13 times, 4 x 500-token prompts, 16
+              tokens) at full width and depth through the fixed-batch
+              steps ``make_prefill_step`` / ``make_decode_step``, launch
+              counts checked exactly, logits held against the plain path
+              as in phase 4; 4e profiles a mamba2 decode window;
 5. times    - each kernel's time (CUDA graphs of back-to-back calls,
               timed with CUDA events, median of trials) beside its plain
               version, a PyTorch library call where one computes the
@@ -33,6 +41,7 @@ It imports torch, numpy and ``repro_torch`` only (no JAX).
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -43,6 +52,7 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12             # dense bf16 tensor-core peak
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+SSD_TOL = 2e-4                  # fp32 SSD outputs: sums run in another order
 PROMPT_LENS = (120, 250, 500)   # the full-width trace's prompt lengths
 
 
@@ -124,12 +134,26 @@ def paged_inputs(gen, B, H, KV, D, ps, PMAX, lengths, q_dtype, kv_dtype,
     return q, kp, vp, table, lens
 
 
+def ssd_inputs(gen, B, S, H, G, N, dtype, device):
+    """SSD scan inputs at P = 64: x and B/C in ``dtype``, fp32 dt > 0,
+    A < 0, D = 1 (the reference suite's scales)."""
+    import torch
+    x = torch.randn(B, S, H, 64, generator=gen, device=device).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, S, H, generator=gen, device=device))
+    A = -torch.exp(0.5 * torch.randn(H, generator=gen, device=device))
+    Bm, Cm = ((torch.randn(B, S, G, N, generator=gen, device=device)
+               / N ** 0.5).to(dtype) for _ in range(2))
+    return x, dt, A, Bm, Cm, torch.ones(H, device=device)
+
+
 def kernel_checks(device):
     import torch
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_attention import paged_decode_attention
     from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.ssd_scan import ssd_scan
 
     gen = torch.Generator(device=device).manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -203,16 +227,66 @@ def kernel_checks(device):
                              q_offset=10, kv_len=80).transpose(1, 2),
            TOL["float32"])
 
-    # rmsnorm: the model's rows and widths, bf16 activations and scale
-    for rows in (1, 7, 300):
-        for d in (64, 1024):
-            x = torch.randn(rows, d, generator=gen, device=device).to(bf16)
-            s = (1 + 0.1 * torch.randn(d, generator=gen, device=device)
-                 ).to(bf16)
-            e = record("rmsnorm", f"rows={rows} d={d} bf16", rmsnorm(x, s),
-                       ref.rmsnorm_ref(x, s), TOL["bfloat16"])
-            if (rows, d) == (300, 1024):
-                errs["rmsnorm"] = e
+    # flash at head_dim 112: zamba2's shared block, prefill over the fp32
+    # contiguous cache (kv_len masks its unwritten tail) and one decode
+    # query at an offset
+    q = torch.randn(2, 500, 32, 112, generator=gen, device=device).to(bf16)
+    k = torch.randn(2, 516, 32, 112, generator=gen, device=device)
+    v = torch.randn(2, 516, 32, 112, generator=gen, device=device)
+    for Sq, off in ((500, 0), (1, 507)):
+        args = (q[:, :Sq].contiguous(), k, v)
+        kw = dict(causal=True, q_offset=off, kv_len=off + Sq)
+        got = flash_attention(*args, **kw)
+        with ops.plain_versions():
+            want = ops.flash_attention(*args, **kw)
+        e = record("flash_attention",
+                   f"B=2 Sq={Sq} Skv=516 kv_len={off + Sq} H=KV=32 D=112 "
+                   f"q=bf16 kv=fp32", got, want, TOL["bfloat16"])
+        if Sq == 500:
+            errs["flash_attention_d112"] = e
+
+    # ssd: the serving shapes (bf16 x and B/C, fp32 dt, the zero fp32
+    # state the prefill passes from the cache), then an fp32 case with a
+    # random initial state, G = 2, and a prompt shorter than one chunk
+    for arch, B, H, N in (("mamba2", 8, 48, 128), ("zamba2", 4, 112, 64)):
+        args = ssd_inputs(gen, B, 500, H, 1, N, bf16, device)
+        h0 = torch.zeros(B, H, 64, N, device=device)
+        y, h = ssd_scan(*args, chunk=128, init_state=h0)
+        wy, wh = ref.ssd_chunked_ref(*args, 128, init_state=h0)
+        e = record("ssd_scan", f"{arch} B={B} S=500 H={H} P=64 N={N} G=1 "
+                   f"Q=128 bf16 y", y, wy, TOL["bfloat16"])
+        record("ssd_scan", f"{arch} B={B} S=500 H={H} N={N} fp32 state", h,
+               wh, SSD_TOL)
+        if arch == "mamba2":
+            errs["ssd_scan"] = e
+    for case, (B, S, H, G, N, chunk) in {
+            "fp32 init_state": (2, 300, 8, 1, 128, 128),
+            "fp32 G=2 init_state": (2, 260, 8, 2, 64, 64),
+            "fp32 S=100<Q init_state": (3, 100, 4, 1, 128, 128)}.items():
+        args = ssd_inputs(gen, B, S, H, G, N, f32, device)
+        h0 = torch.randn(B, H, 64, N, generator=gen, device=device)
+        y, h = ssd_scan(*args, chunk=chunk, init_state=h0)
+        wy, wh = ref.ssd_chunked_ref(*args, chunk, init_state=h0)
+        tag = f"B={B} S={S} H={H} G={G} N={N} chunk={chunk} {case}"
+        record("ssd_scan", f"{tag} y", y, wy, SSD_TOL)
+        record("ssd_scan", f"{tag} state", h, wh, SSD_TOL)
+
+    # rmsnorm: the model's rows and widths, activations and scale in the
+    # compute dtype.  qwen1.5-0.5b: d = 64 (qk rows) and 1024; the
+    # recurrent paths: d_model 1536 / 3584 and the gated norm's d_inner
+    # 3072 / 7168 (the 512-thread branch), at decode's 4 / 8 rows, the
+    # logits check's 500 and a prefill's 4000 (mamba2: 8 x 500)
+    grid = [(rows, d, bf16) for rows in (1, 7, 300) for d in (64, 1024)]
+    grid += [(rows, d, dt) for d in (1536, 3072, 3584, 7168)
+             for rows in (4, 8, 500, 4000) for dt in (bf16, f32)]
+    for rows, d, dt in grid:
+        x = torch.randn(rows, d, generator=gen, device=device).to(dt)
+        s = (1 + 0.1 * torch.randn(d, generator=gen, device=device)).to(dt)
+        name = str(dt).split(".")[-1]
+        e = record("rmsnorm", f"rows={rows} d={d} {name}", rmsnorm(x, s),
+                   ref.rmsnorm_ref(x, s), TOL[name])
+        if dt == bf16:
+            errs["rmsnorm"] = max(errs.get("rmsnorm", 0.0), e)
     return errs
 
 
@@ -310,7 +384,6 @@ def profile_window(model, params, device):
     kernel and copy time over the plain run's wall time.  Reported, not
     gated."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import (Engine, EngineConfig, burst_trace,
                                    run_trace)
@@ -332,6 +405,16 @@ def profile_window(model, params, device):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         profiled_wall, _ = run()
+    emit({"phase": "profile", "requests": 8, "engine_steps": steps,
+          "wall_s": wall, "profiled_wall_s": profiled_wall,
+          **device_time(prof, wall)})
+
+
+def device_time(prof, wall: float):
+    """The profiled run's device time by kernel name: the busy share is
+    the kernel and copy time over ``wall``, the plain run's time."""
+    from torch.autograd import DeviceType
+
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -339,12 +422,10 @@ def profile_window(model, params, device):
             by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
     busy_s = sum(t for t, _ in by_name.values()) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    emit({"phase": "profile", "requests": 8, "engine_steps": steps,
-          "wall_s": wall, "profiled_wall_s": profiled_wall,
-          "device_busy_s": busy_s if by_name else None,
-          "device_busy_share": busy_s / wall if by_name else None,
-          "top_device_time": [{"name": k[:90], "ms": t / 1e3, "calls": n}
-                              for k, (t, n) in top]})
+    return {"device_busy_s": busy_s if by_name else None,
+            "device_busy_share": busy_s / wall if by_name else None,
+            "top_device_time": [{"name": k[:90], "ms": t / 1e3, "calls": n}
+                                for k, (t, n) in top]}
 
 
 def logits_check(model, params, prompt, device, gate: bool):
@@ -389,14 +470,15 @@ def logits_check(model, params, prompt, device, gate: bool):
     report("decode", got, want, model.cfg.compute_dtype, gate)
 
 
-def report(step, got, want, compute, gate):
+def report(step, got, want, compute, gate, phase="serve", arch=None):
     import torch
     torch.cuda.synchronize()
     e = max_err(got, want)
     ok = within(got, want, TOL["bfloat16"]) and bool(
         torch.isfinite(got).all())
     same_top = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
-    emit({"phase": "serve", "check": f"{step} logits, kernels vs plain",
+    emit({"phase": phase, **({"arch": arch} if arch else {}),
+          "check": f"{step} logits, kernels vs plain",
           "compute": compute, "shape": list(got.shape), "max_abs_err": e,
           "logit_absmax": float(want.float().abs().max()),
           "same_argmax": same_top, "tol": TOL["bfloat16"], "gated": gate,
@@ -406,8 +488,162 @@ def report(step, got, want, compute, gate):
 
 
 # ---------------------------------------------------------------------------
+# phases 4c-4e: the recurrent families through the fixed-batch steps
+# ---------------------------------------------------------------------------
+
+# (mamba layers, shared-block invocations) of each full-width config:
+# 48 Mamba2 layers; 81 Mamba2 layers with the shared block every 6
+LAYOUT = {"mamba2-780m": (48, 0), "zamba2-7b": (81, 81 // 6)}
+
+
+def expected_launches(cfg, generate: int):
+    """Kernel launches of one prefill and ``generate - 1`` decode steps:
+    the SSD scan once per mamba layer at prefill (decode runs the plain
+    one-token recurrence), flash once per shared-block invocation per
+    forward, RMSNorm twice per block plus the final norm per forward."""
+    n_mamba, n_attn = LAYOUT[cfg.name]
+    check(cfg.n_layers == n_mamba, f"{cfg.name}: {cfg.n_layers} layers, "
+          f"expected {n_mamba}")
+    return {"paged_attention": 0, "flash_attention": n_attn * generate,
+            "rmsnorm": (2 * n_mamba + 2 * n_attn + 1) * generate,
+            "ssd_scan": n_mamba}
+
+
+def fixed_batch_full_width(arch, device, batch, prompt, generate, *,
+                           profile_steps=0):
+    """``batch`` seeded random prompts of ``prompt`` tokens prefilled,
+    then greedy-decoded to ``generate`` tokens per row, at full width and
+    depth through ``repro_torch.launch.serve``'s fixed-batch loop
+    (``make_prefill_step`` / ``make_decode_step`` over an fp32 cache).
+    Launch counts are checked exactly; tokens/s is over the timed
+    decode, ending in ``torch.cuda.synchronize()``."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import (fixed_batch_generate,
+                                          fixed_batch_inputs)
+    from repro_torch.models.api import build_model
+    from repro_torch.runtime.serve import make_decode_step
+
+    cfg = get_config(arch)
+    model = build_model(cfg, device=device)
+    raw, prompts = fixed_batch_inputs(model, batch, prompt, 0, device)
+    params = model.load(raw)
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    run = fixed_batch_generate(model, params, prompts, generate, device)
+    counts = kernels.launch_counts()
+
+    toks = run["tokens"]
+    want = expected_launches(cfg, generate)
+    emit({"phase": "batch", "arch": cfg.name, "family": cfg.family,
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "param_dtype": cfg.param_dtype,
+          "compute_dtype": cfg.compute_dtype, "batch": batch,
+          "prompt": prompt, "generated": toks.shape[1],
+          "prefill_s": run["prefill_s"], "decode_s": run["decode_s"],
+          "decode_tokens_per_s": run["decode_tokens_per_s"],
+          "launches": counts, "expected_launches": want,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "sample_tokens": toks[0, :8].tolist()})
+    check(counts == want, f"{cfg.name}: launches {counts} != {want}")
+    check(toks.shape == (batch, generate)
+          and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          f"{cfg.name}: tokens out of range or missing")
+    check(run["logits_finite"], f"{cfg.name}: non-finite logits")
+
+    carry = run.pop("carry")
+    if profile_steps:
+        profile_decode_window(params, make_decode_step(model), carry,
+                              profile_steps)
+    del carry, run
+    one = prompts[:1]
+    # the served bf16 path, kernels vs plain: reported, not gated (bf16
+    # rounding flips compound over the layers, ROADMAP C-port2)
+    recurrent_logits_check(model, params, one, gate=False)
+    del params
+    torch.cuda.empty_cache()
+    # the same weights computed in fp32 (the fp32 draw itself: no copy):
+    # gated
+    model32 = build_model(dataclasses.replace(cfg, compute_dtype="float32"),
+                          device=device)
+    recurrent_logits_check(model32, model32.load(raw), one, gate=True)
+    return counts
+
+
+def recurrent_logits_check(model, params, tokens, gate: bool):
+    """One prefill of ``tokens`` (1, S) and one decode step from its
+    cache, through the kernels and through the plain versions; both
+    decode steps start from the kernel path's cache and token."""
+    import torch
+    from repro_torch.kernels import ops
+
+    S = tokens.shape[1]
+
+    def prefill():
+        cache = model.init_cache(1, S + 1, dtype=torch.float32)
+        return model.prefill(params, {"tokens": tokens}, cache)
+
+    got, cache = prefill()
+    with ops.plain_versions():
+        want, _ = prefill()
+    report("prefill", got, want, model.cfg.compute_dtype, gate,
+           phase="batch", arch=model.cfg.name)
+    tok = torch.argmax(got[:, -1], dim=-1)[:, None]
+    twin = {k: v.clone() for k, v in cache.items()}
+    got, _ = model.decode(params, tok, cache, S)
+    with ops.plain_versions():
+        want, _ = model.decode(params, tok, twin, S)
+    report("decode", got, want, model.cfg.compute_dtype, gate,
+           phase="batch", arch=model.cfg.name)
+
+
+def profile_decode_window(params, decode, carry, steps: int):
+    """Where the fixed-batch decode time goes: ``steps`` greedy steps
+    from ``carry``, run twice plain (the second timed) and once under
+    ``torch.profiler``.  Reported, not gated."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        c = carry
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            _, c = decode(params, c)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    run()
+    wall = run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiled_wall = run()
+    emit({"phase": "profile", "path": "fixed-batch decode",
+          "batch": carry["tokens"].shape[0], "decode_steps": steps,
+          "wall_s": wall, "profiled_wall_s": profiled_wall,
+          **device_time(prof, wall)})
+
+
+# ---------------------------------------------------------------------------
 # phase 5: times at the serving path's shapes
 # ---------------------------------------------------------------------------
+
+def ssd_work(B, S, H, P, G, N, chunk, itemsize):
+    """(bytes, flops) of one SSD scan: x, dt, B, C, A, D and the initial
+    state read once, y and the final state written once; the causal half
+    of each chunk's score and intra-chunk products, the carried-state
+    output and the state update."""
+    Q = min(chunk, S)
+    tri = sum(q * (q + 1) // 2 for q in (min(Q, S - t)
+                                         for t in range(0, S, Q)))
+    flops = 2 * B * H * (tri * (N + P) + 2 * S * N * P)
+    nbytes = (2 * B * S * H * P * itemsize + B * S * H * 4
+              + 2 * B * S * G * N * itemsize + 2 * H * 4
+              + 2 * B * H * P * N * 4)
+    return nbytes, flops
+
 
 def kernel_times(device, counts, errs):
     import torch
@@ -416,6 +652,7 @@ def kernel_times(device, counts, errs):
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd_scan as ssd
 
     gen = torch.Generator(device=device).manual_seed(1)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -472,6 +709,48 @@ def kernel_times(device, counts, errs):
     b_ms, b_by = bound(2 * x.numel() * 2 + s.numel() * 2, 4 * x.numel(),
                        BF16_FLOPS)
     row(rn, "rmsnorm", ms, plain, b_ms, b_by, lib)
+
+    # flash at head_dim 112: zamba2's shared block at prefill, 4 prompts
+    # of 500 tokens against the fp32 cache (kv_len masks its tail)
+    B, S, Skv, H, D = 4, 500, 516, 32, 112
+    q = torch.randn(B, S, H, D, generator=gen, device=device).to(bf16)
+    k = torch.randn(B, Skv, H, D, generator=gen, device=device)
+    v = torch.randn(B, Skv, H, D, generator=gen, device=device)
+    ms = time_ms(lambda i: fa.flash_attention(q, k, v, causal=True,
+                                              kv_len=S))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    plain = time_ms(lambda i: ref.attention_ref(qt, kt, vt, causal=True,
+                                                kv_len=S))
+    q32, ks, vs = qt.float(), kt[:, :, :S], vt[:, :, :S]
+    lib = time_ms(lambda i: F.scaled_dot_product_attention(
+        q32, ks, vs, is_causal=True))
+    b_ms, b_by = bound(2 * q.numel() * 2 + 2 * B * S * H * D * 4,
+                       4 * D * H * B * S * (S + 1) // 2, BF16_FLOPS)
+    emit({"phase": "times", "kernel": "flash_attention",
+          "case": "zamba2 prefill B=4 Sq=500 Skv=516 kv_len=500 H=KV=32 "
+                  "D=112 q=bf16 kv=fp32", "ms": ms, "plain_ms": plain,
+          "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+          "max_abs_err": errs["flash_attention_d112"]})
+
+    # ssd: the prefill's shapes (bf16 x and B/C, fp32 dt, the cache's
+    # zero fp32 state), two input copies cycled so each call reads cold
+    for arch, B, H, N in (("mamba2", 8, 48, 128), ("zamba2", 4, 112, 64)):
+        sets = [ssd_inputs(gen, B, 500, H, 1, N, bf16, device)
+                + (torch.zeros(B, H, 64, N, device=device),)
+                for _ in range(2)]
+        ms = time_ms(lambda i: ssd.ssd_scan(*sets[i][:6], chunk=128,
+                                            init_state=sets[i][6]), 2)
+        plain = time_ms(lambda i: ref.ssd_chunked_ref(
+            *sets[i][:6], 128, init_state=sets[i][6]), 2)
+        b_ms, b_by = bound(*ssd_work(B, 500, H, 64, 1, N, 128, 2),
+                           BF16_FLOPS)
+        if arch == "mamba2":
+            row(ssd, "ssd_scan", ms, plain, b_ms, b_by, None)
+        else:
+            emit({"phase": "times", "kernel": "ssd_scan",
+                  "case": f"zamba2 prefill B={B} S=500 H={H} P=64 N={N} "
+                          f"G=1 Q=128 bf16", "ms": ms, "plain_ms": plain,
+                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     return rows
 
 
@@ -505,14 +784,28 @@ def main() -> int:
     _build.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": str(lib), "sources": list(_build.SOURCES)})
-    log = (lib.parent / "build.log").read_text()
-    for line in log.splitlines():
+    for line in (lib.parent / "build.log").read_text().splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             print(line, file=sys.stderr)
 
     errs = kernel_checks(device)
-    counts, stats, wall = serve_full_width(device)
-    rows = kernel_times(device, counts, errs)
+    # each path runs with the counts set to 0 just before it, read after
+    counts = {"qwen1.5-0.5b": serve_full_width(device)[0]}
+    for arch, batch, generate, steps in (("mamba2-780m", 8, 32, 8),
+                                         ("zamba2-7b", 4, 16, 0)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        counts[arch] = fixed_batch_full_width(arch, device, batch, 500,
+                                              generate, profile_steps=steps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = {name: sum(c[name] for c in counts.values())
+             for name in counts["qwen1.5-0.5b"]}
+    emit({"phase": "launches", "per_path": counts, "total": total})
+    check(all(n > 0 for n in total.values()),
+          f"a kernel never ran on the main paths: {total}")
+    rows = kernel_times(device, total, errs)
     emit({"kernels": rows})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

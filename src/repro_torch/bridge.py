@@ -1,11 +1,20 @@
-"""Weight and KV bridge from the reference's trees to the port's.
+"""Weight and cache bridge from the reference's trees to the port's.
 
 The reference's parameters are ``model.init(PRNGKey)`` with leaves
-converted to numpy (``np.asarray``); its transformer layers are stacked
-``(L, ...)`` leaves under ``"layers"``.  ``params_from_reference`` keeps
-every path and unstacks the layer stack into one dict per layer, the
-layout ``repro_torch.models.transformer`` walks.  ``pool_from_reference``
-converts a ``{"k", "v"}`` page pool (or KV cache) leaf for leaf.
+converted to numpy (``np.asarray``).  Its layer stacks are unstacked into
+lists, the layout the port's Python layer loops walk:
+
+- ``"layers"`` (dense and mamba2): ``(L, ...)`` leaves -> one dict per
+  layer;
+- ``"mamba_main"`` (hybrid): ``(n_groups, per, ...)`` leaves -> a list
+  of groups, each a list of ``per`` layer dicts;
+- ``"mamba_tail"`` (hybrid): ``(tail, ...)`` leaves -> one dict per layer;
+
+every other subtree (``embedding``, ``final_norm``, the hybrid's one
+``shared_attn`` block) keeps its paths.  ``pool_from_reference``
+converts a page pool or a cache leaf for leaf: the port keeps the
+reference's stacked cache layouts (``{"k","v"}``; mamba2 ``{"conv",
+"ssd"}``; hybrid also ``"conv_tail"``, ``"ssd_tail"``).
 
 Only numpy goes in: this module never imports JAX.  bf16 arrays (numpy's
 ``bfloat16`` extension dtype) are carried over bit for bit.
@@ -19,6 +28,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+
+# subtree -> number of stacked leading layer axes
+STACKED = {"layers": 1, "mamba_main": 2, "mamba_tail": 1}
 
 
 def to_tensor(arr, device: DeviceLike = None) -> torch.Tensor:
@@ -38,29 +50,36 @@ def _convert(tree, device) -> Any:
     return to_tensor(tree, device)
 
 
-def params_from_reference(tree: Mapping[str, Any],
-                          device: DeviceLike = None) -> Dict[str, Any]:
-    """Reference dense-transformer parameter tree -> port parameters."""
-    out = {k: _convert(v, device) for k, v in tree.items() if k != "layers"}
-    stacked = _convert(tree["layers"], device)
+def _first_leaf(tree):
+    for v in tree.values():
+        leaf = _first_leaf(v) if isinstance(v, dict) else v
+        if leaf is not None:
+            return leaf
+    return None
 
-    def first_leaf(t):
-        for v in t.values():
-            leaf = first_leaf(v) if isinstance(v, dict) else v
-            if leaf is not None:
-                return leaf
-        return None
+
+def _unstack(tree, depth: int):
+    """Split the leading ``depth`` axes of every leaf into nested lists."""
+    if depth == 0:
+        return tree
 
     def take(t, i):
         return {k: take(v, i) for k, v in t.items()} \
             if isinstance(t, dict) else t[i].clone()
 
-    n_layers = first_leaf(stacked).shape[0]
-    out["layers"] = [take(stacked, i) for i in range(n_layers)]
-    return out
+    n = _first_leaf(tree).shape[0]
+    return [_unstack(take(tree, i), depth - 1) for i in range(n)]
+
+
+def params_from_reference(tree: Mapping[str, Any],
+                          device: DeviceLike = None) -> Dict[str, Any]:
+    """Reference parameter tree (dense, mamba2 or hybrid) -> port
+    parameters."""
+    return {k: _unstack(_convert(v, device), STACKED.get(k, 0))
+            for k, v in tree.items()}
 
 
 def pool_from_reference(pool: Mapping[str, Any],
                         device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    """Reference ``{"k","v"}`` pool or cache -> port tensors, same layout."""
+    """Reference page pool or cache -> port tensors, same layout."""
     return {k: to_tensor(v, device) for k, v in pool.items()}

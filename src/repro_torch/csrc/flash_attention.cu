@@ -150,6 +150,10 @@ cudaError_t flash_dispatch_d(int D, const void* q, const void* k,
     return launch_flash<QT, KT, 64>(q, k, v, out, B, Sq, Skv, H, HKV,
                                     sm_scale, causal, window, q_offset,
                                     kv_len, s);
+  if (D == 112)  // zamba2's shared attention block: DH = 56
+    return launch_flash<QT, KT, 112>(q, k, v, out, B, Sq, Skv, H, HKV,
+                                     sm_scale, causal, window, q_offset,
+                                     kv_len, s);
   if (D == 128)
     return launch_flash<QT, KT, 128>(q, k, v, out, B, Sq, Skv, H, HKV,
                                      sm_scale, causal, window, q_offset,

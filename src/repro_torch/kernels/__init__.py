@@ -7,11 +7,13 @@ from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.kernels import flash_attention, paged_attention, rmsnorm
+from repro_torch.kernels import (flash_attention, paged_attention, rmsnorm,
+                                 ssd_scan)
 
 WRAPPERS = {"paged_attention": paged_attention,
             "flash_attention": flash_attention,
-            "rmsnorm": rmsnorm}
+            "rmsnorm": rmsnorm,
+            "ssd_scan": ssd_scan}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -7,7 +7,9 @@ takes seconds, not minutes.  The library lands in
 ``<checkout>/build/repro_torch/<hash>/`` keyed by a hash of the sources
 and flags, so a changed source rebuilds and an unchanged one is reused.
 The sources compile in parallel, one ``nvcc`` each, and are linked in
-one more step.
+one more step; ``build.log`` there holds nvcc's ``-Xptxas -v`` report
+for each source and the seconds by which it had finished (waited on in
+``SOURCES`` order).
 
 Nothing here runs at import time: the first kernel launch builds.  A
 failed build raises; there is no fallback.
@@ -22,12 +24,14 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("paged_attention.cu", "flash_attention.cu", "rmsnorm.cu")
+SOURCES = ("paged_attention.cu", "flash_attention.cu", "rmsnorm.cu",
+           "ssd_scan.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -45,6 +49,10 @@ SIGNATURES = {
                             _I, _I, _I, _I, _I, _I, _P),
     # x, scale, out, rows, d, eps, x_dtype, scale_dtype, stream
     "rmsnorm_fwd": (_P, _P, _P, _I, _I, _F, _I, _I, _P),
+    # x, dt, A, B, C, D, h0 (nullable), y, h_out,
+    # B, S, H, G, P, N, Q, x_dtype, stream
+    "ssd_scan_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                     _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -90,6 +98,7 @@ def build(force: bool = False) -> Path:
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(dir=out_dir))
     procs = []
+    t0 = time.perf_counter()
     for name in SOURCES:
         obj = tmp / (Path(name).stem + ".o")
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(CSRC / name),
@@ -100,7 +109,8 @@ def build(force: bool = False) -> Path:
     logs = []
     for name, obj, proc in procs:
         log, _ = proc.communicate()
-        logs.append(f"== {name}\n{log}")
+        logs.append(f"== {name} (done by {time.perf_counter() - t0:.1f} s)"
+                    f"\n{log}")
         if proc.returncode != 0:
             for _, _, other in procs:
                 other.kill()

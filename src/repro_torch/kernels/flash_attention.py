@@ -26,7 +26,7 @@ from repro_torch.kernels import _build, ref
 launches = 0        # kernel launches since the last reset_launch_counts()
 SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 REPLACES = "src/repro/kernels/flash_attention.py:103"
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 112, 128)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Tuple
 
 import torch
 
@@ -21,6 +21,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import ssd_scan as _ssd
 
 _PLAIN = contextvars.ContextVar("repro_torch_plain_versions", default=False)
 
@@ -77,3 +78,13 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     if _PLAIN.get():
         return ref.rmsnorm_ref(x, scale, eps)
     return _rn.rmsnorm(x, scale, eps=eps)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B_mat: torch.Tensor, C_mat: torch.Tensor, D: torch.Tensor, *,
+             chunk: int = 128, init_state: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Model layout: x (B,S,H,P); dt (B,S,H); A, D (H,); B/C (B,S,G,N)
+    -> (y (B,S,H,P), final state (B,H,P,N) fp32)."""
+    fn = ref.ssd_chunked_ref if _PLAIN.get() else _ssd.ssd_scan
+    return fn(x, dt, A, B_mat, C_mat, D, chunk=chunk, init_state=init_state)

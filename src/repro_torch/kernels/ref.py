@@ -86,3 +86,89 @@ def rmsnorm_ref(x, scale, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def _heads(t: torch.Tensor, H: int) -> torch.Tensor:
+    """(..., G, N) group projections -> (..., H, N): head h reads group
+    h // (H / G)."""
+    return t.repeat_interleave(H // t.shape[-2], dim=-2)
+
+
+def ssd_ref(x, dt, A, B_mat, C_mat, D, *, init_state=None):
+    """Sequential (token-by-token) SSD recurrence, the ground truth.
+
+    x: (B,S,H,P); dt: (B,S,H); A, D: (H,); B_mat/C_mat: (B,S,G,N);
+    init_state: (B,H,P,N) or None.  Returns (y (B,S,H,P) in x's dtype,
+    final_state (B,H,P,N) fp32)."""
+    Bsz, S, H, P = x.shape
+    N = B_mat.shape[-1]
+    state = (torch.zeros((Bsz, H, P, N), dtype=torch.float32,
+                         device=x.device) if init_state is None
+             else init_state.float())
+    Af, Df = A.float(), D.float()
+    ys = []
+    for t in range(S):
+        xt, dtt = x[:, t].float(), dt[:, t].float()       # (B,H,P), (B,H)
+        Bt = _heads(B_mat[:, t].float(), H)               # (B,H,N)
+        Ct = _heads(C_mat[:, t].float(), H)
+        decay = torch.exp(dtt * Af)
+        incr = (dtt[..., None] * xt)[..., None] * Bt[:, :, None, :]
+        state = decay[..., None, None] * state + incr
+        y = torch.einsum("bhpn,bhn->bhp", state, Ct)
+        ys.append(y + Df[None, :, None] * xt)
+    y = torch.stack(ys, dim=1) if ys else x.float()
+    return y.to(x.dtype), state
+
+
+def ssd_chunked_ref(x, dt, A, B_mat, C_mat, D, chunk: int = 128, *,
+                    init_state=None):
+    """Chunked SSD scan, the function ``repro.models.mamba2.ssd_chunked``
+    computes, with the inter-chunk state carried by a plain loop over
+    chunks (the reference's associative scan sums in another order).
+
+    Q = min(chunk, S); a ragged tail chunk is zero-padded, which is exact
+    because dt = 0 adds nothing to the state or the outputs.  Per chunk:
+    the masked intra-chunk term exp(cum_q - cum_k)·(C_q·B_k)·dt_k·x_k for
+    k <= q (the mask inside the exponent, so nothing above the diagonal
+    overflows), the carried-state term exp(cum_q)·C_q·h, the skip D·x,
+    then h <- exp(sum a)·h + sum_k exp(cum_last - cum_k)·dt_k·x_k B_kᵀ.
+    Shapes as ``ssd_ref``."""
+    Bsz, S, H, P = x.shape
+    N = B_mat.shape[-1]
+    f32 = torch.float32
+    Q = min(chunk, S)
+    pad = (-S) % Q
+    nc = (S + pad) // Q
+
+    def chunks(t):
+        t = t.float()
+        if pad:
+            t = torch.cat([t, t.new_zeros((Bsz, pad) + t.shape[2:])], dim=1)
+        return t.reshape((Bsz, nc, Q) + t.shape[2:])
+
+    xc, dtc = chunks(x), chunks(dt)                       # (B,nc,Q,H,P)
+    Bh, Ch = _heads(chunks(B_mat), H), _heads(chunks(C_mat), H)
+    a = dtc * A.float()                                   # (B,nc,Q,H)
+    cum = torch.cumsum(a, dim=2)
+    dtx = xc * dtc[..., None]
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    state = (torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device)
+             if init_state is None else init_state.float())
+    ys = []
+    for c in range(nc):
+        cq = cum[:, c]                                    # (B,Q,H)
+        diff = cq[:, :, None, :] - cq[:, None, :, :]      # (B,Q,K,H)
+        decay = torch.exp(torch.where(mask[None, :, :, None], diff,
+                                      torch.full_like(diff, -torch.inf)))
+        scores = torch.einsum("bqhn,bkhn->bqkh", Ch[:, c], Bh[:, c])
+        y = torch.einsum("bqkh,bkhp->bqhp", scores * decay, dtx[:, c])
+        y = y + torch.einsum("bqhn,bhpn->bqhp", Ch[:, c], state) \
+            * torch.exp(cq)[..., None]
+        ys.append(y)
+        w = torch.exp(cq[:, -1:] - cq)                    # (B,Q,H)
+        incr = torch.einsum("bkhp,bkhn->bhpn", dtx[:, c] * w[..., None],
+                            Bh[:, c])
+        state = torch.exp(a[:, c].sum(dim=1))[..., None, None] * state + incr
+    y = torch.stack(ys, dim=1).reshape(Bsz, nc * Q, H, P)[:, :S]
+    y = y + D.float()[None, None, :, None] * x.float()
+    return y.to(x.dtype), state

@@ -171,6 +171,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
             "v": torch.zeros(shape, dtype=dtype_of(dtype), device=dev)}
 
 
+def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            cache: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Run the prompt through the model, filling the contiguous cache;
+    returns logits of the last position."""
+    hidden, cache = forward(params, cfg, batch, cache=cache, cache_index=0)
+    return logits_fn(params, cfg, hidden[:, -1:]), cache
+
+
+def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
+                cache: Dict[str, torch.Tensor], cache_index: int
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token decode over the contiguous cache: tokens (B, 1);
+    ``cache_index`` is the current length (the write position)."""
+    hidden, cache = forward(params, cfg, {"tokens": tokens}, cache=cache,
+                            cache_index=cache_index)
+    return logits_fn(params, cfg, hidden), cache
+
+
 def prefill_at(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                cache: Dict[str, torch.Tensor], last_pos: int,
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

@@ -7,7 +7,9 @@ on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 
-Tolerances: 1e-5 in fp32, 2e-2 when q is bf16.
+Tolerances: 1e-5 in fp32, 2e-2 when q is bf16; the SSD scan 2e-4 in
+fp32 (its sums run in another order than the plain version's) and 2e-2
+for bf16 y.
 """
 
 import numpy as np
@@ -19,6 +21,7 @@ from repro_torch.kernels import ops, ref                      # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_decode_attention  # noqa: E402,E501
 from repro_torch.kernels.rmsnorm import rmsnorm               # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan             # noqa: E402
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
@@ -66,7 +69,7 @@ def test_cuda_paged_kernel_matches_plain(cuda, q_dtype, kv_dtype, D):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("Sq", [64, 130])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 112, 128])
 def test_cuda_flash_kernel_matches_plain(cuda, Sq, D):
     g = torch.Generator(device=cuda).manual_seed(1)
     q = torch.randn(2, Sq, 8, D, generator=g, device=cuda).bfloat16()
@@ -80,12 +83,78 @@ def test_cuda_flash_kernel_matches_plain(cuda, Sq, D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [1, 7, 300])
-@pytest.mark.parametrize("d", [64, 1024])
-def test_cuda_rmsnorm_kernel_matches_plain(cuda, rows, d):
+@pytest.mark.parametrize("rows", [1, 7, 8, 300, 500])
+@pytest.mark.parametrize("d", [64, 1024, 1536, 3072, 3584, 7168])
+@pytest.mark.parametrize("scale_dtype", ["float32", "bfloat16"])
+def test_cuda_rmsnorm_kernel_matches_plain(cuda, rows, d, scale_dtype):
+    """bf16 rows at every width the serving paths give the kernel:
+    qwen1.5-0.5b's 64 (qk) and 1024, mamba2-780m's 1536 and 3072,
+    zamba2-7b's 3584 and 7168 (the 512-thread branch); the scale in fp32
+    or, as the served models hold it, bf16."""
     x = torch.randn(rows, d, device=cuda).bfloat16()
-    s = 1 + 0.1 * torch.randn(d, device=cuda)
+    s = (1 + 0.1 * torch.randn(d, device=cuda)).to(getattr(torch,
+                                                           scale_dtype))
     got = rmsnorm(x, s)
     want = ref.rmsnorm_ref(x, s)
     torch.cuda.synchronize()
     _close(got, want, 2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_kernel_decode_shape_at_head_dim_112(cuda):
+    """zamba2's shared block at decode: one query at an offset into a
+    longer fp32 cache, ``kv_len`` masking its unwritten tail."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn(3, 1, 8, 112, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(3, 96, 8, 112, generator=g, device=cuda)
+            for _ in range(2))
+    got = flash_attention(q, k, v, causal=True, q_offset=70, kv_len=71)
+    with ops.plain_versions():
+        want = ops.flash_attention(q, k, v, causal=True, q_offset=70,
+                                   kv_len=71)
+    torch.cuda.synchronize()
+    _close(got, want, 2e-2)
+
+
+def _ssd_inputs(g, B, S, H, G, N, dtype, dev):
+    x = torch.randn(B, S, H, 64, generator=g, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, S, H, generator=g, device=dev))
+    A = -torch.exp(0.5 * torch.randn(H, generator=g, device=dev))
+    Bm, Cm = ((torch.randn(B, S, G, N, generator=g, device=dev)
+               / N ** 0.5).to(dtype) for _ in range(2))
+    D = torch.ones(H, device=dev)
+    return x, dt, A, Bm, Cm, D
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,H,G,N,chunk", [(300, 4, 1, 128, 128),
+                                           (200, 6, 2, 64, 64),
+                                           (50, 2, 1, 16, 128),
+                                           (129, 4, 4, 32, 32)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_ssd_kernel_matches_plain(cuda, S, H, G, N, chunk, dtype):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    dt_ = getattr(torch, dtype)
+    args = _ssd_inputs(g, 2, S, H, G, N, dt_, cuda)
+    h0 = torch.randn(2, H, 64, N, generator=g, device=cuda)
+    for init in (None, h0):
+        y, h = ssd_scan(*args, chunk=chunk, init_state=init)
+        wy, wh = ref.ssd_chunked_ref(*args, chunk, init_state=init)
+        torch.cuda.synchronize()
+        assert y.dtype == dt_ and h.dtype == torch.float32
+        _close(y, wy, 2e-4 if dtype == "float32" else 2e-2)
+        _close(h, wh, 2e-4 if dtype == "float32" else 2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_wrapper_refuses_what_the_kernel_cannot_take(cuda):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x, dt, A, Bm, Cm, D = _ssd_inputs(g, 1, 16, 2, 1, 256, torch.float32,
+                                      cuda)
+    with pytest.raises(ValueError, match="N <="):
+        ssd_scan(x, dt, A, Bm, Cm, D)
+    x, dt, A, Bm, Cm, D = _ssd_inputs(g, 1, 16, 2, 1, 64, torch.float32,
+                                      cuda)
+    with pytest.raises(TypeError):
+        ssd_scan(x, dt, A, Bm.bfloat16(), Cm.bfloat16(), D)

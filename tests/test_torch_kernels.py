@@ -258,8 +258,12 @@ def test_cpu_tensors_take_plain_path_and_count_no_launch():
     paged_decode_attention(torch.randn(1, 2, 16), torch.randn(3, 4, 2, 16),
                            torch.randn(3, 4, 2, 16), pt,
                            torch.ones(1, dtype=torch.int32))
+    ops.ssd_scan(torch.randn(1, 5, 2, 8), torch.rand(1, 5, 2),
+                 -torch.rand(2), torch.randn(1, 5, 1, 4),
+                 torch.randn(1, 5, 1, 4), torch.ones(2), chunk=4)
     assert kernels.launch_counts() == {"paged_attention": 0,
-                                       "flash_attention": 0, "rmsnorm": 0}
+                                       "flash_attention": 0, "rmsnorm": 0,
+                                       "ssd_scan": 0}
 
 
 def test_plain_versions_context_matches_wrappers_on_cpu():

@@ -111,3 +111,32 @@ def test_cli_serves_on_the_cpu_when_asked(capsys):
     out = json.loads(capsys.readouterr().out)
     assert rc == 0 and out["requests"] == 3 and out["device"] == "cpu"
     assert out["stats"]["completed"] == 3
+
+
+def test_cli_fixed_batch_mode_on_the_cpu(capsys):
+    """With no --requests the CLI runs the fixed-batch mode, as the
+    reference's does, for a family without paged KV too."""
+    import json
+    from repro_torch.launch.serve import main
+    rc = main(["--arch", "mamba2-780m", "--smoke", "--batch", "2",
+               "--prompt", "16", "--generate", "4", "--device", "cpu"])
+    out = json.loads(capsys.readouterr().out)
+    assert rc == 0 and out["mode"] == "batch" and out["device"] == "cpu"
+    assert out["generated"] == 4 and out["batch"] == 2
+    assert all(0 <= t < 256 for t in out["sample_tokens"])
+
+
+def test_cli_engine_refuses_families_without_paged_kv(capsys):
+    from repro_torch.launch.serve import main
+    rc = main(["--arch", "mamba2-780m", "--smoke", "--requests", "1",
+               "--device", "cpu"])
+    assert rc == 2 and "paged-KV" in capsys.readouterr().err
+
+
+def test_cli_fixed_batch_mode_refuses_the_cpu_unless_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None is valid here")
+    from repro_torch.launch.serve import main
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--arch", "mamba2-780m", "--smoke", "--batch", "2",
+              "--prompt", "16", "--generate", "4"])
