@@ -10,17 +10,23 @@ no result line):
               nvcc, with the build time;
 3. kernels  - each kernel against its plain PyTorch version on the card
               at the serving paths' shapes, max errors beside their
-              tolerances, and bitwise page-layout invariance;
+              tolerances, and bitwise page-layout invariance; flash on
+              its tensor-core kernel (bf16 q) over Sq 1..1024, D 64 /
+              112 / 128, fp32 and bf16 K/V, G 1 and 4, the masks, rows
+              with no visible key exactly zero, and on its CUDA-core
+              kernel (fp32 q) at the fp32 tolerance;
 4. serve    - qwen1.5-0.5b at full width (24 layers, d=1024, vocab
               151,936, seeded random weights) served by
               ``repro_torch.serve.Engine`` through ``run_trace``: 16
               requests under a 32-page tier-1 quota with a 4 GB tier-2
               budget, so sequences pause, spill and fetch.  Every kernel
-              launch of the run is counted, and one prefill's and one
-              decode step's logits are held against the plain path
-              (gated with the weights upcast to fp32 compute; the
-              served bf16 comparison is reported beside it); 4b profiles
-              an engine window;
+              launch of the run is counted (flash by variant: every
+              served launch on the tensor-core kernel), and one
+              prefill's and one decode step's logits are held against
+              the plain path (gated with the weights upcast to fp32
+              compute, on flash's CUDA-core kernel; the served bf16
+              comparison is reported beside it); 4b profiles an engine
+              window;
 4c/4d. batch - mamba2-780m (48 layers, d=1536, 8 x 500-token prompts,
               32 tokens) and zamba2-7b (81 mamba layers, d=3584, the
               shared attention block 13 times, 4 x 500-token prompts, 16
@@ -31,8 +37,12 @@ no result line):
 5. times    - each kernel's time (CUDA graphs of back-to-back calls,
               timed with CUDA events, median of trials) beside its plain
               version, a PyTorch library call where one computes the
-              same function, and the bound from the H100's published
-              peaks;
+              same function (for flash, SDPA in fp32 and, as
+              ``library_bf16_ms``, on bf16 K/V), and the bound from the
+              H100's published peaks, at each path's shapes (flash at
+              qwen's 128 / 256 / 512 buckets and zamba2's prefill and
+              decode; RMSNorm at 512 and 8 rows of 1024, 8 of 1536 and
+              3072, 2000 of 3584 and 7168);
 6. the contract line ``{"ok": true, "device": {...}}``, last.
 
 It imports torch, numpy and ``repro_torch`` only (no JAX).
@@ -205,27 +215,61 @@ def kernel_checks(device):
           "case": "bitwise layout invariance", "ok": same})
     check(same, "paged: output changed with the physical page layout")
 
-    # flash: the prefill's shape, bf16 q against the fp32 cache
-    for Sq in (64, 130, 512):
-        q = torch.randn(1, Sq, 16, 64, generator=gen, device=device).to(bf16)
-        k = torch.randn(1, Sq, 16, 64, generator=gen, device=device)
-        v = torch.randn(1, Sq, 16, 64, generator=gen, device=device)
+    # flash, bf16 q (the tensor-core kernel): every Sq bucket and a
+    # decode query, each head_dim, K/V as the fp32 cache holds them and in
+    # bf16, MHA and GQA G=4; then the masks the served paths use
+    flash_grid = [(Sq, D, kv, G) for Sq in (1, 15, 64, 65, 130, 500, 512, 1024)
+                  for D in (64, 112, 128) for kv in (f32, bf16) for G in (1, 4)]
+    for Sq, D, kv, G in flash_grid:
+        H = 8 if Sq <= 512 else 4
+        q = torch.randn(1, Sq, H, D, generator=gen, device=device).to(bf16)
+        k, v = (torch.randn(1, Sq, H // G, D, generator=gen,
+                            device=device).to(kv) for _ in range(2))
         got = flash_attention(q, k, v, causal=True)
-        want = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                                 v.transpose(1, 2)).transpose(1, 2)
-        errs["flash_attention"] = record(
-            "flash_attention", f"B=1 Sq=Skv={Sq} H=16 D=64 q=bf16 kv=fp32",
-            got, want, TOL["bfloat16"])
+        with ops.plain_versions():
+            want = ops.flash_attention(q, k, v, causal=True)
+        e = record("flash_attention",
+                   f"B=1 Sq=Skv={Sq} H={H} G={G} D={D} q=bf16 "
+                   f"kv={str(kv)[6:]}", got, want, TOL["bfloat16"])
+        if (Sq, D, kv, G) == (512, 64, f32, 1):
+            errs["flash_attention"] = e
+    # window, q_offset and kv_len < Skv together; with window 8 and
+    # kv_len 13, rows 20.. see no key and must be exact zeros
+    for D, kv in ((64, f32), (112, f32), (128, bf16)):
+        q = torch.randn(2, 70, 8, D, generator=gen, device=device).to(bf16)
+        k, v = (torch.randn(2, 96, 2, D, generator=gen, device=device).to(kv)
+                for _ in range(2))
+        for kw in (dict(sliding_window=24, q_offset=10, kv_len=80),
+                   dict(sliding_window=8, q_offset=0, kv_len=13)):
+            got = flash_attention(q, k, v, causal=True, **kw)
+            with ops.plain_versions():
+                want = ops.flash_attention(q, k, v, causal=True, **kw)
+            record("flash_attention", f"GQA G=4 D={D} kv={str(kv)[6:]} "
+                   + " ".join(f"{a}={b}" for a, b in kw.items()),
+                   got, want, TOL["bfloat16"])
+            if kw["kv_len"] == 13:
+                zero = bool((got[:, 20:] == 0).all()
+                            and (got[:, :20] != 0).any())
+                emit({"phase": "kernels", "kernel": "flash_attention",
+                      "case": f"D={D} rows with no visible key are exact "
+                              f"zeros", "ok": zero})
+                check(zero, "flash: a row with no visible key is not zero")
+    # fp32 q: the CUDA-core kernel, held at the fp32 tolerance
     q = torch.randn(2, 70, 8, 128, generator=gen, device=device)
     k = torch.randn(2, 96, 2, 128, generator=gen, device=device)
     v = torch.randn(2, 96, 2, 128, generator=gen, device=device)
-    record("flash_attention", "GQA G=4 D=128 window=24 q_offset=10 kv_len=80",
-           flash_attention(q, k, v, causal=True, sliding_window=24,
-                           q_offset=10, kv_len=80),
-           ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                             v.transpose(1, 2), sliding_window=24,
-                             q_offset=10, kv_len=80).transpose(1, 2),
-           TOL["float32"])
+    for D in (64, 112, 128):
+        record("flash_attention",
+               f"fp32 q GQA G=4 D={D} window=24 q_offset=10 kv_len=80",
+               flash_attention(q[..., :D].contiguous(), k[..., :D].contiguous(),
+                               v[..., :D].contiguous(), causal=True,
+                               sliding_window=24, q_offset=10, kv_len=80),
+               ref.attention_ref(q[..., :D].transpose(1, 2),
+                                 k[..., :D].transpose(1, 2),
+                                 v[..., :D].transpose(1, 2),
+                                 sliding_window=24, q_offset=10,
+                                 kv_len=80).transpose(1, 2),
+               TOL["float32"])
 
     # flash at head_dim 112: zamba2's shared block, prefill over the fp32
     # contiguous cache (kv_len masks its unwritten tail) and one decode
@@ -274,11 +318,16 @@ def kernel_checks(device):
     # rmsnorm: the model's rows and widths, activations and scale in the
     # compute dtype.  qwen1.5-0.5b: d = 64 (qk rows) and 1024; the
     # recurrent paths: d_model 1536 / 3584 and the gated norm's d_inner
-    # 3072 / 7168 (the 512-thread branch), at decode's 4 / 8 rows, the
-    # logits check's 500 and a prefill's 4000 (mamba2: 8 x 500)
+    # 3072 / 7168 (d > 2048: a 256-thread block per row), at decode's 4 /
+    # 8 rows, the logits check's 500 and a prefill's 4000 (mamba2: 8 x
+    # 500); then 512 rows (qwen's largest bucket), 3 / 33 (not a multiple
+    # of the rows a block takes), d = 1000 (vectors, 125 a row) and 1001
+    # (the scalar branch: a tail, and rows not 16-byte aligned)
     grid = [(rows, d, bf16) for rows in (1, 7, 300) for d in (64, 1024)]
     grid += [(rows, d, dt) for d in (1536, 3072, 3584, 7168)
              for rows in (4, 8, 500, 4000) for dt in (bf16, f32)]
+    grid += [(rows, d, dt) for rows in (3, 33, 512, 4000)
+             for d in (64, 1000, 1001, 1024) for dt in (bf16, f32)]
     for rows, d, dt in grid:
         x = torch.randn(rows, d, generator=gen, device=device).to(dt)
         s = (1 + 0.1 * torch.randn(d, generator=gen, device=device)).to(dt)
@@ -287,6 +336,12 @@ def kernel_checks(device):
                    ref.rmsnorm_ref(x, s), TOL[name])
         if dt == bf16:
             errs["rmsnorm"] = max(errs.get("rmsnorm", 0.0), e)
+    # a row view that starts 2 bytes past a 16-byte boundary
+    x = torch.randn(33 * 1024 + 1, generator=gen, device=device).to(bf16)
+    x = x[1:].view(33, 1024)
+    s = torch.ones(1024, device=device, dtype=bf16)
+    record("rmsnorm", "rows=33 d=1024 bf16 misaligned", rmsnorm(x, s),
+           ref.rmsnorm_ref(x, s), TOL["bfloat16"])
     return errs
 
 
@@ -327,6 +382,7 @@ def serve_full_width(device):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
+    variants = kernels.variant_counts()
 
     stats = engine.stats()
     names = [e.name for e in tracer.events()]
@@ -338,7 +394,8 @@ def serve_full_width(device):
           "tokens_decoded": stats["tokens_decoded"],
           "tokens_per_s": stats["tokens_decoded"] / wall,
           "prefills": prefills, "decode_steps": decodes,
-          "launches": counts, "latency_modeled": latency_summary(handles),
+          "launches": counts, "flash_variants": variants,
+          "latency_modeled": latency_summary(handles),
           "kv": stats["kv"], "preempts": stats["preempts"],
           "swaps": stats["preempt_swaps"],
           "recomputes": stats["preempt_recomputes"],
@@ -358,6 +415,8 @@ def serve_full_width(device):
     check(counts["flash_attention"] == prefills * L,
           f"flash launches {counts['flash_attention']} != "
           f"{prefills} prefills x {L}")
+    check_flash_variant(cfg.name, cfg.compute_dtype, variants,
+                        counts["flash_attention"])
     check(counts["rmsnorm"] == (decodes + prefills) * (2 * L + 1),
           f"rmsnorm launches {counts['rmsnorm']} != "
           f"{decodes + prefills} calls x {2 * L + 1}")
@@ -365,15 +424,15 @@ def serve_full_width(device):
     # rounding flips compound over 24 random-weight layers (phase 3
     # gates each kernel at these shapes in bf16)
     logits_check(model, engine.params, trace[0].prompt_tokens, device,
-                 gate=False)
+                 gate=False, n_flash=(L, 0))
     # the same weights, upcast exactly, computed in fp32: gated
     model32 = build_model(dataclasses.replace(cfg, compute_dtype="float32"),
                           device=device)
     logits_check(model32, model32.load(engine.params),
-                 trace[0].prompt_tokens, device, gate=True)
+                 trace[0].prompt_tokens, device, gate=True, n_flash=(L, 0))
     del model32
     profile_window(model, engine.params, device)
-    return counts, stats, wall
+    return counts, variants
 
 
 def profile_window(model, params, device):
@@ -428,11 +487,37 @@ def device_time(prof, wall: float):
                                 for k, (t, n) in top]}
 
 
-def logits_check(model, params, prompt, device, gate: bool):
+def check_flash_variant(what, compute, variants, n):
+    """``n`` flash launches, all on the variant of the compute dtype: the
+    tensor-core kernel for bf16 q, the CUDA-core kernel for fp32 q."""
+    on = "tc" if compute == "bfloat16" else "f32"
+    got = {v: variants[f"flash_attention.{v}"] for v in ("tc", "f32")}
+    want = {v: n if v == on else 0 for v in got}
+    check(got == want, f"{what} ({compute}): flash launches by variant "
+          f"{got} != {want}")
+    return {"launches": got, "expected": want}
+
+
+def check_step_variant(model, step, n):
+    """The kernel path of a logits check's ``step`` launched flash ``n``
+    times on its compute dtype's variant."""
+    from repro_torch import kernels
+    cfg = model.cfg
+    emit({"phase": "launches", "arch": cfg.name,
+          "compute": cfg.compute_dtype,
+          "check": f"{step} logits: flash launches by variant",
+          **check_flash_variant(f"{cfg.name} {step}", cfg.compute_dtype,
+                                kernels.variant_counts(), n)})
+
+
+def logits_check(model, params, prompt, device, gate: bool, n_flash):
     """One prefill and one decode step of the served model through the
     kernels and through the plain versions, on the same inputs; with
-    ``gate`` a mismatch beyond the bf16 tolerance fails the run."""
+    ``gate`` a mismatch beyond the bf16 tolerance fails the run.
+    ``n_flash``: the flash launches of the kernel path's prefill and
+    decode, checked by variant."""
     import torch
+    from repro_torch import kernels
     from repro_torch.kernels import ops
 
     cfg = model.cfg
@@ -445,7 +530,9 @@ def logits_check(model, params, prompt, device, gate: bool):
         cache = model.init_cache(1, bucket, dtype=torch.float32)
         return model.prefill_at(params, {"tokens": tokens}, cache, plen - 1)
 
+    kernels.reset_launch_counts()
     got, cache = prefill()
+    check_step_variant(model, "prefill", n_flash[0])
     with ops.plain_versions():
         want, _ = prefill()
     report("prefill", got, want, model.cfg.compute_dtype, gate)
@@ -462,9 +549,11 @@ def logits_check(model, params, prompt, device, gate: bool):
                          device=device)[None, :].contiguous()
     lengths = torch.tensor([plen], dtype=torch.int32, device=device)
     tok = torch.argmax(got[:, -1], dim=-1)[:, None]
+    kernels.reset_launch_counts()
     got, _ = model.decode_paged(params, tok, {n: p.clone()
                                               for n, p in pools.items()},
                                 table, lengths)
+    check_step_variant(model, "decode", n_flash[1])
     with ops.plain_versions():
         want, _ = model.decode_paged(params, tok, pools, table, lengths)
     report("decode", got, want, model.cfg.compute_dtype, gate)
@@ -534,6 +623,7 @@ def fixed_batch_full_width(arch, device, batch, prompt, generate, *,
     kernels.reset_launch_counts()
     run = fixed_batch_generate(model, params, prompts, generate, device)
     counts = kernels.launch_counts()
+    variants = kernels.variant_counts()
 
     toks = run["tokens"]
     want = expected_launches(cfg, generate)
@@ -544,10 +634,13 @@ def fixed_batch_full_width(arch, device, batch, prompt, generate, *,
           "prompt": prompt, "generated": toks.shape[1],
           "prefill_s": run["prefill_s"], "decode_s": run["decode_s"],
           "decode_tokens_per_s": run["decode_tokens_per_s"],
-          "launches": counts, "expected_launches": want,
+          "launches": counts, "flash_variants": variants,
+          "expected_launches": want,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "sample_tokens": toks[0, :8].tolist()})
     check(counts == want, f"{cfg.name}: launches {counts} != {want}")
+    check_flash_variant(cfg.name, cfg.compute_dtype, variants,
+                        counts["flash_attention"])
     check(toks.shape == (batch, generate)
           and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
           f"{cfg.name}: tokens out of range or missing")
@@ -561,22 +654,27 @@ def fixed_batch_full_width(arch, device, batch, prompt, generate, *,
     one = prompts[:1]
     # the served bf16 path, kernels vs plain: reported, not gated (bf16
     # rounding flips compound over the layers, ROADMAP C-port2)
-    recurrent_logits_check(model, params, one, gate=False)
+    n_attn = LAYOUT[cfg.name][1]
+    recurrent_logits_check(model, params, one, gate=False, n_flash=n_attn)
     del params
     torch.cuda.empty_cache()
     # the same weights computed in fp32 (the fp32 draw itself: no copy):
     # gated
     model32 = build_model(dataclasses.replace(cfg, compute_dtype="float32"),
                           device=device)
-    recurrent_logits_check(model32, model32.load(raw), one, gate=True)
-    return counts
+    recurrent_logits_check(model32, model32.load(raw), one, gate=True,
+                           n_flash=n_attn)
+    return counts, variants
 
 
-def recurrent_logits_check(model, params, tokens, gate: bool):
+def recurrent_logits_check(model, params, tokens, gate: bool, n_flash):
     """One prefill of ``tokens`` (1, S) and one decode step from its
     cache, through the kernels and through the plain versions; both
-    decode steps start from the kernel path's cache and token."""
+    decode steps start from the kernel path's cache and token.  Each
+    kernel-path step launches flash ``n_flash`` times (once per shared
+    attention block), checked by variant."""
     import torch
+    from repro_torch import kernels
     from repro_torch.kernels import ops
 
     S = tokens.shape[1]
@@ -585,14 +683,18 @@ def recurrent_logits_check(model, params, tokens, gate: bool):
         cache = model.init_cache(1, S + 1, dtype=torch.float32)
         return model.prefill(params, {"tokens": tokens}, cache)
 
+    kernels.reset_launch_counts()
     got, cache = prefill()
+    check_step_variant(model, "prefill", n_flash)
     with ops.plain_versions():
         want, _ = prefill()
     report("prefill", got, want, model.cfg.compute_dtype, gate,
            phase="batch", arch=model.cfg.name)
     tok = torch.argmax(got[:, -1], dim=-1)[:, None]
     twin = {k: v.clone() for k, v in cache.items()}
+    kernels.reset_launch_counts()
     got, _ = model.decode(params, tok, cache, S)
+    check_step_variant(model, "decode", n_flash)
     with ops.plain_versions():
         want, _ = model.decode(params, tok, twin, S)
     report("decode", got, want, model.cfg.compute_dtype, gate,
@@ -658,12 +760,14 @@ def kernel_times(device, counts, errs):
     bf16, f32 = torch.bfloat16, torch.float32
     rows = []
 
-    def row(mod, name, ms, plain_ms, bound_ms, bound_by, library_ms):
+    def row(mod, name, ms, plain_ms, bound_ms, bound_by, library_ms,
+            **extra):
         rows.append({"name": name, "route": "cuda", "source": mod.SOURCE,
                      "replaces": mod.REPLACES, "launches": counts[name],
                      "max_abs_err": errs[name], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": library_ms})
+                     "bound_by": bound_by, "library_ms": library_ms,
+                     **extra})
 
     # paged: a full decode batch (8 rows, 120..563 live tokens, the trace's
     # prompt lengths plus generated tokens), four copies of the pool so
@@ -681,56 +785,84 @@ def kernel_times(device, counts, errs):
     b_ms, b_by = bound(nbytes, 4 * live * 16 * 64, BF16_FLOPS)
     row(pa, "paged_attention", ms, plain, b_ms, b_by, None)
 
+    def flash_time(B, Sq, Skv, H, D, q_offset=0, kv_len=None,
+                   q_dtype=bf16):
+        """(ms, plain, bound, bound_by, fp32 SDPA, bf16 SDPA) of one
+        causal call over an fp32 cache: SDPA gets the keys the queries
+        see, [0, kv_len), causal for a prefill from position 0, all
+        visible for one decode query at the end of them."""
+        n_kv = Skv if kv_len is None else kv_len
+        q = torch.randn(B, Sq, H, D, generator=gen, device=device).to(q_dtype)
+        k, v = (torch.randn(B, Skv, H, D, generator=gen, device=device)
+                for _ in range(2))
+        kw = dict(causal=True, q_offset=q_offset, kv_len=kv_len)
+        ms = time_ms(lambda i: fa.flash_attention(q, k, v, **kw))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        plain = time_ms(lambda i: ref.attention_ref(qt, kt, vt, **kw))
+        ks, vs = kt[:, :, :n_kv], vt[:, :, :n_kv]
+        q32, q16 = qt.float(), qt.to(bf16)
+        ks16, vs16 = ks.to(bf16), vs.to(bf16)
+        causal = Sq > 1
+        lib = time_ms(lambda i: F.scaled_dot_product_attention(
+            q32, ks, vs, is_causal=causal))
+        lib16 = time_ms(lambda i: F.scaled_dot_product_attention(
+            q16, ks16, vs16, is_causal=causal))
+        pairs = Sq * (Sq + 1) // 2 if causal else Sq * n_kv
+        nbytes = (2 * q.numel() * q.element_size()
+                  + 2 * B * n_kv * H * D * k.element_size())
+        return (ms, plain, *bound(nbytes, 4 * D * H * B * pairs,
+                                  BF16_FLOPS), lib, lib16)
+
+    def flash_line(case, t, variant="tc", **extra):
+        ms, plain, b_ms, b_by, lib, lib16 = t
+        emit({"phase": "times", "kernel": "flash_attention",
+              "variant": variant, "case": case, "ms": ms,
+              "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+              "library_ms": lib, "library_bf16_ms": lib16, **extra})
+
     # flash: the largest prefill bucket of the trace (512), bf16 q, fp32
-    # cache
-    S, H, D = 512, 16, 64
-    q = torch.randn(1, S, H, D, generator=gen, device=device).to(bf16)
-    k = torch.randn(1, S, H, D, generator=gen, device=device)
-    v = torch.randn(1, S, H, D, generator=gen, device=device)
-    ms = time_ms(lambda i: fa.flash_attention(q, k, v, causal=True))
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    plain = time_ms(lambda i: ref.attention_ref(qt, kt, vt, causal=True))
-    q32 = qt.float()
-    lib = time_ms(lambda i: F.scaled_dot_product_attention(
-        q32, kt, vt, is_causal=True, enable_gqa=True))
-    nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * 4
-    flops = 4 * D * H * S * (S + 1) // 2
-    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
-    row(fa, "flash_attention", ms, plain, b_ms, b_by, lib)
+    # cache; then the other buckets, zamba2's prefill and decode at
+    # head_dim 112, and the fp32-q kernel at the 512 bucket
+    ms, plain, b_ms, b_by, lib, lib16 = flash_time(1, 512, 512, 16, 64)
+    row(fa, "flash_attention", ms, plain, b_ms, b_by, lib,
+        library_bf16_ms=lib16)
+    flash_line("qwen prefill B=1 Sq=Skv=512 H=16 D=64 q=bf16 kv=fp32",
+               (ms, plain, b_ms, b_by, lib, lib16))
+    for S in (128, 256):
+        flash_line(f"qwen prefill B=1 Sq=Skv={S} H=16 D=64 q=bf16 kv=fp32",
+                   flash_time(1, S, S, 16, 64))
+    flash_line("zamba2 prefill B=4 Sq=500 Skv=516 kv_len=500 H=KV=32 "
+               "D=112 q=bf16 kv=fp32",
+               flash_time(4, 500, 516, 32, 112, kv_len=500),
+               max_abs_err=errs["flash_attention_d112"])
+    flash_line("zamba2 decode B=4 Sq=1 Skv=516 q_offset=499 kv_len=500 "
+               "H=KV=32 D=112 q=bf16 kv=fp32",
+               flash_time(4, 1, 516, 32, 112, q_offset=499, kv_len=500))
+    flash_line("fp32 q B=1 Sq=Skv=512 H=16 D=64 kv=fp32",
+               flash_time(1, 512, 512, 16, 64, q_dtype=f32), variant="f32")
 
-    # rmsnorm: a prefill bucket's rows at d_model, bf16 (the input was
-    # just written by the previous op, so it is timed warm)
-    x = torch.randn(512, 1024, generator=gen, device=device).to(bf16)
-    s = (1 + 0.1 * torch.randn(1024, generator=gen, device=device)).to(bf16)
-    ms = time_ms(lambda i: rn.rmsnorm(x, s))
-    plain = time_ms(lambda i: ref.rmsnorm_ref(x, s))
-    lib = (time_ms(lambda i: F.rms_norm(x, (1024,), weight=s, eps=1e-6))
-           if hasattr(F, "rms_norm") else None)
-    b_ms, b_by = bound(2 * x.numel() * 2 + s.numel() * 2, 4 * x.numel(),
-                       BF16_FLOPS)
-    row(rn, "rmsnorm", ms, plain, b_ms, b_by, lib)
+    # rmsnorm: bf16 rows at d_model (the input was just written by the
+    # previous op, so it is timed warm): qwen's 512-row bucket, decode's
+    # 8 rows at each path's width, zamba2's prefill (4 x 500 rows) at
+    # d_model and d_inner
+    def rms_time(n, d):
+        x = torch.randn(n, d, generator=gen, device=device).to(bf16)
+        s = (1 + 0.1 * torch.randn(d, generator=gen, device=device)).to(bf16)
+        ms = time_ms(lambda i: rn.rmsnorm(x, s))
+        plain = time_ms(lambda i: ref.rmsnorm_ref(x, s))
+        lib = (time_ms(lambda i: F.rms_norm(x, (d,), weight=s, eps=1e-6))
+               if hasattr(F, "rms_norm") else None)
+        return (ms, plain, *bound(2 * x.numel() * 2 + d * 2, 4 * x.numel(),
+                                  BF16_FLOPS), lib)
 
-    # flash at head_dim 112: zamba2's shared block at prefill, 4 prompts
-    # of 500 tokens against the fp32 cache (kv_len masks its tail)
-    B, S, Skv, H, D = 4, 500, 516, 32, 112
-    q = torch.randn(B, S, H, D, generator=gen, device=device).to(bf16)
-    k = torch.randn(B, Skv, H, D, generator=gen, device=device)
-    v = torch.randn(B, Skv, H, D, generator=gen, device=device)
-    ms = time_ms(lambda i: fa.flash_attention(q, k, v, causal=True,
-                                              kv_len=S))
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    plain = time_ms(lambda i: ref.attention_ref(qt, kt, vt, causal=True,
-                                                kv_len=S))
-    q32, ks, vs = qt.float(), kt[:, :, :S], vt[:, :, :S]
-    lib = time_ms(lambda i: F.scaled_dot_product_attention(
-        q32, ks, vs, is_causal=True))
-    b_ms, b_by = bound(2 * q.numel() * 2 + 2 * B * S * H * D * 4,
-                       4 * D * H * B * S * (S + 1) // 2, BF16_FLOPS)
-    emit({"phase": "times", "kernel": "flash_attention",
-          "case": "zamba2 prefill B=4 Sq=500 Skv=516 kv_len=500 H=KV=32 "
-                  "D=112 q=bf16 kv=fp32", "ms": ms, "plain_ms": plain,
-          "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
-          "max_abs_err": errs["flash_attention_d112"]})
+    for n, d in ((512, 1024), (8, 1024), (8, 1536), (8, 3072), (2000, 3584),
+                 (2000, 7168)):
+        ms, plain, b_ms, b_by, lib = rms_time(n, d)
+        if (n, d) == (512, 1024):
+            row(rn, "rmsnorm", ms, plain, b_ms, b_by, lib)
+        emit({"phase": "times", "kernel": "rmsnorm",
+              "case": f"rows={n} d={d} bf16", "ms": ms, "plain_ms": plain,
+              "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib})
 
     # ssd: the prefill's shapes (bf16 x and B/C, fp32 dt, the cache's
     # zero fp32 state), two input copies cycled so each call reads cold
@@ -785,24 +917,28 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": str(lib), "sources": list(_build.SOURCES)})
     for line in (lib.parent / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if ("registers" in line or "spill" in line or "entry" in line
+                or line.startswith("==")):
             print(line, file=sys.stderr)
 
     errs = kernel_checks(device)
     # each path runs with the counts set to 0 just before it, read after
-    counts = {"qwen1.5-0.5b": serve_full_width(device)[0]}
+    counts, variants = {}, {}
+    counts["qwen1.5-0.5b"], variants["qwen1.5-0.5b"] = serve_full_width(
+        device)
     for arch, batch, generate, steps in (("mamba2-780m", 8, 32, 8),
                                          ("zamba2-7b", 4, 16, 0)):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        counts[arch] = fixed_batch_full_width(arch, device, batch, 500,
-                                              generate, profile_steps=steps)
+        counts[arch], variants[arch] = fixed_batch_full_width(
+            arch, device, batch, 500, generate, profile_steps=steps)
     gc.collect()
     torch.cuda.empty_cache()
     total = {name: sum(c[name] for c in counts.values())
              for name in counts["qwen1.5-0.5b"]}
-    emit({"phase": "launches", "per_path": counts, "total": total})
+    emit({"phase": "launches", "per_path": counts,
+          "flash_variants_per_path": variants, "total": total})
     check(all(n > 0 for n in total.values()),
           f"a kernel never ran on the main paths: {total}")
     rows = kernel_times(device, total, errs)

@@ -1,7 +1,8 @@
-"""The port's Hopper kernels: one wrapper module per CUDA kernel (each
-with an integer ``launches`` count), their plain PyTorch versions in
-``ref``, the model-layout adapters in ``ops`` and the build in
-``_build``."""
+"""The port's Hopper kernels: one wrapper module per TPU kernel it
+replaces (each with an integer ``launches`` count; flash attention
+chooses between two CUDA kernels and also counts each), their plain
+PyTorch versions in ``ref``, the model-layout adapters in ``ops`` and
+the build in ``_build``."""
 
 from __future__ import annotations
 
@@ -21,6 +22,16 @@ def launch_counts() -> Dict[str, int]:
     return {name: mod.launches for name, mod in WRAPPERS.items()}
 
 
+def variant_counts() -> Dict[str, int]:
+    """Launches per kernel variant of the wrappers that choose between
+    kernels, as ``"<wrapper>.<variant>"`` (``flash_attention.tc``,
+    ``flash_attention.f32``); they sum to the wrapper's count."""
+    return {f"{name}.{c[len('launches_'):]}": getattr(mod, c)
+            for name, mod in WRAPPERS.items()
+            for c in getattr(mod, "COUNTERS", ())[1:]}
+
+
 def reset_launch_counts() -> None:
     for mod in WRAPPERS.values():
-        mod.launches = 0
+        for c in getattr(mod, "COUNTERS", ("launches",)):
+            setattr(mod, c, 0)

@@ -30,13 +30,15 @@ from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("paged_attention.cu", "flash_attention.cu", "rmsnorm.cu",
-           "ssd_scan.cu")
+SOURCES = ("paged_attention.cu", "flash_attention.cu",
+           "flash_attention_tc.cu", "rmsnorm.cu", "ssd_scan.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_FLASH = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I,
+          _P)
 # C signature of every entry point: (argtypes) -> int (a cudaError_t)
 SIGNATURES = {
     # q, k_pages, v_pages, page_table, lengths, out,
@@ -44,11 +46,12 @@ SIGNATURES = {
     "paged_attention_fwd": (_P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
     # q, k, v, out, B, Sq, Skv, H, HKV, D, sm_scale, causal, window,
-    # q_offset, kv_len, q_dtype, kv_dtype, stream
-    "flash_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                            _I, _I, _I, _I, _I, _I, _P),
-    # x, scale, out, rows, d, eps, x_dtype, scale_dtype, stream
-    "rmsnorm_fwd": (_P, _P, _P, _I, _I, _F, _I, _I, _P),
+    # q_offset, kv_len, kv_dtype, stream (fp32 q: CUDA cores; bf16 q:
+    # tensor cores)
+    "flash_attention_fwd": _FLASH,
+    "flash_attention_tc_fwd": _FLASH,
+    # x, scale, out, rows, d, eps, x_dtype, scale_dtype, vec, stream
+    "rmsnorm_fwd": (_P, _P, _P, _I, _I, _F, _I, _I, _I, _P),
     # x, dt, A, B, C, D, h0 (nullable), y, h_out,
     # B, S, H, G, P, N, Q, x_dtype, stream
     "ssd_scan_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P,

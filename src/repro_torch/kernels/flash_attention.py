@@ -1,5 +1,11 @@
-"""Blocked (flash) attention for prefill: wrapper around
-``csrc/flash_attention.cu``.
+"""Blocked (flash) attention for prefill: wrapper around two kernels,
+chosen by q's dtype.
+
+- bf16 q (every served call): ``csrc/flash_attention_tc.cu``, both
+  products on the tensor cores (wgmma) with K, V and P rounded to bf16
+  and fp32 softmax statistics and sums;
+- fp32 q (the fp32-compute model checks and parity runs):
+  ``csrc/flash_attention.cu``, fp32 math on CUDA cores.
 
 Replaces ``repro.kernels.flash_attention.flash_attention`` and the
 padding in ``repro.kernels.ops.flash_attention``.  It takes the
@@ -8,11 +14,11 @@ model's layout, q (B,Sq,H,D) and k/v (B,Skv,HKV,D), and returns
 ``q_offset + i``; the masks are ``causal`` (key <= query position), an
 optional ``sliding_window`` (key > query - window) and ``kv_len`` (key
 < kv_len).  Ragged lengths are masked in the kernel, so there is no
-padding and non-causal attention needs no special case.  q, k and v
-may each be fp32 or bf16 (k and v share a dtype); all math is fp32.
+padding and non-causal attention needs no special case.  k and v share
+a dtype, fp32 or bf16.
 
 A CPU tensor takes the plain version in ``ref``; a CUDA tensor
-launches the kernel or raises.
+launches one of the two kernels or raises.
 """
 
 from __future__ import annotations
@@ -24,7 +30,11 @@ import torch
 from repro_torch.kernels import _build, ref
 
 launches = 0        # kernel launches since the last reset_launch_counts()
-SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+launches_tc = 0     # ... of them on the tensor-core kernel (bf16 q)
+launches_f32 = 0    # ... of them on the fp32 CUDA-core kernel (fp32 q)
+COUNTERS = ("launches", "launches_tc", "launches_f32")
+SOURCE = "src/repro_torch/csrc/flash_attention_tc.cu"
+SOURCE_F32 = "src/repro_torch/csrc/flash_attention.cu"
 REPLACES = "src/repro/kernels/flash_attention.py:103"
 HEAD_DIMS = (64, 112, 128)
 
@@ -36,7 +46,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset: int = 0,
                     kv_len: Optional[int] = None) -> torch.Tensor:
     """q (B,Sq,H,D); k, v (B,Skv,HKV,D) -> (B,Sq,H,D)."""
-    global launches
+    global launches, launches_tc, launches_f32
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q must be (B,Sq,H,D) and k/v (B,Skv,HKV,D), "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -69,14 +79,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"got {D}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash kernel inputs must be contiguous")
+    tc = q.dtype == torch.bfloat16
+    if not tc and q.dtype != torch.float32:
+        raise TypeError(f"flash kernel takes fp32 or bf16 q, got {q.dtype}")
+    if tc and (k.data_ptr() % 16 or v.data_ptr() % 16 or q.data_ptr() % 4):
+        raise ValueError("tensor-core flash kernel needs 16-byte aligned "
+                         "k and v and a 4-byte aligned q")
     out = torch.empty_like(q)
     if B == 0 or Sq == 0:
         return out
-    _build.launch("flash_attention_fwd", q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), out.data_ptr(), B, Sq, Skv, H, HKV, D,
-                  float(sm_scale), int(bool(causal)),
+    _build.launch("flash_attention_tc_fwd" if tc else "flash_attention_fwd",
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  B, Sq, Skv, H, HKV, D, float(sm_scale), int(bool(causal)),
                   -1 if sliding_window is None else int(sliding_window),
-                  int(q_offset), kv_len, _build.dtype_code(q),
-                  _build.dtype_code(k))
+                  int(q_offset), kv_len, _build.dtype_code(k))
     launches += 1
+    if tc:
+        launches_tc += 1
+    else:
+        launches_f32 += 1
     return out

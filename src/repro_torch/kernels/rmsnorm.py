@@ -2,7 +2,8 @@
 
 Replaces ``repro.kernels.rmsnorm.rmsnorm``: ``x (..., d)`` viewed as
 ``(rows, d)``, ``y = x * rsqrt(mean(x^2) + eps) * scale`` in fp32,
-output in x's dtype.  A CPU tensor takes the plain version in ``ref``;
+output in x's dtype.  The kernel moves 16-byte vectors where every row
+is 16-byte aligned and scalars otherwise (a branch inside the kernel).  A CPU tensor takes the plain version in ``ref``;
 a CUDA tensor launches the kernel or raises.
 """
 
@@ -39,8 +40,14 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
     rows = x.numel() // d
     if rows == 0:
         return out
+    # 16-byte vectors where every row (bit 0) or scale (bit 1) starts on
+    # a 16-byte boundary
+    vec = (int(d * x.element_size() % 16 == 0 and x.data_ptr() % 16 == 0
+               and out.data_ptr() % 16 == 0)
+           | 2 * int(d * scale.element_size() % 16 == 0
+                     and scale.data_ptr() % 16 == 0))
     _build.launch("rmsnorm_fwd", x.data_ptr(), scale.data_ptr(),
                   out.data_ptr(), rows, d, float(eps), _build.dtype_code(x),
-                  _build.dtype_code(scale))
+                  _build.dtype_code(scale), vec)
     launches += 1
     return out

@@ -9,7 +9,9 @@ on a machine that has only PyTorch:
 
 Tolerances: 1e-5 in fp32, 2e-2 when q is bf16; the SSD scan 2e-4 in
 fp32 (its sums run in another order than the plain version's) and 2e-2
-for bf16 y.
+for bf16 y.  The tensor-core flash kernel (bf16 q) is also held against
+the emulation of its numerical contract (``tests/_flash_emulation.py``)
+at ``EMU_TOL``.
 """
 
 import numpy as np
@@ -17,6 +19,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _flash_emulation import flash_tc_emulation               # noqa: E402
+from repro_torch import kernels                               # noqa: E402
 from repro_torch.kernels import ops, ref                      # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_decode_attention  # noqa: E402,E501
@@ -24,6 +28,11 @@ from repro_torch.kernels.rmsnorm import rmsnorm               # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan             # noqa: E402
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# kernel vs the emulation of its contract, both rounding K, V and P to
+# bf16: rtol 2^-7 is one ulp of a bf16 output (a rounding flip), atol
+# covers P's rounding against the running row max (the emulation rounds
+# against the final max): 2^-8 relative per probability at most
+EMU_TOL = {"atol": 5e-3, "rtol": 2 ** -7}
 
 
 def _close(got, want, tol):
@@ -83,14 +92,97 @@ def test_cuda_flash_kernel_matches_plain(cuda, Sq, D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [1, 7, 8, 300, 500])
-@pytest.mark.parametrize("d", [64, 1024, 1536, 3072, 3584, 7168])
+@pytest.mark.parametrize("Sq", [1, 15, 64, 65, 130, 500, 512, 1024])
+@pytest.mark.parametrize("D", [64, 112, 128])
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", [1, 4])
+def test_cuda_flash_tc_kernel_grid(cuda, Sq, D, kv_dtype, G):
+    """bf16 q on the tensor-core kernel: every prefill bucket and a
+    decode query, each head_dim, the fp32 cache and bf16 K/V, MHA and
+    GQA; against the plain version and the emulated contract."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn(2, Sq, 8, D, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(2, Sq, 8 // G, D, generator=g, device=cuda).to(
+        getattr(torch, kv_dtype)) for _ in range(2))
+    kernels.reset_launch_counts()
+    got = flash_attention(q, k, v, causal=True)
+    assert kernels.variant_counts() == {"flash_attention.tc": 1,
+                                        "flash_attention.f32": 0}
+    with ops.plain_versions():
+        want = ops.flash_attention(q, k, v, causal=True)
+    emu = flash_tc_emulation(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    _close(got, want, 2e-2)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               emu.float().cpu().numpy(), **EMU_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,kv_dtype", [(64, "float32"), (112, "float32"),
+                                        (128, "bfloat16")])
+@pytest.mark.parametrize("q_dtype", ["bfloat16", "float32"])
+def test_cuda_flash_masks_and_empty_rows(cuda, D, kv_dtype, q_dtype):
+    """Sliding window, q_offset and kv_len < Skv together, GQA G=4, on
+    both kernels; with window 8 and kv_len 13 the rows at positions >= 20
+    see no key and are exact zeros.  The counters show the variant."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q = torch.randn(2, 70, 8, D, generator=g, device=cuda).to(
+        getattr(torch, q_dtype))
+    k, v = (torch.randn(2, 96, 2, D, generator=g, device=cuda).to(
+        getattr(torch, kv_dtype)) for _ in range(2))
+    variant = "tc" if q_dtype == "bfloat16" else "f32"
+    for kw in (dict(sliding_window=24, q_offset=10, kv_len=80),
+               dict(sliding_window=8, q_offset=0, kv_len=13)):
+        kernels.reset_launch_counts()
+        got = flash_attention(q, k, v, causal=True, **kw)
+        counts = kernels.variant_counts()
+        assert counts[f"flash_attention.{variant}"] == 1
+        assert sum(counts.values()) == 1
+        with ops.plain_versions():
+            want = ops.flash_attention(q, k, v, causal=True, **kw)
+        torch.cuda.synchronize()
+        _close(got, want, TOL[q_dtype])
+        if q_dtype == "bfloat16":
+            emu = flash_tc_emulation(q, k, v, causal=True, **kw)
+            np.testing.assert_allclose(got.float().cpu().numpy(),
+                                       emu.float().cpu().numpy(), **EMU_TOL)
+        if kw["kv_len"] == 13:
+            assert torch.all(got[:, 20:] == 0)
+            assert torch.any(got[:, :20] != 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 112, 128])
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16"])
+def test_cuda_flash_fp32_q_on_the_cuda_core_kernel(cuda, D, kv_dtype):
+    """fp32 q stays on the fp32 CUDA-core kernel, within 1e-5."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn(2, 130, 8, D, generator=g, device=cuda)
+    k, v = (torch.randn(2, 130, 2, D, generator=g, device=cuda).to(
+        getattr(torch, kv_dtype)) for _ in range(2))
+    kernels.reset_launch_counts()
+    got = flash_attention(q, k, v, causal=True)
+    assert kernels.variant_counts() == {"flash_attention.tc": 0,
+                                        "flash_attention.f32": 1}
+    with ops.plain_versions():
+        want = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    _close(got, want, TOL["float32"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 3, 7, 8, 33, 300, 500, 4000])
+@pytest.mark.parametrize("d", [64, 1000, 1001, 1024, 1536, 3072, 3584,
+                               7168])
 @pytest.mark.parametrize("scale_dtype", ["float32", "bfloat16"])
 def test_cuda_rmsnorm_kernel_matches_plain(cuda, rows, d, scale_dtype):
     """bf16 rows at every width the serving paths give the kernel:
     qwen1.5-0.5b's 64 (qk) and 1024, mamba2-780m's 1536 and 3072,
-    zamba2-7b's 3584 and 7168 (the 512-thread branch); the scale in fp32
-    or, as the served models hold it, bf16."""
+    zamba2-7b's 3584 and 7168 (a 256-thread block per row); d = 1000 (a
+    vector path that ends mid-group) and 1001 (the scalar branch: a tail,
+    and rows that are not 16-byte aligned); row counts that are not a
+    multiple of the rows a block takes.  The scale in fp32 or, as the
+    served models hold it, bf16."""
     x = torch.randn(rows, d, device=cuda).bfloat16()
     s = (1 + 0.1 * torch.randn(d, device=cuda)).to(getattr(torch,
                                                            scale_dtype))

@@ -140,3 +140,19 @@ def test_cli_fixed_batch_mode_refuses_the_cpu_unless_asked():
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--arch", "mamba2-780m", "--smoke", "--batch", "2",
               "--prompt", "16", "--generate", "4"])
+
+
+def test_every_cuda_source_is_built_and_every_kernel_names_its_source():
+    """Each ``csrc/*.cu`` is compiled (listed in ``_build.SOURCES``, so
+    nvcc builds it in parallel with the others), and each kernel
+    module's ``SOURCE`` (and the flash wrapper's ``SOURCE_F32``) names a
+    file of the repo that is one of them."""
+    from repro_torch.kernels import WRAPPERS, _build
+    on_disk = sorted(p.name for p in (PKG / "csrc").glob("*.cu"))
+    assert sorted(_build.SOURCES) == on_disk
+    named = [getattr(mod, attr) for mod in WRAPPERS.values()
+             for attr in ("SOURCE", "SOURCE_F32") if hasattr(mod, attr)]
+    assert len(named) == len(WRAPPERS) + 1
+    for src in named:
+        assert (ROOT / src).is_file(), src
+        assert Path(src).name in _build.SOURCES, src
