@@ -10,11 +10,19 @@ no result line):
               nvcc, with the build time;
 3. kernels  - each kernel against its plain PyTorch version on the card
               at the serving paths' shapes, max errors beside their
-              tolerances, and bitwise page-layout invariance; flash on
-              its tensor-core kernel (bf16 q) over Sq 1..1024, D 64 /
-              112 / 128, fp32 and bf16 K/V, G 1 and 4, the masks, rows
-              with no visible key exactly zero, and on its CUDA-core
-              kernel (fp32 q) at the fp32 tolerance;
+              tolerances; split-KV paged attention bitwise invariant
+              under the page layout and under the batch (a row alone
+              equals its row of B = 8), and on a bf16 pool of 16-token
+              pages with a window starting mid-split; flash on its
+              tensor-core kernel (bf16 q) over Sq 1..1024, D 64 / 112 /
+              128, fp32 and bf16 K/V, G 1 and 4, the masks, rows with no
+              visible key exactly zero, and on its CUDA-core kernel (fp32
+              q) at the fp32 tolerance; the SSD scan on its tensor-core
+              kernel (bf16 x, B, C) at the served shapes and over S
+              1..1000, chunk 64 / 128, N 64 / 128, P 32 / 64, G 1 / 2,
+              with and without an initial state (y 2e-2, state 2e-4), and
+              on its CUDA-core kernel (fp32) at 2e-4, each launch checked
+              by variant;
 4. serve    - qwen1.5-0.5b at full width (24 layers, d=1024, vocab
               151,936, seeded random weights) served by
               ``repro_torch.serve.Engine`` through ``run_trace``: 16
@@ -32,17 +40,21 @@ no result line):
               shared attention block 13 times, 4 x 500-token prompts, 16
               tokens) at full width and depth through the fixed-batch
               steps ``make_prefill_step`` / ``make_decode_step``, launch
-              counts checked exactly, logits held against the plain path
-              as in phase 4; 4e profiles a mamba2 decode window;
+              counts checked exactly (every served SSD launch on the
+              tensor-core kernel, the fp32-gated checks' on the CUDA-core
+              one), logits held against the plain path as in phase 4; 4e
+              profiles a mamba2 decode window;
 5. times    - each kernel's time (CUDA graphs of back-to-back calls,
               timed with CUDA events, median of trials) beside its plain
               version, a PyTorch library call where one computes the
               same function (for flash, SDPA in fp32 and, as
               ``library_bf16_ms``, on bf16 K/V), and the bound from the
-              H100's published peaks, at each path's shapes (flash at
+              H100's published peaks, at each path's shapes (paged at
+              the engine's 8-row and 1-row decode buckets; flash at
               qwen's 128 / 256 / 512 buckets and zamba2's prefill and
               decode; RMSNorm at 512 and 8 rows of 1024, 8 of 1536 and
-              3072, 2000 of 3584 and 7168);
+              3072, 2000 of 3584 and 7168; the SSD scan at mamba2's and
+              zamba2's prefill);
 6. the contract line ``{"ok": true, "device": {...}}``, last.
 
 It imports torch, numpy and ``repro_torch`` only (no JAX).
@@ -144,11 +156,11 @@ def paged_inputs(gen, B, H, KV, D, ps, PMAX, lengths, q_dtype, kv_dtype,
     return q, kp, vp, table, lens
 
 
-def ssd_inputs(gen, B, S, H, G, N, dtype, device):
-    """SSD scan inputs at P = 64: x and B/C in ``dtype``, fp32 dt > 0,
-    A < 0, D = 1 (the reference suite's scales)."""
+def ssd_inputs(gen, B, S, H, G, N, dtype, device, P=64):
+    """SSD scan inputs: x and B/C in ``dtype``, fp32 dt > 0, A < 0, D = 1
+    (the reference suite's scales)."""
     import torch
-    x = torch.randn(B, S, H, 64, generator=gen, device=device).to(dtype)
+    x = torch.randn(B, S, H, P, generator=gen, device=device).to(dtype)
     dt = torch.nn.functional.softplus(
         torch.randn(B, S, H, generator=gen, device=device))
     A = -torch.exp(0.5 * torch.randn(H, generator=gen, device=device))
@@ -158,7 +170,10 @@ def ssd_inputs(gen, B, S, H, G, N, dtype, device):
 
 
 def kernel_checks(device):
+    import itertools
+
     import torch
+    from repro_torch import kernels
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_attention import paged_decode_attention
@@ -214,6 +229,32 @@ def kernel_checks(device):
     emit({"phase": "kernels", "kernel": "paged_attention",
           "case": "bitwise layout invariance", "ok": same})
     check(same, "paged: output changed with the physical page layout")
+    # bitwise row independence: each row decoded alone (B = 1, with the
+    # full table row and with one cut to its live pages) equals its row
+    # of the B = 8 batch, as the engine moves rows between buckets
+    alone_ok = True
+    for b, n in enumerate(lens.tolist()):
+        for width in (table.shape[1], max(1, -(-n // 64))):
+            one = paged_decode_attention(
+                q[b:b + 1].contiguous(), kp, vp,
+                table[b:b + 1, :width].contiguous(), lens[b:b + 1])
+            alone_ok &= bool(torch.equal(one[0], out1[b]))
+    torch.cuda.synchronize()
+    emit({"phase": "kernels", "kernel": "paged_attention",
+          "case": "bitwise row independence, B=1 vs B=8", "ok": alone_ok})
+    check(alone_ok, "paged: a row's output changed with its batch")
+    # a bf16 pool of 16-token pages, GQA G=4, a 40-token window whose
+    # start falls inside a 64-position split for most rows
+    args = paged_inputs(gen, 8, 32, 8, 64, 16, 16,
+                        [0, 1, 16, 17, 100, 130, 250, 256], bf16, bf16,
+                        device)
+    got = paged_decode_attention(*args, sliding_window=40)
+    record("paged_attention", "B=8 H=32 KV=8 D=64 ps=16 window=40 q=bf16 "
+           "pages=bf16", got,
+           ref.paged_attention_ref(*args, sliding_window=40),
+           TOL["bfloat16"])
+    check(bool((got[0] == 0).all()),
+          "paged: a zero-length row is not exactly zero")
 
     # flash, bf16 q (the tensor-core kernel): every Sq bucket and a
     # decode query, each head_dim, K/V as the fp32 cache holds them and in
@@ -290,30 +331,63 @@ def kernel_checks(device):
             errs["flash_attention_d112"] = e
 
     # ssd: the serving shapes (bf16 x and B/C, fp32 dt, the zero fp32
-    # state the prefill passes from the cache), then an fp32 case with a
-    # random initial state, G = 2, and a prompt shorter than one chunk
+    # state the prefill passes from the cache) on the tensor-core kernel,
+    # y at the bf16 tolerance and the fp32 state at 2e-4; then the
+    # tensor-core grid (S 1..1000, chunk 64 / 128, N 64 / 128, P 32 / 64,
+    # G 1 / 2, with and without an initial state); then fp32 cases with a
+    # random initial state, G = 2 and a prompt shorter than one chunk on
+    # the CUDA-core kernel
+    def ssd_case(variant, tag, args, chunk, h0, y_tol, emit_each=True):
+        kernels.reset_launch_counts()
+        y, h = ssd_scan(*args, chunk=chunk, init_state=h0)
+        got = kernels.variant_counts()
+        check(got[f"ssd_scan.{variant}"] == 1
+              and kernels.launch_counts()["ssd_scan"] == 1,
+              f"ssd {tag}: ran on {got}, expected the {variant} kernel")
+        wy, wh = ref.ssd_chunked_ref(*args, chunk, init_state=h0)
+        if emit_each:
+            e = record("ssd_scan", f"{tag} y", y, wy, y_tol)
+            record("ssd_scan", f"{tag} state", h, wh, SSD_TOL)
+            return e, 0.0
+        torch.cuda.synchronize()
+        ok = (within(y, wy, y_tol) and within(h, wh, SSD_TOL)
+              and bool(torch.isfinite(y).all()))
+        check(ok, f"ssd {tag}: y err {max_err(y, wy)}, state err "
+              f"{max_err(h, wh)}")
+        return max_err(y, wy), max_err(h, wh)
+
     for arch, B, H, N in (("mamba2", 8, 48, 128), ("zamba2", 4, 112, 64)):
         args = ssd_inputs(gen, B, 500, H, 1, N, bf16, device)
         h0 = torch.zeros(B, H, 64, N, device=device)
-        y, h = ssd_scan(*args, chunk=128, init_state=h0)
-        wy, wh = ref.ssd_chunked_ref(*args, 128, init_state=h0)
-        e = record("ssd_scan", f"{arch} B={B} S=500 H={H} P=64 N={N} G=1 "
-                   f"Q=128 bf16 y", y, wy, TOL["bfloat16"])
-        record("ssd_scan", f"{arch} B={B} S=500 H={H} N={N} fp32 state", h,
-               wh, SSD_TOL)
+        e, _ = ssd_case("tc", f"{arch} B={B} S=500 H={H} P=64 N={N} G=1 "
+                        f"Q=128 bf16", args, 128, h0, TOL["bfloat16"])
         if arch == "mamba2":
             errs["ssd_scan"] = e
+    worst = [0.0, 0.0]
+    n_cases = 0
+    for S in (1, 100, 128, 129, 500, 1000):
+        for chunk, N, P, G, init in itertools.product(
+                (64, 128), (64, 128), (32, 64), (1, 2), (False, True)):
+            args = ssd_inputs(gen, 2, S, 4, G, N, bf16, device, P=P)
+            h0 = (torch.randn(2, 4, P, N, generator=gen, device=device)
+                  if init else None)
+            ey, eh = ssd_case("tc", f"S={S} chunk={chunk} N={N} P={P} "
+                              f"G={G} init={init}", args, chunk, h0,
+                              TOL["bfloat16"], emit_each=False)
+            worst = [max(worst[0], ey), max(worst[1], eh)]
+            n_cases += 1
+    emit({"phase": "kernels", "kernel": "ssd_scan",
+          "case": f"tensor-core grid, {n_cases} cases (B=2 H=4 bf16)",
+          "max_abs_err_y": worst[0], "tol_y": TOL["bfloat16"],
+          "max_abs_err_state": worst[1], "tol_state": SSD_TOL, "ok": True})
     for case, (B, S, H, G, N, chunk) in {
             "fp32 init_state": (2, 300, 8, 1, 128, 128),
             "fp32 G=2 init_state": (2, 260, 8, 2, 64, 64),
             "fp32 S=100<Q init_state": (3, 100, 4, 1, 128, 128)}.items():
         args = ssd_inputs(gen, B, S, H, G, N, f32, device)
         h0 = torch.randn(B, H, 64, N, generator=gen, device=device)
-        y, h = ssd_scan(*args, chunk=chunk, init_state=h0)
-        wy, wh = ref.ssd_chunked_ref(*args, chunk, init_state=h0)
-        tag = f"B={B} S={S} H={H} G={G} N={N} chunk={chunk} {case}"
-        record("ssd_scan", f"{tag} y", y, wy, SSD_TOL)
-        record("ssd_scan", f"{tag} state", h, wh, SSD_TOL)
+        ssd_case("f32", f"B={B} S={S} H={H} G={G} N={N} chunk={chunk} "
+                 f"{case}", args, chunk, h0, SSD_TOL)
 
     # rmsnorm: the model's rows and widths, activations and scale in the
     # compute dtype.  qwen1.5-0.5b: d = 64 (qk rows) and 1024; the
@@ -394,7 +468,7 @@ def serve_full_width(device):
           "tokens_decoded": stats["tokens_decoded"],
           "tokens_per_s": stats["tokens_decoded"] / wall,
           "prefills": prefills, "decode_steps": decodes,
-          "launches": counts, "flash_variants": variants,
+          "launches": counts, "kernel_variants": variants,
           "latency_modeled": latency_summary(handles),
           "kv": stats["kv"], "preempts": stats["preempts"],
           "swaps": stats["preempt_swaps"],
@@ -498,16 +572,32 @@ def check_flash_variant(what, compute, variants, n):
     return {"launches": got, "expected": want}
 
 
-def check_step_variant(model, step, n):
+def check_ssd_variant(what, compute, variants, n):
+    """``n`` SSD launches, all on the variant of the compute dtype: the
+    tensor-core kernel for bf16 x, B and C, the CUDA-core kernel for
+    fp32."""
+    on = "tc" if compute == "bfloat16" else "f32"
+    got = {v: variants[f"ssd_scan.{v}"] for v in ("tc", "f32")}
+    want = {v: n if v == on else 0 for v in got}
+    check(got == want, f"{what} ({compute}): ssd launches by variant "
+          f"{got} != {want}")
+    return {"launches": got, "expected": want}
+
+
+def check_step_variant(model, step, n, n_ssd=0):
     """The kernel path of a logits check's ``step`` launched flash ``n``
-    times on its compute dtype's variant."""
+    times and the SSD scan ``n_ssd`` times, each on its compute dtype's
+    variant."""
     from repro_torch import kernels
     cfg = model.cfg
+    variants = kernels.variant_counts()
     emit({"phase": "launches", "arch": cfg.name,
           "compute": cfg.compute_dtype,
-          "check": f"{step} logits: flash launches by variant",
+          "check": f"{step} logits: flash and ssd launches by variant",
           **check_flash_variant(f"{cfg.name} {step}", cfg.compute_dtype,
-                                kernels.variant_counts(), n)})
+                                variants, n),
+          "ssd": check_ssd_variant(f"{cfg.name} {step}", cfg.compute_dtype,
+                                   variants, n_ssd)})
 
 
 def logits_check(model, params, prompt, device, gate: bool, n_flash):
@@ -634,13 +724,15 @@ def fixed_batch_full_width(arch, device, batch, prompt, generate, *,
           "prompt": prompt, "generated": toks.shape[1],
           "prefill_s": run["prefill_s"], "decode_s": run["decode_s"],
           "decode_tokens_per_s": run["decode_tokens_per_s"],
-          "launches": counts, "flash_variants": variants,
+          "launches": counts, "kernel_variants": variants,
           "expected_launches": want,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "sample_tokens": toks[0, :8].tolist()})
     check(counts == want, f"{cfg.name}: launches {counts} != {want}")
     check_flash_variant(cfg.name, cfg.compute_dtype, variants,
                         counts["flash_attention"])
+    check_ssd_variant(cfg.name, cfg.compute_dtype, variants,
+                      counts["ssd_scan"])
     check(toks.shape == (batch, generate)
           and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
           f"{cfg.name}: tokens out of range or missing")
@@ -672,7 +764,8 @@ def recurrent_logits_check(model, params, tokens, gate: bool, n_flash):
     cache, through the kernels and through the plain versions; both
     decode steps start from the kernel path's cache and token.  Each
     kernel-path step launches flash ``n_flash`` times (once per shared
-    attention block), checked by variant."""
+    attention block), and the prefill the SSD scan once per mamba layer,
+    checked by variant."""
     import torch
     from repro_torch import kernels
     from repro_torch.kernels import ops
@@ -685,7 +778,8 @@ def recurrent_logits_check(model, params, tokens, gate: bool, n_flash):
 
     kernels.reset_launch_counts()
     got, cache = prefill()
-    check_step_variant(model, "prefill", n_flash)
+    check_step_variant(model, "prefill", n_flash,
+                       n_ssd=LAYOUT[model.cfg.name][0])
     with ops.plain_versions():
         want, _ = prefill()
     report("prefill", got, want, model.cfg.compute_dtype, gate,
@@ -775,15 +869,33 @@ def kernel_times(device, counts, errs):
     lens = [130, 260, 520, 150, 300, 563, 200, 400]
     sets = [paged_inputs(gen, 8, 16, 16, 64, 64, 16, lens, bf16, f32, device)
             for _ in range(4)]
+    def paged_bound(q, kp, lens):
+        live = sum(lens)
+        nbytes = (2 * live * 16 * 64 * kp.element_size()          # K and V
+                  + 2 * q.numel() * q.element_size()              # q, out
+                  + 4 * sum(-(-n // 64) for n in lens)            # table
+                  + 4 * len(lens))                                # lens
+        return bound(nbytes, 4 * live * 16 * 64, BF16_FLOPS)
+
     ms = time_ms(lambda i: pa.paged_decode_attention(*sets[i]), 4)
     plain = time_ms(lambda i: ref.paged_attention_ref(*sets[i]), 4)
-    live = sum(lens)
-    q, kp = sets[0][0], sets[0][1]
-    nbytes = (2 * live * 16 * 64 * kp.element_size()          # K and V
-              + 2 * q.numel() * q.element_size()              # q, out
-              + 4 * sum(-(-n // 64) for n in lens) + 4 * 8)   # table, lens
-    b_ms, b_by = bound(nbytes, 4 * live * 16 * 64, BF16_FLOPS)
+    b_ms, b_by = paged_bound(sets[0][0], sets[0][1], lens)
     row(pa, "paged_attention", ms, plain, b_ms, b_by, None)
+    emit({"phase": "times", "kernel": "paged_attention",
+          "case": "engine decode B=8 len 130..563 H=KV=16 D=64 ps=64 "
+                  "q=bf16 pages=fp32", "ms": ms, "plain_ms": plain,
+          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    # a one-row decode bucket: 300 tokens, 5 live splits x 16 heads
+    ones = [paged_inputs(gen, 1, 16, 16, 64, 64, 16, [300], bf16, f32,
+                         device) for _ in range(4)]
+    ms1 = time_ms(lambda i: pa.paged_decode_attention(*ones[i]), 4)
+    plain1 = time_ms(lambda i: ref.paged_attention_ref(*ones[i]), 4)
+    emit({"phase": "times", "kernel": "paged_attention",
+          "case": "engine decode B=1 len 300 H=KV=16 D=64 ps=64 q=bf16 "
+                  "pages=fp32", "ms": ms1, "plain_ms": plain1,
+          **dict(zip(("bound_ms", "bound_by"),
+                     paged_bound(ones[0][0], ones[0][1], [300]))),
+          "library_ms": None})
 
     def flash_time(B, Sq, Skv, H, D, q_offset=0, kv_len=None,
                    q_dtype=bf16):
@@ -865,24 +977,26 @@ def kernel_times(device, counts, errs):
               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib})
 
     # ssd: the prefill's shapes (bf16 x and B/C, fp32 dt, the cache's
-    # zero fp32 state), two input copies cycled so each call reads cold
+    # zero fp32 state) on the tensor-core kernel, two input copies cycled
+    # so each call reads cold
     for arch, B, H, N in (("mamba2", 8, 48, 128), ("zamba2", 4, 112, 64)):
         sets = [ssd_inputs(gen, B, 500, H, 1, N, bf16, device)
                 + (torch.zeros(B, H, 64, N, device=device),)
                 for _ in range(2)]
-        ms = time_ms(lambda i: ssd.ssd_scan(*sets[i][:6], chunk=128,
-                                            init_state=sets[i][6]), 2)
+
+        ms = time_ms(lambda i: ssd.ssd_scan(
+            *sets[i][:6], chunk=128, init_state=sets[i][6]), 2)
         plain = time_ms(lambda i: ref.ssd_chunked_ref(
             *sets[i][:6], 128, init_state=sets[i][6]), 2)
         b_ms, b_by = bound(*ssd_work(B, 500, H, 64, 1, N, 128, 2),
                            BF16_FLOPS)
         if arch == "mamba2":
-            row(ssd, "ssd_scan", ms, plain, b_ms, b_by, None)
-        else:
-            emit({"phase": "times", "kernel": "ssd_scan",
-                  "case": f"zamba2 prefill B={B} S=500 H={H} P=64 N={N} "
-                          f"G=1 Q=128 bf16", "ms": ms, "plain_ms": plain,
-                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+            row(ssd, "ssd_scan", ms, plain, b_ms, b_by, None, variant="tc")
+        emit({"phase": "times", "kernel": "ssd_scan",
+              "case": f"{arch} prefill B={B} S=500 H={H} P=64 N={N} G=1 "
+                      f"Q=128 bf16", "ms": ms, "plain_ms": plain,
+              "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+              "variant": "tc"})
     return rows
 
 
@@ -938,7 +1052,7 @@ def main() -> int:
     total = {name: sum(c[name] for c in counts.values())
              for name in counts["qwen1.5-0.5b"]}
     emit({"phase": "launches", "per_path": counts,
-          "flash_variants_per_path": variants, "total": total})
+          "kernel_variants_per_path": variants, "total": total})
     check(all(n > 0 for n in total.values()),
           f"a kernel never ran on the main paths: {total}")
     rows = kernel_times(device, total, errs)

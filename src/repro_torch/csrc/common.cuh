@@ -1,10 +1,11 @@
 // Shared helpers for the port's Hopper kernels: element conversion to
 // and from fp32, the dtype codes the Python wrappers pass (must match
-// kernels/_build.py DTYPE_CODES), and warp reductions.
+// kernels/_build.py DTYPE_CODES), warp reductions and 16-byte cp.async.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace repro {
 
@@ -39,5 +40,32 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 constexpr float kNegInf = -1e30f;  // the reference kernels' mask value
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+// 16 bytes global -> shared, bypassing L1; fill = false writes zeros
+// and reads nothing from src
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool fill) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(fill ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most n of this thread's committed groups are in flight
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  cp_async_commit();
+  cp_async_wait<0>();
+}
 
 }  // namespace repro

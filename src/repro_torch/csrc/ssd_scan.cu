@@ -1,8 +1,12 @@
-// Mamba2 SSD chunked scan on Hopper (sm_90a).
+// Mamba2 SSD chunked scan on Hopper's CUDA cores, for fp32 inputs
+// (sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/ssd_scan.py (ssd_scan, body
-// _kernel).  Per (batch, head) it walks the sequence in chunks of Q
-// tokens; per chunk, with a = dt * A and cum its running sum in the chunk:
+// _kernel) for fp32 x, B and C: the fp32-compute model checks and parity
+// runs.  Every served call (bf16 x, B and C) runs the tensor-core kernel
+// in ssd_scan_tc.cu instead.  Per (batch, head) it walks the sequence in
+// chunks of Q tokens; per chunk, with a = dt * A and cum its running sum
+// in the chunk:
 //
 //   y_q = sum_{k<=q} exp(cum_q - cum_k) (C_q . B_k) dt_k x_k   (intra-chunk)
 //       + exp(cum_q) C_q . h                                   (carried state)
@@ -15,25 +19,18 @@
 // fewer tokens, which is exactly the reference's zero padding: a padded
 // token has dt = 0 and changes neither cum nor the state.
 //
-// Layout: the model's own, x (B,S,H,P), dt (B,S,H) fp32, A and D (H,)
-// fp32, B/C (B,S,G,N), optional h0 and the output state (B,H,P,N) fp32;
-// head h reads group h / (H/G).  x, B and C share a dtype (fp32 or bf16),
-// which y is written in; all math is fp32.  Nothing is transposed on the
-// host.
+// Layout: the model's own, x (B,S,H,P), dt (B,S,H), A and D (H,), B/C
+// (B,S,G,N), optional h0 and the output state (B,H,P,N), all fp32; head
+// h reads group h / (H/G).  Nothing is transposed on the host.
 //
-// Bound on the H100: bytes.  At the serving shapes (S = 500, P = 64,
-// N = 64..128) one read of x, dt, B, C and h0 and one write of y and the
-// state move ~60-80 MB, ~20 us at 3.35 TB/s, against ~10-16 GFLOP that
-// the bf16 tensor cores would take ~15 us for.  This first version does
-// its arithmetic on CUDA cores in fp32 from shared memory (no wgmma, no
-// TMA), so it runs far from that bound.  What the design does: one block
-// per (batch, head) walks the chunks in order, as the TPU grid's
-// sequential axis does, and keeps the fp32 state in shared memory for the
-// whole sequence, so the state never goes to device memory between
-// chunks; each input element is read from device memory once.  The Q x Q
-// score tile does not fit beside the chunk's x, B and the state (at
-// Q = N = 128: 32 + 64 + 32 KB), so scores are built 32 query rows at a
-// time, each row tile with its own slice of C.
+// Bound on the H100: bytes, as for the tensor-core kernel; this one does
+// its arithmetic in fp32 on CUDA cores from shared memory and runs far
+// from it.  One block per (batch, head) walks the chunks in order and
+// keeps the fp32 state in shared memory for the whole sequence; each
+// input element is read from device memory once.  The Q x Q score tile
+// does not fit beside the chunk's x, B and the state (at Q = N = 128:
+// 32 + 64 + 32 KB), so scores are built 32 query rows at a time, each
+// row tile with its own slice of C.
 #include "common.cuh"
 
 namespace repro {
@@ -316,22 +313,16 @@ cudaError_t ssd_dispatch_p(int P, const void* x, const void* dt,
 
 using namespace repro;
 
-// h0 may be null (zero initial state).  1 <= N <= 128, 1 <= Q <= 128,
-// P in {32, 64}, H % G == 0.
+// fp32 throughout; h0 may be null (zero initial state).  1 <= N <= 128,
+// 1 <= Q <= 128, P in {32, 64}, H % G == 0.
 extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* A,
                             const void* Bm, const void* Cm, const void* D,
                             const void* h0, void* y, void* hout, int B, int S,
-                            int H, int G, int P, int N, int Q, int x_dtype,
+                            int H, int G, int P, int N, int Q,
                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (N < 1 || N > kMaxState || Q < 1 || Q > kMaxChunk || G < 1 || H % G)
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaErrorInvalidValue;
-  if (x_dtype == kF32)
-    e = ssd_dispatch_p<float>(P, x, dt, A, Bm, Cm, D, h0, y, hout, B, S, H,
-                              G, N, Q, s);
-  else if (x_dtype == kBF16)
-    e = ssd_dispatch_p<__nv_bfloat16>(P, x, dt, A, Bm, Cm, D, h0, y, hout, B,
-                                      S, H, G, N, Q, s);
-  return (int)e;
+  return (int)ssd_dispatch_p<float>(P, x, dt, A, Bm, Cm, D, h0, y, hout, B,
+                                    S, H, G, N, Q, s);
 }

@@ -1,6 +1,7 @@
 """The port's Hopper kernels: one wrapper module per TPU kernel it
-replaces (each with an integer ``launches`` count; flash attention
-chooses between two CUDA kernels and also counts each), their plain
+replaces (each with an integer ``launches`` count; flash attention and
+the SSD scan choose between two CUDA kernels by dtype and also count
+each), their plain
 PyTorch versions in ``ref``, the model-layout adapters in ``ops`` and
 the build in ``_build``."""
 
@@ -25,7 +26,8 @@ def launch_counts() -> Dict[str, int]:
 def variant_counts() -> Dict[str, int]:
     """Launches per kernel variant of the wrappers that choose between
     kernels, as ``"<wrapper>.<variant>"`` (``flash_attention.tc``,
-    ``flash_attention.f32``); they sum to the wrapper's count."""
+    ``flash_attention.f32``, ``ssd_scan.tc``, ``ssd_scan.f32``); they sum
+    to the wrapper's count."""
     return {f"{name}.{c[len('launches_'):]}": getattr(mod, c)
             for name, mod in WRAPPERS.items()
             for c in getattr(mod, "COUNTERS", ())[1:]}

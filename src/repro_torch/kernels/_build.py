@@ -31,7 +31,8 @@ from typing import Dict, Optional
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("paged_attention.cu", "flash_attention.cu",
-           "flash_attention_tc.cu", "rmsnorm.cu", "ssd_scan.cu")
+           "flash_attention_tc.cu", "rmsnorm.cu", "ssd_scan.cu",
+           "ssd_scan_tc.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -41,9 +42,9 @@ _FLASH = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I,
           _P)
 # C signature of every entry point: (argtypes) -> int (a cudaError_t)
 SIGNATURES = {
-    # q, k_pages, v_pages, page_table, lengths, out,
+    # q, k_pages, v_pages, page_table, lengths, out, ws_acc, ws_ml,
     # B, H, KV, D, ps, PMAX, sm_scale, window, q_dtype, kv_dtype, stream
-    "paged_attention_fwd": (_P, _P, _P, _P, _P, _P,
+    "paged_attention_fwd": (_P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
     # q, k, v, out, B, Sq, Skv, H, HKV, D, sm_scale, causal, window,
     # q_offset, kv_len, kv_dtype, stream (fp32 q: CUDA cores; bf16 q:
@@ -53,9 +54,12 @@ SIGNATURES = {
     # x, scale, out, rows, d, eps, x_dtype, scale_dtype, vec, stream
     "rmsnorm_fwd": (_P, _P, _P, _I, _I, _F, _I, _I, _I, _P),
     # x, dt, A, B, C, D, h0 (nullable), y, h_out,
-    # B, S, H, G, P, N, Q, x_dtype, stream
+    # B, S, H, G, P, N, Q, stream (fp32 x, B, C: CUDA cores)
     "ssd_scan_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                     _I, _I, _I, _I, _I, _I, _I, _I, _P),
+                     _I, _I, _I, _I, _I, _I, _I, _P),
+    # ... the same (bf16 x, B, C: tensor cores)
+    "ssd_scan_tc_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -16,6 +16,14 @@ q may be fp32 or bf16 independently of the pages (the engine decodes
 bf16 queries against an fp32 pool); all math is fp32.  A CPU tensor
 takes the plain version in ``ref``; a CUDA tensor launches the kernel or
 raises.
+
+The kernel is split-KV: each row's logical tokens are cut into splits of
+``SPLIT`` positions, one block per (KV head, row, split) writes its
+partial softmax to an fp32 workspace, and a second kernel combines each
+row's splits in order.  ``launches`` counts calls (one per call, though
+a call launches both kernels).  A row's output depends only on its own
+length, window and logical K/V: bitwise the same on any physical page
+layout, with any table width and in any batch.
 """
 
 from __future__ import annotations
@@ -26,10 +34,11 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-launches = 0        # kernel launches since the last reset_launch_counts()
+launches = 0        # calls that launched the kernels since the last reset
 SOURCE = "src/repro_torch/csrc/paged_attention.cu"
 REPLACES = "src/repro/kernels/paged_attention.py:140"
 HEAD_DIMS = (64, 128)
+SPLIT = 64          # logical tokens per split (csrc kSplit)
 
 
 def _check(q, k_pages, v_pages, page_table, lengths, sliding_window):
@@ -79,14 +88,22 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     tensors = (q, k_pages, v_pages, page_table, lengths)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged kernel inputs must be contiguous")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("paged kernel needs 16-byte aligned pages")
     out = torch.empty_like(q)
-    if B == 0:
-        return out
     P, ps, KV, _ = k_pages.shape
+    PMAX = page_table.shape[1]
+    if B == 0 or PMAX == 0:
+        return out.zero_()
+    n_splits = -(-PMAX * ps // SPLIT)
+    ws_acc = torch.empty((B, H, n_splits, D), dtype=torch.float32,
+                         device=q.device)
+    ws_ml = torch.empty((B, H, n_splits, 2), dtype=torch.float32,
+                        device=q.device)
     _build.launch("paged_attention_fwd", q.data_ptr(), k_pages.data_ptr(),
                   v_pages.data_ptr(), page_table.data_ptr(),
-                  lengths.data_ptr(), out.data_ptr(), B, H, KV, D, ps,
-                  page_table.shape[1], float(sm_scale),
+                  lengths.data_ptr(), out.data_ptr(), ws_acc.data_ptr(),
+                  ws_ml.data_ptr(), B, H, KV, D, ps, PMAX, float(sm_scale),
                   -1 if sliding_window is None else int(sliding_window),
                   _build.dtype_code(q), _build.dtype_code(k_pages))
     launches += 1

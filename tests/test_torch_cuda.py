@@ -9,9 +9,12 @@ on a machine that has only PyTorch:
 
 Tolerances: 1e-5 in fp32, 2e-2 when q is bf16; the SSD scan 2e-4 in
 fp32 (its sums run in another order than the plain version's) and 2e-2
-for bf16 y.  The tensor-core flash kernel (bf16 q) is also held against
-the emulation of its numerical contract (``tests/_flash_emulation.py``)
-at ``EMU_TOL``.
+for bf16 y, with the fp32 state of the tensor-core kernel (bf16 x, B, C)
+held at 2e-4 as well.  The tensor-core flash kernel (bf16 q) is also
+held against the emulation of its numerical contract
+(``tests/_flash_emulation.py``) at ``EMU_TOL``; the split-KV paged
+kernel against the transcription of its algorithm
+(``tests/_paged_emulation.py``) at the paged tolerances.
 """
 
 import numpy as np
@@ -20,6 +23,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from _flash_emulation import flash_tc_emulation               # noqa: E402
+from _paged_emulation import paged_split_emulation            # noqa: E402
+from _ssd_emulation import ssd_tc_emulation                   # noqa: E402
 from repro_torch import kernels                               # noqa: E402
 from repro_torch.kernels import ops, ref                      # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
@@ -107,7 +112,8 @@ def test_cuda_flash_tc_kernel_grid(cuda, Sq, D, kv_dtype, G):
     kernels.reset_launch_counts()
     got = flash_attention(q, k, v, causal=True)
     assert kernels.variant_counts() == {"flash_attention.tc": 1,
-                                        "flash_attention.f32": 0}
+                                        "flash_attention.f32": 0,
+                                        "ssd_scan.tc": 0, "ssd_scan.f32": 0}
     with ops.plain_versions():
         want = ops.flash_attention(q, k, v, causal=True)
     emu = flash_tc_emulation(q, k, v, causal=True)
@@ -163,7 +169,8 @@ def test_cuda_flash_fp32_q_on_the_cuda_core_kernel(cuda, D, kv_dtype):
     kernels.reset_launch_counts()
     got = flash_attention(q, k, v, causal=True)
     assert kernels.variant_counts() == {"flash_attention.tc": 0,
-                                        "flash_attention.f32": 1}
+                                        "flash_attention.f32": 1,
+                                        "ssd_scan.tc": 0, "ssd_scan.f32": 0}
     with ops.plain_versions():
         want = ops.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
@@ -208,8 +215,8 @@ def test_cuda_flash_kernel_decode_shape_at_head_dim_112(cuda):
     _close(got, want, 2e-2)
 
 
-def _ssd_inputs(g, B, S, H, G, N, dtype, dev):
-    x = torch.randn(B, S, H, 64, generator=g, device=dev).to(dtype)
+def _ssd_inputs(g, B, S, H, G, N, dtype, dev, P=64):
+    x = torch.randn(B, S, H, P, generator=g, device=dev).to(dtype)
     dt = torch.nn.functional.softplus(
         torch.randn(B, S, H, generator=g, device=dev))
     A = -torch.exp(0.5 * torch.randn(H, generator=g, device=dev))
@@ -250,3 +257,141 @@ def test_cuda_ssd_wrapper_refuses_what_the_kernel_cannot_take(cuda):
                                       cuda)
     with pytest.raises(TypeError):
         ssd_scan(x, dt, A, Bm.bfloat16(), Cm.bfloat16(), D)
+
+
+def _paged_batch(g, dev, lengths, ps, q_dtype, kv_dtype, H=16, KV=16,
+                 D=64, PMAX=16):
+    """One decode batch, each row on its own shuffled pages of a pool
+    with a trash page last."""
+    B = len(lengths)
+    P = B * PMAX + 1
+    q = torch.randn(B, H, D, generator=g, device=dev).to(q_dtype)
+    kp, vp = (torch.randn(P, ps, KV, D, generator=g, device=dev).to(kv_dtype)
+              for _ in range(2))
+    table = torch.randperm(P - 1, generator=g, device=dev)[:B * PMAX]
+    table = table.reshape(B, PMAX).to(torch.int32).contiguous()
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, kp, vp, table, lens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 100])
+def test_cuda_paged_row_output_does_not_change_with_the_batch(cuda, window):
+    """Split-KV: a row decoded alone (B = 1, a table cut to its live
+    pages) and inside B = 8 gives bitwise the same output, and the
+    layout of the pool does not change it either."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    lengths = [300, 0, 1, 64, 65, 563, 130, 1024]
+    q, kp, vp, table, lens = _paged_batch(g, cuda, lengths, 64,
+                                          torch.bfloat16, torch.float32)
+    full = paged_decode_attention(q, kp, vp, table, lens,
+                                  sliding_window=window)
+    for b, n in enumerate(lengths):
+        pages = max(1, -(-n // 64))
+        alone = paged_decode_attention(
+            q[b:b + 1].contiguous(), kp, vp,
+            table[b:b + 1, :pages].contiguous(), lens[b:b + 1],
+            sliding_window=window)
+        torch.cuda.synchronize()
+        assert torch.equal(alone[0], full[b]), (b, n)
+    perm = torch.randperm(kp.shape[0], generator=g, device=cuda)
+    kp2, vp2 = torch.empty_like(kp), torch.empty_like(vp)
+    kp2[perm], vp2[perm] = kp, vp
+    moved = paged_decode_attention(q, kp2, vp2,
+                                   perm[table.long()].to(torch.int32), lens,
+                                   sliding_window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(moved, full)
+    _close(full, ref.paged_attention_ref(q, kp, vp, table, lens,
+                                         sliding_window=window),
+           TOL["bfloat16"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", [1, 4])
+def test_cuda_paged_bf16_pool_ps16_window_mid_split(cuda, q_dtype, G):
+    """A bf16 pool of 16-token pages, GQA, a 40-token window whose start
+    falls inside a 64-position split; against the plain version and the
+    split-KV transcription."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    lengths = [0, 1, 16, 17, 100, 130, 250, 256]
+    q, kp, vp, table, lens = _paged_batch(
+        g, cuda, lengths, 16, getattr(torch, q_dtype), torch.bfloat16,
+        H=8 * G, KV=8, PMAX=16)
+    got = paged_decode_attention(q, kp, vp, table, lens, sliding_window=40)
+    want = ref.paged_attention_ref(q, kp, vp, table, lens,
+                                   sliding_window=40)
+    emu = paged_split_emulation(q, kp, vp, table, lens, sliding_window=40)
+    torch.cuda.synchronize()
+    _close(got, want, TOL[q_dtype])
+    _close(got, emu, TOL[q_dtype])
+    assert torch.all(got[0] == 0)
+
+
+# the SSD grid of the tensor-core kernel: (S, chunk, N, P, G)
+SSD_TC_GRID = [(S, chunk, N, P, G) for S in (1, 100, 128, 129, 500, 1000)
+               for chunk in (64, 128) for N in (64, 128) for P in (32, 64)
+               for G in (1, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("S,chunk,N,P,G", SSD_TC_GRID)
+def test_cuda_ssd_tc_kernel_grid(cuda, S, chunk, N, P, G, init):
+    """bf16 x, B and C on the tensor-core kernel: y within 2e-2, the
+    fp32 state within 2e-4 of the plain version, with and without an
+    initial state; one launch, on the tc variant."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    args = _ssd_inputs(g, 2, S, 4, G, N, torch.bfloat16, cuda, P=P)
+    h0 = torch.randn(2, 4, P, N, generator=g, device=cuda) if init else None
+    kernels.reset_launch_counts()
+    y, h = ssd_scan(*args, chunk=chunk, init_state=h0)
+    assert kernels.variant_counts()["ssd_scan.tc"] == 1
+    assert kernels.launch_counts()["ssd_scan"] == 1
+    wy, wh = ref.ssd_chunked_ref(*args, chunk, init_state=h0)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+    _close(y, wy, 2e-2)
+    _close(h, wh, 2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,H,N", [("mamba2", 48, 128),
+                                      ("zamba2", 112, 64)])
+def test_cuda_ssd_tc_matches_emulation(cuda, arch, H, N):
+    """At a served head layout (two rows of 500 tokens): the tensor-core
+    kernel agrees with the emulated contract within the smoke's
+    tolerances, and a second call (the launch plan then cached) gives
+    bitwise the same result."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    args = _ssd_inputs(g, 2, 500, H, 1, N, torch.bfloat16, cuda)
+    y1, h1 = ssd_scan(*args, chunk=128)
+    y2, h2 = ssd_scan(*args, chunk=128)
+    ey, eh = ssd_tc_emulation(*args, 128)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+    _close(y1, ey, 2e-2)
+    _close(h1, eh, 2e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_dtype_dispatch_and_refusals(cuda):
+    """fp32 inputs take the CUDA-core kernel, bf16 the tensor-core one;
+    fp16 and unaligned bf16 inputs raise."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    f32 = _ssd_inputs(g, 1, 64, 2, 1, 64, torch.float32, cuda)
+    kernels.reset_launch_counts()
+    ssd_scan(*f32, chunk=64)
+    assert kernels.variant_counts()["ssd_scan.f32"] == 1
+    assert kernels.variant_counts()["ssd_scan.tc"] == 0
+    x, dt, A, Bm, Cm, D = f32
+    with pytest.raises(TypeError):
+        ssd_scan(x.half(), dt, A, Bm.half(), Cm.half(), D)
+    flat = torch.zeros(Bm.numel() + 1, device=cuda, dtype=torch.bfloat16)
+    Bu = flat[1:].view(Bm.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        ssd_scan(x.bfloat16(), dt, A, Bu, Cm.bfloat16(), D)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ssd_scan(x.bfloat16(), dt, A, Bm[..., :12].bfloat16().contiguous(),
+                 Cm[..., :12].bfloat16().contiguous(), D)

@@ -145,14 +145,21 @@ def test_cli_fixed_batch_mode_refuses_the_cpu_unless_asked():
 def test_every_cuda_source_is_built_and_every_kernel_names_its_source():
     """Each ``csrc/*.cu`` is compiled (listed in ``_build.SOURCES``, so
     nvcc builds it in parallel with the others), and each kernel
-    module's ``SOURCE`` (and the flash wrapper's ``SOURCE_F32``) names a
-    file of the repo that is one of them."""
+    module's ``SOURCE`` (and, for the flash and SSD wrappers, which
+    choose between two kernels, ``SOURCE_F32``) names a file of the repo
+    that is one of them; every source is some wrapper's, and each C
+    entry point is found in the sources."""
     from repro_torch.kernels import WRAPPERS, _build
     on_disk = sorted(p.name for p in (PKG / "csrc").glob("*.cu"))
     assert sorted(_build.SOURCES) == on_disk
     named = [getattr(mod, attr) for mod in WRAPPERS.values()
              for attr in ("SOURCE", "SOURCE_F32") if hasattr(mod, attr)]
-    assert len(named) == len(WRAPPERS) + 1
+    assert len(named) == len(WRAPPERS) + 2
+    assert sorted(Path(src).name for src in named) == on_disk
+    assert "ssd_scan_tc.cu" in on_disk
     for src in named:
         assert (ROOT / src).is_file(), src
         assert Path(src).name in _build.SOURCES, src
+    text = "".join((PKG / "csrc" / n).read_text() for n in on_disk)
+    for entry in _build.SIGNATURES:
+        assert f'extern "C" int {entry}(' in text, entry
