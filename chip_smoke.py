@@ -13,7 +13,10 @@ no result line):
               tolerances; split-KV paged attention bitwise invariant
               under the page layout and under the batch (a row alone
               equals its row of B = 8), and on a bf16 pool of 16-token
-              pages with a window starting mid-split; flash on its
+              pages with a window starting mid-split, and at the pooled
+              path's shape (bf16 q, fp32 pool of 16-token pages, H=KV=16,
+              D=64, 8-page tables; rows alone and in pairs bitwise equal
+              to their rows of B = 4); flash on its
               tensor-core kernel (bf16 q) over Sq 1..1024, D 64 / 112 /
               128, fp32 and bf16 K/V, G 1 and 4, the masks, rows with no
               visible key exactly zero, and on its CUDA-core kernel (fp32
@@ -35,6 +38,26 @@ no result line):
               compute, on flash's CUDA-core kernel; the served bf16
               comparison is reported beside it); 4b profiles an engine
               window;
+6.  pooled  - (run right after phase 4, on its model and weights)
+              benchmarks/fig9_multitenant.py's smoke scenario at full
+              width: three skewed tenants (hog, mid, burst) served by
+              three engines from ONE 24-page ``PoolArbiter`` pool through
+              ``run_multi_trace`` (then again without the page check and
+              the tracer, timed), against three static 1/3 private
+              engines; a lone tenant under an arbiter against a private
+              engine; two tenants built with ``Engine.from_lease`` from
+              one multi-tenant lease against ``Engine.local`` with
+              ``kv_share``'s budget; the pooled scenario in fp32 against
+              private engines with ample pools.  Checked: every request
+              done, revocation fired, pooled aggregate p95 below static
+              and no tenant above 1.05x its static p95, the lone tenant
+              and the lease engines identical (tokens, clocks) to their
+              counterparts, the fp32 pooled tokens equal to the private
+              engines' (revocation fired there too), the timed rerun
+              identical to the watched run, no live page in two tenants'
+              tables after any step, the modeled numbers equal to the
+              same scenario at smoke width on the CPU, and the paged,
+              flash and RMSNorm launches exact;
 4c/4d. batch - mamba2-780m (48 layers, d=1536, 8 x 500-token prompts,
               32 tokens) and zamba2-7b (81 mamba layers, d=3584, the
               shared attention block 13 times, 4 x 500-token prompts, 16
@@ -55,7 +78,9 @@ no result line):
               decode; RMSNorm at 512 and 8 rows of 1024, 8 of 1536 and
               3072, 2000 of 3584 and 7168; the SSD scan at mamba2's and
               zamba2's prefill);
-6. the contract line ``{"ok": true, "device": {...}}``, last.
+then the ``launches`` and ``kernels`` lines (phase 6's launches among
+the paths), and the contract line ``{"ok": true, "device": {...}}``,
+last.
 
 It imports torch, numpy and ``repro_torch`` only (no JAX).
 """
@@ -255,6 +280,38 @@ def kernel_checks(device):
            TOL["bfloat16"])
     check(bool((got[0] == 0).all()),
           "paged: a zero-length row is not exactly zero")
+    # the pooled path's shape (phase 6): bf16 q over an fp32 pool of
+    # 16-token pages, H=KV=16, D=64, a table of 8 pages, so each
+    # 64-position split crosses 4 pages; then each row decoded alone and
+    # in pairs (the engine's 1- and 2-row buckets) equals its row of B=4
+    for lens in ([0, 17, 65, 128], [1, 33, 64, 100]):
+        q, kp, vp, table, lt = paged_inputs(gen, 4, 16, 16, 64, 16, 8, lens,
+                                            bf16, f32, device)
+        out4 = paged_decode_attention(q, kp, vp, table, lt)
+        record("paged_attention", f"B=4 H=KV=16 D=64 ps=16 pages=8 "
+               f"lens={lens} q=bf16 pages=fp32", out4,
+               ref.paged_attention_ref(q, kp, vp, table, lt),
+               TOL["bfloat16"])
+        if 0 in lens:
+            check(bool((out4[lens.index(0)] == 0).all()),
+                  "paged: a zero-length row is not exactly zero")
+        alone_ok = True
+        for b, n in enumerate(lens):
+            for width in (table.shape[1], max(1, -(-n // 16))):
+                one = paged_decode_attention(
+                    q[b:b + 1].contiguous(), kp, vp,
+                    table[b:b + 1, :width].contiguous(), lt[b:b + 1])
+                alone_ok &= bool(torch.equal(one[0], out4[b]))
+        for b in (0, 2):
+            two = paged_decode_attention(q[b:b + 2].contiguous(), kp, vp,
+                                         table[b:b + 2].contiguous(),
+                                         lt[b:b + 2])
+            alone_ok &= bool(torch.equal(two, out4[b:b + 2]))
+        torch.cuda.synchronize()
+        emit({"phase": "kernels", "kernel": "paged_attention",
+              "case": f"bitwise row independence ps=16, B=1 and B=2 vs "
+                      f"B=4, lens={lens}", "ok": alone_ok})
+        check(alone_ok, "paged ps=16: a row's output changed with its batch")
 
     # flash, bf16 q (the tensor-core kernel): every Sq bucket and a
     # decode query, each head_dim, K/V as the fp32 cache holds them and in
@@ -506,7 +563,7 @@ def serve_full_width(device):
                  trace[0].prompt_tokens, device, gate=True, n_flash=(L, 0))
     del model32
     profile_window(model, engine.params, device)
-    return counts, variants
+    return counts, variants, model, engine.params
 
 
 def profile_window(model, params, device):
@@ -823,6 +880,359 @@ def profile_decode_window(params, decode, carry, steps: int):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: multi-tenant pooled serving (fig9's smoke scenario) at full width
+# ---------------------------------------------------------------------------
+
+# benchmarks/fig9_multitenant.py's smoke constants, restated (the smoke
+# imports nothing of benchmarks/): three skewed tenants on one 24-page
+# pool, 4 slots each, a 3 GB tier-2 grant split three ways
+MT_PAGE, MT_PROMPT, MT_MAX_NEW, MT_SLOTS = 16, 32, 96, 4
+MT_POOL_PAGES, MT_T2_BYTES = 24, 3e9
+MT_TENANTS = ("hog", "mid", "burst")
+MT_SHALLOW = 2      # depth of the comparison runs (b)-(e)
+
+
+def mt_traffic():
+    """fig9's ``_traffic(smoke=True)``: a hog of 8 requests 4 ms apart,
+    a steady tenant of 4 requests 12 ms apart with half the new tokens,
+    and a burst of 2 at t = 20 ms with a third of them.  Drawn with the
+    smoke config's vocab, as fig9 draws them, at every width: numpy's
+    ``randint`` takes more or fewer draws from the seed's stream by
+    range, so another vocab would move the arrival times."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import synthetic_trace
+    vocab = get_config("qwen1.5-0.5b", smoke=True).vocab
+    hog = synthetic_trace(8, mean_interarrival_s=0.004,
+                          prompt_lens=(MT_PROMPT,),
+                          max_new_tokens=MT_MAX_NEW, vocab=vocab, seed=0)
+    mid = synthetic_trace(4, mean_interarrival_s=0.012,
+                          prompt_lens=(MT_PROMPT,),
+                          max_new_tokens=MT_MAX_NEW // 2, vocab=vocab,
+                          seed=1)
+    burst = [dataclasses.replace(r, arrival_time=0.02)
+             for r in synthetic_trace(2, mean_interarrival_s=0.0,
+                                      prompt_lens=(MT_PROMPT,),
+                                      max_new_tokens=MT_MAX_NEW // 3,
+                                      vocab=vocab, seed=2)]
+    return {"hog": hog, "mid": mid, "burst": burst}
+
+
+def mt_engine(model, params, device, **kw):
+    """One engine of the scenario with fig9's ``_cost_model``: modeled
+    costs priced at the full-size qwen1.5-0.5b, tier-2 bandwidth scaled
+    by this engine's page bytes over the full model's bf16 page, so the
+    schedule does not depend on the width served."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import Engine, EngineConfig, ServeCostModel
+
+    full = get_config("qwen1.5-0.5b")
+    lease = kw.pop("lease", None)
+    cfg = EngineConfig(max_slots=MT_SLOTS, max_seq=MT_PROMPT + MT_MAX_NEW,
+                       page_size=MT_PAGE)
+    if lease is not None:
+        eng = Engine.from_lease(model, lease, cfg, params=params,
+                                device=device, **kw)
+    else:
+        eng = Engine.local(model, cfg, params=params, device=device, **kw)
+    cm = ServeCostModel.from_fabric(2.0 * full.param_count())
+    full_page = (2 * full.n_layers * MT_PAGE * full.n_kv_heads
+                 * full.head_dim * 2)
+    eng.cost = dataclasses.replace(
+        cm, tier2_bw=cm.tier2_bw * eng.kv.page_bytes / full_page)
+    return eng
+
+
+def mt_pooled(model, params, device, tracer=None, watch=False):
+    """(a) the tenants on one ``PoolArbiter`` through ``run_multi_trace``;
+    with ``watch`` the pool's page conservation (no live page in two
+    tenants' tables) is checked at the end of every engine step."""
+    from repro_torch.serve import KVBudget, PoolArbiter, run_multi_trace
+
+    arb = PoolArbiter(MT_POOL_PAGES, page_size=MT_PAGE, tracer=tracer)
+    n = len(MT_TENANTS)
+    engines = {t: mt_engine(model, params, device, arbiter=arb, tenant=t,
+                            tracer=tracer,
+                            budget=KVBudget(tier2_bytes=MT_T2_BYTES / n,
+                                            page_size=MT_PAGE))
+               for t in MT_TENANTS}
+    checked = [0]
+    if watch:
+        for eng in engines.values():
+            def step(orig=eng.step):
+                dt = orig()
+                arb.check_conservation()
+                checked[0] += 1
+                return dt
+            eng.step = step
+    traffic = mt_traffic()
+    lists = run_multi_trace([(engines[t], traffic[t]) for t in MT_TENANTS])
+    return arb, engines, dict(zip(MT_TENANTS, lists)), checked[0]
+
+
+def mt_static(model, params, device):
+    """(b) static 1/3 partitions: each tenant a private engine with a
+    third of the pool and of the tier-2 grant."""
+    from repro_torch.serve import KVBudget, run_trace
+    n = len(MT_TENANTS)
+    traffic = mt_traffic()
+    return {t: run_trace(mt_engine(model, params, device,
+                                   budget=KVBudget(
+                                       tier1_pages=MT_POOL_PAGES // n,
+                                       tier2_bytes=MT_T2_BYTES / n,
+                                       page_size=MT_PAGE)), traffic[t])
+            for t in MT_TENANTS}
+
+
+def mt_modeled(arb, engines, handles):
+    """The numbers the modeled clock gives: per tenant p95, swaps,
+    recomputes and every handle's clocks, and the arbiter's revoked
+    pages — width-free by construction."""
+    from repro_torch.serve import latency_summary
+    out = {"revoked_pages": arb.revoked_pages,
+           "revocations": arb.revocations,
+           "recompute_drops": arb.recompute_drops}
+    for t in MT_TENANTS:
+        st = engines[t].stats()
+        out[t] = {"p95_s": latency_summary(handles[t])["p95_s"],
+                  "swaps": st["preempt_swaps"],
+                  "recomputes": st["preempt_recomputes"],
+                  "clocks": [(h.submit_clock, h.first_token_clock,
+                              h.done_clock) for h in handles[t]]}
+    return out
+
+
+def same_runs(a, b) -> bool:
+    """Identical tokens and handle clocks, request by request."""
+    return len(a) == len(b) and all(
+        x.tokens == y.tokens
+        and (x.submit_clock, x.first_token_clock, x.done_clock)
+        == (y.submit_clock, y.first_token_clock, y.done_clock)
+        for x, y in zip(a, b))
+
+
+def multitenant_full_width(model, params, device):
+    """fig9's smoke scenario served on the card from one physical KV
+    pool: (a) the three tenants on one ``PoolArbiter`` at full width and
+    depth, every kernel launch counted and the pages checked after every
+    step, then run again unwatched and untraced for the wall time; (b)
+    three static 1/3 private engines; (c) a lone tenant under an 8-page
+    arbiter against a private engine with that budget, on the hog's
+    trace; (d) two tenants built with ``Engine.from_lease`` from one
+    multi-tenant lease against ``Engine.local`` with ``kv_share``'s
+    budget; (e) the pooled scenario in fp32, each tenant's tokens against
+    a private engine with an ample pool, so revocation's gather, copy
+    and page reuse on the card are held to a run that never revokes.
+    (b)-(e) run the first ``MT_SHALLOW`` layers at full width: their
+    modeled numbers do not depend on depth (checked against the CPU run
+    below), and the smoke's time stays in bounds.  (a)'s and (b)'s
+    modeled numbers must equal the same scenario's at smoke width on
+    the CPU."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.obs import Tracer
+    from repro_torch.pool import smoke_pool
+    from repro_torch.serve import (KVBudget, PoolArbiter, RequestStatus,
+                                   latency_summary, run_multi_trace,
+                                   run_trace)
+
+    # the same scenario at smoke width on the CPU, inside this run
+    small = build_model(get_config("qwen1.5-0.5b", smoke=True),
+                        device="cpu")
+    small_params = small.init(torch.Generator().manual_seed(0))
+    cpu = torch.device("cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)        # its ops are tiny: threads only wait
+    t0 = time.perf_counter()
+    cpu_modeled = mt_modeled(*mt_pooled(small, small_params, cpu,
+                                        watch=True)[:3])
+    cpu_static = mt_static(small, small_params, cpu)
+    cpu_s = time.perf_counter() - t0
+    torch.set_num_threads(threads)
+
+    # (a) on the card, every kernel launch counted
+    tracer = Tracer(1 << 20)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    arb, engines, fair, checked = mt_pooled(model, params, device,
+                                            tracer=tracer, watch=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    variants = kernels.variant_counts()
+    names = [e.name for e in tracer.events()]
+    decodes, prefills = names.count("decode"), names.count("prefill")
+    modeled = mt_modeled(arb, engines, fair)
+    L = model.cfg.n_layers
+    tokens = sum(engines[t].stats()["tokens_decoded"] for t in MT_TENANTS)
+    all_fair = [h for t in MT_TENANTS for h in fair[t]]
+
+    # (a) again without the page check and the tracer, timed: the wall
+    # and tokens per wall second a deployment would see; it must repeat
+    # the watched run's tokens and modeled numbers
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    arb_t, engines_t, timed, _ = mt_pooled(model, params, device)
+    torch.cuda.synchronize()
+    timed_wall = time.perf_counter() - t0
+    repeat_same = (mt_modeled(arb_t, engines_t, timed) == modeled
+                   and all(same_runs(timed[t], fair[t]) for t in MT_TENANTS))
+    del arb_t, engines_t, timed
+
+    # (b)-(e) at depth MT_SHALLOW: the full model's first layers
+    shallow = build_model(dataclasses.replace(model.cfg,
+                                              n_layers=MT_SHALLOW),
+                          device=device)
+    shallow_params = {**params, "layers": params["layers"][:MT_SHALLOW]}
+    t0 = time.perf_counter()
+    static = mt_static(shallow, shallow_params, device)
+    torch.cuda.synchronize()
+    static_wall = time.perf_counter() - t0
+    all_static = [h for t in MT_TENANTS for h in static[t]]
+    static_clocks = {t: [(h.submit_clock, h.first_token_clock,
+                          h.done_clock) for h in static[t]]
+                     for t in MT_TENANTS}
+
+    n = len(MT_TENANTS)
+    hog = mt_traffic()["hog"]
+    priv = run_trace(mt_engine(shallow, shallow_params, device,
+                               budget=KVBudget(MT_POOL_PAGES // n,
+                                               MT_T2_BYTES / n, MT_PAGE)),
+                     hog)
+    solo_arb = PoolArbiter(MT_POOL_PAGES // n, page_size=MT_PAGE)
+    solo = run_trace(mt_engine(shallow, shallow_params, device,
+                               arbiter=solo_arb, tenant="solo",
+                               budget=KVBudget(tier2_bytes=MT_T2_BYTES / n,
+                                               page_size=MT_PAGE)), hog)
+
+    # (d) two tenants from one lease == Engine.local with kv_share
+    traffic = mt_traffic()
+    lease = smoke_pool("scalepool").lease("chip-serve", 4, tier2_gb=8,
+                                          kv_gb=1, tenants=("t0", "t1"))
+    pair = {"t0": traffic["mid"], "t1": traffic["burst"]}
+    runs = []
+    for leased in (True, False):
+        a2 = PoolArbiter(MT_POOL_PAGES // 2, page_size=MT_PAGE)
+        engs = {t: (mt_engine(shallow, shallow_params, device, lease=lease,
+                              arbiter=a2, tenant=t) if leased else
+                    mt_engine(shallow, shallow_params, device, arbiter=a2,
+                              tenant=t,
+                              budget=lease.kv_share(t, page_size=MT_PAGE)))
+                for t in pair}
+        runs.append((run_multi_trace([(engs[t], pair[t]) for t in pair]),
+                     [engs[t].budget.tier2_bytes for t in pair]))
+
+    # (e) revocation on the card against an independent run: the pooled
+    # scenario in fp32 (the same weights, upcast exactly) must give each
+    # tenant the tokens that a private engine with room for every slot's
+    # pages gives it, though the hog's pages were revoked, spilled and
+    # fetched while other tenants reused them
+    shallow32 = build_model(dataclasses.replace(shallow.cfg,
+                                                compute_dtype="float32"),
+                            device=device)
+    arb32, engines32, pooled32, _ = mt_pooled(shallow32, shallow_params,
+                                              device)
+    ample = MT_SLOTS * (MT_PROMPT + MT_MAX_NEW) // MT_PAGE
+    private32 = {}
+    for t in MT_TENANTS:
+        eng = mt_engine(shallow32, shallow_params, device,
+                        budget=KVBudget(ample, MT_T2_BYTES / n, MT_PAGE))
+        private32[t] = (run_trace(eng, traffic[t]), eng.stats()["preempts"])
+    torch.cuda.synchronize()
+    revoked32 = {"revoked_pages": arb32.revoked_pages,
+                 "hog_swaps": engines32["hog"].stats()["preempt_swaps"]}
+    tokens_equal32 = {t: [h.tokens for h in pooled32[t]]
+                      == [h.tokens for h in private32[t][0]]
+                      for t in MT_TENANTS}
+    del shallow32, arb32, engines32, pooled32
+
+    per_tenant = {}
+    for t in MT_TENANTS:
+        st = engines[t].stats()
+        per_tenant[t] = {
+            "p95_fair_s": modeled[t]["p95_s"],
+            "p95_static_s": latency_summary(static[t])["p95_s"],
+            "swaps": modeled[t]["swaps"],
+            "recomputes": modeled[t]["recomputes"],
+            "requests": len(fair[t]), "tokens_decoded": st["tokens_decoded"],
+            "revocation_charged_s":
+                arb.stats()["tenants"][t]["revocation_charged_s"]}
+    agg_fair = latency_summary(all_fair)["p95_s"]
+    agg_static = latency_summary(all_static)["p95_s"]
+    static_equal = static_clocks == {
+        t: [(h.submit_clock, h.first_token_clock, h.done_clock)
+            for h in cpu_static[t]] for t in MT_TENANTS}
+    emit({"phase": "multitenant", "arch": model.cfg.name,
+          "layers": L, "d_model": model.cfg.d_model,
+          "comparison_layers": MT_SHALLOW,
+          "tenants": per_tenant, "revoked_pages": arb.revoked_pages,
+          "revocations": arb.revocations,
+          "agg_p95_fair_s": agg_fair, "agg_p95_static_s": agg_static,
+          "wall_s": timed_wall, "tokens_decoded": tokens,
+          "tokens_per_s": tokens / timed_wall, "watched_wall_s": wall,
+          "repeat_identical": repeat_same, "static_wall_s": static_wall,
+          "fp32_revocation": revoked32,
+          "fp32_private_preempts": {t: private32[t][1] for t in MT_TENANTS},
+          "fp32_tokens_equal_private": tokens_equal32,
+          "prefills": prefills, "decode_steps": decodes,
+          "page_checks": checked, "launches": counts,
+          "kernel_variants": variants,
+          "cpu_smoke_width_s": cpu_s,
+          "modeled_equal_smoke_width": modeled == cpu_modeled,
+          "static_equal_smoke_width": static_equal,
+          "trace_dropped": tracer.dropped})
+    check(tracer.dropped == 0, "multitenant: trace ring dropped events")
+    done = all(h.status is RequestStatus.DONE for h in all_fair + all_static)
+    check(done and all(engines[t].stats()["failed_oom"] == 0
+                       for t in MT_TENANTS),
+          "multitenant: a request did not finish or failed OOM")
+    check(all(len(h.tokens) == h.request.max_new_tokens
+              and all(0 <= x < model.cfg.vocab for x in h.tokens)
+              for h in all_fair), "multitenant: tokens missing or out of "
+          "range")
+    check(arb.revoked_pages > 0, "multitenant: revocation never fired")
+    check(agg_fair < agg_static, f"multitenant: pooled aggregate p95 "
+          f"{agg_fair} not below static {agg_static}")
+    for t, v in per_tenant.items():
+        check(v["p95_fair_s"] <= 1.05 * v["p95_static_s"],
+              f"multitenant: {t} p95 {v['p95_fair_s']} > 1.05 x static "
+              f"{v['p95_static_s']}")
+    check(same_runs(priv, solo), "multitenant: a lone tenant under an "
+          "arbiter differs from its private engine")
+    (leased_h, leased_t2), (local_h, local_t2) = runs
+    check(leased_t2 == local_t2 == [0.5e9, 0.5e9]
+          and all(same_runs(a, b) for a, b in zip(leased_h, local_h)),
+          "multitenant: lease-built engines differ from local ones")
+    check(repeat_same, "multitenant: the unwatched rerun of (a) differs "
+          "from the watched run")
+    check(revoked32["revoked_pages"] > 0 and revoked32["hog_swaps"] > 0,
+          f"multitenant fp32: revocation did not fire: {revoked32}")
+    check(all(private32[t][1] == 0 for t in MT_TENANTS),
+          "multitenant fp32: a private engine with an ample pool preempted")
+    check(all(tokens_equal32.values()), f"multitenant fp32: pooled tokens "
+          f"differ from private engines': {tokens_equal32}")
+    check(checked > 0, "multitenant: no page check ran")
+    check(modeled == cpu_modeled, f"multitenant: modeled numbers at full "
+          f"width {modeled} != smoke width on the CPU {cpu_modeled}")
+    check(static_equal, "multitenant: the static runs' clocks differ from "
+          "the same runs at smoke width on the CPU")
+    check(counts["paged_attention"] == decodes * L,
+          f"multitenant: paged launches {counts['paged_attention']} != "
+          f"{decodes} decode steps x {L}")
+    check(counts["flash_attention"] == prefills * L,
+          f"multitenant: flash launches {counts['flash_attention']} != "
+          f"{prefills} prefills x {L}")
+    check_flash_variant(f"{model.cfg.name} pooled", model.cfg.compute_dtype,
+                        variants, counts["flash_attention"])
+    check(counts["rmsnorm"] == (decodes + prefills) * (2 * L + 1),
+          f"multitenant: rmsnorm launches {counts['rmsnorm']} != "
+          f"{decodes + prefills} calls x {2 * L + 1}")
+    return counts, variants
+
+
+# ---------------------------------------------------------------------------
 # phase 5: times at the serving path's shapes
 # ---------------------------------------------------------------------------
 
@@ -1038,8 +1448,13 @@ def main() -> int:
     errs = kernel_checks(device)
     # each path runs with the counts set to 0 just before it, read after
     counts, variants = {}, {}
-    counts["qwen1.5-0.5b"], variants["qwen1.5-0.5b"] = serve_full_width(
-        device)
+    (counts["qwen1.5-0.5b"], variants["qwen1.5-0.5b"], qwen,
+     qwen_params) = serve_full_width(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts["qwen1.5-0.5b pooled"], variants["qwen1.5-0.5b pooled"] = \
+        multitenant_full_width(qwen, qwen_params, device)
+    del qwen, qwen_params
     for arch, batch, generate, steps in (("mamba2-780m", 8, 32, 8),
                                          ("zamba2-7b", 4, 16, 0)):
         gc.collect()

@@ -6,8 +6,9 @@ behaviors at both link and transaction layers. Switch latencies were
 determined using empirical measurements ... factoring in the hop counts
 required for endpoint-to-endpoint communication."
 
-Everything here is a *pure-python analytical model*.  This copy keeps
-the CXL constants the serving engine prices tier-2 transfers with.
+Everything here is a *pure-python analytical model*: a copy of the
+reference's, which the pool inventory, the routed estate graph and the
+serving engine's tier-2 pricing build on.
 
 Units: bytes, seconds, GB/s (1e9 bytes/s). All latencies stored in seconds.
 """
@@ -205,9 +206,32 @@ class FabricSpec:
 # ---------------------------------------------------------------------------
 # Catalog: concrete link/switch constants.
 #
-# Source: paper Table 1 + §2: CXL 3.x 256B PBR flits on PCIe6 x16
-# (~121 GB/s/dir).
+# Sources: paper Table 1 + §2 (UALink 100 GB/s/port sub-us, NVLink <500ns,
+# flit sizes 640B / 48-272B), CXL 3.x 256B PBR flits on PCIe6 x16
+# (~121 GB/s/dir), NDR InfiniBand 400 Gb/s (~50 GB/s).  RDMA software
+# overhead models verbs posting + completion + communicator synchronization
+# (the paper's "software interventions are inevitable").
 # ---------------------------------------------------------------------------
+
+NVLINK5 = LinkSpec(
+    name="NVLink 5.0",
+    protocol=Protocol.NVLINK,
+    bandwidth=900.0,            # GB/s per GPU direction (18 links x 50GB/s)
+    phy_latency=300 * NS,
+    flit_bytes=272,
+    flit_payload=256,
+    sw_overhead=0.0,
+)
+
+UALINK200 = LinkSpec(
+    name="UALink 200G",
+    protocol=Protocol.UALINK,
+    bandwidth=100.0,            # GB/s per port
+    phy_latency=600 * NS,       # sub-microsecond, Ethernet PHY
+    flit_bytes=640,
+    flit_payload=576,
+    sw_overhead=0.0,
+)
 
 CXL3 = LinkSpec(
     name="CXL 3.x x16",
@@ -219,16 +243,136 @@ CXL3 = LinkSpec(
     sw_overhead=0.0,            # hardware coherent: no software on data path
 )
 
+# Coherence-centric CXL (tier-1 glue): trimmed flit processing, §5.
+CXL_COHERENCE = dataclasses.replace(CXL3, name="CXL coherence-centric", phy_latency=100 * NS)
+
 # Capacity-oriented CXL (tier-2): CXL.io/mem bulk path, §5.
 CXL_CAPACITY = dataclasses.replace(CXL3, name="CXL capacity-oriented", phy_latency=180 * NS)
 
+INFINIBAND_NDR = LinkSpec(
+    name="InfiniBand NDR",
+    protocol=Protocol.INFINIBAND,
+    bandwidth=50.0,             # 400 Gb/s
+    phy_latency=1.0 * US,       # end-to-end NIC-to-NIC port latency
+    flit_bytes=4096 + 66,       # MTU-sized packets + headers
+    flit_payload=4096,
+    sw_overhead=6.0 * US,       # RDMA verbs + sync across communicators
+    message_quantum=512 * 1024, # collective-library pipeline slice
+)
+
+PCIE5_HOST = LinkSpec(
+    name="PCIe5 x16 host",
+    protocol=Protocol.PCIE,
+    bandwidth=63.0,
+    phy_latency=400 * NS,
+    flit_bytes=256,
+    flit_payload=224,
+    sw_overhead=0.0,
+)
+
+DDR5_LOCAL = LinkSpec(
+    name="DDR5 CPU-attached",
+    protocol=Protocol.DDR,
+    bandwidth=307.0,            # 8 channels DDR5-4800
+    phy_latency=90 * NS,
+    flit_bytes=64,
+    flit_payload=64,
+    sw_overhead=0.0,
+)
+
+NVSWITCH = SwitchSpec("NVSwitch", hop_latency=100 * NS, radix=72, per_port_bandwidth=900.0)
+UASWITCH = SwitchSpec("UALink switch", hop_latency=150 * NS, radix=72, per_port_bandwidth=100.0)
 CXL_SWITCH = SwitchSpec("CXL PBR switch", hop_latency=250 * NS, radix=64, per_port_bandwidth=121.0)
+IB_SWITCH = SwitchSpec("IB NDR switch", hop_latency=300 * NS, radix=64, per_port_bandwidth=50.0)
+
+
+def xlink_cluster_fabric(n_accel: int = 72, link: LinkSpec = NVLINK5) -> FabricSpec:
+    """Intra-cluster XLink fabric: one-stage switched, rack scale (§4)."""
+    switch = NVSWITCH if link.protocol == Protocol.NVLINK else UASWITCH
+    topo = Topology(TopologyKind.SINGLE_HOP, endpoints=n_accel, switch=switch)
+    return FabricSpec(name=f"XLink[{link.name}]x{n_accel}", link=link, topology=topo)
+
+
+def cxl_fabric(
+    n_endpoints: int,
+    kind: TopologyKind = TopologyKind.MULTI_CLOS,
+    link: LinkSpec = CXL3,
+    oversubscription: float = 1.0,
+) -> FabricSpec:
+    """Inter-cluster hierarchical CXL fabric (§4: Clos/3D-torus/DragonFly)."""
+    topo = Topology(kind, endpoints=n_endpoints, switch=CXL_SWITCH,
+                    oversubscription=oversubscription)
+    return FabricSpec(name=f"CXL[{kind.value}]x{n_endpoints}", link=link, topology=topo)
+
+
+def infiniband_fabric(n_endpoints: int, oversubscription: float = 1.0) -> FabricSpec:
+    """Scale-out RDMA fabric (the paper's baseline inter-cluster path)."""
+    topo = Topology(TopologyKind.MULTI_CLOS, endpoints=n_endpoints,
+                    switch=IB_SWITCH, oversubscription=oversubscription)
+    return FabricSpec(name=f"IB[NDR]x{n_endpoints}", link=INFINIBAND_NDR, topology=topo)
 
 
 def tier2_memory_fabric(n_endpoints: int) -> FabricSpec:
     """Dedicated capacity-oriented CXL fabric to CPU-less memory nodes (§5)."""
     topo = Topology(TopologyKind.MULTI_CLOS, endpoints=n_endpoints, switch=CXL_SWITCH)
     return FabricSpec(name=f"Tier2-CXL x{n_endpoints}", link=CXL_CAPACITY, topology=topo)
+
+
+@dataclass(frozen=True)
+class MemoryTierSpec:
+    """A memory tier as seen from one accelerator (§5)."""
+
+    name: str
+    capacity_bytes: float            # per accelerator-visible pool
+    access_latency: float            # seconds, small-granule access
+    bandwidth: float                 # GB/s streaming
+    sw_overhead: float = 0.0         # software-managed copies, page faults
+
+    def access_time(self, nbytes: int) -> float:
+        return self.sw_overhead + self.access_latency + nbytes / (self.bandwidth * GB)
+
+
+def hbm_tier(capacity_gb: float = 192.0) -> MemoryTierSpec:
+    # GB200-class accelerator HBM3e
+    return MemoryTierSpec("HBM(local)", capacity_gb * GB, 120 * NS, 8000.0)
+
+
+def cluster_xlink_tier(fabric: FabricSpec, capacity_gb: float, *, coherent: bool,
+                       copy_sw_overhead: float = 0.6 * US,
+                       coherence_overhead: float = 200 * NS) -> MemoryTierSpec:
+    """Peer-accelerator memory within a cluster.  Reads are round trips.
+
+    Non-coherent XLink requires explicit software-managed copies
+    (paper §5 tier-1 discussion: "sharing data beyond static partitions
+    requires explicit software-managed copying"); coherence-centric CXL
+    removes the software overhead and accesses at instruction granularity
+    but pays directory/snoop time.
+    """
+    lat = 2.0 * fabric.latency() + (coherence_overhead if coherent else 0.0)
+    return MemoryTierSpec(
+        name=("Tier1-coherent" if coherent else "XLink-peer(non-coherent)"),
+        capacity_bytes=capacity_gb * GB,
+        access_latency=lat,
+        bandwidth=fabric.bandwidth(),
+        sw_overhead=0.0 if coherent else copy_sw_overhead,
+    )
+
+
+def tier2_pool_tier(fabric: FabricSpec, capacity_gb: float = 4096.0) -> MemoryTierSpec:
+    """Capacity-oriented tier-2 pool on dedicated memory nodes (§5)."""
+    return MemoryTierSpec("Tier2-pool", capacity_gb * GB,
+                          2.0 * fabric.latency() + 150 * NS,  # media+controller
+                          fabric.bandwidth())
+
+
+def rdma_storage_tier(fabric: FabricSpec, capacity_gb: float = 1 << 20) -> MemoryTierSpec:
+    """Baseline spill target beyond cluster memory: RDMA to remote hosts /
+    distributed FS (paper: 'millisecond- to second-level latencies' for
+    storage; RDMA-to-host-DRAM is the favourable case we model)."""
+    hw_latency = fabric.link.phy_latency + fabric.topology.switching_latency()
+    return MemoryTierSpec("RDMA-remote", capacity_gb * GB,
+                          2.0 * hw_latency, fabric.bandwidth(),
+                          sw_overhead=fabric.link.sw_overhead)
 
 
 # ---------------------------------------------------------------------------

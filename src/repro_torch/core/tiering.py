@@ -5,9 +5,11 @@ Tier-1 is the card's memory: a device-side page pool the engine owns.
 Tier-2 is the capacity pool: a host-side cold store of page payloads.
 ``KVBudget`` sets the tier-1 page quota and the tier-2 byte budget;
 ``PagedKV`` owns the allocation state (free-page stack, per-sequence
-logical->physical page maps, page-granular evict/fetch).  This is pure
-host bookkeeping, identical to the reference's; the reference's
-``jax.sharding`` offload helpers belong to the training slice.
+logical->physical page maps, page-granular evict/fetch);
+``TieringPolicy`` is the placement policy a pool lease hands the
+runtime.  This is pure host bookkeeping, identical to the reference's;
+the reference's ``jax.sharding`` offload helpers belong to the training
+slice.
 """
 
 from __future__ import annotations
@@ -45,6 +47,23 @@ class KVBudget:
 class KVBudgetExceeded(RuntimeError):
     """A KV allocation would overrun the tier-1 page quota or the tier-2
     byte budget."""
+
+
+@dataclasses.dataclass(frozen=True)
+class TieringPolicy:
+    """Which state lives in the capacity tier (§6: the paper evaluates
+    weight + optimizer offloading as the common training optimization).
+    Data only here: the serving engine reads ``kv_budget``; the training
+    slice will act on the offload flags."""
+
+    offload_optimizer: bool = True      # AdamW moments → tier-2
+    offload_master_params: bool = False # fp32 masters → tier-2
+    kv_budget: Optional[KVBudget] = None  # serving: budgeted KV paging
+
+    @property
+    def kv_spill(self) -> bool:
+        """Deprecated boolean view of ``kv_budget`` (pre-engine API)."""
+        return self.kv_budget is not None and self.kv_budget.tier2_bytes > 0
 
 # ---------------------------------------------------------------------------
 # paged KV pool: physical page allocator + page-granular tier-2 cold store

@@ -1,20 +1,37 @@
-"""Routed fabric topology: the graph tier-2 transfers are priced on.
+"""Routed fabric topology: the graph the whole repo prices transfers on.
+
+Until now every layer carried its own private copy of the fabric's
+price list: ``ServeCostModel.swap_s`` handed each tenant the full
+tier-2 bandwidth, ``pool.allocator`` reserved per-node bandwidth
+scalars, and the collective models in ``core.costmodel`` saw a bare
+``FabricSpec`` with no switch hierarchy.  Cross-consumer contention on
+the *shared* hierarchical CXL fabric — the phenomenon the paper's
+tier-2 claim lives or dies on — was structurally unrepresentable.
+
+This module centralizes the structure once:
 
 ``Link``
     One *directed* capacity-carrying edge between two nodes (full
-    duplex fabrics are two ``Link``s), wrapping a ``core.fabric.LinkSpec``
-    for the PHY identity.  ``capacity`` is the payload rate (bytes/s,
-    flit efficiency and queuing already folded in); ``latency`` the
-    fixed traversal time.
+    duplex fabrics are two ``Link``s).  Wraps an existing
+    ``core.fabric.LinkSpec`` for the PHY/flit identity and adds the
+    instance quantities a router needs: effective payload capacity
+    (bytes/s, flit efficiency and queuing already folded in, exactly
+    ``FabricSpec.bandwidth()`` semantics) and fixed traversal latency.
 
 ``Route``
-    A hop list of ``Link``s from ``Topology.route(src, dst)``.
-    Contended pricing (several in-flight transfers fair-sharing each
-    link) lives in ``repro_torch.fabric.transport.Transport``.
+    A hop list of ``Link``s from ``Topology.route(src, dst)``.  Prices
+    a *solo* transfer with ``transfer_time(nbytes)`` — the same
+    contract as ``FabricSpec.transfer_time``, so a ``Route`` can be
+    passed anywhere ``core.costmodel`` expects a fabric.  Contended
+    pricing (several in-flight transfers fair-sharing each link) lives
+    in ``repro_torch.fabric.transport.Transport``.
 
 ``Topology``
-    The node/edge graph with min-hop routing.  ``Topology.degenerate``
-    builds the 1-link graph the ``ServeCostModel`` facade runs on.
+    The node/edge graph: accelerators, XLink pods, CXL switch tiers
+    (leaf / spine / the capacity-fabric switch) and tier-2 memory
+    nodes.  ``Topology.from_inventory`` derives it from a
+    ``pool.inventory.Inventory``; ``Topology.degenerate`` builds the
+    1-link graph the legacy ``ServeCostModel`` facade runs on.
 
 Units follow ``core.fabric``: bytes, seconds, bytes/s.
 """
@@ -26,7 +43,7 @@ from collections import deque
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
-from repro_torch.core.fabric import GB, LinkSpec, Protocol
+from repro_torch.core.fabric import GB, FabricSpec, LinkSpec, Protocol
 
 # node-kind tags (informational; routing treats all nodes alike)
 ACCEL = "accel"
@@ -88,6 +105,11 @@ class Route:
     def hops(self) -> int:
         return len(self.links)
 
+    @property
+    def specs(self) -> Tuple[LinkSpec, ...]:
+        """The underlying ``core.fabric.LinkSpec`` per hop."""
+        return tuple(l.spec for l in self.links)
+
     def latency(self) -> float:
         """Zero-byte end-to-end latency (sum of hop latencies)."""
         return sum(l.latency for l in self.links)
@@ -98,6 +120,23 @@ class Route:
         (hops pipeline flit-by-flit, so serialization is paid once at
         the bottleneck, while latency accumulates per hop)."""
         return min(l.capacity for l in self.links)
+
+    def transfer_time(self, nbytes: float, *, contention: float = 1.0
+                      ) -> float:
+        """Solo end-to-end time — the ``FabricSpec.transfer_time``
+        contract, so a ``Route`` drops into ``core.costmodel``
+        collectives wherever a fabric is expected.  ``contention``
+        divides the bottleneck bandwidth (static flow counting); for
+        *dynamic* contention between actual in-flight transfers use
+        ``Transport.begin_transfer``."""
+        if nbytes <= 0:
+            return self.latency()
+        return self.latency() + nbytes / (self.bottleneck_bw / contention)
+
+    # alias matching FabricSpec's observability surface
+    def bandwidth(self) -> float:
+        """Effective end-to-end bandwidth in GB/s (FabricSpec parity)."""
+        return self.bottleneck_bw / GB
 
 
 class Topology:
@@ -181,6 +220,16 @@ class Topology:
         self._route_cache[key] = route
         return route
 
+    def nodes_of_kind(self, kind: str) -> List[str]:
+        return [n for n, k in self.nodes.items() if k == kind]
+
+    def describe(self) -> str:
+        kinds: Dict[str, int] = {}
+        for k in self.nodes.values():
+            kinds[k] = kinds.get(k, 0) + 1
+        parts = ", ".join(f"{v} {k}" for k, v in sorted(kinds.items()))
+        return f"{self.name}: {parts}, {len(self.links)} directed links"
+
     # ---- canned shapes ---------------------------------------------------
     @classmethod
     def degenerate(cls, bandwidth: float, latency: float, *,
@@ -196,6 +245,76 @@ class Topology:
             _NULL_SPEC, name=name, bandwidth=bandwidth / GB)
         topo.connect("src", "dst", lk, capacity=bandwidth, latency=latency)
         return topo
+
+    @classmethod
+    def from_fabric_spec(cls, fabric: FabricSpec, *,
+                         name: Optional[str] = None) -> "Topology":
+        """Collapse a whole ``FabricSpec`` (link + topology + queuing)
+        into one equivalent routed link: capacity is the spec's
+        effective large-message bandwidth, latency its zero-byte
+        latency — so the 1-link route's ``transfer_time`` matches
+        ``FabricSpec.transfer_time`` for flit-aligned payloads."""
+        return cls.degenerate(fabric.bandwidth() * GB, fabric.latency(),
+                              name=name or fabric.name, spec=fabric.link)
+
+    @classmethod
+    def from_inventory(cls, inv, *, accels: bool = False,
+                       tier2_trunk_bw: float = 0.0) -> "Topology":
+        """Build the estate graph from a ``pool.inventory.Inventory``.
+
+        Shape (scalepool): ``accel:<p>.<i>`` (optional) -- XLink -->
+        ``pod:<p>`` -- coherence CXL --> ``leaf:<l>`` --> ``spine`` -->
+        ``t2sw`` (capacity-fabric switch) --> ``mem:<k>``.  Baseline
+        inventories (no tier-2 fabric) stop at the spine (IB core).
+
+        ``tier2_trunk_bw``: capacity of the shared spine->t2sw trunk in
+        bytes/s; 0 derives full bisection (sum of memory-node
+        bandwidths), i.e. the trunk never binds before the nodes.  An
+        ``Inventory.tier2_trunk_bw`` field, when positive, is the
+        default — the knob an oversubscribed capacity fabric turns.
+        """
+        topo = cls(f"estate[{inv.interconnect}]")
+        inter = inv.inter_fabric
+        leaf_lat = inter.topology.switch.hop_latency + inter.link.phy_latency
+        topo.add_node("spine", SWITCH)
+        leaves = sorted({inv.leaf_of(p.id) for p in inv.pods})
+        for l in leaves:
+            topo.add_node(f"leaf:{l}", SWITCH)
+            pods_on = [p for p in inv.pods if inv.leaf_of(p.id) == l]
+            up = sum(inter.bandwidth() * GB * p.n_accels for p in pods_on)
+            topo.connect(f"leaf:{l}", "spine", inter.link,
+                         capacity=up / inter.topology.oversubscription,
+                         latency=leaf_lat)
+        for p in inv.pods:
+            topo.add_node(f"pod:{p.id}", POD)
+            # pod uplink into its leaf: one inter-fabric port per accel
+            topo.connect(f"pod:{p.id}", f"leaf:{inv.leaf_of(p.id)}",
+                         inter.link,
+                         capacity=inter.bandwidth() * GB * p.n_accels,
+                         latency=inter.link.sw_overhead + leaf_lat)
+            if accels:
+                pf = p.fabric
+                for i in p.accel_ids():
+                    a = topo.add_node(f"accel:{p.id}.{i}", ACCEL)
+                    topo.connect(a, f"pod:{p.id}", pf.link,
+                                 capacity=pf.bandwidth() * GB,
+                                 latency=pf.latency())
+        t2 = inv.tier2_fabric
+        if t2 is not None and inv.memory_nodes:
+            topo.add_node("t2sw", SWITCH)
+            node_bw = [m.bandwidth or t2.bandwidth() * GB
+                       for m in inv.memory_nodes]
+            trunk = (tier2_trunk_bw
+                     or getattr(inv, "tier2_trunk_bw", 0.0)
+                     or float(sum(node_bw)))
+            topo.connect("spine", "t2sw", t2.link, capacity=trunk,
+                         latency=t2.topology.switch.hop_latency)
+            for m, bw in zip(inv.memory_nodes, node_bw):
+                topo.add_node(f"mem:{m.id}", MEMORY)
+                topo.connect("t2sw", f"mem:{m.id}", t2.link,
+                             capacity=bw, latency=t2.link.phy_latency)
+        return topo
+
 
 # placeholder PHY identity for synthetic/degenerate links (payload ==
 # wire: efficiency 1.0, no software on the data path)

@@ -18,10 +18,17 @@ port builds) and the request-level engine mode (paged-KV families).
     # trace file (JSONL: prompt_tokens / max_new_tokens / arrival_time)
     ... --trace /path/to/trace.jsonl
 
+    # lease-backed: the pool grants the tier-2 KV budget
+    ... --requests 16 --pool scalepool --pool-accels 4 --tier2-kv-gb 1
+
+    # multi-tenant: N engines fair-sharing ONE physical page pool
+    ... --requests 16 --tenants 3 --tier1-pages 24 --tier2-kv-gb 3
+    # (+ --pool scalepool: the tenants share one lease's KV grant)
+
 ``--requests`` or ``--trace`` select the engine, which a family without
 paged KV refuses (exit 2); otherwise the fixed-batch mode runs.  Prints
 the JSON summary of ``repro.launch.serve``'s mode plus ``"device"``; the
-engine mode exits 0 iff no request failed OOM.
+engine modes exit 0 iff no request failed OOM.
 """
 
 from __future__ import annotations
@@ -37,9 +44,44 @@ from repro_torch.device import resolve_device
 from repro_torch.models.api import build_model
 from repro_torch.obs import Tracer, write_chrome_trace
 from repro_torch.obs.console import emit_json, warn
+from repro_torch.pool import smoke_pool
 from repro_torch.runtime import serve as serve_rt
-from repro_torch.serve import (Engine, EngineConfig, latency_summary,
-                               load_trace, run_trace, synthetic_trace)
+from repro_torch.serve import (Engine, EngineConfig, PoolArbiter,
+                               latency_summary, load_trace, run_multi_trace,
+                               run_trace, synthetic_trace)
+
+
+def _flush_trace(tracer, transports, path: str) -> dict:
+    """Drain every transport's in-flight transfers (their spans land at
+    completion) and write the Perfetto-loadable trace file."""
+    for tx in {id(t): t for t in transports if t is not None}.values():
+        tx.quiesce()
+    write_chrome_trace(tracer, path)
+    return {"path": path, "events": len(tracer),
+            "dropped": tracer.dropped}
+
+
+def _requests(args, cfg):
+    if args.trace:
+        return load_trace(args.trace, vocab=cfg.vocab)
+    return synthetic_trace(
+        args.requests, mean_interarrival_s=args.interarrival,
+        prompt_lens=tuple(int(x) for x in args.prompt_lens.split(",")),
+        max_new_tokens=args.max_new, vocab=cfg.vocab, seed=args.seed)
+
+
+def _lease(args, tenants=()):
+    pool = smoke_pool(args.pool)
+    return pool.lease("cli-serve", args.pool_accels,
+                      tier2_gb=max(args.pool_tier2_gb, args.tier2_kv_gb),
+                      kv_gb=args.tier2_kv_gb,
+                      model_parallel=args.pool_model_parallel,
+                      tenants=tenants)
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
 
 
 def _engine_mode(args, cfg, model, device) -> int:
@@ -52,26 +94,28 @@ def _engine_mode(args, cfg, model, device) -> int:
             tier1_pages=args.tier1_pages or None,
             tier2_bytes=args.tier2_kv_gb * 1e9,
             page_size=args.page_size)
-    generator = torch.Generator(device=device).manual_seed(args.seed)
-    engine = Engine.local(model, ecfg, generator=generator, budget=budget,
-                          tracer=tracer, device=device)
 
-    if args.trace:
-        trace = load_trace(args.trace, vocab=cfg.vocab)
+    if args.tenants > 1:
+        return _multitenant_mode(args, cfg, model, ecfg, device, tracer)
+
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    if args.pool != "none":
+        engine = Engine.from_lease(model, _lease(args), ecfg,
+                                   generator=generator, budget=budget,
+                                   tracer=tracer, device=device)
     else:
-        trace = synthetic_trace(
-            args.requests, mean_interarrival_s=args.interarrival,
-            prompt_lens=tuple(int(x) for x in args.prompt_lens.split(",")),
-            max_new_tokens=args.max_new, vocab=cfg.vocab, seed=args.seed)
+        engine = Engine.local(model, ecfg, generator=generator,
+                              budget=budget, tracer=tracer, device=device)
+    trace = _requests(args, cfg)
 
     t0 = time.time()
     handles = run_trace(engine, trace)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
+    _sync(device)
     wall = time.time() - t0
     stats = engine.stats()
     out = {
-        "arch": cfg.name, "mode": "engine", "lease": None,
+        "arch": cfg.name, "mode": "engine",
+        "lease": args.pool if args.pool != "none" else None,
         "device": str(device),
         "requests": len(handles),
         "latency": latency_summary(handles),
@@ -80,12 +124,69 @@ def _engine_mode(args, cfg, model, device) -> int:
         "sample_tokens": handles[0].tokens[:8] if handles else [],
     }
     if tracer is not None:
-        engine.transport.quiesce()
-        write_chrome_trace(tracer, args.trace_out)
-        out["trace_out"] = {"path": args.trace_out, "events": len(tracer),
-                            "dropped": tracer.dropped}
+        out["trace_out"] = _flush_trace(tracer, [engine.transport],
+                                        args.trace_out)
     emit_json(out)
     return 0 if stats["failed_oom"] == 0 else 1
+
+
+def _multitenant_mode(args, cfg, model, ecfg, device, tracer=None) -> int:
+    """--tenants N: N engines over ONE shared page pool (PoolArbiter),
+    traffic (synthetic or --trace JSONL) split round-robin across
+    tenants.  The tenants serve one set of weights, drawn once."""
+    if args.pool != "none" and args.tier2_kv_gb <= 0:
+        warn("--tenants with --pool shares one KV grant across the "
+             "tenants — pass --tier2-kv-gb > 0 so the lease has kv "
+             "bytes to share")
+        return 2
+
+    names = [f"t{i}" for i in range(args.tenants)]
+    tier1 = args.tier1_pages or args.tenants * args.slots * ecfg.pages_per_slot
+    arb = PoolArbiter(tier1, page_size=args.page_size, tracer=tracer)
+    per_tenant = KVBudget(tier2_bytes=args.tier2_kv_gb * 1e9 / args.tenants,
+                          page_size=args.page_size)
+    params = model.init(torch.Generator(device=device).manual_seed(args.seed))
+    if args.pool != "none":
+        lease = _lease(args, tenants=tuple(names))
+        engines = {n: Engine.from_lease(model, lease, ecfg, params=params,
+                                        arbiter=arb, tenant=n,
+                                        tracer=tracer, device=device)
+                   for n in names}
+    else:
+        engines = {n: Engine.local(model, ecfg, params=params,
+                                   budget=per_tenant, arbiter=arb,
+                                   tenant=n, tracer=tracer, device=device)
+                   for n in names}
+
+    trace = _requests(args, cfg)
+    split = {n: [r for j, r in enumerate(trace)
+                 if j % args.tenants == i]
+             for i, n in enumerate(names)}
+
+    t0 = time.time()
+    results = run_multi_trace([(engines[n], split[n]) for n in names])
+    _sync(device)
+    wall = time.time() - t0
+    out = {"arch": cfg.name, "mode": "multitenant", "device": str(device),
+           "tenants": args.tenants, "tier1_pages": tier1,
+           "wall_s": round(wall, 2), "arbiter": arb.stats(), "per_tenant": {}}
+    failed = 0
+    for n, handles in zip(names, results):
+        st = engines[n].stats()
+        failed += st["failed_oom"]
+        out["per_tenant"][n] = {
+            "requests": len(handles),
+            "latency": latency_summary(handles),
+            "swaps": st["preempt_swaps"],
+            "recomputes": st["preempt_recomputes"],
+            "tput_busy_tok_s": st["throughput_busy_tok_s"],
+        }
+    if tracer is not None:
+        out["trace_out"] = _flush_trace(
+            tracer, [e.transport for e in engines.values()],
+            args.trace_out)
+    emit_json(out)
+    return 0 if failed == 0 else 1
 
 
 def fixed_batch_inputs(model, batch: int, prompt: int, seed: int, device):
@@ -178,6 +279,17 @@ def main(argv=None):
                    help="tier-1 KV page quota (0 = full slot capacity)")
     p.add_argument("--tier2-kv-gb", type=float, default=0.0,
                    help="tier-2 KV byte budget (spill target)")
+    p.add_argument("--tenants", type=int, default=1,
+                   help="N>1: N tenant engines over ONE shared page pool "
+                        "(PoolArbiter fair shares), traffic split "
+                        "round-robin")
+    p.add_argument("--pool", default="none",
+                   choices=["none", "scalepool", "baseline"],
+                   help="take the engine's KV budget from a lease on a "
+                        "smoke estate of this interconnect")
+    p.add_argument("--pool-accels", type=int, default=4)
+    p.add_argument("--pool-tier2-gb", type=float, default=0.0)
+    p.add_argument("--pool-model-parallel", type=int, default=1)
     p.add_argument("--trace-out", default=None,
                    help="write a Chrome/Perfetto trace_event JSON of the "
                         "run's modeled timeline")

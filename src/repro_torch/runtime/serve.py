@@ -7,16 +7,22 @@ have no paged KV, so the request-level engine does not take them).
     decode_step(params, carry)         -> (logits, new_carry)
 
 The carry is ``{"tokens": (B, 1) long, "cache": ..., "index": int}``;
-the cache is updated in place.
+the cache is updated in place.  ``make_lease_session`` binds the two
+steps to a ``repro_torch.pool`` lease (its device and tiering policy),
+for fixed-batch deployments whose capacity the pool composes.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, Tuple
 
 import torch
 
+from repro_torch.core.tiering import TieringPolicy
+from repro_torch.device import DeviceLike
 from repro_torch.models.api import Model
+from repro_torch.models.config import ShapeConfig
 
 
 def make_prefill_step(model: Model) -> Callable[..., Any]:
@@ -43,3 +49,50 @@ def make_decode_step(model: Model) -> Callable[..., Any]:
         return logits, new_carry
 
     return decode_step
+
+
+@dataclasses.dataclass(frozen=True)
+class LeaseServeSession:
+    """Everything a fixed-batch serving worker needs from its pool lease:
+    the device the lease binds (``binding.device``), its mesh shape and
+    tiering policy (``binding.policy``), the decode ``shape`` it serves,
+    and the two steps.
+    Request-level serving builds ``Engine.from_lease`` instead."""
+
+    binding: Any                       # repro_torch.pool.LeaseBinding
+    shape: ShapeConfig
+    prefill_step: Callable[..., Any]
+    decode_step: Callable[..., Any]
+
+    @property
+    def device(self) -> torch.device:
+        return self.binding.device
+
+    @property
+    def policy(self) -> TieringPolicy:
+        return self.binding.policy
+
+    @property
+    def kv_spill(self) -> bool:
+        return self.policy.kv_spill
+
+
+def make_lease_session(model: Model, shape: ShapeConfig, lease, *,
+                       device: DeviceLike = None) -> LeaseServeSession:
+    """Bind a ``repro_torch.pool.Lease`` to a runnable serving session.
+
+    The lease's ``materialize`` picks the device (``device=`` names it,
+    e.g. ``"cpu"``; the default is the card) and its tier-2 reservation
+    the KV spill policy.  The steps are ``make_prefill_step`` /
+    ``make_decode_step`` of ``model``, which must live on that device.
+    The reference also derives sharding rules for ``shape`` from the
+    lease's mesh and scopes its jitted steps to them; one device has
+    nothing to shard, so the port keeps ``shape`` as a record only."""
+    binding = lease.materialize(None if device is None else [device])
+    if binding.device.type != model.device.type:
+        raise ValueError(f"lease device {binding.device} differs from the "
+                         f"model's {model.device}")
+    return LeaseServeSession(
+        binding=binding, shape=shape,
+        prefill_step=make_prefill_step(model),
+        decode_step=make_decode_step(model))

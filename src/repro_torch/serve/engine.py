@@ -1,5 +1,5 @@
 """Request-level continuous-batching engine over a *physically paged*,
-budgeted KV pool (port of ``repro.serve.engine``, single tenant).
+budgeted KV pool (port of ``repro.serve.engine``).
 
 One ``Engine`` owns a shared device-side KV **page pool**
 (``KVBudget.tier1_pages`` physical pages of ``page_size`` tokens, plus
@@ -30,9 +30,20 @@ Scheduling per ``step()``:
 
 Every event clock is the event's **modeled completion time**: a
 ``ServeCostModel`` prices prefill/decode from the paper's fabric
-constants and page traffic is charged through a private degenerate
-``repro_torch.fabric.Transport``, so the schedule, the clocks and the
-trace events are the reference's exactly whenever the tokens are.
+constants and page traffic is charged through a
+``repro_torch.fabric.Transport`` — a private degenerate one by default,
+or a shared routed one (``transport=``/``route=``) on which several
+engines' transfers fair-share the links — so the schedule, the clocks
+and the trace events are the reference's exactly whenever the tokens
+are.
+
+Multi-tenant: ``arbiter=``/``tenant=`` joins a shared
+``repro_torch.serve.PoolArbiter`` page pool instead of owning a private
+one — ``self.kv`` becomes the tenant's fair-share view, the pool
+tensors live on the arbiter (``self._pool`` reads and writes them), and
+``allowance()`` (the live max-min share) replaces the fixed quota in
+the pressure/resume decisions.  A lone tenant's allowance is the whole
+pool, so it behaves bit for bit as a private engine.
 
 The pool tensors are updated IN PLACE (``copy_``, ``index_copy_``,
 ``index_put_``) where the reference builds functional copies; the pool
@@ -130,16 +141,23 @@ class _SlotState:                        # queues/sets and are never "equal"
         return self.request.prompt_len + self.request.max_new_tokens
 
 
-class Engine:
-    """Continuous-batching serving engine.  Build with ``Engine.local``."""
+def _check_device(model: Model, dev: torch.device) -> None:
+    if dev.type != model.device.type:
+        raise ValueError(f"engine device {dev} differs from the "
+                         f"model's {model.device}")
 
-    _track = "engine"              # this engine's trace track
+
+class Engine:
+    """Continuous-batching serving engine.  Build with ``Engine.local``
+    (explicit config) or ``Engine.from_lease`` (a ``repro_torch.pool``
+    lease supplies the device and the tier-2 KV byte budget)."""
 
     def __init__(self, model: Model, params, cfg: EngineConfig, *,
                  device: torch.device,
                  budget: Optional[KVBudget] = None,
                  cost_model: Optional[ServeCostModel] = None,
-                 tracer=None):
+                 arbiter=None, tenant: Optional[str] = None,
+                 transport=None, route=None, tracer=None):
         if not model.supports_paged_kv:
             raise NotImplementedError(
                 f"Engine serves through the paged decode kernel, which "
@@ -148,9 +166,18 @@ class Engine:
         self.device = device
         self.params = model.load(params)       # cast once, at load
         self.cfg = cfg
-        self._transport = None                 # private, built lazily
-        self.route = None
-        self.tracer = resolve(tracer)
+        # tier-2 transfer routing: a shared Transport (+ this engine's
+        # route on it) makes concurrent tenants contend on the actual
+        # links; without one, the engine owns a private degenerate
+        # 1-link transport derived from its cost model
+        if (transport is None) != (route is None):
+            raise ValueError("pass transport= and route= together")
+        self._transport = transport
+        self._transport_owned = transport is None
+        self.route = route
+        # flight recorder: defaults to the shared transport's tracer
+        self.tracer = resolve(tracer if tracer is not None
+                              else getattr(transport, "tracer", None))
         self.cost = cost_model or ServeCostModel.from_fabric(
             2.0 * model.cfg.param_count())
 
@@ -169,23 +196,43 @@ class Engine:
         page_bytes = slot_bytes * cfg.page_size / max(1, cfg.max_seq)
 
         full = budget or KVBudget(page_size=cfg.page_size)
-        tier1 = (full.tier1_pages if full.tier1_pages is not None
-                 else cfg.max_slots * cfg.pages_per_slot)
-        self.budget = KVBudget(tier1_pages=tier1,
-                               tier2_bytes=full.tier2_bytes,
-                               page_size=cfg.page_size)
-        self.kv = PagedKV(self.budget, page_bytes)
+        self.arbiter = arbiter
+        self.tenant = tenant
+        if arbiter is not None:
+            # multi-tenant: the arbiter owns the physical pool; this
+            # engine's tier-1 "quota" is the whole pool, but its live
+            # allowance is a revocable max-min fair share
+            if self.tenant is None:
+                self.tenant = f"tenant-{len(arbiter.tenants)}"
+            self.budget = KVBudget(tier1_pages=arbiter.num_pages,
+                                   tier2_bytes=full.tier2_bytes,
+                                   page_size=cfg.page_size)
+            self.kv = arbiter.register(self.tenant, self,
+                                       slot_shapes=slot_shapes,
+                                       page_bytes=page_bytes,
+                                       tier2_bytes=full.tier2_bytes)
+        else:
+            tier1 = (full.tier1_pages if full.tier1_pages is not None
+                     else cfg.max_slots * cfg.pages_per_slot)
+            self.budget = KVBudget(tier1_pages=tier1,
+                                   tier2_bytes=full.tier2_bytes,
+                                   page_size=cfg.page_size)
+            self.kv = PagedKV(self.budget, page_bytes)
 
-        # shared physical page pool: leaf (layers, num_pages + 1, page,
-        # ...).  The extra page (id == num_pages) is the TRASH page: idle
-        # rows' page tables point at it, so their decode writes land
-        # somewhere harmless and their gathers stay in bounds.
+        # physical page pool: leaf (layers, num_pages + 1, page, ...).
+        # The extra page (id == num_pages) is the TRASH page: idle rows'
+        # page tables point at it, so their decode writes land somewhere
+        # harmless and their gathers stay in bounds.  Under an arbiter
+        # the tensors live on the arbiter (ONE pool, N tenants, one
+        # trash page they all write) and ``self._pool`` is a view.
         self._trash = self.kv.num_pages
-        self._pool = {
-            name: torch.zeros((l.shape[0], self.kv.num_pages + 1,
-                               cfg.page_size) + tuple(l.shape[3:]),
-                              dtype=l.dtype, device=device)
-            for name, l in slot_shapes.items()}
+        self._pool_store = None
+        if arbiter is None:
+            self._pool_store = {
+                name: torch.zeros((l.shape[0], self.kv.num_pages + 1,
+                                   cfg.page_size) + tuple(l.shape[3:]),
+                                  dtype=l.dtype, device=device)
+                for name, l in slot_shapes.items()}
         self._table = np.full((cfg.max_slots, cfg.pages_per_slot),
                               self._trash, np.int32)
         self._lengths = np.zeros(cfg.max_slots, np.int32)
@@ -214,6 +261,20 @@ class Engine:
         self._row_buckets = _pow2_buckets(1, cfg.max_slots)
         self._row_buckets_used: set = set()
 
+    @property
+    def _track(self) -> str:
+        """This engine's trace track (one timeline row per tenant)."""
+        return f"engine:{self.tenant}" if self.tenant else "engine"
+
+    # the physical page pool: private tensors for a solo engine, the
+    # arbiter's shared tensors when multi-tenant.  Every write (prefill
+    # scatter, decode, spill gather, fetch) goes in place through this
+    # view, so every tenant's hits the SAME pool.
+    @property
+    def _pool(self) -> Dict[str, torch.Tensor]:
+        return (self.arbiter.pool if self.arbiter is not None
+                else self._pool_store)
+
     # ---- transfer pricing --------------------------------------------------
     @property
     def cost(self) -> ServeCostModel:
@@ -221,17 +282,19 @@ class Engine:
 
     @cost.setter
     def cost(self, cm: ServeCostModel) -> None:
-        # the private degenerate transport prices from the cost model's
-        # tier-2 scalars: rebuild lazily so ``eng.cost = replace(cm,
-        # tier2_bw=...)`` keeps swap pricing in sync
         self._cost = cm
-        self._transport = None
-        self.route = None
+        if self._transport_owned:
+            # the private degenerate transport prices from the cost
+            # model's tier-2 scalars: rebuild lazily so ``eng.cost =
+            # replace(cm, tier2_bw=...)`` keeps swap pricing in sync
+            self._transport = None
+            self.route = None
 
     @property
     def transport(self):
-        """The private degenerate ``repro_torch.fabric.Transport`` tier-2
-        traffic is charged through (built lazily from the cost model)."""
+        """The ``repro_torch.fabric.Transport`` tier-2 traffic is charged
+        through: the shared one passed in, or the private degenerate one
+        built lazily from the cost model."""
         if self._transport is None:
             self._transport = self._cost.transport()
             self.route = self._transport.topology.route("src", "dst")
@@ -239,9 +302,12 @@ class Engine:
 
     def charge_tier2(self, nbytes: float, t: float) -> float:
         """Modeled seconds for one bulk tier-2 transfer beginning at
-        modeled time ``t``."""
+        modeled time ``t``, fair-sharing links with every transfer
+        already in flight on this engine's transport.  Flows are labeled
+        ``serve:<tenant>``."""
         tx = self.transport            # materializes self.route too
-        return tx.transfer_s(self.route, nbytes, t, label="serve:engine")
+        return tx.transfer_s(self.route, nbytes, t,
+                             label=f"serve:{self.tenant or 'engine'}")
 
     # ---- construction ----------------------------------------------------
     @classmethod
@@ -249,18 +315,62 @@ class Engine:
               params=None, generator: Optional[torch.Generator] = None,
               budget: Optional[KVBudget] = None,
               cost_model: Optional[ServeCostModel] = None,
-              tracer=None, device: DeviceLike = None) -> "Engine":
+              arbiter=None, tenant: Optional[str] = None,
+              transport=None, route=None, tracer=None,
+              device: DeviceLike = None) -> "Engine":
         """Engine on one device (``None``: the card).  ``params`` default
         to ``model.init(generator)``; the KV budget is whatever the
-        caller passes (default: unbudgeted tier-1, no tier-2)."""
+        caller passes (default: unbudgeted tier-1, no tier-2).  Pass
+        ``arbiter``/``tenant`` to join a shared multi-tenant page pool,
+        and ``transport``/``route`` to charge tier-2 traffic on a shared
+        routed fabric instead of a private degenerate link."""
         dev = resolve_device(device)
-        if dev.type != model.device.type:
-            raise ValueError(f"engine device {dev} differs from the "
-                             f"model's {model.device}")
+        _check_device(model, dev)
         if params is None:
             params = model.init(generator)
         return cls(model, params, cfg, device=dev, budget=budget,
-                   cost_model=cost_model, tracer=tracer)
+                   cost_model=cost_model, arbiter=arbiter, tenant=tenant,
+                   transport=transport, route=route, tracer=tracer)
+
+    @classmethod
+    def from_lease(cls, model: Model, lease,
+                   cfg: EngineConfig = EngineConfig(), *,
+                   params=None, generator: Optional[torch.Generator] = None,
+                   budget: Optional[KVBudget] = None,
+                   cost_model: Optional[ServeCostModel] = None,
+                   arbiter=None, tenant: Optional[str] = None,
+                   transport=None, route=None, tracer=None,
+                   device: DeviceLike = None) -> "Engine":
+        """Bind a ``repro_torch.pool.Lease``: the engine runs on the first
+        device ``lease.materialize()`` binds (``device=`` picks it, e.g.
+        ``"cpu"``), and the lease's tier-2 KV grant becomes the engine's
+        ``KVBudget.tier2_bytes`` — serving capacity is composed by the
+        orchestrator, not hard-coded per deployment.  The reference also
+        derives sharding rules from the lease's mesh and scopes its jit
+        programs to them; on one device there is nothing to shard, so
+        the port has no counterpart of that step."""
+        binding = lease.materialize(None if device is None else [device])
+        dev = binding.device
+        _check_device(model, dev)
+        if budget is None:
+            if getattr(lease, "tenants", ()):
+                # multi-tenant lease: this tenant's static slice of the
+                # shared cold-store grant (tier-1 pages stay dynamic,
+                # arbitrated by the arbiter).  kv_share raises on an
+                # unknown tenant — falling back to the FULL grant would
+                # let every mis-named tenant spill N x the cold bytes.
+                budget = lease.kv_share(tenant, page_size=cfg.page_size)
+            else:
+                base = (binding.policy.kv_budget
+                        or KVBudget(page_size=cfg.page_size))
+                budget = KVBudget(tier1_pages=base.tier1_pages,
+                                  tier2_bytes=base.tier2_bytes,
+                                  page_size=cfg.page_size)
+        if params is None:
+            params = model.init(generator)
+        return cls(model, params, cfg, device=dev, budget=budget,
+                   cost_model=cost_model, arbiter=arbiter, tenant=tenant,
+                   transport=transport, route=route, tracer=tracer)
 
     # ---- client API ------------------------------------------------------
     def submit(self, request: Request) -> RequestHandle:
@@ -316,6 +426,11 @@ class Engine:
         Sub-phases receive the seconds already elapsed *within* this
         step so every event clock lands on the event's modeled time."""
         dt = 0.0
+        if self.arbiter is not None:
+            # swap seconds another tenant's revocation charged to us
+            # since our last step: OUR pages rode the fabric, so OUR
+            # subsequent event clocks absorb the time
+            dt += self.arbiter.take_charge(self.tenant)
         dt += self._relieve_pressure(dt)
         dt += self._swap_in(dt)
         dt += self._admit(dt)
@@ -368,6 +483,21 @@ class Engine:
             return self.budget.pages_for(st.target_len)
         return self.budget.pages_for(st.index + 1)
 
+    def _page_demand(self) -> int:
+        """This engine's current want for hot pages (running + paused
+        next-token demand, plus the queue head's admission need) — the
+        demand signal the arbiter's max-min water-filling splits the
+        shared pool over."""
+        d = sum(self._pages_next(s) for s in self._slots if s is not None)
+        d += sum(self._pages_next(s) for s in self._paused)
+        if self._queue:
+            st = self._queue[0]
+            if self.cfg.reserve_lifetime:
+                d += self.budget.pages_for(st.target_len)
+            else:
+                d += self.budget.pages_for(len(st.effective_prompt()) + 1)
+        return d
+
     def _bucket_len(self, plen: int) -> int:
         for b in self._buckets:
             if b >= plen:
@@ -392,10 +522,10 @@ class Engine:
         growth pages — evicting the coldest paused pages as needed."""
         dt = 0.0
         running = self._running()
-        allow = self.kv.allowance()
-        while running:
+        allow = self.kv.allowance()     # == num_pages for a private pool;
+        while running:                  # the live fair share under an arbiter
             demand = sum(self._pages_next(s) for s in running)
-            if demand <= allow:
+            if demand <= allow and self._growth_deliverable(running):
                 break
             self._pause(running.pop(),          # newest admission
                         self.clock + elapsed + dt)
@@ -408,6 +538,20 @@ class Engine:
                 for lp, phys in zip(range(have, want), new_phys):
                     self._table[st.slot, lp] = phys
         return dt
+
+    def _growth_deliverable(self, running: List[_SlotState]) -> bool:
+        """Can this step's growth pages actually be freed?  Sources: the
+        free stack + revocation headroom (``hot_free``) plus our own
+        paused sequences' hot pages.  For a private pool ``demand <=
+        num_pages`` already implies it; under an arbiter another tenant
+        may sit over its share with every row *running* (nothing
+        revocable until ITS next step pauses them), and growing into
+        that gap must wait."""
+        growth = sum(max(0, self._pages_next(s) - self.kv.pages_of(s.rid))
+                     for s in running if self.kv.holds(s.rid))
+        own_evictable = sum(self.kv.hot_count(s.rid) for s in self._paused
+                            if self.kv.holds(s.rid))
+        return growth <= self.kv.hot_free + own_evictable
 
     def _pause(self, st: _SlotState, t: Optional[float] = None) -> None:
         """Deschedule a running row at modeled time ``t`` (defaults to
@@ -438,14 +582,19 @@ class Engine:
         lowest-logical pages go first.  ``t`` is the seconds already
         elapsed within this step."""
         dt = 0.0
-        while self.kv.free_count < n_pages:
+        # the revocation headroom, snapshotted once: under an arbiter
+        # hot_free re-runs the water-filling over every tenant.  Own
+        # evictions only grow the free stack, so the cached slack stays a
+        # valid (conservative) lower bound.  Private pool: 0.
+        slack = self.kv.hot_free - self.kv.free_count
+        while self.kv.free_count + slack < n_pages:
             victims = [s for s in self._paused
                        if s not in protect and self.kv.hot_count(s.rid) > 0]
             if not victims:
                 break               # nothing evictable; caller re-checks
             victim = min(victims, key=lambda s: (s.last_sched, s.admit_seq))
-            dt += self._evict_or_drop(victim, n_pages - self.kv.free_count,
-                                      t + dt)
+            dt += self._evict_or_drop(
+                victim, n_pages - slack - self.kv.free_count, t + dt)
         return dt
 
     def _evict_or_drop(self, st: _SlotState, need: int, t: float) -> float:
@@ -501,6 +650,8 @@ class Engine:
                                       t=elapsed + dt)
                 if missing > self.kv.hot_free:
                     break
+            # resume BEFORE popping: mid-resume the sequence must stay
+            # visible to the arbiter's demand accounting
             dt += self._resume_into(st, slot, want, elapsed + dt)
             self._paused.popleft()
             run_demand += want
@@ -510,6 +661,10 @@ class Engine:
                      elapsed: float) -> float:
         dt = 0.0
         cold = self.kv.cold_logicals(st.rid)
+        # reserve every physical page this resume needs in one go: under
+        # an arbiter the per-page fetches would otherwise revoke (and
+        # charge the victim a setup latency) once per cold page
+        self.kv.prepare(len(cold) + max(0, want - self.kv.pages_of(st.rid)))
         if cold:
             fetched = [self.kv.fetch(st.rid, lp) for lp in cold]
             idx = torch.as_tensor([p for p, _ in fetched],
@@ -559,6 +714,9 @@ class Engine:
                     else self.budget.pages_for(len(eff) + 1))
             if slot is None or need > self.kv.hot_free:
                 break
+            # prefill BEFORE popping: while its pages are allocated the
+            # request must stay visible (as queue head) to the arbiter's
+            # demand accounting
             dt += self._prefill_into(st, slot, eff, elapsed + dt)
             self._queue.popleft()
         return dt
@@ -708,21 +866,23 @@ class Engine:
 
     # ---- observability ---------------------------------------------------
     # flat scalar keys of the stats() dict; each maps 1:1 onto the
-    # registry path  serve/engine/<key>
+    # registry path  serve/<tenant>/<key>
     _STATS_KEYS = ("clock_s", "steps", "busy_s", "queue_depth", "running",
                    "swapped", "completed", "failed_oom", "tokens_decoded",
                    "throughput_tok_s", "throughput_busy_tok_s", "preempts",
                    "preempt_swaps", "preempt_recomputes", "prefill_buckets",
                    "prefill_compiles", "decode_row_buckets",
                    "decode_compiles")
-    _PREFIX = "serve/engine"
+
+    def _metrics_prefix(self) -> str:
+        return f"serve/{self.tenant or 'engine'}"
 
     def metrics(self, registry: Optional[MetricsRegistry] = None,
                 prefix: Optional[str] = None) -> MetricsRegistry:
         """Fill (and return) a metrics registry with this engine's state
-        under ``serve/engine/...``; ``stats()`` is a thin adapter."""
+        under ``serve/<tenant>/...``; ``stats()`` is a thin adapter."""
         reg = registry if registry is not None else MetricsRegistry()
-        p = prefix if prefix is not None else self._PREFIX
+        p = prefix if prefix is not None else self._metrics_prefix()
         statuses = [h.status for h in self.handles.values()]
         pairs = (
             ("clock_s", self.clock),
@@ -759,13 +919,20 @@ class Engine:
         # materializes the lazy private transport so the subtree is
         # schema-stable whether or not a swap ever happened
         self.transport.metrics(reg, prefix=f"{p}/transport")
+        if self.arbiter is not None:
+            reg.set(f"{p}/tenant", self.tenant)
+            reg.set(f"{p}/allowance", self.kv.allowance())
         return reg
 
     def stats(self) -> Dict[str, Any]:
-        """Throughput, queue depth, page-pool residency, bucket counts."""
-        p = self._PREFIX
+        """Throughput, queue depth, page-pool residency, bucket counts
+        (plus the tenant and its live allowance under an arbiter)."""
+        p = self._metrics_prefix()
         snap = self.metrics().snapshot(p + "/")
         out: Dict[str, Any] = {k: snap[f"{p}/{k}"] for k in self._STATS_KEYS}
         out["kv"] = self.kv.residency()
         out["transport"] = self.transport.stats()
+        if self.arbiter is not None:
+            out["tenant"] = snap[f"{p}/tenant"]
+            out["allowance"] = snap[f"{p}/allowance"]
         return out

@@ -1,4 +1,5 @@
-"""Request-arrival traces and the trace → engine driver.
+"""Request-arrival traces, the trace → engine driver and the
+clock-interleaved multi-tenant driver.
 
 Traces are deterministic (seeded numpy), expressed in *modeled* seconds
 — the same clock the engine's ``ServeCostModel`` advances — so a trace
@@ -13,6 +14,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch.analysis import tiebreak
 from repro_torch.serve.api import Request, RequestHandle
 
 
@@ -91,6 +93,68 @@ def run_trace(engine, trace: Sequence[Request], *,
             continue
         engine.step()
     raise RuntimeError(f"trace not drained after {max_steps} steps")
+
+
+def run_multi_trace(pairs, *, max_steps: int = 1_000_000
+                    ) -> List[List[RequestHandle]]:
+    """Drive several engines — typically tenants of one ``PoolArbiter``
+    — over per-engine arrival traces, interleaved by modeled clock.
+
+    Each round the engine with the earliest next event (its clock if it
+    has work, else its next arrival) steps once; arrivals are fed when
+    that engine's clock reaches them.  An engine whose step makes no
+    modeled progress (blocked on pages another tenant holds) has its
+    clock synced forward to the next other-engine event and is skipped
+    until some tenant progresses; if every engine is blocked at once,
+    that is a cross-tenant deadlock and this raises rather than spins.
+
+    Returns one handle list per (engine, trace) pair, in order.
+    """
+    state = [[eng, sorted(tr, key=lambda r: r.arrival_time), 0, []]
+             for eng, tr in pairs]
+    blocked: set = set()
+    for _ in range(max_steps):
+        for st in state:
+            eng, pend = st[0], st[1]
+            while st[2] < len(pend) \
+                    and pend[st[2]].arrival_time <= eng.clock:
+                st[3].append(eng.submit(pend[st[2]]))
+                st[2] += 1
+        cands = []
+        for j, (eng, pend, i, _) in enumerate(state):
+            if not eng.idle:
+                cands.append((eng.clock, j))
+            elif i < len(pend):
+                cands.append((pend[i].arrival_time, j))
+        if not cands:
+            return [st[3] for st in state]
+        live = [c for c in cands if c[1] not in blocked]
+        if not live:
+            raise RuntimeError(
+                "multi-tenant deadlock: every engine is blocked on pages "
+                "another tenant holds")
+        # candidate-list order is incidental: selection is a total-order
+        # min over (clock, engine index) — equal clocks break by index
+        t, j = min(tiebreak.order(live))
+        eng, pend = state[j][0], state[j][1]
+        if eng.idle:
+            eng.advance_clock(t)
+            while state[j][2] < len(pend) \
+                    and pend[state[j][2]].arrival_time <= eng.clock:
+                state[j][3].append(eng.submit(pend[state[j][2]]))
+                state[j][2] += 1
+        before = eng.clock
+        dt = eng.step()
+        # identity test: did step() assign a new clock value at all
+        if dt > 0.0 or eng.idle or eng.clock != before:
+            blocked.clear()
+        else:
+            others = [c[0] for c in cands if c[1] != j]
+            if others:
+                eng.advance_clock(min(others))
+            blocked.add(j)
+    raise RuntimeError(f"multi-tenant traces not drained after "
+                       f"{max_steps} steps")
 
 
 def latency_summary(handles: Sequence[RequestHandle]) -> Dict[str, float]:

@@ -85,6 +85,51 @@ def test_entry_points_refuse_the_cpu_unless_asked():
     assert resolve_device("cpu").type == "cpu"
 
 
+def test_the_pool_slice_modules_are_checked():
+    """The multi-tenant and pool modules are among those imported with
+    JAX and the reference blocked, and whose sources are scanned."""
+    names = set(_module_names())
+    slice_modules = {
+        "repro_torch.serve.arbiter", "repro_torch.serve.trace",
+        "repro_torch.pool", "repro_torch.pool.inventory",
+        "repro_torch.pool.allocator", "repro_torch.pool.lease",
+        "repro_torch.ckpt", "repro_torch.ckpt.elastic",
+        "repro_torch.core.fabric", "repro_torch.fabric.topology",
+        "repro_torch.runtime.serve", "repro_torch.launch.serve"}
+    assert slice_modules <= names, sorted(slice_modules - names)
+    files = {p.relative_to(PKG).as_posix() for p in FILES if PKG in p.parents}
+    assert {"serve/arbiter.py", "pool/lease.py", "pool/allocator.py",
+            "pool/inventory.py", "ckpt/elastic.py"} <= files
+
+
+def test_lease_entry_points_refuse_the_cpu_unless_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None is valid here")
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import main
+    from repro_torch.models.api import build_model
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.pool import smoke_pool
+    from repro_torch.runtime.serve import make_lease_session
+    from repro_torch.serve import Engine, PoolArbiter
+
+    model = build_model(get_config("qwen1.5-0.5b", smoke=True),
+                        device="cpu")
+    lease = smoke_pool().lease("svc", 4, tier2_gb=8, kv_gb=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lease.materialize()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine.from_lease(model, lease)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine.local(model, arbiter=PoolArbiter(4), tenant="a")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_lease_session(model, ShapeConfig("s", "decode", 32, 2), lease)
+    for extra in (["--tenants", "2"], ["--pool", "scalepool",
+                                        "--tier2-kv-gb", "1"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(["--smoke", "--requests", "2"] + extra)
+
+
 def test_non_dense_families_are_not_served_yet():
     from repro_torch.configs import get_config
     from repro_torch.models.api import build_model
