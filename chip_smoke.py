@@ -16,7 +16,8 @@ no result line):
               pages with a window starting mid-split, and at the pooled
               path's shape (bf16 q, fp32 pool of 16-token pages, H=KV=16,
               D=64, 8-page tables; rows alone and in pairs bitwise equal
-              to their rows of B = 4); flash on its
+              to their rows of B = 4) and the decode tier's (15-page
+              tables, 224..240 tokens); flash on its
               tensor-core kernel (bf16 q) over Sq 1..1024, D 64 / 112 /
               128, fp32 and bf16 K/V, G 1 and 4, the masks, rows with no
               visible key exactly zero, and on its CUDA-core kernel (fp32
@@ -58,6 +59,28 @@ no result line):
               tables after any step, the modeled numbers equal to the
               same scenario at smoke width on the CPU, and the paged,
               flash and RMSNorm launches exact;
+7.  disagg  - (run right after phase 6, on phase 4's model and weights)
+              benchmarks/fig12_disagg.py's smoke scenario at full width:
+              12 requests of 224 prompt tokens and 16 new on 4-slot
+              engines of 16-token pages, modeled costs priced at the
+              full-size model, link capacities in pages per modeled
+              second.  At full depth in bf16: two colocated engines
+              (``run_multi_trace``) against a prefill engine handing each
+              request's pages over the modeled fabric to a decode engine
+              (``DisaggCluster``: direct, and staged through a tier-2
+              memory node), and the degenerate cluster against
+              ``run_trace(Engine)``; the three runs again in fp32 (TF32
+              off); the four staging runs (saturated and idle trunk) on
+              the first 2 layers.  Checked: every request done, fig12's
+              four claims (decode p95 at least 2x better disaggregated,
+              fp32 tokens identical across the three runs, the
+              degenerate cluster identical in tokens and trace events,
+              staging wins on a saturated trunk and loses on an idle
+              one), every ``handoff_use`` at or after its last page
+              landed, the modeled numbers equal to the same scenario's at
+              smoke width on the CPU, and the paged, flash and RMSNorm
+              launches exact; the bf16 tokens are reported beside the
+              fp32 ones, with the top-2 logit margin where they differ;
 4c/4d. batch - mamba2-780m (48 layers, d=1536, 8 x 500-token prompts,
               32 tokens) and zamba2-7b (81 mamba layers, d=3584, the
               shared attention block 13 times, 4 x 500-token prompts, 16
@@ -73,14 +96,18 @@ no result line):
               same function (for flash, SDPA in fp32 and, as
               ``library_bf16_ms``, on bf16 K/V), and the bound from the
               H100's published peaks, at each path's shapes (paged at
-              the engine's 8-row and 1-row decode buckets; flash at
-              qwen's 128 / 256 / 512 buckets and zamba2's prefill and
-              decode; RMSNorm at 512 and 8 rows of 1024, 8 of 1536 and
-              3072, 2000 of 3584 and 7168; the SSD scan at mamba2's and
-              zamba2's prefill);
-then the ``launches`` and ``kernels`` lines (phase 6's launches among
-the paths), and the contract line ``{"ok": true, "device": {...}}``,
-last.
+              the engine's 8-row and 1-row decode buckets, the pooled
+              path's 4 rows of 8-page tables and the decode tier's 4
+              rows of 15-page tables, 16-token pages; flash at qwen's
+              128 / 256 / 512 buckets and zamba2's prefill and decode;
+              RMSNorm at 512 and 8 rows of 1024, 8 of 1536 and 3072,
+              2000 of 3584 and 7168; the SSD scan at mamba2's and
+              zamba2's prefill).  Every call reads cold inputs: the
+              copies cycled through read more than twice the L2 a cycle.
+              A time under its bound / 1.05 fails the run;
+then the ``launches`` and ``kernels`` lines (phases 6 and 7's launches
+among the paths), and the contract line ``{"ok": true, "device":
+{...}}``, last.
 
 It imports torch, numpy and ``repro_torch`` only (no JAX).
 """
@@ -90,6 +117,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -98,6 +126,9 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12             # dense bf16 tensor-core peak
+FP32_FLOPS = 67e12              # fp32 outside the tensor cores
+L2_BYTES = 50e6                 # H100 SXM L2 cache
+BOUND_SLACK = 1.05              # a timed kernel under bound / 1.05 fails
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 SSD_TOL = 2e-4                  # fp32 SSD outputs: sums run in another order
 PROMPT_LENS = (120, 250, 500)   # the full-width trace's prompt lengths
@@ -123,12 +154,19 @@ def bound(nbytes: float, flops: float, flop_rate: float):
 # timing
 # ---------------------------------------------------------------------------
 
+def cold_copies(nbytes: float) -> int:
+    """Input copies whose one cycle reads more than twice the L2, for a
+    call that reads ``nbytes``: cycled through, every call reads cold."""
+    return int(2 * L2_BYTES // nbytes) + 1
+
+
 def time_ms(fn, n_inputs: int = 1, reps: int = 20, trials: int = 7):
-    """Median device time of one ``fn(i)`` call: ``reps`` calls (cycling
-    ``i`` over ``n_inputs`` input copies, so an input set larger than L2
-    is read cold) captured in a CUDA graph, replayed ``trials`` times
-    between CUDA events."""
+    """Median device time of one ``fn(i)`` call: ``max(reps, n_inputs)``
+    calls (cycling ``i`` over ``n_inputs`` input copies, each read once
+    a cycle: see ``cold_copies``) captured in a CUDA graph, replayed
+    ``trials`` times between CUDA events."""
     import torch
+    reps = max(reps, n_inputs)
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -312,6 +350,14 @@ def kernel_checks(device):
               "case": f"bitwise row independence ps=16, B=1 and B=2 vs "
                       f"B=4, lens={lens}", "ok": alone_ok})
         check(alone_ok, "paged ps=16: a row's output changed with its batch")
+    # the disaggregated decode tier's shape (phase 7): 4 rows of 224..240
+    # tokens over 15-page tables of 16-token pages
+    args = paged_inputs(gen, 4, 16, 16, 64, 16, 15, [224, 229, 235, 240],
+                        bf16, f32, device)
+    record("paged_attention", "B=4 H=KV=16 D=64 ps=16 pages=15 "
+           "lens=[224, 229, 235, 240] q=bf16 pages=fp32",
+           paged_decode_attention(*args), ref.paged_attention_ref(*args),
+           TOL["bfloat16"])
 
     # flash, bf16 q (the tensor-core kernel): every Sq bucket and a
     # decode query, each head_dim, K/V as the fp32 cache holds them and in
@@ -1233,6 +1279,389 @@ def multitenant_full_width(model, params, device):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: disaggregated prefill/decode (fig12's smoke scenario) at full width
+# ---------------------------------------------------------------------------
+
+# benchmarks/fig12_disagg.py's smoke constants, restated: a prefill-heavy
+# burst of 12 requests (224 prompt tokens, 16 new) on 4-slot engines of
+# 16-token pages; fabric capacities in pages per modeled second
+DG_PAGE, DG_PROMPT, DG_MAX_NEW, DG_SLOTS = 16, 224, 16, 4
+DG_FAST_PAGES_S = 20000.0   # uncontended: the fabric outruns prefill
+DG_SLOW_PAGES_S = 50.0      # the staging runs: handoffs genuinely priced
+DG_N_BG = 3                 # background flows saturating the XLink trunk
+DG_REQUESTS = 12
+DG_SHALLOW = 2              # depth of the four staging runs
+DG_MAIN = ("colocated", "direct", "tier2")   # fig12's full-depth runs
+
+
+def dg_trace():
+    """fig12's burst, drawn with the smoke config's vocab at every width
+    (numpy's ``randint`` takes more or fewer draws by range)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import burst_trace
+    vocab = get_config("qwen1.5-0.5b", smoke=True).vocab
+    return burst_trace(DG_REQUESTS, prompt_len=DG_PROMPT,
+                       max_new_tokens=DG_MAX_NEW, vocab=vocab, seed=0)
+
+
+def dg_engine(model, params, device, **kw):
+    """One engine of the scenario: modeled costs priced at the full-size
+    qwen1.5-0.5b (fig12's ``_cost_model``), whatever width is served."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import Engine, EngineConfig, ServeCostModel
+    full = get_config("qwen1.5-0.5b")
+    return Engine.local(
+        model, EngineConfig(max_slots=DG_SLOTS,
+                            max_seq=DG_PROMPT + DG_MAX_NEW,
+                            page_size=DG_PAGE),
+        params=params, device=device,
+        cost_model=ServeCostModel.from_fabric(2.0 * full.param_count()),
+        **kw)
+
+
+def dg_topology(bw: float):
+    """fig12's two pods with two disjoint inter-pod paths: the XLink
+    trunk (via ``xsw``, inserted first, so pod-to-pod routes take it) and
+    the tier-2 staging path (via ``t2sw`` and ``mem:0``)."""
+    from repro_torch.core import fabric as fb
+    from repro_torch.fabric import Topology
+    lat = fb.tier2_memory_fabric(8).latency()
+    topo = Topology("fig12")
+    topo.add_node("xsw", "switch")
+    topo.add_node("t2sw", "switch")
+    topo.add_node("mem:0", "memory")
+    for pid in (0, 1):
+        topo.add_node(f"pod:{pid}", "pod")
+        topo.connect(f"pod:{pid}", "xsw", fb.UALINK200, capacity=bw,
+                     latency=lat / 8)
+        topo.connect(f"pod:{pid}", "t2sw", fb.CXL3, capacity=bw,
+                     latency=lat / 4)
+    topo.connect("t2sw", "mem:0", fb.CXL_CAPACITY, capacity=2.0 * bw,
+                 latency=lat / 4)
+    return topo
+
+
+def dg_colocated(model, params, device, trace, tracer=None):
+    """The equal-hardware baseline: two colocated engines, the burst
+    split round-robin, on one modeled clock."""
+    from repro_torch.serve import run_multi_trace
+    engines = [dg_engine(model, params, device, tenant=f"colo{k}",
+                         tracer=tracer) for k in (0, 1)]
+    res = run_multi_trace(list(zip(engines, [trace[0::2], trace[1::2]])))
+    out = [None] * len(trace)
+    for k in (0, 1):
+        for j, h in enumerate(res[k]):
+            out[k + 2 * j] = h
+    return out, None
+
+
+def dg_disagg(model, params, device, trace, *, staging, pages_s,
+              saturate=False, tracer=None):
+    """One prefill pod and one decode pod over fig12's fabric, link
+    capacity ``pages_s`` pages of the decode engine's page bytes per
+    modeled second, so the schedule does not depend on the width."""
+    from repro_torch.disagg import DisaggCluster, DisaggConfig, PrefillWorker
+    from repro_torch.fabric import Transport
+    pe = dg_engine(model, params, device, tenant="prefill0", tracer=tracer)
+    de = dg_engine(model, params, device, tenant="decode0", tracer=tracer)
+    bw = pages_s * de.kv.page_bytes
+    topo = dg_topology(bw)
+    tx = Transport(topo, tracer=tracer)
+    direct = topo.route("pod:0", "pod:1")
+    check(any("xsw" in l.name for l in direct.links),
+          "disagg: the direct route does not ride the XLink trunk")
+    if saturate:
+        for _ in range(DG_N_BG):
+            tx.begin_transfer(direct, 1e4 * bw, 0.0, label="bg:xlink")
+    kw = {}
+    if staging == "tier2":
+        kw["stage_in"] = topo.route("pod:0", "mem:0")
+        kw["stage_out"] = topo.route("mem:0", "pod:1")
+    cluster = DisaggCluster(
+        [PrefillWorker(pe, name="p0")], [de], transport=tx, route=direct,
+        tenant="kvcache",
+        config=DisaggConfig(staging=staging, min_ready_pages=1), **kw)
+    handles = cluster.run(trace)
+    tx.quiesce()
+    return handles, cluster
+
+
+def dg_degenerate(model, params, device, trace, tracers):
+    """route=None, one pod: the cluster against ``run_trace(Engine)``,
+    tokens and trace events."""
+    from repro_torch.disagg import DisaggCluster, PrefillWorker
+    from repro_torch.obs import Tracer
+    from repro_torch.serve import run_trace
+    tr_a, tr_b = Tracer(1 << 16), Tracer(1 << 16)
+    tracers += [tr_a, tr_b]
+    plain = run_trace(dg_engine(model, params, device, tracer=tr_a), trace)
+    idle = PrefillWorker(dg_engine(model, params, device, tracer=tr_b))
+    got = DisaggCluster([idle], [dg_engine(model, params, device,
+                                           tracer=tr_b)]).run(trace)
+    key = lambda t: [(e.ph, e.track, e.name, e.ts, e.dur, e.args)
+                     for e in t.events()]
+    ev_a, ev_b = key(tr_a), key(tr_b)
+    return {"tokens_identical": [h.tokens for h in plain]
+            == [h.tokens for h in got],
+            "events_identical": ev_a == ev_b, "events": len(ev_a),
+            "done": all(h.done for h in plain + got)}
+
+
+def dg_decode_p95(handles) -> float:
+    """p95 of the decode phase (done - first token), fig12's
+    interference axis."""
+    ds = sorted(h.done_clock - h.first_token_clock for h in handles)
+    return ds[max(0, math.ceil(0.95 * len(ds)) - 1)]
+
+
+def dg_mean_transit(handles) -> float:
+    return sum(h.kv_transit_s for h in handles) / max(1, len(handles))
+
+
+def dg_main_runs(model, params, device, trace, tracers=None):
+    """The three runs fig12 compares at full depth: colocated, direct and
+    tier-2 staged, each with its wall time."""
+    import torch
+    from repro_torch.obs import Tracer
+    runs, walls = {}, {}
+    for name, fn, kw in (
+            ("colocated", dg_colocated, {}),
+            ("direct", dg_disagg, dict(staging="direct",
+                                       pages_s=DG_FAST_PAGES_S)),
+            ("tier2", dg_disagg, dict(staging="tier2",
+                                      pages_s=DG_FAST_PAGES_S))):
+        tracer = None
+        if tracers is not None:
+            tracer = Tracer(1 << 18)
+            tracers.append(tracer)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[name] = fn(model, params, device, trace, tracer=tracer, **kw)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+    return runs, walls
+
+
+def dg_staging_runs(model, params, device, trace):
+    """fig12's staging scenario on the first six requests: a scarce
+    fabric, with and without background flows pinning the trunk."""
+    sat = trace[:max(6, len(trace) // 2)]
+    return {f"{load}_{staging}": dg_disagg(
+                model, params, device, sat, staging=staging,
+                pages_s=DG_SLOW_PAGES_S, saturate=load == "sat")
+            for load in ("sat", "idle") for staging in ("direct", "tier2")}
+
+
+def dg_modeled(runs):
+    """The numbers the modeled clock gives, width-free by construction:
+    decode and end-to-end p95, mean KV transit, handoffs and colocated
+    requests of every run."""
+    from repro_torch.serve import latency_summary
+    out = {"decode_p95_s": {}, "e2e_p95_s": {}, "transit_mean_s": {},
+           "handoffs": {}, "colocated": {}}
+    for name, (handles, cluster) in runs.items():
+        out["decode_p95_s"][name] = dg_decode_p95(handles)
+        out["e2e_p95_s"][name] = latency_summary(handles)["p95_s"]
+        out["transit_mean_s"][name] = dg_mean_transit(handles)
+        if cluster is not None:
+            out["handoffs"][name] = cluster.handoffs
+            out["colocated"][name] = cluster.colocated
+    return out
+
+
+def dg_claims(modeled, tokens_identical, degenerate):
+    m = modeled
+    sat_ok = (m["transit_mean_s"]["sat_tier2"]
+              < m["transit_mean_s"]["sat_direct"]
+              and m["transit_mean_s"]["idle_direct"]
+              <= m["transit_mean_s"]["idle_tier2"])
+    return {"p95_2x": m["decode_p95_s"]["colocated"]
+            >= 2.0 * m["decode_p95_s"]["direct"],
+            "tokens_identical": tokens_identical,
+            "degenerate_identical": degenerate["tokens_identical"]
+            and degenerate["events_identical"],
+            "staging_wins": sat_ok}
+
+
+def dg_uses_after_pages(tracer):
+    """Every ``handoff_use`` at or after its request's last page landed
+    (the ``ready_ts`` of that request's ``handoff_page`` events)."""
+    last, uses = {}, []
+    for e in tracer.events():
+        if e.name == "handoff_page":
+            last[e.track] = max(last.get(e.track, 0.0), e.args["ready_ts"])
+        elif e.name == "handoff_use":
+            uses.append(e)
+    ok = all(e.track in last and e.ts >= last[e.track]
+             and e.args["ready_ts"] == last[e.track] for e in uses)
+    return len(uses), ok
+
+
+def top2_margin(model, params, device, tokens) -> float:
+    """Top-1 minus top-2 logit after ``tokens``, from one prefill."""
+    import torch
+    n = len(tokens)
+    bucket = -(-n // DG_PAGE) * DG_PAGE
+    toks = torch.zeros((1, bucket), dtype=torch.long, device=device)
+    toks[0, :n] = torch.as_tensor(tokens, device=device)
+    cache = model.init_cache(1, bucket, dtype=torch.float32)
+    logits, _ = model.prefill_at(params, {"tokens": toks}, cache, n - 1)
+    top = torch.topk(logits[0, -1].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def dg_tokens(model, params, device, runs):
+    """(identical, difference): whether the colocated, direct and tier-2
+    runs gave the same tokens, and where not, the first differing step
+    with the colocated run's top-2 logit margin there (C-ref3)."""
+    toks = {k: [h.tokens for h in runs[k][0]] for k in DG_MAIN}
+    if toks["colocated"] == toks["direct"] == toks["tier2"]:
+        return True, None
+    other = "direct" if toks["direct"] != toks["colocated"] else "tier2"
+    i, step = next((i, s) for i, (a, b) in enumerate(
+        zip(toks["colocated"], toks[other]))
+        for s, (x, y) in enumerate(zip(a, b)) if x != y)
+    h = runs["colocated"][0][i]
+    return False, {"run": other, "request": i, "step": step,
+                   "top2_margin": top2_margin(
+                       model, params, device,
+                       list(h.request.prompt_tokens) + h.tokens[:step])}
+
+
+def disagg_full_width(model, params, device):
+    """fig12's smoke scenario served on the card: a prefill engine
+    exports each prompt's KV page by page (``prefill_export``), the
+    router streams the pages over the modeled fabric and plants each
+    request on the decode engine (``submit_prefilled``).  At full width
+    and depth in bf16, every kernel launch counted: two colocated engines
+    against disaggregation direct and tier-2 staged, and the degenerate
+    cluster against ``run_trace(Engine)`` on 6 requests; at full depth in
+    fp32 (TF32 off) the three token streams held equal; on the first
+    ``DG_SHALLOW`` layers the four staging runs (saturated and idle
+    trunk).  The modeled numbers must equal the same scenario's at smoke
+    width on the CPU."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+
+    trace = dg_trace()
+    # the same scenario at smoke width on the CPU, inside this run
+    small = build_model(get_config("qwen1.5-0.5b", smoke=True),
+                        device="cpu")
+    small_params = small.init(torch.Generator().manual_seed(0))
+    cpu = torch.device("cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)        # its ops are tiny: threads only wait
+    t0 = time.perf_counter()
+    cpu_runs, _ = dg_main_runs(small, small_params, cpu, trace)
+    cpu_runs.update(dg_staging_runs(small, small_params, cpu, trace))
+    cpu_modeled = dg_modeled(cpu_runs)
+    cpu_s = time.perf_counter() - t0
+    torch.set_num_threads(threads)
+    del cpu_runs, small, small_params
+
+    # full width and depth, bf16, every kernel launch counted
+    tracers = []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    runs, walls = dg_main_runs(model, params, device, trace, tracers)
+    degenerate = dg_degenerate(model, params, device, trace[:6], tracers)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    variants = kernels.variant_counts()
+    names = [e.name for t in tracers for e in t.events()]
+    decodes, prefills = names.count("decode"), names.count("prefill")
+    uses = {k: dg_uses_after_pages(tracers[DG_MAIN.index(k)])
+            for k in ("direct", "tier2")}
+
+    # the staging runs at depth DG_SHALLOW, the full model's first
+    # layers: their pages (2^18 B) are a power of two apart from the
+    # smoke width's (2^14 B), so the fabric's byte arithmetic rounds the
+    # saturated runs' clocks alike; full-depth pages (3 x 2^20 B) do not
+    shallow = build_model(dataclasses.replace(model.cfg,
+                                              n_layers=DG_SHALLOW),
+                          device=device)
+    shallow_params = {**params, "layers": params["layers"][:DG_SHALLOW]}
+    t1 = time.perf_counter()
+    runs.update(dg_staging_runs(shallow, shallow_params, device, trace))
+    torch.cuda.synchronize()
+    staging_wall = time.perf_counter() - t1
+    del shallow, shallow_params
+    modeled = dg_modeled(runs)
+
+    # tokens: bf16 reported, fp32 (the same weights, upcast exactly, TF32
+    # off) gated; the colocated and the decode tier's rows sit in other
+    # row buckets, where a GEMM at another row count may round otherwise
+    bf16_equal, bf16_diff = dg_tokens(model, params, device, runs)
+    model32 = build_model(dataclasses.replace(model.cfg,
+                                              compute_dtype="float32"),
+                          device=device)
+    params32 = model32.load(params)
+    runs32, walls32 = dg_main_runs(model32, params32, device, trace)
+    fp32_equal, fp32_diff = dg_tokens(model32, params32, device, runs32)
+    fp32_modeled_equal = dg_modeled(runs32) == dg_modeled(
+        {k: runs[k] for k in DG_MAIN})
+    del model32, params32, runs32
+
+    claims = dg_claims(modeled, fp32_equal, degenerate)
+    L = model.cfg.n_layers
+    generated = {k: sum(len(h.tokens) for h in runs[k][0]) for k in DG_MAIN}
+    run_steps = {k: sum(e.name == "decode" for e in tracers[i].events())
+                 for i, k in enumerate(DG_MAIN)}
+    emit({"phase": "disagg", "arch": model.cfg.name, "layers": L,
+          "d_model": model.cfg.d_model, "staging_layers": DG_SHALLOW,
+          "requests": len(trace), "claims": claims, "modeled": modeled,
+          "wall_s": wall, "run_wall_s": walls,
+          "tokens_per_wall_s": {k: generated[k] / walls[k]
+                                for k in DG_MAIN},
+          "decode_steps_per_run": run_steps,
+          "staging_wall_s": staging_wall, "fp32_wall_s": walls32,
+          "tokens_identical_fp32": fp32_equal, "fp32_difference": fp32_diff,
+          "fp32_modeled_equal_bf16": fp32_modeled_equal,
+          "tokens_identical_bf16": bf16_equal, "bf16_difference": bf16_diff,
+          "degenerate": degenerate, "handoff_uses": uses,
+          "prefills": prefills, "decode_steps": decodes,
+          "launches": counts, "kernel_variants": variants,
+          "cpu_smoke_width_s": cpu_s,
+          "modeled_equal_smoke_width": modeled == cpu_modeled,
+          "trace_dropped": sum(t.dropped for t in tracers)})
+    check(all(t.dropped == 0 for t in tracers),
+          "disagg: trace ring dropped events")
+    check(all(h.done and len(h.tokens) == h.request.max_new_tokens
+              and all(0 <= x < model.cfg.vocab for x in h.tokens)
+              for hs, _ in runs.values() for h in hs)
+          and degenerate["done"], "disagg: a request did not finish, or "
+          "its tokens are missing or out of range")
+    for k, v in claims.items():
+        check(v, f"disagg: fig12 claim {k} failed: {modeled}")
+    check(fp32_modeled_equal, "disagg: the fp32 runs' modeled numbers "
+          "differ from the bf16 runs'")
+    for k, (n, ok) in uses.items():
+        check(n == modeled["handoffs"][k] and ok,
+              f"disagg {k}: {n} handoff_use events, a use before its "
+              f"last page landed: {not ok}")
+    check(modeled == cpu_modeled, f"disagg: modeled numbers at full width "
+          f"{modeled} != smoke width on the CPU {cpu_modeled}")
+    check(counts["paged_attention"] == decodes * L,
+          f"disagg: paged launches {counts['paged_attention']} != "
+          f"{decodes} decode steps x {L}")
+    check(counts["flash_attention"] == prefills * L,
+          f"disagg: flash launches {counts['flash_attention']} != "
+          f"{prefills} prefills x {L}")
+    check_flash_variant(f"{model.cfg.name} disagg", model.cfg.compute_dtype,
+                        variants, counts["flash_attention"])
+    check(counts["rmsnorm"] == (decodes + prefills) * (2 * L + 1),
+          f"disagg: rmsnorm launches {counts['rmsnorm']} != "
+          f"{decodes + prefills} calls x {2 * L + 1}")
+    return counts, variants
+
+
+# ---------------------------------------------------------------------------
 # phase 5: times at the serving path's shapes
 # ---------------------------------------------------------------------------
 
@@ -1273,83 +1702,106 @@ def kernel_times(device, counts, errs):
                      "bound_by": bound_by, "library_ms": library_ms,
                      **extra})
 
-    # paged: a full decode batch (8 rows, 120..563 live tokens, the trace's
-    # prompt lengths plus generated tokens), four copies of the pool so
-    # the timed calls read cold K/V as a decode step does layer by layer
-    lens = [130, 260, 520, 150, 300, 563, 200, 400]
-    sets = [paged_inputs(gen, 8, 16, 16, 64, 64, 16, lens, bf16, f32, device)
-            for _ in range(4)]
-    def paged_bound(q, kp, lens):
-        live = sum(lens)
-        nbytes = (2 * live * 16 * 64 * kp.element_size()          # K and V
-                  + 2 * q.numel() * q.element_size()              # q, out
-                  + 4 * sum(-(-n // 64) for n in lens)            # table
-                  + 4 * len(lens))                                # lens
-        return bound(nbytes, 4 * live * 16 * 64, BF16_FLOPS)
+    cases = []
 
-    ms = time_ms(lambda i: pa.paged_decode_attention(*sets[i]), 4)
-    plain = time_ms(lambda i: ref.paged_attention_ref(*sets[i]), 4)
-    b_ms, b_by = paged_bound(sets[0][0], sets[0][1], lens)
-    row(pa, "paged_attention", ms, plain, b_ms, b_by, None)
-    emit({"phase": "times", "kernel": "paged_attention",
-          "case": "engine decode B=8 len 130..563 H=KV=16 D=64 ps=64 "
-                  "q=bf16 pages=fp32", "ms": ms, "plain_ms": plain,
-          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    def times(kernel, case, ms, plain, b_ms, b_by, lib, **extra):
+        """One phase-5 line; every case is held to its bound below."""
+        emit({"phase": "times", "kernel": kernel, "case": case, "ms": ms,
+              "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+              "library_ms": lib, **extra})
+        cases.append((f"{kernel} {case}", ms, b_ms))
+
+    # paged: a full decode batch of the engine (8 rows, 120..563 live
+    # tokens, the trace's prompt lengths plus generated tokens), a one-row
+    # bucket, the pooled path's 4 rows over 8-page tables of 16-token
+    # pages and the decode tier's 4 rows over 15-page tables; copies of
+    # the pool cycled so the timed calls read cold K/V, as a decode step
+    # does layer by layer
+    def paged_work(q, kp, lens, ps):
+        live = sum(lens)
+        nbytes = (2 * live * kp.shape[2] * kp.shape[3] * kp.element_size()
+                  + 2 * q.numel() * q.element_size()              # q, out
+                  + 4 * sum(-(-n // ps) for n in lens)            # table
+                  + 4 * len(lens))                                # lens
+        return nbytes, 4 * live * q.shape[1] * q.shape[2]
+
+    def paged_time(case, B, ps, pmax, lens, first=False):
+        one = paged_inputs(gen, B, 16, 16, 64, ps, pmax, lens, bf16, f32,
+                           device)
+        nbytes, flops = paged_work(one[0], one[1], lens, ps)
+        reads = nbytes - one[0].numel() * one[0].element_size()   # - out
+        sets = [one] + [paged_inputs(gen, B, 16, 16, 64, ps, pmax, lens,
+                                     bf16, f32, device)
+                        for _ in range(max(4, cold_copies(reads)) - 1)]
+        ms = time_ms(lambda i: pa.paged_decode_attention(*sets[i]),
+                     len(sets))
+        plain = time_ms(lambda i: ref.paged_attention_ref(*sets[i]),
+                        len(sets))
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+        if first:
+            row(pa, "paged_attention", ms, plain, b_ms, b_by, None)
+        times("paged_attention", case, ms, plain, b_ms, b_by, None,
+              input_copies=len(sets))
+        del sets
+
+    paged_time("engine decode B=8 len 130..563 H=KV=16 D=64 ps=64 q=bf16 "
+               "pages=fp32", 8, 64, 16, [130, 260, 520, 150, 300, 563, 200,
+                                          400], first=True)
     # a one-row decode bucket: 300 tokens, 5 live splits x 16 heads
-    ones = [paged_inputs(gen, 1, 16, 16, 64, 64, 16, [300], bf16, f32,
-                         device) for _ in range(4)]
-    ms1 = time_ms(lambda i: pa.paged_decode_attention(*ones[i]), 4)
-    plain1 = time_ms(lambda i: ref.paged_attention_ref(*ones[i]), 4)
-    emit({"phase": "times", "kernel": "paged_attention",
-          "case": "engine decode B=1 len 300 H=KV=16 D=64 ps=64 q=bf16 "
-                  "pages=fp32", "ms": ms1, "plain_ms": plain1,
-          **dict(zip(("bound_ms", "bound_by"),
-                     paged_bound(ones[0][0], ones[0][1], [300]))),
-          "library_ms": None})
+    paged_time("engine decode B=1 len 300 H=KV=16 D=64 ps=64 q=bf16 "
+               "pages=fp32", 1, 64, 16, [300])
+    paged_time("pooled decode B=4 len 40..128 H=KV=16 D=64 ps=16 pages=8 "
+               "q=bf16 pages=fp32", 4, 16, 8, [40, 72, 100, 128])
+    paged_time("disagg decode tier B=4 len 224..240 H=KV=16 D=64 ps=16 "
+               "pages=15 q=bf16 pages=fp32", 4, 16, 15, [224, 229, 235, 240])
 
     def flash_time(B, Sq, Skv, H, D, q_offset=0, kv_len=None,
                    q_dtype=bf16):
-        """(ms, plain, bound, bound_by, fp32 SDPA, bf16 SDPA) of one
-        causal call over an fp32 cache: SDPA gets the keys the queries
-        see, [0, kv_len), causal for a prefill from position 0, all
-        visible for one decode query at the end of them."""
+        """(ms, plain, bound, bound_by, fp32 SDPA, bf16 SDPA, copies) of
+        one causal call over an fp32 cache, every call on its own copy of
+        the inputs: SDPA gets the keys the queries see, [0, kv_len),
+        causal for a prefill from position 0, all visible for one decode
+        query at the end of them."""
         n_kv = Skv if kv_len is None else kv_len
-        q = torch.randn(B, Sq, H, D, generator=gen, device=device).to(q_dtype)
-        k, v = (torch.randn(B, Skv, H, D, generator=gen, device=device)
-                for _ in range(2))
-        kw = dict(causal=True, q_offset=q_offset, kv_len=kv_len)
-        ms = time_ms(lambda i: fa.flash_attention(q, k, v, **kw))
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        plain = time_ms(lambda i: ref.attention_ref(qt, kt, vt, **kw))
-        ks, vs = kt[:, :, :n_kv], vt[:, :, :n_kv]
-        q32, q16 = qt.float(), qt.to(bf16)
-        ks16, vs16 = ks.to(bf16), vs.to(bf16)
         causal = Sq > 1
-        lib = time_ms(lambda i: F.scaled_dot_product_attention(
-            q32, ks, vs, is_causal=causal))
-        lib16 = time_ms(lambda i: F.scaled_dot_product_attention(
-            q16, ks16, vs16, is_causal=causal))
         pairs = Sq * (Sq + 1) // 2 if causal else Sq * n_kv
-        nbytes = (2 * q.numel() * q.element_size()
-                  + 2 * B * n_kv * H * D * k.element_size())
-        return (ms, plain, *bound(nbytes, 4 * D * H * B * pairs,
-                                  BF16_FLOPS), lib, lib16)
+        qbytes = B * Sq * H * D * torch.finfo(q_dtype).bits // 8
+        nbytes = 2 * qbytes + 2 * B * n_kv * H * D * 4
+        sets = []
+        for _ in range(cold_copies(nbytes - qbytes)):
+            q = torch.randn(B, Sq, H, D, generator=gen,
+                            device=device).to(q_dtype)
+            k, v = (torch.randn(B, Skv, H, D, generator=gen, device=device)
+                    for _ in range(2))
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            ks, vs = kt[:, :, :n_kv], vt[:, :, :n_kv]
+            sets.append(((q, k, v), (qt, kt, vt), (qt.float(), ks, vs),
+                         (qt.to(bf16), ks.to(bf16), vs.to(bf16))))
+        kw = dict(causal=True, q_offset=q_offset, kv_len=kv_len)
+        n = len(sets)
+        ms = time_ms(lambda i: fa.flash_attention(*sets[i][0], **kw), n)
+        plain = time_ms(lambda i: ref.attention_ref(*sets[i][1], **kw), n)
+        lib = time_ms(lambda i: F.scaled_dot_product_attention(
+            *sets[i][2], is_causal=causal), n)
+        lib16 = time_ms(lambda i: F.scaled_dot_product_attention(
+            *sets[i][3], is_causal=causal), n)
+        del sets
+        rate = BF16_FLOPS if q_dtype == bf16 else FP32_FLOPS
+        return (ms, plain, *bound(nbytes, 4 * D * H * B * pairs, rate),
+                lib, lib16, n)
 
     def flash_line(case, t, variant="tc", **extra):
-        ms, plain, b_ms, b_by, lib, lib16 = t
-        emit({"phase": "times", "kernel": "flash_attention",
-              "variant": variant, "case": case, "ms": ms,
-              "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-              "library_ms": lib, "library_bf16_ms": lib16, **extra})
+        ms, plain, b_ms, b_by, lib, lib16, n = t
+        times("flash_attention", case, ms, plain, b_ms, b_by, lib,
+              variant=variant, library_bf16_ms=lib16, input_copies=n,
+              **extra)
 
     # flash: the largest prefill bucket of the trace (512), bf16 q, fp32
     # cache; then the other buckets, zamba2's prefill and decode at
     # head_dim 112, and the fp32-q kernel at the 512 bucket
-    ms, plain, b_ms, b_by, lib, lib16 = flash_time(1, 512, 512, 16, 64)
-    row(fa, "flash_attention", ms, plain, b_ms, b_by, lib,
-        library_bf16_ms=lib16)
-    flash_line("qwen prefill B=1 Sq=Skv=512 H=16 D=64 q=bf16 kv=fp32",
-               (ms, plain, b_ms, b_by, lib, lib16))
+    t = flash_time(1, 512, 512, 16, 64)
+    row(fa, "flash_attention", *t[:5], library_bf16_ms=t[5])
+    flash_line("qwen prefill B=1 Sq=Skv=512 H=16 D=64 q=bf16 kv=fp32", t)
     for S in (128, 256):
         flash_line(f"qwen prefill B=1 Sq=Skv={S} H=16 D=64 q=bf16 kv=fp32",
                    flash_time(1, S, S, 16, 64))
@@ -1363,50 +1815,58 @@ def kernel_times(device, counts, errs):
     flash_line("fp32 q B=1 Sq=Skv=512 H=16 D=64 kv=fp32",
                flash_time(1, 512, 512, 16, 64, q_dtype=f32), variant="f32")
 
-    # rmsnorm: bf16 rows at d_model (the input was just written by the
-    # previous op, so it is timed warm): qwen's 512-row bucket, decode's
-    # 8 rows at each path's width, zamba2's prefill (4 x 500 rows) at
-    # d_model and d_inner
+    # rmsnorm: bf16 rows at d_model: qwen's 512-row bucket, decode's 8
+    # rows at each path's width, zamba2's prefill (4 x 500 rows) at
+    # d_model and d_inner; the rows of every call are a slice of their
+    # own of one buffer, cycled so each call reads cold
     def rms_time(n, d):
-        x = torch.randn(n, d, generator=gen, device=device).to(bf16)
+        copies = cold_copies(n * d * 2 + d * 2)
+        xs = torch.randn(copies * n, d, generator=gen,
+                         device=device).to(bf16)
         s = (1 + 0.1 * torch.randn(d, generator=gen, device=device)).to(bf16)
-        ms = time_ms(lambda i: rn.rmsnorm(x, s))
-        plain = time_ms(lambda i: ref.rmsnorm_ref(x, s))
-        lib = (time_ms(lambda i: F.rms_norm(x, (d,), weight=s, eps=1e-6))
-               if hasattr(F, "rms_norm") else None)
-        return (ms, plain, *bound(2 * x.numel() * 2 + d * 2, 4 * x.numel(),
-                                  BF16_FLOPS), lib)
+        x = [xs[i * n:(i + 1) * n] for i in range(copies)]
+        ms = time_ms(lambda i: rn.rmsnorm(x[i], s), copies)
+        plain = time_ms(lambda i: ref.rmsnorm_ref(x[i], s), copies)
+        lib = (time_ms(lambda i: F.rms_norm(x[i], (d,), weight=s, eps=1e-6),
+                       copies) if hasattr(F, "rms_norm") else None)
+        del x, xs
+        return (ms, plain, *bound(2 * n * d * 2 + d * 2, 4 * n * d,
+                                  BF16_FLOPS), lib, copies)
 
     for n, d in ((512, 1024), (8, 1024), (8, 1536), (8, 3072), (2000, 3584),
                  (2000, 7168)):
-        ms, plain, b_ms, b_by, lib = rms_time(n, d)
+        ms, plain, b_ms, b_by, lib, copies = rms_time(n, d)
         if (n, d) == (512, 1024):
             row(rn, "rmsnorm", ms, plain, b_ms, b_by, lib)
-        emit({"phase": "times", "kernel": "rmsnorm",
-              "case": f"rows={n} d={d} bf16", "ms": ms, "plain_ms": plain,
-              "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib})
+        times("rmsnorm", f"rows={n} d={d} bf16", ms, plain, b_ms, b_by, lib,
+              input_copies=copies)
 
     # ssd: the prefill's shapes (bf16 x and B/C, fp32 dt, the cache's
-    # zero fp32 state) on the tensor-core kernel, two input copies cycled
-    # so each call reads cold
+    # zero fp32 state) on the tensor-core kernel, input copies cycled so
+    # each call reads cold
     for arch, B, H, N in (("mamba2", 8, 48, 128), ("zamba2", 4, 112, 64)):
+        nbytes, flops = ssd_work(B, 500, H, 64, 1, N, 128, 2)
+        reads = nbytes - B * 500 * H * 64 * 2 - B * H * 64 * N * 4  # - y, h
         sets = [ssd_inputs(gen, B, 500, H, 1, N, bf16, device)
                 + (torch.zeros(B, H, 64, N, device=device),)
-                for _ in range(2)]
-
+                for _ in range(cold_copies(reads))]
         ms = time_ms(lambda i: ssd.ssd_scan(
-            *sets[i][:6], chunk=128, init_state=sets[i][6]), 2)
+            *sets[i][:6], chunk=128, init_state=sets[i][6]), len(sets))
         plain = time_ms(lambda i: ref.ssd_chunked_ref(
-            *sets[i][:6], 128, init_state=sets[i][6]), 2)
-        b_ms, b_by = bound(*ssd_work(B, 500, H, 64, 1, N, 128, 2),
-                           BF16_FLOPS)
+            *sets[i][:6], 128, init_state=sets[i][6]), len(sets))
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
         if arch == "mamba2":
             row(ssd, "ssd_scan", ms, plain, b_ms, b_by, None, variant="tc")
-        emit({"phase": "times", "kernel": "ssd_scan",
-              "case": f"{arch} prefill B={B} S=500 H={H} P=64 N={N} G=1 "
-                      f"Q=128 bf16", "ms": ms, "plain_ms": plain,
-              "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-              "variant": "tc"})
+        times("ssd_scan", f"{arch} prefill B={B} S=500 H={H} P=64 N={N} "
+              f"G=1 Q=128 bf16", ms, plain, b_ms, b_by, None, variant="tc",
+              input_copies=len(sets))
+        del sets
+
+    # no time may beat the card's bound: a case under it read warm data
+    # (or the bound is miscounted)
+    for case, ms, b_ms in cases:
+        check(ms >= b_ms / BOUND_SLACK, f"times: {case} took {ms} ms, under "
+              f"its bound {b_ms} ms / {BOUND_SLACK}")
     return rows
 
 
@@ -1454,6 +1914,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     counts["qwen1.5-0.5b pooled"], variants["qwen1.5-0.5b pooled"] = \
         multitenant_full_width(qwen, qwen_params, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts["qwen1.5-0.5b disagg"], variants["qwen1.5-0.5b disagg"] = \
+        disagg_full_width(qwen, qwen_params, device)
     del qwen, qwen_params
     for arch, batch, generate, steps in (("mamba2-780m", 8, 32, 8),
                                          ("zamba2-7b", 4, 16, 0)):

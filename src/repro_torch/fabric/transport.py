@@ -184,6 +184,15 @@ class Transport:
                 est_completion=flow.completion)
         return flow.completion, solo, t
 
+    @property
+    def inflight(self) -> int:
+        return len(self._flows)
+
+    def link_flows(self, link_name: str) -> int:
+        """In-flight transfers currently crossing ``link_name``."""
+        link = self.topology.links[link_name]
+        return sum(1 for f in self._flows.values() if link in f.route.links)  # repro: allow(no-unordered-iteration) integer count — exact and commutative in any order
+
     def quiesce(self) -> float:
         """Advance the frontier until every in-flight flow has drained
         (no new arrivals assumed) and return the final ``now``.  Call

@@ -25,10 +25,14 @@ port builds) and the request-level engine mode (paged-KV families).
     ... --requests 16 --tenants 3 --tier1-pages 24 --tier2-kv-gb 3
     # (+ --pool scalepool: the tenants share one lease's KV grant)
 
+    # disaggregated: prefill tier + decode tier, KV streamed over the
+    # routed fabric (direct pod-to-pod or staged through tier-2 memory)
+    ... --requests 16 --disagg --disagg-staging tier2 --min-ready-pages 1
+
 ``--requests`` or ``--trace`` select the engine, which a family without
 paged KV refuses (exit 2); otherwise the fixed-batch mode runs.  Prints
 the JSON summary of ``repro.launch.serve``'s mode plus ``"device"``; the
-engine modes exit 0 iff no request failed OOM.
+engine modes (``--disagg`` too) exit 0 iff no request failed OOM.
 """
 
 from __future__ import annotations
@@ -39,8 +43,11 @@ import time
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core import fabric as fb
 from repro_torch.core.tiering import KVBudget
 from repro_torch.device import resolve_device
+from repro_torch.disagg import DisaggCluster, DisaggConfig, PrefillWorker
+from repro_torch.fabric import Topology, Transport
 from repro_torch.models.api import build_model
 from repro_torch.obs import Tracer, write_chrome_trace
 from repro_torch.obs.console import emit_json, warn
@@ -79,6 +86,16 @@ def _lease(args, tenants=()):
                       tenants=tenants)
 
 
+def _budget(args):
+    """The KV budget the flags ask for (None: unbudgeted tier-1, no
+    tier-2)."""
+    if not (args.tier1_pages or args.tier2_kv_gb):
+        return None
+    return KVBudget(tier1_pages=args.tier1_pages or None,
+                    tier2_bytes=args.tier2_kv_gb * 1e9,
+                    page_size=args.page_size)
+
+
 def _sync(device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize()
@@ -88,12 +105,7 @@ def _engine_mode(args, cfg, model, device) -> int:
     ecfg = EngineConfig(max_slots=args.slots, max_seq=args.max_seq,
                         page_size=args.page_size)
     tracer = Tracer(args.trace_capacity) if args.trace_out else None
-    budget = None
-    if args.tier1_pages or args.tier2_kv_gb:
-        budget = KVBudget(
-            tier1_pages=args.tier1_pages or None,
-            tier2_bytes=args.tier2_kv_gb * 1e9,
-            page_size=args.page_size)
+    budget = _budget(args)
 
     if args.tenants > 1:
         return _multitenant_mode(args, cfg, model, ecfg, device, tracer)
@@ -128,6 +140,81 @@ def _engine_mode(args, cfg, model, device) -> int:
                                         args.trace_out)
     emit_json(out)
     return 0 if stats["failed_oom"] == 0 else 1
+
+
+def _disagg_mode(args, cfg, model, device) -> int:
+    """--disagg: prefill tier + decode tier on separate pods of one
+    routed fabric, KV pages streamed between them (repro_torch.disagg).
+    Every engine serves one set of weights, drawn once."""
+    ecfg = EngineConfig(max_slots=args.slots, max_seq=args.max_seq,
+                        page_size=args.page_size)
+    tracer = Tracer(args.trace_capacity) if args.trace_out else None
+    budget = _budget(args)
+
+    params = model.init(torch.Generator(device=device).manual_seed(args.seed))
+    n_pre, n_dec = args.prefill_pods, args.decode_pods
+    workers = [PrefillWorker(Engine.local(model, ecfg, params=params,
+                                          tracer=tracer, device=device),
+                             name=f"p{i}")
+               for i in range(n_pre)]
+    dengines = [Engine.local(model, ecfg, params=params, budget=budget,
+                             tracer=tracer, tenant=f"d{k}", device=device)
+                for k in range(n_dec)]
+
+    # a two-tier estate graph: every pod hangs off one leaf switch, the
+    # staging memory node too; capacities default to ~50 page-transfers
+    # per modeled second so handoffs are visible but not dominant
+    pb = dengines[0].kv.page_bytes
+    bw = args.kv_gbps * 1e9 if args.kv_gbps > 0 else 50.0 * pb
+    lat = fb.tier2_memory_fabric(8).latency()
+    topo = Topology("disagg-cli")
+    topo.add_node("leaf", "switch")
+    topo.add_node("mem:0", "memory")
+    topo.connect("mem:0", "leaf", fb.CXL_CAPACITY, capacity=2.0 * bw,
+                 latency=lat / 4)
+    for i in range(n_pre + n_dec):
+        topo.add_node(f"pod:{i}", "pod")
+        topo.connect(f"pod:{i}", "leaf", fb.CXL3, capacity=bw,
+                     latency=lat / 4)
+    tx = Transport(topo, tracer=tracer)
+    kw = dict(route=topo.route("pod:0", f"pod:{n_pre}"))
+    if args.disagg_staging == "tier2":
+        kw["stage_in"] = topo.route("pod:0", "mem:0")
+        kw["stage_out"] = topo.route("mem:0", f"pod:{n_pre}")
+    cluster = DisaggCluster(
+        workers, dengines, transport=tx, tenant="cli",
+        config=DisaggConfig(
+            staging=args.disagg_staging,
+            min_ready_pages=args.min_ready_pages or None,
+            max_transit_s=args.max_transit_s or None), **kw)
+    trace = _requests(args, cfg)
+
+    t0 = time.time()
+    handles = cluster.run(trace)
+    _sync(device)
+    wall = time.time() - t0
+    failed = sum(e.stats()["failed_oom"] for e in dengines)
+    transits = sorted(h.kv_transit_s for h in handles)
+    out = {
+        "arch": cfg.name, "mode": "disagg", "device": str(device),
+        "staging": args.disagg_staging,
+        "prefill_pods": n_pre, "decode_pods": n_dec,
+        "requests": len(handles),
+        "handoffs": cluster.handoffs, "colocated": cluster.colocated,
+        "latency": latency_summary(handles),
+        "kv_transit_s": {
+            "mean": sum(transits) / max(1, len(transits)),
+            "max": transits[-1] if transits else 0.0,
+        },
+        "wall_s": round(wall, 2),
+        "sample_tokens": handles[0].tokens[:8] if handles else [],
+    }
+    if tracer is not None:
+        out["trace_out"] = _flush_trace(
+            tracer, [tx] + [e.transport for e in dengines]
+            + [w.engine.transport for w in workers], args.trace_out)
+    emit_json(out)
+    return 0 if failed == 0 else 1
 
 
 def _multitenant_mode(args, cfg, model, ecfg, device, tracer=None) -> int:
@@ -283,6 +370,25 @@ def main(argv=None):
                    help="N>1: N tenant engines over ONE shared page pool "
                         "(PoolArbiter fair shares), traffic split "
                         "round-robin")
+    p.add_argument("--disagg", action="store_true",
+                   help="disaggregated serving: prefill tier + decode "
+                        "tier on separate pods, KV pages streamed over "
+                        "the routed fabric (repro_torch.disagg)")
+    p.add_argument("--disagg-staging", default="direct",
+                   choices=["direct", "tier2"],
+                   help="handoff path: direct pod-to-pod, or staged "
+                        "through a tier-2 memory node (two priced legs)")
+    p.add_argument("--prefill-pods", type=int, default=1)
+    p.add_argument("--decode-pods", type=int, default=1)
+    p.add_argument("--min-ready-pages", type=int, default=0,
+                   help="admit a handed-off request once this many KV "
+                        "pages landed (0 = wait for all)")
+    p.add_argument("--max-transit-s", type=float, default=0.0,
+                   help="route a request colocated when its predicted "
+                        "KV transit exceeds this (0 = never)")
+    p.add_argument("--kv-gbps", type=float, default=0.0,
+                   help="fabric pod-uplink capacity for KV handoffs "
+                        "(0 = auto-scale to ~50 pages/s)")
     p.add_argument("--pool", default="none",
                    choices=["none", "scalepool", "baseline"],
                    help="take the engine's KV budget from a lease on a "
@@ -313,6 +419,8 @@ def main(argv=None):
                  f"(dense); {cfg.family!r} is not supported — use the "
                  f"fixed-batch mode (--batch/--prompt/--generate) instead")
             return 2
+        if args.disagg:
+            return _disagg_mode(args, cfg, model, device)
         return _engine_mode(args, cfg, model, device)
     return _legacy_batch_mode(args, cfg, model, device)
 

@@ -152,8 +152,12 @@ class PoolArbiter:
                 f"tenant {tenant!r}: engine page_size "
                 f"{engine.cfg.page_size} != arbiter page_size "
                 f"{self.page_size} — one pool, one page geometry")
+        # leaves in sorted name order, as the reference's pytree walk
+        # visits dict keys: a tenant whose cache lists the same leaves in
+        # another order serves the same layout
+        leaves = sorted(slot_shapes.items())
         sig = tuple((name, (l.shape[0], self.page_size) + tuple(l.shape[3:]),
-                     l.dtype) for name, l in slot_shapes.items())
+                     l.dtype) for name, l in leaves)
         if self.pool is None:
             self.page_bytes = float(page_bytes)
             self._leaf_sig = sig
@@ -162,7 +166,7 @@ class PoolArbiter:
                 name: torch.zeros((l.shape[0], self.num_pages + 1,
                                    self.page_size) + tuple(l.shape[3:]),
                                   dtype=l.dtype, device=self.device)
-                for name, l in slot_shapes.items()}
+                for name, l in leaves}
         elif sig != self._leaf_sig:
             raise ValueError(
                 f"tenant {tenant!r}: KV cache layout {sig} does not match "
@@ -300,8 +304,8 @@ class PoolArbiter:
         if deficit <= 0:
             return 0
         evictable = sum(v for n, v in
-                        self._evictable_over(allowances).items()
-                        if n != tenant)       # integer sum: any order
+                        self._evictable_over(allowances).items()  # repro: allow(no-unordered-iteration) integer sum — exact and commutative in any order
+                        if n != tenant)
         return min(deficit, evictable)
 
     # ---- revocation ------------------------------------------------------

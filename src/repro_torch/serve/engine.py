@@ -37,6 +37,13 @@ engines' transfers fair-share the links — so the schedule, the clocks
 and the trace events are the reference's exactly whenever the tokens
 are.
 
+Disaggregated prefill/decode (``repro_torch.disagg``): a prefill-tier
+engine runs ``prefill_export`` (the admission prefill, exported page by
+page instead of scattered into its pool), and a decode-tier engine takes
+the request through ``submit_prefilled``: admission waits for the first
+pages to land on the modeled fabric, and the row's first decode waits
+for the last.
+
 Multi-tenant: ``arbiter=``/``tenant=`` joins a shared
 ``repro_torch.serve.PoolArbiter`` page pool instead of owning a private
 one — ``self.kv`` becomes the tenant's fair-share view, the pool
@@ -105,7 +112,9 @@ def evict_pages(pool, kv, st, logicals, engine, t) -> float:
 def slice_page(cache, i: int, page_size: int):
     """Payload of logical page ``i`` of a dense ``(layers, 1, seq, ...)``
     prefill cache: ``(layers, page_size, ...)`` leaves — the per-page
-    shape ``PagedKV.evict``/``fetch`` payloads use."""
+    shape ``PagedKV.evict``/``fetch`` payloads use.  The leaves are views
+    of ``cache`` (the reference's are copies); ``prefill_export`` clones
+    them."""
     return {name: leaf[:, 0, i * page_size:(i + 1) * page_size]
             for name, leaf in cache.items()}
 
@@ -122,6 +131,13 @@ class _SlotState:                        # queues/sets and are never "equal"
                                    # newest-admitted rows first)
     last_sched: int = -1           # step() count of the last decode — the
                                    # page-coldness signal for eviction
+    ready_at: float = 0.0          # modeled completion time of the LAST
+                                   # in-flight KV page (disaggregated
+                                   # handoff); decode never schedules the
+                                   # row before it.  0.0 == colocated.
+    on_first_decode: Optional[Any] = None   # one-shot callback fired with
+                                   # the modeled time of the row's first
+                                   # decode (the disagg handoff_use event)
 
     @property
     def rid(self) -> int:
@@ -139,6 +155,19 @@ class _SlotState:                        # queues/sets and are never "equal"
     @property
     def target_len(self) -> int:
         return self.request.prompt_len + self.request.max_new_tokens
+
+
+@dataclasses.dataclass(eq=False)
+class _Handoff:
+    """One externally-prefilled sequence waiting for decode-side
+    admission (``Engine.submit_prefilled``): the per-page payloads in
+    flight over the fabric plus the modeled arrival gates."""
+
+    state: _SlotState
+    pages: List[Any]               # slice_page payloads, logical order
+    page_ready: List[float]        # modeled transfer completion per page
+    admit_at: float                # gate: first min_ready pages landed
+    ready_at: float                # gate: ALL pages landed (decode start)
 
 
 def _check_device(model: Model, dev: torch.device) -> None:
@@ -242,6 +271,9 @@ class Engine:
         self._queue: deque = deque()     # _SlotState, FIFO (+recompute front)
         self._paused: deque = deque()    # insertion-ordered: pause order IS
                                          # the resume order (oldest first)
+        self._handoffs: deque = deque()  # _Handoff, FIFO: externally
+                                         # prefilled sequences whose KV is
+                                         # still riding the fabric
         self.handles: Dict[int, RequestHandle] = {}
         self._next_rid = 0
         self._admit_seq = 0
@@ -403,9 +435,88 @@ class Engine:
                                 max_new=request.max_new_tokens)
         return handle
 
+    # ---- disaggregated prefill/decode seams (repro_torch.disagg) ---------
+    def prefill_export(self, prompt: Sequence[int]) -> Tuple[int, List[Any],
+                                                             float]:
+        """Prefill-only mode: run ONE bucketed prefill exactly as
+        ``_admit`` would (``_run_prefill``: same bucket, same
+        ``prefill_at`` call, same modeled cost, same last-position
+        argmax) but export the KV page by page instead of scattering it
+        into this engine's pool — the prefill half of the disaggregated
+        handoff.  Returns ``(first_token, pages, modeled_seconds)``; the
+        caller owns clock accounting, transfer pricing and decode-side
+        admission.
+
+        Each page's leaves are cloned, so a payload owns its bytes: a
+        handoff in flight keeps its prompt's pages alive, not the whole
+        dense bucket cache, and nothing aliases another page or a later
+        prefill.  ``_write_page`` copies them into the decode engine's
+        pool as it copies a colocated prefill's slices, so the pool gets
+        the same bits either way."""
+        plen = len(prompt)
+        _, tok, cache, cost = self._run_prefill(prompt)
+        ps = self.cfg.page_size
+        pages = [{name: leaf.clone()
+                  for name, leaf in slice_page(cache, i, ps).items()}
+                 for i in range(-(-plen // ps))]
+        return tok, pages, cost
+
+    def submit_prefilled(self, request: Request, *, first_tok: int,
+                         prefill_done: float, pages: List[Any],
+                         page_ready: Sequence[float],
+                         min_ready_pages: Optional[int] = None,
+                         kv_transit_s: float = 0.0,
+                         submit_clock: Optional[float] = None,
+                         on_first_decode=None) -> RequestHandle:
+        """Decode-only mode: hand off a request whose prefill ran on
+        another engine (``prefill_export``) and whose KV pages are in
+        flight on the fabric.  ``page_ready[i]`` is the modeled
+        completion time of page ``i``'s transfer; admission waits for
+        the first ``min_ready_pages`` pages to land (default: all —
+        partial-arrival admission reserves the slot early), and the row
+        is never decoded before max(page_ready): transferred-before-use
+        is the invariant the ``disagg-handoff`` sanitizer rule checks.
+        The first token was already produced by the prefill tier at
+        modeled time ``prefill_done``."""
+        if request.prompt_len + request.max_new_tokens > self.cfg.max_seq:
+            raise ValueError(
+                f"prompt {request.prompt_len} + max_new "
+                f"{request.max_new_tokens} exceeds max_seq {self.cfg.max_seq}")
+        if len(pages) != len(page_ready):
+            raise ValueError(f"{len(pages)} pages but {len(page_ready)} "
+                             f"ready times")
+        if not pages:
+            raise ValueError("handoff with no KV pages")
+        rid = self._next_rid
+        self._next_rid += 1
+        handle = RequestHandle(rid=rid, request=request,
+                               submit_clock=(submit_clock
+                                             if submit_clock is not None
+                                             else request.arrival_time))
+        handle.kv_transit_s = kv_transit_s
+        self.handles[rid] = handle
+        st = _SlotState(handle)
+        st.index = request.prompt_len
+        st.cur_tok = first_tok
+        st.on_first_decode = on_first_decode
+        # the prefill tier produced the first token at prefill_done;
+        # trace events on THIS track must stay monotone, so the finish
+        # path (max_new == 1) clamps forward to the local clock
+        handle.first_token_clock = prefill_done
+        self._emit(st, first_tok, max(self.clock, prefill_done))
+        if handle.done:
+            return handle
+        ready = [float(t) for t in page_ready]
+        n_gate = (len(ready) if min_ready_pages is None
+                  else max(1, min(min_ready_pages, len(ready))))
+        self._handoffs.append(_Handoff(
+            state=st, pages=list(pages), page_ready=ready,
+            admit_at=max(ready[:n_gate]), ready_at=max(ready)))
+        return handle
+
     @property
     def idle(self) -> bool:
-        return (not self._queue and not self._paused
+        return (not self._queue and not self._paused and not self._handoffs
                 and all(s is None for s in self._slots))
 
     def advance_clock(self, t: float) -> None:
@@ -433,15 +544,28 @@ class Engine:
             dt += self.arbiter.take_charge(self.tenant)
         dt += self._relieve_pressure(dt)
         dt += self._swap_in(dt)
+        dt += self._admit_handoffs(dt)
         dt += self._admit(dt)
         dt += self._decode_once(dt)
-        if (dt == 0.0 and self._queue and not self._paused
+        if (dt == 0.0 and self._queue and not self._paused  # repro: allow(no-float-equality) 0.0 is an exact no-work sentinel (no phase ran), never an accumulated time
                 and all(s is None for s in self._slots)):
             # nothing runnable and the FIFO head has not arrived yet:
             # idle-advance to its arrival (the same jump run_trace makes)
             nxt = self._queue[0].request.arrival_time
             if nxt > self.clock:
                 self.advance_clock(nxt)
+        if dt == 0.0:  # repro: allow(no-float-equality) same exact no-work sentinel as above
+            # every runnable row (or the pending handoff) is still
+            # waiting on KV in flight over the fabric: idle-advance to
+            # the earliest modeled page arrival so progress is made
+            gates = [s.ready_at for s in self._slots
+                     if s is not None and s.ready_at > self.clock]
+            if self._handoffs:
+                gates.append(self._handoffs[0].admit_at)
+            if gates:
+                nxt = min(gates)
+                if nxt > self.clock:
+                    self.advance_clock(nxt)
         self.clock += dt
         if dt > 0.0:
             self.busy_s += dt
@@ -686,6 +810,41 @@ class Engine:
         self._place(st, slot)
         return dt
 
+    # ---- disaggregated handoff admission -----------------------------------
+    def _admit_handoffs(self, elapsed: float) -> float:
+        """Admit handed-off (externally prefilled) sequences whose
+        leading KV pages have arrived: allocate physical pages, write
+        every page payload through ``self._pool`` (the arbiter's shared
+        pool when this engine is a tenant; arrived pages now, the rest
+        gated by ``ready_at``, which decode scheduling honors), and
+        place the row.  Runs after swap-in and before fresh admission —
+        a handoff already spent prefill compute elsewhere, so it
+        outranks a fresh arrival for free rows — but never past a
+        blocked pause queue, mirroring ``_admit``."""
+        dt = 0.0
+        while self._handoffs:
+            if self._paused:
+                break
+            ho = self._handoffs[0]
+            st = ho.state
+            if ho.admit_at > self.clock + elapsed + dt:
+                break       # leading pages still in flight on the fabric
+            need = (self.budget.pages_for(st.target_len)
+                    if self.cfg.reserve_lifetime
+                    else self.budget.pages_for(st.index + 1))
+            slot = self._free_slot()
+            if slot is None or need > self.kv.hot_free:
+                break
+            phys = self.kv.alloc(st.rid, need)
+            for i, payload in enumerate(ho.pages):
+                self._write_page(int(phys[i]), payload)
+            for lp, p in enumerate(phys):
+                self._table[slot, lp] = p
+            self._place(st, slot)
+            st.ready_at = ho.ready_at
+            self._handoffs.popleft()
+        return dt
+
     # ---- admission / prefill ---------------------------------------------
     def _admit(self, elapsed: float) -> float:
         """FIFO prefill admission (head-of-line blocking keeps the order
@@ -721,13 +880,18 @@ class Engine:
             self._queue.popleft()
         return dt
 
-    def _prefill_into(self, st: _SlotState, slot: int,
-                      eff: Tuple[int, ...], elapsed: float) -> float:
-        plen = len(eff)
+    def _run_prefill(self, prompt: Sequence[int]
+                     ) -> Tuple[int, int, Dict[str, torch.Tensor], float]:
+        """The one bucketed prefill both admission (``_prefill_into``)
+        and the disaggregated export (``prefill_export``) run: pad the
+        prompt to its bucket, call ``prefill_at`` with the logits read at
+        the last real position, price the bucket.  Returns ``(bucket,
+        first_token, dense_cache, modeled_seconds)``."""
+        plen = len(prompt)
         bucket = self._bucket_len(plen)
         self._buckets_used.add(bucket)
         tokens = torch.zeros((1, bucket), dtype=torch.long)
-        tokens[0, :plen] = torch.as_tensor(eff)
+        tokens[0, :plen] = torch.as_tensor(prompt)
         slot_cache = self.model.init_cache(1, bucket,
                                            dtype=self._cache_dtype)
         logits, cache = self.model.prefill_at(
@@ -735,11 +899,17 @@ class Engine:
             plen - 1)
         # the padded tail is real (wasted) compute on hardware: charge it
         cost = self.cost.prefill_s(bucket)
+        tok = int(torch.argmax(logits[0, -1]))
+        return bucket, tok, cache, cost
+
+    def _prefill_into(self, st: _SlotState, slot: int,
+                      eff: Tuple[int, ...], elapsed: float) -> float:
+        plen = len(eff)
+        bucket, tok, cache, cost = self._run_prefill(eff)
         if self.tracer.enabled:
             self.tracer.span(self._track, "prefill",
                              self.clock + elapsed, cost, cat=CAT_ENGINE,
                              rid=st.rid, bucket=bucket, prompt_len=plen)
-        tok = int(torch.argmax(logits[0, -1]))
         self._emit(st, tok, self.clock + elapsed + cost)
         if st.handle.done:
             return cost
@@ -758,8 +928,8 @@ class Engine:
     def _write_page(self, phys: int, payload) -> None:
         """Write ONE page payload (the ``slice_page`` / ``PagedKV``
         per-page format) into physical page ``phys`` of the pool, in
-        place and dtype-converting: prefill scatter and tier-2 fetch
-        land identical bits."""
+        place and dtype-converting: prefill scatter, tier-2 fetch and the
+        disaggregated handoff land identical bits."""
         for name, leaf in self._pool.items():
             leaf[:, phys].copy_(payload[name])
 
@@ -801,12 +971,14 @@ class Engine:
                                     cat=CAT_REQUEST, rid=h.rid,
                                     tokens=len(h.tokens))
                 # one span per request lifetime on the request row
+                extra = ({"kv_transit_s": h.kv_transit_s}
+                         if h.kv_transit_s > 0.0 else {})
                 self.tracer.span(f"{self._track}/requests", f"req{h.rid}",
                                  h.submit_clock, at - h.submit_clock,
                                  cat=CAT_REQUEST, rid=h.rid, ttft_s=ttft,
                                  tokens=len(h.tokens), swaps=h.swaps,
                                  preempts=h.preempts,
-                                 recomputes=h.recomputes)
+                                 recomputes=h.recomputes, **extra)
             if self.kv.holds(st.rid):
                 self.kv.free(st.rid)
             if st.slot is not None:
@@ -822,13 +994,23 @@ class Engine:
         raise AssertionError(f"{n_live} live rows > max_slots")
 
     def _decode_once(self, elapsed: float) -> float:
-        running = self._running()
+        # rows whose handed-off KV pages are still in flight on the
+        # fabric are placed but not schedulable: decoding one would read
+        # pages before their modeled transfer completion.  Colocated rows
+        # have ready_at == 0.0, so the filter is the identity for them.
+        running = [st for st in self._running()
+                   if st.ready_at <= self.clock + elapsed]
         if not running:
             return 0.0
         for st in running:
             self._lengths[st.slot] = st.index
             self._slot_tok[st.slot] = st.cur_tok
             st.last_sched = self.steps
+            if st.on_first_decode is not None:
+                # first decode of a handed-off row: report the modeled
+                # use time (>= every page's transfer completion)
+                st.on_first_decode(self.clock + elapsed)
+                st.on_first_decode = None
         # gather live rows into a pow2 row bucket: pad with idle slots
         # (trash page table, length 0), so the decode batch shrinks with
         # occupancy while per-row outputs stay identical

@@ -145,8 +145,7 @@ def run_multi_trace(pairs, *, max_steps: int = 1_000_000
                 state[j][2] += 1
         before = eng.clock
         dt = eng.step()
-        # identity test: did step() assign a new clock value at all
-        if dt > 0.0 or eng.idle or eng.clock != before:
+        if dt > 0.0 or eng.idle or eng.clock != before:  # repro: allow(no-float-equality) identity test — did step() assign a new clock value at all, not a time comparison
             blocked.clear()
         else:
             others = [c[0] for c in cands if c[1] != j]

@@ -329,6 +329,85 @@ def test_cuda_paged_bf16_pool_ps16_window_mid_split(cuda, q_dtype, G):
     assert torch.all(got[0] == 0)
 
 
+# the disaggregated decode tier's and the pooled path's shapes: bf16 q,
+# an fp32 pool of 16-token pages, H = KV = 16, D = 64, 4 rows
+DECODE_TIER_SHAPES = {
+    "pooled 8-page tables": (8, [0, 17, 65, 128]),
+    "disagg 15-page tables": (15, [224, 229, 235, 240]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(DECODE_TIER_SHAPES))
+def test_cuda_paged_decode_tier_shapes(cuda, shape):
+    """The paged kernel at the shapes the pooled path and the decode tier
+    give it, against the plain version and the split-KV transcription;
+    each row alone equals its row of the batch, bitwise."""
+    pmax, lengths = DECODE_TIER_SHAPES[shape]
+    g = torch.Generator(device=cuda).manual_seed(13)
+    q, kp, vp, table, lens = _paged_batch(g, cuda, lengths, 16,
+                                          torch.bfloat16, torch.float32,
+                                          PMAX=pmax)
+    got = paged_decode_attention(q, kp, vp, table, lens)
+    want = ref.paged_attention_ref(q, kp, vp, table, lens)
+    emu = paged_split_emulation(q, kp, vp, table, lens)
+    torch.cuda.synchronize()
+    _close(got, want, TOL["bfloat16"])
+    _close(got, emu, TOL["bfloat16"])
+    for b in range(len(lengths)):
+        alone = paged_decode_attention(q[b:b + 1].contiguous(), kp, vp,
+                                       table[b:b + 1].contiguous(),
+                                       lens[b:b + 1])
+        torch.cuda.synchronize()
+        assert torch.equal(alone[0], got[b]), b
+
+
+@pytest.mark.cuda
+def test_cuda_handoff_pages_and_tokens_equal_colocated(cuda):
+    """A request prefilled by one engine (``prefill_export``) and handed
+    to another (``submit_prefilled``) holds, in bf16 on the card, the
+    same pool bytes and gives the same tokens as the same request
+    prefilled and decoded by one colocated engine."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serve import (Engine, EngineConfig, Request,
+                                   burst_trace, run_trace)
+
+    # the smoke config with heads of 64, a head_dim both kernels take
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b", smoke=True),
+                              head_dim=64)
+    model = build_model(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    ecfg = EngineConfig(max_slots=4, max_seq=96, page_size=16)
+    req = burst_trace(1, prompt_len=40, max_new_tokens=12,
+                      vocab=model.cfg.vocab, seed=3)[0]
+
+    colo = Engine.local(model, ecfg, params=params, device=cuda)
+    colo.submit(req)
+    colo._admit(0.0)
+    exporter = Engine.local(model, ecfg, params=params, device=cuda)
+    tok, pages, _ = exporter.prefill_export(req.prompt_tokens)
+    dec = Engine.local(model, ecfg, params=params, device=cuda)
+    h = dec.submit_prefilled(Request(req.prompt_tokens, req.max_new_tokens),
+                             first_tok=tok, prefill_done=0.0, pages=pages,
+                             page_ready=[0.0] * len(pages))
+    dec._admit_handoffs(0.0)
+    assert h.tokens == colo.handles[0].tokens == [tok]
+    for i in range(len(pages)):
+        for name in ("k", "v"):
+            assert torch.equal(colo._pool[name][:, colo._table[0, i]],
+                               dec._pool[name][:, dec._table[0, i]]), i
+    colo.run_until_idle()
+    dec.run_until_idle()
+    assert h.tokens == colo.handles[0].tokens
+    assert len(h.tokens) == req.max_new_tokens
+    plain = run_trace(Engine.local(model, ecfg, params=params, device=cuda),
+                      [req])
+    assert plain[0].tokens == h.tokens
+
+
 # the SSD grid of the tensor-core kernel: (S, chunk, N, P, G)
 SSD_TC_GRID = [(S, chunk, N, P, G) for S in (1, 100, 128, 129, 500, 1000)
                for chunk in (64, 128) for N in (64, 128) for P in (32, 64)

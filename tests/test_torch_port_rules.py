@@ -130,6 +130,47 @@ def test_lease_entry_points_refuse_the_cpu_unless_asked():
             main(["--smoke", "--requests", "2"] + extra)
 
 
+def test_the_disagg_slice_modules_are_checked():
+    """The disaggregation modules and the port's lints are among those
+    imported with JAX and the reference blocked, and scanned."""
+    names = set(_module_names())
+    slice_modules = {
+        "repro_torch.disagg", "repro_torch.disagg.decode",
+        "repro_torch.disagg.prefill", "repro_torch.disagg.router",
+        "repro_torch.analysis.lints", "repro_torch.analysis.lints.__main__"}
+    assert slice_modules <= names, sorted(slice_modules - names)
+    files = {p.relative_to(PKG).as_posix() for p in FILES if PKG in p.parents}
+    assert {"disagg/router.py", "disagg/prefill.py", "disagg/decode.py",
+            "analysis/lints/__init__.py"} <= files
+
+
+def test_disagg_entry_points_refuse_the_cpu_unless_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None is valid here")
+    from repro_torch.launch.serve import main
+    for extra in ([], ["--disagg-staging", "tier2"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(["--smoke", "--requests", "2", "--disagg"] + extra)
+
+
+def test_lints_entry_point_runs_alone():
+    """``python -m repro_torch.analysis.lints`` with JAX and the
+    reference blocked: clean on the port's tree."""
+    code = "\n".join([
+        "import runpy, sys",
+        "sys.modules['jax'] = None",
+        "sys.modules['repro'] = None",
+        f"sys.path.insert(0, {str(ROOT / 'src')!r})",
+        f"sys.argv = ['lints', {str(PKG)!r}]",
+        "runpy.run_module('repro_torch.analysis.lints', run_name='__main__')",
+    ])
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env, cwd=str(ROOT))
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "clean" in out.stderr
+
+
 def test_non_dense_families_are_not_served_yet():
     from repro_torch.configs import get_config
     from repro_torch.models.api import build_model
