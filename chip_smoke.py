@@ -16,8 +16,10 @@ no result line):
               pages with a window starting mid-split, and at the pooled
               path's shape (bf16 q, fp32 pool of 16-token pages, H=KV=16,
               D=64, 8-page tables; rows alone and in pairs bitwise equal
-              to their rows of B = 4) and the decode tier's (15-page
-              tables, 224..240 tokens); flash on its
+              to their rows of B = 4), the decode tier's (15-page
+              tables, 224..240 tokens) and the colocation engines' (10-page
+              tables, 33..160 tokens; rows in ones, pairs and fours
+              bitwise equal to their rows of B = 6); flash on its
               tensor-core kernel (bf16 q) over Sq 1..1024, D 64 / 112 /
               128, fp32 and bf16 K/V, G 1 and 4, the masks, rows with no
               visible key exactly zero, and on its CUDA-core kernel (fp32
@@ -81,6 +83,32 @@ no result line):
               smoke width on the CPU, and the paged, flash and RMSNorm
               launches exact; the bf16 tokens are reported beside the
               fp32 ones, with the top-2 logit margin where they differ;
+8.  colo    - (run right after phase 7, on phase 4's model and weights)
+              benchmarks/fig11_colocation.py's smoke scenario at full
+              width: two tenants' bursts (6 requests each, 32 prompt
+              tokens, 128 new) on 6-slot engines of 16-token pages under
+              a 20-page quota, spilling KV over one tier-2 trunk, while
+              an 8-way data-parallel training job (colo-13b, 16 GB of
+              tier-2 offload, 8 steps) prices its gradient and offload
+              phases on the same ``Transport`` (``repro_torch.colo``,
+              ``run_colo``), on 6 pods of 5 accels over 3 CXL leaves and
+              2 tier-2 memory nodes.  At full depth in bf16: the training
+              job placed hop-only, contention-aware, and no training.
+              Checked: every request done, fig11's five claims (the
+              placements differ, contention-aware placement wins on step
+              time and aggregate p95, tokens identical across the three
+              runs, the trunk carries serving and training bytes, the
+              transport re-rated contended transfers), the modeled
+              numbers within 1e-9 of the same scenario's at smoke width
+              on the CPU, the paged, flash and RMSNorm launches exact per
+              run, and the hop-only trace clean under the port's
+              sanitizer; on the first 2 layers in fp32 the three runs
+              again, every modeled number equal to the CPU's to the last
+              digit; on the first 2 layers in bf16 the port's racecheck
+              (fig11's racecheck shape, seeds 1 and 2) bit-identical;
+6-8.         the traces of phases 6 (a), 7 and 8 pass the port's
+              sanitizer (``repro_torch.analysis``) with zero violations,
+              and their Chrome exports ``validate_trace_events``;
 4c/4d. batch - mamba2-780m (48 layers, d=1536, 8 x 500-token prompts,
               32 tokens) and zamba2-7b (81 mamba layers, d=3584, the
               shared attention block 13 times, 4 x 500-token prompts, 16
@@ -97,15 +125,16 @@ no result line):
               ``library_bf16_ms``, on bf16 K/V), and the bound from the
               H100's published peaks, at each path's shapes (paged at
               the engine's 8-row and 1-row decode buckets, the pooled
-              path's 4 rows of 8-page tables and the decode tier's 4
-              rows of 15-page tables, 16-token pages; flash at qwen's
-              128 / 256 / 512 buckets and zamba2's prefill and decode;
+              path's 4 rows of 8-page tables, the decode tier's 4 rows
+              of 15-page tables and the colocation engines' 6 rows of
+              10-page tables, 16-token pages; flash at qwen's 32 / 128 /
+              256 / 512 buckets and zamba2's prefill and decode;
               RMSNorm at 512 and 8 rows of 1024, 8 of 1536 and 3072,
               2000 of 3584 and 7168; the SSD scan at mamba2's and
               zamba2's prefill).  Every call reads cold inputs: the
               copies cycled through read more than twice the L2 a cycle.
               A time under its bound / 1.05 fails the run;
-then the ``launches`` and ``kernels`` lines (phases 6 and 7's launches
+then the ``launches`` and ``kernels`` lines (phases 6, 7 and 8's launches
 among the paths), and the contract line ``{"ok": true, "device":
 {...}}``, last.
 
@@ -358,11 +387,35 @@ def kernel_checks(device):
            "lens=[224, 229, 235, 240] q=bf16 pages=fp32",
            paged_decode_attention(*args), ref.paged_attention_ref(*args),
            TOL["bfloat16"])
+    # the colocation engines' shape (phase 8): 6 slots (row buckets 1, 2,
+    # 4 and 6) over 10-page tables of 16-token pages, 33..160 tokens; each
+    # row alone, in pairs and in fours equals its row of B = 6
+    lens = [33, 48, 97, 128, 150, 160]
+    q, kp, vp, table, lt = paged_inputs(gen, 6, 16, 16, 64, 16, 10, lens,
+                                        bf16, f32, device)
+    out6 = paged_decode_attention(q, kp, vp, table, lt)
+    record("paged_attention", f"B=6 H=KV=16 D=64 ps=16 pages=10 lens={lens} "
+           f"q=bf16 pages=fp32", out6,
+           ref.paged_attention_ref(q, kp, vp, table, lt), TOL["bfloat16"])
+    alone_ok = True
+    for n in (1, 2, 4):
+        for b in range(0, 6 - n + 1, n):
+            part = paged_decode_attention(q[b:b + n].contiguous(), kp, vp,
+                                          table[b:b + n].contiguous(),
+                                          lt[b:b + n])
+            alone_ok &= bool(torch.equal(part, out6[b:b + n]))
+    torch.cuda.synchronize()
+    emit({"phase": "kernels", "kernel": "paged_attention",
+          "case": f"bitwise row independence ps=16 pages=10, B=1, 2 and 4 "
+                  f"vs B=6, lens={lens}", "ok": alone_ok})
+    check(alone_ok, "paged B=6: a row's output changed with its batch")
 
-    # flash, bf16 q (the tensor-core kernel): every Sq bucket and a
-    # decode query, each head_dim, K/V as the fp32 cache holds them and in
-    # bf16, MHA and GQA G=4; then the masks the served paths use
-    flash_grid = [(Sq, D, kv, G) for Sq in (1, 15, 64, 65, 130, 500, 512, 1024)
+    # flash, bf16 q (the tensor-core kernel): every Sq bucket (32: the
+    # colocation engines' prefill) and a decode query, each head_dim, K/V
+    # as the fp32 cache holds them and in bf16, MHA and GQA G=4; then the
+    # masks the served paths use
+    flash_grid = [(Sq, D, kv, G)
+                  for Sq in (1, 15, 32, 64, 65, 130, 500, 512, 1024)
                   for D in (64, 112, 128) for kv in (f32, bf16) for G in (1, 4)]
     for Sq, D, kv, G in flash_grid:
         H = 8 if Sq <= 512 else 4
@@ -493,14 +546,16 @@ def kernel_checks(device):
                  f"{case}", args, chunk, h0, SSD_TOL)
 
     # rmsnorm: the model's rows and widths, activations and scale in the
-    # compute dtype.  qwen1.5-0.5b: d = 64 (qk rows) and 1024; the
-    # recurrent paths: d_model 1536 / 3584 and the gated norm's d_inner
+    # compute dtype.  qwen1.5-0.5b: d = 64 (qk rows) and 1024, at the
+    # colocation engines' decode rows (1, 2, 4, 6) and a 32-token prefill;
+    # the recurrent paths: d_model 1536 / 3584 and the gated norm's d_inner
     # 3072 / 7168 (d > 2048: a 256-thread block per row), at decode's 4 /
     # 8 rows, the logits check's 500 and a prefill's 4000 (mamba2: 8 x
     # 500); then 512 rows (qwen's largest bucket), 3 / 33 (not a multiple
     # of the rows a block takes), d = 1000 (vectors, 125 a row) and 1001
     # (the scalar branch: a tail, and rows not 16-byte aligned)
-    grid = [(rows, d, bf16) for rows in (1, 7, 300) for d in (64, 1024)]
+    grid = [(rows, d, bf16) for rows in (1, 2, 4, 6, 7, 32, 300)
+            for d in (64, 1024)]
     grid += [(rows, d, dt) for d in (1536, 3072, 3584, 7168)
              for rows in (4, 8, 500, 4000) for dt in (bf16, f32)]
     grid += [(rows, d, dt) for rows in (3, 33, 512, 4000)
@@ -925,6 +980,29 @@ def profile_decode_window(params, decode, carry, steps: int):
           **device_time(prof, wall)})
 
 
+def sanitize(what: str, tracers) -> dict:
+    """Each tracer through the port's sanitizer, and its Chrome export
+    through ``validate_trace_events``: zero violations and zero
+    problems, or the run fails."""
+    from repro_torch.analysis import sanitize_tracer
+    from repro_torch.obs import to_chrome_trace, validate_trace_events
+    out = {"traces": len(tracers), "events": 0, "violations": 0,
+           "problems": 0, "checks": {}}
+    for tr in tracers:
+        rep = sanitize_tracer(tr)
+        problems = validate_trace_events(to_chrome_trace(tr))
+        check(rep.ok, f"{what}: the sanitizer found violations:\n"
+              f"{rep.format()}")
+        check(not problems, f"{what}: trace export invalid: {problems[:5]}")
+        out["events"] += rep.events
+        out["violations"] += len(rep.violations)
+        out["problems"] += len(problems)
+        for rule, n in rep.checks.items():
+            out["checks"][rule] = out["checks"].get(rule, 0) + n
+    emit({"phase": "sanitize", "path": what, **out})
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 6: multi-tenant pooled serving (fig9's smoke scenario) at full width
 # ---------------------------------------------------------------------------
@@ -1230,6 +1308,7 @@ def multitenant_full_width(model, params, device):
           "static_equal_smoke_width": static_equal,
           "trace_dropped": tracer.dropped})
     check(tracer.dropped == 0, "multitenant: trace ring dropped events")
+    sanitize("multitenant (a) pooled (full depth, bf16)", [tracer])
     done = all(h.status is RequestStatus.DONE for h in all_fair + all_static)
     check(done and all(engines[t].stats()["failed_oom"] == 0
                        for t in MT_TENANTS),
@@ -1632,6 +1711,8 @@ def disagg_full_width(model, params, device):
           "trace_dropped": sum(t.dropped for t in tracers)})
     check(all(t.dropped == 0 for t in tracers),
           "disagg: trace ring dropped events")
+    sanitize("disagg colocated, direct, tier2 and degenerate (full depth, "
+             "bf16)", tracers)
     check(all(h.done and len(h.tokens) == h.request.max_new_tokens
               and all(0 <= x < model.cfg.vocab for x in h.tokens)
               for hs, _ in runs.values() for h in hs)
@@ -1662,8 +1743,461 @@ def disagg_full_width(model, params, device):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: times at the serving path's shapes
+# phase 8: train+serve co-residency (fig11's smoke scenario) at full width
 # ---------------------------------------------------------------------------
+
+# benchmarks/fig11_colocation.py's smoke constants, restated: two bursty
+# tenants on 6-slot engines of 16-token pages under a 20-page quota each,
+# spilling over one tier-2 trunk, co-resident with an 8-way data-parallel
+# training job on 6 pods of 5 accels over 3 CXL leaves (switch radix
+# narrowed to 4) and 2 tier-2 memory nodes of 64 GB
+CO_PAGE, CO_PROMPT, CO_MAX_NEW, CO_SLOTS, CO_QUOTA = 16, 32, 128, 6, 20
+CO_TENANTS = ("a", "b")
+CO_BW_SCALE = 0.002         # fig10's capacity-fabric slowdown
+CO_PODS, CO_POD_SIZE, CO_MEM = 6, 5, 2
+CO_TRAIN_TIER2_GB = 16.0
+CO_REQUESTS, CO_STEPS = 6, 8            # the smoke's burst, training steps
+CO_RACE_REQUESTS, CO_RACE_STEPS = 4, 4  # fig11's racecheck scenario
+CO_RACE_SEEDS = (1, 2)
+CO_SHALLOW = 2              # depth of the fp32 pass and the racecheck
+CO_REL = 1e-9               # full-depth pages round otherwise (see phase 7)
+# (name, allocator policy, train?): fig11's three runs
+CO_RUNS = (("hop_only", "scalepool", True),
+           ("contention", "contention", True),
+           ("serve_solo", "scalepool", False))
+
+
+def co_train():
+    """fig11's training job: colo-13b, dp=8 over two 5-accel pods, its
+    step priced by the simulator on 5-accel clusters (a real inter-pod
+    gradient phase plus the optimizer-offload shuttle)."""
+    from repro_torch.core import simulator as sim
+    model = sim.LLMConfig("colo-13b", 40, 5120, 40, 4 * 5120, 50257, 2048,
+                          13e9)
+    par = sim.ParallelismConfig(tp=1, pp=1, dp=8, global_batch_seqs=8)
+    calib = dataclasses.replace(sim.Calibration(), cluster_size=CO_POD_SIZE)
+    system = sim.make_system("scalepool", 2 * CO_POD_SIZE, calib)
+    return par, sim.simulate_step(model, par, system)
+
+
+def co_inventory():
+    """The placement estate: the stock switch radix would put all six
+    pods on one leaf; radix 4 spreads them over three."""
+    from repro_torch.pool import build_inventory
+    inv = build_inventory(n_pods=CO_PODS, pod_size=CO_POD_SIZE,
+                          hbm_per_accel_gb=64.0, n_memory_nodes=CO_MEM,
+                          memory_node_gb=64.0, interconnect="scalepool")
+    inter = inv.inter_fabric
+    inter = dataclasses.replace(
+        inter, topology=dataclasses.replace(
+            inter.topology, switch=dataclasses.replace(
+                inter.topology.switch, radix=4)))
+    return dataclasses.replace(inv, inter_fabric=inter)
+
+
+def co_topology(inv, bw: float):
+    """fig11's pricing estate: the inventory's node and link names, with
+    capacities in the served model's page bytes: pod uplinks 8x,
+    leaf->spine 1.2x, the spine->t2sw trunk 1.6x, node links 1x."""
+    from repro_torch.core import fabric as fb
+    from repro_torch.fabric import Topology
+    lat = fb.tier2_memory_fabric(8).latency()
+    topo = Topology("fig11")
+    topo.add_node("spine", "switch")
+    topo.add_node("t2sw", "switch")
+    topo.connect("spine", "t2sw", fb.CXL_CAPACITY, capacity=1.6 * bw,
+                 latency=lat / 4)
+    for leaf in range(CO_PODS // inv.pods_per_leaf):
+        topo.add_node(f"leaf:{leaf}", "switch")
+        topo.connect(f"leaf:{leaf}", "spine", fb.CXL3, capacity=1.2 * bw,
+                     latency=lat / 4)
+    for pid in range(CO_PODS):
+        topo.add_node(f"pod:{pid}", "pod")
+        topo.connect(f"pod:{pid}", f"leaf:{inv.leaf_of(pid)}", fb.CXL3,
+                     capacity=8 * bw, latency=lat / 4)
+    for node in range(CO_MEM):
+        topo.add_node(f"mem:{node}", "memory")
+        topo.connect("t2sw", f"mem:{node}", fb.CXL_CAPACITY, capacity=bw,
+                     latency=lat / 4)
+    return topo
+
+
+def co_place(policy: str, n_gpus: int):
+    """Admit serving, then training, on a fresh estate under ``policy``:
+    (serving pods, serving tier-2 nodes, training pods, training
+    nodes)."""
+    from repro_torch.pool import Allocator, JobRequest
+    alloc = Allocator(co_inventory(), policy)
+    svc = alloc.allocate(JobRequest("svc", 1, tier2_bytes=8e9, kv_bytes=1e9,
+                                    tenants=CO_TENANTS))
+    trn = alloc.allocate(JobRequest("train", n_gpus,
+                                    tier2_bytes=CO_TRAIN_TIER2_GB * 1e9))
+    check(svc is not None and trn is not None, "colo: the estate misadmits")
+    return (list(svc.pod_ids), sorted(svc.tier2), list(trn.pod_ids),
+            sorted(trn.tier2))
+
+
+def co_traces(n: int):
+    """Each tenant's burst, drawn with the smoke config's vocab at every
+    width (numpy's ``randint`` takes more or fewer draws by range)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import burst_trace
+    vocab = get_config("qwen1.5-0.5b", smoke=True).vocab
+    return {t: burst_trace(n, prompt_len=CO_PROMPT, max_new_tokens=CO_MAX_NEW,
+                           vocab=vocab, seed=i)
+            for i, t in enumerate(CO_TENANTS)}
+
+
+def co_cost():
+    """Modeled serving costs priced at the full-size qwen1.5-0.5b, and
+    the bytes of its bf16 KV page."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import ServeCostModel
+    full = get_config("qwen1.5-0.5b")
+    full_page = (2 * full.n_layers * CO_PAGE * full.n_kv_heads
+                 * full.head_dim * 2)
+    return ServeCostModel.from_fabric(2.0 * full.param_count()), full_page
+
+
+def co_bw(model, params, device):
+    """fig11's ``_page_bw``: the capacity link's bytes per second scaled
+    by the served model's page bytes over the full model's bf16 page,
+    so the schedule does not depend on the width served; also returns
+    the page bytes."""
+    from repro_torch.serve import Engine, EngineConfig, KVBudget
+    probe = Engine.local(model, EngineConfig(max_slots=CO_SLOTS,
+                                             max_seq=CO_PROMPT + CO_MAX_NEW,
+                                             page_size=CO_PAGE),
+                         params=params, device=device,
+                         budget=KVBudget(CO_QUOTA, 1e9, CO_PAGE))
+    cm, full_page = co_cost()
+    page_bytes = probe.kv.page_bytes
+    return cm.tier2_bw * page_bytes / full_page * CO_BW_SCALE, page_bytes
+
+
+def co_run(model, params, device, policy: str, n_steps: int, traces,
+           bw: float, tracer=None):
+    """One fig11 run (``_run_policy``): place serving and training under
+    ``policy``, serve both tenants over the placement's spill route and
+    step the training job on its collective routes, on one shared
+    ``Transport`` through ``run_colo``.  The tracer, when given, records
+    the engines as well as the transport."""
+    from repro_torch.colo import TrainActor, job_routes, run_colo
+    from repro_torch.fabric import Transport
+    from repro_torch.obs import link_report
+    from repro_torch.serve import (Engine, EngineConfig, KVBudget,
+                                   latency_summary)
+    par, bd = co_train()
+    svc_pods, svc_mems, trn_pods, trn_mems = co_place(policy, par.n_gpus)
+    topo = co_topology(co_inventory(), bw)
+    tx = Transport(topo, tracer=tracer)
+    cm, _ = co_cost()
+    cfg = EngineConfig(max_slots=CO_SLOTS, max_seq=CO_PROMPT + CO_MAX_NEW,
+                       page_size=CO_PAGE)
+    spill = topo.route(f"pod:{svc_pods[0]}", f"mem:{svc_mems[0]}")
+    engines = {t: Engine.local(model, cfg, params=params, device=device,
+                               budget=KVBudget(CO_QUOTA, 1e9, CO_PAGE),
+                               cost_model=cm, transport=tx, route=spill,
+                               tenant=t, tracer=tracer)
+               for t in CO_TENANTS}
+    actors = []
+    if n_steps > 0:
+        actors = [TrainActor("job0", bd, tx,
+                             job_routes(topo, trn_pods, trn_mems),
+                             n_steps=n_steps)]
+    res = run_colo([(engines[t], traces[t]) for t in CO_TENANTS], actors)
+    tx.quiesce()
+    handles = dict(zip(CO_TENANTS, res.serve_handles))
+    return {"handles": handles, "engines": engines,
+            "agg_p95": latency_summary(
+                [h for hs in res.serve_handles for h in hs])["p95_s"],
+            "p95": {t: latency_summary(handles[t])["p95_s"]
+                    for t in CO_TENANTS},
+            "train": res.train[0].stats() if actors else None,
+            "placement": {"svc_pods": svc_pods, "train_pods": trn_pods,
+                          "train_mem": trn_mems},
+            "links": link_report(tx), "transport": tx.stats()}
+
+
+def co_outcome(r):
+    """What a run gives a user, as racecheck compares it: tokens,
+    latencies, p95s, training stats, placement, link report and
+    transport stats (fig11's ``racecheck_scenario``)."""
+    return {"tokens": {t: [list(h.tokens) for h in r["handles"][t]]
+                       for t in CO_TENANTS},
+            "latency": {t: [h.latency for h in r["handles"][t]]
+                        for t in CO_TENANTS},
+            "p95": r["p95"], "agg_p95": r["agg_p95"], "train": r["train"],
+            "placement": r["placement"], "links": r["links"],
+            "transport": r["transport"]}
+
+
+def co_modeled(r, page_bytes: float):
+    """The numbers the modeled clock gives, width-free by construction:
+    each request's clocks, per-tenant and aggregate p95, the training
+    job's step times and stretch, contended transfers, placement, and
+    the trunk's bytes by flow label per byte of the served page."""
+    train = r["train"] or {}
+    trunk = r["links"]["spine->t2sw"]["by_label"]
+    return {"clocks": {t: [(h.submit_clock, h.first_token_clock,
+                            h.done_clock) for h in r["handles"][t]]
+                       for t in CO_TENANTS},
+            "p95_s": dict(r["p95"]), "agg_p95_s": r["agg_p95"],
+            "step_s_avg": train.get("step_s_avg"),
+            "step_s_max": train.get("step_s_max"),
+            "stretch_s": train.get("stretch_s"),
+            "train_clock_s": train.get("clock_s"),
+            "contended_transfers": r["transport"]["contended_transfers"],
+            "train_pods": r["placement"]["train_pods"],
+            "trunk_pages_by_label": {k: v / page_bytes
+                                     for k, v in sorted(trunk.items())}}
+
+
+def co_close(a, b, rel: float) -> bool:
+    """Equal structure, and every float within ``rel`` of the other."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        return a.keys() == b.keys() and all(co_close(a[k], b[k], rel)
+                                            for k in a)
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        return len(a) == len(b) and all(co_close(x, y, rel)
+                                        for x, y in zip(a, b))
+    if isinstance(a, float) and isinstance(b, float):
+        return abs(a - b) <= rel * max(abs(a), abs(b))
+    return a == b
+
+
+def co_claims(runs):
+    """fig11's five claims over the three runs."""
+    hop, con, solo = (runs[k] for k, _, _ in CO_RUNS)
+    toks = lambda r: [h.tokens for t in CO_TENANTS for h in r["handles"][t]]
+
+    def trunk_classes(r):
+        by = r["links"].get("spine->t2sw", {}).get("by_label", {})
+        return {lbl.split(":", 1)[0] for lbl, b in by.items() if b > 0}
+
+    return {"placements_differ": hop["placement"]["train_pods"]
+            != con["placement"]["train_pods"],
+            "contention_dominates": con["train"]["step_s_avg"]
+            < hop["train"]["step_s_avg"] and con["agg_p95"] < hop["agg_p95"],
+            "tokens_bit_identical": toks(hop) == toks(con) == toks(solo),
+            "trunk_shared": all(trunk_classes(r) >= {"serve", "train"}
+                                for r in (hop, con)),
+            "contention_real": hop["transport"]["contended_transfers"] > 0}
+
+
+def co_token_difference(model, params, device, runs):
+    """Where the runs' tokens first differ from hop_only's: the run, the
+    tenant, the request and the step, with hop_only's top-2 logit margin
+    there (C-ref3)."""
+    base = runs["hop_only"]["handles"]
+    for name in ("contention", "serve_solo"):
+        for t in CO_TENANTS:
+            for i, (h, g) in enumerate(zip(base[t], runs[name]["handles"][t])):
+                step = next((s for s, (x, y) in enumerate(zip(h.tokens,
+                                                               g.tokens))
+                             if x != y), None)
+                if step is not None:
+                    return {"run": name, "tenant": t, "request": i,
+                            "step": step, "top2_margin": top2_margin(
+                                model, params, device,
+                                list(h.request.prompt_tokens)
+                                + h.tokens[:step])}
+    return None
+
+
+def co_three(model, params, device, n_requests, n_steps):
+    """fig11's three runs, each with its wall time, and the page bytes."""
+    import torch
+    bw, page_bytes = co_bw(model, params, device)
+    runs, walls = {}, {}
+    for name, policy, train in CO_RUNS:
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[name] = co_run(model, params, device, policy,
+                            n_steps if train else 0, co_traces(n_requests),
+                            bw)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+    return runs, walls, page_bytes
+
+
+def co_racecheck(model, params, device):
+    """fig11's racecheck scenario (hop-only, 4 requests a tenant, 4
+    training steps) under the port's racecheck: the run again under each
+    of ``CO_RACE_SEEDS``' perturbations of every candidate enumeration,
+    bit-identical in tokens, clocks, training stats, link report and
+    trace events."""
+    from repro_torch.analysis import racecheck
+    bw, _ = co_bw(model, params, device)
+
+    def scenario(tracer):
+        r = co_run(model, params, device, "scalepool", CO_RACE_STEPS,
+                   co_traces(CO_RACE_REQUESTS), bw, tracer=tracer)
+        return co_outcome(r)
+
+    return racecheck(scenario, seeds=CO_RACE_SEEDS, label="fig11 hop_only")
+
+
+def colo_full_width(model, params, device):
+    """fig11's smoke scenario on the card: two tenants' bursts served
+    while a data-parallel training job's gradient and offload phases
+    share the estate's links, placed hop-only, contention-aware, and
+    with no training.  At full width and depth in bf16, every kernel
+    launch counted, the hop-only trace sanitized; on the first
+    ``CO_SHALLOW`` layers in fp32 the three runs again, and the racecheck
+    in bf16.  The modeled numbers must equal the same scenario's at
+    smoke width on the CPU: to ``CO_REL`` at full depth, exactly at
+    depth ``CO_SHALLOW``."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.obs import Tracer
+    from repro_torch.serve import RequestStatus
+
+    phase_t0 = time.perf_counter()
+    # the same scenario at smoke width on the CPU, inside this run
+    small = build_model(get_config("qwen1.5-0.5b", smoke=True),
+                        device="cpu")
+    small_params = small.init(torch.Generator().manual_seed(0))
+    cpu = torch.device("cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)        # its ops are tiny: threads only wait
+    t0 = time.perf_counter()
+    cpu_runs, _, cpu_page = co_three(small, small_params, cpu, CO_REQUESTS,
+                                     CO_STEPS)
+    cpu_modeled = {k: co_modeled(r, cpu_page) for k, r in cpu_runs.items()}
+    cpu_claims = co_claims(cpu_runs)
+    cpu_s = time.perf_counter() - t0
+    torch.set_num_threads(threads)
+    del cpu_runs, small, small_params
+
+    # full width and depth, bf16, every kernel launch counted per run
+    L = model.cfg.n_layers
+    runs, walls, launches, steps = {}, {}, {}, {}
+    tracers = []
+    bw, page_bytes = co_bw(model, params, device)
+    for name, policy, train in CO_RUNS:
+        tracer = Tracer(1 << 18)
+        tracers.append(tracer)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        runs[name] = co_run(model, params, device, policy,
+                            CO_STEPS if train else 0,
+                            co_traces(CO_REQUESTS), bw, tracer=tracer)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        variants = kernels.variant_counts()
+        names = [e.name for e in tracer.events()]
+        decodes, prefills = names.count("decode"), names.count("prefill")
+        steps[name] = {"engine_steps": sum(
+            e.stats()["steps"] for e in runs[name]["engines"].values()),
+            "decode_steps": decodes, "prefills": prefills}
+        launches[name] = {"launches": counts, "kernel_variants": variants}
+        check(counts["paged_attention"] == decodes * L,
+              f"colo {name}: paged launches {counts['paged_attention']} != "
+              f"{decodes} decode steps x {L}")
+        check(counts["flash_attention"] == prefills * L,
+              f"colo {name}: flash launches {counts['flash_attention']} != "
+              f"{prefills} prefills x {L}")
+        check_flash_variant(f"{model.cfg.name} colo {name}",
+                            model.cfg.compute_dtype, variants,
+                            counts["flash_attention"])
+        check(counts["rmsnorm"] == (decodes + prefills) * (2 * L + 1),
+              f"colo {name}: rmsnorm launches {counts['rmsnorm']} != "
+              f"{decodes + prefills} calls x {2 * L + 1}")
+        check(tracer.dropped == 0, f"colo {name}: trace ring dropped events")
+    total = {k: sum(v["launches"][k] for v in launches.values())
+             for k in launches["hop_only"]["launches"]}
+    total_variants = {k: sum(v["kernel_variants"][k]
+                             for v in launches.values())
+                      for k in launches["hop_only"]["kernel_variants"]}
+    modeled = {k: co_modeled(r, page_bytes) for k, r in runs.items()}
+    claims = co_claims(runs)
+    bf16_diff = None if claims["tokens_bit_identical"] else \
+        co_token_difference(model, params, device, runs)
+    generated = {k: sum(len(h.tokens) for hs in r["handles"].values()
+                        for h in hs) for k, r in runs.items()}
+    san = sanitize("colo hop_only (full depth, bf16)", tracers[:1])
+
+    # the three runs on the first CO_SHALLOW layers in fp32 (the same
+    # weights, upcast exactly, TF32 off): pages of 2^18 B, a power of two
+    # from the smoke width's, so every modeled number must equal the CPU's
+    shallow32 = build_model(dataclasses.replace(
+        model.cfg, n_layers=CO_SHALLOW, compute_dtype="float32"),
+        device=device)
+    shallow_params = {**params, "layers": params["layers"][:CO_SHALLOW]}
+    params32 = shallow32.load(shallow_params)
+    runs32, walls32, page32 = co_three(shallow32, params32, device,
+                                       CO_REQUESTS, CO_STEPS)
+    modeled32 = {k: co_modeled(r, page32) for k, r in runs32.items()}
+    claims32 = co_claims(runs32)
+    del shallow32, params32, runs32
+
+    # the racecheck on the card, first CO_SHALLOW layers in bf16
+    shallow = build_model(dataclasses.replace(model.cfg,
+                                              n_layers=CO_SHALLOW),
+                          device=device)
+    t0 = time.perf_counter()
+    race = co_racecheck(shallow, shallow_params, device)
+    torch.cuda.synchronize()
+    race_wall = time.perf_counter() - t0
+    del shallow, shallow_params
+
+    per_run = {k: {"wall_s": walls[k], "tokens": generated[k],
+                   "tokens_per_wall_s": generated[k] / walls[k],
+                   **steps[k], **launches[k],
+                   "modeled": modeled[k], "cpu_modeled": cpu_modeled[k]}
+               for k in walls}
+    emit({"phase": "colo", "arch": model.cfg.name, "layers": L,
+          "d_model": model.cfg.d_model, "shallow_layers": CO_SHALLOW,
+          "requests_per_tenant": CO_REQUESTS, "train_steps": CO_STEPS,
+          "page_bytes": page_bytes, "cpu_page_bytes": cpu_page,
+          "fp32_page_bytes": page32, "claims": claims,
+          "cpu_claims": cpu_claims, "fp32_claims": claims32,
+          "runs": per_run, "fp32_wall_s": walls32,
+          "bf16_token_difference": bf16_diff,
+          "modeled_within_rel_smoke_width": {
+              k: co_close(modeled[k], cpu_modeled[k], CO_REL)
+              for k in modeled},
+          "modeled_equal_bits_smoke_width": {
+              k: modeled[k] == cpu_modeled[k] for k in modeled},
+          "fp32_modeled_equal_smoke_width": {
+              k: modeled32[k] == cpu_modeled[k] for k in modeled32},
+          "racecheck": race.format(), "racecheck_ok": race.ok,
+          "racecheck_events": race.baseline_events,
+          "racecheck_wall_s": race_wall, "sanitizer": san,
+          "cpu_smoke_width_s": cpu_s, "launches_total": total,
+          "phase_wall_s": time.perf_counter() - phase_t0})
+    for name, r in runs.items():
+        check(all(h.status is RequestStatus.DONE
+                  and len(h.tokens) == CO_MAX_NEW
+                  and all(0 <= x < model.cfg.vocab for x in h.tokens)
+                  for hs in r["handles"].values() for h in hs)
+              and len(r["handles"]["a"]) == CO_REQUESTS,
+              f"colo {name}: a request did not finish, or its tokens are "
+              f"missing or out of range")
+    for k, v in claims.items():
+        check(v, f"colo: fig11 claim {k} failed at full depth in bf16")
+    for k, v in claims32.items():
+        check(v, f"colo: fig11 claim {k} failed on {CO_SHALLOW} layers in "
+              f"fp32")
+    check(all(cpu_claims.values()), f"colo: fig11 claims on the CPU "
+          f"{cpu_claims}")
+    for k in modeled:
+        check(co_close(modeled[k], cpu_modeled[k], CO_REL),
+              f"colo {k}: modeled numbers at full width {modeled[k]} not "
+              f"within {CO_REL} of smoke width on the CPU {cpu_modeled[k]}")
+        check(modeled32[k] == cpu_modeled[k],
+              f"colo {k}: modeled numbers on {CO_SHALLOW} layers in fp32 "
+              f"{modeled32[k]} != smoke width on the CPU {cpu_modeled[k]}")
+    check(race.ok, f"colo: the racecheck diverged on the card:\n"
+          f"{race.format()}")
+    return total, total_variants
 
 def ssd_work(B, S, H, P, G, N, chunk, itemsize):
     """(bytes, flops) of one SSD scan: x, dt, B, C, A, D and the initial
@@ -1714,7 +2248,8 @@ def kernel_times(device, counts, errs):
     # paged: a full decode batch of the engine (8 rows, 120..563 live
     # tokens, the trace's prompt lengths plus generated tokens), a one-row
     # bucket, the pooled path's 4 rows over 8-page tables of 16-token
-    # pages and the decode tier's 4 rows over 15-page tables; copies of
+    # pages, the decode tier's 4 rows over 15-page tables and the
+    # colocation engines' 6 rows over 10-page tables; copies of
     # the pool cycled so the timed calls read cold K/V, as a decode step
     # does layer by layer
     def paged_work(q, kp, lens, ps):
@@ -1754,6 +2289,8 @@ def kernel_times(device, counts, errs):
                "q=bf16 pages=fp32", 4, 16, 8, [40, 72, 100, 128])
     paged_time("disagg decode tier B=4 len 224..240 H=KV=16 D=64 ps=16 "
                "pages=15 q=bf16 pages=fp32", 4, 16, 15, [224, 229, 235, 240])
+    paged_time("colo decode B=6 len 33..160 H=KV=16 D=64 ps=16 pages=10 "
+               "q=bf16 pages=fp32", 6, 16, 10, [33, 48, 97, 128, 150, 160])
 
     def flash_time(B, Sq, Skv, H, D, q_offset=0, kv_len=None,
                    q_dtype=bf16):
@@ -1797,12 +2334,13 @@ def kernel_times(device, counts, errs):
               **extra)
 
     # flash: the largest prefill bucket of the trace (512), bf16 q, fp32
-    # cache; then the other buckets, zamba2's prefill and decode at
+    # cache; then the other buckets (32: the colocation engines'
+    # prompts), zamba2's prefill and decode at
     # head_dim 112, and the fp32-q kernel at the 512 bucket
     t = flash_time(1, 512, 512, 16, 64)
     row(fa, "flash_attention", *t[:5], library_bf16_ms=t[5])
     flash_line("qwen prefill B=1 Sq=Skv=512 H=16 D=64 q=bf16 kv=fp32", t)
-    for S in (128, 256):
+    for S in (32, 128, 256):
         flash_line(f"qwen prefill B=1 Sq=Skv={S} H=16 D=64 q=bf16 kv=fp32",
                    flash_time(1, S, S, 16, 64))
     flash_line("zamba2 prefill B=4 Sq=500 Skv=516 kv_len=500 H=KV=32 "
@@ -1918,6 +2456,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     counts["qwen1.5-0.5b disagg"], variants["qwen1.5-0.5b disagg"] = \
         disagg_full_width(qwen, qwen_params, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts["qwen1.5-0.5b colo"], variants["qwen1.5-0.5b colo"] = \
+        colo_full_width(qwen, qwen_params, device)
     del qwen, qwen_params
     for arch, batch, generate, steps in (("mamba2-780m", 8, 32, 8),
                                          ("zamba2-7b", 4, 16, 0)):

@@ -4,8 +4,8 @@
 The port's modeled clock must stay identical to the reference's: library
 code must never read the host wall clock, draw unseeded randomness, or
 bypass the observability layer.  These rules are the static half of that
-discipline; the dynamic half is the reference's trace sanitizer, which
-the tests run over the port's event streams.
+discipline; the dynamic half is the port's trace sanitizer
+(``repro_torch.analysis.sanitizer``).
 
 Each rule is an AST visitor keyed by a stable name; violations carry
 ``path:line`` plus a message.  A justified exception is annotated

@@ -41,7 +41,7 @@ import contextlib
 import random
 from typing import Iterable, Iterator, List, Optional, TypeVar
 
-__all__ = ["TieBreaker", "order", "perturb"]
+__all__ = ["TieBreaker", "active", "order", "perturb"]
 
 T = TypeVar("T")
 
@@ -67,6 +67,11 @@ class TieBreaker:
 # subsystems need no new constructor arguments (the seam must not
 # change any public API or any default behavior)
 _ACTIVE: Optional[TieBreaker] = None
+
+
+def active() -> bool:
+    """True inside a ``perturb`` context."""
+    return _ACTIVE is not None
 
 
 def order(items: Iterable[T]) -> List[T]:

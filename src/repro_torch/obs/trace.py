@@ -38,7 +38,7 @@ prefix before the first ``":"``.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 # Chrome trace_event phase tags (the subset the exporter emits)
 PH_SPAN = "X"          # complete event: ts + dur
@@ -122,6 +122,7 @@ class Tracer:
         self._next = 0              # next write position
         self._count = 0             # events ever recorded
         self.dropped = 0            # events overwritten by the ring
+        self._hooks: List[Callable[[Event], None]] = []
 
     # ---- recording -------------------------------------------------------
     def _append(self, ev: Event) -> None:
@@ -131,6 +132,20 @@ class Tracer:
         self._ring[i] = ev
         self._next = (i + 1) % self.capacity
         self._count += 1
+        if self._hooks:
+            for hook in self._hooks:
+                hook(ev)
+
+    def add_hook(self, hook: Callable[[Event], None]) -> None:
+        """Register a callable invoked with EVERY recorded event, before
+        the ring can drop it — the live tap ``repro_torch.analysis``'s
+        modeled-time sanitizer checks a run through without waiting for
+        an export.  Hooks must be passive (never mutate modeled state)
+        and cheap; they run on the emit path."""
+        self._hooks.append(hook)
+
+    def remove_hook(self, hook: Callable[[Event], None]) -> None:
+        self._hooks.remove(hook)
 
     def span(self, track: str, name: str, ts: float, dur: float, *,
              cat: str = CAT_ENGINE, **args: Any) -> None:

@@ -28,8 +28,8 @@ Free accelerators are tracked per pod in a heap-backed free-list
 (O(log n) take/put), so 10^5-job schedules stay tractable — see
 ``benchmarks/pool_scale.py`` for the guard.
 
-The allocator is the bookkeeping core; admission/timing lives in the
-pool scheduler (``repro.pool.scheduler``, not ported yet).
+The allocator is the bookkeeping core; admission/timing lives in
+``repro_torch.pool.scheduler``.
 """
 
 from __future__ import annotations

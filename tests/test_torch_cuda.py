@@ -474,3 +474,64 @@ def test_cuda_ssd_dtype_dispatch_and_refusals(cuda):
     with pytest.raises(ValueError, match="multiple of 8"):
         ssd_scan(x.bfloat16(), dt, A, Bm[..., :12].bfloat16().contiguous(),
                  Cm[..., :12].bfloat16().contiguous(), D)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to(v, device) for v in tree)
+    return tree.to(device)
+
+
+@pytest.mark.cuda
+def test_cuda_colocation_scenario_equals_the_cpu_run(cuda):
+    """fig11's co-residency scenario (``chip_smoke.py`` phase 8's
+    ``co_run``) at its racecheck shape, 4 requests a tenant and 4
+    training steps, on the first 2 layers of qwen1.5-0.5b in fp32: on
+    the card and on the CPU, from the same weights, each placement gives
+    the same tokens, the same modeled numbers and the same trace events,
+    and the card's trace is clean under the port's sanitizer."""
+    import dataclasses
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.analysis import diff_events, sanitize_tracer
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.obs import Tracer
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b"), n_layers=2,
+                              compute_dtype="float32")
+    cpu = torch.device("cpu")
+    host = build_model(cfg, device=cpu)
+    params = host.init(torch.Generator().manual_seed(0))
+    card = build_model(cfg, device=cuda)
+    runs = {}
+    for where, dev, model, p in (("host", cpu, host, params),
+                                 ("card", cuda, card,
+                                  _tree_to(params, cuda))):
+        bw, page_bytes = cs.co_bw(model, p, dev)
+        for name, policy, train in cs.CO_RUNS:
+            tracer = Tracer(1 << 18)
+            r = cs.co_run(model, p, dev, policy,
+                          cs.CO_RACE_STEPS if train else 0,
+                          cs.co_traces(cs.CO_RACE_REQUESTS), bw,
+                          tracer=tracer)
+            runs[where, name] = (r, tracer, page_bytes)
+    for name, _, _ in cs.CO_RUNS:
+        (want, want_tr, pb), (got, got_tr, pb_card) = \
+            runs["host", name], runs["card", name]
+        assert pb_card == pb
+        assert cs.co_outcome(got) == cs.co_outcome(want), name
+        assert cs.co_modeled(got, pb) == cs.co_modeled(want, pb), name
+        diff = diff_events(want_tr.events(), got_tr.events())
+        assert diff.identical, diff.format()
+        rep = sanitize_tracer(got_tr)
+        assert rep.ok, rep.format()
+    assert all(cs.co_claims({k: runs["card", k][0]
+                             for k, _, _ in cs.CO_RUNS}).values())

@@ -144,6 +144,34 @@ def test_the_disagg_slice_modules_are_checked():
             "analysis/lints/__init__.py"} <= files
 
 
+def test_the_colocation_slice_modules_are_checked():
+    """The scheduler, simulator, cost model, analysis tools and
+    colocation modules are among those imported with JAX and the
+    reference blocked, and whose sources are scanned; the lint entry
+    point (run clean over the tree by ``test_lints_entry_point_runs_alone``)
+    keeps the reference's ``allow`` annotations on them."""
+    names = set(_module_names())
+    slice_modules = {
+        "repro_torch.core.costmodel", "repro_torch.core.simulator",
+        "repro_torch.pool.scheduler", "repro_torch.analysis",
+        "repro_torch.analysis.sanitizer", "repro_torch.analysis.tracediff",
+        "repro_torch.analysis.racecheck", "repro_torch.colo",
+        "repro_torch.colo.collectives", "repro_torch.colo.driver",
+        "repro_torch.obs.export"}
+    assert slice_modules <= names, sorted(slice_modules - names)
+    files = {p.relative_to(PKG).as_posix() for p in FILES if PKG in p.parents}
+    assert {"core/costmodel.py", "core/simulator.py", "pool/scheduler.py",
+            "analysis/sanitizer.py", "analysis/tracediff.py",
+            "analysis/racecheck.py", "colo/collectives.py",
+            "colo/driver.py"} <= files
+    ref = ROOT / "src" / "repro"
+    for rel in ("pool/scheduler.py", "colo/driver.py",
+                "analysis/racecheck.py"):
+        want = (ref / rel).read_text().count("# repro: allow(")
+        assert want > 0 and (PKG / rel).read_text().count(
+            "# repro: allow(") == want, rel
+
+
 def test_disagg_entry_points_refuse_the_cpu_unless_asked():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None is valid here")
