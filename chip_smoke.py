@@ -28,7 +28,16 @@ no result line):
               1..1000, chunk 64 / 128, N 64 / 128, P 32 / 64, G 1 / 2,
               with and without an initial state (y 2e-2, state 2e-4), and
               on its CUDA-core kernel (fp32) at 2e-4, each launch checked
-              by variant;
+              by variant; the moe and encdec paths' shapes: paged decode
+              over bf16 pools of 64-token pages at olmoe's heads
+              (H=KV=16, D=128) and mixtral's (H=32, KV=8, D=128, window
+              4096), flash at olmoe's 512-token prefill on bf16 K/V,
+              whisper's non-causal encoder (B=4, 1500 frames, H=12,
+              D=64), its cross-attention (64 and 1 queries over 1500
+              frames; these non-causal cases at 6e-3, and one more with
+              V lifted on the ragged last tile's 28 keys) and its
+              decoder's causal self-attention over the fp32 cache,
+              RMSNorm at 512 x 2048 and 8 x 2048;
 4. serve    - qwen1.5-0.5b at full width (24 layers, d=1024, vocab
               151,936, seeded random weights) served by
               ``repro_torch.serve.Engine`` through ``run_trace``: 16
@@ -117,13 +126,37 @@ no result line):
               counts checked exactly (every served SSD launch on the
               tensor-core kernel, the fp32-gated checks' on the CUDA-core
               one), logits held against the plain path as in phase 4; 4e
-              profiles a mamba2 decode window;
+              profiles a mamba2 decode window; 4f: whisper-small (12
+              encoder and 12 decoder layers, d=768, 1500 seeded frames, 4
+              x 64-token prompts, 32 tokens) the same way: flash 36 times
+              a prefill (12 encoder, 12 causal self, 12 cross) and 24
+              times a decode step, no RMSNorm (LayerNorm is no kernel);
+9.  moe     - (run after phase 8, once qwen's weights are freed)
+              olmoe-1b-7b at full width and depth (16 layers, d=2048, 64
+              experts top-8 of d_ff 1024, vocab 50,304, capacity factor
+              1.25, seeded fp32 draws served in bf16, 64-token bf16
+              pages) through ``Engine.local`` and ``run_trace`` under
+              phase 4's trace, quota and tier-2 budget: every request
+              done, spills and fetches, launches exact; one prefill's and
+              one decode step's logits against the plain path, reported
+              in bf16 and gated in fp32 under the routing-tie rule (each
+              layer's routing recorded on both paths: gated where equal;
+              a flip fails the run unless its router gap is under 1e-5);
+              a profiled decode window: a step's device time (its
+              expert and attention layers alone too) beside its byte
+              bound, and its busy share.  Then mixtral-8x7b at full
+              width on its first 8 layers (the fp32 gate's 8.7 GB a
+              layer: 9 or more do not fit one card with headroom):
+              8 requests of 120/250 prompt tokens, 32 new, an ample pool,
+              launches exact, logits held the same way;
 5. times    - each kernel's time (CUDA graphs of back-to-back calls,
               timed with CUDA events, median of trials) beside its plain
               version, a PyTorch library call where one computes the
-              same function (for flash, SDPA in fp32 and, as
-              ``library_bf16_ms``, on bf16 K/V), and the bound from the
-              H100's published peaks, at each path's shapes (paged at
+              same function (for flash, SDPA on the same inputs: in
+              bf16 where q and K/V are bf16, in fp32 over the fp32
+              cache; and, as ``library_bf16_ms``, on bf16 K/V), and
+              the bound from the H100's published peaks, at each path's
+              shapes (paged at
               the engine's 8-row and 1-row decode buckets, the pooled
               path's 4 rows of 8-page tables, the decode tier's 4 rows
               of 15-page tables and the colocation engines' 6 rows of
@@ -131,11 +164,13 @@ no result line):
               256 / 512 buckets and zamba2's prefill and decode;
               RMSNorm at 512 and 8 rows of 1024, 8 of 1536 and 3072,
               2000 of 3584 and 7168; the SSD scan at mamba2's and
-              zamba2's prefill).  Every call reads cold inputs: the
+              zamba2's prefill; paged at olmoe's and mixtral's 8-row
+              decode, flash at olmoe's 512 prefill and whisper's encoder
+              and cross-attention, RMSNorm at 512 and 8 rows of 2048).  Every call reads cold inputs: the
               copies cycled through read more than twice the L2 a cycle.
               A time under its bound / 1.05 fails the run;
-then the ``launches`` and ``kernels`` lines (phases 6, 7 and 8's launches
-among the paths), and the contract line ``{"ok": true, "device":
+then the ``launches`` and ``kernels`` lines (phases 6, 7, 8, 9 and 4f's
+launches among the paths), and the contract line ``{"ok": true, "device":
 {...}}``, last.
 
 It imports torch, numpy and ``repro_torch`` only (no JAX).
@@ -161,6 +196,13 @@ BOUND_SLACK = 1.05              # a timed kernel under bound / 1.05 fails
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 SSD_TOL = 2e-4                  # fp32 SSD outputs: sums run in another order
 PROMPT_LENS = (120, 250, 500)   # the full-width trace's prompt lengths
+LONG_KV_TOL = 6e-3              # non-causal bf16 flash over 1500 keys: the
+                                # outputs' RMS is ~0.04, so 2e-2 would pass a
+                                # dropped 28-key tail; errors seen on an H100
+                                # are 2.0e-3 and 9.8e-4
+GAP_NOISE = 1e-5                # a routing flip at a smaller router gap
+                                # (k-th less (k+1)-th probability) is fp32
+                                # noise between two summation orders
 
 
 def emit(obj) -> None:
@@ -486,6 +528,54 @@ def kernel_checks(device):
         if Sq == 500:
             errs["flash_attention_d112"] = e
 
+    # the moe and encdec paths (phases 9 and 4f): paged decode over bf16
+    # pools of 64-token pages at olmoe's heads (H=KV=16, D=128) and
+    # mixtral's (H=32, KV=8, D=128, with its 4096-token window); flash at
+    # olmoe's 512-token prefill over the bf16 slot cache, whisper's
+    # non-causal encoder (1500 frames, H=12, D=64) and cross-attention
+    # (64 and 1 queries over 1500 frames) on bf16 K/V, and its decoder's
+    # causal self-attention over the fp32 cache (prefill and one decode
+    # query)
+    for name, H, KV, lens, window in (
+            ("olmoe", 16, 16, [120, 184, 250, 314, 500, 563, 377, 440], None),
+            ("mixtral", 32, 8, [120, 151, 250, 281, 1, 64, 200, 130], 4096)):
+        args = paged_inputs(gen, 8, H, KV, 128, 64, 16, lens, bf16, bf16,
+                            device)
+        errs[f"paged_attention_{name}"] = record(
+            "paged_attention", f"{name} decode B=8 H={H} KV={KV} D=128 "
+            f"ps=64 q=bf16 pages=bf16 window={window}",
+            paged_decode_attention(*args, sliding_window=window),
+            ref.paged_attention_ref(*args, sliding_window=window),
+            TOL["bfloat16"])
+    flash_paths = [
+        ("olmoe prefill", 1, 512, 512, 16, 128, True, bf16, {}),
+        ("whisper encoder", 4, 1500, 1500, 12, 64, False, bf16, {}),
+        ("whisper cross prefill", 4, 64, 1500, 12, 64, False, bf16, {}),
+        ("whisper cross decode", 4, 1, 1500, 12, 64, False, bf16, {}),
+        ("whisper self prefill", 4, 64, 96, 12, 64, True, f32,
+         dict(kv_len=64)),
+        ("whisper self decode", 4, 1, 96, 12, 64, True, f32,
+         dict(q_offset=80, kv_len=81))]
+    # the last case lifts V on the ragged last tile's 28 keys (1500 =
+    # 23*64 + 28) by 4: a dropped or doubled tail moves every output by
+    # about 4 * 28/1500 = 0.07, far past LONG_KV_TOL
+    flash_paths.append(("whisper encoder, lifted tail", 1, 1500, 1500, 12,
+                        64, False, bf16, {}))
+    for tag, B, Sq, Skv, H, D, causal, kv, kw in flash_paths:
+        q = torch.randn(B, Sq, H, D, generator=gen, device=device).to(bf16)
+        k, v = (torch.randn(B, Skv, H, D, generator=gen, device=device).to(kv)
+                for _ in range(2))
+        if tag.endswith("lifted tail"):
+            v[:, Skv - Skv % 64:] += 4
+        got = flash_attention(q, k, v, causal=causal, **kw)
+        with ops.plain_versions():
+            want = ops.flash_attention(q, k, v, causal=causal, **kw)
+        tol = TOL["bfloat16"] if causal or Skv != 1500 else LONG_KV_TOL
+        errs[f"flash_attention {tag}"] = record(
+            "flash_attention", f"{tag} B={B} Sq={Sq} Skv={Skv} H={H} D={D} "
+            f"causal={causal} q=bf16 kv={str(kv)[6:]} "
+            + " ".join(f"{a}={b}" for a, b in kw.items()), got, want, tol)
+
     # ssd: the serving shapes (bf16 x and B/C, fp32 dt, the zero fp32
     # state the prefill passes from the cache) on the tensor-core kernel,
     # y at the bf16 tolerance and the fp32 state at 2e-4; then the
@@ -560,6 +650,8 @@ def kernel_checks(device):
              for rows in (4, 8, 500, 4000) for dt in (bf16, f32)]
     grid += [(rows, d, dt) for rows in (3, 33, 512, 4000)
              for d in (64, 1000, 1001, 1024) for dt in (bf16, f32)]
+    # the moe path's d_model 2048 (olmoe): a 512-token prefill, 8 rows
+    grid += [(rows, 2048, dt) for rows in (8, 512) for dt in (bf16, f32)]
     for rows, d, dt in grid:
         x = torch.randn(rows, d, generator=gen, device=device).to(dt)
         s = (1 + 0.1 * torch.randn(d, generator=gen, device=device)).to(dt)
@@ -758,15 +850,56 @@ def check_step_variant(model, step, n, n_ssd=0):
                                    variants, n_ssd)})
 
 
-def logits_check(model, params, prompt, device, gate: bool, n_flash):
+def routing_gate(step, got, want, gate: bool, phase, arch) -> bool:
+    """The routing-tie rule: each expert layer's routing (each token's
+    experts, each dispatch entry's keep bit) on the kernel path (``got``)
+    against the plain path (``want``), as ``moe.record_routing`` recorded
+    them.  Reported with the smallest gap between a token's k-th and
+    (k+1)-th router probability and every flipped decision with its gap;
+    with ``gate``, a flip at a gap of ``GAP_NOISE`` or more (not fp32
+    noise) fails the run.  Returns whether to gate the logits: only where
+    the routing is equal everywhere.  A path without expert layers
+    records nothing and is gated as asked."""
+    if not got:
+        return gate
+    flips, keep_diff, min_gap = [], 0, math.inf
+    for layer, (a, b) in enumerate(zip(got, want)):
+        min_gap = min(min_gap, float(a["gap"].min()))
+        differ = (a["expert_idx"] != b["expert_idx"]).any(-1)    # (G, Tg)
+        for g, t in differ.nonzero().tolist():
+            flips.append({"layer": layer, "group": g, "token": t,
+                          "gap": float(a["gap"][g, t]),
+                          "gap_plain": float(b["gap"][g, t])})
+        keep_diff += int((a["keep"] != b["keep"]).sum())
+    equal = not flips and keep_diff == 0
+    noise = bool(flips) and all(max(f["gap"], f["gap_plain"]) < GAP_NOISE
+                                for f in flips)
+    emit({"phase": phase, "arch": arch,
+          "check": f"{step} routing, kernels vs plain",
+          "layers": len(got), "equal": equal, "min_gap": min_gap,
+          "n_flips": len(flips), "flips": flips[:16],
+          "keep_differences": keep_diff, "gap_noise": GAP_NOISE,
+          "gated": gate, "ok": equal or noise})
+    if gate:
+        check(equal or noise, f"{arch} {step}: routing differs between the "
+              f"kernel and plain paths beyond fp32 noise: {flips[:4]}, "
+              f"{keep_diff} keep bits")
+    return gate and equal
+
+
+def logits_check(model, params, prompt, device, gate: bool, n_flash,
+                 phase="serve"):
     """One prefill and one decode step of the served model through the
     kernels and through the plain versions, on the same inputs; with
     ``gate`` a mismatch beyond the bf16 tolerance fails the run.
     ``n_flash``: the flash launches of the kernel path's prefill and
-    decode, checked by variant."""
+    decode, checked by variant.  For an moe model the routing of both
+    paths is held to ``routing_gate``, and the logits are gated only
+    where it is equal."""
     import torch
     from repro_torch import kernels
     from repro_torch.kernels import ops
+    from repro_torch.models.moe import record_routing
 
     cfg = model.cfg
     plen, ps = len(prompt), 64
@@ -778,12 +911,16 @@ def logits_check(model, params, prompt, device, gate: bool, n_flash):
         cache = model.init_cache(1, bucket, dtype=torch.float32)
         return model.prefill_at(params, {"tokens": tokens}, cache, plen - 1)
 
+    arch = cfg.name if phase != "serve" else None
     kernels.reset_launch_counts()
-    got, cache = prefill()
+    with record_routing() as r_got:
+        got, cache = prefill()
     check_step_variant(model, "prefill", n_flash[0])
-    with ops.plain_versions():
+    with ops.plain_versions(), record_routing() as r_want:
         want, _ = prefill()
-    report("prefill", got, want, model.cfg.compute_dtype, gate)
+    report("prefill", got, want, model.cfg.compute_dtype,
+           routing_gate("prefill", r_got, r_want, gate, phase, cfg.name),
+           phase=phase, arch=arch)
 
     # the prompt's pages, plus the page the decoded token lands in
     n_filled, n_pages = bucket // ps, plen // ps + 1
@@ -798,13 +935,16 @@ def logits_check(model, params, prompt, device, gate: bool, n_flash):
     lengths = torch.tensor([plen], dtype=torch.int32, device=device)
     tok = torch.argmax(got[:, -1], dim=-1)[:, None]
     kernels.reset_launch_counts()
-    got, _ = model.decode_paged(params, tok, {n: p.clone()
-                                              for n, p in pools.items()},
-                                table, lengths)
+    with record_routing() as r_got:
+        got, _ = model.decode_paged(params, tok, {n: p.clone()
+                                                  for n, p in pools.items()},
+                                    table, lengths)
     check_step_variant(model, "decode", n_flash[1])
-    with ops.plain_versions():
+    with ops.plain_versions(), record_routing() as r_want:
         want, _ = model.decode_paged(params, tok, pools, table, lengths)
-    report("decode", got, want, model.cfg.compute_dtype, gate)
+    report("decode", got, want, model.cfg.compute_dtype,
+           routing_gate("decode", r_got, r_want, gate, phase, cfg.name),
+           phase=phase, arch=arch)
 
 
 def report(step, got, want, compute, gate, phase="serve", arch=None):
@@ -833,17 +973,30 @@ def report(step, got, want, compute, gate, phase="serve", arch=None):
 LAYOUT = {"mamba2-780m": (48, 0), "zamba2-7b": (81, 81 // 6)}
 
 
-def expected_launches(cfg, generate: int):
-    """Kernel launches of one prefill and ``generate - 1`` decode steps:
-    the SSD scan once per mamba layer at prefill (decode runs the plain
+def step_launches(cfg):
+    """(flash per prefill, flash per decode step, SSD scans per prefill,
+    RMSNorm per forward) of a fixed-batch model.  Recurrent families: the
+    SSD scan once per mamba layer at prefill (decode runs the plain
     one-token recurrence), flash once per shared-block invocation per
-    forward, RMSNorm twice per block plus the final norm per forward."""
+    forward, RMSNorm twice per block plus the final norm.  encdec
+    (whisper): flash once per encoder layer (non-causal) at prefill, and
+    per decoder layer once for the causal self-attention and once for
+    the cross-attention per forward; its LayerNorms are no kernel."""
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + 2 * cfg.n_layers, 2 * cfg.n_layers, 0, 0
     n_mamba, n_attn = LAYOUT[cfg.name]
     check(cfg.n_layers == n_mamba, f"{cfg.name}: {cfg.n_layers} layers, "
           f"expected {n_mamba}")
-    return {"paged_attention": 0, "flash_attention": n_attn * generate,
-            "rmsnorm": (2 * n_mamba + 2 * n_attn + 1) * generate,
-            "ssd_scan": n_mamba}
+    return n_attn, n_attn, n_mamba, 2 * n_mamba + 2 * n_attn + 1
+
+
+def expected_launches(cfg, generate: int):
+    """Kernel launches of one prefill and ``generate - 1`` decode steps
+    (see ``step_launches``)."""
+    f_pre, f_dec, n_ssd, n_rms = step_launches(cfg)
+    return {"paged_attention": 0,
+            "flash_attention": f_pre + f_dec * (generate - 1),
+            "rmsnorm": n_rms * generate, "ssd_scan": n_ssd}
 
 
 def fixed_batch_full_width(arch, device, batch, prompt, generate, *,
@@ -864,12 +1017,12 @@ def fixed_batch_full_width(arch, device, batch, prompt, generate, *,
 
     cfg = get_config(arch)
     model = build_model(cfg, device=device)
-    raw, prompts = fixed_batch_inputs(model, batch, prompt, 0, device)
+    raw, inputs = fixed_batch_inputs(model, batch, prompt, 0, device)
     params = model.load(raw)
 
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    run = fixed_batch_generate(model, params, prompts, generate, device)
+    run = fixed_batch_generate(model, params, inputs, generate, device)
     counts = kernels.launch_counts()
     variants = kernels.variant_counts()
 
@@ -901,54 +1054,52 @@ def fixed_batch_full_width(arch, device, batch, prompt, generate, *,
         profile_decode_window(params, make_decode_step(model), carry,
                               profile_steps)
     del carry, run
-    one = prompts[:1]
+    one = {k: v[:1] for k, v in inputs.items()}
     # the served bf16 path, kernels vs plain: reported, not gated (bf16
     # rounding flips compound over the layers, ROADMAP C-port2)
-    n_attn = LAYOUT[cfg.name][1]
-    recurrent_logits_check(model, params, one, gate=False, n_flash=n_attn)
+    fixed_batch_logits_check(model, params, one, gate=False)
     del params
     torch.cuda.empty_cache()
     # the same weights computed in fp32 (the fp32 draw itself: no copy):
     # gated
     model32 = build_model(dataclasses.replace(cfg, compute_dtype="float32"),
                           device=device)
-    recurrent_logits_check(model32, model32.load(raw), one, gate=True,
-                           n_flash=n_attn)
+    fixed_batch_logits_check(model32, model32.load(raw), one, gate=True)
     return counts, variants
 
 
-def recurrent_logits_check(model, params, tokens, gate: bool, n_flash):
-    """One prefill of ``tokens`` (1, S) and one decode step from its
-    cache, through the kernels and through the plain versions; both
-    decode steps start from the kernel path's cache and token.  Each
-    kernel-path step launches flash ``n_flash`` times (once per shared
-    attention block), and the prefill the SSD scan once per mamba layer,
-    checked by variant."""
+def fixed_batch_logits_check(model, params, inputs, gate: bool):
+    """One prefill of ``inputs`` (one row: tokens (1, S), and frame
+    embeddings for encdec) and one decode step from its cache, through
+    the kernels and through the plain versions; both decode steps start
+    from the kernel path's cache, token (and encoder states).  The
+    kernel path's flash and SSD launches are checked by variant, at the
+    counts of ``step_launches``."""
     import torch
     from repro_torch import kernels
     from repro_torch.kernels import ops
 
-    S = tokens.shape[1]
+    S = inputs["tokens"].shape[1]
+    f_pre, f_dec, n_ssd, _ = step_launches(model.cfg)
 
     def prefill():
         cache = model.init_cache(1, S + 1, dtype=torch.float32)
-        return model.prefill(params, {"tokens": tokens}, cache)
+        return model.prefill(params, inputs, cache)
 
     kernels.reset_launch_counts()
-    got, cache = prefill()
-    check_step_variant(model, "prefill", n_flash,
-                       n_ssd=LAYOUT[model.cfg.name][0])
+    got, cache, *enc = prefill()
+    check_step_variant(model, "prefill", f_pre, n_ssd=n_ssd)
     with ops.plain_versions():
-        want, _ = prefill()
+        want, *_ = prefill()
     report("prefill", got, want, model.cfg.compute_dtype, gate,
            phase="batch", arch=model.cfg.name)
     tok = torch.argmax(got[:, -1], dim=-1)[:, None]
     twin = {k: v.clone() for k, v in cache.items()}
     kernels.reset_launch_counts()
-    got, _ = model.decode(params, tok, cache, S)
-    check_step_variant(model, "decode", n_flash)
+    got, _ = model.decode(params, tok, cache, S, *enc)
+    check_step_variant(model, "decode", f_dec)
     with ops.plain_versions():
-        want, _ = model.decode(params, tok, twin, S)
+        want, _ = model.decode(params, tok, twin, S, *enc)
     report("decode", got, want, model.cfg.compute_dtype, gate,
            phase="batch", arch=model.cfg.name)
 
@@ -2199,6 +2350,268 @@ def colo_full_width(model, params, device):
           f"{race.format()}")
     return total, total_variants
 
+# ---------------------------------------------------------------------------
+# phase 9: the moe family (olmoe-1b-7b at full width and depth, mixtral-8x7b
+# at full width on its first layers)
+# ---------------------------------------------------------------------------
+
+# mixtral's depth on one card: a layer is 1.45e9 parameters, and both the
+# draw (fp32 draws beside their bf16 copy) and the fp32 gate (bf16 weights
+# beside their fp32 upcast) hold 12 bytes of each, 8.7 GB a layer, plus
+# 1.6 GB for the embedding and head; 8 layers peak near 71 GB of the
+# card's 85 GB, 9 near 80 GB
+MIXTRAL_DEPTH = 8
+
+
+def moe_engine_run(arch, device, *, n_layers, n_requests, prompt_lens,
+                   max_new, max_seq, quota=None, tier2=0.0):
+    """``n_requests`` seeded requests served by ``Engine.local`` through
+    ``run_trace``: ``arch`` (cut to its first ``n_layers`` layers when
+    given), weights drawn in fp32 from a seeded generator and loaded in
+    bf16 (the draw is freed once the engine holds the loaded copy), 8
+    slots of 64-token pages in bf16 (the family's cache dtype), under
+    ``quota`` tier-1 pages and ``tier2`` bytes when a quota is given.
+    Every request must finish with its tokens in range and the launches
+    must be exact (paged once per layer per decode step, flash once per
+    layer per prefill, all on the tensor-core kernel, RMSNorm 2L+1 times
+    per forward); under a quota, sequences must spill and fetch."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.tiering import KVBudget
+    from repro_torch.models.api import build_model
+    from repro_torch.obs import Tracer
+    from repro_torch.serve import (Engine, EngineConfig, latency_summary,
+                                   run_trace, synthetic_trace)
+
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    model = build_model(cfg, device=device)
+    tracer = Tracer(1 << 20)
+    budget = (KVBudget(tier1_pages=quota, tier2_bytes=tier2, page_size=64)
+              if quota else None)
+    engine = Engine.local(
+        model, EngineConfig(max_slots=8, max_seq=max_seq, page_size=64,
+                            cache_dtype="bfloat16"),
+        generator=torch.Generator(device=device).manual_seed(0),
+        budget=budget, tracer=tracer, device=device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trace = synthetic_trace(n_requests, prompt_lens=prompt_lens,
+                            max_new_tokens=max_new, mean_interarrival_s=0.002,
+                            vocab=cfg.vocab, seed=0)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    handles = run_trace(engine, trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    variants = kernels.variant_counts()
+
+    stats = engine.stats()
+    names = [e.name for e in tracer.events()]
+    decodes, prefills = names.count("decode"), names.count("prefill")
+    L = cfg.n_layers
+    want = {"paged_attention": decodes * L, "flash_attention": prefills * L,
+            "rmsnorm": (decodes + prefills) * (2 * L + 1), "ssd_scan": 0}
+    run = {"arch": cfg.name, "layers": L, "d_model": cfg.d_model,
+           "experts": cfg.n_experts, "top_k": cfg.top_k,
+           "expert_d_ff": cfg.expert_d_ff, "vocab": cfg.vocab,
+           "capacity_factor": cfg.capacity_factor,
+           "requests": len(handles), "wall_s": wall,
+           "tokens_decoded": stats["tokens_decoded"],
+           "tokens_per_s": stats["tokens_decoded"] / wall,
+           "prefills": prefills, "decode_steps": decodes,
+           "page_mb": engine.kv.page_bytes / 1e6,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit({"phase": "moe", **run, "launches": counts,
+          "expected_launches": want, "kernel_variants": variants,
+          "latency_modeled": latency_summary(handles), "kv": stats["kv"],
+          "preempts": stats["preempts"], "swaps": stats["preempt_swaps"],
+          "recomputes": stats["preempt_recomputes"],
+          "row_buckets": sorted(engine._row_buckets_used),
+          "trace_dropped": tracer.dropped})
+    check(tracer.dropped == 0, f"{cfg.name}: trace ring dropped events")
+    check(stats["completed"] == n_requests and stats["failed_oom"] == 0,
+          f"{cfg.name}: not every request finished: {stats['completed']} "
+          f"done, {stats['failed_oom']} failed OOM")
+    check(all(len(h.tokens) == max_new and all(0 <= t < cfg.vocab
+                                                for t in h.tokens)
+              for h in handles), f"{cfg.name}: tokens out of range")
+    if quota:
+        check(stats["kv"]["spills"] > 0 and stats["kv"]["fetches"] > 0,
+              f"{cfg.name}: no spill/fetch under the {quota}-page quota: "
+              f"{stats['kv']}")
+    check(counts == want, f"{cfg.name}: launches {counts} != {want}")
+    check_flash_variant(cfg.name, cfg.compute_dtype, variants,
+                        counts["flash_attention"])
+    return model, engine, trace, counts, variants, run
+
+
+def moe_decode_breakdown(model, params, device, lens):
+    """A decode window of olmoe: steps at the engine's full 8-row bucket
+    (``lens`` tokens a row, random bf16 K/V pages) run back to back.  A
+    step's device time is its kernels and copies summed under
+    ``torch.profiler``, its wall time the host clock over steps ending
+    in a synchronise, the busy share their ratio; its two parts run
+    alone, layer after layer: the expert layers (router, dispatch, the
+    expert matmuls, combine) on a decode batch's activations, and the
+    attention layers (projections, page write, paged kernel).  The byte
+    bound reads every weight once (each decode step runs every expert:
+    the capacity gives each at least one slot) and each row's K/V."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import layers as Lyr
+    from repro_torch.models import moe, transformer
+
+    cfg = model.cfg
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(3)
+    B, ps, pmax = len(lens), 64, 1024 // 64
+    pools = {n: torch.randn((cfg.n_layers, B * pmax + 1, ps, cfg.n_kv_heads,
+                             cfg.head_dim), generator=gen,
+                            device=device).to(bf16) for n in "kv"}
+    table = torch.arange(B * pmax, dtype=torch.int32,
+                         device=device).reshape(B, pmax)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=device)
+    tokens = torch.randint(1, cfg.vocab, (B, 1), generator=gen,
+                           device=device)
+    h = torch.randn((B, 1, cfg.d_model), generator=gen,
+                    device=device).to(bf16)
+    acfg = transformer.attn_config(cfg)
+    positions = lengths.long()[:, None]
+    layers = params["layers"]
+
+    def step():
+        model.decode_paged(params, tokens, pools, table, lengths)
+
+    def experts():
+        for layer in layers:
+            moe.moe_mlp_fwd(layer["moe"], h, cfg)
+
+    def attention():
+        for i, layer in enumerate(layers):
+            Lyr.attention_fwd_paged(
+                layer["attn"], h, acfg, positions=positions,
+                k_pages=pools["k"][i], v_pages=pools["v"][i],
+                page_table=table, lengths=lengths)
+
+    def device_ms(fn, n=3):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        return sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == DeviceType.CUDA) / 1e3 / n
+
+    def host_ms(fn, n=10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    def leaves(t):
+        if isinstance(t, dict):
+            return [x for v in t.values() for x in leaves(v)]
+        if isinstance(t, list):
+            return [x for v in t for x in leaves(v)]
+        return [t]
+
+    weight_bytes = sum(w.numel() * w.element_size() for w in leaves(params))
+    kv_bytes = (2 * cfg.n_layers * sum(n + 1 for n in lens) * cfg.n_kv_heads
+                * cfg.head_dim * 2)
+    out = {"rows": B, "lens": lens, "step_device_ms": device_ms(step),
+           "step_wall_ms": host_ms(step),
+           "experts_device_ms": device_ms(experts),
+           "attention_device_ms": device_ms(attention),
+           "weight_gb": weight_bytes / 1e9, "kv_gb": kv_bytes / 1e9,
+           "bound_ms": (weight_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes"}
+    out["step_over_bound"] = out["step_device_ms"] / out["bound_ms"]
+    out["step_busy_share"] = out["step_device_ms"] / out["step_wall_ms"]
+    del pools
+    return out
+
+
+def moe_full_width(device):
+    """Phase 9: olmoe-1b-7b at full width and depth through the engine
+    under phase 4's trace, quota and tier-2 budget; its served bf16
+    logits reported and its fp32 logits gated against the plain path
+    under the routing-tie rule; the decode step's device breakdown
+    from a profiled decode window.  Then mixtral-8x7b at full width on its
+    first ``MIXTRAL_DEPTH`` layers, 8 requests of 120/250 prompt tokens,
+    32 new, an ample pool: launches exact, logits held the same way."""
+    import torch
+    from repro_torch.models.api import build_model
+
+    counts, variants = {}, {}
+    for arch, kw in (
+            ("olmoe-1b-7b", dict(n_layers=None, n_requests=16,
+                                 prompt_lens=PROMPT_LENS, max_new=64,
+                                 max_seq=1024, quota=32, tier2=4e9)),
+            ("mixtral-8x7b", dict(n_layers=MIXTRAL_DEPTH, n_requests=8,
+                                  prompt_lens=(120, 250), max_new=32,
+                                  max_seq=512))):
+        torch.cuda.reset_peak_memory_stats()
+        stamps = [time.perf_counter()]
+        model, engine, trace, c, v, run = moe_engine_run(arch, device, **kw)
+        stamps.append(time.perf_counter())
+        cfg = model.cfg
+        path = cfg.name if kw["n_layers"] is None \
+            else f"{cfg.name} ({cfg.n_layers} layers)"
+        counts[path], variants[path] = c, v
+        L = cfg.n_layers
+        params = engine.params
+        del engine
+        prompt = trace[0].prompt_tokens
+        if cfg.sliding_window:
+            longest = max(kw["prompt_lens"]) + kw["max_new"]
+            emit({"phase": "moe", "arch": cfg.name,
+                  "sliding_window": cfg.sliding_window,
+                  "longest_sequence": longest,
+                  "window_masks": longest > cfg.sliding_window,
+                  "note": "the window never masks at these lengths; "
+                          "phase 3 gates the kernels' window"})
+        # the served bf16 path, kernels vs plain: reported
+        logits_check(model, params, prompt, device, gate=False,
+                     n_flash=(L, 0), phase="moe")
+        stamps.append(time.perf_counter())
+        if kw["n_layers"] is None:
+            emit({"phase": "moe", "arch": cfg.name,
+                  "check": "decode step device time",
+                  **moe_decode_breakdown(model, params, device,
+                                         [250 + 9 * i for i in range(8)]),
+                  "engine_wall_s": run["wall_s"],
+                  "engine_tokens_per_s": run["tokens_per_s"]})
+        stamps.append(time.perf_counter())
+        # the same weights upcast exactly, computed in fp32: gated under
+        # the routing-tie rule (the bf16 copy above is all that is held)
+        gc.collect()
+        torch.cuda.empty_cache()
+        model32 = build_model(dataclasses.replace(
+            cfg, compute_dtype="float32"), device=device)
+        logits_check(model32, model32.load(params), prompt, device,
+                     gate=True, n_flash=(L, 0), phase="moe")
+        del model32, params, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        stamps.append(time.perf_counter())
+        emit({"phase": "moe", "arch": cfg.name, "seconds": dict(zip(
+            ("draw_and_serve", "bf16_logits", "profile", "fp32_gate"),
+            (b - a for a, b in zip(stamps, stamps[1:])))),
+              "total_s": stamps[-1] - stamps[0],
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return counts, variants
+
+
 def ssd_work(B, S, H, P, G, N, chunk, itemsize):
     """(bytes, flops) of one SSD scan: x, dt, B, C, A, D and the initial
     state read once, y and the final state written once; the causal half
@@ -2260,18 +2673,19 @@ def kernel_times(device, counts, errs):
                   + 4 * len(lens))                                # lens
         return nbytes, 4 * live * q.shape[1] * q.shape[2]
 
-    def paged_time(case, B, ps, pmax, lens, first=False):
-        one = paged_inputs(gen, B, 16, 16, 64, ps, pmax, lens, bf16, f32,
+    def paged_time(case, B, ps, pmax, lens, first=False, H=16, KV=16,
+                   D=64, kv=f32, window=None):
+        one = paged_inputs(gen, B, H, KV, D, ps, pmax, lens, bf16, kv,
                            device)
         nbytes, flops = paged_work(one[0], one[1], lens, ps)
         reads = nbytes - one[0].numel() * one[0].element_size()   # - out
-        sets = [one] + [paged_inputs(gen, B, 16, 16, 64, ps, pmax, lens,
-                                     bf16, f32, device)
+        sets = [one] + [paged_inputs(gen, B, H, KV, D, ps, pmax, lens,
+                                     bf16, kv, device)
                         for _ in range(max(4, cold_copies(reads)) - 1)]
-        ms = time_ms(lambda i: pa.paged_decode_attention(*sets[i]),
-                     len(sets))
-        plain = time_ms(lambda i: ref.paged_attention_ref(*sets[i]),
-                        len(sets))
+        ms = time_ms(lambda i: pa.paged_decode_attention(
+            *sets[i], sliding_window=window), len(sets))
+        plain = time_ms(lambda i: ref.paged_attention_ref(
+            *sets[i], sliding_window=window), len(sets))
         b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
         if first:
             row(pa, "paged_attention", ms, plain, b_ms, b_by, None)
@@ -2291,37 +2705,53 @@ def kernel_times(device, counts, errs):
                "pages=15 q=bf16 pages=fp32", 4, 16, 15, [224, 229, 235, 240])
     paged_time("colo decode B=6 len 33..160 H=KV=16 D=64 ps=16 pages=10 "
                "q=bf16 pages=fp32", 6, 16, 10, [33, 48, 97, 128, 150, 160])
+    # the moe engines' decode (phase 9): 8 rows over bf16 pools of
+    # 64-token pages, olmoe's heads and mixtral's (GQA, its window)
+    paged_time("olmoe decode B=8 len 250..313 H=KV=16 D=128 ps=64 q=bf16 "
+               "pages=bf16", 8, 64, 16, [250 + 9 * i for i in range(8)],
+               D=128, kv=bf16)
+    paged_time("mixtral decode B=8 len 120..282 H=32 KV=8 D=128 ps=64 "
+               "window=4096 q=bf16 pages=bf16", 8, 64, 8,
+               [120, 151, 182, 213, 250, 260, 270, 282], H=32, KV=8, D=128,
+               kv=bf16, window=4096)
 
     def flash_time(B, Sq, Skv, H, D, q_offset=0, kv_len=None,
-                   q_dtype=bf16):
-        """(ms, plain, bound, bound_by, fp32 SDPA, bf16 SDPA, copies) of
-        one causal call over an fp32 cache, every call on its own copy of
-        the inputs: SDPA gets the keys the queries see, [0, kv_len),
-        causal for a prefill from position 0, all visible for one decode
-        query at the end of them."""
+                   q_dtype=bf16, kv_dtype=f32, causal=True):
+        """(ms, plain, bound, bound_by, library, bf16 SDPA, copies) of
+        one call over ``kv_dtype`` keys (an fp32 cache by default), every
+        call on its own copy of the inputs: SDPA gets the keys the
+        queries see, [0, kv_len), causal for a causal prefill from
+        position 0, all visible for one decode query at the end of them
+        and for a non-causal call.  The library call takes the inputs as
+        they are where q and K/V share a dtype (bf16), else (bf16 q over
+        the fp32 cache, which SDPA cannot mix) upcast to fp32."""
         n_kv = Skv if kv_len is None else kv_len
-        causal = Sq > 1
-        pairs = Sq * (Sq + 1) // 2 if causal else Sq * n_kv
+        tri = causal and Sq > 1
+        pairs = Sq * (Sq + 1) // 2 if tri else Sq * n_kv
         qbytes = B * Sq * H * D * torch.finfo(q_dtype).bits // 8
-        nbytes = 2 * qbytes + 2 * B * n_kv * H * D * 4
+        nbytes = (2 * qbytes + 2 * B * n_kv * H * D
+                  * torch.finfo(kv_dtype).bits // 8)
         sets = []
         for _ in range(cold_copies(nbytes - qbytes)):
             q = torch.randn(B, Sq, H, D, generator=gen,
                             device=device).to(q_dtype)
-            k, v = (torch.randn(B, Skv, H, D, generator=gen, device=device)
+            k, v = (torch.randn(B, Skv, H, D, generator=gen,
+                                device=device).to(kv_dtype)
                     for _ in range(2))
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             ks, vs = kt[:, :, :n_kv], vt[:, :, :n_kv]
-            sets.append(((q, k, v), (qt, kt, vt), (qt.float(), ks, vs),
+            sets.append(((q, k, v), (qt, kt, vt),
+                         (qt.float(), ks.float(), vs.float()),
                          (qt.to(bf16), ks.to(bf16), vs.to(bf16))))
-        kw = dict(causal=True, q_offset=q_offset, kv_len=kv_len)
+        kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
         n = len(sets)
         ms = time_ms(lambda i: fa.flash_attention(*sets[i][0], **kw), n)
         plain = time_ms(lambda i: ref.attention_ref(*sets[i][1], **kw), n)
-        lib = time_ms(lambda i: F.scaled_dot_product_attention(
-            *sets[i][2], is_causal=causal), n)
         lib16 = time_ms(lambda i: F.scaled_dot_product_attention(
-            *sets[i][3], is_causal=causal), n)
+            *sets[i][3], is_causal=tri), n)
+        lib = lib16 if q_dtype == kv_dtype == bf16 else time_ms(
+            lambda i: F.scaled_dot_product_attention(*sets[i][2],
+                                                     is_causal=tri), n)
         del sets
         rate = BF16_FLOPS if q_dtype == bf16 else FP32_FLOPS
         return (ms, plain, *bound(nbytes, 4 * D * H * B * pairs, rate),
@@ -2352,10 +2782,24 @@ def kernel_times(device, counts, errs):
                flash_time(4, 1, 516, 32, 112, q_offset=499, kv_len=500))
     flash_line("fp32 q B=1 Sq=Skv=512 H=16 D=64 kv=fp32",
                flash_time(1, 512, 512, 16, 64, q_dtype=f32), variant="f32")
+    # the moe and encdec paths: olmoe's 512-token prefill over its bf16
+    # slot cache; whisper's non-causal encoder over 1500 frames and its
+    # cross-attention (a 64-token prompt, one decode query) over them
+    flash_line("olmoe prefill B=1 Sq=Skv=512 H=16 D=128 q=bf16 kv=bf16",
+               flash_time(1, 512, 512, 16, 128, kv_dtype=bf16),
+               max_abs_err=errs["flash_attention olmoe prefill"])
+    for tag, Sq in (("encoder", 1500), ("cross prefill", 64),
+                    ("cross decode", 1)):
+        flash_line(f"whisper {tag} B=4 Sq={Sq} Skv=1500 H=12 D=64 "
+                   f"non-causal q=bf16 kv=bf16",
+                   flash_time(4, Sq, 1500, 12, 64, kv_dtype=bf16,
+                              causal=False),
+                   max_abs_err=errs[f"flash_attention whisper {tag}"])
 
     # rmsnorm: bf16 rows at d_model: qwen's 512-row bucket, decode's 8
     # rows at each path's width, zamba2's prefill (4 x 500 rows) at
-    # d_model and d_inner; the rows of every call are a slice of their
+    # d_model and d_inner, olmoe's 512-row prefill and 8-row decode at
+    # 2048; the rows of every call are a slice of their
     # own of one buffer, cycled so each call reads cold
     def rms_time(n, d):
         copies = cold_copies(n * d * 2 + d * 2)
@@ -2372,7 +2816,7 @@ def kernel_times(device, counts, errs):
                                   BF16_FLOPS), lib, copies)
 
     for n, d in ((512, 1024), (8, 1024), (8, 1536), (8, 3072), (2000, 3584),
-                 (2000, 7168)):
+                 (2000, 7168), (512, 2048), (8, 2048)):
         ms, plain, b_ms, b_by, lib, copies = rms_time(n, d)
         if (n, d) == (512, 1024):
             row(rn, "rmsnorm", ms, plain, b_ms, b_by, lib)
@@ -2426,6 +2870,7 @@ def main() -> int:
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     smi = nvidia_smi_line()
     print(smi, flush=True)
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
@@ -2461,17 +2906,25 @@ def main() -> int:
     counts["qwen1.5-0.5b colo"], variants["qwen1.5-0.5b colo"] = \
         colo_full_width(qwen, qwen_params, device)
     del qwen, qwen_params
-    for arch, batch, generate, steps in (("mamba2-780m", 8, 32, 8),
-                                         ("zamba2-7b", 4, 16, 0)):
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_counts, moe_variants = moe_full_width(device)
+    counts.update(moe_counts)
+    variants.update(moe_variants)
+    for arch, batch, prompt, generate, steps in (
+            ("mamba2-780m", 8, 500, 32, 8), ("zamba2-7b", 4, 500, 16, 0),
+            ("whisper-small", 4, 64, 32, 0)):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         counts[arch], variants[arch] = fixed_batch_full_width(
-            arch, device, batch, 500, generate, profile_steps=steps)
+            arch, device, batch, prompt, generate, profile_steps=steps)
     gc.collect()
     torch.cuda.empty_cache()
     total = {name: sum(c[name] for c in counts.values())
              for name in counts["qwen1.5-0.5b"]}
+    emit({"phase": "smoke", "seconds_before_times":
+          time.perf_counter() - t_start})
     emit({"phase": "launches", "per_path": counts,
           "kernel_variants_per_path": variants, "total": total})
     check(all(n > 0 for n in total.values()),

@@ -4,14 +4,17 @@ The reference's parameters are ``model.init(PRNGKey)`` with leaves
 converted to numpy (``np.asarray``).  Its layer stacks are unstacked into
 lists, the layout the port's Python layer loops walk:
 
-- ``"layers"`` (dense and mamba2): ``(L, ...)`` leaves -> one dict per
-  layer;
+- ``"layers"`` (dense, moe and mamba2): ``(L, ...)`` leaves -> one
+  dict per layer (the moe experts' ``(L, E, d, f)`` leaves -> ``(E, d,
+  f)`` per layer, the fp32 router as it is);
+- ``"enc_layers"``, ``"dec_layers"`` (encdec): likewise;
 - ``"mamba_main"`` (hybrid): ``(n_groups, per, ...)`` leaves -> a list
   of groups, each a list of ``per`` layer dicts;
 - ``"mamba_tail"`` (hybrid): ``(tail, ...)`` leaves -> one dict per layer;
 
 every other subtree (``embedding``, ``final_norm``, the hybrid's one
-``shared_attn`` block) keeps its paths.  ``pool_from_reference``
+``shared_attn`` block, the encdec's ``enc_norm`` and ``dec_norm``)
+keeps its paths.  ``pool_from_reference``
 converts a page pool or a cache leaf for leaf: the port keeps the
 reference's stacked cache layouts (``{"k","v"}``; mamba2 ``{"conv",
 "ssd"}``; hybrid also ``"conv_tail"``, ``"ssd_tail"``).
@@ -30,7 +33,8 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 
 # subtree -> number of stacked leading layer axes
-STACKED = {"layers": 1, "mamba_main": 2, "mamba_tail": 1}
+STACKED = {"layers": 1, "mamba_main": 2, "mamba_tail": 1,
+           "enc_layers": 1, "dec_layers": 1}
 
 
 def to_tensor(arr, device: DeviceLike = None) -> torch.Tensor:
@@ -73,8 +77,7 @@ def _unstack(tree, depth: int):
 
 def params_from_reference(tree: Mapping[str, Any],
                           device: DeviceLike = None) -> Dict[str, Any]:
-    """Reference parameter tree (dense, mamba2 or hybrid) -> port
-    parameters."""
+    """Reference parameter tree (any family) -> port parameters."""
     return {k: _unstack(_convert(v, device), STACKED.get(k, 0))
             for k, v in tree.items()}
 

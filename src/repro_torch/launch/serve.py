@@ -1,5 +1,5 @@
-"""Serving entry point of the port: the fixed-batch mode (every family the
-port builds) and the request-level engine mode (paged-KV families).
+"""Serving entry point of the port: the fixed-batch mode (every family) and
+the request-level engine mode (the paged-KV families, dense and moe).
 
     # fixed batch (the default, as in ``repro.launch.serve``): prefill a
     # batch of random prompts, then greedy-decode, on the card
@@ -10,7 +10,7 @@ port builds) and the request-level engine mode (paged-KV families).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
         --smoke --batch 2 --prompt 16 --generate 4 --device cpu
 
-    # synthetic request trace through the engine (dense family only)
+    # synthetic request trace through the engine (dense and moe)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
         --requests 16 --max-new 64 --slots 8 --max-seq 1024 --page-size 64 \
         --tier1-pages 32 --tier2-kv-gb 4
@@ -279,24 +279,33 @@ def _multitenant_mode(args, cfg, model, ecfg, device, tracer=None) -> int:
 def fixed_batch_inputs(model, batch: int, prompt: int, seed: int, device):
     """The fixed-batch mode's draw from one ``torch.Generator`` seeded by
     ``seed``: random weights as drawn (the config's param dtype, before
-    ``model.load``), then ``batch`` prompts of ``prompt`` tokens."""
+    ``model.load``), then ``batch`` prompts of ``prompt`` tokens, and for
+    encdec ``batch`` x ``enc_seq`` bf16 frame embeddings (the stub
+    frontend's output, as ``repro.launch.serve`` draws them).  Returns
+    ``(raw, inputs)``, ``inputs`` the prefill's batch dict."""
+    cfg = model.cfg
     gen = torch.Generator(device=device).manual_seed(seed)
     raw = model.init(gen)
-    prompts = torch.randint(1, model.cfg.vocab, (batch, prompt),
-                            generator=gen, device=device)
-    return raw, prompts
+    inputs = {"tokens": torch.randint(1, cfg.vocab, (batch, prompt),
+                                      generator=gen, device=device)}
+    if cfg.family == "encdec":
+        inputs["frame_embeds"] = torch.randn(
+            batch, cfg.enc_seq, cfg.d_model, generator=gen,
+            device=device).to(torch.bfloat16)
+    return raw, inputs
 
 
-def fixed_batch_generate(model, params, prompts, generate: int, device):
-    """Prefill ``prompts`` (B, S), then greedy-decode until ``generate``
-    tokens per row (the first from the prefill's logits) over an fp32
-    cache.  Returns ``tokens`` (B, generate) on the host, ``prefill_s``,
-    ``decode_s`` (the timed decode ends in ``torch.cuda.synchronize()``
-    on the card), ``decode_tokens_per_s``, the last ``carry`` and
-    ``logits_finite`` over every step."""
+def fixed_batch_generate(model, params, inputs, generate: int, device):
+    """Prefill ``inputs`` (tokens (B, S), plus frame embeddings for
+    encdec), then greedy-decode until ``generate`` tokens per row (the
+    first from the prefill's logits) over an fp32 cache.  Returns
+    ``tokens`` (B, generate) on the host, ``prefill_s``, ``decode_s``
+    (the timed decode ends in ``torch.cuda.synchronize()`` on the card),
+    ``decode_tokens_per_s``, the last ``carry`` and ``logits_finite`` over
+    every step."""
     prefill = serve_rt.make_prefill_step(model)
     decode = serve_rt.make_decode_step(model)
-    batch, prompt = prompts.shape
+    batch, prompt = inputs["tokens"].shape
 
     def sync():
         if device.type == "cuda":
@@ -304,13 +313,15 @@ def fixed_batch_generate(model, params, prompts, generate: int, device):
 
     cache = model.init_cache(batch, prompt + generate, dtype=torch.float32)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": prompts}, cache)
+    logits, cache, *enc = prefill(params, inputs, cache)
     sync()
     t_prefill = time.perf_counter() - t0
 
     finite = torch.isfinite(logits).all()
     carry = {"tokens": torch.argmax(logits[:, -1:, :], dim=-1),
              "cache": cache, "index": prompt}
+    if enc:
+        carry["enc_states"] = enc[0]
     generated = [carry["tokens"]]
     t0 = time.perf_counter()
     for _ in range(generate - 1):
@@ -327,9 +338,9 @@ def fixed_batch_generate(model, params, prompts, generate: int, device):
 
 
 def _legacy_batch_mode(args, cfg, model, device) -> int:
-    raw, prompts = fixed_batch_inputs(model, args.batch, args.prompt,
-                                      args.seed, device)
-    run = fixed_batch_generate(model, model.load(raw), prompts,
+    raw, inputs = fixed_batch_inputs(model, args.batch, args.prompt,
+                                     args.seed, device)
+    run = fixed_batch_generate(model, model.load(raw), inputs,
                                args.generate, device)
     toks = run["tokens"]
     emit_json({
@@ -416,8 +427,9 @@ def main(argv=None):
     if args.requests or args.trace:
         if not model.supports_paged_kv:
             warn(f"the request-level engine serves paged-KV families "
-                 f"(dense); {cfg.family!r} is not supported — use the "
-                 f"fixed-batch mode (--batch/--prompt/--generate) instead")
+                 f"(dense/moe); {cfg.family!r} is not supported — use "
+                 f"the fixed-batch mode (--batch/--prompt/--generate) "
+                 f"instead")
             return 2
         if args.disagg:
             return _disagg_mode(args, cfg, model, device)

@@ -179,47 +179,63 @@ def init_attention(gen, cfg: AttentionConfig, dtype,
     return p
 
 
+def _project(params, x: torch.Tensor, cfg: AttentionConfig, name: str,
+             heads: int, positions: torch.Tensor) -> torch.Tensor:
+    """One of the q/k/v projections (+ optional bias), head reshape, and
+    for q and k the optional qk-norm and RoPE at ``positions``."""
+    B, S, _ = x.shape
+    t = x @ params[f"w{name}"]
+    if cfg.qkv_bias:
+        t = t + params[f"b{name}"]
+    t = t.reshape(B, S, heads, cfg.head_dim)
+    if name == "v":
+        return t
+    if cfg.qk_norm:
+        t = rmsnorm(t, params[f"{name}_norm"], cfg.norm_eps)
+    if cfg.use_rope:
+        t = apply_rope(t, positions, cfg.rope_theta)
+    return t
+
+
 def project_qkv(params, x: torch.Tensor, cfg: AttentionConfig, *,
                 positions: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Shared QKV prologue for the dense and paged attention paths:
     projections (+ optional bias), head reshape, optional qk-norm,
     RoPE at ``positions``.  q: (B,S,H,hd); k, v: (B,S,KV,hd)."""
-    B, S, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
-    if cfg.qkv_bias:
-        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KV, hd)
-    v = v.reshape(B, S, KV, hd)
-    if cfg.qk_norm:
-        q = rmsnorm(q, params["q_norm"], cfg.norm_eps)
-        k = rmsnorm(k, params["k_norm"], cfg.norm_eps)
-    if cfg.use_rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    return (_project(params, x, cfg, "q", H, positions),
+            _project(params, x, cfg, "k", KV, positions),
+            _project(params, x, cfg, "v", KV, positions))
 
 
 def attention_fwd(params, x: torch.Tensor, cfg: AttentionConfig, *,
                   positions: torch.Tensor,
                   kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                   cache_index: Optional[int] = None,
+                  kv_override: Optional[Tuple[torch.Tensor,
+                                              torch.Tensor]] = None,
                   ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor,
                                                           torch.Tensor]]]:
-    """Attention with an optional KV cache, through the flash kernel.
+    """Attention with an optional KV cache (decode) or KV override
+    (cross-attention), through the flash kernel.
 
     x: (B, S, d).  kv_cache: (k, v) each (B, max_seq, KV, hd); the new
     keys are written into it IN PLACE at ``cache_index`` (the reference
     returns a functional copy; the contents are the same) and attention
     runs over the cache with ``kv_len = cache_index + S``.
-    Returns (out, cache).
+    kv_override: (k, v) each (B, Skv, KV, hd), computed elsewhere; only
+    q is projected, and every key is visible unless ``cfg.causal``.
+    Returns (out, cache) (``None`` for the cache with an override).
     """
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
+    if kv_override is not None:
+        q = _project(params, x, cfg, "q", H, positions)
+        k, v = kv_override
+        out = ops.flash_attention(q, k, v, causal=cfg.causal,
+                                  sliding_window=cfg.sliding_window)
+        return out.reshape(B, S, H * hd) @ params["wo"], None
     q, k, v = project_qkv(params, x, cfg, positions=positions)
     if kv_cache is not None:
         ck, cv = kv_cache

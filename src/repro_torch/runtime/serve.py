@@ -1,15 +1,18 @@
 """Fixed-batch serving steps (port of ``repro.runtime.serve``): a prefill
 and a one-token greedy decode step over a model's contiguous cache, the
-path every family the port builds is served through (ssm and hybrid
-have no paged KV, so the request-level engine does not take them).
+path every family the port builds is served through (ssm, hybrid and
+encdec have no paged KV, so the request-level engine does not take
+them).
 
-    prefill_step(params, batch, cache) -> (next_token_logits, cache)
+    prefill_step(params, batch, cache) -> (next_token_logits, cache
+                                           [, enc_states])
     decode_step(params, carry)         -> (logits, new_carry)
 
-The carry is ``{"tokens": (B, 1) long, "cache": ..., "index": int}``;
-the cache is updated in place.  ``make_lease_session`` binds the two
-steps to a ``repro_torch.pool`` lease (its device and tiering policy),
-for fixed-batch deployments whose capacity the pool composes.
+The carry is ``{"tokens": (B, 1) long, "cache": ..., "index": int}``,
+plus ``"enc_states"`` for encdec; the cache is updated in place.
+``make_lease_session`` binds the two steps to a ``repro_torch.pool``
+lease (its device and tiering policy), for fixed-batch deployments whose
+capacity the pool composes.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ from repro_torch.models.config import ShapeConfig
 
 
 def make_prefill_step(model: Model) -> Callable[..., Any]:
-    """prefill_step(params, batch, cache) -> (next_token_logits, cache)."""
+    """prefill_step(params, batch, cache) -> (next_token_logits, cache
+    [, enc_states]): encdec's batch holds ``frame_embeds`` too."""
 
     def prefill_step(params, batch, cache):
         return model.prefill(params, batch, cache)
@@ -38,11 +42,13 @@ def make_decode_step(model: Model) -> Callable[..., Any]:
     """decode_step(params, carry) -> (logits, new_carry): one token for
     every row, greedy-sampled into the carry so the step is
     self-contained for a generation loop."""
+    encdec = model.cfg.family == "encdec"
 
     def decode_step(params, carry: Dict[str, Any]
                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        extra = (carry["enc_states"],) if encdec else ()
         logits, cache = model.decode(params, carry["tokens"], carry["cache"],
-                                     carry["index"])
+                                     carry["index"], *extra)
         new_carry = dict(carry)
         new_carry.update(tokens=torch.argmax(logits[:, -1, :], dim=-1)[:, None],
                          cache=cache, index=carry["index"] + 1)

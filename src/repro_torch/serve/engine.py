@@ -1013,7 +1013,13 @@ class Engine:
                 st.on_first_decode = None
         # gather live rows into a pow2 row bucket: pad with idle slots
         # (trash page table, length 0), so the decode batch shrinks with
-        # occupancy while per-row outputs stay identical
+        # occupancy.  A dense row's output is the same in every bucket;
+        # an moe row's is not under capacity drops (ROADMAP C-ref5): the
+        # idle rows are routed too, with their slots' stale tokens, the
+        # expert capacity grows with the bucket, and in the full bucket
+        # (rows in slot order) an idle slot can take a live row's place.
+        # So the bucket, the row order and the idle tokens are the
+        # reference's
         bucket = self._row_bucket(len(running))
         self._row_buckets_used.add(bucket)
         rows = [st.slot for st in running]

@@ -535,3 +535,141 @@ def test_cuda_colocation_scenario_equals_the_cpu_run(cuda):
         assert rep.ok, rep.format()
     assert all(cs.co_claims({k: runs["card", k][0]
                              for k, _, _ in cs.CO_RUNS}).values())
+
+
+# ---------------------------------------------------------------------------
+# the moe and encdec paths (chip_smoke.py phases 9 and 4f)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq", [1, 64, 1500])
+@pytest.mark.parametrize("q_dtype", ["bfloat16", "float32"])
+def test_cuda_flash_non_causal_over_1500_frames(cuda, Sq, q_dtype):
+    """whisper's encoder (Sq = Skv = 1500) and cross-attention (64 and
+    one query over 1500 frames): non-causal, no kv_len, H=12, D=64, bf16
+    K/V, on both kernels; the tensor-core one also against its emulated
+    contract."""
+    g = torch.Generator(device=cuda).manual_seed(20)
+    q = torch.randn(2, Sq, 12, 64, generator=g, device=cuda).to(
+        getattr(torch, q_dtype))
+    k, v = (torch.randn(2, 1500, 12, 64, generator=g,
+                        device=cuda).bfloat16() for _ in range(2))
+    kernels.reset_launch_counts()
+    got = flash_attention(q, k, v, causal=False)
+    variant = "tc" if q_dtype == "bfloat16" else "f32"
+    assert kernels.variant_counts()[f"flash_attention.{variant}"] == 1
+    with ops.plain_versions():
+        want = ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    _close(got, want, TOL[q_dtype])
+    if variant == "tc":
+        emu = flash_tc_emulation(q, k, v, causal=False)
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   emu.float().cpu().numpy(), **EMU_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,window", [(16, 16, None), (32, 8, 4096)])
+def test_cuda_paged_moe_decode_shapes(cuda, H, KV, window):
+    """olmoe's (H=KV=16) and mixtral's (H=32, KV=8, its 4096 window)
+    decode: 8 rows over bf16 pools of 64-token pages, D=128, against the
+    plain version and the split-KV emulation."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    q, kp, vp, table, lens = _paged_batch(
+        g, cuda, [120, 184, 250, 314, 500, 563, 1, 0], 64, torch.bfloat16,
+        torch.bfloat16, H=H, KV=KV, D=128)
+    got = paged_decode_attention(q, kp, vp, table, lens,
+                                 sliding_window=window)
+    want = ref.paged_attention_ref(q, kp, vp, table, lens,
+                                   sliding_window=window)
+    emu = paged_split_emulation(q, kp, vp, table, lens,
+                                sliding_window=window)
+    torch.cuda.synchronize()
+    _close(got, want, TOL["bfloat16"])
+    _close(got, emu, TOL["bfloat16"])
+    assert torch.all(got[-1] == 0)
+
+
+def _card_model(arch, **kw):
+    """A smoke config widened to head_dim 64 (the kernels take 64, 112
+    or 128), in fp32, built on the CPU and on the card from one draw."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    cfg = dataclasses.replace(get_config(arch, smoke=True), d_model=256,
+                              head_dim=64, compute_dtype="float32", **kw)
+    host = build_model(cfg, device="cpu")
+    params = host.load(host.init(torch.Generator().manual_seed(0)))
+    card = build_model(cfg, device="cuda")
+    return host, params, card, _tree_to(params, torch.device("cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kw", [
+    ("olmoe-1b-7b", dict(n_heads=4, n_kv_heads=4)),
+    ("mixtral-8x7b", dict(n_heads=4, n_kv_heads=2))])
+def test_cuda_moe_model_equals_the_cpu_run(cuda, arch, kw):
+    """The moe model on the card (fp32, TF32 off) against the same model
+    on the CPU: the prefill's and a paged decode step's routing equal and
+    logits within 1e-4; the expert layer gives the same bits from run to
+    run (its combine has no atomics)."""
+    from repro_torch.models import moe
+    host, params, card, cparams = _card_model(arch, **kw)
+    cfg = host.cfg
+    tokens = torch.randint(1, cfg.vocab, (1, 48),
+                           generator=torch.Generator().manual_seed(1))
+    outs = {}
+    for where, model, p in (("host", host, params), ("card", card, cparams)):
+        dev = model.device
+        with moe.record_routing() as calls:
+            logits, cache = model.prefill_at(
+                p, {"tokens": tokens.to(dev)},
+                model.init_cache(1, 48, dtype=torch.float32), 40)
+            pools = {n: cache[n][:, 0].reshape(cfg.n_layers, 3, 16,
+                                               cfg.n_kv_heads, cfg.head_dim)
+                     for n in "kv"}
+            pools = {n: torch.cat([v, torch.zeros_like(v[:, :1])], 1)
+                     for n, v in pools.items()}
+            table = torch.arange(3, dtype=torch.int32, device=dev)[None]
+            step, _ = model.decode_paged(
+                p, tokens[:, 41:42].to(dev), pools, table,
+                torch.tensor([41], dtype=torch.int32, device=dev))
+        outs[where] = (logits.cpu(), step.cpu(),
+                       [c["expert_idx"].cpu() for c in calls])
+    (hl, hs, hr), (cl, cs_, cr) = outs["host"], outs["card"]
+    assert all(torch.equal(a, b) for a, b in zip(hr, cr))
+    _close(cl, hl, 1e-4)
+    _close(cs_, hs, 1e-4)
+    x = torch.randn(8, 1, cfg.d_model, device=cuda).bfloat16()
+    layer = _tree_to(cparams["layers"][0]["moe"], cuda)
+    layer = {k: v.bfloat16() for k, v in layer.items()}
+    a, _ = moe.moe_mlp_fwd(layer, x, cfg)
+    b, _ = moe.moe_mlp_fwd(layer, x, cfg)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_encdec_model_equals_the_cpu_run(cuda):
+    """whisper smoke widened to head_dim 64, fp32: the prefill (encoder,
+    decoder, cross-attention) and a decode step on the card against the
+    CPU within 1e-4, every attention through the flash kernel."""
+    host, params, card, cparams = _card_model(
+        "whisper-small", n_heads=4, n_kv_heads=4, enc_seq=96)
+    cfg = host.cfg
+    g = torch.Generator().manual_seed(2)
+    frames = torch.randn(2, cfg.enc_seq, cfg.d_model, generator=g)
+    tokens = torch.randint(1, cfg.vocab, (2, 12), generator=g)
+    outs = {}
+    for where, model, p in (("host", host, params), ("card", card, cparams)):
+        dev = model.device
+        kernels.reset_launch_counts()
+        logits, cache, enc = model.prefill(
+            p, {"frame_embeds": frames.to(dev), "tokens": tokens.to(dev)},
+            model.init_cache(2, 16, dtype=torch.float32))
+        step, _ = model.decode(p, tokens[:, :1].to(dev), cache, 12, enc)
+        n = kernels.launch_counts()["flash_attention"]
+        outs[where] = (logits.cpu(), step.cpu(), enc.cpu(), n)
+    assert outs["host"][3] == 0
+    assert outs["card"][3] == cfg.n_enc_layers + 4 * cfg.n_layers
+    for got, want in zip(outs["card"][:3], outs["host"][:3]):
+        _close(got, want, 1e-4)

@@ -199,11 +199,38 @@ def test_lints_entry_point_runs_alone():
     assert "clean" in out.stderr
 
 
-def test_non_dense_families_are_not_served_yet():
-    from repro_torch.configs import get_config
+def test_build_model_builds_every_family():
+    """``build_model`` builds every smoke config (each family the
+    reference builds), with the paged surface exactly for dense and moe;
+    an unknown family raises ``ValueError``, as the reference's does; the
+    engine refuses encdec (whisper-small), as the reference's does."""
+    import dataclasses
+    from repro_torch.configs import SMOKE_ARCHS, get_config
     from repro_torch.models.api import build_model
-    with pytest.raises(NotImplementedError):
-        build_model(get_config("mixtral-8x7b", smoke=True), device="cpu")
+    from repro_torch.serve import Engine
+    families = set()
+    for arch, cfg in SMOKE_ARCHS.items():
+        model = build_model(cfg, device="cpu")
+        families.add(cfg.family)
+        assert model.supports_paged_kv == (cfg.family in ("dense", "moe")), \
+            arch
+    assert families == {"dense", "moe", "ssm", "hybrid", "encdec"}
+    with pytest.raises(ValueError):
+        build_model(dataclasses.replace(get_config("olmo-1b", smoke=True),
+                                        family="rnn"), device="cpu")
+    whisper = build_model(get_config("whisper-small", smoke=True),
+                          device="cpu")
+    with pytest.raises(NotImplementedError, match="encdec"):
+        Engine.local(whisper, device="cpu")
+
+
+def test_the_moe_and_encdec_slice_modules_are_checked():
+    """The moe and encdec model modules are among those imported with JAX
+    and the reference blocked, and whose sources are scanned."""
+    names = set(_module_names())
+    assert {"repro_torch.models.moe", "repro_torch.models.encdec"} <= names
+    files = {p.relative_to(PKG).as_posix() for p in FILES if PKG in p.parents}
+    assert {"models/moe.py", "models/encdec.py"} <= files
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():
