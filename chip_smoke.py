@@ -37,7 +37,15 @@ no result line):
               frames; these non-causal cases at 6e-3, and one more with
               V lifted on the ragged last tile's 28 keys) and its
               decoder's causal self-attention over the fp32 cache,
-              RMSNorm at 512 x 2048 and 8 x 2048;
+              RMSNorm at 512 x 2048 and 8 x 2048; the training path's
+              backward kernels through their autograd Functions against
+              autograd of the plain versions, each case run twice and
+              required to give the same bits: flash backward at olmo's
+              shape (B=2, S=512, H=KV=16, D=128), qwen's (D=64), GQA
+              (H=32, KV=8, D=128, window 128), non-causal (64 queries over
+              300 keys), all bf16 (2e-2 of the largest |grad|), and the
+              fp32 instantiation at D=64 (1e-5); RMSNorm backward at 4096
+              x 1024 in bf16 and fp32;
 4. serve    - qwen1.5-0.5b at full width (24 layers, d=1024, vocab
               151,936, seeded random weights) served by
               ``repro_torch.serve.Engine`` through ``run_trace``: 16
@@ -149,6 +157,34 @@ no result line):
               layer: 9 or more do not fit one card with headroom):
               8 requests of 120/250 prompt tokens, 32 new, an ample pool,
               launches exact, logits held the same way;
+10. train   - (run after the serving paths) the training path at B=8 x
+              S=512 through ``repro_torch.launch.train``'s parts (the
+              step of ``runtime.train``, AdamW at the CLI's defaults,
+              remat on, the synthetic pipeline): (a) olmo-1b at full width
+              and depth (16 layers, d=2048, 1.18e9 fp32 masters, bf16
+              compute), 10 steps: the loss falls, every parameter leaf has
+              a finite non-zero gradient on step 1, flash launches exactly
+              2 x 16 forward (forward and remat recompute) and 16 backward
+              per step; (b) the fp32 gate: olmo-1b at full width on its
+              first 2 layers in fp32, 3 steps through the kernels against
+              3 under ``plain_versions()``, loss and grad norm to 1e-5
+              relative; (c) qwen1.5-0.5b at full width, 10 steps, flash and
+              RMSNorm forward and backward launches exact; (d) fault
+              tolerance on (b)'s cut in bf16: the CLI's fault-tolerant loop
+              with the port's own ``ckpt.save``, a failure that outlasts the
+              retries restores from disk, final state equal in bits to a
+              clean run's; (e) ``--offload-optimizer`` on the same cut: 2
+              steps with the moments in pinned host memory equal the
+              in-HBM steps in bits at a lower peak of device memory,
+              host<->device bytes per step reported; (f) seconds per
+              step, tokens per second, peak memory, the device's busy
+              share over 2 profiled steps and (a)'s model FLOPs share of
+              989 TFLOP/s, beside ``nvidia-smi``'s line; (g) the training
+              CLI itself on its default device: olmo-1b at full width and
+              depth, 10 steps in HBM, 4 with ``--offload-optimizer`` (the
+              offloaded peak lower) and 2 through ``--pool scalepool``
+              with a tier-2 reservation; serving paths launch no
+              backward kernel;
 5. times    - each kernel's time (CUDA graphs of back-to-back calls,
               timed with CUDA events, median of trials) beside its plain
               version, a PyTorch library call where one computes the
@@ -166,11 +202,17 @@ no result line):
               2000 of 3584 and 7168; the SSD scan at mamba2's and
               zamba2's prefill; paged at olmoe's and mixtral's 8-row
               decode, flash at olmoe's 512 prefill and whisper's encoder
-              and cross-attention, RMSNorm at 512 and 8 rows of 2048).  Every call reads cold inputs: the
+              and cross-attention, RMSNorm at 512 and 8 rows of 2048; the
+              backward kernels at phase 10's shapes: flash at olmo's and
+              qwen's B=8 x S=512, RMSNorm at qwen's 4096 x 1024, beside
+              autograd's backward of the plain version and of bf16 SDPA /
+              ``F.rms_norm``: graphs of forward and backward less the
+              forward's).  Every call reads cold inputs: the
               copies cycled through read more than twice the L2 a cycle.
               A time under its bound / 1.05 fails the run;
-then the ``launches`` and ``kernels`` lines (phases 6, 7, 8, 9 and 4f's
-launches among the paths), and the contract line ``{"ok": true, "device":
+then the ``launches`` and ``kernels`` lines (phases 6, 7, 8, 9, 4f and
+10's launches among the paths, the backward kernels' counted apart), and
+the contract line ``{"ok": true, "device":
 {...}}``, last.
 
 It imports torch, numpy and ``repro_torch`` only (no JAX).
@@ -178,6 +220,7 @@ It imports torch, numpy and ``repro_torch`` only (no JAX).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -260,6 +303,17 @@ def time_ms(fn, n_inputs: int = 1, reps: int = 20, trials: int = 7):
         b.synchronize()
         times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
+
+
+def backward_ms(forward, sets):
+    """Device time of autograd's backward of ``forward`` on input copy
+    ``i`` (``sets[i]``: the inputs, which require a gradient, and the
+    output's gradient): a CUDA graph of forward and backward, less one of
+    the forward alone (run with grad enabled, as in training)."""
+    import torch
+    both = time_ms(lambda i: torch.autograd.grad(
+        forward(*sets[i][0]), sets[i][0], sets[i][1]), len(sets))
+    return both - time_ms(lambda i: forward(*sets[i][0]), len(sets))
 
 
 # ---------------------------------------------------------------------------
@@ -666,6 +720,91 @@ def kernel_checks(device):
     s = torch.ones(1024, device=device, dtype=bf16)
     record("rmsnorm", "rows=33 d=1024 bf16 misaligned", rmsnorm(x, s),
            ref.rmsnorm_ref(x, s), TOL["bfloat16"])
+    return errs
+
+
+def backward_checks(device):
+    """Phase 3's training cases: each backward kernel, through its
+    autograd Function, against autograd of its plain version on the same
+    inputs (the plain forward in fp32), run twice and required to give
+    the same bits.  Flash: olmo's shape (B=2, S=512, H=KV=16, D=128),
+    qwen's (D=64), GQA (H=32, KV=8, D=128, window 128), non-causal 64
+    queries over 300 keys, all bf16, and the fp32 instantiation at D=64;
+    RMSNorm at 4096 x 1024 in bf16 and fp32.  Each gradient is held to
+    its dtype's tolerance of its largest |value| (bf16 2e-2, fp32 1e-5),
+    as the forward's cases at these shapes.  Returns the max errors of
+    olmo's flash case and the bf16 RMSNorm case."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    bf16, f32 = torch.bfloat16, torch.float32
+    errs = {}
+
+    def hold(kernel, case, runs, want, tol):
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        errs_case, scales = [], []
+        for got, w in zip(runs[0], want):
+            errs_case.append(max_err(got, w))
+            scales.append(float(w.float().abs().max()))
+        ok = same and all(e <= tol * s for e, s in zip(errs_case, scales)) \
+            and all(bool(torch.isfinite(g).all()) for g in runs[0])
+        emit({"phase": "kernels", "kernel": kernel, "case": case,
+              "max_abs_err": errs_case, "max_abs_grad": scales,
+              "tol_of_max_grad": tol, "same_bits_twice": same, "ok": ok})
+        check(ok, f"{kernel} {case}: errors {errs_case} against {tol} of "
+              f"{scales}, same bits twice: {same}")
+        return max(errs_case)
+
+    for tag, B, Sq, Skv, H, KV, D, dt, kw in (
+            ("olmo", 2, 512, 512, 16, 16, 128, bf16, {}),
+            ("qwen", 2, 512, 512, 16, 16, 64, bf16, {}),
+            ("GQA window 128", 2, 512, 512, 32, 8, 128, bf16,
+             dict(sliding_window=128)),
+            ("non-causal", 2, 64, 300, 8, 8, 64, bf16, dict(causal=False)),
+            ("fp32", 2, 512, 512, 16, 16, 64, f32, {})):
+        q = torch.randn(B, Sq, H, D, generator=gen, device=device).to(dt)
+        k, v = (torch.randn(B, Skv, KV, D, generator=gen,
+                            device=device).to(dt) for _ in range(2))
+        dout = torch.randn(B, Sq, H, D, generator=gen, device=device).to(dt)
+        runs = []
+        for _ in range(2):
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            kernels.reset_launch_counts()
+            flash_attention(*leaves, **kw).backward(dout)
+            check(kernels.backward_counts()["flash_attention_bwd"] == 1,
+                  f"flash backward {tag}: not one backward launch")
+            runs.append([t.grad for t in leaves])
+        plain = [t.float().requires_grad_(True) for t in (q, k, v)]
+        with ops.plain_versions():
+            ops.flash_attention(*plain, **kw).backward(dout.float())
+        e = hold("flash_attention_bwd",
+                 f"{tag} B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} D={D} "
+                 f"{str(dt)[6:]} " + " ".join(f"{a}={b}" for a, b in
+                                              kw.items()),
+                 runs, [t.grad for t in plain], TOL[str(dt)[6:]])
+        if tag == "olmo":
+            errs["flash_attention_bwd"] = e
+    for dt in (bf16, f32):
+        x = torch.randn(4096, 1024, generator=gen, device=device).to(dt)
+        s = (1 + 0.1 * torch.randn(1024, generator=gen,
+                                   device=device)).to(dt)
+        dy = torch.randn(4096, 1024, generator=gen, device=device).to(dt)
+        runs = []
+        for _ in range(2):
+            xx, ss = (t.clone().requires_grad_(True) for t in (x, s))
+            rmsnorm(xx, ss).backward(dy)
+            runs.append([xx.grad, ss.grad])
+        xx, ss = (t.clone().requires_grad_(True) for t in (x, s))
+        ref.rmsnorm_ref(xx, ss).backward(dy)
+        e = hold("rmsnorm_bwd", f"rows=4096 d=1024 {str(dt)[6:]}", runs,
+                 [xx.grad, ss.grad], TOL[str(dt)[6:]])
+        if dt == bf16:
+            errs["rmsnorm_bwd"] = e
     return errs
 
 
@@ -2612,6 +2751,421 @@ def moe_full_width(device):
     return counts, variants
 
 
+# ---------------------------------------------------------------------------
+# phase 10: training (olmo-1b at full width and depth, qwen1.5-0.5b at full
+# width; the fp32 gate, fault tolerance and the optimizer offload on
+# olmo-1b's first 2 layers)
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 10
+TRAIN_CUT = 2                   # olmo-1b's layers for phases 10 (b), (d), (e)
+CKPT_DIR = Path(__file__).resolve().parent / "build" / "smoke_ckpt"
+
+
+def train_counts():
+    from repro_torch import kernels
+    return {**kernels.launch_counts(), **kernels.backward_counts()}
+
+
+def train_parts(cfg, device, **step_kw):
+    """The training CLI's parts (``repro_torch.launch.train``): the model
+    on the card, AdamW at the CLI's defaults, remat on, the synthetic
+    data pipeline at B=8 x S=512, and the step."""
+    from repro_torch.data.pipeline import DataConfig, DataPipeline
+    from repro_torch.models.api import build_model
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime import train as train_rt
+
+    model = build_model(cfg, device=device)
+    opt = AdamW()
+    step = train_rt.make_train_step(
+        model, opt, ShapeConfig("smoke", "train", TRAIN_SEQ, TRAIN_BATCH),
+        tcfg=train_rt.TrainStepConfig(), **step_kw)
+    pipe = DataPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                   global_batch=TRAIN_BATCH))
+    return model, opt, step, pipe
+
+
+def train_full_width(arch, device, smi):
+    """10 steps at full width and depth (bf16 compute, fp32 masters,
+    remat on): the loss falls; on step 1 every parameter leaf has a
+    finite, non-zero gradient (a kernel whose output left the graph
+    would leave its inputs' leaves without one); the launches are exact
+    per step: flash 2 x L forward (forward and remat recompute) and L
+    backward, RMSNorm 4 x L + 1 forward and 2 x L + 1 backward where the
+    model has it.  Then 2 more steps plain and 2 profiled give the
+    device's busy share.  Returns the run's counts and variants."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import train as train_rt
+    from repro_torch.tree import leaf_groups
+
+    cfg = get_config(arch)
+    model, opt, step, pipe = train_parts(cfg, device)
+    state = train_rt.init_state(
+        model, opt, torch.Generator(device=device).manual_seed(0))
+    n_params = sum(t.numel() for _, ts, _ in leaf_groups(state.params)
+                   for t in ts)
+    batches = [pipe.next_batch() for _ in range(TRAIN_STEPS + 4)]
+    # step 1's gradients, as the step computes them: every leaf finite and
+    # non-zero
+    _, grads = train_rt._accumulated_grads(
+        model, state.params, {k: torch.as_tensor(v, device=device)
+                              for k, v in batches[0].items()},
+        train_rt.TrainStepConfig())
+    names, ok = [], []
+    for name, leaves, _ in leaf_groups(grads):
+        for g in leaves:
+            names.append(name)
+            ok.append(torch.isfinite(g).all() & (g.abs().max() > 0))
+    bad = sorted({n for n, f in zip(names, torch.stack(ok).tolist())
+                  if not f})
+    del grads
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, norms, secs = [], [], []
+    for k in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batches[k])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    counts, variants = train_counts(), kernels.variant_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    L, n = cfg.n_layers, TRAIN_STEPS
+    norm_layers = 2 * L + 1 if cfg.norm_type == "rmsnorm" else 0
+    want = {"paged_attention": 0, "ssd_scan": 0,
+            "flash_attention": 2 * L * n, "flash_attention_bwd": L * n,
+            "rmsnorm": (norm_layers + 2 * L * bool(norm_layers)) * n,
+            "rmsnorm_bwd": norm_layers * n}
+    s_step = statistics.mean(secs[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # 8 N tokens: forward, remat recompute and backward's two products;
+    # causal attention's q K^T and P V in the forward, the recompute and
+    # the backward (2.5 forwards)
+    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    flops = 8 * n_params * tokens + 4.5 * (
+        4 * cfg.head_dim * cfg.n_heads * TRAIN_BATCH * pairs * cfg.n_layers)
+
+    # the busy share: 2 steps timed plain, the same 2 profiled
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[n:n + 2]:
+        state, _ = step(state, b)
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for b in batches[n + 2:n + 4]:
+            state, _ = step(state, b)
+        torch.cuda.synchronize()
+    busy = device_time(prof, wall2)
+    emit({"phase": "train", "arch": cfg.name, "nvidia_smi": smi,
+          "layers": L, "d_model": cfg.d_model, "params": n_params,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": n,
+          "compute_dtype": cfg.compute_dtype, "remat": True,
+          "losses": losses, "grad_norms": norms, "step_s": secs,
+          "s_per_step": s_step, "tokens_per_s": tokens / s_step,
+          "peak_mem_gb": peak / 1e9, "model_flops_per_step": flops,
+          "model_flops_share_of_989T": flops / s_step / BF16_FLOPS,
+          "step1_grad_leaves": len(names), "step1_bad_leaves": bad,
+          "launches": counts,
+          "expected_launches": want, "kernel_variants": variants,
+          "profiled_wall_s_2_steps": wall2, **busy})
+    check(not bad, f"{cfg.name}: leaves without a finite non-zero gradient "
+          f"on step 1: {bad}")
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"{cfg.name}: a non-finite loss or gradient norm")
+    check(losses[-1] < losses[0], f"{cfg.name}: the loss did not fall: "
+          f"{losses}")
+    check(counts == want, f"{cfg.name} train: launches {counts} != {want}")
+    check_flash_variant(f"{cfg.name} train", cfg.compute_dtype, variants,
+                        counts["flash_attention"])
+    return counts, variants
+
+
+def fp32_gate(device):
+    """olmo-1b at full width on its first 2 layers in fp32: 3 steps
+    through the kernels (the fp32 flash kernels forward and backward)
+    against 3 steps of the same under ``plain_versions()``, from the same
+    weights on the same batches: loss and grad norm to 1e-5 relative."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import train as train_rt
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_config("olmo-1b"), n_layers=TRAIN_CUT,
+                              compute_dtype="float32")
+    model, opt, step, pipe = train_parts(cfg, device)
+    params = model.init(torch.Generator(device=device).manual_seed(1))
+    batches = [pipe.next_batch() for _ in range(3)]
+    runs = {}
+    for plain in (False, True):
+        state = train_rt.state_from_params(tree_map(torch.clone, params), opt)
+        kernels.reset_launch_counts()
+        with (ops.plain_versions() if plain else contextlib.nullcontext()):
+            metrics = []
+            for b in batches:
+                state, m = step(state, b)
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[plain] = (metrics, train_counts())
+        del state
+    gaps = [max(abs(a - b) / abs(b) for a, b in zip(got, want))
+            for got, want in zip(runs[False][0], runs[True][0])]
+    want = {"flash_attention": 2 * TRAIN_CUT * 3,
+            "flash_attention_bwd": TRAIN_CUT * 3}
+    emit({"phase": "train", "check": "fp32 gate", "arch": cfg.name,
+          "layers": TRAIN_CUT, "steps": 3,
+          "kernel_loss_grad_norm": runs[False][0],
+          "plain_loss_grad_norm": runs[True][0], "max_rel_gap": gaps,
+          "tol": TOL["float32"], "kernel_launches": runs[False][1],
+          "plain_launches": runs[True][1]})
+    check(all(g <= TOL["float32"] for g in gaps),
+          f"fp32 gate: loss / grad norm gaps {gaps} over {TOL['float32']}")
+    check({k: runs[False][1][k] for k in want} == want
+          and not any(runs[True][1].values()),
+          f"fp32 gate: launches {runs[False][1]} (want {want}), plain "
+          f"path {runs[True][1]}")
+
+
+def fault_tolerance(device):
+    """olmo-1b at full width on its first 2 layers, bf16: the training
+    CLI's fault-tolerant loop (checkpoint every 2 steps with the port's
+    own ``ckpt.save``, asynchronous) run 3 steps, once clean and once
+    with a failure injected at the third that outlasts the retries, so
+    the loop restores the step-2 checkpoint from disk and replays: the
+    two final states equal in bits."""
+    import shutil
+
+    import torch
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.runtime import ft
+    from repro_torch.runtime import train as train_rt
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config("olmo-1b"), n_layers=TRAIN_CUT)
+    params = None
+    finals, loops = [], []
+    t_start = time.perf_counter()
+    for fail in (False, True):
+        model, opt, step, pipe = train_parts(cfg, device)
+        if params is None:
+            params = model.init(torch.Generator(device=device).manual_seed(2))
+        state = train_rt.state_from_params(tree_map(torch.clone, params), opt)
+        path = CKPT_DIR / f"run{int(fail)}"
+        saved = {}
+
+        def save_fn(s, k, path=path, pipe=pipe):
+            # one directory per step, as the training CLI's: an async
+            # save may still be writing the last one
+            saved["path"] = path / f"step{k}"
+            saved.setdefault("handles", []).append(ckpt.save(
+                saved["path"],
+                {"params": s.params, "mu": s.opt.mu, "nu": s.opt.nu},
+                step=k, extra={"pipeline": pipe.state.to_dict()},
+                asynchronous=True))
+
+        errors = []
+
+        def guarded_step(s, batch, step=step, errors=errors):
+            try:
+                return step(s, batch)
+            except Exception as e:
+                errors.append(e)
+                raise
+
+        def restore_fn(template=state, errors=errors):
+            # the loop retries whatever fails, forever (C-ref6): a real
+            # step failure, not the injected one, ends the smoke here
+            if errors:
+                raise RuntimeError("fault tolerance: a step failed") \
+                    from errors[0]
+            saved["handles"][-1].wait()
+            tree, meta = ckpt.restore(saved["path"], {
+                "params": template.params,
+                "mu": template.opt.mu, "nu": template.opt.nu})
+            k = meta["step"]
+            return train_rt.TrainState(tree["params"], AdamWState(
+                torch.tensor(k, dtype=torch.int32, device=device),
+                tree["mu"], tree["nu"]), {}), k
+
+        left = {"n": 3 if fail else 0}
+
+        def failure_hook(k, left=left):
+            if k == 2 and left["n"]:
+                left["n"] -= 1
+                raise RuntimeError("injected failure")
+
+        loop = ft.FaultTolerantLoop(
+            guarded_step, save_fn, restore_fn, pipe, ckpt_every=2,
+            retry=ft.RetryPolicy(max_retries=1, backoff_s=0.0),
+            failure_hook=failure_hook)
+        finals.append(loop.run(state, 3))
+        for handle in saved["handles"]:
+            handle.wait()
+        loops.append(loop)
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(finals[0]),
+                                                 tree_leaves(finals[1])))
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    emit({"phase": "train", "check": "fault tolerance", "arch": cfg.name,
+          "layers": TRAIN_CUT, "steps": 3, "ckpt_every": 2,
+          "restarts": [lp.restarts for lp in loops],
+          "history_steps": [[h["step"] for h in lp.history] for lp in loops],
+          "losses": [[h["loss"] for h in lp.history] for lp in loops],
+          "same_bits": same, "seconds": time.perf_counter() - t_start})
+    check([lp.restarts for lp in loops] == [0, 1],
+          f"fault tolerance: restarts {[lp.restarts for lp in loops]}")
+    check(same, "fault tolerance: the recovered run's state differs from "
+          "the clean run's")
+
+
+def offload_check(device):
+    """olmo-1b at full width on its first 2 layers, bf16: 2 steps with
+    the AdamW moments offloaded to pinned host memory
+    (``TieringPolicy(offload_optimizer=True)``, as ``--offload-optimizer``)
+    against 2 steps with them in HBM, from the same weights: the same
+    bits, and a lower peak of device memory (each run's peak over its
+    steps, the other run's state moved off the card).  Reports the
+    host<->device bytes a step moves, measured from the moments' sizes,
+    beside ``tier_traffic_report``'s count at full depth."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.tiering import TieringPolicy, tier_traffic_report
+    from repro_torch.runtime import train as train_rt
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config("olmo-1b"), n_layers=TRAIN_CUT)
+    policy = TieringPolicy(offload_optimizer=True)
+    finals, secs, peaks = [], [], []
+    params = None
+    for tiering in (None, policy):
+        model, opt, step, pipe = train_parts(cfg, device, tiering=tiering)
+        if params is None:
+            params = model.init(torch.Generator(device=device).manual_seed(3))
+        state = train_rt.state_from_params(tree_map(torch.clone, params), opt,
+                                           tiering=tiering)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for b in [pipe.next_batch() for _ in range(2)]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = step(state, b)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated())
+        mu = state.opt.mu
+        on_host = all(t.device.type == "cpu" and t.is_pinned()
+                      for t in tree_leaves(mu))
+        finals.append(tree_map(lambda t: t.cpu(), state))
+        del state
+    moment_bytes = 2 * sum(t.numel() * t.element_size()
+                           for t in tree_leaves(mu))
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(finals[0]), tree_leaves(finals[1])))
+    # olmo-1b's parameters: the tied table, and per layer q, k, v, o and
+    # the gated MLP (its LayerNorm has none)
+    full = get_config("olmo-1b")
+    n_full = full.padded_vocab * full.d_model + full.n_layers * (
+        4 * full.d_model ** 2 + 3 * full.d_model * full.d_ff)
+    emit({"phase": "train", "check": "offload optimizer", "arch": cfg.name,
+          "layers": TRAIN_CUT, "steps": 2, "same_bits": same,
+          "moments_pinned_on_host": on_host,
+          "host_device_bytes_per_step": 2 * moment_bytes,
+          "full_depth_tier2_bytes_per_step": tier_traffic_report(
+              policy, n_full)["tier2_bytes_per_step"],
+          "peak_mem_gb_in_hbm": peaks[0] / 1e9,
+          "peak_mem_gb_offloaded": peaks[1] / 1e9,
+          "peak_reduction_gb": (peaks[0] - peaks[1]) / 1e9,
+          "step_s_in_hbm": secs[:2], "step_s_offloaded": secs[2:]})
+    check(on_host, "offload: the moments are not in pinned host memory")
+    check(same, "offload: the offloaded step's state differs from the "
+          "in-HBM step's")
+    check(peaks[1] < peaks[0], f"offload: peak device memory {peaks[1]} "
+          f"bytes offloaded, not under {peaks[0]} in HBM")
+
+
+def train_cli(device, smi):
+    """The training entry point itself (``repro_torch.launch.train.main``,
+    as ``python -m repro_torch.launch.train`` runs it, on its default
+    device): olmo-1b at full width and depth, B=8 x S=512, 10 steps with
+    the moments in HBM, 4 with ``--offload-optimizer`` and 2 through
+    ``--pool scalepool`` with a tier-2 reservation (the lease's policy
+    offloads the moments), each run's peak device memory beside its
+    JSON.  Every run exits 0 (its loss fell) on the card, and the
+    offloaded peak is the lower.  No run reaches the CLI's checkpoint
+    interval (14 GB a save at this depth); (d) runs the same
+    asynchronous ``ckpt.save`` on the card."""
+    import io
+
+    import torch
+    from repro_torch.launch import train as train_cli_mod
+
+    t_start = time.perf_counter()
+    full = ["--arch", "olmo-1b", "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ)]
+    runs = {"in HBM": full + ["--steps", "10"],
+            "offload": full + ["--steps", "4", "--offload-optimizer"],
+            "pool": full + ["--steps", "2", "--pool", "scalepool",
+                            "--pool-tier2-gb", "8"]}
+    for name, argv in runs.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = train_cli_mod.main(argv)
+        out = json.loads(buf.getvalue())
+        peak = torch.cuda.max_memory_allocated()
+        emit({"phase": "train", "check": f"CLI {name}", "nvidia_smi": smi,
+              "argv": argv, "rc": rc, "cli": out,
+              "peak_mem_gb": peak / 1e9, "held_before_gb": held / 1e9})
+        check(rc == 0 and out["device"].startswith("cuda"),
+              f"training CLI ({name}): rc {rc} on {out['device']}, "
+              f"losses {out['loss_first']} -> {out['loss_last']}")
+        runs[name] = (out, peak)
+    check(runs["pool"][0]["lease"]["offload_optimizer"],
+          "training CLI (pool): the lease's policy did not offload")
+    check(runs["offload"][1] < runs["in HBM"][1],
+          f"training CLI: peak {runs['offload'][1]} bytes with "
+          f"--offload-optimizer, not under {runs['in HBM'][1]}")
+    emit({"phase": "train", "check": "CLI", "seconds":
+          time.perf_counter() - t_start})
+
+
+def train_phase(device, smi):
+    """Phase 10: (a) olmo-1b and (c) qwen1.5-0.5b trained at full width,
+    (b) the fp32 gate, (d) fault tolerance, (e) the optimizer offload,
+    (g) the training CLI itself; the report (f) is in each line.  Returns the two paths' counts and
+    variants."""
+    import torch
+    t0 = time.perf_counter()
+    counts, variants = {}, {}
+    for arch in ("olmo-1b", "qwen1.5-0.5b"):
+        counts[f"{arch} train"], variants[f"{arch} train"] = \
+            train_full_width(arch, device, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for part in (fp32_gate, fault_tolerance, offload_check):
+        part(device)
+        gc.collect()
+        torch.cuda.empty_cache()
+    train_cli(device, smi)
+    emit({"phase": "train", "seconds": time.perf_counter() - t0})
+    return counts, variants
+
+
 def ssd_work(B, S, H, P, G, N, chunk, itemsize):
     """(bytes, flops) of one SSD scan: x, dt, B, C, A, D and the initial
     state read once, y and the final state written once; the causal half
@@ -2642,8 +3196,11 @@ def kernel_times(device, counts, errs):
 
     def row(mod, name, ms, plain_ms, bound_ms, bound_by, library_ms,
             **extra):
-        rows.append({"name": name, "route": "cuda", "source": mod.SOURCE,
-                     "replaces": mod.REPLACES, "launches": counts[name],
+        bwd = name.endswith("_bwd")
+        rows.append({"name": name, "route": "cuda",
+                     "source": mod.SOURCE_BWD if bwd else mod.SOURCE,
+                     "replaces": mod.REPLACES_BWD if bwd else mod.REPLACES,
+                     "launches": counts[name],
                      "max_abs_err": errs[name], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": library_ms,
@@ -2823,6 +3380,67 @@ def kernel_times(device, counts, errs):
         times("rmsnorm", f"rows={n} d={d} bf16", ms, plain, b_ms, b_by, lib,
               input_copies=copies)
 
+    # the backward kernels at phase 10's training shapes: flash at olmo's
+    # (B=8, S=512, H=16, D=128) and qwen's (D=64) causal bf16 shapes, on
+    # the forward kernel's output and log-sum-exp; RMSNorm at qwen's 4096
+    # rows of 1024 in bf16.  The kernel is timed as the others; the plain
+    # version's and the library's times are autograd's backward of their
+    # forward on the same inputs (``backward_ms``).  Flash backward's
+    # operations are 2.5x the causal forward's; RMSNorm backward's bytes
+    # are x, dy and scale in, dx and dscale out
+    def flash_bwd_time(B, S, H, D):
+        scale = 1.0 / D ** 0.5
+        pairs = S * (S + 1) // 2
+        elems = B * S * H * D
+        nbytes = 8 * elems * 2 + B * H * S * 4   # 5 in, 3 out, lse
+        sets, ad = [], []
+        for _ in range(cold_copies(nbytes - 3 * elems * 2)):
+            q, k, v, do = (torch.randn(B, S, H, D, generator=gen,
+                                       device=device).to(bf16)
+                           for _ in range(4))
+            lse = torch.empty((B, H, S), dtype=f32, device=device)
+            out = fa._launch_forward(q, k, v, True, None, scale, 0, S, lse)
+            sets.append((q, k, v, out, do, lse))
+            ad.append(([t.transpose(1, 2).detach().requires_grad_(True)
+                        for t in (q, k, v)], do.transpose(1, 2)))
+        n = len(sets)
+        ms = time_ms(lambda i: fa._launch_backward(
+            *sets[i], True, None, scale, 0, S), n)
+        plain_ms = backward_ms(ref.attention_ref, ad)
+        lib_ms = backward_ms(lambda *a: F.scaled_dot_product_attention(
+            *a, is_causal=True), ad)
+        del sets, ad
+        return (ms, plain_ms, *bound(nbytes, 2.5 * 4 * D * H * B * pairs,
+                                     BF16_FLOPS), lib_ms, n)
+
+    for arch, D in (("olmo", 128), ("qwen", 64)):
+        ms, plain, b_ms, b_by, lib, n = flash_bwd_time(8, 512, 16, D)
+        if arch == "olmo":
+            row(fa, "flash_attention_bwd", ms, plain, b_ms, b_by, lib)
+        times("flash_attention_bwd", f"{arch} train B=8 S=512 H=KV=16 D={D} "
+              f"causal bf16", ms, plain, b_ms, b_by, lib, input_copies=n)
+
+    rows_n, d = 4096, 1024
+    copies = cold_copies(2 * rows_n * d * 2)
+    xs = [torch.randn(rows_n, d, generator=gen, device=device).to(bf16)
+          for _ in range(copies)]
+    dys = [torch.randn(rows_n, d, generator=gen, device=device).to(bf16)
+           for _ in range(copies)]
+    s = (1 + 0.1 * torch.randn(d, generator=gen, device=device)).to(bf16)
+    ms = time_ms(lambda i: rn._launch_backward(xs[i], s, dys[i], 1e-6),
+                 copies)
+    ad = [([x.detach().requires_grad_(True), s.detach().requires_grad_(True)],
+           dy) for x, dy in zip(xs, dys)]
+    plain = backward_ms(ref.rmsnorm_ref, ad)
+    lib = backward_ms(lambda x, w: F.rms_norm(x, (d,), weight=w, eps=1e-6),
+                      ad)
+    b_ms, b_by = bound(3 * rows_n * d * 2 + 2 * d * 2, 8 * rows_n * d,
+                       BF16_FLOPS)
+    row(rn, "rmsnorm_bwd", ms, plain, b_ms, b_by, lib)
+    times("rmsnorm_bwd", f"qwen train rows={rows_n} d={d} bf16", ms, plain,
+          b_ms, b_by, lib, input_copies=copies)
+    del xs, dys, ad
+
     # ssd: the prefill's shapes (bf16 x and B/C, fp32 dt, the cache's
     # zero fp32 state) on the tensor-core kernel, input copies cycled so
     # each call reads cold
@@ -2865,6 +3483,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip smoke needs a CUDA device; none is visible")
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch import kernels
     from repro_torch.kernels import _build
 
     device = torch.device("cuda")
@@ -2889,26 +3508,35 @@ def main() -> int:
             print(line, file=sys.stderr)
 
     errs = kernel_checks(device)
-    # each path runs with the counts set to 0 just before it, read after
+    errs.update(backward_checks(device))
+    # each path runs with the counts set to 0 just before it, read after;
+    # a serving path's backward launches are read as it returns (0:
+    # serving never differentiates)
     counts, variants = {}, {}
     (counts["qwen1.5-0.5b"], variants["qwen1.5-0.5b"], qwen,
      qwen_params) = serve_full_width(device)
+    counts["qwen1.5-0.5b"].update(kernels.backward_counts())
     gc.collect()
     torch.cuda.empty_cache()
     counts["qwen1.5-0.5b pooled"], variants["qwen1.5-0.5b pooled"] = \
         multitenant_full_width(qwen, qwen_params, device)
+    counts["qwen1.5-0.5b pooled"].update(kernels.backward_counts())
     gc.collect()
     torch.cuda.empty_cache()
     counts["qwen1.5-0.5b disagg"], variants["qwen1.5-0.5b disagg"] = \
         disagg_full_width(qwen, qwen_params, device)
+    counts["qwen1.5-0.5b disagg"].update(kernels.backward_counts())
     gc.collect()
     torch.cuda.empty_cache()
     counts["qwen1.5-0.5b colo"], variants["qwen1.5-0.5b colo"] = \
         colo_full_width(qwen, qwen_params, device)
+    counts["qwen1.5-0.5b colo"].update(kernels.backward_counts())
     del qwen, qwen_params
     gc.collect()
     torch.cuda.empty_cache()
     moe_counts, moe_variants = moe_full_width(device)
+    for c in moe_counts.values():
+        c.update(kernels.backward_counts())
     counts.update(moe_counts)
     variants.update(moe_variants)
     for arch, batch, prompt, generate, steps in (
@@ -2919,10 +3547,19 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         counts[arch], variants[arch] = fixed_batch_full_width(
             arch, device, batch, prompt, generate, profile_steps=steps)
+        counts[arch].update(kernels.backward_counts())
+    check(not any(c[k] for c in counts.values() for k in kernels.BACKWARD),
+          "a serving path launched a backward kernel")
     gc.collect()
     torch.cuda.empty_cache()
-    total = {name: sum(c[name] for c in counts.values())
-             for name in counts["qwen1.5-0.5b"]}
+    train_counts_, train_variants = train_phase(device, smi)
+    counts.update(train_counts_)
+    variants.update(train_variants)
+    gc.collect()
+    torch.cuda.empty_cache()
+    names = sorted({name for c in counts.values() for name in c})
+    total = {name: sum(c.get(name, 0) for c in counts.values())
+             for name in names}
     emit({"phase": "smoke", "seconds_before_times":
           time.perf_counter() - t_start})
     emit({"phase": "launches", "per_path": counts,

@@ -21,6 +21,9 @@ reference's stacked cache layouts (``{"k","v"}``; mamba2 ``{"conv",
 
 Only numpy goes in: this module never imports JAX.  bf16 arrays (numpy's
 ``bfloat16`` extension dtype) are carried over bit for bit.
+``params_to_reference`` is the inverse, for trees without bf16 leaves
+(numpy has no bfloat16 of its own): the port's per-layer lists stacked
+back into the reference's ``(L, ...)`` numpy leaves.
 """
 
 from __future__ import annotations
@@ -86,3 +89,35 @@ def pool_from_reference(pool: Mapping[str, Any],
                         device: DeviceLike = None) -> Dict[str, torch.Tensor]:
     """Reference page pool or cache -> port tensors, same layout."""
     return {k: to_tensor(v, device) for k, v in pool.items()}
+
+
+def _stack(items):
+    """Like trees of tensors -> one tree of tensors stacked on a new
+    leading axis."""
+    if isinstance(items[0], dict):
+        return {k: _stack([t[k] for t in items]) for k in items[0]}
+    return torch.stack([t.detach() for t in items])
+
+
+def _restack(tree, depth: int):
+    if depth == 0:
+        return tree
+    return _stack([_restack(t, depth - 1) for t in tree])
+
+
+def params_to_reference(params: Mapping[str, Any]) -> Dict[str, Any]:
+    """Port parameters (any family) -> the reference's tree of numpy
+    leaves, the inverse of ``params_from_reference``."""
+    def numpy(t):
+        if t.dtype == torch.bfloat16:
+            raise TypeError("numpy has no bfloat16: upcast bf16 parameters "
+                            "before converting them")
+        return t.detach().cpu().numpy()
+
+    def convert(tree):
+        if isinstance(tree, dict):
+            return {k: convert(v) for k, v in tree.items()}
+        return numpy(tree)
+
+    return {k: convert(_restack(v, STACKED.get(k, 0)))
+            for k, v in params.items()}

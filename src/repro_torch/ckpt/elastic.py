@@ -5,7 +5,7 @@ shrink independently of storage; a job restarted on 384 chips must
 consume a checkpoint written on 512.  ``resize_plan`` picks the new
 (pods, data, model) decomposition a lease resize hands the runtime.
 Restoring a checkpoint onto the new layout (the reference's ``replan``)
-comes with the training slice.
+comes with the ``torch.distributed`` slice.
 """
 
 from __future__ import annotations

@@ -1,21 +1,30 @@
-"""Paged KV pool bookkeeping for the serving engine (port of the host
-side of ``repro.core.tiering``, paper §5).
+"""Two-tier memory management (port of ``repro.core.tiering``, paper §5).
 
-Tier-1 is the card's memory: a device-side page pool the engine owns.
-Tier-2 is the capacity pool: a host-side cold store of page payloads.
-``KVBudget`` sets the tier-1 page quota and the tier-2 byte budget;
-``PagedKV`` owns the allocation state (free-page stack, per-sequence
-logical->physical page maps, page-granular evict/fetch);
-``TieringPolicy`` is the placement policy a pool lease hands the
-runtime.  This is pure host bookkeeping, identical to the reference's;
-the reference's ``jax.sharding`` offload helpers belong to the training
-slice.
+Tier-1 is the card's memory.  Tier-2 is the capacity pool: host memory,
+pinned so the card copies it without staging (the structural analogue of
+the paper's CXL memory nodes; the reference reaches it through JAX's
+``pinned_host`` memory kind).
+
+- Serving: ``KVBudget`` sets the tier-1 page quota and the tier-2 byte
+  budget; ``PagedKV`` owns the allocation state (free-page stack,
+  per-sequence logical->physical page maps, page-granular evict/fetch),
+  pure host bookkeeping identical to the reference's.
+- Training: ``TieringPolicy`` is the placement policy a pool lease hands
+  the runtime; ``offload_state`` puts the state it selects (the AdamW
+  moments, the fp32 masters) in tier 2 with ``to_tier2``, and the
+  training step copies it in for the update (``to_tier1``) and back, in
+  place of the reference's sharding rewrite ``offload_state_shardings``;
+  ``tier_traffic_report`` prices the traffic.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,8 +62,8 @@ class KVBudgetExceeded(RuntimeError):
 class TieringPolicy:
     """Which state lives in the capacity tier (§6: the paper evaluates
     weight + optimizer offloading as the common training optimization).
-    Data only here: the serving engine reads ``kv_budget``; the training
-    slice will act on the offload flags."""
+    The serving engine reads ``kv_budget``; the training step acts on
+    the offload flags (``offload_state``, then each step)."""
 
     offload_optimizer: bool = True      # AdamW moments → tier-2
     offload_master_params: bool = False # fp32 masters → tier-2
@@ -64,6 +73,51 @@ class TieringPolicy:
     def kv_spill(self) -> bool:
         """Deprecated boolean view of ``kv_budget`` (pre-engine API)."""
         return self.kv_budget is not None and self.kv_budget.tier2_bytes > 0
+
+
+def to_tier2(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` in the capacity tier: pinned host memory for a
+    CUDA tensor, copied ``non_blocking`` on the current stream (the host
+    may read it only after that stream is synchronized).  A CPU tensor
+    is already in host memory and comes back as it is."""
+    if t.device.type != "cuda":
+        return t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
+
+
+def to_tier1(t: torch.Tensor, device) -> torch.Tensor:
+    """``t`` on ``device``, copied ``non_blocking`` from pinned memory."""
+    return t.to(device, non_blocking=True)
+
+
+def offload_state(state, policy: TieringPolicy):
+    """A ``TrainState`` with the components ``policy`` selects (the AdamW
+    moments, the fp32 masters) in tier 2; the training step brings them
+    to the card when it needs them (``repro_torch.runtime.train``)."""
+    if policy.offload_optimizer:
+        opt = state.opt
+        state = state._replace(opt=opt._replace(
+            mu=tree_map(to_tier2, opt.mu), nu=tree_map(to_tier2, opt.nu)))
+    if policy.offload_master_params:
+        state = state._replace(params=tree_map(to_tier2, state.params))
+    return state
+
+
+def tier_traffic_report(policy: TieringPolicy, n_params: float,
+                        steps_per_sec: float = 1.0) -> Dict[str, float]:
+    """Analytic tier-2 traffic for the chosen policy (feeds the §5 cost
+    model): bytes/step shuttled over the capacity fabric."""
+    per_step = 0.0
+    if policy.offload_optimizer:
+        # moments read+write per step (fp32 m, v)
+        per_step += 2 * 4 * n_params * 2
+    if policy.offload_master_params:
+        per_step += 2 * 4 * n_params
+    return {"tier2_bytes_per_step": per_step,
+            "tier2_gbps": per_step * steps_per_sec / 1e9}
+
 
 # ---------------------------------------------------------------------------
 # paged KV pool: physical page allocator + page-granular tier-2 cold store

@@ -40,6 +40,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 constexpr float kNegInf = -1e30f;  // the reference kernels' mask value
+__device__ __forceinline__ float neg_inf() {  // IEEE -inf
+  return __int_as_float(0xff800000u);
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);  // lo in the low half

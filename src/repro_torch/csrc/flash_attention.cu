@@ -37,9 +37,9 @@ constexpr int kFlashThreads = 128;  // two threads per q row
 template <typename QT, typename KT, int D>
 __global__ void __launch_bounds__(kFlashThreads) flash_attention_kernel(
     const QT* __restrict__ q, const KT* __restrict__ k,
-    const KT* __restrict__ v, QT* __restrict__ out, int Sq, int Skv, int H,
-    int HKV, float sm_scale, int causal, int window, int q_offset,
-    int kv_len) {
+    const KT* __restrict__ v, QT* __restrict__ out, float* __restrict__ lse,
+    int Sq, int Skv, int H, int HKV, float sm_scale, int causal, int window,
+    int q_offset, int kv_len) {
   constexpr int DH = D / 2;  // each thread owns half of the head dim
   constexpr int kRow = D + 2;  // halves offset by DH+1: no bank conflict
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
@@ -127,38 +127,42 @@ __global__ void __launch_bounds__(kFlashThreads) flash_attention_kernel(
     const float denom = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int i = 0; i < DH; ++i) out[q_off + i] = from_f32<QT>(acc[i] / denom);
+    // the log-sum-exp the backward recomputes P from (-inf: no key)
+    if (lse != nullptr && half == 0)
+      lse[((size_t)b * H + h) * Sq + qi] = l > 0.f ? m + logf(l) : neg_inf();
   }
 }
 
 template <typename QT, typename KT, int D>
 cudaError_t launch_flash(const void* q, const void* k, const void* v,
-                         void* out, int B, int Sq, int Skv, int H, int HKV,
-                         float sm_scale, int causal, int window, int q_offset,
-                         int kv_len, cudaStream_t s) {
+                         void* out, float* lse, int B, int Sq, int Skv, int H,
+                         int HKV, float sm_scale, int causal, int window,
+                         int q_offset, int kv_len, cudaStream_t s) {
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   flash_attention_kernel<QT, KT, D><<<grid, kFlashThreads, 0, s>>>(
       static_cast<const QT*>(q), static_cast<const KT*>(k),
-      static_cast<const KT*>(v), static_cast<QT*>(out), Sq, Skv, H, HKV,
+      static_cast<const KT*>(v), static_cast<QT*>(out), lse, Sq, Skv, H, HKV,
       sm_scale, causal, window, q_offset, kv_len);
   return cudaGetLastError();
 }
 
 template <typename QT, typename KT>
 cudaError_t flash_dispatch_d(int D, const void* q, const void* k,
-                             const void* v, void* out, int B, int Sq, int Skv,
-                             int H, int HKV, float sm_scale, int causal,
+                             const void* v, void* out, float* lse, int B,
+                             int Sq, int Skv, int H, int HKV, float sm_scale,
+                             int causal,
                              int window, int q_offset, int kv_len,
                              cudaStream_t s) {
   if (D == 64)
-    return launch_flash<QT, KT, 64>(q, k, v, out, B, Sq, Skv, H, HKV,
+    return launch_flash<QT, KT, 64>(q, k, v, out, lse, B, Sq, Skv, H, HKV,
                                     sm_scale, causal, window, q_offset,
                                     kv_len, s);
   if (D == 112)  // zamba2's shared attention block: DH = 56
-    return launch_flash<QT, KT, 112>(q, k, v, out, B, Sq, Skv, H, HKV,
+    return launch_flash<QT, KT, 112>(q, k, v, out, lse, B, Sq, Skv, H, HKV,
                                      sm_scale, causal, window, q_offset,
                                      kv_len, s);
   if (D == 128)
-    return launch_flash<QT, KT, 128>(q, k, v, out, B, Sq, Skv, H, HKV,
+    return launch_flash<QT, KT, 128>(q, k, v, out, lse, B, Sq, Skv, H, HKV,
                                      sm_scale, causal, window, q_offset,
                                      kv_len, s);
   return cudaErrorInvalidValue;
@@ -168,17 +172,20 @@ cudaError_t flash_dispatch_d(int D, const void* q, const void* k,
 
 using namespace repro;
 
-// q and out fp32; k and v fp32 or bf16 (kv_dtype).
-// window < 0: no sliding window.  kv_len: keys at or past it are masked.
+// q and out fp32; k and v fp32 or bf16 (kv_dtype); lse (B,H,Sq) fp32
+// or null (serving).  window < 0: no sliding window.  kv_len: keys at
+// or past it are masked.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* out, int B, int Sq,
-                                   int Skv, int H, int HKV, int D,
+                                   const void* v, void* out, void* lse,
+                                   int B, int Sq, int Skv, int H, int HKV,
+                                   int D,
                                    float sm_scale, int causal, int window,
                                    int q_offset, int kv_len, int kv_dtype,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ARGS D, q, k, v, out, B, Sq, Skv, H, HKV, sm_scale, causal, window, \
-             q_offset, kv_len, s
+  float* lse_f = static_cast<float*>(lse);
+#define ARGS D, q, k, v, out, lse_f, B, Sq, Skv, H, HKV, sm_scale, causal, \
+             window, q_offset, kv_len, s
   cudaError_t e = cudaErrorInvalidValue;
   if (kv_dtype == kF32)
     e = flash_dispatch_d<float, float>(ARGS);

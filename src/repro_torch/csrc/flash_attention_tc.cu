@@ -63,6 +63,7 @@ constexpr int kTcRows = 64;      // q rows per block: one wgmma M
 constexpr int kTcKeys = 64;      // keys per K/V tile: q K^T's N
 constexpr int kTcThreads = 128;  // one warpgroup
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // wgmma shared-memory matrix descriptor, no-swizzle layout: start
 // address, leading (K-direction) and stride (M/N-direction) byte
@@ -270,9 +271,9 @@ struct TileLoader<__nv_bfloat16, D> {
 template <typename KT, int D>
 __global__ void __launch_bounds__(kTcThreads, 1) flash_attention_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const KT* __restrict__ k,
-    const KT* __restrict__ v, __nv_bfloat16* __restrict__ out, int Sq,
-    int Skv, int H, int HKV, float scale_log2, int causal, int window,
-    int q_offset, int kv_len) {
+    const KT* __restrict__ v, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, int Sq, int Skv, int H, int HKV,
+    float scale_log2, int causal, int window, int q_offset, int kv_len) {
   static_assert(D % 16 == 0 && D <= 128, "head_dim: a multiple of 16");
   constexpr int kSlices = D / 16;       // k16 slices of q K^T
   constexpr int kTile = kTcKeys * D * 2;  // bytes of one bf16 tile
@@ -439,6 +440,13 @@ __global__ void __launch_bounds__(kTcThreads, 1) flash_attention_tc_kernel(
     l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  // the natural log-sum-exp the backward recomputes P from (-inf: no
+  // visible key); m is in base-2 units of the scaled scores
+  if (lse != nullptr && c == 0) {
+    float* lb = lse + ((size_t)b * H + h) * Sq;
+    if (ok0) lb[r0] = l0 > 0.f ? (m0 + log2f(l0)) * kLn2 : neg_inf();
+    if (ok1) lb[r0 + 8] = l1 > 0.f ? (m1 + log2f(l1)) * kLn2 : neg_inf();
+  }
   __nv_bfloat16* ob = out + (size_t)b * Sq * q_row + (size_t)h * D;
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) {
@@ -454,9 +462,9 @@ __global__ void __launch_bounds__(kTcThreads, 1) flash_attention_tc_kernel(
 
 template <typename KT, int D>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
-                      int B, int Sq, int Skv, int H, int HKV, float sm_scale,
-                      int causal, int window, int q_offset, int kv_len,
-                      cudaStream_t s) {
+                      float* lse, int B, int Sq, int Skv, int H, int HKV,
+                      float sm_scale, int causal, int window, int q_offset,
+                      int kv_len, cudaStream_t s) {
   constexpr int kSmem = 4 * kTcKeys * D * 2;  // K and V, two buffers each
   // once per instantiation, before any launch: no call under CUDA-graph
   // capture sets it
@@ -471,18 +479,18 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
   dim3 grid(H, B, (Sq + kTcRows - 1) / kTcRows);
   flash_attention_tc_kernel<KT, D><<<grid, kTcThreads, kSmem, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const KT*>(k),
-      static_cast<const KT*>(v), static_cast<__nv_bfloat16*>(out), Sq, Skv,
-      H, HKV, sm_scale * kLog2e, causal, window, q_offset, kv_len);
+      static_cast<const KT*>(v), static_cast<__nv_bfloat16*>(out), lse, Sq,
+      Skv, H, HKV, sm_scale * kLog2e, causal, window, q_offset, kv_len);
   return cudaGetLastError();
 }
 
 template <typename KT>
 cudaError_t tc_dispatch_d(int D, const void* q, const void* k, const void* v,
-                          void* out, int B, int Sq, int Skv, int H, int HKV,
-                          float sm_scale, int causal, int window,
+                          void* out, float* lse, int B, int Sq, int Skv, int H,
+                          int HKV, float sm_scale, int causal, int window,
                           int q_offset, int kv_len, cudaStream_t s) {
-#define TC_ARGS q, k, v, out, B, Sq, Skv, H, HKV, sm_scale, causal, window, \
-                q_offset, kv_len, s
+#define TC_ARGS q, k, v, out, lse, B, Sq, Skv, H, HKV, sm_scale, causal, \
+                window, q_offset, kv_len, s
   if (D == 64) return launch_tc<KT, 64>(TC_ARGS);
   if (D == 112) return launch_tc<KT, 112>(TC_ARGS);
   if (D == 128) return launch_tc<KT, 128>(TC_ARGS);
@@ -495,22 +503,25 @@ cudaError_t tc_dispatch_d(int D, const void* q, const void* k, const void* v,
 
 using namespace repro;
 
-// q and out bf16; k and v fp32 or bf16 (kv_dtype), 16-byte aligned.
-// window < 0: no sliding window.  kv_len: keys at or past it are masked.
+// q and out bf16; k and v fp32 or bf16 (kv_dtype), 16-byte aligned; lse
+// (B,H,Sq) fp32 or null (serving).  window < 0: no sliding window.
+// kv_len: keys at or past it are masked.
 extern "C" int flash_attention_tc_fwd(const void* q, const void* k,
-                                      const void* v, void* out, int B, int Sq,
-                                      int Skv, int H, int HKV, int D,
+                                      const void* v, void* out, void* lse,
+                                      int B, int Sq, int Skv, int H, int HKV,
+                                      int D,
                                       float sm_scale, int causal, int window,
                                       int q_offset, int kv_len, int kv_dtype,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
   cudaError_t e = cudaErrorInvalidValue;
   if (kv_dtype == kF32)
-    e = tc_dispatch_d<float>(D, q, k, v, out, B, Sq, Skv, H, HKV, sm_scale,
-                             causal, window, q_offset, kv_len, s);
+    e = tc_dispatch_d<float>(D, q, k, v, out, lse_f, B, Sq, Skv, H, HKV,
+                             sm_scale, causal, window, q_offset, kv_len, s);
   else if (kv_dtype == kBF16)
-    e = tc_dispatch_d<__nv_bfloat16>(D, q, k, v, out, B, Sq, Skv, H, HKV,
-                                     sm_scale, causal, window, q_offset,
+    e = tc_dispatch_d<__nv_bfloat16>(D, q, k, v, out, lse_f, B, Sq, Skv, H,
+                                     HKV, sm_scale, causal, window, q_offset,
                                      kv_len, s);
   return (int)e;
 }

@@ -1,9 +1,9 @@
 """The port's Hopper kernels: one wrapper module per TPU kernel it
 replaces (each with an integer ``launches`` count; flash attention and
 the SSD scan choose between two CUDA kernels by dtype and also count
-each), their plain
-PyTorch versions in ``ref``, the model-layout adapters in ``ops`` and
-the build in ``_build``."""
+each; flash attention and RMSNorm also have a backward kernel, counted
+in ``launches_bwd``), their plain PyTorch versions in ``ref``, the
+model-layout adapters in ``ops`` and the build in ``_build``."""
 
 from __future__ import annotations
 
@@ -16,11 +16,19 @@ WRAPPERS = {"paged_attention": paged_attention,
             "flash_attention": flash_attention,
             "rmsnorm": rmsnorm,
             "ssd_scan": ssd_scan}
+# the wrappers with a backward kernel, by the name of that kernel
+BACKWARD = {"flash_attention_bwd": flash_attention,
+            "rmsnorm_bwd": rmsnorm}
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per wrapper since the last reset."""
     return {name: mod.launches for name, mod in WRAPPERS.items()}
+
+
+def backward_counts() -> Dict[str, int]:
+    """Backward kernel calls per wrapper since the last reset."""
+    return {name: mod.launches_bwd for name, mod in BACKWARD.items()}
 
 
 def variant_counts() -> Dict[str, int]:
@@ -37,3 +45,5 @@ def reset_launch_counts() -> None:
     for mod in WRAPPERS.values():
         for c in getattr(mod, "COUNTERS", ("launches",)):
             setattr(mod, c, 0)
+    for mod in BACKWARD.values():
+        mod.launches_bwd = 0

@@ -31,28 +31,35 @@ from typing import Dict, Optional
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("paged_attention.cu", "flash_attention.cu",
-           "flash_attention_tc.cu", "rmsnorm.cu", "ssd_scan.cu",
-           "ssd_scan_tc.cu")
+           "flash_attention_tc.cu", "flash_attention_bwd.cu", "rmsnorm.cu",
+           "rmsnorm_bwd.cu", "ssd_scan.cu", "ssd_scan_tc.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_FLASH = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I,
-          _P)
+_FLASH = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,
+          _I, _P)
 # C signature of every entry point: (argtypes) -> int (a cudaError_t)
 SIGNATURES = {
     # q, k_pages, v_pages, page_table, lengths, out, ws_acc, ws_ml,
     # B, H, KV, D, ps, PMAX, sm_scale, window, q_dtype, kv_dtype, stream
     "paged_attention_fwd": (_P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
-    # q, k, v, out, B, Sq, Skv, H, HKV, D, sm_scale, causal, window,
-    # q_offset, kv_len, kv_dtype, stream (fp32 q: CUDA cores; bf16 q:
-    # tensor cores)
+    # q, k, v, out, lse (nullable), B, Sq, Skv, H, HKV, D, sm_scale,
+    # causal, window, q_offset, kv_len, kv_dtype, stream (fp32 q: CUDA
+    # cores; bf16 q: tensor cores)
     "flash_attention_fwd": _FLASH,
     "flash_attention_tc_fwd": _FLASH,
+    # q, k, v, out, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H, HKV, D,
+    # sm_scale, causal, window, q_offset, kv_len, dtype, stream
+    "flash_attention_bwd": (_P,) * 10 + (_I,) * 6 + (_F,) + (_I,) * 5
+                           + (_P,),
     # x, scale, out, rows, d, eps, x_dtype, scale_dtype, vec, stream
     "rmsnorm_fwd": (_P, _P, _P, _I, _I, _F, _I, _I, _I, _P),
+    # x, scale, dy, dx, dscale, partial, rows, d, eps, x_dtype,
+    # scale_dtype, blocks, stream
+    "rmsnorm_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P),
     # x, dt, A, B, C, D, h0 (nullable), y, h_out,
     # B, S, H, G, P, N, Q, stream (fp32 x, B, C: CUDA cores)
     "ssd_scan_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -158,6 +165,15 @@ def launch(name: str, *args) -> None:
     err = getattr(library(), name)(*args, stream)
     if err != 0:
         raise KernelLaunchError(f"{name}: CUDA error {err}")
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd will want a gradient through a call on these
+    tensors: grad mode is on and one of them requires a gradient."""
+    import torch
+
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 # dtype codes shared with csrc/common.cuh

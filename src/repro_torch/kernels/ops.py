@@ -36,6 +36,13 @@ def plain_versions() -> Iterator[None]:
         _PLAIN.reset(token)
 
 
+def plain_enabled() -> bool:
+    """Whether the adapters route to the plain versions here.  A remat
+    recompute runs in the backward pass, on autograd's thread, where the
+    caller's ``plain_versions()`` is not set: it reads this first."""
+    return _PLAIN.get()
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     sliding_window: Optional[int] = None,

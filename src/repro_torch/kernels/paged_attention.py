@@ -15,7 +15,8 @@ Kernel-native layouts, as in the reference:
 q may be fp32 or bf16 independently of the pages (the engine decodes
 bf16 queries against an fp32 pool); all math is fp32.  A CPU tensor
 takes the plain version in ``ref``; a CUDA tensor launches the kernel or
-raises.
+raises.  Decode needs no gradient: a CUDA call that autograd would
+differentiate raises rather than return a result cut off from the graph.
 
 The kernel is split-KV: each row's logical tokens are cut into splits of
 ``SPLIT`` positions, one block per (KV head, row, split) writes its
@@ -82,6 +83,9 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                                        sliding_window=sliding_window)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
+    if _build.needs_grad(q, k_pages, v_pages):
+        raise RuntimeError("paged decode attention has no backward kernel: "
+                           "decode runs under torch.no_grad()")
     if D not in HEAD_DIMS:
         raise ValueError(f"paged kernel takes head_dim in {HEAD_DIMS}, "
                          f"got {D}")

@@ -14,7 +14,9 @@ Chunks are Q = min(chunk, S) tokens long, the tail chunk ragged.  dt, A,
 D and the initial state are read in fp32, as the TPU kernel casts them.
 
 A CPU tensor takes the plain version ``ref.ssd_chunked_ref``; a CUDA
-tensor launches one of the two kernels or raises.
+tensor launches one of the two kernels or raises.  There is no backward
+kernel yet: a CUDA call that autograd would differentiate raises rather
+than return a result cut off from the graph.
 """
 
 from __future__ import annotations
@@ -67,6 +69,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                                    init_state=init_state)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
+    if _build.needs_grad(*tensors):
+        raise RuntimeError("the SSD scan has no backward kernel yet (the "
+                           "ssm and hybrid training slice): call it under "
+                           "torch.no_grad()")
     Q = min(chunk, S)
     if P not in HEAD_DIMS or not 0 < N <= MAX_STATE or Q > MAX_CHUNK:
         raise ValueError(f"ssd kernel takes P in {HEAD_DIMS}, "

@@ -1,0 +1,175 @@
+"""Training entry point of the port (``repro.launch.train``'s flags).
+
+    # on the card (the default device)
+    PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
+        --steps 100 --batch 8 --seq 512
+
+    # small config on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
+        --smoke --steps 4 --batch 8 --seq 32 --device cpu
+
+Runs the full stack: data pipeline → train step (remat, microbatches) →
+AdamW → async checkpointing → fault-tolerant loop with straggler
+monitoring, on one device.  ``--offload-optimizer`` keeps the AdamW
+moments in pinned host memory (tier 2); ``--pool`` takes the device and
+the tiering policy from a lease on a smoke estate
+(``Lease.materialize``).  ``--dp-mode hierarchical`` needs a ``pod``
+axis, which one device never has, so it falls back to ``auto`` as the
+reference's CLI does on such a mesh.  Prints the reference's JSON
+summary plus ``"device"``; exits 0 iff the loss decreased.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from pathlib import Path
+
+import torch
+
+from repro_torch.ckpt import checkpoint as ckpt
+from repro_torch.configs import get_config
+from repro_torch.core.tiering import TieringPolicy
+from repro_torch.data.pipeline import DataConfig, DataPipeline
+from repro_torch.device import resolve_device
+from repro_torch.models.api import build_model
+from repro_torch.models.config import ShapeConfig
+from repro_torch.obs.console import emit_json, warn
+from repro_torch.optim.adamw import AdamW
+from repro_torch.runtime import train as train_rt
+from repro_torch.runtime.ft import FaultTolerantLoop, StragglerMonitor
+
+# the checkpoint directory, under the checkout's gitignored build/
+DEFAULT_CKPT_DIR = Path(__file__).resolve().parents[3] / "build" / "ckpt"
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--arch", default="olmo-1b")
+    p.add_argument("--smoke", action="store_true")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda; 'cpu' must be asked "
+                        "for by name)")
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--seq", type=int, default=128)
+    p.add_argument("--lr", type=float, default=3e-4)
+    p.add_argument("--microbatches", type=int, default=1)
+    p.add_argument("--dp-mode", default="auto",
+                   choices=["auto", "hierarchical"])
+    p.add_argument("--compress-pod", action="store_true")
+    p.add_argument("--offload-optimizer", action="store_true")
+    # ---- pool-orchestrated resources (repro_torch.pool) ----
+    p.add_argument("--pool", default="none",
+                   choices=["none", "scalepool", "baseline", "contention"],
+                   help="obtain the device and tiering from a resource-pool "
+                        "lease (contention = scalepool estate with overlap-"
+                        "aware placement for co-resident jobs)")
+    p.add_argument("--pool-accels", type=int, default=8)
+    p.add_argument("--pool-tier2-gb", type=float, default=0.0)
+    p.add_argument("--pool-model-parallel", type=int, default=1)
+    p.add_argument("--ckpt-dir", default=str(DEFAULT_CKPT_DIR))
+    p.add_argument("--ckpt-every", type=int, default=50)
+    p.add_argument("--log-every", type=int, default=10)
+    args = p.parse_args(argv)
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    cfg = get_config(args.arch, smoke=args.smoke)
+    optimizer = AdamW(lr=args.lr)
+    shape = ShapeConfig("cli", "train", args.seq, args.batch,
+                        microbatches=args.microbatches)
+
+    lease = None
+    tier_policy = TieringPolicy() if args.offload_optimizer else None
+    mesh = {"data": 1, "model": 1}
+    if args.pool != "none":
+        # the orchestrator decides the devices AND tiering: a lease with a
+        # tier-2 reservation trains with optimizer state in the capacity
+        # tier; one without keeps everything in HBM.
+        from repro_torch.pool import smoke_pool
+        pool = smoke_pool(args.pool)
+        lease = pool.lease("cli-train", args.pool_accels,
+                           tier2_gb=args.pool_tier2_gb,
+                           model_parallel=args.pool_model_parallel)
+        binding = lease.materialize([device])
+        device, tier_policy = binding.device, binding.policy
+        mesh = dict(zip(binding.axes, binding.shape))
+        if args.offload_optimizer and not tier_policy.offload_optimizer:
+            # explicit flag without a tier-2 reservation: honor it (host
+            # memory stands in for the capacity tier) but say so.
+            warn("--offload-optimizer with a 0-byte tier-2 lease; "
+                 "offloading to host memory (pass --pool-tier2-gb to "
+                 "reserve pool capacity)")
+            tier_policy = dataclasses.replace(tier_policy,
+                                              offload_optimizer=True)
+    dp_mode = args.dp_mode
+    if dp_mode == "hierarchical":
+        warn("hierarchical dp_mode needs a 'pod' axis, which one device "
+             "does not have; falling back to dp_mode=auto")
+        dp_mode = "auto"
+    tcfg = train_rt.TrainStepConfig(dp_mode=dp_mode,
+                                    compress_pod=args.compress_pod,
+                                    microbatches=args.microbatches)
+
+    model = build_model(cfg, device=device)
+    # the initial weights are drawn from seed 0, as the reference's
+    # PRNGKey(0)
+    generator = torch.Generator(device=device).manual_seed(0)
+    state = train_rt.init_state(model, optimizer, generator, tcfg,
+                                tiering=tier_policy)
+    train_step = train_rt.make_train_step(model, optimizer, shape, tcfg=tcfg,
+                                          tiering=tier_policy)
+    pipe = DataPipeline(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                   global_batch=args.batch))
+
+    ckpt_dir = Path(args.ckpt_dir)
+    last = {"state": state, "step": 0}
+    saves = []
+
+    def save_fn(s, step):
+        last["state"], last["step"] = s, step
+        saves.append(ckpt.save(
+            ckpt_dir / f"step{step}",
+            {"params": s.params, "mu": s.opt.mu, "nu": s.opt.nu},
+            step=step, extra={"pipeline": pipe.state.to_dict()},
+            asynchronous=True))
+
+    def restore_fn():
+        return last["state"], last["step"]
+
+    loop = FaultTolerantLoop(train_step, save_fn, restore_fn, pipe,
+                             ckpt_every=args.ckpt_every,
+                             monitor=StragglerMonitor())
+
+    t0 = time.time()
+    state = loop.run(state, args.steps)
+    dt = time.time() - t0
+    for handle in saves:    # no checkpoint is left half written at exit
+        handle.wait()
+
+    losses = [h["loss"] for h in loop.history]
+    emit_json({
+        "arch": cfg.name, "steps": args.steps,
+        "devices": 1, "mesh": mesh,
+        "dp_mode": dp_mode,
+        "lease": (None if lease is None else {
+            "pods": list(lease.allocation.pod_ids),
+            "accels": lease.n_accels,
+            "tier2_gb": lease.tier2_bytes / 1e9,
+            "offload_optimizer": tier_policy.offload_optimizer}),
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "loss_drop": losses[0] - losses[-1],
+        "wall_s": round(dt, 1), "s_per_step": round(dt / args.steps, 3),
+        "straggler_events": len(loop.monitor.events),
+        "restarts": loop.restarts,
+        "device": str(device),
+    })
+    return 0 if losses[-1] < losses[0] else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -5,6 +5,12 @@
 
     model.init(generator=None)           -> params in cfg.param_dtype
     model.load(params)                   -> params cast to cfg.compute_dtype
+    model.loss(params, batch, remat=True) -> scalar mean cross entropy,
+                                            differentiable in the fp32
+                                            masters (the dense family;
+                                            the others raise, naming the
+                                            slice of the port that
+                                            brings their loss)
     model.init_cache(batch, max_seq, dtype=...) -> the family's cache
     model.prefill(params, batch, cache)  -> (last-position logits, cache
                                             [, enc_states for encdec])
@@ -15,10 +21,10 @@
     model.decode_paged(params, tokens, pools, page_table, lengths)
                                          -> (logits, pools)
 
-Every call but ``init``/``load`` takes loaded (cast) parameters and
-updates the cache / pools in place.  ``init_cache``'s default dtype is
-the reference's per family (bf16 for the K/V of dense, moe, hybrid and
-encdec, fp32 for mamba2).
+Every call but ``init``/``load``/``loss`` takes loaded (cast)
+parameters and updates the cache / pools in place.  ``init_cache``'s
+default dtype is the reference's per family (bf16 for the K/V of dense,
+moe, hybrid and encdec, fp32 for mamba2).
 """
 
 from __future__ import annotations
@@ -38,6 +44,12 @@ _FAMILIES = {"dense": (transformer, torch.bfloat16),
              "hybrid": (hybrid, torch.bfloat16),
              "encdec": (encdec, torch.bfloat16)}
 _PAGED = ("dense", "moe")
+# the later slice of the port (ROADMAP Queue A item 5) that brings each
+# other family's loss
+_MOE_ENCDEC = "the moe and encdec losses"
+_SSD_BWD = "the SSD-scan backward kernel, with ssm and hybrid training"
+_LOSS_LATER = {"moe": _MOE_ENCDEC, "encdec": _MOE_ENCDEC,
+               "ssm": _SSD_BWD, "hybrid": _SSD_BWD}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +61,7 @@ class Model:
     init_cache: Callable[..., Any]
     prefill: Callable[..., Any]
     decode: Callable[..., Any]
+    loss: Callable[..., Any]
     prefill_at: Optional[Callable[..., Any]] = None
     decode_paged: Optional[Callable[..., Any]] = None
 
@@ -68,6 +81,14 @@ def build_model(cfg: ModelConfig, *, device: DeviceLike = None) -> Model:
             prefill_at=lambda p, b, c, lp: m.prefill_at(p, cfg, b, c, lp),
             decode_paged=lambda p, t, pl, pt, ln: m.decode_paged(
                 p, cfg, t, pl, pt, ln))
+    if cfg.family == "dense":
+        def loss(p, b, **kw):
+            return m.loss_fn(p, cfg, b, **kw)
+    else:
+        def loss(p, b, **kw):
+            raise NotImplementedError(
+                f"{cfg.family} training is not ported yet: its loss comes "
+                f"with {_LOSS_LATER[cfg.family]} (ROADMAP Queue A item 5)")
     if cfg.family == "encdec":
         def decode(p, t, c, i, enc):
             return m.decode_step(p, cfg, t, c, i, enc)
@@ -83,5 +104,6 @@ def build_model(cfg: ModelConfig, *, device: DeviceLike = None) -> Model:
                          device=dev if device is None else device),
         prefill=lambda p, b, c: m.prefill(p, cfg, b, c),
         decode=decode,
+        loss=loss,
         **paged,
     )

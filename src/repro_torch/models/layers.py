@@ -343,7 +343,10 @@ def init_embedding(gen, vocab: int, d: int, dtype, device):
 
 
 def embed(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens]
+    """Rows of the table.  ``F.embedding``'s backward sums each row's
+    gradients in a fixed order on the card (indexing's would add them
+    with atomics): a training run repeats in bits."""
+    return F.embedding(tokens, params["table"])
 
 
 def unembed(params, x: torch.Tensor,
@@ -354,3 +357,17 @@ def unembed(params, x: torch.Tensor,
     if vocab is not None and vocab != logits.shape[-1]:
         logits = logits[..., :vocab]
     return logits
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross entropy in fp32.  logits: (B,S,V), labels:
+    (B,S); an optional mask (B,S) weights the tokens."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

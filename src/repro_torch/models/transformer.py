@@ -5,18 +5,23 @@ optional QKV-bias / qk-norm / parallel-block / non-parametric-LN variants.
 Parameters are ``{"embedding": {"table"}, "layers": [block dict per
 layer], "final_norm": {...}}``: the reference's tree with its stacked
 ``(L, ...)`` layer leaves unstacked into a list, walked by a Python
-loop in place of ``lax.scan``.  ``cast_params`` runs once at load
-(``Model.load``); the forward functions take parameters already in the
-compute dtype.  KV caches and page pools are updated in place.
+loop in place of ``lax.scan``.  For serving, ``cast_params`` runs once at
+load (``Model.load``) and the forward functions take parameters already
+in the compute dtype; ``loss_fn`` takes the fp32 masters and casts them
+inside, so the gradients reach the masters.  KV caches and page pools
+are updated in place.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -139,14 +144,20 @@ def _embed_inputs(params, cfg: ModelConfig,
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             cache: Optional[Dict[str, torch.Tensor]] = None,
-            cache_index: Optional[int] = None
+            cache_index: Optional[int] = None, remat: bool = False
             ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Returns (hidden_states, cache); the cache is filled in place."""
+    """Returns (hidden_states, cache); the cache is filled in place.
+    ``remat`` (no cache) recomputes each layer in the backward pass
+    instead of saving its activations, as the reference's
+    ``jax.checkpoint(..., nothing_saveable)`` layer body does."""
     x = _embed_inputs(params, cfg, batch)
     S = x.shape[1]
     start = 0 if cache_index is None else cache_index
     positions = (start + torch.arange(S, device=x.device))[None, :]
     for i, layer in enumerate(params["layers"]):
+        if remat and cache is None:
+            x = _remat_block(layer, x, cfg, positions)
+            continue
         kv = None if cache is None else (cache["k"][i], cache["v"][i])
         x = block_fwd(layer, x, cfg, positions=positions, kv_cache=kv,
                       cache_index=cache_index)
@@ -154,8 +165,32 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     return x, cache
 
 
+def _remat_block(layer, x, cfg: ModelConfig, positions) -> torch.Tensor:
+    """``block_fwd`` whose activations are recomputed in the backward
+    pass, through the same kernels or plain versions as this forward."""
+    plain = ops.plain_enabled()
+
+    def body(h):
+        with ops.plain_versions() if plain else contextlib.nullcontext():
+            return block_fwd(layer, h, cfg, positions=positions)
+
+    return checkpoint(body, x, use_reentrant=False)
+
+
 def logits_fn(params, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
     return L.unembed(params["embedding"], hidden, cfg.vocab)
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
+            remat: bool = True) -> torch.Tensor:
+    """Mean next-token cross entropy of ``batch`` ({"tokens", "labels"}
+    and an optional "mask"), differentiable in the masters ``params``:
+    they are cast to the compute dtype here, inside the graph, as the
+    reference's ``forward`` casts them."""
+    params = cast_params(params, cfg)
+    hidden, _ = forward(params, cfg, batch, remat=remat)
+    logits = logits_fn(params, cfg, hidden)
+    return L.cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
 
 
 # ---------------------------------------------------------------------------

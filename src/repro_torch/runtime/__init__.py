@@ -1,1 +1,2 @@
-"""Fixed-batch serving steps (port of ``repro.runtime``)."""
+"""Fixed-batch serving steps, the training step and the fault-tolerant
+loop (port of ``repro.runtime``)."""

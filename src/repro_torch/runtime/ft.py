@@ -1,0 +1,135 @@
+"""Fault tolerance & straggler mitigation for 1000+ node operation (port
+of ``repro.runtime.ft``, the same semantics: a step that still fails
+after its retries restores the last committed checkpoint and rewinds,
+and the loop tries again, for as long as it takes).
+
+What actually fails at scale and what this module does about it:
+
+* **Chip/host failure mid-step** → the step raises; ``FaultTolerantLoop``
+  catches, restores the last committed checkpoint (written every
+  ``ckpt_every`` steps, asynchronously), rebuilds the mesh from the
+  surviving device set via ``repro_torch.ckpt.elastic.resize_plan``, and
+  resumes from the exact data-pipeline state (the pipeline is a pure
+  function of (seed, step)).
+* **Stragglers** → synchronous SPMD steps run at the speed of the
+  slowest participant.  ``StragglerMonitor`` keeps an EWMA of step time;
+  when a step exceeds ``threshold``× the EWMA it records the event and
+  (at the cluster level) the policy recommendation is eviction +
+  elastic resize — the hierarchical ScalePool schedule also CONTAINS a
+  slow pod: only the inter-pod phase (1/|data| of bytes) waits on it.
+* **Transient errors** (preemption notices, DMA timeouts) → bounded
+  retry with backoff before escalating to restore.
+
+The single-process tests exercise all of this with injected failures
+(tests/test_torch_train.py); metrics may be 0-d tensors on the card
+(read with ``float``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, List, Optional
+
+
+@dataclasses.dataclass
+class StragglerMonitor:
+    """EWMA step-time tracker with a slowdown threshold."""
+
+    alpha: float = 0.1
+    threshold: float = 2.0
+    ewma: Optional[float] = None
+    events: List[Dict[str, float]] = dataclasses.field(default_factory=list)
+
+    def observe(self, step: int, dt: float) -> bool:
+        """Returns True if this step is a straggler event."""
+        if self.ewma is None:
+            self.ewma = dt
+            return False
+        is_straggler = dt > self.threshold * self.ewma
+        if is_straggler:
+            self.events.append({"step": step, "dt": dt, "ewma": self.ewma})
+        # stragglers don't poison the EWMA
+        self.ewma = (1 - self.alpha) * self.ewma + self.alpha * min(
+            dt, self.threshold * self.ewma)
+        return is_straggler
+
+    def recommendation(self) -> str:
+        if len(self.events) >= 3:
+            return "evict-and-resize"
+        if self.events:
+            return "monitor"
+        return "healthy"
+
+
+@dataclasses.dataclass
+class RetryPolicy:
+    max_retries: int = 2
+    backoff_s: float = 0.5
+
+    def run(self, fn: Callable[[], Any]) -> Any:
+        last: Optional[BaseException] = None
+        for attempt in range(self.max_retries + 1):
+            try:
+                return fn()
+            except Exception as e:  # noqa: BLE001
+                last = e
+                if attempt < self.max_retries:
+                    time.sleep(self.backoff_s * (2 ** attempt))
+        raise last  # type: ignore[misc]
+
+
+class FaultTolerantLoop:
+    """Checkpointed training loop with failure injection hooks.
+
+    train_step: (state, batch) -> (state, metrics)
+    save_fn:    (state, step) -> None       (async checkpoint)
+    restore_fn: () -> (state, step)         (last committed checkpoint)
+    """
+
+    def __init__(self, train_step, save_fn, restore_fn, pipeline, *,
+                 ckpt_every: int = 50,
+                 retry: RetryPolicy = RetryPolicy(),
+                 monitor: Optional[StragglerMonitor] = None,
+                 failure_hook: Optional[Callable[[int], None]] = None):
+        self.train_step = train_step
+        self.save_fn = save_fn
+        self.restore_fn = restore_fn
+        self.pipeline = pipeline
+        self.ckpt_every = ckpt_every
+        self.retry = retry
+        self.monitor = monitor or StragglerMonitor()
+        self.failure_hook = failure_hook
+        self.restarts = 0
+        self.history: List[Dict[str, float]] = []
+
+    def run(self, state, n_steps: int):
+        step = 0
+        while step < n_steps:
+            def attempt():
+                if self.failure_hook is not None:
+                    self.failure_hook(step)  # may raise (injected failure)
+                batch = self.pipeline.peek_step(step)
+                t0 = time.time()
+                new_state, metrics = self.train_step(state, batch)
+                dt = time.time() - t0
+                return new_state, metrics, dt
+
+            try:
+                state, metrics, dt = self.retry.run(attempt)
+            except Exception:
+                # unrecoverable step: restore + rewind
+                state, ckpt_step = self.restore_fn()
+                self.pipeline.state.step = ckpt_step
+                step = ckpt_step
+                self.restarts += 1
+                continue
+
+            self.monitor.observe(step, dt)
+            self.history.append({"step": step, **{
+                k: float(v) for k, v in metrics.items()}})
+            step += 1
+            self.pipeline.state.step = step
+            if step % self.ckpt_every == 0:
+                self.save_fn(state, step)
+        return state

@@ -14,7 +14,11 @@ held at 2e-4 as well.  The tensor-core flash kernel (bf16 q) is also
 held against the emulation of its numerical contract
 (``tests/_flash_emulation.py``) at ``EMU_TOL``; the split-KV paged
 kernel against the transcription of its algorithm
-(``tests/_paged_emulation.py``) at the paged tolerances.
+(``tests/_paged_emulation.py``) at the paged tolerances.  The backward
+kernels (training) are held against autograd of the plain versions, each
+gradient to its dtype's tolerance of its largest |value|, and must give
+the same bits twice; paged attention and the SSD scan must raise under
+grad.
 """
 
 import numpy as np
@@ -673,3 +677,147 @@ def test_cuda_encdec_model_equals_the_cpu_run(cuda):
     assert outs["card"][3] == cfg.n_enc_layers + 4 * cfg.n_layers
     for got, want in zip(outs["card"][:3], outs["host"][:3]):
         _close(got, want, 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels (training): against autograd of the plain versions
+# ---------------------------------------------------------------------------
+
+# (B, Sq, Skv, H, KV, D, dtype, causal, window, q_offset, kv_len)
+FLASH_BWD_CASES = [
+    (2, 512, 512, 16, 16, 128, "bfloat16", True, None, 0, None),  # olmo
+    (2, 512, 512, 16, 16, 64, "bfloat16", True, None, 0, None),   # qwen
+    (2, 300, 300, 32, 8, 128, "bfloat16", True, 128, 0, None),    # GQA
+    (2, 64, 300, 8, 8, 64, "bfloat16", False, None, 0, None),
+    (2, 300, 300, 8, 2, 64, "float32", True, 100, 0, None),
+    (2, 70, 96, 8, 2, 128, "float32", True, 24, 10, 80),
+    (2, 70, 96, 8, 2, 64, "float32", True, 8, 0, 13),   # rows see no key
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+def test_cuda_flash_backward_matches_autograd_of_plain(cuda, case):
+    """dq, dk, dv of the backward kernel against autograd through
+    ``ref.attention_ref`` in fp32, each to its dtype's tolerance of the
+    largest |grad|; two runs give the same bits; one backward launch."""
+    B, Sq, Skv, H, KV, D, dtype, causal, window, off, kv_len = case
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn(B, Sq, H, D, generator=g, device=cuda).to(dt)
+    k, v = (torch.randn(B, Skv, KV, D, generator=g, device=cuda).to(dt)
+            for _ in range(2))
+    do = torch.randn(B, Sq, H, D, generator=g, device=cuda).to(dt)
+    kw = dict(causal=causal, sliding_window=window, q_offset=off,
+              kv_len=kv_len)
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        kernels.reset_launch_counts()
+        flash_attention(*leaves, **kw).backward(do)
+        assert kernels.backward_counts()["flash_attention_bwd"] == 1
+        runs.append([t.grad for t in leaves])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    plain = [t.float().requires_grad_(True) for t in (q, k, v)]
+    with ops.plain_versions():
+        ops.flash_attention(*plain, **kw).backward(do.float())
+    for got, want in zip(runs[0], plain):
+        scale = float(want.grad.abs().max())
+        err = float((got.float() - want.grad).abs().max())
+        assert err <= TOL[dtype] * scale, (err, scale)
+    if window == 8:     # rows 20.. of that case see no key
+        assert (runs[0][0][:, 20:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d,dtype", [
+    (4096, 1024, "bfloat16"), (4096, 1024, "float32"), (8, 2048, "bfloat16"),
+    (33, 1001, "float32"), (3000, 64, "bfloat16"), (2, 16384, "float32")])
+def test_cuda_rmsnorm_backward_matches_autograd_of_plain(cuda, rows, d,
+                                                         dtype):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(rows, d, generator=g, device=cuda).to(dt)
+    s = (1 + 0.1 * torch.randn(d, generator=g, device=cuda)).to(dt)
+    dy = torch.randn(rows, d, generator=g, device=cuda).to(dt)
+    runs = []
+    for _ in range(2):
+        xx, ss = x.clone().requires_grad_(True), s.clone().requires_grad_(True)
+        kernels.reset_launch_counts()
+        rmsnorm(xx, ss).backward(dy)
+        assert kernels.backward_counts()["rmsnorm_bwd"] == 1
+        runs.append((xx.grad, ss.grad))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    xx, ss = x.clone().requires_grad_(True), s.clone().requires_grad_(True)
+    ref.rmsnorm_ref(xx, ss).backward(dy)
+    for got, want in zip(runs[0], (xx.grad, ss.grad)):
+        scale = float(want.float().abs().max())
+        assert float((got.float() - want.float()).abs().max()) <= \
+            TOL[dtype] * scale
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_without_backward_raise_under_grad(cuda):
+    """Paged decode attention and the SSD scan have no backward kernel:
+    asked for a gradient, they raise instead of returning a result cut
+    off from the graph; under ``torch.no_grad()`` they run."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn(2, 4, 64, generator=g, device=cuda, requires_grad=True)
+    kp = torch.randn(5, 16, 4, 64, generator=g, device=cuda)
+    table = torch.arange(4, dtype=torch.int32, device=cuda).reshape(2, 2)
+    lens = torch.tensor([20, 7], dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="backward"):
+        paged_decode_attention(q, kp, kp, table, lens)
+    with torch.no_grad():
+        paged_decode_attention(q, kp, kp, table, lens)
+    x = torch.randn(1, 64, 2, 64, generator=g, device=cuda,
+                    requires_grad=True)
+    args = (torch.rand(1, 64, 2, device=cuda), -torch.rand(2, device=cuda),
+            torch.randn(1, 64, 1, 64, device=cuda),
+            torch.randn(1, 64, 1, 64, device=cuda), torch.ones(2, device=cuda))
+    with pytest.raises(RuntimeError, match="backward"):
+        ssd_scan(x, *args, chunk=64)
+    with torch.no_grad():
+        ssd_scan(x, *args, chunk=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "olmo-1b"])
+def test_cuda_model_grads_equal_the_plain_path(cuda, arch):
+    """A small dense model at head_dim 64 in fp32: the loss and every
+    gradient leaf through the kernels (flash, RMSNorm and their
+    backwards, remat on) equal the plain path's to 1e-5 of the leaf's
+    largest |g|, and every leaf gets a non-zero gradient."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_config(arch, smoke=True), d_model=128,
+                              n_heads=2, n_kv_heads=2, head_dim=64,
+                              d_ff=256, compute_dtype="float32")
+    model = build_model(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab, (2, 96), generator=g,
+                              device=cuda) for k in ("tokens", "labels")}
+    out = []
+    for plain in (False, True):
+        live = tree_map(lambda p: p.detach().clone().requires_grad_(True),
+                        params)
+        leaves = tree_leaves(live)
+        kernels.reset_launch_counts()
+        if plain:
+            with ops.plain_versions():
+                loss = model.loss(live, batch, remat=True)
+                loss.backward()
+        else:
+            loss = model.loss(live, batch, remat=True)
+            loss.backward()
+            assert kernels.backward_counts()["flash_attention_bwd"] == \
+                cfg.n_layers
+        out.append((float(loss.detach()), [t.grad for t in leaves]))
+    assert abs(out[0][0] - out[1][0]) <= 1e-5 * abs(out[1][0])
+    for got, want in zip(out[0][1], out[1][1]):
+        assert float(got.abs().max()) > 0
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())

@@ -287,15 +287,17 @@ def test_every_cuda_source_is_built_and_every_kernel_names_its_source():
     """Each ``csrc/*.cu`` is compiled (listed in ``_build.SOURCES``, so
     nvcc builds it in parallel with the others), and each kernel
     module's ``SOURCE`` (and, for the flash and SSD wrappers, which
-    choose between two kernels, ``SOURCE_F32``) names a file of the repo
+    choose between two kernels, ``SOURCE_F32``; for the wrappers with a
+    backward kernel, ``SOURCE_BWD``) names a file of the repo
     that is one of them; every source is some wrapper's, and each C
     entry point is found in the sources."""
-    from repro_torch.kernels import WRAPPERS, _build
+    from repro_torch.kernels import BACKWARD, WRAPPERS, _build
     on_disk = sorted(p.name for p in (PKG / "csrc").glob("*.cu"))
     assert sorted(_build.SOURCES) == on_disk
     named = [getattr(mod, attr) for mod in WRAPPERS.values()
-             for attr in ("SOURCE", "SOURCE_F32") if hasattr(mod, attr)]
-    assert len(named) == len(WRAPPERS) + 2
+             for attr in ("SOURCE", "SOURCE_F32", "SOURCE_BWD")
+             if hasattr(mod, attr)]
+    assert len(named) == len(WRAPPERS) + 2 + len(BACKWARD)
     assert sorted(Path(src).name for src in named) == on_disk
     assert "ssd_scan_tc.cu" in on_disk
     for src in named:
@@ -304,3 +306,45 @@ def test_every_cuda_source_is_built_and_every_kernel_names_its_source():
     text = "".join((PKG / "csrc" / n).read_text() for n in on_disk)
     for entry in _build.SIGNATURES:
         assert f'extern "C" int {entry}(' in text, entry
+
+
+def test_the_training_slice_modules_are_checked():
+    """The training modules are among those imported with JAX and the
+    reference blocked, and whose sources are scanned."""
+    names = set(_module_names())
+    slice_modules = {
+        "repro_torch.optim.adamw", "repro_torch.data.pipeline",
+        "repro_torch.runtime.train", "repro_torch.runtime.ft",
+        "repro_torch.ckpt.checkpoint", "repro_torch.launch.train",
+        "repro_torch.tree", "repro_torch.core.tiering"}
+    assert slice_modules <= names, sorted(slice_modules - names)
+    files = {p.relative_to(PKG).as_posix() for p in FILES if PKG in p.parents}
+    assert {"optim/adamw.py", "data/pipeline.py", "runtime/train.py",
+            "runtime/ft.py", "ckpt/checkpoint.py", "launch/train.py"} <= files
+    assert {"flash_attention_bwd.cu", "rmsnorm_bwd.cu"} <= {
+        p.name for p in (PKG / "csrc").glob("*.cu")}
+
+
+def test_train_entry_point_refuses_the_cpu_unless_asked(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None is valid here")
+    from repro_torch.launch.train import main
+    base = ["--smoke", "--steps", "1", "--ckpt-dir", str(tmp_path)]
+    for extra in ([], ["--offload-optimizer"], ["--pool", "scalepool"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(base + extra)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-7b", "olmoe-1b-7b",
+                                  "whisper-small"])
+def test_model_loss_raises_for_families_not_trained_yet(arch):
+    """Only the dense family trains in this slice: the others' losses
+    (and the ssm and hybrid ones' SSD-scan backward) come later, and
+    ``Model.loss`` says which slice brings each."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    model = build_model(get_config(arch, smoke=True), device="cpu")
+    want = ("SSD-scan backward" if model.cfg.family in ("ssm", "hybrid")
+            else "moe and encdec losses")
+    with pytest.raises(NotImplementedError, match=want):
+        model.loss({}, {})
