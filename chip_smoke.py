@@ -43,9 +43,11 @@ no result line):
               required to give the same bits: flash backward at olmo's
               shape (B=2, S=512, H=KV=16, D=128), qwen's (D=64), GQA
               (H=32, KV=8, D=128, window 128), non-causal (64 queries over
-              300 keys), all bf16 (2e-2 of the largest |grad|), and the
-              fp32 instantiation at D=64 (1e-5); RMSNorm backward at 4096
-              x 1024 in bf16 and fp32;
+              300 keys), all bf16 on the tensor-core kernel (2e-2 of the
+              largest |grad|; and against the emulation of its contract,
+              ``tests/_flash_bwd_emulation.py``, at ``BWD_EMU_TOL``), and
+              the fp32 CUDA-core kernel at D=64 (1e-5); RMSNorm backward
+              at 4096 x 1024 in bf16 and fp32;
 4. serve    - qwen1.5-0.5b at full width (24 layers, d=1024, vocab
               151,936, seeded random weights) served by
               ``repro_torch.serve.Engine`` through ``run_trace``: 16
@@ -165,9 +167,12 @@ no result line):
               compute), 10 steps: the loss falls, every parameter leaf has
               a finite non-zero gradient on step 1, flash launches exactly
               2 x 16 forward (forward and remat recompute) and 16 backward
-              per step; (b) the fp32 gate: olmo-1b at full width on its
-              first 2 layers in fp32, 3 steps through the kernels against
-              3 under ``plain_versions()``, loss and grad norm to 1e-5
+              per step, every backward on the tensor-core kernel; (b) the
+              fp32 gate: olmo-1b at full width on its first 2 layers in
+              fp32, 3 steps through the kernels (the backward on the
+              CUDA-core kernel) against 3 under ``plain_versions()``, loss
+              and grad norm to 1e-5 relative; (b2) the same cut in bf16,
+              10 steps against 10 plain, each step's loss to 1e-2
               relative; (c) qwen1.5-0.5b at full width, 10 steps, flash and
               RMSNorm forward and backward launches exact; (d) fault
               tolerance on (b)'s cut in bf16: the CLI's fault-tolerant loop
@@ -204,7 +209,8 @@ no result line):
               decode, flash at olmoe's 512 prefill and whisper's encoder
               and cross-attention, RMSNorm at 512 and 8 rows of 2048; the
               backward kernels at phase 10's shapes: flash at olmo's and
-              qwen's B=8 x S=512, RMSNorm at qwen's 4096 x 1024, beside
+              qwen's B=8 x S=512 in bf16 (tensor cores) and at olmo's in
+              fp32 (CUDA cores), RMSNorm at qwen's 4096 x 1024, beside
               autograd's backward of the plain version and of bf16 SDPA /
               ``F.rms_norm``: graphs of forward and backward less the
               forward's).  Every call reads cold inputs: the
@@ -243,6 +249,11 @@ LONG_KV_TOL = 6e-3              # non-causal bf16 flash over 1500 keys: the
                                 # outputs' RMS is ~0.04, so 2e-2 would pass a
                                 # dropped 28-key tail; errors seen on an H100
                                 # are 2.0e-3 and 9.8e-4
+BWD_EMU_TOL = {"atol_of_max": 2e-3,     # the bf16 flash backward against
+               "rtol": 2 ** -7}         # the emulation of its contract:
+                                        # one bf16 ulp of a gradient, plus
+                                        # 2e-3 of the largest |grad| for
+                                        # fp32 sums in another order
 GAP_NOISE = 1e-5                # a routing flip at a smaller router gap
                                 # (k-th less (k+1)-th probability) is fp32
                                 # noise between two summation orders
@@ -729,16 +740,23 @@ def backward_checks(device):
     inputs (the plain forward in fp32), run twice and required to give
     the same bits.  Flash: olmo's shape (B=2, S=512, H=KV=16, D=128),
     qwen's (D=64), GQA (H=32, KV=8, D=128, window 128), non-causal 64
-    queries over 300 keys, all bf16, and the fp32 instantiation at D=64;
-    RMSNorm at 4096 x 1024 in bf16 and fp32.  Each gradient is held to
-    its dtype's tolerance of its largest |value| (bf16 2e-2, fp32 1e-5),
-    as the forward's cases at these shapes.  Returns the max errors of
-    olmo's flash case and the bf16 RMSNorm case."""
+    queries over 300 keys, all bf16 on the tensor-core kernel, and the
+    fp32 CUDA-core kernel at D=64; RMSNorm at 4096 x 1024 in bf16 and
+    fp32.  Each gradient is held to its dtype's tolerance of its largest
+    |value| (bf16 2e-2, fp32 1e-5), as the forward's cases at these
+    shapes; each bf16 flash case also to the emulation of the tensor-core
+    kernel's contract (``tests/_flash_bwd_emulation.py``, on the
+    kernel's own forward output and log-sum-exp) at ``BWD_EMU_TOL``.
+    Returns the max errors of olmo's flash case and the bf16 RMSNorm
+    case."""
     import torch
     from repro_torch import kernels
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rmsnorm import rmsnorm
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from _flash_bwd_emulation import flash_bwd_tc_emulation
 
     gen = torch.Generator(device=device).manual_seed(3)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -771,24 +789,51 @@ def backward_checks(device):
         k, v = (torch.randn(B, Skv, KV, D, generator=gen,
                             device=device).to(dt) for _ in range(2))
         dout = torch.randn(B, Sq, H, D, generator=gen, device=device).to(dt)
+        variant = "tc" if dt == bf16 else "f32"
         runs = []
         for _ in range(2):
             leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
             kernels.reset_launch_counts()
             flash_attention(*leaves, **kw).backward(dout)
-            check(kernels.backward_counts()["flash_attention_bwd"] == 1,
-                  f"flash backward {tag}: not one backward launch")
+            got = kernels.backward_variant_counts()
+            check(kernels.backward_counts()["flash_attention_bwd"] == 1
+                  and got[f"flash_attention_bwd.{variant}"] == 1,
+                  f"flash backward {tag}: not one backward launch on the "
+                  f"{variant} kernel: {got}")
             runs.append([t.grad for t in leaves])
         plain = [t.float().requires_grad_(True) for t in (q, k, v)]
         with ops.plain_versions():
             ops.flash_attention(*plain, **kw).backward(dout.float())
-        e = hold("flash_attention_bwd",
-                 f"{tag} B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} D={D} "
-                 f"{str(dt)[6:]} " + " ".join(f"{a}={b}" for a, b in
-                                              kw.items()),
-                 runs, [t.grad for t in plain], TOL[str(dt)[6:]])
+        case = (f"{tag} B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} D={D} "
+                f"{str(dt)[6:]} " + " ".join(f"{a}={b}" for a, b in
+                                             kw.items()))
+        e = hold("flash_attention_bwd", case, runs,
+                 [t.grad for t in plain], TOL[str(dt)[6:]])
         if tag == "olmo":
             errs["flash_attention_bwd"] = e
+        if dt == bf16:
+            lse = torch.empty((B, H, Sq), dtype=f32, device=device)
+            out = fa._launch_forward(q, k, v, kw.get("causal", True),
+                                     kw.get("sliding_window"),
+                                     1.0 / D ** 0.5, 0, Skv, lse)
+            want = flash_bwd_tc_emulation(q, k, v, dout, **kw, out=out,
+                                          lse=lse)
+            emu = []
+            for got, w in zip(runs[0], want):
+                d_ = (got.float() - w.float()).abs()
+                scale = float(w.float().abs().max())
+                limit = (BWD_EMU_TOL["atol_of_max"] * scale
+                         + BWD_EMU_TOL["rtol"] * w.float().abs())
+                emu.append((float(d_.max()), scale,
+                            bool((d_ <= limit).all())))
+            ok = all(x[2] for x in emu)
+            emit({"phase": "kernels", "kernel": "flash_attention_bwd",
+                  "case": case + " vs emulation",
+                  "max_abs_err": [x[0] for x in emu],
+                  "max_abs_grad": [x[1] for x in emu],
+                  "tol": BWD_EMU_TOL, "ok": ok})
+            check(ok, f"flash backward {case}: against the emulation "
+                  f"{emu} over {BWD_EMU_TOL}")
     for dt in (bf16, f32):
         x = torch.randn(4096, 1024, generator=gen, device=device).to(dt)
         s = (1 + 0.1 * torch.randn(1024, generator=gen,
@@ -2759,6 +2804,7 @@ def moe_full_width(device):
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 10
 TRAIN_CUT = 2                   # olmo-1b's layers for phases 10 (b), (d), (e)
+BF16_TRAJ_TOL = 1e-2            # bf16 loss, kernels against plain, per step
 CKPT_DIR = Path(__file__).resolve().parent / "build" / "smoke_ckpt"
 
 
@@ -2835,7 +2881,9 @@ def train_full_width(arch, device, smi):
         secs.append(time.perf_counter() - t0)
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
-    counts, variants = train_counts(), kernels.variant_counts()
+    counts = train_counts()
+    variants = {**kernels.variant_counts(),
+                **kernels.backward_variant_counts()}
     peak = torch.cuda.max_memory_allocated()
 
     L, n = cfg.n_layers, TRAIN_STEPS
@@ -2887,26 +2935,34 @@ def train_full_width(arch, device, smi):
     check(counts == want, f"{cfg.name} train: launches {counts} != {want}")
     check_flash_variant(f"{cfg.name} train", cfg.compute_dtype, variants,
                         counts["flash_attention"])
+    check_backward_variant(f"{cfg.name} train", cfg.compute_dtype, variants,
+                           counts["flash_attention_bwd"])
     return counts, variants
 
 
-def fp32_gate(device):
-    """olmo-1b at full width on its first 2 layers in fp32: 3 steps
-    through the kernels (the fp32 flash kernels forward and backward)
-    against 3 steps of the same under ``plain_versions()``, from the same
-    weights on the same batches: loss and grad norm to 1e-5 relative."""
+def check_backward_variant(what, compute, variants, n):
+    """``n`` flash backward calls, all on the kernel of the compute dtype:
+    the tensor-core one in bf16, the CUDA-core one in fp32."""
+    got = {v: variants[f"flash_attention_bwd.{v}"] for v in ("tc", "f32")}
+    want = {"tc": n if compute == "bfloat16" else 0,
+            "f32": n if compute == "float32" else 0}
+    check(got == want, f"{what} ({compute}): flash backward calls by "
+          f"variant {got}, expected {want}")
+
+
+def kernels_against_plain(cfg, device, seed, steps):
+    """``steps`` training steps of ``cfg`` from one seeded init on the
+    same batches, through the kernels and under ``plain_versions()``:
+    {plain: ([(loss, grad norm)] a step, launches, backward variants)}."""
     import torch
     from repro_torch import kernels
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.runtime import train as train_rt
     from repro_torch.tree import tree_map
 
-    cfg = dataclasses.replace(get_config("olmo-1b"), n_layers=TRAIN_CUT,
-                              compute_dtype="float32")
     model, opt, step, pipe = train_parts(cfg, device)
-    params = model.init(torch.Generator(device=device).manual_seed(1))
-    batches = [pipe.next_batch() for _ in range(3)]
+    params = model.init(torch.Generator(device=device).manual_seed(seed))
+    batches = [pipe.next_batch() for _ in range(steps)]
     runs = {}
     for plain in (False, True):
         state = train_rt.state_from_params(tree_map(torch.clone, params), opt)
@@ -2916,8 +2972,22 @@ def fp32_gate(device):
             for b in batches:
                 state, m = step(state, b)
                 metrics.append((float(m["loss"]), float(m["grad_norm"])))
-        runs[plain] = (metrics, train_counts())
+        runs[plain] = (metrics, train_counts(),
+                       kernels.backward_variant_counts())
         del state
+    return runs
+
+
+def fp32_gate(device):
+    """olmo-1b at full width on its first 2 layers in fp32: 3 steps
+    through the kernels (the fp32 flash kernels forward and backward)
+    against 3 steps of the same under ``plain_versions()``, from the same
+    weights on the same batches: loss and grad norm to 1e-5 relative."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("olmo-1b"), n_layers=TRAIN_CUT,
+                              compute_dtype="float32")
+    runs = kernels_against_plain(cfg, device, 1, 3)
     gaps = [max(abs(a - b) / abs(b) for a, b in zip(got, want))
             for got, want in zip(runs[False][0], runs[True][0])]
     want = {"flash_attention": 2 * TRAIN_CUT * 3,
@@ -2927,6 +2997,7 @@ def fp32_gate(device):
           "kernel_loss_grad_norm": runs[False][0],
           "plain_loss_grad_norm": runs[True][0], "max_rel_gap": gaps,
           "tol": TOL["float32"], "kernel_launches": runs[False][1],
+          "kernel_backward_variants": runs[False][2],
           "plain_launches": runs[True][1]})
     check(all(g <= TOL["float32"] for g in gaps),
           f"fp32 gate: loss / grad norm gaps {gaps} over {TOL['float32']}")
@@ -2934,6 +3005,45 @@ def fp32_gate(device):
           and not any(runs[True][1].values()),
           f"fp32 gate: launches {runs[False][1]} (want {want}), plain "
           f"path {runs[True][1]}")
+    check_backward_variant("fp32 gate", cfg.compute_dtype, runs[False][2],
+                           TRAIN_CUT * 3)
+
+
+def bf16_trajectory(device):
+    """olmo-1b at full width on its first 2 layers in bf16 (the training
+    path's compute): 10 steps through the kernels (every flash backward
+    on the tensor-core kernel) against 10 steps under
+    ``plain_versions()``, from the same weights on the same batches: each
+    step's loss within ``BF16_TRAJ_TOL`` relative of the plain path's,
+    the gaps printed.  bf16 rounds at other places on the two paths, so
+    the trajectories are not equal in bits; a gap over the limit fails
+    the run."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("olmo-1b"), n_layers=TRAIN_CUT)
+    t0 = time.perf_counter()
+    runs = kernels_against_plain(cfg, device, 4, TRAIN_STEPS)
+    losses = {plain: [m[0] for m in runs[plain][0]] for plain in runs}
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses[False],
+                                                losses[True])]
+    n = TRAIN_CUT * TRAIN_STEPS
+    emit({"phase": "train", "check": "bf16 trajectory", "arch": cfg.name,
+          "layers": TRAIN_CUT, "steps": TRAIN_STEPS,
+          "compute_dtype": cfg.compute_dtype,
+          "kernel_losses": losses[False], "plain_losses": losses[True],
+          "rel_gaps": gaps, "tol": BF16_TRAJ_TOL,
+          "kernel_launches": runs[False][1],
+          "kernel_backward_variants": runs[False][2],
+          "plain_launches": runs[True][1],
+          "seconds": time.perf_counter() - t0})
+    check(all(g <= BF16_TRAJ_TOL for g in gaps),
+          f"bf16 trajectory: loss gaps {gaps} over {BF16_TRAJ_TOL}")
+    check_backward_variant("bf16 trajectory", cfg.compute_dtype,
+                           runs[False][2], n)
+    check(runs[False][1]["flash_attention"] == 2 * n
+          and not any(runs[True][1].values()),
+          f"bf16 trajectory: launches {runs[False][1]}, plain path "
+          f"{runs[True][1]}")
 
 
 def fault_tolerance(device):
@@ -3146,9 +3256,9 @@ def train_cli(device, smi):
 
 def train_phase(device, smi):
     """Phase 10: (a) olmo-1b and (c) qwen1.5-0.5b trained at full width,
-    (b) the fp32 gate, (d) fault tolerance, (e) the optimizer offload,
-    (g) the training CLI itself; the report (f) is in each line.  Returns the two paths' counts and
-    variants."""
+    (b) the fp32 gate, (b2) the bf16 trajectory, (d) fault tolerance,
+    (e) the optimizer offload, (g) the training CLI itself; the report
+    (f) is in each line.  Returns the two paths' counts and variants."""
     import torch
     t0 = time.perf_counter()
     counts, variants = {}, {}
@@ -3157,7 +3267,7 @@ def train_phase(device, smi):
             train_full_width(arch, device, smi)
         gc.collect()
         torch.cuda.empty_cache()
-    for part in (fp32_gate, fault_tolerance, offload_check):
+    for part in (fp32_gate, bf16_trajectory, fault_tolerance, offload_check):
         part(device)
         gc.collect()
         torch.cuda.empty_cache()
@@ -3381,22 +3491,24 @@ def kernel_times(device, counts, errs):
               input_copies=copies)
 
     # the backward kernels at phase 10's training shapes: flash at olmo's
-    # (B=8, S=512, H=16, D=128) and qwen's (D=64) causal bf16 shapes, on
+    # (B=8, S=512, H=16, D=128) and qwen's (D=64) causal bf16 shapes and
+    # at olmo's in fp32 (the fp32 gate's), on
     # the forward kernel's output and log-sum-exp; RMSNorm at qwen's 4096
     # rows of 1024 in bf16.  The kernel is timed as the others; the plain
     # version's and the library's times are autograd's backward of their
     # forward on the same inputs (``backward_ms``).  Flash backward's
     # operations are 2.5x the causal forward's; RMSNorm backward's bytes
     # are x, dy and scale in, dx and dscale out
-    def flash_bwd_time(B, S, H, D):
+    def flash_bwd_time(B, S, H, D, dt=bf16):
         scale = 1.0 / D ** 0.5
         pairs = S * (S + 1) // 2
         elems = B * S * H * D
-        nbytes = 8 * elems * 2 + B * H * S * 4   # 5 in, 3 out, lse
+        size = torch.finfo(dt).bits // 8
+        nbytes = 8 * elems * size + B * H * S * 4   # 5 in, 3 out, lse
         sets, ad = [], []
-        for _ in range(cold_copies(nbytes - 3 * elems * 2)):
+        for _ in range(cold_copies(nbytes - 3 * elems * size)):
             q, k, v, do = (torch.randn(B, S, H, D, generator=gen,
-                                       device=device).to(bf16)
+                                       device=device).to(dt)
                            for _ in range(4))
             lse = torch.empty((B, H, S), dtype=f32, device=device)
             out = fa._launch_forward(q, k, v, True, None, scale, 0, S, lse)
@@ -3410,15 +3522,20 @@ def kernel_times(device, counts, errs):
         lib_ms = backward_ms(lambda *a: F.scaled_dot_product_attention(
             *a, is_causal=True), ad)
         del sets, ad
+        rate = BF16_FLOPS if dt == bf16 else FP32_FLOPS
         return (ms, plain_ms, *bound(nbytes, 2.5 * 4 * D * H * B * pairs,
-                                     BF16_FLOPS), lib_ms, n)
+                                     rate), lib_ms, n)
 
-    for arch, D in (("olmo", 128), ("qwen", 64)):
-        ms, plain, b_ms, b_by, lib, n = flash_bwd_time(8, 512, 16, D)
+    # bf16 on the tensor-core kernel; fp32 (the fp32 gate's olmo-1b
+    # layers) on the CUDA-core one
+    for arch, D, dt in (("olmo", 128, bf16), ("qwen", 64, bf16),
+                        ("olmo fp32 gate", 128, f32)):
+        ms, plain, b_ms, b_by, lib, n = flash_bwd_time(8, 512, 16, D, dt)
         if arch == "olmo":
             row(fa, "flash_attention_bwd", ms, plain, b_ms, b_by, lib)
         times("flash_attention_bwd", f"{arch} train B=8 S=512 H=KV=16 D={D} "
-              f"causal bf16", ms, plain, b_ms, b_by, lib, input_copies=n)
+              f"causal {str(dt)[6:]}", ms, plain, b_ms, b_by, lib,
+              variant="tc" if dt == bf16 else "f32", input_copies=n)
 
     rows_n, d = 4096, 1024
     copies = cold_copies(2 * rows_n * d * 2)

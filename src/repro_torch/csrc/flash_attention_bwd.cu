@@ -1,15 +1,19 @@
-// Backward of the port's flash attention, on CUDA cores (sm_90a).
+// Backward of the port's flash attention for fp32 q, k, v, on CUDA cores
+// (sm_90a).
 //
 // The JAX package has no backward Pallas kernel: XLA differentiates its
 // jnp attention (src/repro/models/layers.py gqa_attention).  This is
-// the gradient of the forward in flash_attention.cu / flash_attention_tc.cu
-// (which replace src/repro/kernels/flash_attention.py flash_attention),
-// held against autograd of the plain version kernels/ref.attention_ref.
-// Same layout and masks as the forward: q, out, dout, dq (B,Sq,H,D);
-// k, v, dk, dv (B,Skv,HKV,D), all contiguous and of one dtype (fp32 or
-// bf16); causal, sliding window, q_offset and kv_len; GQA (H = G * HKV).
-// The forward's log-sum-exp lse (B,H,Sq) fp32 comes in; a row with no
-// visible key has no visible pair, so its lse is never read.
+// the gradient of the forward in flash_attention.cu (which replaces
+// src/repro/kernels/flash_attention.py flash_attention for fp32 q),
+// held against autograd of the plain version kernels/ref.attention_ref;
+// it serves the fp32 training gate, as the forward keeps
+// flash_attention.cu for fp32 q.  bf16 calls (every bf16 training step)
+// go to the tensor-core kernel in flash_attention_bwd_tc.cu.  Same
+// layout and masks as the forward: q, out, dout, dq (B,Sq,H,D); k, v,
+// dk, dv (B,Skv,HKV,D), all contiguous fp32; causal, sliding window,
+// q_offset and kv_len; GQA (H = G * HKV).  The forward's log-sum-exp lse
+// (B,H,Sq) fp32 comes in; a row with no visible key has no visible
+// pair, so its lse is never read.
 //
 // Three launches, all math in fp32:
 //  1. delta = rowsum(dout * out) (B,H,Sq), one warp a row;
@@ -28,15 +32,13 @@
 //
 // Bound on the H100: the backward does 2.5x the forward's products (S
 // and dO V^T recomputed, dV, dK, dQ), halved for causal, against one
-// read of q, k, v, out, dout and one write of the three gradients: in
-// bf16 bytes bound it up to about 1000 causal keys (the training shapes'
-// 512), operations beyond.  This kernel does its products on CUDA cores
-// in fp32, so it runs far from either bound; the design keeps it simple:
-// every operand tile sits in shared memory as fp32 (rows padded to D+1
-// floats, so the 16 key rows a warp reads fall in 16 banks), each of
-// 256 threads owns a 4 x 4 micro-tile of S and dO V^T (rows ty + 16i,
-// keys tx + 16j) and a 4 x D/16 tile of its outputs, and masked tiles
-// are never visited.  Tensor cores (mma / wgmma) come in a later PR.
+// read of q, k, v, out, dout and one write of the three gradients; in
+// fp32 outside the tensor cores (67 TFLOP/s) operations bound it at the
+// training shapes.  The design keeps it simple: every operand tile sits
+// in shared memory as fp32 (rows padded to D+1 floats, so the 16 key
+// rows a warp reads fall in 16 banks), each of 256 threads owns a 4 x 4
+// micro-tile of S and dO V^T (rows ty + 16i, keys tx + 16j) and a
+// 4 x D/16 tile of its outputs, and masked tiles are never visited.
 #include "common.cuh"
 
 namespace repro {
@@ -401,8 +403,8 @@ cudaError_t bwd_dispatch_d(int D, const void* q, const void* k, const void* v,
 
 using namespace repro;
 
-// q, k, v, out, dout, dq, dk, dv of one dtype (fp32 or bf16); lse and
-// the delta workspace (B,H,Sq) fp32.  window < 0: no sliding window.
+// q, k, v, out, dout, dq, dk, dv fp32 (dtype must say so); lse and the
+// delta workspace (B,H,Sq) fp32.  window < 0: no sliding window.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* out,
                                    const void* dout, const void* lse,
@@ -412,14 +414,8 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    int window, int q_offset, int kv_len,
                                    int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaErrorInvalidValue;
-  if (dtype == kF32)
-    e = bwd_dispatch_d<float>(D, q, k, v, out, dout, lse, delta, dq, dk, dv,
-                              B, Sq, Skv, H, HKV, sm_scale, causal, window,
-                              q_offset, kv_len, s);
-  else if (dtype == kBF16)
-    e = bwd_dispatch_d<__nv_bfloat16>(D, q, k, v, out, dout, lse, delta, dq,
-                                      dk, dv, B, Sq, Skv, H, HKV, sm_scale,
-                                      causal, window, q_offset, kv_len, s);
-  return (int)e;
+  if (dtype != kF32) return (int)cudaErrorInvalidValue;
+  return (int)bwd_dispatch_d<float>(D, q, k, v, out, dout, lse, delta, dq,
+                                    dk, dv, B, Sq, Skv, H, HKV, sm_scale,
+                                    causal, window, q_offset, kv_len, s);
 }

@@ -2,8 +2,9 @@
 replaces (each with an integer ``launches`` count; flash attention and
 the SSD scan choose between two CUDA kernels by dtype and also count
 each; flash attention and RMSNorm also have a backward kernel, counted
-in ``launches_bwd``), their plain PyTorch versions in ``ref``, the
-model-layout adapters in ``ops`` and the build in ``_build``."""
+in ``launches_bwd``, flash's by variant too), their plain PyTorch
+versions in ``ref``, the model-layout adapters in ``ops`` and the build
+in ``_build``."""
 
 from __future__ import annotations
 
@@ -41,9 +42,20 @@ def variant_counts() -> Dict[str, int]:
             for c in getattr(mod, "COUNTERS", ())[1:]}
 
 
+def backward_variant_counts() -> Dict[str, int]:
+    """Backward calls per kernel variant of the backward wrappers that
+    choose between kernels, as ``"<backward>.<variant>"``
+    (``flash_attention_bwd.tc``, ``flash_attention_bwd.f32``); they sum to
+    the wrapper's backward count."""
+    return {f"{name}.{c[len('launches_bwd_'):]}": getattr(mod, c)
+            for name, mod in BACKWARD.items()
+            for c in getattr(mod, "COUNTERS_BWD", ())[1:]}
+
+
 def reset_launch_counts() -> None:
     for mod in WRAPPERS.values():
         for c in getattr(mod, "COUNTERS", ("launches",)):
             setattr(mod, c, 0)
     for mod in BACKWARD.values():
-        mod.launches_bwd = 0
+        for c in getattr(mod, "COUNTERS_BWD", ("launches_bwd",)):
+            setattr(mod, c, 0)

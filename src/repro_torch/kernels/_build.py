@@ -31,15 +31,17 @@ from typing import Dict, Optional
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("paged_attention.cu", "flash_attention.cu",
-           "flash_attention_tc.cu", "flash_attention_bwd.cu", "rmsnorm.cu",
-           "rmsnorm_bwd.cu", "ssd_scan.cu", "ssd_scan_tc.cu")
-HEADERS = ("common.cuh",)
+           "flash_attention_tc.cu", "flash_attention_bwd.cu",
+           "flash_attention_bwd_tc.cu", "rmsnorm.cu", "rmsnorm_bwd.cu",
+           "ssd_scan.cu", "ssd_scan_tc.cu")
+HEADERS = ("common.cuh", "wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FLASH = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,
           _I, _P)
+_FLASH_BWD = (_P,) * 10 + (_I,) * 6 + (_F,) + (_I,) * 5 + (_P,)
 # C signature of every entry point: (argtypes) -> int (a cudaError_t)
 SIGNATURES = {
     # q, k_pages, v_pages, page_table, lengths, out, ws_acc, ws_ml,
@@ -52,9 +54,10 @@ SIGNATURES = {
     "flash_attention_fwd": _FLASH,
     "flash_attention_tc_fwd": _FLASH,
     # q, k, v, out, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H, HKV, D,
-    # sm_scale, causal, window, q_offset, kv_len, dtype, stream
-    "flash_attention_bwd": (_P,) * 10 + (_I,) * 6 + (_F,) + (_I,) * 5
-                           + (_P,),
+    # sm_scale, causal, window, q_offset, kv_len, dtype, stream (fp32: CUDA
+    # cores; bf16: tensor cores)
+    "flash_attention_bwd": _FLASH_BWD,
+    "flash_attention_tc_bwd": _FLASH_BWD,
     # x, scale, out, rows, d, eps, x_dtype, scale_dtype, vec, stream
     "rmsnorm_fwd": (_P, _P, _P, _I, _I, _F, _I, _I, _I, _P),
     # x, scale, dy, dx, dscale, partial, rows, d, eps, x_dtype,

@@ -6,8 +6,11 @@ two forward kernels, chosen by q's dtype, and one backward kernel.
   and fp32 softmax statistics and sums;
 - fp32 q (the fp32-compute model checks and parity runs):
   ``csrc/flash_attention.cu``, fp32 math on CUDA cores;
-- the gradient: ``csrc/flash_attention_bwd.cu`` (fp32 or bf16 q, k, v of
-  one dtype, head_dim 64 or 128), fp32 math on CUDA cores.
+- the gradient, chosen by dtype, head_dim 64 or 128: bf16 q, k, v
+  (every bf16 training step) ``csrc/flash_attention_bwd_tc.cu``, its five
+  products on the tensor cores (wgmma) with P and dS rounded to bf16 and
+  fp32 sums; fp32 (the fp32 training gate)
+  ``csrc/flash_attention_bwd.cu``, fp32 math on CUDA cores.
 
 Replaces ``repro.kernels.flash_attention.flash_attention`` and the
 padding in ``repro.kernels.ops.flash_attention``.  It takes the
@@ -40,9 +43,13 @@ launches_tc = 0     # ... of them on the tensor-core kernel (bf16 q)
 launches_f32 = 0    # ... of them on the fp32 CUDA-core kernel (fp32 q)
 COUNTERS = ("launches", "launches_tc", "launches_f32")
 launches_bwd = 0    # backward kernel calls since the last reset
+launches_bwd_tc = 0   # ... of them on the tensor-core kernel (bf16)
+launches_bwd_f32 = 0  # ... of them on the fp32 CUDA-core kernel
+COUNTERS_BWD = ("launches_bwd", "launches_bwd_tc", "launches_bwd_f32")
 SOURCE = "src/repro_torch/csrc/flash_attention_tc.cu"
 SOURCE_F32 = "src/repro_torch/csrc/flash_attention.cu"
-SOURCE_BWD = "src/repro_torch/csrc/flash_attention_bwd.cu"
+SOURCE_BWD = "src/repro_torch/csrc/flash_attention_bwd_tc.cu"
+SOURCE_BWD_F32 = "src/repro_torch/csrc/flash_attention_bwd.cu"
 REPLACES = "src/repro/kernels/flash_attention.py:103"
 # no TPU backward kernel: XLA differentiates the reference's jnp attention
 REPLACES_BWD = "src/repro/models/layers.py:116"
@@ -117,16 +124,26 @@ class FlashAttentionFn(torch.autograd.Function):
 def _launch_backward(q, k, v, out, dout, lse, causal, sliding_window,
                      sm_scale, q_offset, kv_len):
     """One backward call (three launches: delta, dK/dV, dQ) on the
-    forward's inputs, output and log-sum-exp; returns (dq, dk, dv)."""
-    global launches_bwd
+    forward's inputs, output and log-sum-exp; returns (dq, dk, dv).  bf16
+    takes the tensor-core kernel, which reads 16-byte vectors: an
+    operand that does not start on a 16-byte boundary (autograd may hand
+    in a view) is copied to one that does."""
+    global launches_bwd, launches_bwd_tc, launches_bwd_f32
     B, Sq, H, D = q.shape
     _, Skv, HKV, _ = k.shape
+    tc = q.dtype == torch.bfloat16
+    if not tc and q.dtype != torch.float32:
+        raise TypeError(f"flash backward takes fp32 or bf16, got {q.dtype}")
     dout = dout.to(q.dtype)
+    if tc:
+        q, k, v, out, dout = (t if t.data_ptr() % 16 == 0 else t.clone()
+                              for t in (q, k, v, out, dout))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if not (B and Sq and Skv):
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    _build.launch("flash_attention_bwd", q.data_ptr(), k.data_ptr(),
+    _build.launch("flash_attention_tc_bwd" if tc else "flash_attention_bwd",
+                  q.data_ptr(), k.data_ptr(),
                   v.data_ptr(), out.data_ptr(), dout.data_ptr(),
                   lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                   dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, H, HKV, D,
@@ -134,6 +151,10 @@ def _launch_backward(q, k, v, out, dout, lse, causal, sliding_window,
                   -1 if sliding_window is None else int(sliding_window),
                   int(q_offset), kv_len, _build.dtype_code(q))
     launches_bwd += 1
+    if tc:
+        launches_bwd_tc += 1
+    else:
+        launches_bwd_f32 += 1
     return dq, dk, dv
 
 

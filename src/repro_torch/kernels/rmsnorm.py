@@ -9,8 +9,9 @@ A CPU tensor takes the plain version in ``ref`` (autograd differentiates
 it).  A CUDA call that autograd will differentiate goes through
 ``RMSNormFn``, whose backward launches the backward kernel (it
 recomputes each row's rsqrt from x; the forward saves x and scale
-only).  Any other CUDA call launches the forward kernel; otherwise the
-wrapper raises.
+only; rows up to ``BWD_WARP_MAX_D`` wide take a warp each, held in its
+registers, wider ones a block).  Any other CUDA call launches the
+forward kernel; otherwise the wrapper raises.
 """
 
 from __future__ import annotations
@@ -27,7 +28,13 @@ REPLACES = "src/repro/kernels/rmsnorm.py:42"
 # no TPU backward kernel: XLA differentiates the reference's jnp RMSNorm
 REPLACES_BWD = "src/repro/models/layers.py:40"
 MAX_D = 16384
-BWD_BLOCKS = 4 * 132    # the backward's most blocks: four per H100 SM
+# the backward takes a warp per row up to BWD_WARP_MAX_D, 16 warps a
+# block and at most one block per H100 SM; wider rows a block per row,
+# at most four a SM
+BWD_WARP_MAX_D = 1024
+BWD_WARPS = 16
+BWD_BLOCKS = 132
+BWD_WIDE_BLOCKS = 4 * 132
 
 
 def _launch_forward(x: torch.Tensor, scale: torch.Tensor,
@@ -83,7 +90,8 @@ def _launch_backward(x, scale, dy, eps):
     dscale = torch.empty_like(scale)
     if rows == 0:
         return dx, dscale.zero_()
-    blocks = min(rows, BWD_BLOCKS)
+    blocks = (min(-(-rows // BWD_WARPS), BWD_BLOCKS) if d <= BWD_WARP_MAX_D
+              else min(rows, BWD_WIDE_BLOCKS))
     partial = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
     _build.launch("rmsnorm_bwd", x.data_ptr(), scale.data_ptr(),
                   dy.data_ptr(), dx.data_ptr(), dscale.data_ptr(),

@@ -17,7 +17,9 @@ kernel against the transcription of its algorithm
 (``tests/_paged_emulation.py``) at the paged tolerances.  The backward
 kernels (training) are held against autograd of the plain versions, each
 gradient to its dtype's tolerance of its largest |value|, and must give
-the same bits twice; paged attention and the SSD scan must raise under
+the same bits twice; the tensor-core flash backward (bf16) also against
+the emulation of its contract (``tests/_flash_bwd_emulation.py``) at
+``BWD_EMU_TOL``; paged attention and the SSD scan must raise under
 grad.
 """
 
@@ -729,26 +731,94 @@ def test_cuda_flash_backward_matches_autograd_of_plain(cuda, case):
         assert (runs[0][0][:, 20:] == 0).all()
 
 
+# the tensor-core backward (bf16) against the emulation of its contract
+# (tests/_flash_bwd_emulation.py) on the kernel's own forward output and
+# log-sum-exp: one bf16 ulp (rtol 2^-7) for a rounding flip of a
+# gradient, plus 2e-3 of the largest |grad| (ten times under the 2e-2
+# the plain version is held to) for fp32 sums taken in another order and
+# the rare P or dS rounding flip they cause
+BWD_EMU_TOL = {"atol_of_max": 2e-3, "rtol": 2 ** -7}
+FLASH_BWD_TC_CASES = [c for c in FLASH_BWD_CASES if c[6] == "bfloat16"] + [
+    (2, 200, 200, 16, 16, 128, "bfloat16", True, None, 0, None),  # Sq 200
+    (1, 130, 300, 16, 4, 64, "bfloat16", True, 64, 170, 290),      # G=4
+    (1, 7, 33, 4, 2, 64, "bfloat16", True, None, 26, None),        # Sq 7
+    (2, 70, 96, 8, 2, 128, "bfloat16", True, 8, 0, 13),  # rows see no key
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,d,dtype", [
-    (4096, 1024, "bfloat16"), (4096, 1024, "float32"), (8, 2048, "bfloat16"),
-    (33, 1001, "float32"), (3000, 64, "bfloat16"), (2, 16384, "float32")])
-def test_cuda_rmsnorm_backward_matches_autograd_of_plain(cuda, rows, d,
-                                                         dtype):
-    dt = getattr(torch, dtype)
-    g = torch.Generator(device=cuda).manual_seed(1)
-    x = torch.randn(rows, d, generator=g, device=cuda).to(dt)
-    s = (1 + 0.1 * torch.randn(d, generator=g, device=cuda)).to(dt)
-    dy = torch.randn(rows, d, generator=g, device=cuda).to(dt)
+@pytest.mark.parametrize("case", FLASH_BWD_TC_CASES)
+def test_cuda_flash_backward_tc_matches_emulation(cuda, case):
+    """Every bf16 backward takes the tensor-core kernel (one backward
+    call, on the ``tc`` variant), gives the same bits twice, and matches
+    the emulation of its contract at ``BWD_EMU_TOL``."""
+    from _flash_bwd_emulation import flash_bwd_tc_emulation
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, Skv, H, KV, D, dtype, causal, window, off, kv_len = case
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn(B, Sq, H, D, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(B, Skv, KV, D, generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    do = torch.randn(B, Sq, H, D, generator=g, device=cuda).bfloat16()
+    kw = dict(causal=causal, sliding_window=window, q_offset=off,
+              kv_len=kv_len)
     runs = []
     for _ in range(2):
-        xx, ss = x.clone().requires_grad_(True), s.clone().requires_grad_(True)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
         kernels.reset_launch_counts()
-        rmsnorm(xx, ss).backward(dy)
-        assert kernels.backward_counts()["rmsnorm_bwd"] == 1
-        runs.append((xx.grad, ss.grad))
+        flash_attention(*leaves, **kw).backward(do)
+        assert kernels.backward_counts()["flash_attention_bwd"] == 1
+        assert kernels.backward_variant_counts() == {
+            "flash_attention_bwd.tc": 1, "flash_attention_bwd.f32": 0}
+        runs.append([t.grad for t in leaves])
     assert all(torch.equal(a, b) for a, b in zip(*runs))
-    xx, ss = x.clone().requires_grad_(True), s.clone().requires_grad_(True)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=cuda)
+    out = fa._launch_forward(q, k, v, causal, window, 1.0 / D ** 0.5, off,
+                             Skv if kv_len is None else kv_len, lse)
+    want = flash_bwd_tc_emulation(q, k, v, do, **kw, out=out, lse=lse)
+    for got, w in zip(runs[0], want):
+        got, w = got.float(), w.float()
+        limit = (BWD_EMU_TOL["atol_of_max"] * float(w.abs().max())
+                 + BWD_EMU_TOL["rtol"] * w.abs())
+        assert bool(((got - w).abs() <= limit).all()), \
+            float((got - w).abs().max())
+    if window == 8:     # rows 20.. see no key, keys 13.. no row
+        assert (runs[0][0][:, 20:] == 0).all()
+        assert (runs[0][1][:, 13:] == 0).all()
+        assert (runs[0][2][:, 13:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d,dtype,offset", [
+    (4096, 1024, "bfloat16", 0), (4096, 1024, "float32", 0),
+    (8, 2048, "bfloat16", 0), (33, 1001, "float32", 0),
+    (3000, 64, "bfloat16", 0), (2, 16384, "float32", 0),
+    (4096, 1024, "bfloat16", 1), (300, 1024, "float32", 3),
+    (64, 1536, "bfloat16", 1), (500, 1032, "bfloat16", 0)])
+def test_cuda_rmsnorm_backward_matches_autograd_of_plain(cuda, rows, d,
+                                                         dtype, offset):
+    """``offset`` > 0 starts x and dy that many elements into their
+    buffers: contiguous views whose rows do not start on 16-byte
+    boundaries (the warp-per-row kernel's scalar branch).  Rows wider
+    than ``BWD_WARP_MAX_D`` (1024) take the block-per-row branch."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    xb = torch.randn(offset + rows * d, generator=g, device=cuda).to(dt)
+    s = (1 + 0.1 * torch.randn(d, generator=g, device=cuda)).to(dt)
+    dyb = torch.randn(offset + rows * d, generator=g, device=cuda).to(dt)
+    dy = dyb[offset:].view(rows, d)
+    assert (dy.data_ptr() % 16 != 0) == (offset > 0)
+    runs = []
+    for _ in range(2):
+        xb_ = xb.clone().requires_grad_(True)
+        ss = s.clone().requires_grad_(True)
+        kernels.reset_launch_counts()
+        rmsnorm(xb_[offset:].view(rows, d), ss).backward(dy)
+        assert kernels.backward_counts()["rmsnorm_bwd"] == 1
+        runs.append((xb_.grad[offset:].view(rows, d), ss.grad))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    xx = xb[offset:].view(rows, d).clone().requires_grad_(True)
+    ss = s.clone().requires_grad_(True)
     ref.rmsnorm_ref(xx, ss).backward(dy)
     for got, want in zip(runs[0], (xx.grad, ss.grad)):
         scale = float(want.float().abs().max())
