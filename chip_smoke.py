@@ -41,13 +41,17 @@ no result line):
               backward kernels through their autograd Functions against
               autograd of the plain versions, each case run twice and
               required to give the same bits: flash backward at olmo's
-              shape (B=2, S=512, H=KV=16, D=128), qwen's (D=64), GQA
-              (H=32, KV=8, D=128, window 128), non-causal (64 queries over
-              300 keys), all bf16 on the tensor-core kernel (2e-2 of the
+              shape (B=2, S=512, H=KV=16, D=128; olmoe's too), qwen's
+              (D=64), GQA (H=32, KV=8, D=128, window 128), non-causal (64
+              queries over 300 keys), whisper's encoder (1500 frames,
+              non-causal, H=12, D=64), cross-attention (448 queries over
+              1500 frames) and decoder (448, causal), all bf16 on the
+              tensor-core kernel (2e-2 of the
               largest |grad|; and against the emulation of its contract,
               ``tests/_flash_bwd_emulation.py``, at ``BWD_EMU_TOL``), and
               the fp32 CUDA-core kernel at D=64 (1e-5); RMSNorm backward
-              at 4096 x 1024 in bf16 and fp32;
+              at 4096 x 1024 (qwen's, a warp a row) and 4096 x 2048
+              (olmoe's, a block a row) in bf16 and fp32;
 4. serve    - qwen1.5-0.5b at full width (24 layers, d=1024, vocab
               151,936, seeded random weights) served by
               ``repro_torch.serve.Engine`` through ``run_trace``: 16
@@ -188,8 +192,23 @@ no result line):
               CLI itself on its default device: olmo-1b at full width and
               depth, 10 steps in HBM, 4 with ``--offload-optimizer`` (the
               offloaded peak lower) and 2 through ``--pool scalepool``
-              with a tier-2 reservation; serving paths launch no
-              backward kernel;
+              with a tier-2 reservation; the CLI's refusals before its
+              loop (``--smoke`` in a process of its own: head_dim 16 has
+              no backward kernel, exit 2 with the reason within 30 s;
+              whisper-small: no ``frame_embeds`` in the pipeline); (h)
+              olmoe-1b-7b at full width on its first 4 of 16 layers and
+              (i) whisper-small at full width and depth (B=8, 1500
+              seeded frames, decoder S=448), each as (a) (every leaf a
+              finite gradient, non-zero but for an expert no token
+              reached and whisper's key biases, whose gradient is zero in
+              exact arithmetic; launches exact, every backward on the
+              tensor-core kernel; the report (f), model FLOPs of the
+              active parameters) plus one step run twice from one state,
+              equal in bits, and an fp32 gate on its first 2 layers (the
+              moe routing recorded on both paths: a flip beyond 1e-5 on
+              step 1 fails, a step is gated while the routing so far is
+              equal); whisper's bf16 trajectory on its first 2 layers;
+              serving paths launch no backward kernel;
 5. times    - each kernel's time (CUDA graphs of back-to-back calls,
               timed with CUDA events, median of trials) beside its plain
               version, a PyTorch library call where one computes the
@@ -209,8 +228,10 @@ no result line):
               decode, flash at olmoe's 512 prefill and whisper's encoder
               and cross-attention, RMSNorm at 512 and 8 rows of 2048; the
               backward kernels at phase 10's shapes: flash at olmo's and
-              qwen's B=8 x S=512 in bf16 (tensor cores) and at olmo's in
-              fp32 (CUDA cores), RMSNorm at qwen's 4096 x 1024, beside
+              qwen's B=8 x S=512 in bf16 (tensor cores), at olmo's in
+              fp32 (CUDA cores) and at whisper's encoder (1500 frames)
+              and cross-attention (448 x 1500) in bf16, RMSNorm at
+              qwen's 4096 x 1024 and olmoe's 4096 x 2048, beside
               autograd's backward of the plain version and of bf16 SDPA /
               ``F.rms_norm``: graphs of forward and backward less the
               forward's).  Every call reads cold inputs: the
@@ -738,11 +759,15 @@ def backward_checks(device):
     """Phase 3's training cases: each backward kernel, through its
     autograd Function, against autograd of its plain version on the same
     inputs (the plain forward in fp32), run twice and required to give
-    the same bits.  Flash: olmo's shape (B=2, S=512, H=KV=16, D=128),
-    qwen's (D=64), GQA (H=32, KV=8, D=128, window 128), non-causal 64
-    queries over 300 keys, all bf16 on the tensor-core kernel, and the
-    fp32 CUDA-core kernel at D=64; RMSNorm at 4096 x 1024 in bf16 and
-    fp32.  Each gradient is held to its dtype's tolerance of its largest
+    the same bits.  Flash: olmo's shape (B=2, S=512, H=KV=16, D=128;
+    olmoe's too), qwen's (D=64), GQA (H=32, KV=8, D=128, window 128),
+    non-causal 64 queries over 300 keys, whisper's encoder (1500 frames,
+    non-causal, H=12, D=64: a ragged 28-key tail), cross-attention (448
+    queries over 1500 frames) and decoder (448, causal), all bf16 on the
+    tensor-core kernel, and the
+    fp32 CUDA-core kernel at D=64; RMSNorm at 4096 x 1024 (qwen's, the
+    warp-per-row branch) and 4096 x 2048 (olmoe's, block-per-row) in
+    bf16 and fp32.  Each gradient is held to its dtype's tolerance of its largest
     |value| (bf16 2e-2, fp32 1e-5), as the forward's cases at these
     shapes; each bf16 flash case also to the emulation of the tensor-core
     kernel's contract (``tests/_flash_bwd_emulation.py``, on the
@@ -784,6 +809,11 @@ def backward_checks(device):
             ("GQA window 128", 2, 512, 512, 32, 8, 128, bf16,
              dict(sliding_window=128)),
             ("non-causal", 2, 64, 300, 8, 8, 64, bf16, dict(causal=False)),
+            ("whisper encoder", 2, 1500, 1500, 12, 12, 64, bf16,
+             dict(causal=False)),
+            ("whisper cross", 2, 448, 1500, 12, 12, 64, bf16,
+             dict(causal=False)),
+            ("whisper decoder", 2, 448, 448, 12, 12, 64, bf16, {}),
             ("fp32", 2, 512, 512, 16, 16, 64, f32, {})):
         q = torch.randn(B, Sq, H, D, generator=gen, device=device).to(dt)
         k, v = (torch.randn(B, Skv, KV, D, generator=gen,
@@ -834,21 +864,26 @@ def backward_checks(device):
                   "tol": BWD_EMU_TOL, "ok": ok})
             check(ok, f"flash backward {case}: against the emulation "
                   f"{emu} over {BWD_EMU_TOL}")
-    for dt in (bf16, f32):
-        x = torch.randn(4096, 1024, generator=gen, device=device).to(dt)
-        s = (1 + 0.1 * torch.randn(1024, generator=gen,
-                                   device=device)).to(dt)
-        dy = torch.randn(4096, 1024, generator=gen, device=device).to(dt)
+    # d=1024 (qwen) takes the warp-per-row branch, d=2048 (olmoe) the
+    # block-per-row one
+    for d, dt in ((1024, bf16), (1024, f32), (2048, bf16), (2048, f32)):
+        x = torch.randn(4096, d, generator=gen, device=device).to(dt)
+        s = (1 + 0.1 * torch.randn(d, generator=gen, device=device)).to(dt)
+        dy = torch.randn(4096, d, generator=gen, device=device).to(dt)
         runs = []
         for _ in range(2):
             xx, ss = (t.clone().requires_grad_(True) for t in (x, s))
+            kernels.reset_launch_counts()
             rmsnorm(xx, ss).backward(dy)
+            check(kernels.backward_counts()["rmsnorm_bwd"] == 1,
+                  f"rmsnorm backward d={d}: not one backward launch: "
+                  f"{kernels.backward_counts()}")
             runs.append([xx.grad, ss.grad])
         xx, ss = (t.clone().requires_grad_(True) for t in (x, s))
         ref.rmsnorm_ref(xx, ss).backward(dy)
-        e = hold("rmsnorm_bwd", f"rows=4096 d=1024 {str(dt)[6:]}", runs,
+        e = hold("rmsnorm_bwd", f"rows=4096 d={d} {str(dt)[6:]}", runs,
                  [xx.grad, ss.grad], TOL[str(dt)[6:]])
-        if dt == bf16:
+        if d == 1024 and dt == bf16:
             errs["rmsnorm_bwd"] = e
     return errs
 
@@ -1034,6 +1069,23 @@ def check_step_variant(model, step, n, n_ssd=0):
                                    variants, n_ssd)})
 
 
+def routing_flips(got, want):
+    """Each expert layer's routing on two paths, as ``moe.record_routing``
+    recorded it: (the tokens whose experts differ, each with its router
+    gap on both paths; the number of differing keep bits; the smallest
+    gap on ``got``'s path)."""
+    flips, keep_diff, min_gap = [], 0, math.inf
+    for layer, (a, b) in enumerate(zip(got, want)):
+        min_gap = min(min_gap, float(a["gap"].min()))
+        differ = (a["expert_idx"] != b["expert_idx"]).any(-1)    # (G, Tg)
+        for g, t in differ.nonzero().tolist():
+            flips.append({"layer": layer, "group": g, "token": t,
+                          "gap": float(a["gap"][g, t]),
+                          "gap_plain": float(b["gap"][g, t])})
+        keep_diff += int((a["keep"] != b["keep"]).sum())
+    return flips, keep_diff, min_gap
+
+
 def routing_gate(step, got, want, gate: bool, phase, arch) -> bool:
     """The routing-tie rule: each expert layer's routing (each token's
     experts, each dispatch entry's keep bit) on the kernel path (``got``)
@@ -1046,15 +1098,7 @@ def routing_gate(step, got, want, gate: bool, phase, arch) -> bool:
     records nothing and is gated as asked."""
     if not got:
         return gate
-    flips, keep_diff, min_gap = [], 0, math.inf
-    for layer, (a, b) in enumerate(zip(got, want)):
-        min_gap = min(min_gap, float(a["gap"].min()))
-        differ = (a["expert_idx"] != b["expert_idx"]).any(-1)    # (G, Tg)
-        for g, t in differ.nonzero().tolist():
-            flips.append({"layer": layer, "group": g, "token": t,
-                          "gap": float(a["gap"][g, t]),
-                          "gap_plain": float(b["gap"][g, t])})
-        keep_diff += int((a["keep"] != b["keep"]).sum())
+    flips, keep_diff, min_gap = routing_flips(got, want)
     equal = not flips and keep_diff == 0
     noise = bool(flips) and all(max(f["gap"], f["gap_plain"]) < GAP_NOISE
                                 for f in flips)
@@ -2803,9 +2847,19 @@ def moe_full_width(device):
 # ---------------------------------------------------------------------------
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 10
-TRAIN_CUT = 2                   # olmo-1b's layers for phases 10 (b), (d), (e)
+TRAIN_CUT = 2                   # layers of the gates and of (d), (e): olmo's,
+                                # olmoe's, and each of whisper's two stacks
 BF16_TRAJ_TOL = 1e-2            # bf16 loss, kernels against plain, per step
 CKPT_DIR = Path(__file__).resolve().parent / "build" / "smoke_ckpt"
+# olmoe-1b-7b's depth for (h): a layer is 419.6e6 parameters, and training
+# holds ~29 bytes of each (fp32 masters, two AdamW moments, the next
+# state's, fp32 gradients, the bf16 copy: olmo-1b's (a) peaks near 34.4 GB
+# for 1.177e9 on an H100); 4 of 16 layers and the 103e6-parameter table
+# come to ~1.78e9, near 52 GB, and (h)'s twice-in-bits check holds a third
+# state of 21.4 GB beside them; all 16 need 82 GB for masters and moments
+OLMOE_TRAIN_DEPTH = 4
+WHISPER_DEC_SEQ = 448           # whisper's published n_text_ctx
+FRAME_SEED = 11                 # numpy seed of whisper's frame embeddings
 
 
 def train_counts():
@@ -2813,10 +2867,51 @@ def train_counts():
     return {**kernels.launch_counts(), **kernels.backward_counts()}
 
 
+def train_seq(cfg) -> int:
+    """The token sequence a training batch of ``cfg`` carries: 512, or
+    whisper's decoder context of 448."""
+    return WHISPER_DEC_SEQ if cfg.family == "encdec" else TRAIN_SEQ
+
+
+def train_batches(cfg, pipe, n, device):
+    """The pipeline's next ``n`` batches; an encdec batch also carries
+    ``frame_embeds`` (B, enc_seq, d_model), as the reference's
+    ``input_specs`` define it: drawn with numpy from ``FRAME_SEED``, in
+    bf16 on the card."""
+    import numpy as np
+    import torch
+    batches = [pipe.next_batch() for _ in range(n)]
+    if cfg.family == "encdec":
+        rng = np.random.default_rng(FRAME_SEED)
+        for b in batches:
+            b["frame_embeds"] = torch.from_numpy(rng.standard_normal(
+                (TRAIN_BATCH, cfg.enc_seq, cfg.d_model), dtype=np.float32)
+            ).to(device=device, dtype=torch.bfloat16)
+    return batches
+
+
+def attention_layers(cfg) -> int:
+    """Flash calls in one forward: one per layer, two (self and cross)
+    per decoder layer of an encoder-decoder."""
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+def cut(arch, n_layers, **kw):
+    """``arch``'s full-width config on its first ``n_layers`` layers (each
+    stack of an encoder-decoder)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if cfg.family == "encdec":
+        kw["n_enc_layers"] = n_layers
+    return dataclasses.replace(cfg, n_layers=n_layers, **kw)
+
+
 def train_parts(cfg, device, **step_kw):
     """The training CLI's parts (``repro_torch.launch.train``): the model
     on the card, AdamW at the CLI's defaults, remat on, the synthetic
-    data pipeline at B=8 x S=512, and the step."""
+    data pipeline at B=8 x S=512 (S=448 for whisper), and the step."""
     from repro_torch.data.pipeline import DataConfig, DataPipeline
     from repro_torch.models.api import build_model
     from repro_torch.models.config import ShapeConfig
@@ -2826,50 +2921,138 @@ def train_parts(cfg, device, **step_kw):
     model = build_model(cfg, device=device)
     opt = AdamW()
     step = train_rt.make_train_step(
-        model, opt, ShapeConfig("smoke", "train", TRAIN_SEQ, TRAIN_BATCH),
+        model, opt, ShapeConfig("smoke", "train", train_seq(cfg),
+                                TRAIN_BATCH),
         tcfg=train_rt.TrainStepConfig(), **step_kw)
-    pipe = DataPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+    pipe = DataPipeline(DataConfig(vocab=cfg.vocab, seq_len=train_seq(cfg),
                                    global_batch=TRAIN_BATCH))
     return model, opt, step, pipe
 
 
-def train_full_width(arch, device, smi):
-    """10 steps at full width and depth (bf16 compute, fp32 masters,
-    remat on): the loss falls; on step 1 every parameter leaf has a
-    finite, non-zero gradient (a kernel whose output left the graph
-    would leave its inputs' leaves without one); the launches are exact
-    per step: flash 2 x L forward (forward and remat recompute) and L
-    backward, RMSNorm 4 x L + 1 forward and 2 x L + 1 backward where the
-    model has it.  Then 2 more steps plain and 2 profiled give the
-    device's busy share.  Returns the run's counts and variants."""
+def grad_leaves_check(cfg, grads, routing):
+    """Step 1's gradient leaves: (leaves, names of the bad ones, exempt).
+    Every leaf is finite and non-zero (a kernel whose output left the
+    graph would leave its inputs' leaves without one), with two
+    exemptions, named in ``exempt``: an expert that no token reached
+    (its slice of ``w_gate``, ``w_up``, ``w_down`` is zero; ``routing``
+    records each expert layer's routing) and an attention key bias of
+    whisper's (no RoPE: softmax is invariant to the shift q.bk, so its
+    gradient is exactly zero in exact arithmetic)."""
+    import torch
+    from repro_torch.tree import leaf_groups
+    reached = [torch.bincount(r["expert_idx"].flatten(),
+                              minlength=cfg.n_experts) > 0 for r in routing]
+    names, ok, exempt = [], [], []
+    for name, leaves, _ in leaf_groups(grads):
+        for layer, g in enumerate(leaves):
+            names.append(name)
+            if name.endswith("/bk") and cfg.family == "encdec":
+                exempt.append(f"{name}[{layer}]")
+                ok.append(torch.isfinite(g).all())
+                continue
+            nonzero = g.abs().max() > 0
+            if name in ("layers/moe/w_gate", "layers/moe/w_up",
+                        "layers/moe/w_down"):
+                alive = g.flatten(1).abs().amax(1) > 0
+                exempt.extend(f"{name}[{layer}] expert {e}" for e in
+                              (~reached[layer]).nonzero().flatten().tolist())
+                nonzero = (alive | ~reached[layer]).all()
+            ok.append(torch.isfinite(g).all() & nonzero)
+    bad = sorted({n for n, f in zip(names, torch.stack(ok).tolist())
+                  if not f})
+    return len(names), bad, exempt
+
+
+def train_flops(cfg, params) -> float:
+    """Model FLOPs of one training step: 8 N T for the matrix products
+    (forward, remat recompute, and the backward's two), N the parameters
+    a token's products read (an moe token the router's top k of its
+    experts) and T the tokens they run on (whisper: its encoder's over
+    the frames, its decoder's over the text, its cross-attention K and V
+    over the frames, outside remat: 6 N T), plus 4.5 forwards (forward,
+    recompute, 2.5 in the backward) of attention's q K^T and P V over
+    the (query, key) pairs each mask keeps."""
+    from repro_torch.tree import leaf_groups
+
+    def n(tree):
+        return sum(t.numel() for _, ts, _ in leaf_groups(tree) for t in ts)
+
+    B, S = TRAIN_BATCH, train_seq(cfg)
+    causal = S * (S + 1) // 2
+
+    def attn(pairs, layers):
+        return 4.5 * 4 * cfg.head_dim * cfg.n_heads * B * pairs * layers
+
+    if cfg.family == "encdec":
+        F = cfg.enc_seq
+        cross_kv = sum(n(layer["cross_attn"][w]) for layer in
+                       params["dec_layers"] for w in ("wk", "bk", "wv", "bv"))
+        dec = n(params["dec_layers"]) - cross_kv + n(params["embedding"])
+        return (8 * n(params["enc_layers"]) * B * F + 8 * dec * B * S
+                + 6 * cross_kv * B * F
+                + attn(F * F, cfg.n_enc_layers)
+                + attn(causal + S * F, cfg.n_layers))
+    active = n(params)
+    if cfg.family == "moe":
+        experts = sum(n(layer["moe"][w]) for layer in params["layers"]
+                      for w in ("w_gate", "w_up", "w_down"))
+        active -= experts * (1 - cfg.top_k / cfg.n_experts)
+    return 8 * active * B * S + attn(causal, cfg.n_layers)
+
+
+def twice_in_bits(step, state, batch):
+    """The step run twice from ``state`` on ``batch``: (whether the two
+    new states and metrics are equal in bits, the peak device memory of
+    the check).  Both new states share the card with ``state``: three
+    states of olmoe's 4 layers (21.4 GB each) fit beside a step's
+    activations, and a host copy of one would cost more than the
+    steps."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    torch.cuda.reset_peak_memory_stats()
+    first, m1 = step(state, batch)
+    second, m2 = step(state, batch)
+    same = all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(first), tree_leaves(second)))
+    same = same and all(torch.equal(m1[k], m2[k]) for k in m1)
+    return same, torch.cuda.max_memory_allocated()
+
+
+def train_full_width(arch, device, smi, n_layers=None):
+    """10 steps at full width (bf16 compute, fp32 masters, remat on), at
+    full depth or on the first ``n_layers``: the loss falls; on step 1
+    every parameter leaf has a finite, non-zero gradient
+    (``grad_leaves_check``); the launches are exact per step: flash 2 x A
+    forward (forward and remat recompute) and A backward, A the model's
+    attention calls, RMSNorm 4 x L + 1 forward and 2 x L + 1 backward
+    where the model has it.  An moe or encdec model then runs one step
+    twice from the same state, required equal in bits (the moe dispatch's
+    fixed-order backward).  Then 2 more steps plain and 2 profiled give
+    the device's busy share.  Returns the run's counts and variants."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import kernels
     from repro_torch.configs import get_config
+    from repro_torch.models.moe import record_routing
     from repro_torch.runtime import train as train_rt
     from repro_torch.tree import leaf_groups
 
-    cfg = get_config(arch)
+    cfg = get_config(arch) if n_layers is None else cut(arch, n_layers)
     model, opt, step, pipe = train_parts(cfg, device)
     state = train_rt.init_state(
         model, opt, torch.Generator(device=device).manual_seed(0))
     n_params = sum(t.numel() for _, ts, _ in leaf_groups(state.params)
                    for t in ts)
-    batches = [pipe.next_batch() for _ in range(TRAIN_STEPS + 4)]
-    # step 1's gradients, as the step computes them: every leaf finite and
-    # non-zero
-    _, grads = train_rt._accumulated_grads(
-        model, state.params, {k: torch.as_tensor(v, device=device)
-                              for k, v in batches[0].items()},
-        train_rt.TrainStepConfig())
-    names, ok = [], []
-    for name, leaves, _ in leaf_groups(grads):
-        for g in leaves:
-            names.append(name)
-            ok.append(torch.isfinite(g).all() & (g.abs().max() > 0))
-    bad = sorted({n for n, f in zip(names, torch.stack(ok).tolist())
-                  if not f})
-    del grads
+    flops = train_flops(cfg, state.params)
+    batches = train_batches(cfg, pipe, TRAIN_STEPS + 4, device)
+    # step 1's gradients, as the step computes them
+    with record_routing() as routing:
+        _, grads = train_rt._accumulated_grads(
+            model, state.params, {k: torch.as_tensor(v, device=device)
+                                  for k, v in batches[0].items()},
+            train_rt.TrainStepConfig())
+    n_leaves, bad, exempt = grad_leaves_check(cfg, grads, routing)
+    del grads, routing
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -2886,20 +3069,19 @@ def train_full_width(arch, device, smi):
                 **kernels.backward_variant_counts()}
     peak = torch.cuda.max_memory_allocated()
 
-    L, n = cfg.n_layers, TRAIN_STEPS
+    L, A, n = cfg.n_layers, attention_layers(cfg), TRAIN_STEPS
     norm_layers = 2 * L + 1 if cfg.norm_type == "rmsnorm" else 0
     want = {"paged_attention": 0, "ssd_scan": 0,
-            "flash_attention": 2 * L * n, "flash_attention_bwd": L * n,
+            "flash_attention": 2 * A * n, "flash_attention_bwd": A * n,
             "rmsnorm": (norm_layers + 2 * L * bool(norm_layers)) * n,
             "rmsnorm_bwd": norm_layers * n}
     s_step = statistics.mean(secs[1:])
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    # 8 N tokens: forward, remat recompute and backward's two products;
-    # causal attention's q K^T and P V in the forward, the recompute and
-    # the backward (2.5 forwards)
-    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
-    flops = 8 * n_params * tokens + 4.5 * (
-        4 * cfg.head_dim * cfg.n_heads * TRAIN_BATCH * pairs * cfg.n_layers)
+    tokens = TRAIN_BATCH * train_seq(cfg)
+    twice = None
+    if cfg.family in ("moe", "encdec"):
+        t0 = time.perf_counter()
+        twice, twice_peak = twice_in_bits(step, state, batches[n])
+        twice_s = time.perf_counter() - t0
 
     # the busy share: 2 steps timed plain, the same 2 profiled
     torch.cuda.synchronize()
@@ -2916,13 +3098,19 @@ def train_full_width(arch, device, smi):
     busy = device_time(prof, wall2)
     emit({"phase": "train", "arch": cfg.name, "nvidia_smi": smi,
           "layers": L, "d_model": cfg.d_model, "params": n_params,
-          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": n,
+          "batch": TRAIN_BATCH, "seq": train_seq(cfg), "steps": n,
+          **({"enc_layers": cfg.n_enc_layers, "frames": cfg.enc_seq}
+             if cfg.family == "encdec" else {}),
           "compute_dtype": cfg.compute_dtype, "remat": True,
           "losses": losses, "grad_norms": norms, "step_s": secs,
           "s_per_step": s_step, "tokens_per_s": tokens / s_step,
           "peak_mem_gb": peak / 1e9, "model_flops_per_step": flops,
           "model_flops_share_of_989T": flops / s_step / BF16_FLOPS,
-          "step1_grad_leaves": len(names), "step1_bad_leaves": bad,
+          "step1_grad_leaves": n_leaves, "step1_bad_leaves": bad,
+          "step1_exempt_from_nonzero": exempt,
+          **({} if twice is None else {
+              "step_twice_same_bits": twice, "step_twice_s": twice_s,
+              "step_twice_peak_mem_gb": twice_peak / 1e9}),
           "launches": counts,
           "expected_launches": want, "kernel_variants": variants,
           "profiled_wall_s_2_steps": wall2, **busy})
@@ -2937,6 +3125,8 @@ def train_full_width(arch, device, smi):
                         counts["flash_attention"])
     check_backward_variant(f"{cfg.name} train", cfg.compute_dtype, variants,
                            counts["flash_attention_bwd"])
+    check(twice is not False, f"{cfg.name}: one step run twice from one "
+          f"state gave other bits")
     return counts, variants
 
 
@@ -2953,64 +3143,78 @@ def check_backward_variant(what, compute, variants, n):
 def kernels_against_plain(cfg, device, seed, steps):
     """``steps`` training steps of ``cfg`` from one seeded init on the
     same batches, through the kernels and under ``plain_versions()``:
-    {plain: ([(loss, grad norm)] a step, launches, backward variants)}."""
+    {plain: ([(loss, grad norm)] a step, launches, backward variants,
+    [each step's routing, ``moe.record_routing``'s records])}."""
     import torch
     from repro_torch import kernels
     from repro_torch.kernels import ops
+    from repro_torch.models.moe import record_routing
     from repro_torch.runtime import train as train_rt
     from repro_torch.tree import tree_map
 
     model, opt, step, pipe = train_parts(cfg, device)
     params = model.init(torch.Generator(device=device).manual_seed(seed))
-    batches = [pipe.next_batch() for _ in range(steps)]
+    batches = train_batches(cfg, pipe, steps, device)
     runs = {}
     for plain in (False, True):
         state = train_rt.state_from_params(tree_map(torch.clone, params), opt)
         kernels.reset_launch_counts()
+        metrics, routing = [], []
         with (ops.plain_versions() if plain else contextlib.nullcontext()):
-            metrics = []
             for b in batches:
-                state, m = step(state, b)
+                with record_routing() as r:
+                    state, m = step(state, b)
                 metrics.append((float(m["loss"]), float(m["grad_norm"])))
+                routing.append(r)
         runs[plain] = (metrics, train_counts(),
-                       kernels.backward_variant_counts())
+                       kernels.backward_variant_counts(), routing)
         del state
     return runs
 
 
-def fp32_gate(device):
-    """olmo-1b at full width on its first 2 layers in fp32: 3 steps
+def fp32_gate(device, arch="olmo-1b"):
+    """``arch`` at full width on its first 2 layers in fp32: 3 steps
     through the kernels (the fp32 flash kernels forward and backward)
     against 3 steps of the same under ``plain_versions()``, from the same
-    weights on the same batches: loss and grad norm to 1e-5 relative."""
-    from repro_torch.configs import get_config
-
-    cfg = dataclasses.replace(get_config("olmo-1b"), n_layers=TRAIN_CUT,
-                              compute_dtype="float32")
+    weights on the same batches: loss and grad norm to 1e-5 relative.
+    For an moe model each step's routing is held to ``routing_gate`` (on
+    step 1, whose weights are equal, a flip beyond fp32 noise fails the
+    run; later steps report theirs) and a step is gated only while the
+    routing of every step so far is equal."""
+    cfg = cut(arch, TRAIN_CUT, compute_dtype="float32")
     runs = kernels_against_plain(cfg, device, 1, 3)
     gaps = [max(abs(a - b) / abs(b) for a, b in zip(got, want))
             for got, want in zip(runs[False][0], runs[True][0])]
-    want = {"flash_attention": 2 * TRAIN_CUT * 3,
-            "flash_attention_bwd": TRAIN_CUT * 3}
+    gated, equal = [], True
+    for k, (got, want) in enumerate(zip(runs[False][3], runs[True][3])):
+        routing_gate(f"train step {k + 1}", got, want, k == 0, "train",
+                     cfg.name)
+        flips, keep_diff, _ = routing_flips(got, want)
+        equal = equal and not flips and not keep_diff
+        gated.append(equal)
+    A = attention_layers(cfg)
+    want = {"flash_attention": 2 * A * 3, "flash_attention_bwd": A * 3}
     emit({"phase": "train", "check": "fp32 gate", "arch": cfg.name,
           "layers": TRAIN_CUT, "steps": 3,
           "kernel_loss_grad_norm": runs[False][0],
           "plain_loss_grad_norm": runs[True][0], "max_rel_gap": gaps,
-          "tol": TOL["float32"], "kernel_launches": runs[False][1],
+          "gated_steps": gated, "tol": TOL["float32"],
+          "kernel_launches": runs[False][1],
           "kernel_backward_variants": runs[False][2],
           "plain_launches": runs[True][1]})
-    check(all(g <= TOL["float32"] for g in gaps),
-          f"fp32 gate: loss / grad norm gaps {gaps} over {TOL['float32']}")
+    check(all(g <= TOL["float32"] for g, on in zip(gaps, gated) if on),
+          f"{cfg.name} fp32 gate: loss / grad norm gaps {gaps} over "
+          f"{TOL['float32']} (gated steps {gated})")
     check({k: runs[False][1][k] for k in want} == want
           and not any(runs[True][1].values()),
-          f"fp32 gate: launches {runs[False][1]} (want {want}), plain "
-          f"path {runs[True][1]}")
-    check_backward_variant("fp32 gate", cfg.compute_dtype, runs[False][2],
-                           TRAIN_CUT * 3)
+          f"{cfg.name} fp32 gate: launches {runs[False][1]} (want {want}), "
+          f"plain path {runs[True][1]}")
+    check_backward_variant(f"{cfg.name} fp32 gate", cfg.compute_dtype,
+                           runs[False][2], A * 3)
 
 
-def bf16_trajectory(device):
-    """olmo-1b at full width on its first 2 layers in bf16 (the training
+def bf16_trajectory(device, arch="olmo-1b"):
+    """``arch`` at full width on its first 2 layers in bf16 (the training
     path's compute): 10 steps through the kernels (every flash backward
     on the tensor-core kernel) against 10 steps under
     ``plain_versions()``, from the same weights on the same batches: each
@@ -3018,15 +3222,13 @@ def bf16_trajectory(device):
     the gaps printed.  bf16 rounds at other places on the two paths, so
     the trajectories are not equal in bits; a gap over the limit fails
     the run."""
-    from repro_torch.configs import get_config
-
-    cfg = dataclasses.replace(get_config("olmo-1b"), n_layers=TRAIN_CUT)
+    cfg = cut(arch, TRAIN_CUT)
     t0 = time.perf_counter()
     runs = kernels_against_plain(cfg, device, 4, TRAIN_STEPS)
     losses = {plain: [m[0] for m in runs[plain][0]] for plain in runs}
     gaps = [abs(a - b) / abs(b) for a, b in zip(losses[False],
                                                 losses[True])]
-    n = TRAIN_CUT * TRAIN_STEPS
+    n = attention_layers(cfg) * TRAIN_STEPS
     emit({"phase": "train", "check": "bf16 trajectory", "arch": cfg.name,
           "layers": TRAIN_CUT, "steps": TRAIN_STEPS,
           "compute_dtype": cfg.compute_dtype,
@@ -3037,13 +3239,14 @@ def bf16_trajectory(device):
           "plain_launches": runs[True][1],
           "seconds": time.perf_counter() - t0})
     check(all(g <= BF16_TRAJ_TOL for g in gaps),
-          f"bf16 trajectory: loss gaps {gaps} over {BF16_TRAJ_TOL}")
-    check_backward_variant("bf16 trajectory", cfg.compute_dtype,
+          f"{cfg.name} bf16 trajectory: loss gaps {gaps} over "
+          f"{BF16_TRAJ_TOL}")
+    check_backward_variant(f"{cfg.name} bf16 trajectory", cfg.compute_dtype,
                            runs[False][2], n)
     check(runs[False][1]["flash_attention"] == 2 * n
           and not any(runs[True][1].values()),
-          f"bf16 trajectory: launches {runs[False][1]}, plain path "
-          f"{runs[True][1]}")
+          f"{cfg.name} bf16 trajectory: launches {runs[False][1]}, plain "
+          f"path {runs[True][1]}")
 
 
 def fault_tolerance(device):
@@ -3254,11 +3457,70 @@ def train_cli(device, smi):
           time.perf_counter() - t_start})
 
 
+def train_cli_refusals():
+    """The training CLI refuses before its loop what no step could do
+    (its fault-tolerant loop would retry the step forever): ``--smoke``
+    on the card, whose head_dim 16 the backward kernels do not take, in a
+    process of its own (exit code 2 and the reason within 30 s), and
+    whisper-small, for whose encoder the data pipeline yields no
+    ``frame_embeds``."""
+    import io
+    import os
+
+    from repro_torch.launch import train as train_cli_mod
+
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
+         "--steps", "2", "--ckpt-dir", str(CKPT_DIR)], cwd=root,
+        env={**os.environ, "PYTHONPATH": str(root / "src")},
+        capture_output=True, text=True, timeout=120)
+    secs = time.perf_counter() - t0
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc_encdec = train_cli_mod.main(["--arch", "whisper-small",
+                                        "--steps", "1"])
+    emit({"phase": "train", "check": "CLI refusals",
+          "smoke_rc": proc.returncode, "smoke_seconds": secs,
+          "smoke_stderr": proc.stderr.strip().splitlines()[-1:],
+          "whisper_rc": rc_encdec, "whisper_stderr": err.getvalue().strip()})
+    check(proc.returncode == 2 and "head_dim" in proc.stderr and secs < 30,
+          f"training CLI --smoke on the card: rc {proc.returncode} after "
+          f"{secs:.1f} s: {proc.stderr[-400:]}")
+    check(rc_encdec == 2 and "frame_embeds" in err.getvalue(),
+          f"training CLI whisper-small: rc {rc_encdec}: {err.getvalue()}")
+
+
+def train_families(device, smi):
+    """Phase 10 (h) olmoe-1b-7b at full width on its first
+    ``OLMOE_TRAIN_DEPTH`` layers and (i) whisper-small at full width and
+    depth (1500 frames, decoder S=448), each as (a) with its fp32 gate on
+    its first 2 layers; whisper's bf16 trajectory on them too.  Returns
+    the two paths' counts and variants."""
+    import torch
+    counts, variants = {}, {}
+    for arch, depth in (("olmoe-1b-7b", OLMOE_TRAIN_DEPTH),
+                        ("whisper-small", None)):
+        counts[f"{arch} train"], variants[f"{arch} train"] = \
+            train_full_width(arch, device, smi, depth)
+        gc.collect()
+        torch.cuda.empty_cache()
+        fp32_gate(device, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    bf16_trajectory(device, "whisper-small")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, variants
+
+
 def train_phase(device, smi):
     """Phase 10: (a) olmo-1b and (c) qwen1.5-0.5b trained at full width,
     (b) the fp32 gate, (b2) the bf16 trajectory, (d) fault tolerance,
-    (e) the optimizer offload, (g) the training CLI itself; the report
-    (f) is in each line.  Returns the two paths' counts and variants."""
+    (e) the optimizer offload, (g) the training CLI itself and its
+    refusals, (h) olmoe-1b-7b and (i) whisper-small; the report (f) is in
+    each line.  Returns the four paths' counts and variants."""
     import torch
     t0 = time.perf_counter()
     counts, variants = {}, {}
@@ -3272,7 +3534,13 @@ def train_phase(device, smi):
         gc.collect()
         torch.cuda.empty_cache()
     train_cli(device, smi)
-    emit({"phase": "train", "seconds": time.perf_counter() - t0})
+    train_cli_refusals()
+    t1 = time.perf_counter()
+    more = train_families(device, smi)
+    counts.update(more[0])
+    variants.update(more[1])
+    emit({"phase": "train", "seconds": time.perf_counter() - t0,
+          "families_seconds": time.perf_counter() - t1})
     return counts, variants
 
 
@@ -3491,36 +3759,43 @@ def kernel_times(device, counts, errs):
               input_copies=copies)
 
     # the backward kernels at phase 10's training shapes: flash at olmo's
-    # (B=8, S=512, H=16, D=128) and qwen's (D=64) causal bf16 shapes and
-    # at olmo's in fp32 (the fp32 gate's), on
-    # the forward kernel's output and log-sum-exp; RMSNorm at qwen's 4096
-    # rows of 1024 in bf16.  The kernel is timed as the others; the plain
-    # version's and the library's times are autograd's backward of their
-    # forward on the same inputs (``backward_ms``).  Flash backward's
-    # operations are 2.5x the causal forward's; RMSNorm backward's bytes
-    # are x, dy and scale in, dx and dscale out
-    def flash_bwd_time(B, S, H, D, dt=bf16):
+    # (B=8, S=512, H=16, D=128; olmoe's too) and qwen's (D=64) causal bf16
+    # shapes, at olmo's in fp32 (the fp32 gate's) and at whisper's
+    # non-causal encoder (1500 frames) and cross-attention (448 queries
+    # over 1500 frames; H=12, D=64, bf16), on the forward kernel's output
+    # and log-sum-exp; RMSNorm at qwen's 4096 rows of 1024 and olmoe's
+    # 4096 of 2048 in bf16.  The
+    # kernel is timed as the others; the plain version's and the
+    # library's times are autograd's backward of their forward on the same
+    # inputs (``backward_ms``).  Flash backward's operations are 2.5x the
+    # forward's over the (query, key) pairs the mask keeps; RMSNorm
+    # backward's bytes are x, dy and scale in, dx and dscale out
+    def flash_bwd_time(B, Sq, Skv, H, D, dt=bf16, causal=True):
         scale = 1.0 / D ** 0.5
-        pairs = S * (S + 1) // 2
-        elems = B * S * H * D
+        pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv
+        q_elems, kv_elems = B * Sq * H * D, B * Skv * H * D
         size = torch.finfo(dt).bits // 8
-        nbytes = 8 * elems * size + B * H * S * 4   # 5 in, 3 out, lse
+        # q, out, dO in and dQ out; k, v in and dK, dV out; lse
+        nbytes = (4 * q_elems + 4 * kv_elems) * size + B * H * Sq * 4
         sets, ad = [], []
-        for _ in range(cold_copies(nbytes - 3 * elems * size)):
-            q, k, v, do = (torch.randn(B, S, H, D, generator=gen,
-                                       device=device).to(dt)
-                           for _ in range(4))
-            lse = torch.empty((B, H, S), dtype=f32, device=device)
-            out = fa._launch_forward(q, k, v, True, None, scale, 0, S, lse)
+        for _ in range(cold_copies(nbytes - (q_elems + 2 * kv_elems) * size)):
+            q, do = (torch.randn(B, Sq, H, D, generator=gen,
+                                 device=device).to(dt) for _ in range(2))
+            k, v = (torch.randn(B, Skv, H, D, generator=gen,
+                                device=device).to(dt) for _ in range(2))
+            lse = torch.empty((B, H, Sq), dtype=f32, device=device)
+            out = fa._launch_forward(q, k, v, causal, None, scale, 0, Skv,
+                                     lse)
             sets.append((q, k, v, out, do, lse))
             ad.append(([t.transpose(1, 2).detach().requires_grad_(True)
                         for t in (q, k, v)], do.transpose(1, 2)))
         n = len(sets)
         ms = time_ms(lambda i: fa._launch_backward(
-            *sets[i], True, None, scale, 0, S), n)
-        plain_ms = backward_ms(ref.attention_ref, ad)
+            *sets[i], causal, None, scale, 0, Skv), n)
+        plain_ms = backward_ms(lambda *a: ref.attention_ref(
+            *a, causal=causal), ad)
         lib_ms = backward_ms(lambda *a: F.scaled_dot_product_attention(
-            *a, is_causal=True), ad)
+            *a, is_causal=causal), ad)
         del sets, ad
         rate = BF16_FLOPS if dt == bf16 else FP32_FLOPS
         return (ms, plain_ms, *bound(nbytes, 2.5 * 4 * D * H * B * pairs,
@@ -3528,35 +3803,50 @@ def kernel_times(device, counts, errs):
 
     # bf16 on the tensor-core kernel; fp32 (the fp32 gate's olmo-1b
     # layers) on the CUDA-core one
-    for arch, D, dt in (("olmo", 128, bf16), ("qwen", 64, bf16),
-                        ("olmo fp32 gate", 128, f32)):
-        ms, plain, b_ms, b_by, lib, n = flash_bwd_time(8, 512, 16, D, dt)
-        if arch == "olmo":
+    for case, B, Sq, Skv, H, D, dt, causal in (
+            ("olmo train B=8 S=512 H=KV=16 D=128 causal", 8, 512, 512, 16,
+             128, bf16, True),
+            ("qwen train B=8 S=512 H=KV=16 D=64 causal", 8, 512, 512, 16, 64,
+             bf16, True),
+            ("olmo fp32 gate train B=8 S=512 H=KV=16 D=128 causal", 8, 512,
+             512, 16, 128, f32, True),
+            ("whisper encoder train B=8 S=1500 H=KV=12 D=64 non-causal", 8,
+             1500, 1500, 12, 64, bf16, False),
+            ("whisper cross train B=8 Sq=448 Skv=1500 H=KV=12 D=64 "
+             "non-causal", 8, 448, 1500, 12, 64, bf16, False)):
+        ms, plain, b_ms, b_by, lib, n = flash_bwd_time(B, Sq, Skv, H, D, dt,
+                                                       causal)
+        if case.startswith("olmo train"):
             row(fa, "flash_attention_bwd", ms, plain, b_ms, b_by, lib)
-        times("flash_attention_bwd", f"{arch} train B=8 S=512 H=KV=16 D={D} "
-              f"causal {str(dt)[6:]}", ms, plain, b_ms, b_by, lib,
-              variant="tc" if dt == bf16 else "f32", input_copies=n)
+        times("flash_attention_bwd", f"{case} {str(dt)[6:]}", ms, plain,
+              b_ms, b_by, lib, variant="tc" if dt == bf16 else "f32",
+              input_copies=n)
 
-    rows_n, d = 4096, 1024
-    copies = cold_copies(2 * rows_n * d * 2)
-    xs = [torch.randn(rows_n, d, generator=gen, device=device).to(bf16)
-          for _ in range(copies)]
-    dys = [torch.randn(rows_n, d, generator=gen, device=device).to(bf16)
-           for _ in range(copies)]
-    s = (1 + 0.1 * torch.randn(d, generator=gen, device=device)).to(bf16)
-    ms = time_ms(lambda i: rn._launch_backward(xs[i], s, dys[i], 1e-6),
-                 copies)
-    ad = [([x.detach().requires_grad_(True), s.detach().requires_grad_(True)],
-           dy) for x, dy in zip(xs, dys)]
-    plain = backward_ms(ref.rmsnorm_ref, ad)
-    lib = backward_ms(lambda x, w: F.rms_norm(x, (d,), weight=w, eps=1e-6),
-                      ad)
-    b_ms, b_by = bound(3 * rows_n * d * 2 + 2 * d * 2, 8 * rows_n * d,
-                       BF16_FLOPS)
-    row(rn, "rmsnorm_bwd", ms, plain, b_ms, b_by, lib)
-    times("rmsnorm_bwd", f"qwen train rows={rows_n} d={d} bf16", ms, plain,
-          b_ms, b_by, lib, input_copies=copies)
-    del xs, dys, ad
+    # qwen's rows take the warp-per-row branch, olmoe's the block-per-row
+    # one; qwen's is the kernels line's row
+    for arch, rows_n, d in (("qwen", 4096, 1024), ("olmoe", 4096, 2048)):
+        copies = cold_copies(2 * rows_n * d * 2)
+        xs = [torch.randn(rows_n, d, generator=gen, device=device).to(bf16)
+              for _ in range(copies)]
+        dys = [torch.randn(rows_n, d, generator=gen, device=device).to(bf16)
+               for _ in range(copies)]
+        s = (1 + 0.1 * torch.randn(d, generator=gen, device=device)).to(bf16)
+        ms = time_ms(lambda i: rn._launch_backward(xs[i], s, dys[i], 1e-6),
+                     copies)
+        ad = [([x.detach().requires_grad_(True),
+                s.detach().requires_grad_(True)], dy)
+              for x, dy in zip(xs, dys)]
+        plain = backward_ms(ref.rmsnorm_ref, ad)
+        lib = backward_ms(lambda x, w: F.rms_norm(x, (w.shape[0],), weight=w,
+                                                  eps=1e-6), ad)
+        b_ms, b_by = bound(3 * rows_n * d * 2 + 2 * d * 2, 8 * rows_n * d,
+                           BF16_FLOPS)
+        if arch == "qwen":
+            row(rn, "rmsnorm_bwd", ms, plain, b_ms, b_by, lib)
+        times("rmsnorm_bwd", f"{arch} train rows={rows_n} d={d} bf16", ms,
+              plain, b_ms, b_by, lib, input_copies=copies,
+              branch="warp" if d <= rn.BWD_WARP_MAX_D else "block")
+        del xs, dys, ad
 
     # ssd: the prefill's shapes (bf16 x and B/C, fp32 dt, the cache's
     # zero fp32 state) on the tensor-core kernel, input copies cycled so

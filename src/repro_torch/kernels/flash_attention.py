@@ -92,6 +92,22 @@ def _launch_forward(q, k, v, causal, sliding_window, sm_scale, q_offset,
     return out
 
 
+def check_backward(head_dim: int, q_dtype: torch.dtype,
+                   kv_dtype: torch.dtype) -> None:
+    """Raise unless the backward kernels take attention of this head_dim
+    and these dtypes: head_dim in ``BWD_HEAD_DIMS``, and q, k and v of
+    one dtype, fp32 or bf16.  A training entry point checks its config
+    with it before its first step."""
+    if head_dim not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash backward takes head_dim in "
+                         f"{BWD_HEAD_DIMS}, got {head_dim}")
+    if kv_dtype != q_dtype:
+        raise TypeError(f"flash backward needs q, k, v of one dtype, got "
+                        f"{q_dtype} and {kv_dtype}")
+    if q_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash backward takes fp32 or bf16, got {q_dtype}")
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """The forward kernel (with the log-sum-exp) and the backward kernel,
     for CUDA q, k, v of one dtype; saves q, k, v, out and lse."""
@@ -100,12 +116,7 @@ class FlashAttentionFn(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, sliding_window, sm_scale, q_offset,
                 kv_len):
         B, Sq, H, D = q.shape
-        if D not in BWD_HEAD_DIMS:
-            raise ValueError(f"flash backward takes head_dim in "
-                             f"{BWD_HEAD_DIMS}, got {D}")
-        if k.dtype != q.dtype:
-            raise TypeError(f"flash backward needs q, k, v of one dtype, got "
-                            f"{q.dtype} and {k.dtype}")
+        check_backward(D, q.dtype, k.dtype)
         lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
         out = _launch_forward(q, k, v, causal, sliding_window, sm_scale,
                               q_offset, kv_len, lse)

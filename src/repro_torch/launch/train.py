@@ -4,7 +4,7 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
         --steps 100 --batch 8 --seq 512
 
-    # small config on the CPU
+    # small config on the CPU (dense or moe: --arch olmoe-1b-7b)
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
         --smoke --steps 4 --batch 8 --seq 32 --device cpu
 
@@ -17,14 +17,24 @@ the tiering policy from a lease on a smoke estate
 axis, which one device never has, so it falls back to ``auto`` as the
 reference's CLI does on such a mesh.  Prints the reference's JSON
 summary plus ``"device"``; exits 0 iff the loss decreased.
+
+The fault-tolerant loop retries a failing step forever (the reference's
+semantics), so what no step can do is refused before the loop, with
+exit code 2 and the reason on stderr (``refusal``): a family whose loss
+is not ported, encdec (the pipeline yields no ``frame_embeds``; it
+trains through ``runtime.train.make_train_step``), and on the card a
+config whose attention the backward kernels do not take (the smoke
+configs' head_dim 16).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -33,15 +43,39 @@ from repro_torch.configs import get_config
 from repro_torch.core.tiering import TieringPolicy
 from repro_torch.data.pipeline import DataConfig, DataPipeline
 from repro_torch.device import resolve_device
-from repro_torch.models.api import build_model
-from repro_torch.models.config import ShapeConfig
-from repro_torch.obs.console import emit_json, warn
+from repro_torch.kernels import flash_attention
+from repro_torch.models.api import build_model, loss_unavailable
+from repro_torch.models.config import ModelConfig, ShapeConfig
+from repro_torch.models.transformer import dtype_of
+from repro_torch.obs.console import emit, emit_json, warn
 from repro_torch.optim.adamw import AdamW
 from repro_torch.runtime import train as train_rt
 from repro_torch.runtime.ft import FaultTolerantLoop, StragglerMonitor
 
 # the checkpoint directory, under the checkout's gitignored build/
 DEFAULT_CKPT_DIR = Path(__file__).resolve().parents[3] / "build" / "ckpt"
+
+
+def refusal(cfg: ModelConfig, device: torch.device) -> Optional[str]:
+    """Why no training step of ``cfg`` can run from this CLI on
+    ``device``, or None."""
+    why = loss_unavailable(cfg)
+    if why is not None:
+        return why
+    if cfg.family == "encdec":
+        return (f"{cfg.name}: the data pipeline yields tokens and labels but "
+                f"no frame_embeds, which the encoder reads (the reference "
+                f"CLI has the same gap); train encdec through "
+                f"runtime.train.make_train_step with batches that carry "
+                f"frame_embeds")
+    if device.type == "cuda":
+        # q, k and v are projected from one activation in the compute dtype
+        dtype = dtype_of(cfg.compute_dtype)
+        try:
+            flash_attention.check_backward(cfg.head_dim, dtype, dtype)
+        except (ValueError, TypeError) as e:
+            return f"{cfg.name} cannot train on {device}: {e}"
+    return None
 
 
 def main(argv=None):
@@ -79,6 +113,10 @@ def main(argv=None):
         torch.backends.cudnn.allow_tf32 = False
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    why = refusal(cfg, device)
+    if why is not None:
+        emit(f"error: {why}", stream=sys.stderr)
+        return 2
     optimizer = AdamW(lr=args.lr)
     shape = ShapeConfig("cli", "train", args.seq, args.batch,
                         microbatches=args.microbatches)

@@ -5,12 +5,15 @@
 
     model.init(generator=None)           -> params in cfg.param_dtype
     model.load(params)                   -> params cast to cfg.compute_dtype
-    model.loss(params, batch, remat=True) -> scalar mean cross entropy,
+    model.loss(params, batch, remat=True) -> scalar training loss,
                                             differentiable in the fp32
-                                            masters (the dense family;
-                                            the others raise, naming the
-                                            slice of the port that
-                                            brings their loss)
+                                            masters: the dense, moe (plus
+                                            the router's aux loss; also
+                                            ``groups=``) and encdec
+                                            (``batch`` carries
+                                            ``frame_embeds``) families;
+                                            ssm and hybrid raise
+                                            (``loss_unavailable``)
     model.init_cache(batch, max_seq, dtype=...) -> the family's cache
     model.prefill(params, batch, cache)  -> (last-position logits, cache
                                             [, enc_states for encdec])
@@ -44,12 +47,15 @@ _FAMILIES = {"dense": (transformer, torch.bfloat16),
              "hybrid": (hybrid, torch.bfloat16),
              "encdec": (encdec, torch.bfloat16)}
 _PAGED = ("dense", "moe")
-# the later slice of the port (ROADMAP Queue A item 5) that brings each
-# other family's loss
-_MOE_ENCDEC = "the moe and encdec losses"
-_SSD_BWD = "the SSD-scan backward kernel, with ssm and hybrid training"
-_LOSS_LATER = {"moe": _MOE_ENCDEC, "encdec": _MOE_ENCDEC,
-               "ssm": _SSD_BWD, "hybrid": _SSD_BWD}
+_TRAINED = ("dense", "moe", "encdec")
+
+
+def loss_unavailable(cfg: ModelConfig) -> Optional[str]:
+    """Why ``Model.loss`` cannot train ``cfg``'s family yet, or None."""
+    if cfg.family in _TRAINED:
+        return None
+    return (f"{cfg.family} training is not ported yet: its loss comes with "
+            f"the SSD-scan backward kernel, with ssm and hybrid training")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,14 +87,12 @@ def build_model(cfg: ModelConfig, *, device: DeviceLike = None) -> Model:
             prefill_at=lambda p, b, c, lp: m.prefill_at(p, cfg, b, c, lp),
             decode_paged=lambda p, t, pl, pt, ln: m.decode_paged(
                 p, cfg, t, pl, pt, ln))
-    if cfg.family == "dense":
+    if loss_unavailable(cfg) is None:
         def loss(p, b, **kw):
             return m.loss_fn(p, cfg, b, **kw)
     else:
         def loss(p, b, **kw):
-            raise NotImplementedError(
-                f"{cfg.family} training is not ported yet: its loss comes "
-                f"with {_LOSS_LATER[cfg.family]} (ROADMAP Queue A item 5)")
+            raise NotImplementedError(loss_unavailable(cfg))
     if cfg.family == "encdec":
         def decode(p, t, c, i, enc):
             return m.decode_step(p, cfg, t, c, i, enc)

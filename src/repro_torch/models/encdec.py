@@ -15,7 +15,9 @@ Parameters are ``{"embedding", "enc_layers": [block] * n_enc_layers,
 reference's stacked layer leaves unstacked into lists.  Like the
 reference, every decode step recomputes each layer's cross-attention
 K/V from the encoder states.  The decoder's KV cache is the dense
-transformer's layout, updated in place.
+transformer's layout, updated in place.  ``loss_fn`` is the reference's
+cross entropy of the decoder over a batch of ``frame_embeds``,
+``tokens`` and ``labels``, with remat per layer in both stacks.
 """
 
 from __future__ import annotations
@@ -150,26 +152,33 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     }
 
 
-def encode(params, cfg: ModelConfig, frame_embeds: torch.Tensor
-           ) -> torch.Tensor:
+def encode(params, cfg: ModelConfig, frame_embeds: torch.Tensor,
+           remat: bool = False) -> torch.Tensor:
     """frame_embeds: (B, enc_seq, d_model), the stub frontend's output ->
-    encoder states in the compute dtype."""
+    encoder states in the compute dtype.  ``remat`` recomputes each
+    layer in the backward pass."""
     dtype = T.dtype_of(cfg.compute_dtype)
     S = frame_embeds.shape[1]
     positions = torch.arange(S, device=frame_embeds.device)
     x = frame_embeds.to(dtype) + _sinusoidal(positions,
                                               cfg.d_model).to(dtype)[None]
     for layer in params["enc_layers"]:
-        x = enc_block_fwd(layer, x, cfg, positions[None, :])
+        def block(h, layer=layer):
+            return enc_block_fwd(layer, h, cfg, positions[None, :])
+        x = T.remat(block, x) if remat else block(x)
     return L.apply_norm(x, params["enc_norm"], _NORM)
 
 
 def decode(params, cfg: ModelConfig, tokens: torch.Tensor,
            enc_states: torch.Tensor, *,
            cache: Optional[Dict[str, torch.Tensor]] = None,
-           cache_index: Optional[int] = None) -> torch.Tensor:
+           cache_index: Optional[int] = None,
+           remat: bool = False) -> torch.Tensor:
     """The decoder over ``tokens`` (B, S) from position ``cache_index``
-    (0 without a cache); returns the normed hidden states."""
+    (0 without a cache); returns the normed hidden states.  ``remat``
+    (no cache) recomputes each layer in the backward pass; the
+    cross-attention K/V are computed outside it and kept, as the
+    reference computes them before its layer scan."""
     dtype = T.dtype_of(cfg.compute_dtype)
     S = tokens.shape[1]
     start = 0 if cache_index is None else cache_index
@@ -178,15 +187,19 @@ def decode(params, cfg: ModelConfig, tokens: torch.Tensor,
     x = x + _sinusoidal(positions, cfg.d_model).to(dtype)[None]
     for i, layer in enumerate(params["dec_layers"]):
         kv = None if cache is None else (cache["k"][i], cache["v"][i])
-        x = dec_block_fwd(layer, x, cfg, positions=positions[None, :],
-                          enc_kv=cross_kv(layer, cfg, enc_states),
-                          kv_cache=kv, cache_index=cache_index)
+        enc_kv = cross_kv(layer, cfg, enc_states)
+
+        def block(h, layer=layer, kv=kv, enc_kv=enc_kv):
+            return dec_block_fwd(layer, h, cfg, positions=positions[None, :],
+                                 enc_kv=enc_kv, kv_cache=kv,
+                                 cache_index=cache_index)
+        x = T.remat(block, x) if remat and cache is None else block(x)
     return L.apply_norm(x, params["dec_norm"], _NORM)
 
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             cache: Optional[Dict[str, torch.Tensor]] = None,
-            cache_index: Optional[int] = None
+            cache_index: Optional[int] = None, remat: bool = False
             ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]],
                        torch.Tensor]:
     """batch: {frame_embeds, tokens} or, to decode, {tokens, enc_states}.
@@ -194,10 +207,22 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     if "enc_states" in batch:
         enc_states = batch["enc_states"]
     else:
-        enc_states = encode(params, cfg, batch["frame_embeds"])
+        enc_states = encode(params, cfg, batch["frame_embeds"], remat=remat)
     hidden = decode(params, cfg, batch["tokens"], enc_states, cache=cache,
-                    cache_index=cache_index)
+                    cache_index=cache_index, remat=remat)
     return hidden, cache, enc_states
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
+            remat: bool = True) -> torch.Tensor:
+    """Mean next-token cross entropy of the decoder over ``batch``
+    ({"frame_embeds", "tokens", "labels"} and an optional "mask"),
+    differentiable in the masters ``params`` (cast to the compute dtype
+    here, as ``transformer.loss_fn``)."""
+    params = T.cast_params(params, cfg)
+    hidden, _, _ = forward(params, cfg, batch, remat=remat)
+    logits = T.logits_fn(params, cfg, hidden)
+    return L.cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
 
 
 init_cache = T.init_cache

@@ -165,16 +165,23 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     return x, cache
 
 
-def _remat_block(layer, x, cfg: ModelConfig, positions) -> torch.Tensor:
-    """``block_fwd`` whose activations are recomputed in the backward
-    pass, through the same kernels or plain versions as this forward."""
+def remat(fn, x: torch.Tensor):
+    """``fn(x)`` whose activations are recomputed in the backward pass
+    (the reference's ``jax.checkpoint(..., nothing_saveable)`` layer
+    body), through the same kernels or plain versions as this forward:
+    the recompute runs on autograd's thread, where the caller's
+    ``plain_versions()`` is not set, so the choice is read here."""
     plain = ops.plain_enabled()
 
     def body(h):
         with ops.plain_versions() if plain else contextlib.nullcontext():
-            return block_fwd(layer, h, cfg, positions=positions)
+            return fn(h)
 
     return checkpoint(body, x, use_reentrant=False)
+
+
+def _remat_block(layer, x, cfg: ModelConfig, positions) -> torch.Tensor:
+    return remat(lambda h: block_fwd(layer, h, cfg, positions=positions), x)
 
 
 def logits_fn(params, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:

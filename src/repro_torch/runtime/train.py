@@ -95,8 +95,8 @@ def make_train_step(model: Model, optimizer: AdamW, shape: ShapeConfig, *,
     if tcfg.dp_mode != "auto":
         raise NotImplementedError(
             f"dp_mode={tcfg.dp_mode!r} reduces across processes: it comes "
-            f"with the torch.distributed slice of the port (ROADMAP Queue A "
-            f"item 5); one device trains with dp_mode='auto'")
+            f"with the port's multi-card slice on torch.distributed; one "
+            f"device trains with dp_mode='auto'")
     if shape.global_batch % max(1, tcfg.microbatches):
         raise ValueError(f"batch {shape.global_batch} does not split into "
                          f"{tcfg.microbatches} microbatches")

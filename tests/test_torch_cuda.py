@@ -655,6 +655,36 @@ def test_cuda_moe_model_equals_the_cpu_run(cuda, arch, kw):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_moe_layer_backward_gives_the_same_bits_twice(cuda, dtype):
+    """The expert layer's backward on the card, with tokens dropped
+    (capacity factor 0.5): two runs give the same bits in every gradient,
+    x's (the dispatch's fixed-order fold, ``moe._Dispatch``), the
+    router's and the experts'; x's also equals the CPU's within 1e-4 in
+    fp32."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b", smoke=True),
+                              capacity_factor=0.5, compute_dtype=dtype)
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(5)
+    params = moe.init_moe_mlp(g, cfg, dt, "cpu")
+    x = torch.randn(4, 64, cfg.d_model, generator=g).to(dt)
+    dy = torch.randn(4, 64, cfg.d_model, generator=g).to(dt)
+    runs = []
+    for dev in ("cuda", "cuda", "cpu"):
+        p = {k: v.to(dev).requires_grad_(True) for k, v in params.items()}
+        xx = x.to(dev).requires_grad_(True)
+        y, aux = moe.moe_mlp_fwd(p, xx, cfg, groups=2)
+        torch.autograd.backward((y, aux), (dy.to(dev), torch.ones_like(aux)))
+        runs.append([xx.grad.cpu()] + [p[k].grad.cpu() for k in sorted(p)])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
+    if dtype == "float32":
+        _close(runs[0][0], runs[2][0], 1e-4)
+
+
+@pytest.mark.cuda
 def test_cuda_encdec_model_equals_the_cpu_run(cuda):
     """whisper smoke widened to head_dim 64, fp32: the prefill (encoder,
     decoder, cross-attention) and a decode step on the card against the
@@ -685,12 +715,18 @@ def test_cuda_encdec_model_equals_the_cpu_run(cuda):
 # the backward kernels (training): against autograd of the plain versions
 # ---------------------------------------------------------------------------
 
-# (B, Sq, Skv, H, KV, D, dtype, causal, window, q_offset, kv_len)
+# (B, Sq, Skv, H, KV, D, dtype, causal, window, q_offset, kv_len); olmo's
+# case is olmoe's shape too (16 heads of 128, causal)
 FLASH_BWD_CASES = [
     (2, 512, 512, 16, 16, 128, "bfloat16", True, None, 0, None),  # olmo
     (2, 512, 512, 16, 16, 64, "bfloat16", True, None, 0, None),   # qwen
     (2, 300, 300, 32, 8, 128, "bfloat16", True, 128, 0, None),    # GQA
     (2, 64, 300, 8, 8, 64, "bfloat16", False, None, 0, None),
+    # whisper's encoder (1500 frames: a ragged 28-key tail), its
+    # cross-attention and its decoder's self-attention
+    (2, 1500, 1500, 12, 12, 64, "bfloat16", False, None, 0, None),
+    (2, 448, 1500, 12, 12, 64, "bfloat16", False, None, 0, None),
+    (2, 448, 448, 12, 12, 64, "bfloat16", True, None, 0, None),
     (2, 300, 300, 8, 2, 64, "float32", True, 100, 0, None),
     (2, 70, 96, 8, 2, 128, "float32", True, 24, 10, 80),
     (2, 70, 96, 8, 2, 64, "float32", True, 8, 0, 13),   # rows see no key
