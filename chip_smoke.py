@@ -49,9 +49,16 @@ no result line):
               tensor-core kernel (2e-2 of the
               largest |grad|; and against the emulation of its contract,
               ``tests/_flash_bwd_emulation.py``, at ``BWD_EMU_TOL``), and
-              the fp32 CUDA-core kernel at D=64 (1e-5); RMSNorm backward
-              at 4096 x 1024 (qwen's, a warp a row) and 4096 x 2048
-              (olmoe's, a block a row) in bf16 and fp32;
+              the fp32 CUDA-core kernel at D=64 (1e-5), and zamba2's
+              shared block (B=8, S=512, H=KV=32, D=112) in bf16 and fp32;
+              RMSNorm backward at 4096 x 1024 (qwen's, a warp a row) and
+              4096 x 2048 (olmoe's, a block a row) in bf16 and fp32; the
+              SSD backward (B8) through ``SSDScanFn`` at mamba2's and
+              zamba2's training calls (B=8, S=512, H=48 / 112, N=128 /
+              64) and a ragged S=300 with G=2, an initial state and a
+              final state's gradient, in bf16 (2e-2) and fp32 (2e-4),
+              also against the emulation of its algorithm
+              (``tests/_ssd_bwd_emulation.py``, ``SSD_BWD_EMU_TOL``);
 4. serve    - qwen1.5-0.5b at full width (24 layers, d=1024, vocab
               151,936, seeded random weights) served by
               ``repro_torch.serve.Engine`` through ``run_trace``: 16
@@ -208,7 +215,17 @@ no result line):
               moe routing recorded on both paths: a flip beyond 1e-5 on
               step 1 fails, a step is gated while the routing so far is
               equal); whisper's bf16 trajectory on its first 2 layers;
-              serving paths launch no backward kernel;
+              (j) mamba2-780m at full width and depth (48 layers,
+              d=1536, 7.79e8 parameters) and (k) zamba2-7b at full width
+              on its first 15 of 81 layers (2 groups of the shared block
+              and 6 Mamba2 layers, 3 tail layers), each as (h) (the SSD
+              scan forward and recompute and B8 on every Mamba2 layer,
+              zamba2's shared block on B3 and B5 at head_dim 112) with
+              its fp32 gate and bf16 trajectory (mamba2 on 2 layers,
+              zamba2 on 7: a group and a tail layer, its trajectory at
+              ``TRAJ_LR``, where that cut's loss falls); the CLI trains
+              mamba2-780m 3 steps and refuses its ``--smoke`` (SSD head_dim
+              P 16) within 30 s; serving paths launch no backward kernel;
 5. times    - each kernel's time (CUDA graphs of back-to-back calls,
               timed with CUDA events, median of trials) beside its plain
               version, a PyTorch library call where one computes the
@@ -231,14 +248,18 @@ no result line):
               qwen's B=8 x S=512 in bf16 (tensor cores), at olmo's in
               fp32 (CUDA cores) and at whisper's encoder (1500 frames)
               and cross-attention (448 x 1500) in bf16, RMSNorm at
-              qwen's 4096 x 1024 and olmoe's 4096 x 2048, beside
-              autograd's backward of the plain version and of bf16 SDPA /
-              ``F.rms_norm``: graphs of forward and backward less the
-              forward's).  Every call reads cold inputs: the
-              copies cycled through read more than twice the L2 a cycle.
+              qwen's 4096 x 1024 and olmoe's 4096 x 2048, flash at
+              zamba2's B=8 x S=512, H=32, D=112 and the SSD backward at
+              mamba2's and zamba2's training calls (no library call
+              computes it), beside autograd's backward of the plain
+              version and of bf16 SDPA / ``F.rms_norm``: graphs of forward
+              and backward less the forward's).  Every call reads cold
+              inputs: the copies cycled through read more than twice the
+              L2 a cycle.
               A time under its bound / 1.05 fails the run;
 then the ``launches`` and ``kernels`` lines (phases 6, 7, 8, 9, 4f and
-10's launches among the paths, the backward kernels' counted apart), and
+10's launches among the paths, the backward kernels B5, B6 and B8
+counted apart), and
 the contract line ``{"ok": true, "device":
 {...}}``, last.
 
@@ -772,8 +793,9 @@ def backward_checks(device):
     shapes; each bf16 flash case also to the emulation of the tensor-core
     kernel's contract (``tests/_flash_bwd_emulation.py``, on the
     kernel's own forward output and log-sum-exp) at ``BWD_EMU_TOL``.
-    Returns the max errors of olmo's flash case and the bf16 RMSNorm
-    case."""
+    Flash at zamba2's training shape too (B=8, S=512, H=KV=32, D=112),
+    in bf16 (tensor cores) and fp32.  Returns the max errors of olmo's and
+    zamba2's bf16 flash cases and the bf16 RMSNorm case."""
     import torch
     from repro_torch import kernels
     from repro_torch.kernels import flash_attention as fa
@@ -814,7 +836,9 @@ def backward_checks(device):
             ("whisper cross", 2, 448, 1500, 12, 12, 64, bf16,
              dict(causal=False)),
             ("whisper decoder", 2, 448, 448, 12, 12, 64, bf16, {}),
-            ("fp32", 2, 512, 512, 16, 16, 64, f32, {})):
+            ("fp32", 2, 512, 512, 16, 16, 64, f32, {}),
+            ("zamba2", 8, 512, 512, 32, 32, 112, bf16, {}),
+            ("zamba2 fp32", 8, 512, 512, 32, 32, 112, f32, {})):
         q = torch.randn(B, Sq, H, D, generator=gen, device=device).to(dt)
         k, v = (torch.randn(B, Skv, KV, D, generator=gen,
                             device=device).to(dt) for _ in range(2))
@@ -841,6 +865,8 @@ def backward_checks(device):
                  [t.grad for t in plain], TOL[str(dt)[6:]])
         if tag == "olmo":
             errs["flash_attention_bwd"] = e
+        if tag == "zamba2":
+            errs["flash_attention_bwd d112"] = e
         if dt == bf16:
             lse = torch.empty((B, H, Sq), dtype=f32, device=device)
             out = fa._launch_forward(q, k, v, kw.get("causal", True),
@@ -886,6 +912,104 @@ def backward_checks(device):
         if d == 1024 and dt == bf16:
             errs["rmsnorm_bwd"] = e
     return errs
+
+
+SSD_BWD_EMU_TOL = {"atol_of_max": SSD_TOL,    # the SSD backward against
+                   "rtol": 2 ** -7}            # the emulation of its
+                                               # algorithm: fp32 sums in
+                                               # other orders, and one
+                                               # bf16 ulp of dx, dB, dC
+
+
+def ssd_backward_checks(device):
+    """Phase 3's SSD backward (B8) cases: through ``SSDScanFn`` (the
+    forward kernel, then the backward kernel) against autograd of the
+    plain version on fp32 copies of the same inputs, each gradient (dx,
+    ddt, dA, dB, dC, dD, and dh0 where there is an initial state) to its
+    dtype's tolerance of its largest |value| (bf16 2e-2, fp32
+    ``SSD_TOL``), and against the emulation of the kernel's algorithm
+    (``tests/_ssd_bwd_emulation.py``) at ``SSD_BWD_EMU_TOL``; each case
+    run twice, required to give the same bits, one forward and one
+    backward launch.  Shapes: mamba2's training call (B=8, S=512, H=48,
+    P=64, G=1, N=128, Q=128) and zamba2's (H=112, N=64), a ragged S=300
+    with G=2 and an initial state whose final state has a gradient, in
+    bf16 and fp32.  Returns the max error of mamba2's bf16 case."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from _ssd_bwd_emulation import ssd_bwd_emulation
+
+    gen = torch.Generator(device=device).manual_seed(6)
+    bf16, f32 = torch.bfloat16, torch.float32
+    names = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
+    out = None
+    for tag, B, S, H, G, N, dt, init in (
+            ("mamba2", 8, 512, 48, 1, 128, bf16, False),
+            ("mamba2", 8, 512, 48, 1, 128, f32, False),
+            ("zamba2", 8, 512, 112, 1, 64, bf16, False),
+            ("zamba2", 8, 512, 112, 1, 64, f32, False),
+            ("ragged G=2 h0", 2, 300, 8, 2, 128, bf16, True),
+            ("ragged G=2 h0", 2, 300, 8, 2, 128, f32, True)):
+        args = ssd_inputs(gen, B, S, H, G, N, dt, device)
+        h0 = (torch.randn(B, H, 64, N, generator=gen, device=device)
+              if init else None)
+        dy = torch.randn(B, S, H, 64, generator=gen, device=device).to(dt)
+        dst = (torch.randn(B, H, 64, N, generator=gen, device=device)
+               if init else None)
+        outs = [dy] + ([dst] if init else [])
+        runs = []
+        for _ in range(2):
+            leaves = [t.clone().requires_grad_(True) for t in args] + (
+                [h0.clone().requires_grad_(True)] if init else [])
+            kernels.reset_launch_counts()
+            y, st = ssd_scan(*leaves[:6], chunk=128,
+                             init_state=leaves[6] if init else None)
+            torch.autograd.backward([y] + ([st] if init else []), outs)
+            got = (kernels.launch_counts()["ssd_scan"],
+                   kernels.backward_counts()["ssd_scan_bwd"])
+            check(got == (1, 1), f"ssd backward {tag}: launches (forward, "
+                  f"backward) {got}, expected (1, 1)")
+            runs.append([t.grad for t in leaves])
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        plain = [t.detach().float().clone().requires_grad_(True)
+                 for t in list(args) + ([h0] if init else [])]
+        y, st = ref.ssd_chunked_ref(*plain[:6], 128,
+                                    init_state=plain[6] if init else None)
+        torch.autograd.backward([y] + ([st] if init else []),
+                                [o.float() for o in outs])
+        with torch.no_grad():
+            emu = ssd_bwd_emulation(*args, dy, chunk=128, init_state=h0,
+                                    dstate=dst)
+        tol = TOL["bfloat16"] if dt == bf16 else SSD_TOL
+        errs, scales, emu_ok = [], [], []
+        for got, want, e in zip(runs[0], plain, emu):
+            got, w, e = got.float(), want.grad.float(), e.float()
+            errs.append(max_err(got, w))
+            scales.append(float(w.abs().max()))
+            limit = (SSD_BWD_EMU_TOL["atol_of_max"] * float(e.abs().max())
+                     + SSD_BWD_EMU_TOL["rtol"] * e.abs())
+            emu_ok.append(float(((got - e).abs() - limit).max()))
+        finite = all(bool(torch.isfinite(g).all()) for g in runs[0])
+        ok = (same and finite and all(x <= 0 for x in emu_ok)
+              and all(e <= tol * sc for e, sc in zip(errs, scales)))
+        case = (f"{tag} B={B} S={S} H={H} P=64 G={G} N={N} Q=128 "
+                f"{str(dt)[6:]}")
+        emit({"phase": "kernels", "kernel": "ssd_scan_bwd", "case": case,
+              "gradients": names[:len(errs)], "max_abs_err": errs,
+              "max_abs_grad": scales, "tol_of_max_grad": tol,
+              "emulation_excess_over_tol": emu_ok,
+              "emulation_tol": SSD_BWD_EMU_TOL, "same_bits_twice": same,
+              "ok": ok})
+        check(ok, f"ssd backward {case}: errors {errs} against {tol} of "
+              f"{scales}, emulation excess {emu_ok}, same bits twice: "
+              f"{same}, finite: {finite}")
+        if out is None:
+            out = max(errs)
+        del runs, plain, emu
+    return {"ssd_scan_bwd": out}
 
 
 # ---------------------------------------------------------------------------
@@ -2858,6 +2982,22 @@ CKPT_DIR = Path(__file__).resolve().parent / "build" / "smoke_ckpt"
 # come to ~1.78e9, near 52 GB, and (h)'s twice-in-bits check holds a third
 # state of 21.4 GB beside them; all 16 need 82 GB for masters and moments
 OLMOE_TRAIN_DEPTH = 4
+# zamba2-7b's depth for (k): its first 15 of 81 layers are 2 groups of
+# [the shared block, 6 Mamba2 layers] and 3 tail layers, the full
+# model's layout in small.  A Mamba2 layer at d=3584 is 78.0e6
+# parameters, the shared block 205.5e6 and the table 114.7e6, so 15
+# layers come to 1.49e9, ~43 GB at ~29 bytes a parameter (olmoe's 1.78e9
+# peaked at 52.63 GB), and ~61 GB with the twice check's third state
+# (12 bytes a parameter); all 81 (6.64e9) need 80 GB for the fp32
+# masters and moments alone
+ZAMBA2_TRAIN_DEPTH = 15
+ZAMBA2_GATE_DEPTH = 7   # one group and one tail layer: the shared block
+# the learning rate of a bf16 trajectory whose cut, with no warmup, does
+# not train at the CLI's 3e-4: there zamba2's 7 layers jump from loss
+# 10.97 to 17.6 after one step and wander (on an H100), and the two
+# paths' bf16 roundings grow apart with them; at 1e-5 the loss falls
+# from the first step
+TRAJ_LR = {"zamba2-7b": 1e-5}
 WHISPER_DEC_SEQ = 448           # whisper's published n_text_ctx
 FRAME_SEED = 11                 # numpy seed of whisper's frame embeddings
 
@@ -2892,10 +3032,42 @@ def train_batches(cfg, pipe, n, device):
 
 def attention_layers(cfg) -> int:
     """Flash calls in one forward: one per layer, two (self and cross)
-    per decoder layer of an encoder-decoder."""
+    per decoder layer of an encoder-decoder, none in mamba2, one per
+    group (the shared block) in a hybrid."""
     if cfg.family == "encdec":
         return cfg.n_enc_layers + 2 * cfg.n_layers
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
     return cfg.n_layers
+
+
+def train_launches(cfg, steps: int) -> dict:
+    """Kernel launches of ``steps`` training steps (remat on), forward and
+    backward: each rematted layer runs its forward kernels twice (forward
+    and recompute) and its backward kernels once.  Every layer is
+    rematted but a hybrid's tail Mamba2 layers (the reference's remat is
+    its group body).  RMSNorm: two per block (a Mamba2 layer's input and
+    gated norms, a transformer block's two) and the final norm, where the
+    model has RMSNorm; the SSD scan once per Mamba2 layer."""
+    L = cfg.n_layers
+    A = attention_layers(cfg)
+    mamba = L if cfg.family in ("ssm", "hybrid") else 0
+    remat_mamba = mamba
+    if cfg.family == "hybrid":
+        remat_mamba = A * cfg.attn_every        # the groups' layers
+    blocks = L + (A if cfg.family == "hybrid" else 0)
+    remat_blocks = blocks - (mamba - remat_mamba)
+    norms = 2 * blocks + 1 if cfg.norm_type == "rmsnorm" else 0
+    remat_norms = 2 * remat_blocks if norms else 0
+    return {"paged_attention": 0,
+            "ssd_scan": (mamba + remat_mamba) * steps,
+            "ssd_scan_bwd": mamba * steps,
+            "flash_attention": 2 * A * steps,
+            "flash_attention_bwd": A * steps,
+            "rmsnorm": (norms + remat_norms) * steps,
+            "rmsnorm_bwd": norms * steps}
 
 
 def cut(arch, n_layers, **kw):
@@ -2908,10 +3080,11 @@ def cut(arch, n_layers, **kw):
     return dataclasses.replace(cfg, n_layers=n_layers, **kw)
 
 
-def train_parts(cfg, device, **step_kw):
+def train_parts(cfg, device, lr=None, **step_kw):
     """The training CLI's parts (``repro_torch.launch.train``): the model
-    on the card, AdamW at the CLI's defaults, remat on, the synthetic
-    data pipeline at B=8 x S=512 (S=448 for whisper), and the step."""
+    on the card, AdamW at the CLI's defaults (``lr``: another learning
+    rate), remat on, the synthetic data pipeline at B=8 x S=512 (S=448
+    for whisper), and the step."""
     from repro_torch.data.pipeline import DataConfig, DataPipeline
     from repro_torch.models.api import build_model
     from repro_torch.models.config import ShapeConfig
@@ -2919,7 +3092,7 @@ def train_parts(cfg, device, **step_kw):
     from repro_torch.runtime import train as train_rt
 
     model = build_model(cfg, device=device)
-    opt = AdamW()
+    opt = AdamW() if lr is None else AdamW(lr=lr)
     step = train_rt.make_train_step(
         model, opt, ShapeConfig("smoke", "train", train_seq(cfg),
                                 TRAIN_BATCH),
@@ -2967,11 +3140,15 @@ def train_flops(cfg, params) -> float:
     """Model FLOPs of one training step: 8 N T for the matrix products
     (forward, remat recompute, and the backward's two), N the parameters
     a token's products read (an moe token the router's top k of its
-    experts) and T the tokens they run on (whisper: its encoder's over
-    the frames, its decoder's over the text, its cross-attention K and V
-    over the frames, outside remat: 6 N T), plus 4.5 forwards (forward,
-    recompute, 2.5 in the backward) of attention's q K^T and P V over
-    the (query, key) pairs each mask keeps."""
+    experts; a hybrid's shared block once per use) and T the tokens they
+    run on (whisper: its encoder's over the frames, its decoder's over
+    the text, its cross-attention K and V over the frames, outside
+    remat: 6 N T; a hybrid's tail Mamba2 layers, outside remat too:
+    6 N T), plus 4.5 forwards (forward, recompute, 2.5 in the backward)
+    of attention's q K^T and P V over the (query, key) pairs each mask
+    keeps, and 4 of each Mamba2 layer's SSD products (forward,
+    recompute, 2 in the backward; ``ssd_work``'s count; 3 in a tail
+    layer)."""
     from repro_torch.tree import leaf_groups
 
     def n(tree):
@@ -2993,6 +3170,16 @@ def train_flops(cfg, params) -> float:
                 + attn(F * F, cfg.n_enc_layers)
                 + attn(causal + S * F, cfg.n_layers))
     active = n(params)
+    if cfg.family in ("ssm", "hybrid"):
+        tail = params.get("mamba_tail", [])
+        ssd = (4 * cfg.n_layers - len(tail)) * ssd_work(
+            B, S, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_n_groups,
+            cfg.ssm_state, cfg.ssm_chunk, 2)[1]
+        uses = attention_layers(cfg)
+        if uses:
+            active += (uses - 1) * n(params["shared_attn"])
+        return ((8 * active - 2 * n(tail)) * B * S + attn(causal, uses)
+                + ssd)
     if cfg.family == "moe":
         experts = sum(n(layer["moe"][w]) for layer in params["layers"]
                       for w in ("w_gate", "w_up", "w_down"))
@@ -3022,13 +3209,13 @@ def train_full_width(arch, device, smi, n_layers=None):
     """10 steps at full width (bf16 compute, fp32 masters, remat on), at
     full depth or on the first ``n_layers``: the loss falls; on step 1
     every parameter leaf has a finite, non-zero gradient
-    (``grad_leaves_check``); the launches are exact per step: flash 2 x A
-    forward (forward and remat recompute) and A backward, A the model's
-    attention calls, RMSNorm 4 x L + 1 forward and 2 x L + 1 backward
-    where the model has it.  An moe or encdec model then runs one step
-    twice from the same state, required equal in bits (the moe dispatch's
-    fixed-order backward).  Then 2 more steps plain and 2 profiled give
-    the device's busy share.  Returns the run's counts and variants."""
+    (``grad_leaves_check``); the launches are exact per step
+    (``train_launches``), every forward and backward on the compute
+    dtype's variant.  A model other than the dense ones then runs one
+    step twice from the same state, required equal in bits (the moe
+    dispatch's fixed-order backward, the SSD backward's fixed-order
+    sums).  Then 2 more steps plain and 2 profiled give the device's
+    busy share.  Returns the run's counts and variants."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import kernels
@@ -3069,16 +3256,12 @@ def train_full_width(arch, device, smi, n_layers=None):
                 **kernels.backward_variant_counts()}
     peak = torch.cuda.max_memory_allocated()
 
-    L, A, n = cfg.n_layers, attention_layers(cfg), TRAIN_STEPS
-    norm_layers = 2 * L + 1 if cfg.norm_type == "rmsnorm" else 0
-    want = {"paged_attention": 0, "ssd_scan": 0,
-            "flash_attention": 2 * A * n, "flash_attention_bwd": A * n,
-            "rmsnorm": (norm_layers + 2 * L * bool(norm_layers)) * n,
-            "rmsnorm_bwd": norm_layers * n}
+    L, n = cfg.n_layers, TRAIN_STEPS
+    want = train_launches(cfg, n)
     s_step = statistics.mean(secs[1:])
     tokens = TRAIN_BATCH * train_seq(cfg)
     twice = None
-    if cfg.family in ("moe", "encdec"):
+    if cfg.family != "dense":
         t0 = time.perf_counter()
         twice, twice_peak = twice_in_bits(step, state, batches[n])
         twice_s = time.perf_counter() - t0
@@ -3125,6 +3308,8 @@ def train_full_width(arch, device, smi, n_layers=None):
                         counts["flash_attention"])
     check_backward_variant(f"{cfg.name} train", cfg.compute_dtype, variants,
                            counts["flash_attention_bwd"])
+    check_ssd_variant(f"{cfg.name} train", cfg.compute_dtype, variants,
+                      counts["ssd_scan"])
     check(twice is not False, f"{cfg.name}: one step run twice from one "
           f"state gave other bits")
     return counts, variants
@@ -3140,11 +3325,12 @@ def check_backward_variant(what, compute, variants, n):
           f"variant {got}, expected {want}")
 
 
-def kernels_against_plain(cfg, device, seed, steps):
+def kernels_against_plain(cfg, device, seed, steps, lr=None):
     """``steps`` training steps of ``cfg`` from one seeded init on the
-    same batches, through the kernels and under ``plain_versions()``:
-    {plain: ([(loss, grad norm)] a step, launches, backward variants,
-    [each step's routing, ``moe.record_routing``'s records])}."""
+    same batches, through the kernels and under ``plain_versions()``, at
+    the CLI's learning rate or ``lr``: {plain: ([(loss, grad norm)] a step,
+    launches, backward variants, [each step's routing,
+    ``moe.record_routing``'s records])}."""
     import torch
     from repro_torch import kernels
     from repro_torch.kernels import ops
@@ -3152,7 +3338,7 @@ def kernels_against_plain(cfg, device, seed, steps):
     from repro_torch.runtime import train as train_rt
     from repro_torch.tree import tree_map
 
-    model, opt, step, pipe = train_parts(cfg, device)
+    model, opt, step, pipe = train_parts(cfg, device, lr)
     params = model.init(torch.Generator(device=device).manual_seed(seed))
     batches = train_batches(cfg, pipe, steps, device)
     runs = {}
@@ -3172,16 +3358,17 @@ def kernels_against_plain(cfg, device, seed, steps):
     return runs
 
 
-def fp32_gate(device, arch="olmo-1b"):
-    """``arch`` at full width on its first 2 layers in fp32: 3 steps
-    through the kernels (the fp32 flash kernels forward and backward)
+def fp32_gate(device, arch="olmo-1b", layers=TRAIN_CUT):
+    """``arch`` at full width on its first ``layers`` layers in fp32: 3
+    steps through the kernels (the fp32 kernels forward and backward)
     against 3 steps of the same under ``plain_versions()``, from the same
-    weights on the same batches: loss and grad norm to 1e-5 relative.
+    weights on the same batches: loss and grad norm to 1e-5 relative,
+    the launches exact (``train_launches``).
     For an moe model each step's routing is held to ``routing_gate`` (on
     step 1, whose weights are equal, a flip beyond fp32 noise fails the
     run; later steps report theirs) and a step is gated only while the
     routing of every step so far is equal."""
-    cfg = cut(arch, TRAIN_CUT, compute_dtype="float32")
+    cfg = cut(arch, layers, compute_dtype="float32")
     runs = kernels_against_plain(cfg, device, 1, 3)
     gaps = [max(abs(a - b) / abs(b) for a, b in zip(got, want))
             for got, want in zip(runs[False][0], runs[True][0])]
@@ -3193,9 +3380,9 @@ def fp32_gate(device, arch="olmo-1b"):
         equal = equal and not flips and not keep_diff
         gated.append(equal)
     A = attention_layers(cfg)
-    want = {"flash_attention": 2 * A * 3, "flash_attention_bwd": A * 3}
+    want = train_launches(cfg, 3)
     emit({"phase": "train", "check": "fp32 gate", "arch": cfg.name,
-          "layers": TRAIN_CUT, "steps": 3,
+          "layers": layers, "steps": 3,
           "kernel_loss_grad_norm": runs[False][0],
           "plain_loss_grad_norm": runs[True][0], "max_rel_gap": gaps,
           "gated_steps": gated, "tol": TOL["float32"],
@@ -3205,35 +3392,36 @@ def fp32_gate(device, arch="olmo-1b"):
     check(all(g <= TOL["float32"] for g, on in zip(gaps, gated) if on),
           f"{cfg.name} fp32 gate: loss / grad norm gaps {gaps} over "
           f"{TOL['float32']} (gated steps {gated})")
-    check({k: runs[False][1][k] for k in want} == want
-          and not any(runs[True][1].values()),
+    check(runs[False][1] == want and not any(runs[True][1].values()),
           f"{cfg.name} fp32 gate: launches {runs[False][1]} (want {want}), "
           f"plain path {runs[True][1]}")
     check_backward_variant(f"{cfg.name} fp32 gate", cfg.compute_dtype,
                            runs[False][2], A * 3)
 
 
-def bf16_trajectory(device, arch="olmo-1b"):
-    """``arch`` at full width on its first 2 layers in bf16 (the training
-    path's compute): 10 steps through the kernels (every flash backward
-    on the tensor-core kernel) against 10 steps under
-    ``plain_versions()``, from the same weights on the same batches: each
-    step's loss within ``BF16_TRAJ_TOL`` relative of the plain path's,
-    the gaps printed.  bf16 rounds at other places on the two paths, so
-    the trajectories are not equal in bits; a gap over the limit fails
-    the run."""
-    cfg = cut(arch, TRAIN_CUT)
+def bf16_trajectory(device, arch="olmo-1b", layers=TRAIN_CUT, lr=None):
+    """``arch`` at full width on its first ``layers`` layers in bf16 (the
+    training path's compute): 10 steps through the kernels (every flash
+    backward on the tensor-core kernel, the launches exact) against 10
+    steps under ``plain_versions()``, from the same weights on the same
+    batches: each step's loss within ``BF16_TRAJ_TOL`` relative of the
+    plain path's, the gaps printed.  bf16 rounds at other places on the
+    two paths, so the trajectories are not equal in bits; a gap over the
+    limit fails the run.  ``lr`` replaces the CLI's learning rate (see
+    ``TRAJ_LR``)."""
+    from repro_torch.optim.adamw import AdamW
+    cfg = cut(arch, layers)
     t0 = time.perf_counter()
-    runs = kernels_against_plain(cfg, device, 4, TRAIN_STEPS)
+    runs = kernels_against_plain(cfg, device, 4, TRAIN_STEPS, lr)
     losses = {plain: [m[0] for m in runs[plain][0]] for plain in runs}
     gaps = [abs(a - b) / abs(b) for a, b in zip(losses[False],
                                                 losses[True])]
     n = attention_layers(cfg) * TRAIN_STEPS
     emit({"phase": "train", "check": "bf16 trajectory", "arch": cfg.name,
-          "layers": TRAIN_CUT, "steps": TRAIN_STEPS,
+          "layers": layers, "steps": TRAIN_STEPS,
           "compute_dtype": cfg.compute_dtype,
           "kernel_losses": losses[False], "plain_losses": losses[True],
-          "rel_gaps": gaps, "tol": BF16_TRAJ_TOL,
+          "rel_gaps": gaps, "tol": BF16_TRAJ_TOL, "lr": lr or AdamW.lr,
           "kernel_launches": runs[False][1],
           "kernel_backward_variants": runs[False][2],
           "plain_launches": runs[True][1],
@@ -3243,7 +3431,7 @@ def bf16_trajectory(device, arch="olmo-1b"):
           f"{BF16_TRAJ_TOL}")
     check_backward_variant(f"{cfg.name} bf16 trajectory", cfg.compute_dtype,
                            runs[False][2], n)
-    check(runs[False][1]["flash_attention"] == 2 * n
+    check(runs[False][1] == train_launches(cfg, TRAIN_STEPS)
           and not any(runs[True][1].values()),
           f"{cfg.name} bf16 trajectory: launches {runs[False][1]}, plain "
           f"path {runs[True][1]}")
@@ -3413,9 +3601,10 @@ def train_cli(device, smi):
     device): olmo-1b at full width and depth, B=8 x S=512, 10 steps with
     the moments in HBM, 4 with ``--offload-optimizer`` and 2 through
     ``--pool scalepool`` with a tier-2 reservation (the lease's policy
-    offloads the moments), each run's peak device memory beside its
-    JSON.  Every run exits 0 (its loss fell) on the card, and the
-    offloaded peak is the lower.  No run reaches the CLI's checkpoint
+    offloads the moments), and mamba2-780m at full width and depth, 3
+    steps, each run's peak device memory beside its JSON.  Every run
+    exits 0 (its loss fell) on the card, and the offloaded peak is the
+    lower.  No run reaches the CLI's checkpoint
     interval (14 GB a save at this depth); (d) runs the same
     asynchronous ``ckpt.save`` on the card."""
     import io
@@ -3429,7 +3618,9 @@ def train_cli(device, smi):
     runs = {"in HBM": full + ["--steps", "10"],
             "offload": full + ["--steps", "4", "--offload-optimizer"],
             "pool": full + ["--steps", "2", "--pool", "scalepool",
-                            "--pool-tier2-gb", "8"]}
+                            "--pool-tier2-gb", "8"],
+            "mamba2": ["--arch", "mamba2-780m", "--batch", str(TRAIN_BATCH),
+                       "--seq", str(TRAIN_SEQ), "--steps", "3"]}
     for name, argv in runs.items():
         gc.collect()
         torch.cuda.empty_cache()
@@ -3460,34 +3651,40 @@ def train_cli(device, smi):
 def train_cli_refusals():
     """The training CLI refuses before its loop what no step could do
     (its fault-tolerant loop would retry the step forever): ``--smoke``
-    on the card, whose head_dim 16 the backward kernels do not take, in a
-    process of its own (exit code 2 and the reason within 30 s), and
-    whisper-small, for whose encoder the data pipeline yields no
-    ``frame_embeds``."""
+    on the card, each in a process of its own (exit code 2 and the reason
+    within 30 s): olmo-1b's head_dim 16, which the flash backward does
+    not take, and mamba2-780m's SSD head_dim P=16, which the SSD kernels
+    do not take; and whisper-small, for whose encoder the data pipeline
+    yields no ``frame_embeds``."""
     import io
     import os
 
     from repro_torch.launch import train as train_cli_mod
 
     root = Path(__file__).resolve().parent
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
-         "--steps", "2", "--ckpt-dir", str(CKPT_DIR)], cwd=root,
-        env={**os.environ, "PYTHONPATH": str(root / "src")},
-        capture_output=True, text=True, timeout=120)
-    secs = time.perf_counter() - t0
+    smoke = {}
+    for arch, reason in (("olmo-1b", "head_dim"),
+                         ("mamba2-780m", "P in (32, 64)")):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
+             "--arch", arch, "--steps", "2", "--ckpt-dir", str(CKPT_DIR)],
+            cwd=root, env={**os.environ, "PYTHONPATH": str(root / "src")},
+            capture_output=True, text=True, timeout=120)
+        smoke[arch] = (proc, time.perf_counter() - t0, reason)
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
         rc_encdec = train_cli_mod.main(["--arch", "whisper-small",
                                         "--steps", "1"])
     emit({"phase": "train", "check": "CLI refusals",
-          "smoke_rc": proc.returncode, "smoke_seconds": secs,
-          "smoke_stderr": proc.stderr.strip().splitlines()[-1:],
+          "smoke": {arch: {"rc": proc.returncode, "seconds": secs,
+                           "stderr": proc.stderr.strip().splitlines()[-1:]}
+                    for arch, (proc, secs, _) in smoke.items()},
           "whisper_rc": rc_encdec, "whisper_stderr": err.getvalue().strip()})
-    check(proc.returncode == 2 and "head_dim" in proc.stderr and secs < 30,
-          f"training CLI --smoke on the card: rc {proc.returncode} after "
-          f"{secs:.1f} s: {proc.stderr[-400:]}")
+    for arch, (proc, secs, reason) in smoke.items():
+        check(proc.returncode == 2 and reason in proc.stderr and secs < 30,
+              f"training CLI --smoke --arch {arch} on the card: rc "
+              f"{proc.returncode} after {secs:.1f} s: {proc.stderr[-400:]}")
     check(rc_encdec == 2 and "frame_embeds" in err.getvalue(),
           f"training CLI whisper-small: rc {rc_encdec}: {err.getvalue()}")
 
@@ -3515,12 +3712,41 @@ def train_families(device, smi):
     return counts, variants
 
 
+def train_ssm_families(device, smi):
+    """Phase 10 (j) mamba2-780m at full width and depth and (k) zamba2-7b
+    at full width on its first ``ZAMBA2_TRAIN_DEPTH`` layers, each as (a)
+    (every leaf a finite non-zero gradient, launches exact: the SSD scan
+    forward and recompute and its backward B8, RMSNorm and B6 on every
+    norm, zamba2's shared block on flash B3 and B5 at head_dim 112; the
+    report (f)) plus one step run twice from one state, equal in bits,
+    its fp32 gate and its bf16 trajectory (mamba2 on its first 2 layers,
+    zamba2 on its first ``ZAMBA2_GATE_DEPTH``, so the shared block
+    runs).  Returns the two paths' counts and variants."""
+    import torch
+    counts, variants = {}, {}
+    for arch, depth, gate in (("mamba2-780m", None, TRAIN_CUT),
+                              ("zamba2-7b", ZAMBA2_TRAIN_DEPTH,
+                               ZAMBA2_GATE_DEPTH)):
+        counts[f"{arch} train"], variants[f"{arch} train"] = \
+            train_full_width(arch, device, smi, depth)
+        gc.collect()
+        torch.cuda.empty_cache()
+        fp32_gate(device, arch, gate)
+        gc.collect()
+        torch.cuda.empty_cache()
+        bf16_trajectory(device, arch, gate, TRAJ_LR.get(arch))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts, variants
+
+
 def train_phase(device, smi):
     """Phase 10: (a) olmo-1b and (c) qwen1.5-0.5b trained at full width,
     (b) the fp32 gate, (b2) the bf16 trajectory, (d) fault tolerance,
     (e) the optimizer offload, (g) the training CLI itself and its
-    refusals, (h) olmoe-1b-7b and (i) whisper-small; the report (f) is in
-    each line.  Returns the four paths' counts and variants."""
+    refusals, (h) olmoe-1b-7b, (i) whisper-small, (j) mamba2-780m and
+    (k) zamba2-7b; the report (f) is in each line.  Returns the six
+    paths' counts and variants."""
     import torch
     t0 = time.perf_counter()
     counts, variants = {}, {}
@@ -3539,8 +3765,13 @@ def train_phase(device, smi):
     more = train_families(device, smi)
     counts.update(more[0])
     variants.update(more[1])
+    t2 = time.perf_counter()
+    more = train_ssm_families(device, smi)
+    counts.update(more[0])
+    variants.update(more[1])
     emit({"phase": "train", "seconds": time.perf_counter() - t0,
-          "families_seconds": time.perf_counter() - t1})
+          "families_seconds": t2 - t1,
+          "ssm_families_seconds": time.perf_counter() - t2})
     return counts, variants
 
 
@@ -3556,6 +3787,21 @@ def ssd_work(B, S, H, P, G, N, chunk, itemsize):
     nbytes = (2 * B * S * H * P * itemsize + B * S * H * 4
               + 2 * B * S * G * N * itemsize + 2 * H * 4
               + 2 * B * H * P * N * 4)
+    return nbytes, flops
+
+
+def ssd_bwd_work(B, S, H, P, G, N, itemsize):
+    """(bytes, flops) of one SSD backward (no initial state): x, dy, B, C,
+    dt, A and D read once, dx, dB, dC, ddt, dA and dD written once; the
+    least products of the gradient, those of the recurrence walked one
+    position at a time: per position and (P, N) element of a head, the
+    state rebuilt (a product and a multiply-add) and its gradient walked
+    back (the same), and one multiply-add each for dx, dB, dC and the
+    decay's gradient: 14 flops.  The kernel's chunked algorithm does
+    more (its masked intra-chunk products)."""
+    flops = 14 * B * H * S * P * N
+    nbytes = (3 * B * S * H * P * itemsize + 4 * B * S * G * N * itemsize
+              + 2 * B * S * H * 4 + 4 * H * 4)
     return nbytes, flops
 
 
@@ -3813,14 +4059,18 @@ def kernel_times(device, counts, errs):
             ("whisper encoder train B=8 S=1500 H=KV=12 D=64 non-causal", 8,
              1500, 1500, 12, 64, bf16, False),
             ("whisper cross train B=8 Sq=448 Skv=1500 H=KV=12 D=64 "
-             "non-causal", 8, 448, 1500, 12, 64, bf16, False)):
+             "non-causal", 8, 448, 1500, 12, 64, bf16, False),
+            ("zamba2 train B=8 S=512 H=KV=32 D=112 causal", 8, 512, 512,
+             32, 112, bf16, True)):
         ms, plain, b_ms, b_by, lib, n = flash_bwd_time(B, Sq, Skv, H, D, dt,
                                                        causal)
         if case.startswith("olmo train"):
             row(fa, "flash_attention_bwd", ms, plain, b_ms, b_by, lib)
+        extra = ({"max_abs_err": errs["flash_attention_bwd d112"]}
+                 if D == 112 else {})
         times("flash_attention_bwd", f"{case} {str(dt)[6:]}", ms, plain,
               b_ms, b_by, lib, variant="tc" if dt == bf16 else "f32",
-              input_copies=n)
+              input_copies=n, **extra)
 
     # qwen's rows take the warp-per-row branch, olmoe's the block-per-row
     # one; qwen's is the kernels line's row
@@ -3869,6 +4119,35 @@ def kernel_times(device, counts, errs):
               input_copies=len(sets))
         del sets
 
+    # the SSD backward at the training shapes (mamba2: B=8, S=512, H=48,
+    # N=128; zamba2: H=112, N=64; bf16 x, B, C and dy, no initial state):
+    # the kernel (its three launches) beside autograd's backward of the
+    # plain version on the same inputs; no single PyTorch call computes
+    # it, so no library time
+    for arch, H, N in (("mamba2", 48, 128), ("zamba2", 112, 64)):
+        B, S = TRAIN_BATCH, TRAIN_SEQ
+        nbytes, flops = ssd_bwd_work(B, S, H, 64, 1, N, 2)
+        # - dx, dB, dC, ddt, dA, dD
+        reads = nbytes - (B * S * H * 64 * 2 + 2 * B * S * N * 2
+                          + B * S * H * 4 + 2 * H * 4)
+        copies = cold_copies(reads)
+        sets = [ssd_inputs(gen, B, S, H, 1, N, bf16, device)
+                + (torch.randn(B, S, H, 64, generator=gen,
+                               device=device).to(bf16),)
+                for _ in range(copies)]
+        ms = time_ms(lambda i: ssd._launch_backward(
+            *sets[i][:6], None, sets[i][6], None, 128), copies)
+        ad = [([t.detach().requires_grad_(True) for t in st[:6]], st[6])
+              for st in sets]
+        plain = backward_ms(lambda *a: ref.ssd_chunked_ref(*a, 128)[0], ad)
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+        if arch == "mamba2":
+            row(ssd, "ssd_scan_bwd", ms, plain, b_ms, b_by, None)
+        times("ssd_scan_bwd", f"{arch} train B={B} S={S} H={H} P=64 N={N} "
+              f"G=1 Q=128 bf16", ms, plain, b_ms, b_by, None,
+              input_copies=copies)
+        del sets, ad
+
     # no time may beat the card's bound: a case under it read warm data
     # (or the bound is miscounted)
     for case, ms, b_ms in cases:
@@ -3916,6 +4195,7 @@ def main() -> int:
 
     errs = kernel_checks(device)
     errs.update(backward_checks(device))
+    errs.update(ssd_backward_checks(device))
     # each path runs with the counts set to 0 just before it, read after;
     # a serving path's backward launches are read as it returns (0:
     # serving never differentiates)

@@ -393,6 +393,7 @@ cudaError_t bwd_dispatch_d(int D, const void* q, const void* k, const void* v,
 #define BWD_ARGS q, k, v, out, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H, \
                  HKV, sm_scale, causal, window, q_offset, kv_len, s
   if (D == 64) return launch_bwd<T, 64>(BWD_ARGS);
+  if (D == 112) return launch_bwd<T, 112>(BWD_ARGS);
   if (D == 128) return launch_bwd<T, 128>(BWD_ARGS);
 #undef BWD_ARGS
   return cudaErrorInvalidValue;

@@ -8,7 +8,7 @@
 // training call; fp32 q, k, v go to the CUDA-core kernel in
 // flash_attention_bwd.cu.  Same layout and masks as the forward: q, out,
 // dout, dq (B,Sq,H,D); k, v, dk, dv (B,Skv,HKV,D), all contiguous and
-// 16-byte aligned; head_dim 64 or 128; causal or not, sliding window,
+// 16-byte aligned; head_dim 64, 112 or 128; causal or not, sliding window,
 // q_offset, kv_len, ragged Sq and Skv without padding; GQA (H = G * HKV).
 // The forward's log-sum-exp lse (B,H,Sq) fp32 comes in.
 //
@@ -35,7 +35,8 @@
 // overlaps the next tile's loads with this tile's products.  Three
 // launches and no atomics, so two runs give the same bits (a bitwise
 // resume needs it) and GQA's sum over the group's heads runs in order:
-//  1. delta: D/8 threads a row, one 16-byte chunk of O and dO each;
+//  1. delta: D/8 threads a row (16 at D = 112, two idle), one 16-byte
+//     chunk of O and dO each;
 //  2. dK/dV: one warpgroup per (64-key tile, kv head, batch), the
 //     heaviest tiles first (the grid's slowest axis is the key tile, and
 //     tile 0 of a causal call is seen by the most q rows).  Its K and V
@@ -101,17 +102,24 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* base, size_t row,
   }
 }
 
+// threads a row of the delta kernel: one 16-byte chunk each, a power of
+// two (D = 112's 14 chunks take 16 threads, two of them idle)
+template <int D>
+__host__ __device__ constexpr int delta_lanes() {
+  return D / 8 > 8 ? 16 : 8;
+}
+
 template <int D>
 __global__ void flash_bwd_tc_delta_kernel(
     const __nv_bfloat16* __restrict__ out,
     const __nv_bfloat16* __restrict__ dout, float* __restrict__ delta,
     int Sq, int H, size_t rows) {
-  constexpr int kLanes = D / 8;  // threads a row, 16 bytes each
+  constexpr int kLanes = delta_lanes<D>();
   const size_t r =
       ((size_t)blockIdx.x * blockDim.x + threadIdx.x) / kLanes;
   const int part = threadIdx.x % kLanes;
   float s = 0.f;
-  if (r < rows) {
+  if (r < rows && part < D / 8) {
     const uint4 o = *reinterpret_cast<const uint4*>(out + r * D + 8 * part);
     const uint4 g = *reinterpret_cast<const uint4*>(dout + r * D + 8 * part);
     const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o);
@@ -142,7 +150,8 @@ __global__ void __launch_bounds__(kTcThreads, 1) flash_bwd_tc_dkdv_kernel(
     const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
     __nv_bfloat16* __restrict__ dv, int Sq, int Skv, int H, int HKV,
     float sm_scale, int causal, int window, int q_offset, int kv_len) {
-  static_assert(D == 64 || D == 128, "head_dim 64 or 128");
+  static_assert(D == 64 || D == 112 || D == 128,
+                "head_dim 64, 112 or 128");
   constexpr int kSlices = D / 16;         // k16 slices over D
   constexpr int kTile = kTcKeys * D * 2;  // bytes of one bf16 tile
   constexpr uint32_t kGroup = D * 16;     // bytes between 8-row groups
@@ -307,7 +316,8 @@ __global__ void __launch_bounds__(kTcThreads, 1) flash_bwd_tc_dq_kernel(
     const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int Sq,
     int Skv, int H, int HKV, float sm_scale, int causal, int window,
     int q_offset, int kv_len) {
-  static_assert(D == 64 || D == 128, "head_dim 64 or 128");
+  static_assert(D == 64 || D == 112 || D == 128,
+                "head_dim 64, 112 or 128");
   constexpr int kSlices = D / 16;
   constexpr int kTile = kTcKeys * D * 2;
   constexpr uint32_t kGroup = D * 16;
@@ -494,7 +504,7 @@ cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v,
   const float* lt = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   const size_t rows = (size_t)B * Sq * H;
-  const size_t threads = rows * (D / 8);
+  const size_t threads = rows * delta_lanes<D>();
   flash_bwd_tc_delta_kernel<D><<<(unsigned)((threads + 255) / 256), 256, 0,
                                   s>>>(static_cast<const bf16*>(out), dot,
                                        dl, Sq, H, rows);
@@ -534,6 +544,7 @@ extern "C" int flash_attention_tc_bwd(const void* q, const void* k,
 #define BWD_ARGS q, k, v, out, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H, \
                  HKV, sm_scale, causal, window, q_offset, kv_len, s
   if (D == 64) return (int)launch_bwd_tc<64>(BWD_ARGS);
+  if (D == 112) return (int)launch_bwd_tc<112>(BWD_ARGS);
   if (D == 128) return (int)launch_bwd_tc<128>(BWD_ARGS);
 #undef BWD_ARGS
   return (int)cudaErrorInvalidValue;

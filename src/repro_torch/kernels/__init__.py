@@ -1,10 +1,10 @@
 """The port's Hopper kernels: one wrapper module per TPU kernel it
 replaces (each with an integer ``launches`` count; flash attention and
 the SSD scan choose between two CUDA kernels by dtype and also count
-each; flash attention and RMSNorm also have a backward kernel, counted
-in ``launches_bwd``, flash's by variant too), their plain PyTorch
-versions in ``ref``, the model-layout adapters in ``ops`` and the build
-in ``_build``."""
+each; flash attention, RMSNorm and the SSD scan also have a backward
+kernel, counted in ``launches_bwd``, flash's by variant too), their
+plain PyTorch versions in ``ref``, the model-layout adapters in ``ops``
+and the build in ``_build``."""
 
 from __future__ import annotations
 
@@ -19,7 +19,8 @@ WRAPPERS = {"paged_attention": paged_attention,
             "ssd_scan": ssd_scan}
 # the wrappers with a backward kernel, by the name of that kernel
 BACKWARD = {"flash_attention_bwd": flash_attention,
-            "rmsnorm_bwd": rmsnorm}
+            "rmsnorm_bwd": rmsnorm,
+            "ssd_scan_bwd": ssd_scan}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -6,7 +6,7 @@ two forward kernels, chosen by q's dtype, and one backward kernel.
   and fp32 softmax statistics and sums;
 - fp32 q (the fp32-compute model checks and parity runs):
   ``csrc/flash_attention.cu``, fp32 math on CUDA cores;
-- the gradient, chosen by dtype, head_dim 64 or 128: bf16 q, k, v
+- the gradient, chosen by dtype, head_dim 64, 112 or 128: bf16 q, k, v
   (every bf16 training step) ``csrc/flash_attention_bwd_tc.cu``, its five
   products on the tensor cores (wgmma) with P and dS rounded to bf16 and
   fp32 sums; fp32 (the fp32 training gate)
@@ -54,7 +54,7 @@ REPLACES = "src/repro/kernels/flash_attention.py:103"
 # no TPU backward kernel: XLA differentiates the reference's jnp attention
 REPLACES_BWD = "src/repro/models/layers.py:116"
 HEAD_DIMS = (64, 112, 128)
-BWD_HEAD_DIMS = (64, 128)
+BWD_HEAD_DIMS = (64, 112, 128)
 
 
 def _launch_forward(q, k, v, causal, sliding_window, sm_scale, q_offset,

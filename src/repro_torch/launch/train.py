@@ -4,7 +4,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
         --steps 100 --batch 8 --seq 512
 
-    # small config on the CPU (dense or moe: --arch olmoe-1b-7b)
+    # small config on the CPU (also --arch olmoe-1b-7b, mamba2-780m,
+    # zamba2-7b)
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
         --smoke --steps 4 --batch 8 --seq 32 --device cpu
 
@@ -20,11 +21,11 @@ summary plus ``"device"``; exits 0 iff the loss decreased.
 
 The fault-tolerant loop retries a failing step forever (the reference's
 semantics), so what no step can do is refused before the loop, with
-exit code 2 and the reason on stderr (``refusal``): a family whose loss
-is not ported, encdec (the pipeline yields no ``frame_embeds``; it
-trains through ``runtime.train.make_train_step``), and on the card a
-config whose attention the backward kernels do not take (the smoke
-configs' head_dim 16).
+exit code 2 and the reason on stderr (``refusal``): encdec (the
+pipeline yields no ``frame_embeds``; it trains through
+``runtime.train.make_train_step``), and on the card a config whose
+attention or SSD scan the backward kernels do not take (the smoke
+configs' head_dim 16, or SSD head_dim P 16).
 """
 
 from __future__ import annotations
@@ -43,8 +44,8 @@ from repro_torch.configs import get_config
 from repro_torch.core.tiering import TieringPolicy
 from repro_torch.data.pipeline import DataConfig, DataPipeline
 from repro_torch.device import resolve_device
-from repro_torch.kernels import flash_attention
-from repro_torch.models.api import build_model, loss_unavailable
+from repro_torch.kernels import flash_attention, ssd_scan
+from repro_torch.models.api import build_model
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.models.transformer import dtype_of
 from repro_torch.obs.console import emit, emit_json, warn
@@ -52,6 +53,10 @@ from repro_torch.optim.adamw import AdamW
 from repro_torch.runtime import train as train_rt
 from repro_torch.runtime.ft import FaultTolerantLoop, StragglerMonitor
 
+# the families whose training step runs attention (hybrid: its shared
+# block) and the SSD scan
+ATTENTION_FAMILIES = ("dense", "moe", "hybrid")
+SSD_FAMILIES = ("ssm", "hybrid")
 # the checkpoint directory, under the checkout's gitignored build/
 DEFAULT_CKPT_DIR = Path(__file__).resolve().parents[3] / "build" / "ckpt"
 
@@ -59,9 +64,6 @@ DEFAULT_CKPT_DIR = Path(__file__).resolve().parents[3] / "build" / "ckpt"
 def refusal(cfg: ModelConfig, device: torch.device) -> Optional[str]:
     """Why no training step of ``cfg`` can run from this CLI on
     ``device``, or None."""
-    why = loss_unavailable(cfg)
-    if why is not None:
-        return why
     if cfg.family == "encdec":
         return (f"{cfg.name}: the data pipeline yields tokens and labels but "
                 f"no frame_embeds, which the encoder reads (the reference "
@@ -69,10 +71,15 @@ def refusal(cfg: ModelConfig, device: torch.device) -> Optional[str]:
                 f"runtime.train.make_train_step with batches that carry "
                 f"frame_embeds")
     if device.type == "cuda":
-        # q, k and v are projected from one activation in the compute dtype
+        # q, k, v and the scan's x, B, C are projected from one activation
+        # in the compute dtype
         dtype = dtype_of(cfg.compute_dtype)
         try:
-            flash_attention.check_backward(cfg.head_dim, dtype, dtype)
+            if cfg.family in ATTENTION_FAMILIES:
+                flash_attention.check_backward(cfg.head_dim, dtype, dtype)
+            if cfg.family in SSD_FAMILIES:
+                ssd_scan.check_backward(cfg.ssm_head_dim, cfg.ssm_state,
+                                        cfg.ssm_chunk, dtype)
         except (ValueError, TypeError) as e:
             return f"{cfg.name} cannot train on {device}: {e}"
     return None

@@ -7,13 +7,11 @@
     model.load(params)                   -> params cast to cfg.compute_dtype
     model.loss(params, batch, remat=True) -> scalar training loss,
                                             differentiable in the fp32
-                                            masters: the dense, moe (plus
-                                            the router's aux loss; also
-                                            ``groups=``) and encdec
-                                            (``batch`` carries
-                                            ``frame_embeds``) families;
-                                            ssm and hybrid raise
-                                            (``loss_unavailable``)
+                                            masters: every family (moe
+                                            plus the router's aux loss,
+                                            also ``groups=``; encdec's
+                                            ``batch`` carries
+                                            ``frame_embeds``)
     model.init_cache(batch, max_seq, dtype=...) -> the family's cache
     model.prefill(params, batch, cache)  -> (last-position logits, cache
                                             [, enc_states for encdec])
@@ -47,15 +45,6 @@ _FAMILIES = {"dense": (transformer, torch.bfloat16),
              "hybrid": (hybrid, torch.bfloat16),
              "encdec": (encdec, torch.bfloat16)}
 _PAGED = ("dense", "moe")
-_TRAINED = ("dense", "moe", "encdec")
-
-
-def loss_unavailable(cfg: ModelConfig) -> Optional[str]:
-    """Why ``Model.loss`` cannot train ``cfg``'s family yet, or None."""
-    if cfg.family in _TRAINED:
-        return None
-    return (f"{cfg.family} training is not ported yet: its loss comes with "
-            f"the SSD-scan backward kernel, with ssm and hybrid training")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,12 +76,8 @@ def build_model(cfg: ModelConfig, *, device: DeviceLike = None) -> Model:
             prefill_at=lambda p, b, c, lp: m.prefill_at(p, cfg, b, c, lp),
             decode_paged=lambda p, t, pl, pt, ln: m.decode_paged(
                 p, cfg, t, pl, pt, ln))
-    if loss_unavailable(cfg) is None:
-        def loss(p, b, **kw):
-            return m.loss_fn(p, cfg, b, **kw)
-    else:
-        def loss(p, b, **kw):
-            raise NotImplementedError(loss_unavailable(cfg))
+    def loss(p, b, **kw):
+        return m.loss_fn(p, cfg, b, **kw)
     if cfg.family == "encdec":
         def decode(p, t, c, i, enc):
             return m.decode_step(p, cfg, t, c, i, enc)

@@ -215,14 +215,9 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             remat: bool = True) -> torch.Tensor:
-    """Mean next-token cross entropy of the decoder over ``batch``
-    ({"frame_embeds", "tokens", "labels"} and an optional "mask"),
-    differentiable in the masters ``params`` (cast to the compute dtype
-    here, as ``transformer.loss_fn``)."""
-    params = T.cast_params(params, cfg)
-    hidden, _, _ = forward(params, cfg, batch, remat=remat)
-    logits = T.logits_fn(params, cfg, hidden)
-    return L.cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
+    """``transformer.lm_loss`` of the decoder over ``batch``
+    ({"frame_embeds", "tokens", "labels"} and an optional "mask")."""
+    return T.lm_loss(forward, params, cfg, batch, remat)
 
 
 init_cache = T.init_cache

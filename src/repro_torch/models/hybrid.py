@@ -12,7 +12,11 @@ Parameters: ``{"embedding", "shared_attn", "mamba_main": [[block] *
 per] * n_groups, "mamba_tail": [block] * tail, "final_norm"}`` (the
 reference's ``(n_groups, per, ...)`` and ``(tail, ...)`` stacks
 unstacked into lists).  The cache keeps the reference's stacked layout
-and is updated in place.
+and is updated in place.  ``loss_fn`` casts the fp32 masters inside the
+graph; the shared block's gradient sums over its uses.  With ``remat``
+each group (the shared block and its Mamba2 layers) is recomputed in the
+backward pass, as the reference's ``jax.checkpoint`` of ``group_body``;
+the tail layers are not, as in the reference.
 """
 
 from __future__ import annotations
@@ -86,27 +90,44 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             cache: Optional[Dict[str, torch.Tensor]] = None,
-            cache_index: Optional[int] = None
+            cache_index: Optional[int] = None, remat: bool = False
             ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Returns (hidden_states, cache); the cache is updated in place."""
+    """Returns (hidden_states, cache); the cache is updated in place.
+    ``remat`` (no cache) recomputes each group in the backward pass."""
     x = T._embed_inputs(params, cfg, batch)
     S = x.shape[1]
     start = 0 if cache_index is None else cache_index
     positions = (start + torch.arange(S, device=x.device))[None, :]
     shared = params["shared_attn"]
+
+    def group_fwd(h, group):
+        h = T.block_fwd(shared, h, cfg, positions=positions)
+        for layer in group:
+            h = M.block_fwd(layer, h, cfg)[0]
+        return h
+
     for g, group in enumerate(params["mamba_main"]):
-        kv = None if cache is None else (cache["k"][g], cache["v"][g])
-        x = T.block_fwd(shared, x, cfg, positions=positions, kv_cache=kv,
+        if cache is None:
+            x = (T.remat(lambda h, group=group: group_fwd(h, group), x)
+                 if remat else group_fwd(x, group))
+            continue
+        x = T.block_fwd(shared, x, cfg, positions=positions,
+                        kv_cache=(cache["k"][g], cache["v"][g]),
                         cache_index=cache_index)
         for j, layer in enumerate(group):
-            x = M.apply_block(layer, x, cfg,
-                              None if cache is None else cache["conv"][g, j],
-                              None if cache is None else cache["ssd"][g, j])
+            x = M.apply_block(layer, x, cfg, cache["conv"][g, j],
+                              cache["ssd"][g, j])
     for j, layer in enumerate(params.get("mamba_tail", [])):
         x = M.apply_block(layer, x, cfg,
                           None if cache is None else cache["conv_tail"][j],
                           None if cache is None else cache["ssd_tail"][j])
     return L.apply_norm(x, params["final_norm"], cfg.norm_type), cache
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
+            remat: bool = True) -> torch.Tensor:
+    """``transformer.lm_loss`` through this family's ``forward``."""
+    return T.lm_loss(forward, params, cfg, batch, remat)
 
 
 def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],

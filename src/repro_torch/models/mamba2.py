@@ -8,10 +8,13 @@ PyTorch, as in the reference.
 
 Parameters are ``{"embedding", "layers": [block dict per layer],
 "final_norm"}``, the reference's stacked layer leaves unstacked into a
-list.  They are cast to the compute dtype once, at load
+list.  For serving they are cast to the compute dtype once, at load
 (``transformer.cast_params``), every float leaf included: in bf16,
 ``A = -exp(A_log)`` is computed in bf16 and ``dt_bias`` is a bf16 bias
-added to fp32, exactly as in the reference.  The cache is
+added to fp32, exactly as in the reference.  ``loss_fn`` takes the fp32
+masters and casts them inside the graph, so the gradients reach them;
+with ``remat`` each layer is recomputed in the backward pass, as the
+reference's ``jax.checkpoint`` of its layer body.  The cache is
 ``{"conv": (L, B, w-1, conv_ch), "ssd": (L, B, H, P, N)}``, updated in
 place.
 """
@@ -234,16 +237,27 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             cache: Optional[Dict[str, torch.Tensor]] = None,
-            cache_index: Optional[int] = None
+            cache_index: Optional[int] = None, remat: bool = False
             ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Returns (hidden_states, cache); the cache is updated in place.
-    ``cache_index`` is accepted for the model API; the state needs none."""
+    ``cache_index`` is accepted for the model API; the state needs none.
+    ``remat`` (no cache) recomputes each layer in the backward pass."""
     x = T._embed_inputs(params, cfg, batch)
     for i, layer in enumerate(params["layers"]):
+        if remat and cache is None:
+            x = T.remat(lambda h, layer=layer: block_fwd(layer, h, cfg)[0],
+                        x)
+            continue
         x = apply_block(layer, x, cfg,
                         None if cache is None else cache["conv"][i],
                         None if cache is None else cache["ssd"][i])
     return L.apply_norm(x, params["final_norm"], cfg.norm_type), cache
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
+            remat: bool = True) -> torch.Tensor:
+    """``transformer.lm_loss`` through this family's ``forward``."""
+    return T.lm_loss(forward, params, cfg, batch, remat)
 
 
 def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],

@@ -188,16 +188,23 @@ def logits_fn(params, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
     return L.unembed(params["embedding"], hidden, cfg.vocab)
 
 
-def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
-            remat: bool = True) -> torch.Tensor:
+def lm_loss(forward_fn, params, cfg: ModelConfig,
+            batch: Dict[str, torch.Tensor], remat: bool) -> torch.Tensor:
     """Mean next-token cross entropy of ``batch`` ({"tokens", "labels"}
-    and an optional "mask"), differentiable in the masters ``params``:
-    they are cast to the compute dtype here, inside the graph, as the
+    and an optional "mask") through a family's ``forward_fn`` (returning
+    hidden states first), differentiable in the masters ``params``: they
+    are cast to the compute dtype here, inside the graph, as the
     reference's ``forward`` casts them."""
     params = cast_params(params, cfg)
-    hidden, _ = forward(params, cfg, batch, remat=remat)
+    hidden = forward_fn(params, cfg, batch, remat=remat)[0]
     logits = logits_fn(params, cfg, hidden)
     return L.cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
+            remat: bool = True) -> torch.Tensor:
+    """``lm_loss`` of the dense family."""
+    return lm_loss(forward, params, cfg, batch, remat)
 
 
 # ---------------------------------------------------------------------------

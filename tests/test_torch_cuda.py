@@ -19,8 +19,9 @@ kernels (training) are held against autograd of the plain versions, each
 gradient to its dtype's tolerance of its largest |value|, and must give
 the same bits twice; the tensor-core flash backward (bf16) also against
 the emulation of its contract (``tests/_flash_bwd_emulation.py``) at
-``BWD_EMU_TOL``; paged attention and the SSD scan must raise under
-grad.
+``BWD_EMU_TOL``; the SSD backward (fp32 math for both dtypes) also
+against the emulation of its algorithm (``tests/_ssd_bwd_emulation.py``)
+at ``SSD_BWD_EMU_TOL``; paged attention must raise under grad.
 """
 
 import numpy as np
@@ -30,6 +31,7 @@ torch = pytest.importorskip("torch")
 
 from _flash_emulation import flash_tc_emulation               # noqa: E402
 from _paged_emulation import paged_split_emulation            # noqa: E402
+from _ssd_bwd_emulation import ssd_bwd_emulation              # noqa: E402
 from _ssd_emulation import ssd_tc_emulation                   # noqa: E402
 from repro_torch import kernels                               # noqa: E402
 from repro_torch.kernels import ops, ref                      # noqa: E402
@@ -39,6 +41,7 @@ from repro_torch.kernels.rmsnorm import rmsnorm               # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan             # noqa: E402
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+SSD_TOL = 2e-4   # fp32 SSD: the kernels sum in another order than plain
 # kernel vs the emulation of its contract, both rounding K, V and P to
 # bf16: rtol 2^-7 is one ulp of a bf16 output (a rounding flip), atol
 # covers P's rounding against the running row max (the emulation rounds
@@ -727,6 +730,9 @@ FLASH_BWD_CASES = [
     (2, 1500, 1500, 12, 12, 64, "bfloat16", False, None, 0, None),
     (2, 448, 1500, 12, 12, 64, "bfloat16", False, None, 0, None),
     (2, 448, 448, 12, 12, 64, "bfloat16", True, None, 0, None),
+    # zamba2's shared attention block: head_dim 112
+    (2, 512, 512, 32, 32, 112, "bfloat16", True, None, 0, None),
+    (2, 300, 300, 8, 2, 112, "float32", True, None, 0, None),
     (2, 300, 300, 8, 2, 64, "float32", True, 100, 0, None),
     (2, 70, 96, 8, 2, 128, "float32", True, 24, 10, 80),
     (2, 70, 96, 8, 2, 64, "float32", True, 8, 0, 13),   # rows see no key
@@ -864,9 +870,11 @@ def test_cuda_rmsnorm_backward_matches_autograd_of_plain(cuda, rows, d,
 
 @pytest.mark.cuda
 def test_cuda_kernels_without_backward_raise_under_grad(cuda):
-    """Paged decode attention and the SSD scan have no backward kernel:
-    asked for a gradient, they raise instead of returning a result cut
-    off from the graph; under ``torch.no_grad()`` they run."""
+    """Paged decode attention has no backward kernel: asked for a
+    gradient, it raises instead of returning a result cut off from the
+    graph; under ``torch.no_grad()`` it runs.  The SSD scan, once refused
+    here too, now differentiates through its backward kernel (one B8
+    launch, checked below)."""
     g = torch.Generator(device=cuda).manual_seed(2)
     q = torch.randn(2, 4, 64, generator=g, device=cuda, requires_grad=True)
     kp = torch.randn(5, 16, 4, 64, generator=g, device=cuda)
@@ -881,10 +889,101 @@ def test_cuda_kernels_without_backward_raise_under_grad(cuda):
     args = (torch.rand(1, 64, 2, device=cuda), -torch.rand(2, device=cuda),
             torch.randn(1, 64, 1, 64, device=cuda),
             torch.randn(1, 64, 1, 64, device=cuda), torch.ones(2, device=cuda))
-    with pytest.raises(RuntimeError, match="backward"):
-        ssd_scan(x, *args, chunk=64)
+    kernels.reset_launch_counts()
+    ssd_scan(x, *args, chunk=64)[0].sum().backward()
+    assert kernels.backward_counts()["ssd_scan_bwd"] == 1
+    assert bool(torch.isfinite(x.grad).all())
+
+
+# (B, S, H, P, G, N, chunk, dtype, init): mamba2's training shape cut to
+# B=2, zamba2's (N=64, H=112), a ragged S with G=2 and an initial state
+# whose final state has a gradient, P=32, a chunk under 64
+SSD_BWD_CASES = [
+    (2, 512, 48, 64, 1, 128, 128, "bfloat16", False),
+    (2, 512, 112, 64, 1, 64, 128, "bfloat16", False),
+    (2, 300, 8, 64, 2, 64, 128, "bfloat16", True),
+    (2, 300, 8, 64, 2, 128, 128, "float32", True),
+    (2, 100, 4, 32, 1, 16, 128, "float32", False),
+    (1, 70, 4, 64, 2, 128, 32, "bfloat16", True),
+]
+# the backward kernel against the emulation of its algorithm: both fp32
+# throughout, sums in other orders (``SSD_TOL`` of the largest |grad|),
+# and dx, dB, dC rounded to bf16 once (one bf16 ulp: rtol 2^-7)
+SSD_BWD_EMU_TOL = {"atol_of_max": SSD_TOL, "rtol": 2 ** -7}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_BWD_CASES)
+def test_cuda_ssd_backward_matches_autograd_of_plain(cuda, case):
+    """dx, ddt, dA, dB, dC, dD (and dh0) of the SSD backward kernel
+    against autograd through ``ref.ssd_chunked_ref``, each to its dtype's
+    tolerance of the largest |grad| (fp32 ``SSD_TOL``: the sums run in
+    another order), and against the emulation; two runs give the same
+    bits; one forward and one backward launch."""
+    B, S, H, P, G, N, chunk, dtype, init = case
+    dt_ = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    args = _ssd_inputs(g, B, S, H, G, N, dt_, cuda, P=P)
+    h0 = torch.randn(B, H, P, N, generator=g, device=cuda) if init else None
+    dy = torch.randn(B, S, H, P, generator=g, device=cuda).to(dt_)
+    dst = torch.randn(B, H, P, N, generator=g, device=cuda) if init else None
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_(True) for t in args] + (
+            [h0.clone().requires_grad_(True)] if init else [])
+        kernels.reset_launch_counts()
+        y, st = ssd_scan(*leaves[:6], chunk=chunk,
+                         init_state=leaves[6] if init else None)
+        torch.autograd.backward([y] + ([st] if init else []),
+                                [dy] + ([dst] if init else []))
+        assert kernels.backward_counts()["ssd_scan_bwd"] == 1
+        assert kernels.launch_counts()["ssd_scan"] == 1
+        runs.append([t.grad for t in leaves])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    plain = [t.clone().requires_grad_(True) for t in args] + (
+        [h0.clone().requires_grad_(True)] if init else [])
+    y, st = ref.ssd_chunked_ref(*plain[:6], chunk,
+                                init_state=plain[6] if init else None)
+    torch.autograd.backward([y] + ([st] if init else []),
+                            [dy] + ([dst] if init else []))
+    tol = SSD_TOL if dtype == "float32" else TOL[dtype]
+    for got, want in zip(runs[0], plain):
+        scale = float(want.grad.float().abs().max())
+        err = float((got.float() - want.grad.float()).abs().max())
+        assert err <= tol * scale, (err, scale)
+    emu = ssd_bwd_emulation(*args, dy, chunk=chunk, init_state=h0,
+                            dstate=dst)
+    for got, want in zip(runs[0], emu):
+        got, want = got.float(), want.float()
+        limit = (SSD_BWD_EMU_TOL["atol_of_max"] * float(want.abs().max())
+                 + SSD_BWD_EMU_TOL["rtol"] * want.abs())
+        assert bool(((got - want).abs() <= limit).all()), \
+            float((got - want).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_ssd_scan_of_an_empty_sequence(cuda, dtype):
+    """S = 0 launches nothing: y is empty and the final state is the
+    initial one (zeros without it); differentiated, the initial state's
+    gradient is the final state's and every other gradient is zero."""
+    dt_ = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    args = _ssd_inputs(g, 2, 0, 4, 1, 64, dt_, cuda)
+    h0 = torch.randn(2, 4, 64, 64, generator=g, device=cuda)
+    kernels.reset_launch_counts()
     with torch.no_grad():
-        ssd_scan(x, *args, chunk=64)
+        y, st = ssd_scan(*args, chunk=128)
+    assert y.shape == (2, 0, 4, 64) and torch.equal(st, torch.zeros_like(h0))
+    leaves = [t.clone().requires_grad_(True) for t in args + (h0,)]
+    y, st = ssd_scan(*leaves[:6], chunk=128, init_state=leaves[6])
+    assert y.shape == (2, 0, 4, 64) and torch.equal(st, h0)
+    dst = torch.randn(2, 4, 64, 64, generator=g, device=cuda)
+    torch.autograd.backward([y, st], [torch.zeros_like(y), dst])
+    assert torch.equal(leaves[6].grad, dst)
+    assert all(not t.grad.any() for t in leaves[:6])
+    assert not any(kernels.launch_counts().values())
+    assert not any(kernels.backward_counts().values())
 
 
 @pytest.mark.cuda

@@ -340,10 +340,23 @@ def test_train_entry_point_refuses_the_cpu_unless_asked(tmp_path):
 
 @pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-7b"])
 def test_model_loss_raises_for_families_not_trained_yet(arch):
-    """The ssm and hybrid losses come with the SSD-scan backward, and
-    ``Model.loss`` says so (the dense, moe and encdec families train)."""
+    """The ssm and hybrid families, once refused here, now train:
+    ``Model.loss`` gives a finite loss whose gradient reaches every
+    parameter leaf (``tests/test_torch_train_ssm.py`` holds them to the
+    reference)."""
     from repro_torch.configs import get_config
     from repro_torch.models.api import build_model
+    from repro_torch.tree import tree_leaves
     model = build_model(get_config(arch, smoke=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="SSD-scan backward"):
-        model.loss({}, {})
+    params = model.init(torch.Generator().manual_seed(0))
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    g = torch.Generator().manual_seed(1)
+    batch = {k: torch.randint(0, model.cfg.vocab, (2, 12), generator=g)
+             for k in ("tokens", "labels")}
+    loss = model.loss(params, batch)
+    loss.backward()
+    assert bool(torch.isfinite(loss))
+    assert all(t.grad is not None and bool(torch.isfinite(t.grad).all())
+               and float(t.grad.abs().max()) > 0 for t in leaves)

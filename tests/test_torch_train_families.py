@@ -259,17 +259,19 @@ def test_cli_trains_olmoe_on_the_cpu(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("arch,device,reason", [
-    ("olmo-1b", "cuda", "head_dim in (64, 128), got 16"),
-    ("olmoe-1b-7b", "cuda", "head_dim in (64, 128), got 16"),
+    ("olmo-1b", "cuda", "head_dim in (64, 112, 128), got 16"),
+    ("olmoe-1b-7b", "cuda", "head_dim in (64, 112, 128), got 16"),
     ("whisper-small", "cpu", "no frame_embeds"),
-    ("mamba2-780m", "cpu", "SSD-scan backward")])
+    ("mamba2-780m", "cuda", "P in (32, 64)"),
+    ("zamba2-7b", "cuda", "head_dim in (64, 112, 128), got 16")])
 def test_cli_refuses_before_the_loop(monkeypatch, capsys, tmp_path, arch,
                                      device, reason):
     """What no step could do is refused before the fault-tolerant loop,
-    which would retry it forever: the smoke configs' head_dim 16 on the
-    card (the device injected: the check reads only the config), encdec
-    (no frame_embeds in the pipeline) and a family whose loss is not
-    ported.  Exit code 2, the reason on stderr, no step taken."""
+    which would retry it forever: on the card (the device injected: the
+    check reads only the config) the smoke configs' attention head_dim 16
+    and, for mamba2, which runs no attention, its SSD head_dim P=16
+    (zamba2's attention is refused first); encdec (no frame_embeds in
+    the pipeline).  Exit code 2, the reason on stderr, no step taken."""
     monkeypatch.setattr(port_cli, "resolve_device",
                         lambda _: torch.device(device))
     monkeypatch.setattr(port_cli, "FaultTolerantLoop", None)  # never built
