@@ -52,13 +52,17 @@ no result line):
               the fp32 CUDA-core kernel at D=64 (1e-5), and zamba2's
               shared block (B=8, S=512, H=KV=32, D=112) in bf16 and fp32;
               RMSNorm backward at 4096 x 1024 (qwen's, a warp a row) and
-              4096 x 2048 (olmoe's, a block a row) in bf16 and fp32; the
-              SSD backward (B8) through ``SSDScanFn`` at mamba2's and
-              zamba2's training calls (B=8, S=512, H=48 / 112, N=128 /
-              64) and a ragged S=300 with G=2, an initial state and a
-              final state's gradient, in bf16 (2e-2) and fp32 (2e-4),
-              also against the emulation of its algorithm
-              (``tests/_ssd_bwd_emulation.py``, ``SSD_BWD_EMU_TOL``);
+              4096 x 2048 (olmoe's, a block a row) in bf16 and fp32, and
+              at mamba2's 1536 and 3072 and zamba2's 3584 and 7168 (a
+              block a row); the SSD backward (B8) through ``SSDScanFn``
+              at mamba2's and zamba2's training calls (B=8, S=512, H=48
+              / 112, N=128 / 64) and a ragged S=300 with G=2, an initial
+              state and a final state's gradient, in bf16 on the
+              tensor-core kernel (2e-2; against the emulation of its
+              contract, ``tests/_ssd_bwd_tc_emulation.py``) and fp32 on
+              the CUDA-core one (2e-4; against the emulation of its
+              algorithm, ``tests/_ssd_bwd_emulation.py``), both at
+              ``SSD_BWD_EMU_TOL``;
 4. serve    - qwen1.5-0.5b at full width (24 layers, d=1024, vocab
               151,936, seeded random weights) served by
               ``repro_torch.serve.Engine`` through ``run_trace``: 16
@@ -248,7 +252,8 @@ no result line):
               qwen's B=8 x S=512 in bf16 (tensor cores), at olmo's in
               fp32 (CUDA cores) and at whisper's encoder (1500 frames)
               and cross-attention (448 x 1500) in bf16, RMSNorm at
-              qwen's 4096 x 1024 and olmoe's 4096 x 2048, flash at
+              qwen's 4096 x 1024, olmoe's 4096 x 2048, mamba2's 1536 and
+              3072 and zamba2's 3584 and 7168 wide, flash at
               zamba2's B=8 x S=512, H=32, D=112 and the SSD backward at
               mamba2's and zamba2's training calls (no library call
               computes it), beside autograd's backward of the plain
@@ -788,7 +793,9 @@ def backward_checks(device):
     tensor-core kernel, and the
     fp32 CUDA-core kernel at D=64; RMSNorm at 4096 x 1024 (qwen's, the
     warp-per-row branch) and 4096 x 2048 (olmoe's, block-per-row) in
-    bf16 and fp32.  Each gradient is held to its dtype's tolerance of its largest
+    bf16 and fp32, and at mamba2's 1536 (bf16, fp32) and 3072 and
+    zamba2's 3584 and 7168 (bf16), block-per-row.  Each gradient is held
+    to its dtype's tolerance of its largest
     |value| (bf16 2e-2, fp32 1e-5), as the forward's cases at these
     shapes; each bf16 flash case also to the emulation of the tensor-core
     kernel's contract (``tests/_flash_bwd_emulation.py``, on the
@@ -890,9 +897,12 @@ def backward_checks(device):
                   "tol": BWD_EMU_TOL, "ok": ok})
             check(ok, f"flash backward {case}: against the emulation "
                   f"{emu} over {BWD_EMU_TOL}")
-    # d=1024 (qwen) takes the warp-per-row branch, d=2048 (olmoe) the
-    # block-per-row one
-    for d, dt in ((1024, bf16), (1024, f32), (2048, bf16), (2048, f32)):
+    # d=1024 (qwen) takes the warp-per-row branch; olmoe's 2048,
+    # mamba2's 1536 and 3072 and zamba2's 3584 and 7168 the block-per-row
+    # one (rows in the team's registers)
+    for d, dt in ((1024, bf16), (1024, f32), (2048, bf16), (2048, f32),
+                  (1536, bf16), (1536, f32), (3072, bf16), (3584, bf16),
+                  (7168, bf16)):
         x = torch.randn(4096, d, generator=gen, device=device).to(dt)
         s = (1 + 0.1 * torch.randn(d, generator=gen, device=device)).to(dt)
         dy = torch.randn(4096, d, generator=gen, device=device).to(dt)
@@ -916,7 +926,7 @@ def backward_checks(device):
 
 SSD_BWD_EMU_TOL = {"atol_of_max": SSD_TOL,    # the SSD backward against
                    "rtol": 2 ** -7}            # the emulation of its
-                                               # algorithm: fp32 sums in
+                                               # contract: fp32 sums in
                                                # other orders, and one
                                                # bf16 ulp of dx, dB, dC
 
@@ -927,19 +937,24 @@ def ssd_backward_checks(device):
     plain version on fp32 copies of the same inputs, each gradient (dx,
     ddt, dA, dB, dC, dD, and dh0 where there is an initial state) to its
     dtype's tolerance of its largest |value| (bf16 2e-2, fp32
-    ``SSD_TOL``), and against the emulation of the kernel's algorithm
-    (``tests/_ssd_bwd_emulation.py``) at ``SSD_BWD_EMU_TOL``; each case
-    run twice, required to give the same bits, one forward and one
-    backward launch.  Shapes: mamba2's training call (B=8, S=512, H=48,
-    P=64, G=1, N=128, Q=128) and zamba2's (H=112, N=64), a ragged S=300
-    with G=2 and an initial state whose final state has a gradient, in
-    bf16 and fp32.  Returns the max error of mamba2's bf16 case."""
+    ``SSD_TOL``), and at ``SSD_BWD_EMU_TOL`` against the emulation of
+    the kernel it ran: bf16 the tensor-core kernel's contract
+    (``tests/_ssd_bwd_tc_emulation.py``), fp32 the CUDA-core kernel's
+    algorithm (``tests/_ssd_bwd_emulation.py``); each case run twice,
+    required to give the same bits, one forward and one backward launch,
+    the backward on its dtype's kernel.  Shapes: mamba2's training call
+    (B=8, S=512, H=48, P=64, G=1, N=128, Q=128) and zamba2's (H=112,
+    N=64), a ragged S=300 with G=2 and an initial state whose final state
+    has a gradient, in bf16 and fp32.  Returns the max error of mamba2's
+    bf16 case."""
     import torch
     from repro_torch import kernels
     from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels.ssd_scan import ssd_scan
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
     from _ssd_bwd_emulation import ssd_bwd_emulation
+    from _ssd_bwd_tc_emulation import ssd_bwd_tc_emulation
 
     gen = torch.Generator(device=device).manual_seed(6)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -968,9 +983,12 @@ def ssd_backward_checks(device):
                              init_state=leaves[6] if init else None)
             torch.autograd.backward([y] + ([st] if init else []), outs)
             got = (kernels.launch_counts()["ssd_scan"],
-                   kernels.backward_counts()["ssd_scan_bwd"])
-            check(got == (1, 1), f"ssd backward {tag}: launches (forward, "
-                  f"backward) {got}, expected (1, 1)")
+                   kernels.backward_counts()["ssd_scan_bwd"],
+                   kernels.backward_variant_counts()[
+                       f"ssd_scan_bwd.{'tc' if dt == bf16 else 'f32'}"])
+            check(got == (1, 1, 1), f"ssd backward {tag}: launches "
+                  f"(forward, backward, backward on the {dt} kernel) "
+                  f"{got}, expected (1, 1, 1)")
             runs.append([t.grad for t in leaves])
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) for a, b in zip(*runs))
@@ -981,8 +999,13 @@ def ssd_backward_checks(device):
         torch.autograd.backward([y] + ([st] if init else []),
                                 [o.float() for o in outs])
         with torch.no_grad():
-            emu = ssd_bwd_emulation(*args, dy, chunk=128, init_state=h0,
-                                    dstate=dst)
+            if dt == bf16:
+                emu = ssd_bwd_tc_emulation(
+                    *args, dy, chunk=128, init_state=h0, dstate=dst,
+                    run=ssd.bwd_run(B, S, H, G, 128))
+            else:
+                emu = ssd_bwd_emulation(*args, dy, chunk=128, init_state=h0,
+                                        dstate=dst)
         tol = TOL["bfloat16"] if dt == bf16 else SSD_TOL
         errs, scales, emu_ok = [], [], []
         for got, want, e in zip(runs[0], plain, emu):
@@ -3308,6 +3331,8 @@ def train_full_width(arch, device, smi, n_layers=None):
                         counts["flash_attention"])
     check_backward_variant(f"{cfg.name} train", cfg.compute_dtype, variants,
                            counts["flash_attention_bwd"])
+    check_backward_variant(f"{cfg.name} train", cfg.compute_dtype, variants,
+                           counts["ssd_scan_bwd"], "ssd_scan_bwd")
     check_ssd_variant(f"{cfg.name} train", cfg.compute_dtype, variants,
                       counts["ssd_scan"])
     check(twice is not False, f"{cfg.name}: one step run twice from one "
@@ -3315,14 +3340,16 @@ def train_full_width(arch, device, smi, n_layers=None):
     return counts, variants
 
 
-def check_backward_variant(what, compute, variants, n):
-    """``n`` flash backward calls, all on the kernel of the compute dtype:
-    the tensor-core one in bf16, the CUDA-core one in fp32."""
-    got = {v: variants[f"flash_attention_bwd.{v}"] for v in ("tc", "f32")}
+def check_backward_variant(what, compute, variants, n,
+                           kernel="flash_attention_bwd"):
+    """``n`` calls of the backward ``kernel`` (flash's, or B8
+    ``ssd_scan_bwd``), all on the kernel of the compute dtype: the
+    tensor-core one in bf16, the CUDA-core one in fp32."""
+    got = {v: variants[f"{kernel}.{v}"] for v in ("tc", "f32")}
     want = {"tc": n if compute == "bfloat16" else 0,
             "f32": n if compute == "float32" else 0}
-    check(got == want, f"{what} ({compute}): flash backward calls by "
-          f"variant {got}, expected {want}")
+    check(got == want, f"{what} ({compute}): {kernel} calls by variant "
+          f"{got}, expected {want}")
 
 
 def kernels_against_plain(cfg, device, seed, steps, lr=None):
@@ -3397,6 +3424,9 @@ def fp32_gate(device, arch="olmo-1b", layers=TRAIN_CUT):
           f"plain path {runs[True][1]}")
     check_backward_variant(f"{cfg.name} fp32 gate", cfg.compute_dtype,
                            runs[False][2], A * 3)
+    check_backward_variant(f"{cfg.name} fp32 gate", cfg.compute_dtype,
+                           runs[False][2], want["ssd_scan_bwd"],
+                           "ssd_scan_bwd")
 
 
 def bf16_trajectory(device, arch="olmo-1b", layers=TRAIN_CUT, lr=None):
@@ -3431,6 +3461,10 @@ def bf16_trajectory(device, arch="olmo-1b", layers=TRAIN_CUT, lr=None):
           f"{BF16_TRAJ_TOL}")
     check_backward_variant(f"{cfg.name} bf16 trajectory", cfg.compute_dtype,
                            runs[False][2], n)
+    check_backward_variant(f"{cfg.name} bf16 trajectory", cfg.compute_dtype,
+                           runs[False][2],
+                           train_launches(cfg, TRAIN_STEPS)["ssd_scan_bwd"],
+                           "ssd_scan_bwd")
     check(runs[False][1] == train_launches(cfg, TRAIN_STEPS)
           and not any(runs[True][1].values()),
           f"{cfg.name} bf16 trajectory: launches {runs[False][1]}, plain "
@@ -4072,9 +4106,12 @@ def kernel_times(device, counts, errs):
               b_ms, b_by, lib, variant="tc" if dt == bf16 else "f32",
               input_copies=n, **extra)
 
-    # qwen's rows take the warp-per-row branch, olmoe's the block-per-row
-    # one; qwen's is the kernels line's row
-    for arch, rows_n, d in (("qwen", 4096, 1024), ("olmoe", 4096, 2048)):
+    # qwen's rows take the warp-per-row branch; olmoe's, mamba2's (d and
+    # its gated 2d) and zamba2's the block-per-row one; qwen's is the
+    # kernels line's row
+    for arch, rows_n, d in (("qwen", 4096, 1024), ("olmoe", 4096, 2048),
+                            ("mamba2", 4096, 1536), ("mamba2", 4096, 3072),
+                            ("zamba2", 4096, 3584), ("zamba2", 4096, 7168)):
         copies = cold_copies(2 * rows_n * d * 2)
         xs = [torch.randn(rows_n, d, generator=gen, device=device).to(bf16)
               for _ in range(copies)]
@@ -4142,10 +4179,11 @@ def kernel_times(device, counts, errs):
         plain = backward_ms(lambda *a: ref.ssd_chunked_ref(*a, 128)[0], ad)
         b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
         if arch == "mamba2":
-            row(ssd, "ssd_scan_bwd", ms, plain, b_ms, b_by, None)
+            row(ssd, "ssd_scan_bwd", ms, plain, b_ms, b_by, None,
+                variant="tc")
         times("ssd_scan_bwd", f"{arch} train B={B} S={S} H={H} P=64 N={N} "
-              f"G=1 Q=128 bf16", ms, plain, b_ms, b_by, None,
-              input_copies=copies)
+              f"G=1 Q=128 bf16", ms, plain, b_ms, b_by, None, variant="tc",
+              run=ssd.bwd_run(B, S, H, 1, 128), input_copies=copies)
         del sets, ad
 
     # no time may beat the card's bound: a case under it read warm data
@@ -4254,6 +4292,7 @@ def main() -> int:
     check(all(n > 0 for n in total.values()),
           f"a kernel never ran on the main paths: {total}")
     rows = kernel_times(device, total, errs)
+    emit({"phase": "smoke", "seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

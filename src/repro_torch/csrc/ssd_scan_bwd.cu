@@ -1,11 +1,12 @@
 // Backward of the port's Mamba2 SSD chunked scan, on CUDA cores in fp32
-// (sm_90a).
+// (sm_90a), for fp32 x, B, C (the fp32 gates); bf16 goes to the
+// tensor-core kernel in ssd_scan_bwd_tc.cu.
 //
 // The JAX package has no backward Pallas kernel: XLA differentiates its
 // jnp scan (src/repro/models/mamba2.py ssd_chunked).  This is the
-// gradient of the forward in ssd_scan_tc.cu / ssd_scan.cu (which replace
+// gradient of the forward in ssd_scan.cu (which replaces
 // src/repro/kernels/ssd_scan.py ssd_scan), held against autograd of the
-// plain version kernels/ref.ssd_chunked_ref, for bf16 and fp32 x, B, C.
+// plain version kernels/ref.ssd_chunked_ref.
 // The scanned function does not depend on the chunk length, so this
 // kernel walks chunks of Qb = min(Q, 64) positions of its own.  In a
 // chunk, with a = dt * A, cum its running sum from the chunk's start,
@@ -28,7 +29,7 @@
 //   dD    = sum_q dy_q . x_q.
 //
 // Layout: the forward's, x, dy, dx (B,S,H,P) and B, C, dB, dC (B,S,G,N)
-// in the input dtype (bf16 or fp32), dt, ddt (B,S,H), A, D, dA, dD (H,),
+// fp32, dt, ddt (B,S,H), A, D, dA, dD (H,),
 // h0, dh_T (the final state's gradient) and dh0 (B,H,P,N) fp32; head h
 // reads group h / (H/G).  Three launches, all math in fp32 from the
 // inputs' values, no atomics (the same inputs give the same bits):
@@ -574,8 +575,9 @@ cudaError_t bwd_dispatch_p(int P, const void* x, const void* dt,
 
 using namespace repro;
 
-// x, B, C, dy, dx, dB, dC in `dtype` (fp32 or bf16); dt, A, D, h0 and
-// dhT (either may be null: zeros), ddt, dA, dD fp32.  Workspaces, fp32:
+// x, B, C, dy, dx, dB, dC in `dtype` (fp32 only: bf16 takes
+// ssd_scan_tc_bwd); dt, A, D, h0 and dhT (either may be null: zeros),
+// ddt, dA, dD fp32.  Workspaces, fp32:
 // states and dstates (B, H, nc+1, P, N), dstates[:, :, 0] being dh0;
 // pB, pC (B, S, H, N); pAD (2, B, nc, H); nc = ceil(S / Qb).  P in {32,
 // 64}, 1 <= N <= 128, 1 <= Qb <= 64, H % G == 0, B, S, H >= 1.
@@ -594,7 +596,6 @@ extern "C" int ssd_scan_bwd(const void* x, const void* dt, const void* A,
 #define BWD_ARGS P, x, dt, A, Bm, Cm, D, h0, dy, dhT, dx, ddt, dA, dD, dB, \
                  dC, states, dstates, pB, pC, pAD, B, S, H, G, N, Qb, s
   if (dtype == kF32) return (int)bwd_dispatch_p<float>(BWD_ARGS);
-  if (dtype == kBF16) return (int)bwd_dispatch_p<__nv_bfloat16>(BWD_ARGS);
 #undef BWD_ARGS
   return (int)cudaErrorInvalidValue;
 }

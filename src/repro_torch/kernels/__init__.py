@@ -2,7 +2,8 @@
 replaces (each with an integer ``launches`` count; flash attention and
 the SSD scan choose between two CUDA kernels by dtype and also count
 each; flash attention, RMSNorm and the SSD scan also have a backward
-kernel, counted in ``launches_bwd``, flash's by variant too), their
+kernel, counted in ``launches_bwd``, flash's and the SSD scan's by
+variant too), their
 plain PyTorch versions in ``ref``, the model-layout adapters in ``ops``
 and the build in ``_build``."""
 
@@ -46,8 +47,9 @@ def variant_counts() -> Dict[str, int]:
 def backward_variant_counts() -> Dict[str, int]:
     """Backward calls per kernel variant of the backward wrappers that
     choose between kernels, as ``"<backward>.<variant>"``
-    (``flash_attention_bwd.tc``, ``flash_attention_bwd.f32``); they sum to
-    the wrapper's backward count."""
+    (``flash_attention_bwd.tc``, ``flash_attention_bwd.f32``,
+    ``ssd_scan_bwd.tc``, ``ssd_scan_bwd.f32``); they sum to the wrapper's
+    backward count."""
     return {f"{name}.{c[len('launches_bwd_'):]}": getattr(mod, c)
             for name, mod in BACKWARD.items()
             for c in getattr(mod, "COUNTERS_BWD", ())[1:]}

@@ -33,8 +33,9 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("paged_attention.cu", "flash_attention.cu",
            "flash_attention_tc.cu", "flash_attention_bwd.cu",
            "flash_attention_bwd_tc.cu", "rmsnorm.cu", "rmsnorm_bwd.cu",
-           "ssd_scan.cu", "ssd_scan_tc.cu", "ssd_scan_bwd.cu")
-HEADERS = ("common.cuh", "wgmma.cuh")
+           "ssd_scan.cu", "ssd_scan_tc.cu", "ssd_scan_bwd.cu",
+           "ssd_scan_bwd_tc.cu")
+HEADERS = ("common.cuh", "wgmma.cuh", "mma_sync.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -72,8 +73,12 @@ SIGNATURES = {
                         _I, _I, _I, _I, _I, _I, _I, _P),
     # x, dt, A, B, C, D, h0 (nullable), dy, dh_T (nullable), dx, ddt, dA,
     # dD, dB, dC, states, dstates, pB, pC, pAD, B, S, H, G, P, N, Qb,
-    # dtype, stream (both dtypes: CUDA cores)
+    # dtype, stream (fp32: CUDA cores)
     "ssd_scan_bwd": (_P,) * 20 + (_I,) * 8 + (_P,),
+    # x, dt, A, B, C, D, h0 (nullable), dy, dh_T (nullable), dx, ddt, dA,
+    # dD, dB, dC, dh0 (nullable), hs, gs, pB, pC, pAD, B, S, H, G, P, N,
+    # Qb, run, stream (bf16: tensor cores)
+    "ssd_scan_tc_bwd": (_P,) * 21 + (_I,) * 8 + (_P,),
 }
 
 _lock = threading.Lock()

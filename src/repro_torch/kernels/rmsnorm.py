@@ -9,8 +9,9 @@ A CPU tensor takes the plain version in ``ref`` (autograd differentiates
 it).  A CUDA call that autograd will differentiate goes through
 ``RMSNormFn``, whose backward launches the backward kernel (it
 recomputes each row's rsqrt from x; the forward saves x and scale
-only; rows up to ``BWD_WARP_MAX_D`` wide take a warp each, held in its
-registers, wider ones a block).  Any other CUDA call launches the
+only; rows up to ``BWD_WARP_MAX_D`` wide take a warp each, wider ones a
+team of 256 threads, 1024 beyond 8192; either holds the row in its
+registers).  Any other CUDA call launches the
 forward kernel; otherwise the wrapper raises.
 """
 
@@ -29,12 +30,14 @@ REPLACES = "src/repro/kernels/rmsnorm.py:42"
 REPLACES_BWD = "src/repro/models/layers.py:40"
 MAX_D = 16384
 # the backward takes a warp per row up to BWD_WARP_MAX_D, 16 warps a
-# block and at most one block per H100 SM; wider rows a block per row,
-# at most four a SM
+# block and at most one block per H100 SM; wider rows a team of threads
+# per row (two teams a block, a run of rows a block, each team's next
+# row's loads in flight): a block a SM, two up to BWD_WIDE_SMALL_D (the
+# kernel's registers allow it there)
 BWD_WARP_MAX_D = 1024
 BWD_WARPS = 16
 BWD_BLOCKS = 132
-BWD_WIDE_BLOCKS = 4 * 132
+BWD_WIDE_SMALL_D = 2048
 
 
 def _launch_forward(x: torch.Tensor, scale: torch.Tensor,
@@ -91,7 +94,8 @@ def _launch_backward(x, scale, dy, eps):
     if rows == 0:
         return dx, dscale.zero_()
     blocks = (min(-(-rows // BWD_WARPS), BWD_BLOCKS) if d <= BWD_WARP_MAX_D
-              else min(rows, BWD_WIDE_BLOCKS))
+              else min(rows, BWD_BLOCKS * (2 if d <= BWD_WIDE_SMALL_D
+                                           else 1)))
     partial = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
     _build.launch("rmsnorm_bwd", x.data_ptr(), scale.data_ptr(),
                   dy.data_ptr(), dx.data_ptr(), dscale.data_ptr(),

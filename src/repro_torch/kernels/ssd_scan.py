@@ -1,13 +1,17 @@
-"""Mamba2 SSD chunked scan: wrapper around two forward kernels, chosen by
-the dtype of x, B and C, and one backward kernel.
+"""Mamba2 SSD chunked scan: wrapper around two forward kernels and two
+backward kernels, each pair chosen by the dtype of x, B and C.
 
 - bf16 (every served call): ``csrc/ssd_scan_tc.cu``, the four products
   of a chunk on the tensor cores, fp32 operands split into bf16 hi + lo
   halves, fp32 sums and decays;
 - fp32 (the fp32-compute model checks and parity runs):
   ``csrc/ssd_scan.cu``, fp32 math on CUDA cores;
-- the gradient, both dtypes: ``csrc/ssd_scan_bwd.cu``, fp32 math on
-  CUDA cores over chunks of ``min(Q, BWD_CHUNK)`` positions.
+- the gradient, over chunks of ``min(Q, BWD_CHUNK)`` positions: bf16
+  (every bf16 training step) ``csrc/ssd_scan_bwd_tc.cu`` on the tensor
+  cores, with hi + lo splits of the fp32 operands and dB, dC summed over
+  runs of ``bwd_run(...)`` heads in a block; fp32 (the fp32 gates)
+  ``csrc/ssd_scan_bwd.cu``, fp32 math on CUDA cores.  Both take N a
+  multiple of 8 in bf16, as the forward does.
 
 Replaces ``repro.kernels.ssd_scan.ssd_scan``: x (B,S,H,P), dt (B,S,H),
 A and D (H,), B/C (B,S,G,N) and an optional initial state (B,H,P,N);
@@ -38,9 +42,13 @@ launches_tc = 0     # ... of them on the tensor-core kernel (bf16 x, B, C)
 launches_f32 = 0    # ... of them on the fp32 CUDA-core kernel
 COUNTERS = ("launches", "launches_tc", "launches_f32")
 launches_bwd = 0    # backward kernel calls since the last reset
+launches_bwd_tc = 0     # ... of them on the tensor-core kernel (bf16)
+launches_bwd_f32 = 0    # ... of them on the fp32 CUDA-core kernel
+COUNTERS_BWD = ("launches_bwd", "launches_bwd_tc", "launches_bwd_f32")
 SOURCE = "src/repro_torch/csrc/ssd_scan_tc.cu"
 SOURCE_F32 = "src/repro_torch/csrc/ssd_scan.cu"
-SOURCE_BWD = "src/repro_torch/csrc/ssd_scan_bwd.cu"
+SOURCE_BWD = "src/repro_torch/csrc/ssd_scan_bwd_tc.cu"
+SOURCE_BWD_F32 = "src/repro_torch/csrc/ssd_scan_bwd.cu"
 REPLACES = "src/repro/kernels/ssd_scan.py:115"
 # no TPU backward kernel: XLA differentiates the reference's jnp scan
 REPLACES_BWD = "src/repro/models/mamba2.py:32"
@@ -48,6 +56,19 @@ HEAD_DIMS = (32, 64)     # P
 MAX_STATE = 128          # N
 MAX_CHUNK = 128          # Q
 BWD_CHUNK = 64           # the backward's chunk: min(Q, BWD_CHUNK)
+BWD_RUN = 8              # heads of a group whose dB, dC one block sums
+H100_SMS = 132
+
+
+def bwd_run(Bsz: int, S: int, H: int, G: int, Q: int) -> int:
+    """Heads a block of the bf16 backward sums dB and dC over: BWD_RUN,
+    halved while the grid (chunks x runs x batch, one block an SM) would
+    give the H100's SMs fewer than two blocks each."""
+    nc = -(-S // min(Q, BWD_CHUNK))
+    run = BWD_RUN
+    while run > 1 and nc * G * -(-(H // G) // run) * Bsz < 2 * H100_SMS:
+        run //= 2
+    return run
 
 
 def check_backward(P: int, N: int, chunk: int, dtype: torch.dtype) -> None:
@@ -91,12 +112,15 @@ def _launch_forward(x, dt, A, B_mat, C_mat, D, h0, Q):
     return y, state
 
 
-def _launch_backward(x, dt, A, B_mat, C_mat, D, h0, dy, dstate, Q):
+def _launch_backward(x, dt, A, B_mat, C_mat, D, h0, dy, dstate, Q,
+                     run=None):
     """One backward call (three launches: the chunk-boundary states and
     their gradients, the per-chunk terms, the fixed-order sums over heads
-    and chunks) on the forward's inputs; returns (dx, ddt, dA, dB, dC,
-    dD, dh0), dh0 None without an initial state."""
-    global launches_bwd
+    and chunks) on the forward's inputs, on the tensor-core kernel for
+    bf16 x, B and C (dB, dC summed over runs of ``run`` heads, by default
+    ``bwd_run``) and the CUDA-core one for fp32; returns (dx, ddt, dA, dB,
+    dC, dD, dh0), dh0 None without an initial state."""
+    global launches_bwd, launches_bwd_tc, launches_bwd_f32
     Bsz, S, H, P = x.shape
     G, N = B_mat.shape[2], B_mat.shape[3]
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -112,22 +136,49 @@ def _launch_backward(x, dt, A, B_mat, C_mat, D, h0, dy, dstate, Q):
                 dD.zero_(), dh0)
     Qb = min(Q, BWD_CHUNK)
     nc = -(-S // Qb)
-    states = torch.empty((Bsz, H, nc + 1, P, N), **f32)
-    dstates = torch.empty((Bsz, H, nc + 1, P, N), **f32)
-    pB = torch.empty((Bsz, S, H, N), **f32)
-    pC = torch.empty((Bsz, S, H, N), **f32)
     pAD = torch.empty((2, Bsz, nc, H), **f32)
-    _build.launch("ssd_scan_bwd", x.data_ptr(), dt.data_ptr(), A.data_ptr(),
-                  B_mat.data_ptr(), C_mat.data_ptr(), D.data_ptr(),
-                  None if h0 is None else h0.data_ptr(), dy.data_ptr(),
-                  None if dhT is None else dhT.data_ptr(), dx.data_ptr(),
-                  ddt.data_ptr(), dA.data_ptr(), dD.data_ptr(),
-                  dB.data_ptr(), dC.data_ptr(), states.data_ptr(),
-                  dstates.data_ptr(), pB.data_ptr(), pC.data_ptr(),
-                  pAD.data_ptr(), Bsz, S, H, G, P, N, Qb,
-                  _build.dtype_code(x))
+    common = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_mat.data_ptr(),
+              C_mat.data_ptr(), D.data_ptr(),
+              None if h0 is None else h0.data_ptr())
+    if x.dtype == torch.bfloat16:
+        if dy.data_ptr() % 16:
+            dy = dy.clone()
+        if dhT is not None and dhT.data_ptr() % 8:
+            dhT = dhT.clone()
+        run = bwd_run(Bsz, S, H, G, Q) if run is None else run
+        if run < 1:
+            raise ValueError(f"ssd backward run must be >= 1, got {run}")
+        runs = G * -(-(H // G) // run)
+        hs = torch.empty((Bsz, nc, H, 2, P, N), dtype=torch.bfloat16,
+                         device=x.device)
+        gs = torch.empty_like(hs)
+        pB = torch.empty((Bsz, S, runs, N), **f32)
+        pC = torch.empty((Bsz, S, runs, N), **f32)
+        dh0 = None if h0 is None else torch.empty_like(h0)
+        _build.launch("ssd_scan_tc_bwd", *common, dy.data_ptr(),
+                      None if dhT is None else dhT.data_ptr(),
+                      dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+                      dD.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+                      None if dh0 is None else dh0.data_ptr(),
+                      hs.data_ptr(), gs.data_ptr(), pB.data_ptr(),
+                      pC.data_ptr(), pAD.data_ptr(), Bsz, S, H, G, P, N, Qb,
+                      run)
+        launches_bwd_tc += 1
+    else:
+        states = torch.empty((Bsz, H, nc + 1, P, N), **f32)
+        dstates = torch.empty((Bsz, H, nc + 1, P, N), **f32)
+        pB = torch.empty((Bsz, S, H, N), **f32)
+        pC = torch.empty((Bsz, S, H, N), **f32)
+        _build.launch("ssd_scan_bwd", *common, dy.data_ptr(),
+                      None if dhT is None else dhT.data_ptr(),
+                      dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+                      dD.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+                      states.data_ptr(), dstates.data_ptr(), pB.data_ptr(),
+                      pC.data_ptr(), pAD.data_ptr(), Bsz, S, H, G, P, N, Qb,
+                      _build.dtype_code(x))
+        launches_bwd_f32 += 1
+        dh0 = None if h0 is None else dstates[:, :, 0].clone()
     launches_bwd += 1
-    dh0 = None if h0 is None else dstates[:, :, 0].clone()
     return dx, ddt, dA, dB, dC, dD, dh0
 
 

@@ -19,8 +19,9 @@ kernels (training) are held against autograd of the plain versions, each
 gradient to its dtype's tolerance of its largest |value|, and must give
 the same bits twice; the tensor-core flash backward (bf16) also against
 the emulation of its contract (``tests/_flash_bwd_emulation.py``) at
-``BWD_EMU_TOL``; the SSD backward (fp32 math for both dtypes) also
-against the emulation of its algorithm (``tests/_ssd_bwd_emulation.py``)
+``BWD_EMU_TOL``; the SSD backward also against the emulation of the
+fp32 kernel's algorithm (``tests/_ssd_bwd_emulation.py``) and, in bf16,
+of the tensor-core kernel's contract (``tests/_ssd_bwd_tc_emulation.py``)
 at ``SSD_BWD_EMU_TOL``; paged attention must raise under grad.
 """
 
@@ -811,7 +812,8 @@ def test_cuda_flash_backward_tc_matches_emulation(cuda, case):
         flash_attention(*leaves, **kw).backward(do)
         assert kernels.backward_counts()["flash_attention_bwd"] == 1
         assert kernels.backward_variant_counts() == {
-            "flash_attention_bwd.tc": 1, "flash_attention_bwd.f32": 0}
+            "flash_attention_bwd.tc": 1, "flash_attention_bwd.f32": 0,
+            "ssd_scan_bwd.tc": 0, "ssd_scan_bwd.f32": 0}
         runs.append([t.grad for t in leaves])
     assert all(torch.equal(a, b) for a, b in zip(*runs))
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=cuda)
@@ -836,13 +838,19 @@ def test_cuda_flash_backward_tc_matches_emulation(cuda, case):
     (8, 2048, "bfloat16", 0), (33, 1001, "float32", 0),
     (3000, 64, "bfloat16", 0), (2, 16384, "float32", 0),
     (4096, 1024, "bfloat16", 1), (300, 1024, "float32", 3),
-    (64, 1536, "bfloat16", 1), (500, 1032, "bfloat16", 0)])
+    (64, 1536, "bfloat16", 1), (500, 1032, "bfloat16", 0)] + [
+    # the block-per-row branch at mamba2's 1536 and 3072, olmoe's 2048,
+    # zamba2's 3584 and 7168 and MAX_D: 4095 rows leave the last block
+    # short, an offset of 1 takes the scalar loads
+    (rows, d, "bfloat16", offset) for d in (1536, 2048, 3072, 3584, 7168,
+                                            16384)
+    for rows, offset in ((4095, 0), (999, 1))])
 def test_cuda_rmsnorm_backward_matches_autograd_of_plain(cuda, rows, d,
                                                          dtype, offset):
     """``offset`` > 0 starts x and dy that many elements into their
     buffers: contiguous views whose rows do not start on 16-byte
-    boundaries (the warp-per-row kernel's scalar branch).  Rows wider
-    than ``BWD_WARP_MAX_D`` (1024) take the block-per-row branch."""
+    boundaries (each branch's scalar loads).  Rows wider than
+    ``BWD_WARP_MAX_D`` (1024) take the block-per-row branch."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device=cuda).manual_seed(1)
     xb = torch.randn(offset + rows * d, generator=g, device=cuda).to(dt)
@@ -937,6 +945,8 @@ def test_cuda_ssd_backward_matches_autograd_of_plain(cuda, case):
         torch.autograd.backward([y] + ([st] if init else []),
                                 [dy] + ([dst] if init else []))
         assert kernels.backward_counts()["ssd_scan_bwd"] == 1
+        assert kernels.backward_variant_counts()[
+            "ssd_scan_bwd." + ("tc" if dtype == "bfloat16" else "f32")] == 1
         assert kernels.launch_counts()["ssd_scan"] == 1
         runs.append([t.grad for t in leaves])
     assert all(torch.equal(a, b) for a, b in zip(*runs))
@@ -957,6 +967,56 @@ def test_cuda_ssd_backward_matches_autograd_of_plain(cuda, case):
         got, want = got.float(), want.float()
         limit = (SSD_BWD_EMU_TOL["atol_of_max"] * float(want.abs().max())
                  + SSD_BWD_EMU_TOL["rtol"] * want.abs())
+        assert bool(((got - want).abs() <= limit).all()), \
+            float((got - want).abs().max())
+
+
+# (case, run): every bf16 case above at the wrapper's run length, then
+# P=32 and zamba2's H=112 with runs of 3 (which 112 leaves a run of 1)
+SSD_BWD_TC_CASES = [(c, None) for c in SSD_BWD_CASES
+                    if c[7] == "bfloat16"] + [
+    ((2, 300, 8, 32, 2, 64, 128, "bfloat16", True), None),
+    ((2, 512, 112, 64, 1, 64, 128, "bfloat16", True), 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,run", SSD_BWD_TC_CASES)
+def test_cuda_ssd_backward_tc_matches_emulation(cuda, case, run):
+    """The bf16 SSD backward on its tensor-core kernel
+    (``ssd_scan_bwd_tc.cu``, one call on ``ssd_scan_bwd.tc``) against the
+    emulation of its contract (``tests/_ssd_bwd_tc_emulation.py``) at
+    ``SSD_BWD_EMU_TOL``: 2e-4 of the largest |grad| for fp32 sums in
+    other orders plus one bf16 ulp of dx, dB and dC; the same bits
+    twice."""
+    from _ssd_bwd_tc_emulation import ssd_bwd_tc_emulation
+    from repro_torch.kernels import ssd_scan as ssd
+    B, S, H, P, G, N, chunk, dtype, init = case
+    g = torch.Generator(device=cuda).manual_seed(7)
+    args = _ssd_inputs(g, B, S, H, G, N, torch.bfloat16, cuda, P=P)
+    h0 = torch.randn(B, H, P, N, generator=g, device=cuda) if init else None
+    dy = torch.randn(B, S, H, P, generator=g, device=cuda).to(torch.bfloat16)
+    dst = torch.randn(B, H, P, N, generator=g, device=cuda) if init else None
+    Q = min(chunk, S)
+    runs = []
+    for _ in range(2):
+        kernels.reset_launch_counts()
+        runs.append(ssd._launch_backward(*args, h0, dy, dst, Q, run=run))
+        assert kernels.backward_counts()["ssd_scan_bwd"] == 1
+        assert kernels.backward_variant_counts()["ssd_scan_bwd.tc"] == 1
+    torch.cuda.synchronize()
+    assert all((a is None and b is None) or torch.equal(a, b)
+               for a, b in zip(*runs))
+    emu = ssd_bwd_tc_emulation(
+        *args, dy, chunk=chunk, init_state=h0, dstate=dst,
+        run=ssd.bwd_run(B, S, H, G, Q) if run is None else run)
+    for got, want in zip(runs[0], emu):
+        if want is None:
+            assert got is None
+            continue
+        got, want = got.float(), want.float()
+        limit = (SSD_BWD_EMU_TOL["atol_of_max"] * float(want.abs().max())
+                 + SSD_BWD_EMU_TOL["rtol"] * want.abs())
+        assert bool(torch.isfinite(got).all())
         assert bool(((got - want).abs() <= limit).all()), \
             float((got - want).abs().max())
 

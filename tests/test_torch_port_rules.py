@@ -288,9 +288,9 @@ def test_every_cuda_source_is_built_and_every_kernel_names_its_source():
     nvcc builds it in parallel with the others), and each kernel
     module's ``SOURCE`` (and, for the flash and SSD wrappers, which
     choose between two kernels, ``SOURCE_F32``; for the wrappers with a
-    backward kernel, ``SOURCE_BWD``, and for flash's, which chooses
-    between two backward kernels, ``SOURCE_BWD_F32``) names a file of the
-    repo
+    backward kernel, ``SOURCE_BWD``, and for flash's and the SSD scan's,
+    which choose between two backward kernels, ``SOURCE_BWD_F32``) names
+    a file of the repo
     that is one of them; every source is some wrapper's, and each C
     entry point is found in the sources."""
     from repro_torch.kernels import BACKWARD, WRAPPERS, _build
@@ -300,7 +300,7 @@ def test_every_cuda_source_is_built_and_every_kernel_names_its_source():
              for attr in ("SOURCE", "SOURCE_F32", "SOURCE_BWD",
                           "SOURCE_BWD_F32")
              if hasattr(mod, attr)]
-    assert len(named) == len(WRAPPERS) + 2 + len(BACKWARD) + 1
+    assert len(named) == len(WRAPPERS) + 2 + len(BACKWARD) + 2
     assert sorted(Path(src).name for src in named) == on_disk
     assert "ssd_scan_tc.cu" in on_disk
     for src in named:

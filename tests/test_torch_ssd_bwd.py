@@ -1,9 +1,12 @@
 """The SSD scan's gradient on the CPU: autograd of the port's plain
 version (``ref.ssd_chunked_ref``, what ``ssd_scan`` runs on a CPU
-tensor) and the step-by-step emulation of the backward kernel
-(``tests/_ssd_bwd_emulation.py``, whose order of sums the CUDA kernel
-follows) against ``jax.vjp`` of the reference's ``ssd_chunked``
-(``repro.models.mamba2``).
+tensor), the step-by-step emulation of the fp32 backward kernel
+(``tests/_ssd_bwd_emulation.py``, whose order of sums
+``csrc/ssd_scan_bwd.cu`` follows) and the emulation of the bf16
+tensor-core kernel's contract (``tests/_ssd_bwd_tc_emulation.py``:
+``csrc/ssd_scan_bwd_tc.cu``'s chunking, hi + lo splits, <g', h'>
+identity and head-run sums) against ``jax.vjp`` of the reference's
+``ssd_chunked`` (``repro.models.mamba2``).
 
 Inputs are drawn with numpy from a seed: x, B and C in the case's dtype
 (bf16 values enter both packages alike), dt > 0, A < 0 and D fp32, and
@@ -29,14 +32,18 @@ import jax                                                    # noqa: E402
 import jax.numpy as jnp                                       # noqa: E402
 
 from _ssd_bwd_emulation import ssd_bwd_emulation              # noqa: E402
+from _ssd_bwd_tc_emulation import ssd_bwd_tc_emulation        # noqa: E402
 from repro.models.mamba2 import ssd_chunked                   # noqa: E402
+from repro_torch import kernels                               # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd               # noqa: E402
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 DA_TOL_F32 = 4e-5
+SSD_FP32_TOL = 2e-4   # the card's fp32 SSD tolerance (chip_smoke SSD_TOL)
 NAMES = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
 # (B, S, H, P, N, chunk)
-SHAPES = {"ragged": (2, 150, 4, 16, 16, 64), "smoke": (2, 20, 4, 16, 16, 8)}
+SHAPES = {"ragged": (2, 150, 4, 16, 16, 64), "smoke": (2, 20, 4, 16, 16, 8),
+          "heads6": (2, 150, 6, 16, 16, 64)}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -115,8 +122,9 @@ def _hold(got, want, dtype, what):
         assert scale > 0 and err <= tol * scale, (what, name, err, scale)
 
 
-CASES = [(shape, G, dtype, init) for shape in SHAPES for G in (1, 2)
-         for dtype in ("float32", "bfloat16") for init in (False, True)]
+CASES = [(shape, G, dtype, init) for shape in ("ragged", "smoke")
+         for G in (1, 2) for dtype in ("float32", "bfloat16")
+         for init in (False, True)]
 
 
 @pytest.mark.parametrize("shape,G,dtype,init", CASES)
@@ -183,3 +191,88 @@ def test_check_backward_names_the_limits():
         ssd.check_backward(64, 12, 128, torch.bfloat16)
     with pytest.raises(TypeError, match="fp32 or bf16"):
         ssd.check_backward(64, 128, 128, torch.float16)
+
+
+# (shape, G, init, run): bf16 inputs; runs of 4 heads, and the 6-head
+# shape whose run of 4 leaves a run of 2 (G=1) or covers a 3-head group
+# (G=2)
+TC_CASES = [(shape, G, init, 4) for shape in ("ragged", "smoke")
+            for G in (1, 2) for init in (False, True)] + [
+    ("heads6", 1, True, 4), ("heads6", 2, False, 4), ("ragged", 1, True, 3)]
+
+
+def _tc_emulation(arrs, chunk, run, terms=2):
+    t = _port_tensors(arrs, "bfloat16")
+    return ssd_bwd_tc_emulation(t["x"], t["dt"], t["A"], t["B"], t["C"],
+                                t["D"], t["dy"], chunk=chunk,
+                                init_state=t.get("h0"),
+                                dstate=t.get("dstate"), run=run,
+                                terms=terms)
+
+
+@pytest.mark.parametrize("shape,G,init,run", TC_CASES)
+def test_tc_emulation_matches_jax_vjp(shape, G, init, run):
+    """The bf16 tensor-core backward's contract against the reference's
+    ``jax.vjp``, within 2e-2 of each gradient's largest |value|; dx, dB
+    and dC come out bf16, the rest fp32."""
+    arrs = _inputs(shape, G, "bfloat16", init)
+    chunk = SHAPES[shape][-1]
+    want = _reference(arrs, chunk, "bfloat16")
+    emu = _tc_emulation(arrs, chunk, run)
+    assert [None if g is None else g.dtype for g in emu] == [
+        torch.bfloat16, torch.float32, torch.float32, torch.bfloat16,
+        torch.bfloat16, torch.float32, torch.float32 if init else None]
+    _hold(emu, want, "bfloat16", f"tc emulation run={run}")
+
+
+def test_tc_emulation_one_term_would_miss_the_fp32_tolerance(capsys):
+    """What the hi + lo split buys: with hi alone the fp32 gradients (ddt,
+    dA, dh0) land past the SSD kernels' fp32 tolerance (2e-4 of the
+    largest |grad|) from ``jax.vjp``, with both halves far inside it; the
+    measured errors are printed."""
+    arrs = _inputs("ragged", 1, "bfloat16", True)
+    want = _reference(arrs, 64, "bfloat16")
+    errs = {}
+    for terms in (1, 2):
+        emu = _tc_emulation(arrs, 64, 4, terms=terms)
+        errs[terms] = max(
+            float(np.abs(g.float().numpy() - w).max() / np.abs(w).max())
+            for name, g, w in zip(NAMES, emu, want)
+            if name in ("ddt", "dA", "dh0"))
+    with capsys.disabled():
+        print(f"\nssd backward, fp32 gradients: largest error {errs[2]:.3e} "
+              f"of the largest |grad| with hi + lo, {errs[1]:.3e} with hi "
+              f"alone (tolerance {SSD_FP32_TOL})")
+    assert errs[1] > SSD_FP32_TOL > errs[2]
+
+
+def test_bwd_run_fills_the_card():
+    """Runs of 8 heads at mamba2's and zamba2's training calls (384 and
+    896 blocks); halved, down to one head, while the grid would give
+    the 132 SMs fewer than two blocks each."""
+    assert ssd.bwd_run(8, 512, 48, 1, 128) == 8
+    assert ssd.bwd_run(8, 512, 112, 1, 128) == 8
+    assert ssd.bwd_run(4, 512, 48, 1, 128) == 4
+    assert ssd.bwd_run(2, 300, 8, 2, 128) == 1
+    assert ssd.bwd_run(1, 512, 48, 1, 128) == 1
+
+
+def test_ssd_backward_variant_counters_sum_and_reset():
+    """The SSD wrapper counts each backward call once in total and once
+    by variant (``ssd_scan_bwd.tc`` bf16, ``.f32`` fp32); a reset zeroes
+    both, and a CPU tensor's gradient (autograd of the plain version)
+    counts nothing."""
+    mod = kernels.BACKWARD["ssd_scan_bwd"]
+    mod.launches_bwd, mod.launches_bwd_tc, mod.launches_bwd_f32 = 7, 4, 3
+    counts = kernels.backward_variant_counts()
+    assert counts["ssd_scan_bwd.tc"] == 4 and counts["ssd_scan_bwd.f32"] == 3
+    assert kernels.backward_counts()["ssd_scan_bwd"] == 7
+    kernels.reset_launch_counts()
+    assert all(n == 0 for n in kernels.backward_variant_counts().values())
+    t = _port_tensors(_inputs("smoke", 1, "bfloat16", False), "bfloat16")
+    x = t["x"].clone().requires_grad_(True)
+    y, _ = ssd.ssd_scan(x, t["dt"], t["A"], t["B"], t["C"], t["D"], chunk=8)
+    y.float().sum().backward()
+    assert x.grad is not None
+    assert not any(kernels.backward_counts().values())
+    assert not any(kernels.backward_variant_counts().values())
