@@ -230,6 +230,41 @@ no result line):
               ``TRAJ_LR``, where that cut's loss falls); the CLI trains
               mamba2-780m 3 steps and refuses its ``--smoke`` (SSD head_dim
               P 16) within 30 s; serving paths launch no backward kernel;
+11. dp      - (run after phase 10) data-parallel training across
+              processes: one spawned world of 4 ranks sharing the card
+              as (pod 2, data 2, model 1) over gloo (``launch.mesh``;
+              NCCL refuses two ranks on one card), each collective on a
+              pinned host copy (``core.hierarchy``), the kernels built
+              by this process first; any rank's failure or the world's
+              overrunning ``DP_WORLD_LIMIT_S`` fails the run.  The
+              probe: which collectives this torch's gloo takes on CUDA
+              tensors.  (a) qwen1.5-0.5b at full width on its first 2
+              layers in fp32 (TF32 off), global B=8 x S=512: one
+              ``auto`` step against the one-process step, and
+              ``hierarchical`` against ``auto``: loss and grad norm to
+              1e-5 relative, parameters to 1e-5 of the largest
+              |parameter| but at most ``DP_PARAM_SHARE`` of them (AdamW's
+              near-zero gradients); the ``compress_pod`` reduction
+              against the plain in-process evaluation of the reference's
+              compressed mean over the two pods' gradients, within one
+              code step (scale / 2) plus 1e-6 of the largest |mean|, the
+              share of code sums that differ reported; (b) qwen1.5-0.5b
+              at full width and depth in bf16, 4 ranks x B=2 x S=512
+              (phase 10 (c)'s weights and batches), 4 steps each of
+              ``auto``, ``hierarchical`` and ``compress_pod``: s/step,
+              each rank's peak, host seconds in collectives by op, the
+              byte counter by axis and op, each rank's launches exact
+              (B2, B3, B5, B6; every flash call forward and backward on
+              the tensor-core kernel), ranks' losses equal, ``auto``'s
+              losses within 1e-2 of phase 10 (c)'s; (c) one
+              ``compress_pod`` step on (a)'s cut in bf16 run twice from
+              one state: the same bits in every rank; (d) the training
+              CLI under ``torch.distributed.run`` on 4 ranks
+              (qwen1.5-0.5b, the lease's (2, 2, 1) layout,
+              ``hierarchical`` with ``compress_pod``, 3 steps) exits 0
+              with mesh, dp_mode and backend ``gloo`` in its summary.
+              Every time here is 4 ranks sharing one card: it measures
+              nothing of a fabric;
 5. times    - each kernel's time (CUDA graphs of back-to-back calls,
               timed with CUDA events, median of trials) beside its plain
               version, a PyTorch library call where one computes the
@@ -262,9 +297,9 @@ no result line):
               inputs: the copies cycled through read more than twice the
               L2 a cycle.
               A time under its bound / 1.05 fails the run;
-then the ``launches`` and ``kernels`` lines (phases 6, 7, 8, 9, 4f and
-10's launches among the paths, the backward kernels B5, B6 and B8
-counted apart), and
+then the ``launches`` and ``kernels`` lines (phases 6, 7, 8, 9, 4f, 10
+and 11's launches among the paths, phase 11's per rank, the backward
+kernels B5, B6 and B8 counted apart), and
 the contract line ``{"ok": true, "device":
 {...}}``, last.
 
@@ -3228,7 +3263,7 @@ def twice_in_bits(step, state, batch):
     return same, torch.cuda.max_memory_allocated()
 
 
-def train_full_width(arch, device, smi, n_layers=None):
+def train_full_width(arch, device, smi, n_layers=None, record=None):
     """10 steps at full width (bf16 compute, fp32 masters, remat on), at
     full depth or on the first ``n_layers``: the loss falls; on step 1
     every parameter leaf has a finite, non-zero gradient
@@ -3238,7 +3273,8 @@ def train_full_width(arch, device, smi, n_layers=None):
     step twice from the same state, required equal in bits (the moe
     dispatch's fixed-order backward, the SSD backward's fixed-order
     sums).  Then 2 more steps plain and 2 profiled give the device's
-    busy share.  Returns the run's counts and variants."""
+    busy share.  Returns the run's counts and variants; ``record`` (a
+    dict) gets the 10 losses under the config's name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import kernels
@@ -3278,6 +3314,8 @@ def train_full_width(arch, device, smi, n_layers=None):
     variants = {**kernels.variant_counts(),
                 **kernels.backward_variant_counts()}
     peak = torch.cuda.max_memory_allocated()
+    if record is not None:
+        record[cfg.name] = losses
 
     L, n = cfg.n_layers, TRAIN_STEPS
     want = train_launches(cfg, n)
@@ -3774,19 +3812,20 @@ def train_ssm_families(device, smi):
     return counts, variants
 
 
-def train_phase(device, smi):
+def train_phase(device, smi, record=None):
     """Phase 10: (a) olmo-1b and (c) qwen1.5-0.5b trained at full width,
     (b) the fp32 gate, (b2) the bf16 trajectory, (d) fault tolerance,
     (e) the optimizer offload, (g) the training CLI itself and its
     refusals, (h) olmoe-1b-7b, (i) whisper-small, (j) mamba2-780m and
     (k) zamba2-7b; the report (f) is in each line.  Returns the six
-    paths' counts and variants."""
+    paths' counts and variants; ``record`` gets (a)'s and (c)'s losses
+    (phase 11 holds its trajectory to (c)'s)."""
     import torch
     t0 = time.perf_counter()
     counts, variants = {}, {}
     for arch in ("olmo-1b", "qwen1.5-0.5b"):
         counts[f"{arch} train"], variants[f"{arch} train"] = \
-            train_full_width(arch, device, smi)
+            train_full_width(arch, device, smi, record=record)
         gc.collect()
         torch.cuda.empty_cache()
     for part in (fp32_gate, bf16_trajectory, fault_tolerance, offload_check):
@@ -3807,6 +3846,517 @@ def train_phase(device, smi):
           "families_seconds": t2 - t1,
           "ssm_families_seconds": time.perf_counter() - t2})
     return counts, variants
+
+
+# ---------------------------------------------------------------------------
+# phase 11: data-parallel training across processes: qwen1.5-0.5b on a
+# (pod 2, data 2, model 1) grid of 4 ranks sharing the one card over gloo
+# ---------------------------------------------------------------------------
+
+DP_LAYOUT = ((2, 2, 1), ("pod", "data", "model"))
+DP_STEPS = 4                    # (b)'s steps a mode; s/step over 2-4
+DP_MODES = {"auto": ("auto", False), "hierarchical": ("hierarchical", False),
+            "compress_pod": ("hierarchical", True)}
+DP_DIR = Path(__file__).resolve().parent / "build" / "phase11"
+DP_WORLD_LIMIT_S = 300.0        # the (a)-(c) world's wall-clock limit
+DP_CLI_LIMIT_S = 240.0          # (d)'s torch.distributed.run
+DP_COLLECTIVE_LIMIT_S = 180.0   # a rank's collective, then it raises
+DP_PARAM_SHARE = 1e-3           # parameters allowed past 1e-5 of the
+                                # largest |parameter|, each within 2 x lr:
+                                # AdamW's lr x m / (sqrt(v) + 1e-8) turns
+                                # the rounding of a gradient within a few
+                                # 1e-8 of zero into up to a sign flip
+
+
+def dp_state_gap(got, want, lr):
+    """(loss, grad norm) relative gaps and the parameters' gap of two
+    (state, metrics) pairs: the largest |difference| over the largest
+    |parameter|, and the share of parameters past ``TOL["float32"]`` of
+    it (each within 2 x ``lr``)."""
+    from repro_torch.tree import tree_leaves
+    (gs, gm), (ws, wm) = got, want
+    rel = {k: abs(float(gm[k]) - float(wm[k])) / abs(float(wm[k]))
+           for k in ("loss", "grad_norm")}
+    top = max(float(t.abs().max()) for t in tree_leaves(ws.params))
+    worst, off, n = 0.0, 0, 0
+    for a, b in zip(tree_leaves(gs.params), tree_leaves(ws.params)):
+        err = (a - b).abs()
+        worst = max(worst, float(err.max()))
+        off += int((err > TOL["float32"] * top).sum())
+        n += err.numel()
+    return {**rel, "param_max_err": worst, "param_top": top,
+            "param_share_past_tol": off / n,
+            "ok": (max(rel.values()) <= TOL["float32"]
+                   and off <= DP_PARAM_SHARE * n and worst <= 2 * lr)}
+
+
+def dp_plain_compressed_mean(pod_grads):
+    """The reference's ``compressed_cross_pod_mean`` over pods, evaluated
+    in process on the pods' gradients (no residual): per reference leaf
+    (``leaf_groups``, a stacked leaf's layers together) the scale is the
+    max over pods of max |g| / 127 + 1e-12, the codes clip(round(g /
+    scale), -127, 127), their sum taken in int32, the mean sum x scale /
+    n.  Returns {leaf name: (mean, scale)}, the mean flat in fp32."""
+    import torch
+    from repro_torch.tree import leaf_groups
+    groups = [{name: torch.cat([t.reshape(-1).float() for t in ts])
+               for name, ts, _ in leaf_groups(g)} for g in pod_grads]
+    out = {}
+    for name in groups[0]:
+        xs = [g[name] for g in groups]
+        scale = torch.max(torch.stack([x.abs().max() for x in xs])) \
+            / 127.0 + 1e-12
+        codes = [torch.clamp(torch.round(x / scale), -127, 127).to(
+            torch.int8) for x in xs]
+        summed = torch.stack(codes).sum(dim=0, dtype=torch.int32)
+        out[name] = (summed.float() * scale / len(xs), scale)
+    return out
+
+
+def dp_fp32_gate(grid):
+    """(a) qwen1.5-0.5b at full width on its first 2 layers in fp32 (TF32
+    off), the global batch B=8 x S=512: one ``auto`` step against the
+    one-process step (rank 0), ``hierarchical`` against ``auto`` (every
+    rank), and the ``compress_pod`` reduction of this rank's gradients
+    against ``dp_plain_compressed_mean`` of the two pods' gradients
+    (rank 0: each pod's 4 rows in process), element by element within
+    one code step (scale / 2 pods) plus 1e-6 of the largest |mean|."""
+    import torch
+    from repro_torch.core import hierarchy
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.runtime import train as train_rt
+    from repro_torch.sharding.profiles import make_rules
+    from repro_torch.tree import leaf_groups, tree_map
+
+    cfg = cut("qwen1.5-0.5b", TRAIN_CUT, compute_dtype="float32")
+    model, opt, one_step, pipe = train_parts(cfg, grid.device)
+    shape = ShapeConfig("smoke", "train", TRAIN_SEQ, TRAIN_BATCH)
+    params = model.init(torch.Generator(device=grid.device).manual_seed(1))
+    batch = pipe.next_batch()
+    runs, out = {}, {}
+    for name in ("auto", "hierarchical"):
+        tcfg = train_rt.TrainStepConfig(dp_mode=DP_MODES[name][0])
+        rules = make_rules(cfg, shape, grid, fsdp=False, dp_mode=tcfg.dp_mode)
+        step = train_rt.make_train_step(model, opt, shape, mesh=grid,
+                                        rules=rules, tcfg=tcfg)
+        runs[name] = step(train_rt.state_from_params(
+            tree_map(torch.clone, params), opt, tcfg, mesh=grid), batch)
+    out["hierarchical_vs_auto"] = dp_state_gap(runs["hierarchical"],
+                                               runs["auto"], opt.lr)
+    if grid.rank == 0:
+        one = one_step(train_rt.state_from_params(
+            tree_map(torch.clone, params), opt), batch)
+        out["auto_vs_one_process"] = dp_state_gap(runs["auto"], one, opt.lr)
+        del one
+    del runs
+
+    # compress_pod: this rank's rows, reduced as the step reduces them
+    rules = make_rules(cfg, shape, grid, fsdp=False, dp_mode="hierarchical")
+    first, n = train_rt.batch_rows(grid, rules, shape)
+    dev = {k: torch.as_tensor(v[first:first + n], device=grid.device)
+           for k, v in batch.items()}
+    _, grads = train_rt._accumulated_grads(model, params, dev,
+                                           train_rt.TrainStepConfig())
+    reduced, _ = hierarchy.reduce_gradients_hierarchically(
+        grads, grid, compress=True)
+    del grads
+    if grid.rank == 0:
+        pods = []
+        for p in range(2):
+            rows = {k: torch.as_tensor(v[4 * p:4 * p + 4], device=grid.device)
+                    for k, v in batch.items()}
+            pods.append(train_rt._accumulated_grads(
+                model, params, rows, train_rt.TrainStepConfig())[1])
+        plain = dp_plain_compressed_mean(pods)
+        worst, differ, total = 0.0, 0, 0
+        for name, ts, _ in leaf_groups(reduced):
+            got = torch.cat([t.reshape(-1).float() for t in ts])
+            want, scale = plain[name]
+            step = scale / 2
+            err = (got - want).abs()
+            tol = step + 1e-6 * want.abs().max()
+            worst = max(worst, float((err / tol).max()))
+            differ += int((torch.round(err / step) != 0).sum())
+            total += got.numel()
+        out["compress_vs_plain"] = {
+            "max_err_over_tol": worst, "code_sums_differ": differ,
+            "elements": total, "share_differ": differ / total,
+            "ok": worst <= 1.0}
+    return out
+
+
+def dp_full_depth(grid):
+    """(b) qwen1.5-0.5b at full width and depth, bf16 compute: each rank
+    B=2 of the global 8 x 512 (phase 10 (c)'s weights, seed 0, and
+    batches), ``DP_STEPS`` steps of each mode: losses, seconds a step,
+    host seconds in collectives (by op) and the byte counter a step, the
+    peak of device memory, the kernels' launches and variants.  Then
+    (c), ``dp_twice``."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.runtime import train as train_rt
+    from repro_torch.sharding.profiles import make_rules
+
+    cfg = get_config("qwen1.5-0.5b")
+    model, opt, _, pipe = train_parts(cfg, grid.device)
+    shape = ShapeConfig("smoke", "train", TRAIN_SEQ, TRAIN_BATCH)
+    batches = [pipe.next_batch() for _ in range(DP_STEPS)]
+    out = {}
+    state = step = None
+    t_start = time.perf_counter()
+    for name, (mode, compress) in DP_MODES.items():
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        tcfg = train_rt.TrainStepConfig(dp_mode=mode, compress_pod=compress)
+        rules = make_rules(cfg, shape, grid, fsdp=False, dp_mode=mode)
+        step = train_rt.make_train_step(model, opt, shape, mesh=grid,
+                                        rules=rules, tcfg=tcfg)
+        # each mode draws the masters anew (a copy kept beside the state
+        # would hold 1.86 GB more on each rank)
+        state = train_rt.init_state(
+            model, opt, torch.Generator(device=grid.device).manual_seed(0),
+            tcfg, mesh=grid)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        losses, norms, secs, coll, by_op = [], [], [], [], []
+        for b in batches:
+            grid.stats.reset()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            coll.append(grid.stats.seconds)
+            by_op.append(dict(grid.stats.seconds_by))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        out[name] = {
+            "losses": losses, "grad_norms": norms, "step_s": secs,
+            "s_per_step": statistics.mean(secs[1:]),
+            "collective_host_s": coll,
+            "collective_host_s_per_step": statistics.mean(coll[1:]),
+            "moved_bytes_per_step": dict(grid.stats.moved_bytes),
+            "calls_per_step": dict(grid.stats.calls),
+            "collective_host_s_by_op": {
+                k: statistics.mean(d[k] for d in by_op[1:])
+                for k in by_op[0]},
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": train_counts(),
+            "variants": {**kernels.variant_counts(),
+                         **kernels.backward_variant_counts()}}
+        dp_progress(grid.rank, f"(b) {name}", t_start, {
+            k: out[name][k] for k in ("losses", "step_s", "peak_mem_gb",
+                                      "collective_host_s_by_op")})
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, dp_twice(grid)
+
+
+def dp_twice(grid):
+    """(c) one ``compress_pod`` step of qwen1.5-0.5b at full width on its
+    first 2 layers in bf16 (the kernels' tensor-core variants) run twice
+    from one state, after a step that fills the residuals: the two new
+    states, residuals and metrics equal in bits."""
+    import torch
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.runtime import train as train_rt
+    from repro_torch.sharding.profiles import make_rules
+    from repro_torch.tree import tree_leaves
+
+    cfg = cut("qwen1.5-0.5b", TRAIN_CUT)
+    model, opt, _, pipe = train_parts(cfg, grid.device)
+    shape = ShapeConfig("smoke", "train", TRAIN_SEQ, TRAIN_BATCH)
+    tcfg = train_rt.TrainStepConfig(dp_mode="hierarchical",
+                                    compress_pod=True)
+    step = train_rt.make_train_step(
+        model, opt, shape, mesh=grid, tcfg=tcfg,
+        rules=make_rules(cfg, shape, grid, fsdp=False,
+                         dp_mode="hierarchical"))
+    t0 = time.perf_counter()
+    state = train_rt.init_state(
+        model, opt, torch.Generator(device=grid.device).manual_seed(2),
+        tcfg, mesh=grid)
+    state, _ = step(state, pipe.next_batch())
+    batch = pipe.next_batch()
+    first = tree_leaves(step(state, batch))
+    second = tree_leaves(step(state, batch))
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    return {"same_bits": same, "layers": TRAIN_CUT,
+            "compute_dtype": cfg.compute_dtype,
+            "seconds": time.perf_counter() - t0}
+
+
+def gloo_cuda_probe(grid):
+    """Which collectives this torch's gloo takes on CUDA tensors (the
+    port stages every one on a pinned host copy: ``core.hierarchy``),
+    each on the world group: "takes" or the error it raises."""
+    import torch
+    import torch.distributed as dist
+    n, dev = grid.world, grid.device
+    x = torch.full((8,), float(grid.rank + 1), device=dev)
+    ops = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(n)], x),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(8 * n, device=dev), x),
+        "reduce_scatter": lambda: dist.reduce_scatter(
+            torch.empty(8 // n, device=dev), list(x.clone().chunk(n))),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(8 // n, device=dev), x.clone()),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty_like(x), x),
+    }
+    found = {}
+    for name, op in ops.items():
+        try:
+            op()
+            torch.cuda.synchronize()
+            found[name] = "takes"
+        except (RuntimeError, ValueError, NotImplementedError) as e:
+            found[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    return found
+
+
+def dp_progress(rank: int, part: str, t0: float, what) -> None:
+    """Rank 0's progress on stderr (a failed world shows how far it
+    got)."""
+    if rank == 0:
+        print(f"phase 11 rank 0: {part} done at "
+              f"{time.perf_counter() - t0:.1f} s: {json.dumps(what)[:600]}",
+              file=sys.stderr, flush=True)
+
+
+def dp_rank(rank: int, init: str, out_dir: str) -> None:
+    """One rank of phase 11 (a spawned process; any failure exits it
+    non-zero): the probe, (a), (b) and (c), its report to
+    ``<out_dir>/rank<r>.json``."""
+    import torch
+    from repro_torch.launch import mesh as mesh_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    grid = mesh_lib.init_grid(mesh_lib.Layout(*DP_LAYOUT), rank=rank,
+                              device=torch.device("cuda", 0),
+                              init_method=init,
+                              timeout_s=DP_COLLECTIVE_LIMIT_S)
+    report = {"rank": rank, "grid": grid.describe(),
+              "gloo_cuda": gloo_cuda_probe(grid)}
+    dp_progress(rank, "probe", t0, report["gloo_cuda"])
+    t1 = time.perf_counter()
+    report["fp32_gate"] = dp_fp32_gate(grid)
+    dp_progress(rank, "(a)", t0, report["fp32_gate"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    report["full_depth"], report["twice"] = dp_full_depth(grid)
+    dp_progress(rank, "(b), (c)", t0, report["twice"])
+    report["seconds"] = {"setup": t1 - t0, "fp32_gate": t2 - t1,
+                         "full_depth": time.perf_counter() - t2}
+    grid.close()
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(report))
+
+
+def wait_world(procs, limit_s: float, what: str) -> float:
+    """Wait for every process; a non-zero exit or the limit kills the
+    rest and fails the run.  Returns the seconds taken."""
+    t0 = time.perf_counter()
+    while any(p.is_alive() for p in procs):
+        failed = [p.exitcode for p in procs
+                  if p.exitcode is not None and p.exitcode != 0]
+        over = time.perf_counter() - t0 > limit_s
+        if failed or over:
+            for p in procs:
+                p.kill()
+            for p in procs:
+                p.join(timeout=30)
+            check(False, f"{what}: " + (f"a rank exited {failed}" if failed
+                                        else f"overran {limit_s} s"))
+        time.sleep(0.2)
+    codes = [p.exitcode for p in procs]
+    check(all(c == 0 for c in codes), f"{what}: rank exit codes {codes}")
+    return time.perf_counter() - t0
+
+
+def kill_tree(pid: int) -> None:
+    """SIGKILL ``pid`` and every process under it (``torch.distributed.run``
+    starts its workers in sessions of their own), read from /proc."""
+    import os
+    import signal
+    children = {}
+    for entry in Path("/proc").iterdir():
+        if entry.name.isdigit():
+            try:
+                ppid = int((entry / "stat").read_text().rsplit(")", 1)[1]
+                           .split()[1])
+            except (OSError, IndexError, ValueError):
+                continue
+            children.setdefault(ppid, []).append(int(entry.name))
+    todo, tree = [pid], []
+    while todo:
+        p = todo.pop()
+        tree.append(p)
+        todo.extend(children.get(p, []))
+    for p in tree:
+        try:
+            os.kill(p, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+
+
+@contextlib.contextmanager
+def dp_allocator_env():
+    """The environment the ranks start with: four processes share the
+    card, so each rank's allocator grows its segments in place
+    (``expandable_segments``) rather than holding freed blocks of other
+    sizes (1.83 GB of one rank's 16.3 GB in a first run)."""
+    import os
+    key = "PYTORCH_CUDA_ALLOC_CONF"
+    old = os.environ.get(key)
+    os.environ[key] = "expandable_segments:True"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(key)
+        else:
+            os.environ[key] = old
+
+
+def dp_cli(smi):
+    """(d) the training CLI under ``torch.distributed.run`` on 4 ranks:
+    qwen1.5-0.5b at full width and depth, the lease's (2, 2, 1) layout,
+    ``hierarchical`` with ``compress_pod``, 3 steps of 8 x 512; its
+    output in files, and past ``DP_CLI_LIMIT_S`` its whole process tree
+    killed."""
+    import os
+    root = Path(__file__).resolve().parent
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", "4", "-m", "repro_torch.launch.train",
+            "--arch", "qwen1.5-0.5b", "--dp-mode", "hierarchical",
+            "--compress-pod", "--pool", "scalepool", "--pool-accels", "12",
+            "--steps", "3", "--batch", str(TRAIN_BATCH), "--seq",
+            str(TRAIN_SEQ), "--ckpt-dir", str(DP_DIR / "ckpt")]
+    t0 = time.perf_counter()
+    out_path, err_path = DP_DIR / "cli.out", DP_DIR / "cli.err"
+    with open(out_path, "w") as fo, open(err_path, "w") as fe, \
+            dp_allocator_env():
+        proc = subprocess.Popen(argv, cwd=root, env={
+            **os.environ, "PYTHONPATH": str(root / "src")},
+            stdout=fo, stderr=fe, text=True)
+    try:
+        proc.wait(timeout=DP_CLI_LIMIT_S)
+    except subprocess.TimeoutExpired:
+        kill_tree(proc.pid)
+        proc.wait(timeout=60)
+        check(False, f"phase 11 (d): the CLI overran {DP_CLI_LIMIT_S} s: "
+              f"{err_path.read_text()[-2000:]}")
+    secs = time.perf_counter() - t0
+    out, err = out_path.read_text(), err_path.read_text()
+    summary = json.loads(out) if proc.returncode == 0 else None
+    emit({"phase": "dp", "check": "(d) CLI", "nvidia_smi": smi,
+          "argv": argv[3:], "rc": proc.returncode, "seconds": secs,
+          "cli": summary,
+          "stderr_tail": err.strip().splitlines()[-6:]})
+    check(proc.returncode == 0, f"phase 11 (d): rc {proc.returncode}: "
+          f"{err[-2000:]}")
+    check(summary["mesh"] == {"pod": 2, "data": 2, "model": 1}
+          and summary["dp_mode"] == "hierarchical"
+          and summary["backend"] == "gloo" and summary["compress_pod"]
+          and summary["world"] == 4
+          and summary["device"].startswith("cuda"),
+          f"phase 11 (d): summary {summary}")
+
+
+def dp_phase(smi, qwen_losses):
+    """Phase 11: (a)-(c) in one spawned world of 4 ranks sharing the card
+    (the kernels built by this process before), then (d) the CLI.
+    Returns each rank's (b) launches, all three modes together."""
+    import multiprocessing
+    import shutil
+
+    import torch
+
+    t_start = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    DP_DIR.mkdir(parents=True)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=dp_rank, args=(
+        r, f"file://{DP_DIR / 'store'}", str(DP_DIR))) for r in range(4)]
+    with dp_allocator_env():
+        for p in procs:
+            p.start()
+    world_s = wait_world(procs, DP_WORLD_LIMIT_S, "phase 11 (a)-(c)")
+    reports = [json.loads((DP_DIR / f"rank{r}.json").read_text())
+               for r in range(4)]
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen1.5-0.5b")
+    want = train_launches(cfg, DP_STEPS)
+    emit({"phase": "dp", "check": "gloo on CUDA tensors",
+          "torch": torch.__version__, "ops": reports[0]["gloo_cuda"],
+          "backend": reports[0]["grid"]["backend"],
+          "backend_why": reports[0]["grid"]["backend_why"]})
+    gate = {r["rank"]: r["fp32_gate"] for r in reports}
+    emit({"phase": "dp", "check": "(a) fp32 gate", "arch": cfg.name,
+          "layers": TRAIN_CUT, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "tol": TOL["float32"], "param_share_allowed": DP_PARAM_SHARE,
+          "per_rank": gate})
+    check(all(g["hierarchical_vs_auto"]["ok"] for g in gate.values())
+          and gate[0]["auto_vs_one_process"]["ok"]
+          and gate[0]["compress_vs_plain"]["ok"],
+          f"phase 11 (a): {gate}")
+    counts = {}
+    for mode in DP_MODES:
+        per = [r["full_depth"][mode] for r in reports]
+        emit({"phase": "dp", "check": f"(b) {mode}", "nvidia_smi": smi,
+              "arch": cfg.name, "layers": cfg.n_layers,
+              "ranks": "4 ranks sharing one card (gloo, host-staged)",
+              "rank_batch": TRAIN_BATCH // 4, "seq": TRAIN_SEQ,
+              "steps": DP_STEPS, "per_rank": per})
+        losses = per[0]["losses"]
+        check(all(p["losses"] == losses for p in per)
+              and all(math.isfinite(x) for x in losses),
+              f"phase 11 (b) {mode}: ranks' losses {[p['losses'] for p in per]}")
+        for r, p in enumerate(per):
+            check(p["launches"] == want,
+                  f"phase 11 (b) {mode} rank {r}: launches "
+                  f"{p['launches']} != {want}")
+            check_flash_variant(f"phase 11 {mode} rank {r}",
+                                cfg.compute_dtype, p["variants"],
+                                want["flash_attention"])
+            check_backward_variant(f"phase 11 {mode} rank {r}",
+                                   cfg.compute_dtype, p["variants"],
+                                   want["flash_attention_bwd"])
+            counts.setdefault(f"qwen1.5-0.5b dp rank {r}", {})
+            for k, v in p["launches"].items():
+                c = counts[f"qwen1.5-0.5b dp rank {r}"]
+                c[k] = c.get(k, 0) + v
+    auto = reports[0]["full_depth"]["auto"]["losses"]
+    ref = qwen_losses[:DP_STEPS]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(auto, ref)]
+    emit({"phase": "dp", "check": "(b) auto against phase 10 (c)",
+          "dp_losses": auto, "one_card_losses": ref, "rel_gaps": gaps,
+          "tol": BF16_TRAJ_TOL})
+    check(all(g <= BF16_TRAJ_TOL for g in gaps),
+          f"phase 11 (b): auto's losses {auto} against one card's {ref}")
+    twice = [r["twice"] for r in reports]
+    emit({"phase": "dp", "check": "(c) compress_pod step twice",
+          "per_rank": twice})
+    check(all(t["same_bits"] for t in twice),
+          f"phase 11 (c): a rank's step twice gave other bits: {twice}")
+    dp_cli(smi)
+    emit({"phase": "dp", "seconds": time.perf_counter() - t_start,
+          "world_seconds": world_s,
+          "rank_seconds": [r["seconds"] for r in reports]})
+    return counts
 
 
 def ssd_work(B, S, H, P, G, N, chunk, itemsize):
@@ -4277,11 +4827,13 @@ def main() -> int:
           "a serving path launched a backward kernel")
     gc.collect()
     torch.cuda.empty_cache()
-    train_counts_, train_variants = train_phase(device, smi)
+    losses = {}
+    train_counts_, train_variants = train_phase(device, smi, losses)
     counts.update(train_counts_)
     variants.update(train_variants)
     gc.collect()
     torch.cuda.empty_cache()
+    counts.update(dp_phase(smi, losses["qwen1.5-0.5b"]))
     names = sorted({name for c in counts.values() for name in c})
     total = {name: sum(c.get(name, 0) for c in counts.values())
              for name in names}

@@ -9,33 +9,55 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
         --smoke --steps 4 --batch 8 --seq 32 --device cpu
 
-Runs the full stack: data pipeline → train step (remat, microbatches) →
-AdamW → async checkpointing → fault-tolerant loop with straggler
-monitoring, on one device.  ``--offload-optimizer`` keeps the AdamW
-moments in pinned host memory (tier 2); ``--pool`` takes the device and
-the tiering policy from a lease on a smoke estate
-(``Lease.materialize``).  ``--dp-mode hierarchical`` needs a ``pod``
-axis, which one device never has, so it falls back to ``auto`` as the
-reference's CLI does on such a mesh.  Prints the reference's JSON
-summary plus ``"device"``; exits 0 iff the loss decreased.
+    # data parallel over 4 processes, ScalePool's hierarchical gradient
+    # phase on the lease's (pod 2, data 2, model 1) layout
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 4 -m repro_torch.launch.train --smoke \
+        --device cpu --pool scalepool --pool-accels 12 \
+        --dp-mode hierarchical --compress-pod --steps 3 --batch 8 --seq 32
+
+Runs the full stack: data pipeline → train step (remat, microbatches,
+data-parallel reduction) → AdamW → async checkpointing → fault-tolerant
+loop with straggler monitoring.  ``--offload-optimizer`` keeps the AdamW
+moments in pinned host memory (tier 2); ``--pool`` takes the tiering
+policy (and, across processes, the layout) from a lease on a smoke
+estate.
+
+Under ``torch.distributed.run`` (``RANK`` / ``WORLD_SIZE`` /
+``LOCAL_RANK`` set) each process is one rank of a grid
+(``launch.mesh``): the layout is the lease's ``mesh_shape(world)`` with
+``--pool``, else the reference's ``make_smoke_mesh(world)``; the backend
+follows ``launch.mesh.choose_backend`` (``--backend`` names it) and is
+printed.  Every rank draws the same global batch from the seeded
+pipeline and trains on its rows; rank 0 alone checkpoints and prints
+the summary, which adds ``world``, ``compress_pod`` and ``backend``.
+``--dp-mode hierarchical`` falls back to ``auto``, with a warning, only
+where the layout has no ``pod`` axis (one process never has one).
+Prints the reference's JSON summary plus ``"device"``; exits 0 iff the
+loss decreased.
 
 The fault-tolerant loop retries a failing step forever (the reference's
 semantics), so what no step can do is refused before the loop, with
-exit code 2 and the reason on stderr (``refusal``): encdec (the
-pipeline yields no ``frame_embeds``; it trains through
-``runtime.train.make_train_step``), and on the card a config whose
+exit code 2 and the reason on stderr (``refusal``, ``layout_refusal``):
+encdec (the pipeline yields no ``frame_embeds``; it trains through
+``runtime.train.make_train_step``), on the card a config whose
 attention or SSD scan the backward kernels do not take (the smoke
-configs' head_dim 16, or SSD head_dim P 16).
+configs' head_dim 16, or SSD head_dim P 16), and across processes a
+layout with a ``model`` axis over 1 (tensor parallelism is the port's
+next slice) or one the world does not fill.  Collectives time out
+(``launch.mesh.DEFAULT_TIMEOUT_S``), so a dead rank makes the others
+raise instead of waiting forever.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -45,6 +67,7 @@ from repro_torch.core.tiering import TieringPolicy
 from repro_torch.data.pipeline import DataConfig, DataPipeline
 from repro_torch.device import resolve_device
 from repro_torch.kernels import flash_attention, ssd_scan
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.api import build_model
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.models.transformer import dtype_of
@@ -52,6 +75,9 @@ from repro_torch.obs.console import emit, emit_json, warn
 from repro_torch.optim.adamw import AdamW
 from repro_torch.runtime import train as train_rt
 from repro_torch.runtime.ft import FaultTolerantLoop, StragglerMonitor
+from repro_torch.sharding.profiles import (grid_refusal, hierarchical_unsafe,
+                                           make_rules)
+from repro_torch.tree import tree_map
 
 # the families whose training step runs attention (hybrid: its shared
 # block) and the SSD scan
@@ -85,6 +111,28 @@ def refusal(cfg: ModelConfig, device: torch.device) -> Optional[str]:
     return None
 
 
+def layout_refusal(layout: mesh_lib.Layout, world: int) -> Optional[str]:
+    """Why this slice cannot train on ``layout`` with ``world`` ranks,
+    or None."""
+    if layout.size != world:
+        return (f"a world of {world} ranks does not fill the layout "
+                f"{layout.as_dict()} ({layout.size} ranks)")
+    return grid_refusal(layout, None)
+
+
+def world_from_env() -> Optional[Dict[str, int]]:
+    """The rank, world and host-local rank ``torch.distributed.run``
+    sets, or None when run as one process."""
+    if "WORLD_SIZE" not in os.environ:
+        return None
+    world = int(os.environ["WORLD_SIZE"])
+    rank = int(os.environ.get("RANK", "0"))
+    return {"world": world, "rank": rank,
+            "local_rank": int(os.environ.get("LOCAL_RANK", str(rank))),
+            "local_world": int(os.environ.get("LOCAL_WORLD_SIZE",
+                                              str(world)))}
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--arch", default="olmo-1b")
@@ -101,6 +149,10 @@ def main(argv=None):
                    choices=["auto", "hierarchical"])
     p.add_argument("--compress-pod", action="store_true")
     p.add_argument("--offload-optimizer", action="store_true")
+    p.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                   help="torch.distributed backend across processes "
+                        "(default: nccl when each rank has a card of its "
+                        "own, else gloo)")
     # ---- pool-orchestrated resources (repro_torch.pool) ----
     p.add_argument("--pool", default="none",
                    choices=["none", "scalepool", "baseline", "contention"],
@@ -114,7 +166,12 @@ def main(argv=None):
     p.add_argument("--ckpt-every", type=int, default=50)
     p.add_argument("--log-every", type=int, default=10)
     args = p.parse_args(argv)
-    device = resolve_device(args.device)
+    env = world_from_env()
+    if env is None:
+        device = resolve_device(args.device)
+    else:
+        device = mesh_lib.rank_device(
+            resolve_device(args.device).type, env["local_rank"])
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -131,6 +188,9 @@ def main(argv=None):
     lease = None
     tier_policy = TieringPolicy() if args.offload_optimizer else None
     mesh = {"data": 1, "model": 1}
+    layout = None
+    if env is not None and args.pool == "none":
+        layout = mesh_lib.make_smoke_mesh(env["world"])
     if args.pool != "none":
         # the orchestrator decides the devices AND tiering: a lease with a
         # tier-2 reservation trains with optimizer state in the capacity
@@ -140,9 +200,14 @@ def main(argv=None):
         lease = pool.lease("cli-train", args.pool_accels,
                            tier2_gb=args.pool_tier2_gb,
                            model_parallel=args.pool_model_parallel)
-        binding = lease.materialize([device])
-        device, tier_policy = binding.device, binding.policy
-        mesh = dict(zip(binding.axes, binding.shape))
+        if env is None:
+            binding = lease.materialize([device])
+            device, tier_policy = binding.device, binding.policy
+            mesh = dict(zip(binding.axes, binding.shape))
+        else:
+            # every rank lays the lease's topology over the world
+            layout = mesh_lib.Layout(*lease.mesh_shape(env["world"]))
+            tier_policy = lease.tiering_policy()
         if args.offload_optimizer and not tier_policy.offload_optimizer:
             # explicit flag without a tier-2 reservation: honor it (host
             # memory stands in for the capacity tier) but say so.
@@ -152,54 +217,97 @@ def main(argv=None):
             tier_policy = dataclasses.replace(tier_policy,
                                               offload_optimizer=True)
     dp_mode = args.dp_mode
-    if dp_mode == "hierarchical":
-        warn("hierarchical dp_mode needs a 'pod' axis, which one device "
-             "does not have; falling back to dp_mode=auto")
+    if layout is not None:
+        why = layout_refusal(layout, env["world"])
+        if why is not None:
+            emit(f"error: {why}", stream=sys.stderr)
+            return 2
+        mesh = layout.as_dict()
+    if dp_mode == "hierarchical" and (layout is None
+                                      or "pod" not in layout.axis_names):
+        warn(f"hierarchical dp_mode needs a 'pod' axis, which the layout "
+             f"{mesh} does not have; falling back to dp_mode=auto")
         dp_mode = "auto"
+    if dp_mode == "hierarchical":
+        reason = hierarchical_unsafe(cfg)
+        if reason:
+            warn(f"{reason}; falling back to dp_mode=auto")
+            dp_mode = "auto"
     tcfg = train_rt.TrainStepConfig(dp_mode=dp_mode,
                                     compress_pod=args.compress_pod,
                                     microbatches=args.microbatches)
+    grid, rules = None, None
+    if layout is not None:
+        rules = make_rules(cfg, shape, layout, fsdp=False, dp_mode=dp_mode)
+        grid = mesh_lib.init_grid(layout, rank=env["rank"], device=device,
+                                  backend=args.backend,
+                                  local_world=env["local_world"])
+        if grid.rank == 0:
+            emit(f"backend: {grid.backend} ({grid.backend_why})",
+                 stream=sys.stderr)
+    try:
+        return _train(args, cfg, device, optimizer, shape, tcfg, tier_policy,
+                      lease, mesh, dp_mode, grid, rules)
+    finally:
+        if grid is not None:
+            grid.close()
 
+
+def _train(args, cfg, device, optimizer, shape, tcfg, tier_policy, lease,
+           mesh, dp_mode, grid, rules) -> int:
+    writer = grid is None or grid.rank == 0
     model = build_model(cfg, device=device)
     # the initial weights are drawn from seed 0, as the reference's
-    # PRNGKey(0)
+    # PRNGKey(0), the same on every rank
     generator = torch.Generator(device=device).manual_seed(0)
     state = train_rt.init_state(model, optimizer, generator, tcfg,
-                                tiering=tier_policy)
-    train_step = train_rt.make_train_step(model, optimizer, shape, tcfg=tcfg,
+                                tiering=tier_policy, mesh=grid)
+    train_step = train_rt.make_train_step(model, optimizer, shape, mesh=grid,
+                                          rules=rules, tcfg=tcfg,
                                           tiering=tier_policy)
     pipe = DataPipeline(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                                    global_batch=args.batch))
 
     ckpt_dir = Path(args.ckpt_dir)
-    last = {"state": state, "step": 0}
+    # the state a failure restores; across processes a rank keeps it in
+    # host memory, since ranks may share a card (a copy of qwen1.5's 6.5
+    # GB state on each of four ranks does not fit one card beside their
+    # steps), and the loop starts from it, so no device copy stays
+    # referenced here
+    keep = (lambda s: s) if grid is None else (
+        lambda s: tree_map(lambda t: t.to("cpu", copy=True), s))
+    last = {"state": keep(state), "step": 0}
+    del state
     saves = []
 
     def save_fn(s, step):
-        last["state"], last["step"] = s, step
-        saves.append(ckpt.save(
-            ckpt_dir / f"step{step}",
-            {"params": s.params, "mu": s.opt.mu, "nu": s.opt.nu},
-            step=step, extra={"pipeline": pipe.state.to_dict()},
-            asynchronous=True))
+        last["state"], last["step"] = keep(s), step
+        if writer:      # the state is whole and equal on every rank
+            saves.append(ckpt.save(
+                ckpt_dir / f"step{step}",
+                {"params": s.params, "mu": s.opt.mu, "nu": s.opt.nu},
+                step=step, extra={"pipeline": pipe.state.to_dict()},
+                asynchronous=True))
 
     def restore_fn():
-        return last["state"], last["step"]
+        if grid is None:
+            return last["state"], last["step"]
+        return tree_map(lambda t: t.to(device), last["state"]), last["step"]
 
     loop = FaultTolerantLoop(train_step, save_fn, restore_fn, pipe,
                              ckpt_every=args.ckpt_every,
                              monitor=StragglerMonitor())
 
     t0 = time.time()
-    state = loop.run(state, args.steps)
+    loop.run(None, args.steps)
     dt = time.time() - t0
     for handle in saves:    # no checkpoint is left half written at exit
         handle.wait()
 
     losses = [h["loss"] for h in loop.history]
-    emit_json({
+    summary = {
         "arch": cfg.name, "steps": args.steps,
-        "devices": 1, "mesh": mesh,
+        "devices": 1 if grid is None else grid.world, "mesh": mesh,
         "dp_mode": dp_mode,
         "lease": (None if lease is None else {
             "pods": list(lease.allocation.pod_ids),
@@ -212,7 +320,12 @@ def main(argv=None):
         "straggler_events": len(loop.monitor.events),
         "restarts": loop.restarts,
         "device": str(device),
-    })
+    }
+    if grid is not None:
+        summary.update(world=grid.world, compress_pod=tcfg.compress_pod,
+                       backend=grid.backend)
+    if writer:
+        emit_json(summary)
     return 0 if losses[-1] < losses[0] else 1
 
 

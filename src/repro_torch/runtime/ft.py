@@ -104,7 +104,14 @@ class FaultTolerantLoop:
         self.history: List[Dict[str, float]] = []
 
     def run(self, state, n_steps: int):
+        """Train until ``n_steps``; returns the last state.  ``state``
+        None starts from ``restore_fn()`` and its step: then the loop
+        holds the only reference to the state it trains, where a state
+        passed in stays referenced by the caller for the whole run."""
         step = 0
+        if state is None:
+            state, step = self.restore_fn()
+            self.pipeline.state.step = step
         while step < n_steps:
             def attempt():
                 if self.failure_hook is not None:

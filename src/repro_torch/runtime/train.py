@@ -1,13 +1,27 @@
 """Training-step factory (port of ``repro.runtime.train``): microbatched
-gradient accumulation, remat, AdamW, and optimizer-state tiering.
+gradient accumulation, remat, AdamW, optimizer-state tiering, and data
+parallelism across processes with the ScalePool hierarchical cross-pod
+gradient phase.
 
-The port trains on one device, so only ``dp_mode="auto"`` exists: the
-reference's one GSPMD program over a mesh is, on one card, the plain
-step.  ``"hierarchical"`` (the pod axis reduced explicitly across pods)
-needs several processes and comes with the ``torch.distributed`` slice;
-the reference's CLI itself falls back to ``auto`` on a mesh without a
-``pod`` axis.  ``compress_pod`` keeps its error-feedback residuals tree,
-which only the hierarchical phase would update.
+Modes, on a rank grid (``repro_torch.launch.mesh``; one process a rank):
+  dp_mode="auto"         - the flat mean of the gradients over every data
+                           rank: one all-reduce over (pod x data), what
+                           GSPMD does in the reference.
+  dp_mode="hierarchical" - reduce-scatter inside a pod, the mean across
+                           pods on the shard (int8 codes with per-tensor
+                           shared scales and error feedback under
+                           ``compress_pod``), all-gather inside the pod
+                           (``repro_torch.core.hierarchy``).  The
+                           reference's pod mean inside a pod is GSPMD's;
+                           the port's is the explicit reduce-scatter.
+
+Each rank takes its rows of the global batch by the rules' ``batch``
+axes (the reference's ``batch_shardings``), computes its loss and
+gradients on them, reduces, and runs the same AdamW update, so every
+rank ends with the same parameters.  Without a grid the step is the
+one-device step; on a world of one, ``auto`` is that step too.  The
+``model`` axis (tensor parallelism) and FSDP's sharded parameters wait
+for the next slice and are refused.
 
 The step takes and returns a ``TrainState`` of fp32 masters, AdamW
 state and residuals; it is functional (the inputs are not modified), and
@@ -21,11 +35,14 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.core import hierarchy
 from repro_torch.core.tiering import (TieringPolicy, offload_state,
                                       to_tier1, to_tier2)
 from repro_torch.models.api import Model
 from repro_torch.models.config import ShapeConfig
 from repro_torch.optim.adamw import AdamW, AdamWState
+from repro_torch.sharding.partition import Rules
+from repro_torch.sharding.profiles import grid_refusal
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -37,7 +54,7 @@ class TrainState(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class TrainStepConfig:
-    dp_mode: str = "auto"              # auto (hierarchical: a later slice)
+    dp_mode: str = "auto"              # auto | hierarchical
     compress_pod: bool = False         # int8 EF on the cross-pod phase
     microbatches: int = 1
     remat: bool = True
@@ -79,10 +96,52 @@ def _to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
+def batch_rows(mesh, rules: Optional[Rules], shape: ShapeConfig,
+               microbatches: int = 1) -> Tuple[int, int]:
+    """(first row, rows) of this rank's part of the global batch: the
+    batch split in blocks over the rules' ``batch`` axes (every data axis
+    without rules), block ``i`` to the ranks whose row-major index over
+    those axes is ``i`` (the reference's ``batch_shardings``); the whole
+    batch where the rules leave it unsharded."""
+    axes = rules.spec("batch")[0] if rules is not None else mesh.data_axes
+    axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
+    n = mesh.size(axes)
+    B = shape.global_batch
+    if B % (n * max(1, microbatches)):
+        raise ValueError(f"batch {B} does not split over {n} ranks x "
+                         f"{microbatches} microbatches")
+    return mesh.index(axes) * (B // n), B // n
+
+
+def _grid_reduce(grid, tcfg: TrainStepConfig, loss, grads, residuals):
+    """(loss, grads, residuals) reduced over the data ranks by
+    ``tcfg.dp_mode``: the loss is the mean over the world in ``auto``,
+    and for ``hierarchical`` the pod's mean, then its mean over pods, as
+    the reference's ``pmean``."""
+    if tcfg.dp_mode == "auto":
+        return (hierarchy.cross_pod_mean(loss, grid, grid.data_axes),
+                hierarchy.reduce_gradients_flat(grads, grid), residuals)
+    loss = hierarchy.cross_pod_mean(
+        hierarchy.cross_pod_mean(loss, grid, "data"), grid, "pod")
+    res = residuals.get("g") if tcfg.compress_pod else None
+    grads, new = hierarchy.reduce_gradients_hierarchically(
+        grads, grid, compress=tcfg.compress_pod, residuals=res)
+    return loss, grads, ({"g": new} if tcfg.compress_pod else residuals)
+
+
 def make_train_step(model: Model, optimizer: AdamW, shape: ShapeConfig, *,
+                    mesh=None, rules: Optional[Rules] = None,
                     tcfg: TrainStepConfig = TrainStepConfig(),
                     tiering: Optional[TieringPolicy] = None):
     """Returns ``step(state, batch) -> (state, metrics)``.
+
+    ``mesh``: this rank's ``launch.mesh.RankGrid``; the step then takes
+    the global batch, computes on this rank's rows (``batch_rows``, by
+    ``rules``' ``batch`` axes) and reduces by ``tcfg.dp_mode`` before the
+    update.  Every rank must start from the same state.  With
+    ``compress_pod`` the state's residual is this rank's shard of its
+    pod's error feedback (``state_from_params(..., mesh=...)`` makes it).
+    The grid's ``stats`` count the collectives' bytes and host seconds.
 
     ``tiering``: with ``offload_optimizer`` (or ``offload_master_params``)
     the state keeps those components in tier 2 (``init_state`` and
@@ -92,14 +151,22 @@ def make_train_step(model: Model, optimizer: AdamW, shape: ShapeConfig, *,
     copied back as soon as it is made, so they never share the card with
     the activations or with each other.  The step waits for the copies,
     so the host may read the state it returns."""
-    if tcfg.dp_mode != "auto":
-        raise NotImplementedError(
-            f"dp_mode={tcfg.dp_mode!r} reduces across processes: it comes "
-            f"with the port's multi-card slice on torch.distributed; one "
-            f"device trains with dp_mode='auto'")
+    if tcfg.dp_mode not in ("auto", "hierarchical"):
+        raise ValueError(f"unknown dp_mode {tcfg.dp_mode!r}")
+    if tcfg.dp_mode == "hierarchical" and (
+            mesh is None or "pod" not in mesh.axis_names):
+        raise ValueError("hierarchical dp_mode needs a mesh with a 'pod' axis")
     if shape.global_batch % max(1, tcfg.microbatches):
         raise ValueError(f"batch {shape.global_batch} does not split into "
                          f"{tcfg.microbatches} microbatches")
+    rows = None
+    if mesh is not None:
+        why = grid_refusal(mesh, rules)
+        if why is not None:
+            raise ValueError(why)
+        rows = batch_rows(mesh, rules, shape, tcfg.microbatches)
+    distributed = mesh is not None and (mesh.world > 1
+                                        or tcfg.dp_mode != "auto")
     moments_out = tiering is not None and tiering.offload_optimizer
     masters_out = tiering is not None and tiering.offload_master_params
 
@@ -108,10 +175,17 @@ def make_train_step(model: Model, optimizer: AdamW, shape: ShapeConfig, *,
 
     def step(state: TrainState, batch) -> Tuple[TrainState,
                                                 Dict[str, torch.Tensor]]:
+        if rows is not None:
+            batch = {k: v[rows[0]:rows[0] + rows[1]]
+                     for k, v in batch.items()}
         batch = _to_device(batch, model.device)
         params = tree_map(onload, state.params) if masters_out \
             else state.params
         loss, grads = _accumulated_grads(model, params, batch, tcfg)
+        residuals = state.residuals
+        if distributed:
+            loss, grads, residuals = _grid_reduce(mesh, tcfg, loss, grads,
+                                                  residuals)
         tier = {"fetch": onload, "stash": to_tier2} if moments_out else {}
         new_params, new_opt, gnorm = optimizer.update(grads, state.opt,
                                                       params, **tier)
@@ -119,7 +193,7 @@ def make_train_step(model: Model, optimizer: AdamW, shape: ShapeConfig, *,
             new_params = tree_map(to_tier2, new_params)
         if (moments_out or masters_out) and model.device.type == "cuda":
             torch.cuda.current_stream(model.device).synchronize()
-        new_state = TrainState(new_params, new_opt, state.residuals)
+        new_state = TrainState(new_params, new_opt, residuals)
         metrics = {"loss": loss, "grad_norm": gnorm,
                    "step": new_opt.step.float()}
         return new_state, metrics
@@ -130,21 +204,32 @@ def make_train_step(model: Model, optimizer: AdamW, shape: ShapeConfig, *,
 def init_state(model: Model, optimizer: AdamW,
                generator: Optional[torch.Generator] = None,
                tcfg: TrainStepConfig = TrainStepConfig(),
-               tiering: Optional[TieringPolicy] = None) -> TrainState:
+               tiering: Optional[TieringPolicy] = None,
+               mesh=None) -> TrainState:
     """Masters drawn from ``generator`` on the model's device, zero AdamW
-    state and residuals; the components ``tiering`` offloads in tier 2."""
+    state and residuals; the components ``tiering`` offloads in tier 2.
+    Every rank of a grid draws the same masters from the same seed."""
     params = model.init(generator)
-    return state_from_params(params, optimizer, tcfg, tiering)
+    return state_from_params(params, optimizer, tcfg, tiering, mesh)
 
 
 def state_from_params(params, optimizer: AdamW,
                       tcfg: TrainStepConfig = TrainStepConfig(),
-                      tiering: Optional[TieringPolicy] = None) -> TrainState:
+                      tiering: Optional[TieringPolicy] = None,
+                      mesh=None) -> TrainState:
     """A fresh ``TrainState`` around given masters (``init_state`` with
     the parameters drawn elsewhere, e.g. from the reference's through
-    ``repro_torch.bridge``)."""
+    ``repro_torch.bridge``).  The residuals: with ``compress_pod`` a tree
+    of zeros like the masters, as the reference's; on a grid under
+    ``hierarchical``, where they are used, this rank's zero shard of its
+    pod's flat error feedback (``hierarchy.residual_shape``)."""
     residuals = {}
-    if tcfg.compress_pod:
+    if tcfg.compress_pod and mesh is not None \
+            and tcfg.dp_mode == "hierarchical":
+        device = tree_leaves(params)[0].device
+        residuals = {"g": torch.zeros(hierarchy.residual_shape(params, mesh),
+                                      dtype=torch.float32, device=device)}
+    elif tcfg.compress_pod:
         residuals = {"g": tree_map(lambda p: torch.zeros(
             p.shape, dtype=torch.float32, device=p.device), params)}
     state = TrainState(params, optimizer.init(params), residuals)

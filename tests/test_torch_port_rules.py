@@ -102,6 +102,24 @@ def test_the_pool_slice_modules_are_checked():
             "pool/inventory.py", "ckpt/elastic.py"} <= files
 
 
+def test_the_distributed_slice_modules_are_checked():
+    """The data-parallel slice's modules (sharding rules, the rank grid,
+    the hierarchical collectives, elastic re-planning) are among those
+    imported with JAX and the reference blocked, and whose sources are
+    scanned."""
+    names = set(_module_names())
+    slice_modules = {
+        "repro_torch.sharding", "repro_torch.sharding.partition",
+        "repro_torch.sharding.profiles", "repro_torch.core.hierarchy",
+        "repro_torch.launch.mesh", "repro_torch.ckpt.elastic",
+        "repro_torch.runtime.train", "repro_torch.launch.train"}
+    assert slice_modules <= names, sorted(slice_modules - names)
+    files = {p.relative_to(PKG).as_posix() for p in FILES if PKG in p.parents}
+    assert {"sharding/partition.py", "sharding/profiles.py",
+            "core/hierarchy.py", "launch/mesh.py",
+            "ckpt/elastic.py"} <= files
+
+
 def test_lease_entry_points_refuse_the_cpu_unless_asked():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None is valid here")
