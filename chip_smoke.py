@@ -249,22 +249,57 @@ no result line):
               compressed mean over the two pods' gradients, within one
               code step (scale / 2) plus 1e-6 of the largest |mean|, the
               share of code sums that differ reported; (b) qwen1.5-0.5b
-              at full width and depth in bf16, 4 ranks x B=2 x S=512
-              (phase 10 (c)'s weights and batches), 4 steps each of
+              at full width on its first 6 of 24 layers (``DP_DEPTH``)
+              in bf16, 4 ranks x B=2 x S=512 (the weights of seed 0,
+              phase 10 (c)'s batches), 4 steps each of
               ``auto``, ``hierarchical`` and ``compress_pod``: s/step,
               each rank's peak, host seconds in collectives by op, the
               byte counter by axis and op, each rank's launches exact
               (B2, B3, B5, B6; every flash call forward and backward on
               the tensor-core kernel), ranks' losses equal, ``auto``'s
-              losses within 1e-2 of phase 10 (c)'s; (c) one
+              losses within 1e-2 of the one-process step's on the same
+              cut; (c) one
               ``compress_pod`` step on (a)'s cut in bf16 run twice from
               one state: the same bits in every rank; (d) the training
               CLI under ``torch.distributed.run`` on 4 ranks
-              (qwen1.5-0.5b, the lease's (2, 2, 1) layout,
+              (qwen1.5-0.5b at full width on its first 2 layers,
+              ``--layers``, the lease's (2, 2, 1) layout,
               ``hierarchical`` with ``compress_pod``, 3 steps) exits 0
               with mesh, dp_mode and backend ``gloo`` in its summary.
               Every time here is 4 ranks sharing one card: it measures
               nothing of a fabric;
+12. tp      - (run after phase 11) tensor parallelism over ``model`` and
+              FSDP over ``data`` (``repro_torch.sharding.tp``): two
+              spawned worlds of 4 ranks sharing the card over gloo as
+              phase 11's, (data 2, model 2) with FSDP off (the reference
+              CLI's rules) and on, and (pod 2, data 1, model 2)
+              ``hierarchical`` with ``compress_pod``.  (a) qwen1.5-0.5b at
+              full width on its first 2 layers in fp32, global B=8 x
+              S=512, 3 steps of each case against the one-process step on
+              the same weights and batches (the compressed case against
+              the plain in-process evaluation of the reference's
+              compressed mean over the two pods, residuals carried): loss
+              and grad norm to 1e-5 relative, the parameters gathered
+              from the ranks to 1e-5 of the largest |parameter| but at
+              most ``DP_PARAM_SHARE`` of them (C-port15); (b) full width
+              and depth in bf16, phase 10 (c)'s weights and batches, 4
+              steps of each case: s/step, host seconds in collectives
+              and bytes by (axes, op), each rank's peak, launches exact
+              in every rank (B2, B3, B5, B6 on a rank's local heads),
+              ranks' losses equal and each within 1e-2 of phase 10
+              (c)'s (the compressed case's of the plain in-process
+              evaluation of the same schedule: int8 codes move a
+              trajectory further); (c) a step with FSDP on the 2-layer cut in bf16 run
+              twice from one state: the same bits in every rank; (d) the
+              training CLI under ``torch.distributed.run`` on 4 ranks
+              with no ``--pool`` (qwen1.5-0.5b at full width on its
+              first 2 layers, the reference's smoke mesh (data 2, model
+              2), tensor parallel, 3 steps of 8 x 512), then under
+              ``--max-restarts 1`` through a wrapper whose failure hook
+              raises on rank 1 at step 2 of the first attempt, with
+              ``--ckpt-every 1``: exit 0, the resume reported, every
+              step's loss equal in bits to the first run's.  Every time
+              here is 4 ranks sharing one card: nothing of a fabric;
 5. times    - each kernel's time (CUDA graphs of back-to-back calls,
               timed with CUDA events, median of trials) beside its plain
               version, a PyTorch library call where one computes the
@@ -297,9 +332,9 @@ no result line):
               inputs: the copies cycled through read more than twice the
               L2 a cycle.
               A time under its bound / 1.05 fails the run;
-then the ``launches`` and ``kernels`` lines (phases 6, 7, 8, 9, 4f, 10
-and 11's launches among the paths, phase 11's per rank, the backward
-kernels B5, B6 and B8 counted apart), and
+then the ``launches`` and ``kernels`` lines (phases 6, 7, 8, 9, 4f, 10,
+11 and 12's launches among the paths, phases 11 and 12 per rank, the
+backward kernels B5, B6 and B8 counted apart), and
 the contract line ``{"ok": true, "device":
 {...}}``, last.
 
@@ -341,7 +376,17 @@ GAP_NOISE = 1e-5                # a routing flip at a smaller router gap
                                 # noise between two summation orders
 
 
+T_START = time.perf_counter()   # the script's start, for ``emit``'s t_s
+
+
 def emit(obj) -> None:
+    """One JSON line on stdout.  A phase's line gets ``t_s``, the seconds
+    since the script started, and a line on stderr with its phase and
+    check, so a run stopped at its time limit shows how far it got."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
+        print(f"smoke: {obj['phase']} {obj.get('check', '')} at "
+              f"{obj['t_s']:.1f} s", file=sys.stderr, flush=True)
     print(json.dumps(obj), flush=True)
 
 
@@ -1186,8 +1231,8 @@ def profile_window(model, params, device):
 
     run()
     wall, steps = run()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the device's activities alone: only device time is read
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         profiled_wall, _ = run()
     emit({"phase": "profile", "requests": 8, "engine_steps": steps,
           "wall_s": wall, "profiled_wall_s": profiled_wall,
@@ -1532,8 +1577,7 @@ def profile_decode_window(params, decode, carry, steps: int):
 
     run()
     wall = run()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         profiled_wall = run()
     emit({"phase": "profile", "path": "fixed-batch decode",
           "batch": carry["tokens"].shape[0], "decode_steps": steps,
@@ -3334,8 +3378,7 @@ def train_full_width(arch, device, smi, n_layers=None, record=None):
         state, _ = step(state, b)
     torch.cuda.synchronize()
     wall2 = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for b in batches[n + 2:n + 4]:
             state, _ = step(state, b)
         torch.cuda.synchronize()
@@ -3734,16 +3777,21 @@ def train_cli_refusals():
     from repro_torch.launch import train as train_cli_mod
 
     root = Path(__file__).resolve().parent
+    # both at once; each one's seconds run to its exit or later
+    t0 = time.perf_counter()
+    started = {arch: (subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
+         "--arch", arch, "--steps", "2", "--ckpt-dir", str(CKPT_DIR)],
+        cwd=root, env={**os.environ, "PYTHONPATH": str(root / "src")},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), reason)
+        for arch, reason in (("olmo-1b", "head_dim"),
+                             ("mamba2-780m", "P in (32, 64)"))}
     smoke = {}
-    for arch, reason in (("olmo-1b", "head_dim"),
-                         ("mamba2-780m", "P in (32, 64)")):
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
-             "--arch", arch, "--steps", "2", "--ckpt-dir", str(CKPT_DIR)],
-            cwd=root, env={**os.environ, "PYTHONPATH": str(root / "src")},
-            capture_output=True, text=True, timeout=120)
-        smoke[arch] = (proc, time.perf_counter() - t0, reason)
+    for arch, (proc, reason) in started.items():
+        _, stderr = proc.communicate(timeout=120)
+        smoke[arch] = (subprocess.CompletedProcess(
+            proc.args, proc.returncode, stderr=stderr),
+            time.perf_counter() - t0, reason)
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
         rc_encdec = train_cli_mod.main(["--arch", "whisper-small",
@@ -3819,7 +3867,7 @@ def train_phase(device, smi, record=None):
     refusals, (h) olmoe-1b-7b, (i) whisper-small, (j) mamba2-780m and
     (k) zamba2-7b; the report (f) is in each line.  Returns the six
     paths' counts and variants; ``record`` gets (a)'s and (c)'s losses
-    (phase 11 holds its trajectory to (c)'s)."""
+    (phase 12 holds its trajectories to (c)'s)."""
     import torch
     t0 = time.perf_counter()
     counts, variants = {}, {}
@@ -3834,6 +3882,10 @@ def train_phase(device, smi, record=None):
         torch.cuda.empty_cache()
     train_cli(device, smi)
     train_cli_refusals()
+    # the CLI runs in this process: what its last run left in reference
+    # cycles goes before the largest training check, (h)'s twice-in-bits
+    gc.collect()
+    torch.cuda.empty_cache()
     t1 = time.perf_counter()
     more = train_families(device, smi)
     counts.update(more[0])
@@ -3855,6 +3907,12 @@ def train_phase(device, smi, record=None):
 
 DP_LAYOUT = ((2, 2, 1), ("pod", "data", "model"))
 DP_STEPS = 4                    # (b)'s steps a mode; s/step over 2-4
+# (b)'s depth: qwen1.5-0.5b's first 6 of 24 layers, cut when phase 12
+# took the smoke past 1050 s (1064 s on an H100 80GB HBM3 at 700 W);
+# the collectives move the 0.93 GB flat buffer of 6 layers and the table
+# (1.86 GB at full depth); auto's losses are held to the one-process
+# step's on the same cut, run by rank 0
+DP_DEPTH = 6
 DP_MODES = {"auto": ("auto", False), "hierarchical": ("hierarchical", False),
             "compress_pod": ("hierarchical", True)}
 DP_DIR = Path(__file__).resolve().parent / "build" / "phase11"
@@ -3890,24 +3948,38 @@ def dp_state_gap(got, want, lr):
                    and off <= DP_PARAM_SHARE * n and worst <= 2 * lr)}
 
 
-def dp_plain_compressed_mean(pod_grads):
-    """The reference's ``compressed_cross_pod_mean`` over pods, evaluated
-    in process on the pods' gradients (no residual): per reference leaf
-    (``leaf_groups``, a stacked leaf's layers together) the scale is the
-    max over pods of max |g| / 127 + 1e-12, the codes clip(round(g /
-    scale), -127, 127), their sum taken in int32, the mean sum x scale /
-    n.  Returns {leaf name: (mean, scale)}, the mean flat in fp32."""
+def dp_flat_leaves(tree):
+    """{reference leaf name: its values flat in fp32} of a port tree
+    (``leaf_groups``: a stacked leaf's layers together)."""
     import torch
     from repro_torch.tree import leaf_groups
-    groups = [{name: torch.cat([t.reshape(-1).float() for t in ts])
-               for name, ts, _ in leaf_groups(g)} for g in pod_grads]
+    return {name: torch.cat([t.reshape(-1).float() for t in ts])
+            for name, ts, _ in leaf_groups(tree)}
+
+
+def dp_plain_compressed_mean(pods, residuals=None):
+    """The reference's ``compressed_cross_pod_mean`` over pods, evaluated
+    in process on the pods' gradients (``dp_flat_leaves`` of each): per
+    reference leaf each pod's residual is added (``residuals``, one
+    {leaf name: flat fp32} per pod, empty at the first step; None: no
+    error feedback), the scale is the max over pods of max |x| / 127 +
+    1e-12, the codes clip(round(x / scale), -127, 127), their sum taken
+    in int32, the mean sum x scale / n, and each pod's new residual x -
+    code x scale replaces its old one.  Returns {leaf name: (mean,
+    scale)}, the mean flat in fp32."""
+    import torch
     out = {}
-    for name in groups[0]:
-        xs = [g[name] for g in groups]
+    for name in pods[0]:
+        xs = [g[name] for g in pods]
+        if residuals is not None:
+            xs = [x + r.get(name, 0.0) for x, r in zip(xs, residuals)]
         scale = torch.max(torch.stack([x.abs().max() for x in xs])) \
             / 127.0 + 1e-12
         codes = [torch.clamp(torch.round(x / scale), -127, 127).to(
             torch.int8) for x in xs]
+        if residuals is not None:
+            for r, x, c in zip(residuals, xs, codes):
+                r[name] = x - c.float() * scale
         summed = torch.stack(codes).sum(dim=0, dtype=torch.int32)
         out[name] = (summed.float() * scale / len(xs), scale)
     return out
@@ -3965,8 +4037,8 @@ def dp_fp32_gate(grid):
         for p in range(2):
             rows = {k: torch.as_tensor(v[4 * p:4 * p + 4], device=grid.device)
                     for k, v in batch.items()}
-            pods.append(train_rt._accumulated_grads(
-                model, params, rows, train_rt.TrainStepConfig())[1])
+            pods.append(dp_flat_leaves(train_rt._accumulated_grads(
+                model, params, rows, train_rt.TrainStepConfig())[1]))
         plain = dp_plain_compressed_mean(pods)
         worst, differ, total = 0.0, 0, 0
         for name, ts, _ in leaf_groups(reduced):
@@ -3985,13 +4057,14 @@ def dp_fp32_gate(grid):
     return out
 
 
-def dp_full_depth(grid):
-    """(b) qwen1.5-0.5b at full width and depth, bf16 compute: each rank
-    B=2 of the global 8 x 512 (phase 10 (c)'s weights, seed 0, and
-    batches), ``DP_STEPS`` steps of each mode: losses, seconds a step,
-    host seconds in collectives (by op) and the byte counter a step, the
-    peak of device memory, the kernels' launches and variants.  Then
-    (c), ``dp_twice``."""
+def dp_schedules(grid):
+    """(b) qwen1.5-0.5b at full width on its first ``DP_DEPTH`` layers,
+    bf16 compute: each rank B=2 of the global 8 x 512 (the weights of
+    seed 0, phase 10 (c)'s batches), ``DP_STEPS`` steps of each mode:
+    losses, seconds a step, host seconds in collectives (by op) and the
+    byte counter a step, the peak of device memory, the kernels'
+    launches and variants; rank 0 then the one-process step's losses on
+    the same cut.  Then (c), ``dp_twice``."""
     import torch
     from repro_torch import kernels
     from repro_torch.configs import get_config
@@ -3999,8 +4072,8 @@ def dp_full_depth(grid):
     from repro_torch.runtime import train as train_rt
     from repro_torch.sharding.profiles import make_rules
 
-    cfg = get_config("qwen1.5-0.5b")
-    model, opt, _, pipe = train_parts(cfg, grid.device)
+    cfg = cut("qwen1.5-0.5b", DP_DEPTH)
+    model, opt, one_step, pipe = train_parts(cfg, grid.device)
     shape = ShapeConfig("smoke", "train", TRAIN_SEQ, TRAIN_BATCH)
     batches = [pipe.next_batch() for _ in range(DP_STEPS)]
     out = {}
@@ -4053,6 +4126,17 @@ def dp_full_depth(grid):
     del state, step
     gc.collect()
     torch.cuda.empty_cache()
+    if grid.rank == 0:
+        state = train_rt.init_state(
+            model, opt, torch.Generator(device=grid.device).manual_seed(0))
+        losses = []
+        for b in batches:
+            state, m = one_step(state, b)
+            losses.append(float(m["loss"]))
+        out["one_process_losses"] = losses
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
     return out, dp_twice(grid)
 
 
@@ -4123,11 +4207,12 @@ def gloo_cuda_probe(grid):
     return found
 
 
-def dp_progress(rank: int, part: str, t0: float, what) -> None:
+def dp_progress(rank: int, part: str, t0: float, what,
+                phase: int = 11) -> None:
     """Rank 0's progress on stderr (a failed world shows how far it
     got)."""
     if rank == 0:
-        print(f"phase 11 rank 0: {part} done at "
+        print(f"phase {phase} rank 0: {part} done at "
               f"{time.perf_counter() - t0:.1f} s: {json.dumps(what)[:600]}",
               file=sys.stderr, flush=True)
 
@@ -4155,10 +4240,10 @@ def dp_rank(rank: int, init: str, out_dir: str) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     t2 = time.perf_counter()
-    report["full_depth"], report["twice"] = dp_full_depth(grid)
+    report["schedules"], report["twice"] = dp_schedules(grid)
     dp_progress(rank, "(b), (c)", t0, report["twice"])
     report["seconds"] = {"setup": t1 - t0, "fp32_gate": t2 - t1,
-                         "full_depth": time.perf_counter() - t2}
+                         "schedules": time.perf_counter() - t2}
     grid.close()
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(report))
 
@@ -4231,7 +4316,8 @@ def dp_allocator_env():
 
 def dp_cli(smi):
     """(d) the training CLI under ``torch.distributed.run`` on 4 ranks:
-    qwen1.5-0.5b at full width and depth, the lease's (2, 2, 1) layout,
+    qwen1.5-0.5b at full width on its first ``TRAIN_CUT`` layers
+    (``--layers``), the lease's (2, 2, 1) layout,
     ``hierarchical`` with ``compress_pod``, 3 steps of 8 x 512; its
     output in files, and past ``DP_CLI_LIMIT_S`` its whole process tree
     killed."""
@@ -4239,7 +4325,8 @@ def dp_cli(smi):
     root = Path(__file__).resolve().parent
     argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
             "--nproc-per-node", "4", "-m", "repro_torch.launch.train",
-            "--arch", "qwen1.5-0.5b", "--dp-mode", "hierarchical",
+            "--arch", "qwen1.5-0.5b", "--layers", str(TRAIN_CUT),
+            "--dp-mode", "hierarchical",
             "--compress-pod", "--pool", "scalepool", "--pool-accels", "12",
             "--steps", "3", "--batch", str(TRAIN_BATCH), "--seq",
             str(TRAIN_SEQ), "--ckpt-dir", str(DP_DIR / "ckpt")]
@@ -4274,7 +4361,7 @@ def dp_cli(smi):
           f"phase 11 (d): summary {summary}")
 
 
-def dp_phase(smi, qwen_losses):
+def dp_phase(smi):
     """Phase 11: (a)-(c) in one spawned world of 4 ranks sharing the card
     (the kernels built by this process before), then (d) the CLI.
     Returns each rank's (b) launches, all three modes together."""
@@ -4297,8 +4384,7 @@ def dp_phase(smi, qwen_losses):
     world_s = wait_world(procs, DP_WORLD_LIMIT_S, "phase 11 (a)-(c)")
     reports = [json.loads((DP_DIR / f"rank{r}.json").read_text())
                for r in range(4)]
-    from repro_torch.configs import get_config
-    cfg = get_config("qwen1.5-0.5b")
+    cfg = cut("qwen1.5-0.5b", DP_DEPTH)
     want = train_launches(cfg, DP_STEPS)
     emit({"phase": "dp", "check": "gloo on CUDA tensors",
           "torch": torch.__version__, "ops": reports[0]["gloo_cuda"],
@@ -4315,7 +4401,7 @@ def dp_phase(smi, qwen_losses):
           f"phase 11 (a): {gate}")
     counts = {}
     for mode in DP_MODES:
-        per = [r["full_depth"][mode] for r in reports]
+        per = [r["schedules"][mode] for r in reports]
         emit({"phase": "dp", "check": f"(b) {mode}", "nvidia_smi": smi,
               "arch": cfg.name, "layers": cfg.n_layers,
               "ranks": "4 ranks sharing one card (gloo, host-staged)",
@@ -4339,12 +4425,12 @@ def dp_phase(smi, qwen_losses):
             for k, v in p["launches"].items():
                 c = counts[f"qwen1.5-0.5b dp rank {r}"]
                 c[k] = c.get(k, 0) + v
-    auto = reports[0]["full_depth"]["auto"]["losses"]
-    ref = qwen_losses[:DP_STEPS]
+    auto = reports[0]["schedules"]["auto"]["losses"]
+    ref = reports[0]["schedules"]["one_process_losses"]
     gaps = [abs(a - b) / abs(b) for a, b in zip(auto, ref)]
-    emit({"phase": "dp", "check": "(b) auto against phase 10 (c)",
-          "dp_losses": auto, "one_card_losses": ref, "rel_gaps": gaps,
-          "tol": BF16_TRAJ_TOL})
+    emit({"phase": "dp", "check": "(b) auto against the one-process step",
+          "layers": cfg.n_layers, "dp_losses": auto, "one_card_losses": ref,
+          "rel_gaps": gaps, "tol": BF16_TRAJ_TOL})
     check(all(g <= BF16_TRAJ_TOL for g in gaps),
           f"phase 11 (b): auto's losses {auto} against one card's {ref}")
     twice = [r["twice"] for r in reports]
@@ -4356,6 +4442,492 @@ def dp_phase(smi, qwen_losses):
     emit({"phase": "dp", "seconds": time.perf_counter() - t_start,
           "world_seconds": world_s,
           "rank_seconds": [r["seconds"] for r in reports]})
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 12: tensor parallelism and FSDP: qwen1.5-0.5b on (data 2, model 2)
+# with FSDP off and on and on (pod 2, data 1, model 2) with the compressed
+# cross-pod phase, 4 ranks sharing the one card over gloo
+# ---------------------------------------------------------------------------
+
+# world -> (layout, [(case, dp_mode, compress_pod, fsdp)])
+TP_WORLDS = {
+    "2x2": (((2, 2), ("data", "model")),
+            [("tp", "auto", False, False), ("tp_fsdp", "auto", False, True)]),
+    "2x1x2": (((2, 1, 2), ("pod", "data", "model")),
+              [("pod_compress", "hierarchical", True, False)]),
+}
+TP_GATE_STEPS = 3               # (a)'s steps
+TP_STEPS = 4                    # (b)'s steps a case; s/step over 2-4
+TP_DIR = Path(__file__).resolve().parent / "build" / "phase12"
+TP_WORLD_LIMIT_S = 300.0        # each world's wall-clock limit
+TP_CLI_LIMIT_S = 240.0          # each of (d)'s torch.distributed.run
+TP_FAIL_AT = 2                  # (d)'s injected failure: rank 1, step 2
+TP_CLI_WRAPPER = """
+import os, sys
+from repro_torch.launch.train import main
+
+def hook(step):
+    if (os.environ["TORCHELASTIC_RESTART_COUNT"] == "0"
+            and os.environ["RANK"] == "1" and step == {fail_at}):
+        raise RuntimeError("injected failure on rank 1 at step {fail_at}")
+
+raise SystemExit(main(sys.argv[1:], failure_hook=hook))
+"""
+
+
+def tp_plain_compressed_steps(model, opt, params, batches):
+    """The one-process evaluation of ``compress_pod`` on (pod 2, data 1,
+    model 2): per step each pod's gradient on its half of the rows, the
+    reference's compressed mean over the two pods per reference leaf
+    (``dp_plain_compressed_mean`` with each pod's residual), then
+    AdamW.  Returns [(loss, grad norm)] and the final masters."""
+    import torch
+    from repro_torch.runtime import train as train_rt
+    from repro_torch.tree import leaf_groups, rebuild, tree_map
+
+    dev = model.device
+    state = train_rt.state_from_params(tree_map(torch.clone, params), opt)
+    residual = [{}, {}]
+    metrics = []
+    half = TRAIN_BATCH // 2
+    for b in batches:
+        losses, flats = [], []
+        for p in range(2):
+            rows = {k: torch.as_tensor(v[half * p:half * p + half],
+                                       device=dev) for k, v in b.items()}
+            loss, g = train_rt._accumulated_grads(
+                model, state.params, rows, train_rt.TrainStepConfig())
+            losses.append(loss)
+            flats.append(dp_flat_leaves(g))
+            del g
+        mean = dp_plain_compressed_mean(flats, residual)
+        del flats
+        supply = {}
+        for name, ts, _ in leaf_groups(state.params):
+            parts, at = [], 0
+            for t in ts:
+                parts.append(mean[name][0][at:at + t.numel()].reshape(
+                    t.shape))
+                at += t.numel()
+            supply[name] = iter(parts)
+        del mean
+        grads = rebuild(state.params, supply)
+        new_params, new_opt, gnorm = opt.update(grads, state.opt,
+                                                state.params)
+        state = train_rt.TrainState(new_params, new_opt, {})
+        metrics.append((float((losses[0] + losses[1]) / 2), float(gnorm)))
+    return metrics, state.params
+
+
+def tp_gap(got_metrics, got_params, want_metrics, want_params, lr, steps):
+    """Loss and grad norm relative gaps per step, and the parameters':
+    the largest |difference| over the largest |parameter| and the share
+    past ``TOL["float32"]`` of it (each within 2 x lr a step)."""
+    from repro_torch.tree import tree_leaves
+    rel = [max(abs(g[k] - w[k]) / abs(w[k]) for k in range(2))
+           for g, w in zip(got_metrics, want_metrics)]
+    top = max(float(t.abs().max()) for t in tree_leaves(want_params))
+    worst, off, n = 0.0, 0, 0
+    for a, b in zip(tree_leaves(got_params), tree_leaves(want_params)):
+        err = (a - b).abs()
+        worst = max(worst, float(err.max()))
+        off += int((err > TOL["float32"] * top).sum())
+        n += err.numel()
+    return {"metric_rel_gaps": rel, "param_max_err": worst,
+            "param_top": top, "param_share_past_tol": off / n,
+            "ok": (max(rel) <= TOL["float32"] and off <= DP_PARAM_SHARE * n
+                   and worst <= 2 * lr * steps)}
+
+
+def tp_fp32_gate(grid, cases):
+    """(a) qwen1.5-0.5b at full width on its first 2 layers in fp32 (TF32
+    off), global B=8 x S=512, ``TP_GATE_STEPS`` steps of each case from
+    the same draw, the parameters gathered from the ranks; rank 0 holds
+    them, the losses and grad norms against the one-process step (for
+    ``compress_pod``, ``tp_plain_compressed_steps``)."""
+    import torch
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.runtime import train as train_rt
+    from repro_torch.sharding import partition
+    from repro_torch.sharding.profiles import make_rules
+    from repro_torch.tree import tree_map
+
+    cfg = cut("qwen1.5-0.5b", TRAIN_CUT, compute_dtype="float32")
+    model, opt, one_step, pipe = train_parts(cfg, grid.device)
+    shape = ShapeConfig("smoke", "train", TRAIN_SEQ, TRAIN_BATCH)
+    params = model.init(torch.Generator(device=grid.device).manual_seed(1))
+    batches = [pipe.next_batch() for _ in range(TP_GATE_STEPS)]
+    out, plain = {}, None
+    for name, mode, compress, fsdp in cases:
+        tcfg = train_rt.TrainStepConfig(dp_mode=mode, compress_pod=compress)
+        rules = make_rules(cfg, shape, grid, fsdp=fsdp, dp_mode=mode)
+        step = train_rt.make_train_step(model, opt, shape, mesh=grid,
+                                        rules=rules, tcfg=tcfg)
+        state = train_rt.state_from_params(
+            tree_map(torch.clone, params), opt, tcfg, mesh=grid,
+            rules=rules, axes=model.param_axes())
+        metrics = []
+        for b in batches:
+            state, m = step(state, b)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        blocks = partition.tree_shardings(grid, rules, model.param_axes())
+        full = tree_map(lambda t, b: partition.gather_leaf(t, b, grid),
+                        state.params, blocks)
+        del state, step
+        if grid.rank == 0:
+            if compress:
+                want = tp_plain_compressed_steps(model, opt, params, batches)
+            elif plain is None:
+                one = train_rt.state_from_params(
+                    tree_map(torch.clone, params), opt)
+                wm = []
+                for b in batches:
+                    one, m = one_step(one, b)
+                    wm.append((float(m["loss"]), float(m["grad_norm"])))
+                want = plain = (wm, one.params)
+                del one
+            else:
+                want = plain
+            out[name] = {"metrics": metrics, "one_process": want[0],
+                         **tp_gap(metrics, full, want[0], want[1], opt.lr,
+                                  TP_GATE_STEPS)}
+            del want
+        else:
+            out[name] = {"metrics": metrics}
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_full_depth(grid, cases):
+    """(b) qwen1.5-0.5b at full width and depth, bf16 compute, the global
+    8 x 512 (phase 10 (c)'s weights, seed 0, and batches), ``TP_STEPS``
+    steps of each case: losses, seconds a step, host seconds in
+    collectives and the byte counter by (axes, op) a step, the peak of
+    device memory, the kernels' launches and variants."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.runtime import train as train_rt
+    from repro_torch.sharding.profiles import describe, make_rules
+
+    cfg = get_config("qwen1.5-0.5b")
+    model, opt, _, pipe = train_parts(cfg, grid.device)
+    shape = ShapeConfig("smoke", "train", TRAIN_SEQ, TRAIN_BATCH)
+    batches = [pipe.next_batch() for _ in range(TP_STEPS)]
+    out = {}
+    state = step = None
+    t_start = time.perf_counter()
+    for name, mode, compress, fsdp in cases:
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        tcfg = train_rt.TrainStepConfig(dp_mode=mode, compress_pod=compress)
+        rules = make_rules(cfg, shape, grid, fsdp=fsdp, dp_mode=mode)
+        step = train_rt.make_train_step(model, opt, shape, mesh=grid,
+                                        rules=rules, tcfg=tcfg)
+        state = train_rt.init_state(
+            model, opt, torch.Generator(device=grid.device).manual_seed(0),
+            tcfg, mesh=grid, rules=rules)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        losses, norms, secs, coll, by_op = [], [], [], [], []
+        for b in batches:
+            grid.stats.reset()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            coll.append(grid.stats.seconds)
+            by_op.append(dict(grid.stats.seconds_by))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        out[name] = {
+            "rules": describe(rules),
+            "losses": losses, "grad_norms": norms, "step_s": secs,
+            "s_per_step": statistics.mean(secs[1:]),
+            "collective_host_s": coll,
+            "collective_host_s_per_step": statistics.mean(coll[1:]),
+            "moved_bytes_per_step": dict(grid.stats.moved_bytes),
+            "calls_per_step": dict(grid.stats.calls),
+            "collective_host_s_by_op": {
+                k: statistics.mean(d[k] for d in by_op[1:])
+                for k in by_op[0]},
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": train_counts(),
+            "variants": {**kernels.variant_counts(),
+                         **kernels.backward_variant_counts()}}
+        dp_progress(grid.rank, f"(b) {name}", t_start, {
+            k: out[name][k] for k in ("losses", "step_s", "peak_mem_gb",
+                                      "collective_host_s_by_op")}, phase=12)
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    if grid.rank == 0 and any(compress for _, _, compress, _ in cases):
+        params = model.init(torch.Generator(device=grid.device).manual_seed(0))
+        metrics, _ = tp_plain_compressed_steps(model, opt, params, batches)
+        out["plain_compressed_losses"] = [m[0] for m in metrics]
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_twice(grid):
+    """(c) one step with FSDP on (data 2, model 2), qwen1.5-0.5b at full
+    width on its first 2 layers in bf16, run twice from one state after
+    a first step: the two new states and metrics equal in bits."""
+    import torch
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.runtime import train as train_rt
+    from repro_torch.sharding.profiles import make_rules
+    from repro_torch.tree import tree_leaves
+
+    cfg = cut("qwen1.5-0.5b", TRAIN_CUT)
+    model, opt, _, pipe = train_parts(cfg, grid.device)
+    shape = ShapeConfig("smoke", "train", TRAIN_SEQ, TRAIN_BATCH)
+    rules = make_rules(cfg, shape, grid, fsdp=True)
+    step = train_rt.make_train_step(model, opt, shape, mesh=grid,
+                                    rules=rules)
+    t0 = time.perf_counter()
+    state = train_rt.init_state(
+        model, opt, torch.Generator(device=grid.device).manual_seed(2),
+        mesh=grid, rules=rules)
+    state, _ = step(state, pipe.next_batch())
+    batch = pipe.next_batch()
+    first = tree_leaves(step(state, batch))
+    second = tree_leaves(step(state, batch))
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    return {"same_bits": same, "layers": TRAIN_CUT, "fsdp": True,
+            "compute_dtype": cfg.compute_dtype,
+            "seconds": time.perf_counter() - t0}
+
+
+def tp_rank(rank: int, init: str, out_dir: str, world: str) -> None:
+    """One rank of one of phase 12's worlds (a spawned process; any
+    failure exits it non-zero): (a), (b) and, on (data 2, model 2), (c);
+    its report to ``<out_dir>/<world>.rank<r>.json``."""
+    import torch
+    from repro_torch.launch import mesh as mesh_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    layout, cases = TP_WORLDS[world]
+    t0 = time.perf_counter()
+    grid = mesh_lib.init_grid(mesh_lib.Layout(*layout), rank=rank,
+                              device=torch.device("cuda", 0),
+                              init_method=init,
+                              timeout_s=DP_COLLECTIVE_LIMIT_S)
+    report = {"rank": rank, "grid": grid.describe()}
+    t1 = time.perf_counter()
+    report["fp32_gate"] = tp_fp32_gate(grid, cases)
+    dp_progress(rank, f"{world} (a)", t0, report["fp32_gate"], phase=12)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    report["full_depth"] = tp_full_depth(grid, cases)
+    t3 = time.perf_counter()
+    if any(fsdp for *_, fsdp in cases):
+        report["twice"] = tp_twice(grid)
+        dp_progress(rank, f"{world} (c)", t0, report["twice"], phase=12)
+    report["seconds"] = {"setup": t1 - t0, "fp32_gate": t2 - t1,
+                         "full_depth": t3 - t2,
+                         "twice": time.perf_counter() - t3}
+    grid.close()
+    Path(out_dir, f"{world}.rank{rank}.json").write_text(json.dumps(report))
+
+
+def tp_torchrun(argv, name):
+    """The training CLI's argv under ``torch.distributed.run`` on 4 ranks,
+    its output in files, its whole process tree killed past
+    ``TP_CLI_LIMIT_S``: (rc, summary or None, stderr, seconds)."""
+    import os
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "4"] + argv
+    t0 = time.perf_counter()
+    out_path, err_path = TP_DIR / f"{name}.out", TP_DIR / f"{name}.err"
+    with open(out_path, "w") as fo, open(err_path, "w") as fe, \
+            dp_allocator_env():
+        proc = subprocess.Popen(cmd, cwd=root, env={
+            **os.environ, "PYTHONPATH": str(root / "src")},
+            stdout=fo, stderr=fe, text=True)
+    try:
+        proc.wait(timeout=TP_CLI_LIMIT_S)
+    except subprocess.TimeoutExpired:
+        kill_tree(proc.pid)
+        proc.wait(timeout=60)
+        check(False, f"phase 12 (d) {name}: the CLI overran "
+              f"{TP_CLI_LIMIT_S} s: {err_path.read_text()[-2000:]}")
+    secs = time.perf_counter() - t0
+    out, err = out_path.read_text(), err_path.read_text()
+    summary = json.loads(out) if proc.returncode == 0 else None
+    return proc.returncode, summary, err, secs
+
+
+def tp_step_losses(err):
+    """[(step, loss)] of rank 0's per-step lines on the CLI's stderr."""
+    out = []
+    for line in err.splitlines():
+        if line.startswith('{"step"'):
+            d = json.loads(line)
+            out.append((d["step"], d["loss"]))
+    return out
+
+
+def tp_cli(smi):
+    """(d) the training CLI under ``torch.distributed.run`` on 4 ranks
+    with no ``--pool``: qwen1.5-0.5b at full width on its first
+    ``TRAIN_CUT`` layers (``--layers``; (b) runs the full depth) on the
+    reference's smoke mesh (data 2, model 2), tensor parallel, 3 steps of
+    8 x 512; then the same under ``--max-restarts 1`` through a wrapper
+    (under the ignored ``build/``) whose failure hook raises on rank 1 at
+    step ``TP_FAIL_AT`` of the first attempt, with ``--ckpt-every 1``:
+    exit 0, the resume reported, every step's loss (the first attempt's
+    and the replayed ones) equal in bits to the first run's."""
+    base = ["--arch", "qwen1.5-0.5b", "--layers", str(TRAIN_CUT),
+            "--steps", "3", "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1"]
+    rc, plain, err, secs = tp_torchrun(
+        ["-m", "repro_torch.launch.train"] + base
+        + ["--ckpt-dir", str(TP_DIR / "ckpt_plain")], "cli")
+    emit({"phase": "tp", "check": "(d) CLI", "nvidia_smi": smi, "rc": rc,
+          "layers": TRAIN_CUT, "seconds": secs, "cli": plain,
+          "stderr_tail": err.strip().splitlines()[-6:]})
+    check(rc == 0, f"phase 12 (d): rc {rc}: {err[-2000:]}")
+    check(plain["mesh"] == {"data": 2, "model": 2}
+          and plain["dp_mode"] == "auto" and plain["backend"] == "gloo"
+          and plain["world"] == 4 and "heads=model" in plain["rules"]
+          and plain["device"].startswith("cuda")
+          and plain["resumed_from"] is None,
+          f"phase 12 (d): summary {plain}")
+    want = dict(tp_step_losses(err))
+    wrapper = TP_DIR / "restart_wrapper.py"
+    wrapper.write_text(TP_CLI_WRAPPER.format(fail_at=TP_FAIL_AT))
+    rc, summary, err, secs = tp_torchrun(
+        ["--max-restarts", "1", str(wrapper)] + base
+        + ["--ckpt-every", "1", "--ckpt-dir", str(TP_DIR / "ckpt_restart")],
+        "cli_restart")
+    got = tp_step_losses(err)
+    same = [(s, x, want.get(s)) for s, x in got]
+    emit({"phase": "tp", "check": "(d) CLI world restart", "nvidia_smi": smi,
+          "rc": rc, "layers": TRAIN_CUT, "seconds": secs, "cli": summary,
+          "steps_and_losses_against_the_first_run": same,
+          "stderr_tail": err.strip().splitlines()[-6:]})
+    check(rc == 0, f"phase 12 (d) restart: rc {rc}: {err[-2000:]}")
+    check(f"injected failure on rank 1 at step {TP_FAIL_AT}" in err
+          and summary["restarts"] == 1
+          and summary["resumed_from"] in (TP_FAIL_AT - 1, TP_FAIL_AT)
+          and [s for s, _ in got[:TP_FAIL_AT]] == list(
+              range(1, TP_FAIL_AT + 1))
+          and [s for s, _ in got[TP_FAIL_AT:]] == list(
+              range(summary["resumed_from"] + 1, 4))
+          and all(x == w for _, x, w in same),
+          f"phase 12 (d) restart: {summary}, losses {same}")
+
+
+def tp_phase(smi, qwen_losses):
+    """Phase 12: each of ``TP_WORLDS`` spawned as 4 ranks sharing the
+    card (the kernels built by this process before), then (d) the CLI.
+    (b)'s trajectories are held to the one-card trajectory of phase 10
+    (c) (``qwen_losses``), the compressed one to the plain in-process
+    evaluation of the same schedule (``tp_plain_compressed_steps``, rank
+    0): int8 codes change the gradient, so a compressed trajectory
+    leaves the uncompressed one by more than the bf16 bound (phase 11's
+    own by 4.6% at step 4 of its full-depth run on an H100).  Returns
+    each rank's (b) launches, its cases together."""
+    import multiprocessing
+    import shutil
+
+    import torch
+    from repro_torch.configs import get_config
+
+    t_start = time.perf_counter()
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    TP_DIR.mkdir(parents=True)
+    cfg = get_config("qwen1.5-0.5b")
+    want = train_launches(cfg, TP_STEPS)
+    counts, world_s = {}, {}
+    ctx = multiprocessing.get_context("spawn")
+    for world, (layout, cases) in TP_WORLDS.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        store = TP_DIR / f"store_{world}"
+        procs = [ctx.Process(target=tp_rank, args=(
+            r, f"file://{store}", str(TP_DIR), world)) for r in range(4)]
+        with dp_allocator_env():
+            for p in procs:
+                p.start()
+        world_s[world] = wait_world(procs, TP_WORLD_LIMIT_S,
+                                    f"phase 12 {world}")
+        reports = [json.loads((TP_DIR / f"{world}.rank{r}.json").read_text())
+                   for r in range(4)]
+        gate = reports[0]["fp32_gate"]
+        emit({"phase": "tp", "check": "(a) fp32 gate", "world": world,
+              "layout": reports[0]["grid"]["mesh"], "layers": TRAIN_CUT,
+              "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+              "steps": TP_GATE_STEPS, "tol": TOL["float32"],
+              "param_share_allowed": DP_PARAM_SHARE, "rank0": gate})
+        check(all(g["ok"] for g in gate.values())
+              and all(r["fp32_gate"][c]["metrics"] == gate[c]["metrics"]
+                      for r in reports for c in gate),
+              f"phase 12 (a) {world}: {gate}")
+        for name, _, compress, _ in cases:
+            per = [r["full_depth"][name] for r in reports]
+            losses = per[0]["losses"]
+            ref = (reports[0]["full_depth"]["plain_compressed_losses"]
+                   if compress else qwen_losses)
+            gaps = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+            emit({"phase": "tp", "check": f"(b) {name}", "nvidia_smi": smi,
+                  "arch": cfg.name, "layers": cfg.n_layers,
+                  "layout": reports[0]["grid"]["mesh"],
+                  "ranks": "4 ranks sharing one card (gloo, host-staged)",
+                  "seq": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
+                  "steps": TP_STEPS,
+                  "held_to": ("the plain compressed evaluation"
+                              if compress else "phase 10 (c)"),
+                  "reference_losses": ref[:TP_STEPS], "rel_gaps": gaps,
+                  "rel_gaps_to_phase_10c": [
+                      abs(a - b) / abs(b)
+                      for a, b in zip(losses, qwen_losses)],
+                  "tol": BF16_TRAJ_TOL, "per_rank": per})
+            check(all(p["losses"] == losses for p in per)
+                  and all(math.isfinite(x) for x in losses)
+                  and all(g <= BF16_TRAJ_TOL for g in gaps),
+                  f"phase 12 (b) {name}: losses "
+                  f"{[p['losses'] for p in per]} against {ref}")
+            for r, p in enumerate(per):
+                check(p["launches"] == want,
+                      f"phase 12 (b) {name} rank {r}: launches "
+                      f"{p['launches']} != {want}")
+                check_flash_variant(f"phase 12 {name} rank {r}",
+                                    cfg.compute_dtype, p["variants"],
+                                    want["flash_attention"])
+                check_backward_variant(f"phase 12 {name} rank {r}",
+                                       cfg.compute_dtype, p["variants"],
+                                       want["flash_attention_bwd"])
+                c = counts.setdefault(f"qwen1.5-0.5b tp rank {r}", {})
+                for k, v in p["launches"].items():
+                    c[k] = c.get(k, 0) + v
+        if any(fsdp for *_, fsdp in cases):
+            twice = [r["twice"] for r in reports]
+            emit({"phase": "tp", "check": "(c) FSDP step twice",
+                  "world": world, "per_rank": twice})
+            check(all(t["same_bits"] for t in twice),
+                  f"phase 12 (c): a rank's step twice gave other bits: "
+                  f"{twice}")
+        emit({"phase": "tp", "world": world, "seconds": world_s[world],
+              "rank_seconds": [r["seconds"] for r in reports]})
+    tp_cli(smi)
+    emit({"phase": "tp", "seconds": time.perf_counter() - t_start,
+          "world_seconds": world_s})
     return counts
 
 
@@ -4833,7 +5405,10 @@ def main() -> int:
     variants.update(train_variants)
     gc.collect()
     torch.cuda.empty_cache()
-    counts.update(dp_phase(smi, losses["qwen1.5-0.5b"]))
+    counts.update(dp_phase(smi))
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts.update(tp_phase(smi, losses["qwen1.5-0.5b"]))
     names = sorted({name for c in counts.values() for name in c})
     total = {name: sum(c.get(name, 0) for c in counts.values())
              for name in names}

@@ -4,13 +4,10 @@ checkpoint onto a different world, and resize plans.
 ScalePool's composable disaggregation means the compute pool can grow or
 shrink independently of storage; a job restarted on 384 chips must
 consume a checkpoint written on 512.  The manifest stores global shapes
-and shard slices, so re-assembly is layout-agnostic.  The port's
-data-parallel state is whole on every rank, so a checkpoint is written
-by rank 0 alone (``ckpt.checkpoint.save``, process 0) and ``replan``
-reads every leaf whole onto the restoring rank's own device, whatever
-the world that wrote it (4 ranks -> 2 -> 1).  The reference re-slices
-each leaf for the new mesh's shardings; the port has none to slice for
-until the tensor-parallel / FSDP slice.
+and shard slices, so re-assembly is layout-agnostic: ``replan`` rebuilds
+each full leaf from its shard files and re-slices it for the new grid's
+rules, as the reference does, whether the checkpoint was written by the
+reference on a sharded mesh, by the port on any layout, or whole.
 """
 
 from __future__ import annotations
@@ -18,8 +15,8 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 from repro_torch.ckpt import checkpoint as C
+from repro_torch.sharding import tp
 from repro_torch.sharding.partition import Rules
-from repro_torch.sharding.profiles import grid_refusal
 
 
 def replan(ckpt_dir, target_tree, new_mesh=None,
@@ -27,16 +24,15 @@ def replan(ckpt_dir, target_tree, new_mesh=None,
            ) -> Tuple[Any, Dict]:
     """Restore ``ckpt_dir`` (written on any world) for ``new_mesh``: the
     tree of ``target_tree``'s structure on its leaves' devices and
-    dtypes, and ``{"step": ..., **extra}``.  ``rules`` that shard the
-    parameters (``embed`` on a mesh axis) and a ``model`` axis over 1
-    are refused, as the data-parallel step refuses them; ``axes_tree``
-    (the reference's logical axes per leaf) places nothing yet."""
-    del axes_tree
-    if new_mesh is not None:
-        why = grid_refusal(new_mesh, rules)
-        if why is not None:
-            raise ValueError(why)
-    return C.restore(ckpt_dir, target_tree)
+    dtypes, each leaf the restoring rank's block by ``rules`` and
+    ``axes_tree`` (the tree's logical axes: ``Model.param_axes()``,
+    ``AdamW.state_axes``), and ``{"step": ..., **extra}``.  Rules that
+    shard nothing on ``new_mesh`` restore whole leaves."""
+    if tp.make_plan(new_mesh, rules) is not None and axes_tree is None:
+        raise ValueError("rules that shard the parameters need the tree's "
+                         "logical axes (axes_tree) to re-slice it")
+    return C.restore(ckpt_dir, target_tree, mesh=new_mesh, rules=rules,
+                     axes=axes_tree)
 
 
 def resize_plan(old_devices: int, new_devices: int, *,

@@ -105,7 +105,8 @@ def _collective(grid: RankGrid, axes: Tuple[str, ...], kind: str, out,
         run(out, inp, group)
         if out.is_cuda:
             torch.cuda.current_stream(out.device).synchronize()
-    grid.stats.add(tuple(a for a in axes if grid.layout.axis_size(a) > 1),
+    grid.stats.add(tuple(a for a in grid.axis_names
+                         if a in axes and grid.layout.axis_size(a) > 1),
                    kind,
                    moved_bytes(kind, _nbytes(out), n),
                    time.perf_counter() - t0)
@@ -147,6 +148,31 @@ def all_gather(x: torch.Tensor, grid: RankGrid,
     return out
 
 
+def all_gather_dim(x: torch.Tensor, grid: RankGrid, axes: Tuple[str, ...],
+                   dim: int) -> torch.Tensor:
+    """The group's tensors concatenated along ``dim`` in rank order."""
+    n = grid.size(axes)
+    if grid.group(axes) is None:
+        return x
+    front = x.movedim(dim, 0).contiguous()
+    out = all_gather(front.reshape(-1), grid, axes)
+    return out.reshape((n * front.shape[0],) + front.shape[1:]).movedim(
+        0, dim)
+
+
+def reduce_scatter_dim(x: torch.Tensor, grid: RankGrid,
+                       axes: Tuple[str, ...], dim: int) -> torch.Tensor:
+    """The sum over the group of ``x``, split along ``dim`` in rank
+    order: this rank's part."""
+    n = grid.size(axes)
+    if grid.group(axes) is None:
+        return x
+    front = x.movedim(dim, 0).contiguous()
+    out = reduce_scatter(front.reshape(-1), grid, axes)
+    return out.reshape((front.shape[0] // n,) + front.shape[1:]).movedim(
+        0, dim)
+
+
 # ---------------------------------------------------------------------------
 # explicit collectives on flat buffers (benchmark + unit-test surface)
 # ---------------------------------------------------------------------------
@@ -186,7 +212,7 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
-def _compressed_mean(xf: torch.Tensor, segments: Sequence[Tuple[int, int]],
+def compressed_mean(xf: torch.Tensor, segments: Sequence[Tuple[int, int]],
                      grid: RankGrid, axis: str,
                      scale_axes: Tuple[str, ...]
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -236,7 +262,7 @@ def compressed_cross_pod_mean(x: torch.Tensor, grid: RankGrid,
     xf = x.float().reshape(-1)
     if residual is not None:
         xf = xf + residual.reshape(-1)
-    out, new = _compressed_mean(xf, [(0, xf.numel())], grid, axis_name,
+    out, new = compressed_mean(xf, [(0, xf.numel())], grid, axis_name,
                                 scale_axes or (axis_name,))
     return out.to(x.dtype).reshape(x.shape), new.reshape(x.shape)
 
@@ -308,6 +334,12 @@ def _numel(shape) -> int:
     return n
 
 
+# the axes a compressed leaf's scale is shared over: its largest
+# |gradient| over every rank, as the reference's max over pods of each
+# pod's whole (model-sharded) leaf
+SCALE_AXES = ("pod", "data", "model")
+
+
 def reduce_gradients_flat(grads: Any, grid: RankGrid) -> Any:
     """The mean of ``grads`` over every data-parallel rank: one
     all-reduce of the flat buffer over the flat group (what GSPMD does
@@ -346,9 +378,9 @@ def reduce_gradients_hierarchically(grads: Any, grid: RankGrid, *,
         if residuals is not None:
             shard = shard + residuals
         lo = grid.index((intra_axis,)) * shard.numel()
-        shard, new_res = _compressed_mean(
+        shard, new_res = compressed_mean(
             shard, flat_tree.segments(lo, lo + shard.numel()), grid,
-            inter_axis, (inter_axis, intra_axis))
+            inter_axis, SCALE_AXES)
     else:
         all_reduce(shard, grid, (inter_axis,)).div_(
             grid.size((inter_axis,)))

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import os
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -223,11 +224,15 @@ class RankGrid:
         return i
 
     def group(self, axes: Tuple[str, ...]):
-        """The process group over ``axes`` that holds this rank; None
-        when the group is this rank alone."""
-        axes = tuple(a for a in axes if self.layout.axis_size(a) > 1)
+        """The process group over ``axes`` (in any order) that holds this
+        rank; None when the group is this rank alone, the world's when
+        it spans every axis over 1."""
+        axes = tuple(a for a in self.axis_names
+                     if a in axes and self.layout.axis_size(a) > 1)
         if not axes:
             return None
+        if len(axes) == len([s for s in self.shape if s > 1]):
+            return dist.group.WORLD
         if axes not in self.groups:
             raise KeyError(f"no process group over {axes}: the grid made "
                            f"{sorted(self.groups)}")
@@ -247,13 +252,38 @@ class RankGrid:
 
 
 def grid_axes(layout: Layout) -> List[Tuple[str, ...]]:
-    """The axes of the groups a grid makes: each axis over 1, and the
-    data-parallel axes together where more than one of them is over 1."""
-    out = [(a,) for a, s in zip(layout.axis_names, layout.shape) if s > 1]
-    data = tuple(a for a in DATA_AXES if layout.axis_size(a) > 1)
+    """The axes of the groups a grid makes: each axis over 1, the
+    data-parallel axes together where more than one of them is over 1,
+    and ``data`` with ``model`` (a leaf both split, under FSDP and
+    tensor parallelism) where both are and the grid has more.  The group
+    over every axis over 1 is the world's."""
+    big = [a for a, s in zip(layout.axis_names, layout.shape) if s > 1]
+    out = [(a,) for a in big]
+    data = tuple(a for a in DATA_AXES if a in big)
+    dm = tuple(a for a in layout.axis_names if a in ("data", "model")
+               and a in big)
     if len(data) > 1:
         out.append(data)
+    if 1 < len(dm) < len(big):
+        out.append(dm)
     return out
+
+
+def elastic_store(world: int, timeout: datetime.timedelta):
+    """Under ``torch.distributed.run``'s agent store, the store of this
+    attempt: the agent keeps one store across a world's restarts, so the
+    keys the ranks of an earlier attempt left there (the addresses gloo
+    connects to) would pair a restarted rank with dead ones; a prefix
+    per ``TORCHELASTIC_RESTART_COUNT`` keeps each attempt's apart.  None
+    outside an agent."""
+    if os.environ.get("TORCHELASTIC_USE_AGENT_STORE") != "True":
+        return None
+    attempt = os.environ.get("TORCHELASTIC_RESTART_COUNT", "0")
+    return dist.PrefixStore(
+        f"/repro_torch/attempt_{attempt}",
+        dist.TCPStore(os.environ["MASTER_ADDR"],
+                      int(os.environ["MASTER_PORT"]), world,
+                      is_master=False, timeout=timeout))
 
 
 def init_grid(layout: Layout, *, rank: int, device: torch.device,
@@ -274,10 +304,12 @@ def init_grid(layout: Layout, *, rank: int, device: torch.device,
         device, local_world or layout.size, backend)
     if device.type == "cuda":
         torch.cuda.set_device(device)
+    timeout = datetime.timedelta(seconds=timeout_s)
+    store = elastic_store(layout.size, timeout) \
+        if init_method == "env://" else None
     dist.init_process_group(
-        grid.backend, init_method=init_method, rank=rank,
-        world_size=layout.size,
-        timeout=datetime.timedelta(seconds=timeout_s))
+        grid.backend, init_method=None if store else init_method,
+        store=store, rank=rank, world_size=layout.size, timeout=timeout)
     for axes in grid_axes(layout):
         for ranks in layout.groups(axes):
             g = dist.new_group(ranks)

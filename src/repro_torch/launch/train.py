@@ -5,7 +5,7 @@
         --steps 100 --batch 8 --seq 512
 
     # small config on the CPU (also --arch olmoe-1b-7b, mamba2-780m,
-    # zamba2-7b)
+    # zamba2-7b); --layers N trains any config's first N layers
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
         --smoke --steps 4 --batch 8 --seq 32 --device cpu
 
@@ -15,6 +15,12 @@
         --nproc-per-node 4 -m repro_torch.launch.train --smoke \
         --device cpu --pool scalepool --pool-accels 12 \
         --dp-mode hierarchical --compress-pod --steps 3 --batch 8 --seq 32
+
+    # tensor parallelism: 4 processes on the reference's smoke mesh
+    # (data 2, model 2), restarted once if a rank fails
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 4 --max-restarts 1 -m repro_torch.launch.train \
+        --smoke --device cpu --steps 3 --batch 8 --seq 32
 
 Runs the full stack: data pipeline → train step (remat, microbatches,
 data-parallel reduction) → AdamW → async checkpointing → fault-tolerant
@@ -26,25 +32,40 @@ estate.
 Under ``torch.distributed.run`` (``RANK`` / ``WORLD_SIZE`` /
 ``LOCAL_RANK`` set) each process is one rank of a grid
 (``launch.mesh``): the layout is the lease's ``mesh_shape(world)`` with
-``--pool``, else the reference's ``make_smoke_mesh(world)``; the backend
-follows ``launch.mesh.choose_backend`` (``--backend`` names it) and is
-printed.  Every rank draws the same global batch from the seeded
-pipeline and trains on its rows; rank 0 alone checkpoints and prints
-the summary, which adds ``world``, ``compress_pod`` and ``backend``.
-``--dp-mode hierarchical`` falls back to ``auto``, with a warning, only
-where the layout has no ``pod`` axis (one process never has one).
-Prints the reference's JSON summary plus ``"device"``; exits 0 iff the
-loss decreased.
+``--pool`` (``--pool-model-parallel`` sets its ``model`` axis), else the
+reference's ``make_smoke_mesh(world)``: on 4 ranks ``(data 2, model
+2)``, tensor parallelism with ``make_rules(..., fsdp=False)``, as the
+reference's CLI trains there.  The backend follows
+``launch.mesh.choose_backend`` (``--backend`` names it) and is printed.
+Every rank draws the same global batch from the seeded pipeline and
+trains on its rows with its blocks of the parameters; where the rules
+shard the state every rank takes part in a checkpoint
+(``ckpt.checkpoint.save`` sends rank 0 each distinct block once, and
+rank 0 writes them), else rank 0 alone writes it, and one checkpoint
+is in flight at a time; rank 0 prints each ``--log-every``-th step's
+loss on stderr and the summary, which adds ``world``,
+``compress_pod``, ``backend``, the rules (``profiles.describe``) and
+``resumed_from``.  ``--dp-mode hierarchical`` falls back to ``auto``,
+with a warning, only where the layout has no ``pod`` axis (one process
+never has one).  Prints the reference's JSON summary plus ``"device"``;
+exits 0 iff the loss decreased.
 
-The fault-tolerant loop retries a failing step forever (the reference's
-semantics), so what no step can do is refused before the loop, with
-exit code 2 and the reason on stderr (``refusal``, ``layout_refusal``):
-encdec (the pipeline yields no ``frame_embeds``; it trains through
+One process: the fault-tolerant loop retries a failing step, then
+restores and rewinds, for as long as it takes (the reference's
+semantics).  Across processes a failing step ends its rank's process;
+under ``torch.distributed.run --max-restarts N`` the world restarts,
+and each rank restores the last checkpoint this run committed (its
+``TORCHELASTIC_RUN_ID``) and resumes from its step
+(``TORCHELASTIC_RESTART_COUNT`` tells a rank it was restarted).  What
+no step can do is refused before the loop, with exit code 2 and the
+reason on stderr (``refusal``, ``layout_refusal``): encdec (the
+pipeline yields no ``frame_embeds``; it trains through
 ``runtime.train.make_train_step``), on the card a config whose
 attention or SSD scan the backward kernels do not take (the smoke
 configs' head_dim 16, or SSD head_dim P 16), and across processes a
-layout with a ``model`` axis over 1 (tensor parallelism is the port's
-next slice) or one the world does not fill.  Collectives time out
+layout the world does not fill or that ``profiles.grid_refusal``
+leaves to a later slice (the moe, ssm, hybrid and encdec families under
+a ``model`` axis, heads that do not divide it).  Collectives time out
 (``launch.mesh.DEFAULT_TIMEOUT_S``), so a dead rank makes the others
 raise instead of waiting forever.
 """
@@ -53,6 +74,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import sys
 import time
@@ -62,6 +84,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.ckpt import checkpoint as ckpt
+from repro_torch.ckpt import elastic
 from repro_torch.configs import get_config
 from repro_torch.core.tiering import TieringPolicy
 from repro_torch.data.pipeline import DataConfig, DataPipeline
@@ -72,11 +95,11 @@ from repro_torch.models.api import build_model
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.models.transformer import dtype_of
 from repro_torch.obs.console import emit, emit_json, warn
-from repro_torch.optim.adamw import AdamW
+from repro_torch.optim.adamw import AdamW, AdamWState
 from repro_torch.runtime import train as train_rt
 from repro_torch.runtime.ft import FaultTolerantLoop, StragglerMonitor
-from repro_torch.sharding.profiles import (grid_refusal, hierarchical_unsafe,
-                                           make_rules)
+from repro_torch.sharding.profiles import (describe, grid_refusal,
+                                           hierarchical_unsafe, make_rules)
 from repro_torch.tree import tree_map
 
 # the families whose training step runs attention (hybrid: its shared
@@ -111,13 +134,31 @@ def refusal(cfg: ModelConfig, device: torch.device) -> Optional[str]:
     return None
 
 
-def layout_refusal(layout: mesh_lib.Layout, world: int) -> Optional[str]:
-    """Why this slice cannot train on ``layout`` with ``world`` ranks,
-    or None."""
+def layout_refusal(layout: mesh_lib.Layout, world: int,
+                   cfg: Optional[ModelConfig] = None,
+                   rules=None) -> Optional[str]:
+    """Why the port cannot train ``cfg`` on ``layout`` with ``world``
+    ranks and ``rules``, or None."""
     if layout.size != world:
         return (f"a world of {world} ranks does not fill the layout "
                 f"{layout.as_dict()} ({layout.size} ranks)")
-    return grid_refusal(layout, None)
+    return grid_refusal(layout, rules, cfg)
+
+
+def latest_checkpoint(ckpt_dir: Path, run_id: Optional[str]
+                      ) -> Optional[Path]:
+    """The committed ``step<N>`` checkpoint of the largest N in
+    ``ckpt_dir`` that this run (``run_id``) wrote, or None."""
+    best, best_step = None, -1
+    for d in ckpt_dir.glob("step*"):
+        if not d.name[4:].isdigit() or not (d / "manifest.p0.json").exists():
+            continue
+        manifest = ckpt.load_manifest(d)
+        if manifest.get("extra", {}).get("run_id") != run_id:
+            continue
+        if manifest["step"] > best_step:
+            best, best_step = d, manifest["step"]
+    return best
 
 
 def world_from_env() -> Optional[Dict[str, int]]:
@@ -133,10 +174,16 @@ def world_from_env() -> Optional[Dict[str, int]]:
                                               str(world)))}
 
 
-def main(argv=None):
+def main(argv=None, failure_hook=None):
+    """The CLI.  ``failure_hook(step)``, called before each step, may
+    raise (an injected failure, as ``runtime.ft``'s tests inject one)."""
     p = argparse.ArgumentParser()
     p.add_argument("--arch", default="olmo-1b")
     p.add_argument("--smoke", action="store_true")
+    p.add_argument("--layers", type=int, default=None,
+                   help="train only the config's first N layers (each "
+                        "stack of an encoder-decoder): a depth cut at "
+                        "full width, for quick runs")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' must be asked "
                         "for by name)")
@@ -177,6 +224,13 @@ def main(argv=None):
         torch.backends.cudnn.allow_tf32 = False
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.layers is not None:
+        if not 1 <= args.layers <= cfg.n_layers:
+            p.error(f"--layers {args.layers}: {cfg.name} has "
+                    f"{cfg.n_layers} layers")
+        cfg = dataclasses.replace(cfg, n_layers=args.layers, **(
+            {"n_enc_layers": args.layers} if cfg.family == "encdec"
+            else {}))
     why = refusal(cfg, device)
     if why is not None:
         emit(f"error: {why}", stream=sys.stderr)
@@ -218,7 +272,8 @@ def main(argv=None):
                                               offload_optimizer=True)
     dp_mode = args.dp_mode
     if layout is not None:
-        why = layout_refusal(layout, env["world"])
+        why = layout_refusal(layout, env["world"], cfg, make_rules(
+            cfg, shape, layout, fsdp=False, dp_mode="auto"))
         if why is not None:
             emit(f"error: {why}", stream=sys.stderr)
             return 2
@@ -247,21 +302,21 @@ def main(argv=None):
                  stream=sys.stderr)
     try:
         return _train(args, cfg, device, optimizer, shape, tcfg, tier_policy,
-                      lease, mesh, dp_mode, grid, rules)
+                      lease, mesh, dp_mode, grid, rules, failure_hook)
     finally:
         if grid is not None:
             grid.close()
 
 
 def _train(args, cfg, device, optimizer, shape, tcfg, tier_policy, lease,
-           mesh, dp_mode, grid, rules) -> int:
+           mesh, dp_mode, grid, rules, failure_hook=None) -> int:
     writer = grid is None or grid.rank == 0
     model = build_model(cfg, device=device)
     # the initial weights are drawn from seed 0, as the reference's
-    # PRNGKey(0), the same on every rank
+    # PRNGKey(0), the same on every rank, which keeps its blocks
     generator = torch.Generator(device=device).manual_seed(0)
     state = train_rt.init_state(model, optimizer, generator, tcfg,
-                                tiering=tier_policy, mesh=grid)
+                                tiering=tier_policy, mesh=grid, rules=rules)
     train_step = train_rt.make_train_step(model, optimizer, shape, mesh=grid,
                                           rules=rules, tcfg=tcfg,
                                           tiering=tier_policy)
@@ -269,34 +324,86 @@ def _train(args, cfg, device, optimizer, shape, tcfg, tier_policy, lease,
                                    global_batch=args.batch))
 
     ckpt_dir = Path(args.ckpt_dir)
-    # the state a failure restores; across processes a rank keeps it in
-    # host memory, since ranks may share a card (a copy of qwen1.5's 6.5
-    # GB state on each of four ranks does not fit one card beside their
-    # steps), and the loop starts from it, so no device copy stays
-    # referenced here
+    ranks = 1 if grid is None else grid.world
+    run_id = os.environ.get("TORCHELASTIC_RUN_ID")
+    pa = model.param_axes() if model.param_axes is not None else None
+    axes = None if pa is None else {"params": pa, "mu": pa, "nu": pa}
+    resumed_from = first_loss = None
+    # the world's restarts (torch.distributed.run's), beside the loop's
+    world_restarts = 0 if ranks == 1 else int(
+        os.environ.get("TORCHELASTIC_RESTART_COUNT", "0"))
+    if world_restarts > 0:
+        # a restarted world: every rank restores the last checkpoint this
+        # run committed (or starts over), and the loop rewinds to its step
+        found = latest_checkpoint(ckpt_dir, run_id)
+        resumed_from = 0
+        if found is not None:
+            tree, extra = elastic.replan(
+                found, {"params": state.params, "mu": state.opt.mu,
+                        "nu": state.opt.nu}, grid, rules, axes)
+            step_t = torch.tensor(extra["step"], dtype=torch.int32,
+                                  device=state.opt.step.device)
+            state = train_rt.TrainState(tree["params"], AdamWState(
+                step_t, tree["mu"], tree["nu"]), state.residuals)
+            resumed_from, first_loss = extra["step"], extra.get("loss_first")
+            del tree
+            if writer:
+                emit(f"restored the checkpoint of step {resumed_from} "
+                     f"({found})", stream=sys.stderr)
+    # the state a failure restores.  One process keeps it (a world of
+    # one rank in host memory, since ranks may share a card); across
+    # processes the loop restores nothing, a restarted world reads the
+    # checkpoint, and the loop starts from the state
     keep = (lambda s: s) if grid is None else (
         lambda s: tree_map(lambda t: t.to("cpu", copy=True), s))
-    last = {"state": keep(state), "step": 0}
+    last = {"state": state if ranks > 1 else keep(state),
+            "step": resumed_from or 0}
     del state
     saves = []
+    # the run's first loss: a resumed run's is its first attempt's (the
+    # checkpoint's); kept apart from the loop, so no closure here refers
+    # to the loop and the state is freed when the CLI returns
+    first = {"loss": first_loss}
 
     def save_fn(s, step):
-        last["state"], last["step"] = keep(s), step
-        if writer:      # the state is whole and equal on every rank
-            saves.append(ckpt.save(
-                ckpt_dir / f"step{step}",
-                {"params": s.params, "mu": s.opt.mu, "nu": s.opt.nu},
-                step=step, extra={"pipeline": pipe.state.to_dict()},
-                asynchronous=True))
+        if ranks == 1:
+            last["state"], last["step"] = keep(s), step
+        # one checkpoint in flight: the previous one is committed before
+        # this one's host copy is taken (the other ranks' blocks wait for
+        # it too), so a rank that fails after this save leaves at least
+        # the previous checkpoint committed
+        for handle in saves:
+            handle.wait()
+        saves.clear()
+        # rank 0 writes; the others send it their blocks, if any
+        saves.append(ckpt.save(
+            ckpt_dir / f"step{step}",
+            {"params": s.params, "mu": s.opt.mu, "nu": s.opt.nu},
+            step=step, extra={"pipeline": pipe.state.to_dict(),
+                              "run_id": run_id,
+                              "loss_first": first["loss"]},
+            asynchronous=True, mesh=grid, rules=rules, axes=axes))
 
     def restore_fn():
+        if ranks > 1:
+            return last.pop("state"), last["step"]
         if grid is None:
             return last["state"], last["step"]
         return tree_map(lambda t: t.to(device), last["state"]), last["step"]
 
-    loop = FaultTolerantLoop(train_step, save_fn, restore_fn, pipe,
+    def logged_step(s, batch):
+        s, metrics = train_step(s, batch)
+        done, loss = int(metrics["step"]), float(metrics["loss"])
+        if first["loss"] is None:
+            first["loss"] = loss
+        if writer and args.log_every > 0 and done % args.log_every == 0:
+            emit(json.dumps({"step": done, "loss": loss}), stream=sys.stderr)
+        return s, metrics
+
+    loop = FaultTolerantLoop(logged_step, save_fn, restore_fn, pipe,
                              ckpt_every=args.ckpt_every,
-                             monitor=StragglerMonitor())
+                             monitor=StragglerMonitor(),
+                             failure_hook=failure_hook, ranks=ranks)
 
     t0 = time.time()
     loop.run(None, args.steps)
@@ -314,19 +421,21 @@ def _train(args, cfg, device, optimizer, shape, tcfg, tier_policy, lease,
             "accels": lease.n_accels,
             "tier2_gb": lease.tier2_bytes / 1e9,
             "offload_optimizer": tier_policy.offload_optimizer}),
-        "loss_first": losses[0], "loss_last": losses[-1],
-        "loss_drop": losses[0] - losses[-1],
-        "wall_s": round(dt, 1), "s_per_step": round(dt / args.steps, 3),
+        "loss_first": first["loss"], "loss_last": losses[-1],
+        "loss_drop": first["loss"] - losses[-1],
+        "wall_s": round(dt, 1),
+        "s_per_step": round(dt / max(1, args.steps - loop.start_step), 3),
         "straggler_events": len(loop.monitor.events),
-        "restarts": loop.restarts,
+        "restarts": loop.restarts + world_restarts,
         "device": str(device),
     }
     if grid is not None:
         summary.update(world=grid.world, compress_pod=tcfg.compress_pod,
-                       backend=grid.backend)
+                       backend=grid.backend, rules=describe(rules),
+                       resumed_from=resumed_from)
     if writer:
         emit_json(summary)
-    return 0 if losses[-1] < losses[0] else 1
+    return 0 if losses[-1] < first["loss"] else 1
 
 
 if __name__ == "__main__":

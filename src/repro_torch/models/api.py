@@ -12,6 +12,9 @@
                                             also ``groups=``; encdec's
                                             ``batch`` carries
                                             ``frame_embeds``)
+    model.param_axes()                   -> the logical axes of init's tree
+                                            (the dense family; None on
+                                            the others)
     model.init_cache(batch, max_seq, dtype=...) -> the family's cache
     model.prefill(params, batch, cache)  -> (last-position logits, cache
                                             [, enc_states for encdec])
@@ -59,6 +62,7 @@ class Model:
     loss: Callable[..., Any]
     prefill_at: Optional[Callable[..., Any]] = None
     decode_paged: Optional[Callable[..., Any]] = None
+    param_axes: Optional[Callable[[], Any]] = None
 
     @property
     def supports_paged_kv(self) -> bool:
@@ -94,5 +98,7 @@ def build_model(cfg: ModelConfig, *, device: DeviceLike = None) -> Model:
         prefill=lambda p, b, c: m.prefill(p, cfg, b, c),
         decode=decode,
         loss=loss,
+        param_axes=((lambda: m.param_axes(cfg)) if cfg.family == "dense"
+                    else None),
         **paged,
     )

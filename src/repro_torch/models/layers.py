@@ -3,8 +3,10 @@
 Parameters are plain dicts of tensors with the reference's names.  The
 norms, the prefill attention and the paged decode attention go through
 the kernel adapters in ``repro_torch.kernels.ops``; everything else is
-eager PyTorch.  The reference's sharding annotations have no
-counterpart: the port runs on one device.
+eager PyTorch.  The ``*_axes`` functions give each parameter's logical
+axes, the reference's names; the reference's activation annotations
+(``constrain``) have no counterpart: under tensor parallelism the model
+places explicit collectives instead (``repro_torch.sharding.tp``).
 """
 
 from __future__ import annotations
@@ -73,6 +75,14 @@ def apply_norm(x: torch.Tensor, params: Dict[str, Any],
     if kind == "nonparam_ln":  # OLMo: no affine parameters
         return layernorm(x, None, None)
     raise ValueError(kind)
+
+
+def norm_axes(kind: str) -> Dict[str, Any]:
+    if kind == "rmsnorm":
+        return {"scale": ("embed_norm",)}
+    if kind == "layernorm":
+        return {"scale": ("embed_norm",), "bias": ("embed_norm",)}
+    return {}
 
 
 def init_norm(d: int, kind: str, dtype, device) -> Dict[str, Any]:
@@ -176,6 +186,20 @@ def init_attention(gen, cfg: AttentionConfig, dtype,
     if cfg.qk_norm:
         p["q_norm"] = torch.ones((hd,), dtype=dtype, device=device)
         p["k_norm"] = torch.ones((hd,), dtype=dtype, device=device)
+    return p
+
+
+def attention_axes(cfg: AttentionConfig) -> Dict[str, Any]:
+    p = {
+        "wq": ("embed", "qkv_out"),
+        "wk": ("embed", "kv_out"),
+        "wv": ("embed", "kv_out"),
+        "wo": ("qkv_out", "embed"),
+    }
+    if cfg.qkv_bias:
+        p.update({"bq": ("qkv_out",), "bk": ("kv_out",), "bv": ("kv_out",)})
+    if cfg.qk_norm:
+        p.update({"q_norm": ("head_dim",), "k_norm": ("head_dim",)})
     return p
 
 
@@ -308,6 +332,13 @@ def init_mlp(gen, cfg: MLPConfig, dtype, device) -> Dict[str, Any]:
     return p
 
 
+def mlp_axes(cfg: MLPConfig) -> Dict[str, Any]:
+    p = {"w_up": ("embed", "ff"), "w_down": ("ff", "embed")}
+    if cfg.gated:
+        p["w_gate"] = ("embed", "ff")
+    return p
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """x * sigmoid(x).  In a 16-bit dtype it is computed as the
     reference's ``jax.nn.silu`` lowers there: ``x * (1 / (1 + exp(-x)))``
@@ -340,6 +371,10 @@ def mlp_fwd(params, x: torch.Tensor, cfg: MLPConfig) -> torch.Tensor:
 
 def init_embedding(gen, vocab: int, d: int, dtype, device):
     return {"table": normal_init(gen, (vocab, d), dtype, device)}
+
+
+def embedding_axes():
+    return {"table": ("vocab", "embed")}
 
 
 def embed(params, tokens: torch.Tensor) -> torch.Tensor:

@@ -10,6 +10,16 @@ load (``Model.load``) and the forward functions take parameters already
 in the compute dtype; ``loss_fn`` takes the fp32 masters and casts them
 inside, so the gradients reach the masters.  KV caches and page pools
 are updated in place.
+
+Under a tensor-parallel / FSDP plan (``repro_torch.sharding.tp``: the
+rules and rank grid of the training step) the parameters are this
+rank's blocks (``param_axes``, the reference's logical names): attention
+runs on ``n_heads / model`` and ``n_kv_heads / model`` local heads, the
+MLP is Megatron column -> row over ``ff``, the table's vocab rows are
+split over ``model`` (the lookup and the loss are vocab-parallel), and
+FSDP's ``embed``-sharded leaves are gathered over ``data`` where they
+are used: a layer's at the top of ``block_fwd`` (again in a remat
+recompute), the table once a step in ``lm_loss``.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import partition, tp
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -62,23 +73,48 @@ def init_block(gen, cfg: ModelConfig, dtype, device) -> Dict[str, Any]:
     return p
 
 
-def _mlp_residual(params, x, h, attn_out, cfg: ModelConfig):
+def block_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    p = {
+        "attn": L.attention_axes(attn_config(cfg)),
+        "mlp": L.mlp_axes(mlp_config(cfg)),
+        "norm1": L.norm_axes(cfg.norm_type),
+    }
+    if not cfg.parallel_block:
+        p["norm2"] = L.norm_axes(cfg.norm_type)
+    return p
+
+
+def _mlp(params, h, cfg: ModelConfig, plan) -> torch.Tensor:
+    """The MLP, column -> row parallel over ``model`` under a plan."""
+    out = L.mlp_fwd(params["mlp"], tp.copy_to_model(h, plan),
+                    mlp_config(cfg))
+    return tp.reduce_from_model(out, plan)
+
+
+def _mlp_residual(params, x, h, attn_out, cfg: ModelConfig, plan=None):
     if cfg.parallel_block:
         # command-r style: MLP reads the same normed input, outputs add
-        return x + attn_out + L.mlp_fwd(params["mlp"], h, mlp_config(cfg))
+        return x + attn_out + _mlp(params, h, cfg, plan)
     x = x + attn_out
     h2 = L.apply_norm(x, params["norm2"], cfg.norm_type)
-    return x + L.mlp_fwd(params["mlp"], h2, mlp_config(cfg))
+    return x + _mlp(params, h2, cfg, plan)
 
 
 def block_fwd(params, x: torch.Tensor, cfg: ModelConfig, *,
               positions: torch.Tensor, kv_cache=None,
               cache_index: Optional[int] = None) -> torch.Tensor:
+    plan = tp.plan()
+    acfg = attn_config(cfg)
+    if plan is not None:
+        params = tp.gather_params(params, block_axes(cfg), plan,
+                                  dtype_of(cfg.compute_dtype))
+        acfg = plan.local_attention(acfg)
     h = L.apply_norm(x, params["norm1"], cfg.norm_type)
-    attn_out, _ = L.attention_fwd(params["attn"], h, attn_config(cfg),
-                                  positions=positions, kv_cache=kv_cache,
-                                  cache_index=cache_index)
-    return _mlp_residual(params, x, h, attn_out, cfg)
+    attn_out, _ = L.attention_fwd(params["attn"], tp.copy_to_model(h, plan),
+                                  acfg, positions=positions,
+                                  kv_cache=kv_cache, cache_index=cache_index)
+    attn_out = tp.reduce_from_model(attn_out, plan)
+    return _mlp_residual(params, x, h, attn_out, cfg, plan)
 
 
 def block_fwd_paged(params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -118,6 +154,17 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     }
 
 
+def param_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The logical axes of ``init_params``' tree, leaf for leaf (the
+    reference's names; ``layers`` is the port's list, with no leading
+    ``("layers",)`` axis)."""
+    return {
+        "embedding": L.embedding_axes(),
+        "layers": [block_axes(cfg) for _ in range(cfg.n_layers)],
+        "final_norm": L.norm_axes(cfg.norm_type),
+    }
+
+
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
@@ -139,6 +186,10 @@ def _embed_inputs(params, cfg: ModelConfig,
     compute = dtype_of(cfg.compute_dtype)
     if "embeds" in batch:
         return batch["embeds"].to(compute)
+    plan = tp.plan()
+    if plan is not None:
+        return tp.vocab_embed(params["embedding"]["table"], batch["tokens"],
+                              plan).to(compute)
     return L.embed(params["embedding"], batch["tokens"]).to(compute)
 
 
@@ -168,13 +219,16 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
 def remat(fn, x: torch.Tensor):
     """``fn(x)`` whose activations are recomputed in the backward pass
     (the reference's ``jax.checkpoint(..., nothing_saveable)`` layer
-    body), through the same kernels or plain versions as this forward:
-    the recompute runs on autograd's thread, where the caller's
-    ``plain_versions()`` is not set, so the choice is read here."""
+    body), through the same kernels or plain versions as this forward,
+    under the same rules and grid: the recompute runs on autograd's
+    thread, where the caller's ``plain_versions()`` and ``use_rules`` are
+    not set, so both are read here."""
     plain = ops.plain_enabled()
+    rules, mesh = partition.current_rules(), partition.current_mesh()
 
     def body(h):
-        with ops.plain_versions() if plain else contextlib.nullcontext():
+        with ops.plain_versions() if plain else contextlib.nullcontext(), \
+                partition.use_rules(rules, mesh):
             return fn(h)
 
     return checkpoint(body, x, use_reentrant=False)
@@ -194,11 +248,32 @@ def lm_loss(forward_fn, params, cfg: ModelConfig,
     and an optional "mask") through a family's ``forward_fn`` (returning
     hidden states first), differentiable in the masters ``params``: they
     are cast to the compute dtype here, inside the graph, as the
-    reference's ``forward`` casts them."""
+    reference's ``forward`` casts them.  Under a plan
+    (``repro_torch.sharding.tp``; the dense family) the lookup and the
+    loss are vocab-parallel and the table is gathered once."""
+    plan = tp.plan()
+    if plan is not None:
+        return _lm_loss_tp(forward_fn, params, cfg, batch, remat, plan)
     params = cast_params(params, cfg)
     hidden = forward_fn(params, cfg, batch, remat=remat)[0]
     logits = logits_fn(params, cfg, hidden)
     return L.cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
+
+
+def _lm_loss_tp(forward_fn, params, cfg: ModelConfig, batch, remat: bool,
+                plan) -> torch.Tensor:
+    if cfg.family != "dense":
+        raise ValueError(f"{cfg.name}: only the dense family runs under a "
+                         f"tensor-parallel / FSDP plan")
+    dtype = dtype_of(cfg.compute_dtype)
+    axes = param_axes(cfg)
+    params = tp.cast_params(params, axes, plan, dtype)
+    params["embedding"] = tp.gather_params(params["embedding"],
+                                           axes["embedding"], plan, dtype)
+    hidden = forward_fn(params, cfg, batch, remat=remat)[0]
+    logits = tp.copy_to_model(hidden, plan) @ params["embedding"]["table"].t()
+    return tp.vocab_parallel_cross_entropy(logits, batch["labels"],
+                                           batch.get("mask"), cfg.vocab, plan)
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,

@@ -11,6 +11,12 @@
 Trees are the port's (nested dicts and per-layer lists of tensors); the
 update is functional: it returns new tensors and leaves its inputs as
 they are.
+
+On a rank grid whose rules shard the parameters (tensor parallelism,
+FSDP) each rank updates its blocks, the moments following them
+(``state_axes``); the global norm sums each leaf's squared block over
+the axes that split it and counts a replicated leaf once, so every rank
+clips by the same ``gnorm``.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.core import hierarchy
 from repro_torch.tree import leaf_groups, tree_map
 
 
@@ -52,20 +59,37 @@ class AdamW:
         return AdamWState(step=(), mu=param_axes, nu=param_axes)
 
     @staticmethod
-    def global_norm(grads) -> torch.Tensor:
+    def global_norm(grads, grid=None, blocks=None) -> torch.Tensor:
         """sqrt(sum of squares + 1e-30) in fp32, summed leaf by leaf in the
-        reference's leaf order (a stacked leaf's layers in order)."""
+        reference's leaf order (a stacked leaf's layers in order).
+
+        ``blocks`` (a tree like ``grads`` of ``partition.Block``, on the
+        rank grid ``grid``): each leaf's squares are summed over the
+        axes that split it, one all-reduce per set of axes, before the
+        leaves are added in order."""
+        sums = [torch.sum(torch.square(g.float()))
+                for _, leaves, _ in leaf_groups(grads) for g in leaves]
+        if blocks is not None:
+            axes = [tuple(sorted(b.sharded_over))
+                    for _, bs, _ in leaf_groups(blocks) for b in bs]
+            sums = torch.stack(sums)
+            for over in sorted(set(axes) - {()}):
+                pick = torch.tensor([a == over for a in axes],
+                                    device=sums.device)
+                part = torch.where(pick, sums, 0.0)
+                hierarchy.all_reduce(part, grid, over)
+                sums = torch.where(pick, part, sums)
+            sums = list(sums)
         total = None
-        for _, leaves, _ in leaf_groups(grads):
-            for g in leaves:
-                s = torch.sum(torch.square(g.float()))
-                total = s if total is None else total + s
+        for s in sums:
+            total = s if total is None else total + s
         return torch.sqrt(total + 1e-30)
 
     @torch.no_grad()
     def update(self, grads, state: AdamWState, params, *,
                fetch: Optional[Callable] = None,
-               stash: Optional[Callable] = None
+               stash: Optional[Callable] = None,
+               grid=None, blocks=None
                ) -> Tuple[Any, AdamWState, torch.Tensor]:
         """Returns (new_params, new_state, grad_norm).
 
@@ -73,10 +97,12 @@ class AdamW:
         the parameters' device just before its update, and ``stash`` puts
         the new moment where the state keeps it (the tier-2 offload of
         ``repro_torch.runtime.train``): then only one leaf's moments are
-        on the device at a time.  Both default to leaving it in place."""
+        on the device at a time.  Both default to leaving it in place.
+        ``grid`` and ``blocks``: the parameters are this rank's blocks
+        (``global_norm``)."""
         fetch = fetch or (lambda t: t)
         stash = stash or (lambda t: t)
-        gnorm = self.global_norm(grads)
+        gnorm = self.global_norm(grads, grid, blocks)
         scale = (torch.clamp(self.grad_clip / gnorm, max=1.0)
                  if self.grad_clip is not None else None)
 

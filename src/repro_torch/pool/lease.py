@@ -57,6 +57,10 @@ class LeaseBinding:
     def device(self) -> torch.device:
         return self.devices[0]
 
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return self.axes
+
 
 @dataclass(frozen=True)
 class Lease:

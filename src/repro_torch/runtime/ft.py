@@ -19,6 +19,16 @@ What actually fails at scale and what this module does about it:
   slow pod: only the inter-pod phase (1/|data| of bytes) waits on it.
 * **Transient errors** (preemption notices, DMA timeouts) → bounded
   retry with backoff before escalating to restore.
+* **A failed step on a grid of more than one rank** → a world restart.
+  Every forward pass under tensor parallelism holds collectives, so a
+  rank that re-ran its step alone would pair its collectives with the
+  other ranks' next ones.  With ``ranks`` over 1 the loop neither
+  retries nor restores: the failure leaves the loop and ends the
+  process, ``torch.distributed.run --max-restarts N`` stops every rank
+  and re-forms the world, and each rank restores the last committed
+  checkpoint (written after the same step on every rank) and rewinds
+  the pipeline to its step: the reference's restore-and-rewind, for the
+  whole world at once (``repro_torch.launch.train``).
 
 The single-process tests exercise all of this with injected failures
 (tests/test_torch_train.py); metrics may be 0-d tensors on the card
@@ -85,13 +95,16 @@ class FaultTolerantLoop:
     train_step: (state, batch) -> (state, metrics)
     save_fn:    (state, step) -> None       (async checkpoint)
     restore_fn: () -> (state, step)         (last committed checkpoint)
+    ranks:      the world's rank count; over 1 a failing step raises out
+                of ``run`` (the world restarts, see the module's doc)
     """
 
     def __init__(self, train_step, save_fn, restore_fn, pipeline, *,
                  ckpt_every: int = 50,
                  retry: RetryPolicy = RetryPolicy(),
                  monitor: Optional[StragglerMonitor] = None,
-                 failure_hook: Optional[Callable[[int], None]] = None):
+                 failure_hook: Optional[Callable[[int], None]] = None,
+                 ranks: int = 1):
         self.train_step = train_step
         self.save_fn = save_fn
         self.restore_fn = restore_fn
@@ -100,7 +113,9 @@ class FaultTolerantLoop:
         self.retry = retry
         self.monitor = monitor or StragglerMonitor()
         self.failure_hook = failure_hook
+        self.ranks = ranks
         self.restarts = 0
+        self.start_step = 0
         self.history: List[Dict[str, float]] = []
 
     def run(self, state, n_steps: int):
@@ -112,6 +127,7 @@ class FaultTolerantLoop:
         if state is None:
             state, step = self.restore_fn()
             self.pipeline.state.step = step
+        self.start_step = step
         while step < n_steps:
             def attempt():
                 if self.failure_hook is not None:
@@ -122,15 +138,18 @@ class FaultTolerantLoop:
                 dt = time.time() - t0
                 return new_state, metrics, dt
 
-            try:
-                state, metrics, dt = self.retry.run(attempt)
-            except Exception:
-                # unrecoverable step: restore + rewind
-                state, ckpt_step = self.restore_fn()
-                self.pipeline.state.step = ckpt_step
-                step = ckpt_step
-                self.restarts += 1
-                continue
+            if self.ranks > 1:
+                state, metrics, dt = attempt()
+            else:
+                try:
+                    state, metrics, dt = self.retry.run(attempt)
+                except Exception:
+                    # unrecoverable step: restore + rewind
+                    state, ckpt_step = self.restore_fn()
+                    self.pipeline.state.step = ckpt_step
+                    step = ckpt_step
+                    self.restarts += 1
+                    continue
 
             self.monitor.observe(step, dt)
             self.history.append({"step": step, **{

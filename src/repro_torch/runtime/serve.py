@@ -26,6 +26,7 @@ from repro_torch.core.tiering import TieringPolicy
 from repro_torch.device import DeviceLike
 from repro_torch.models.api import Model
 from repro_torch.models.config import ShapeConfig
+from repro_torch.sharding.profiles import grid_refusal
 
 
 def make_prefill_step(model: Model) -> Callable[..., Any]:
@@ -93,8 +94,13 @@ def make_lease_session(model: Model, shape: ShapeConfig, lease, *,
     ``make_decode_step`` of ``model``, which must live on that device.
     The reference also derives sharding rules for ``shape`` from the
     lease's mesh and scopes its jitted steps to them; one device has
-    nothing to shard, so the port keeps ``shape`` as a record only."""
+    nothing to shard, so the port keeps ``shape`` as a record only, and
+    refuses a lease whose mesh has a ``model`` axis over 1
+    (``profiles.grid_refusal``)."""
     binding = lease.materialize(None if device is None else [device])
+    why = grid_refusal(binding, None, serving=True)
+    if why is not None:
+        raise ValueError(why)
     if binding.device.type != model.device.type:
         raise ValueError(f"lease device {binding.device} differs from the "
                          f"model's {model.device}")

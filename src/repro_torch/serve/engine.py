@@ -74,6 +74,7 @@ from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import CAT_ENGINE, CAT_KV, CAT_REQUEST, resolve
 from repro_torch.serve.api import (EngineConfig, Request, RequestHandle,
                                    RequestStatus, ServeCostModel)
+from repro_torch.sharding.profiles import grid_refusal
 
 
 def _pow2_buckets(start: int, cap: int) -> List[int]:
@@ -380,8 +381,13 @@ class Engine:
         orchestrator, not hard-coded per deployment.  The reference also
         derives sharding rules from the lease's mesh and scopes its jit
         programs to them; on one device there is nothing to shard, so
-        the port has no counterpart of that step."""
+        the port has no counterpart of that step, and a lease whose mesh
+        has a ``model`` axis over 1 (several cards bound) is refused
+        (``profiles.grid_refusal``)."""
         binding = lease.materialize(None if device is None else [device])
+        why = grid_refusal(binding, None, serving=True)
+        if why is not None:
+            raise ValueError(why)
         dev = binding.device
         _check_device(model, dev)
         if budget is None:

@@ -18,9 +18,11 @@ padding of non-divisible shardings structurally):
 The table is the reference's, entry for entry, from the same inputs.
 ``make_rules`` reads only the mesh's ``axis_names`` and ``shape`` (a
 tuple of sizes): the port's ``launch.mesh.Layout`` and ``RankGrid``
-serve it.  Of the table, the port's data-parallel step reads ``batch``;
-the ``model`` axis and ``embed`` (FSDP) wait for the tensor-parallel
-slice, and the step refuses rules that use them.
+serve it.  The training step reads ``batch`` for each rank's rows, and
+for the dense family the parameters' entries: ``model`` (tensor
+parallelism) and ``embed`` (FSDP) place each leaf's block
+(``partition.tree_shardings``); ``grid_refusal`` says what waits for a
+later slice.
 """
 
 from __future__ import annotations
@@ -56,20 +58,47 @@ def hierarchical_unsafe(cfg: ModelConfig) -> Optional[str]:
     return None
 
 
-def grid_refusal(mesh, rules: Optional[Rules]) -> Optional[str]:
-    """Why this slice's data-parallel step cannot run on ``mesh`` with
-    ``rules``, or None: a ``model`` axis over 1 (tensor parallelism) or
-    FSDP's sharded parameters (``embed`` on a mesh axis) come with the
-    next slice."""
-    model_n = dict(zip(mesh.axis_names, mesh.shape)).get("model", 1)
-    if model_n > 1:
-        return (f"a model axis of {model_n}: tensor parallelism comes with "
-                f"the port's next slice; this one runs data parallelism "
-                f"(model axis 1)")
-    if rules is not None and rules.table.get("embed") is not None:
-        return ("FSDP (parameters sharded over "
-                f"{rules.table['embed']!r}) comes with the port's next "
-                f"slice; make the rules with fsdp=False")
+def grid_refusal(mesh, rules: Optional[Rules],
+                 cfg: Optional[ModelConfig] = None, *,
+                 serving: bool = False) -> Optional[str]:
+    """Why the port cannot run ``cfg`` on ``mesh`` (anything with
+    ``axis_names`` and ``shape``: a ``RankGrid``, a ``Layout``, a lease's
+    ``LeaseBinding``) with ``rules``, or None.  Tensor parallelism over
+    ``model`` and FSDP (``embed`` on a mesh axis) run the dense family's
+    training step (``repro_torch.sharding.tp``); what waits for a later
+    slice is: attention heads or kv heads that do not divide the
+    ``model`` axis (the reference's context-parallel ``seq_attn``
+    fallback), the moe, ssm, hybrid and encdec families under a
+    ``model`` axis over 1 or FSDP, and ``serving`` under a ``model`` axis
+    over 1 (``Engine.from_lease`` and ``runtime.serve.make_lease_session``
+    ask, on the mesh their lease binds: one device has no such axis)."""
+    sizes = axis_sizes(mesh)
+    model_n = sizes.get("model", 1)
+    embed = rules.table.get("embed") if rules is not None else None
+    embed = (embed,) if isinstance(embed, str) else tuple(embed or ())
+    fsdp = any(sizes.get(a, 1) > 1 for a in embed)
+    if serving and model_n > 1:
+        return (f"serving under a model axis of {model_n} (tensor "
+                f"parallelism) comes with a later slice of the port")
+    if cfg is None or (model_n == 1 and not fsdp):
+        return None
+    what = " and ".join(
+        w for w, on in ((f"tensor parallelism (a model axis of {model_n})",
+                         model_n > 1), ("FSDP", fsdp)) if on)
+    if cfg.family != "dense":
+        later = {"moe": "expert parallelism",
+                 "ssm": "the ssm_* sharding rules",
+                 "hybrid": "the ssm_* sharding rules",
+                 "encdec": "the encoder-decoder's sharded step"}
+        return (f"{cfg.name}: the {cfg.family} family under {what} needs "
+                f"{later.get(cfg.family, 'its sharded step')}, which comes "
+                f"with a later slice of the port; this one shards the dense "
+                f"family")
+    if model_n > 1 and (cfg.n_heads % model_n or cfg.n_kv_heads % model_n):
+        return (f"{cfg.name}: {cfg.n_heads} heads and {cfg.n_kv_heads} kv "
+                f"heads do not both divide a model axis of {model_n}; the "
+                f"reference's context-parallel seq_attn fallback for "
+                f"tensor parallelism comes with a later slice of the port")
     return None
 
 

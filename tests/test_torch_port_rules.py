@@ -378,3 +378,18 @@ def test_model_loss_raises_for_families_not_trained_yet(arch):
     assert bool(torch.isfinite(loss))
     assert all(t.grad is not None and bool(torch.isfinite(t.grad).all())
                and float(t.grad.abs().max()) > 0 for t in leaves)
+
+
+def test_the_tensor_parallel_slice_modules_are_checked():
+    """The tensor-parallel / FSDP slice's modules (the collectives inside
+    the model, the sharded checkpoint, the restartable loop and the
+    model code under a plan) are among those imported with JAX and the
+    reference blocked, and whose sources are scanned."""
+    names = set(_module_names())
+    slice_modules = {
+        "repro_torch.sharding.tp", "repro_torch.ckpt.checkpoint",
+        "repro_torch.runtime.ft", "repro_torch.models.transformer",
+        "repro_torch.optim.adamw"}
+    assert slice_modules <= names, sorted(slice_modules - names)
+    files = {p.relative_to(PKG).as_posix() for p in FILES if PKG in p.parents}
+    assert {"sharding/tp.py", "ckpt/checkpoint.py", "runtime/ft.py"} <= files

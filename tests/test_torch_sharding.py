@@ -127,13 +127,118 @@ def test_use_rules_scopes_the_current_rules():
 
 
 def test_grid_refusal_names_the_next_slice():
+    """Tensor parallelism and FSDP run the dense family's step; what
+    ``grid_refusal`` leaves to a later slice is narrowed to heads that do
+    not divide the ``model`` axis, the other families under a ``model``
+    axis or FSDP, and serving under a ``model`` axis."""
+    shape = ShapeConfig("s", "train", 32, 8)
     layout = Layout((2, 2), ("data", "model"))
-    assert "tensor parallelism" in profiles.grid_refusal(layout, None)
     flat = Layout((2, 2, 1), ("pod", "data", "model"))
-    assert profiles.grid_refusal(flat, None) is None
-    fsdp = profiles.make_rules(SMOKE_ARCHS["olmo-1b"],
-                               ShapeConfig("s", "train", 32, 8), flat)
-    assert "FSDP" in profiles.grid_refusal(flat, fsdp)
-    assert profiles.grid_refusal(flat, profiles.make_rules(
-        SMOKE_ARCHS["olmo-1b"], ShapeConfig("s", "train", 32, 8), flat,
-        fsdp=False)) is None
+    dense = SMOKE_ARCHS["olmo-1b"]
+    for grid in (layout, flat):
+        for fsdp in (False, True):
+            rules = profiles.make_rules(dense, shape, grid, fsdp=fsdp)
+            assert profiles.grid_refusal(grid, rules, dense) is None
+    assert profiles.grid_refusal(layout, None) is None
+    for arch, what in (("olmoe-1b-7b", "expert parallelism"),
+                       ("mamba2-780m", "ssm_*"), ("zamba2-7b", "ssm_*"),
+                       ("whisper-small", "encoder-decoder")):
+        cfg = SMOKE_ARCHS[arch]
+        why = profiles.grid_refusal(layout, profiles.make_rules(
+            cfg, shape, layout, fsdp=False), cfg)
+        assert "tensor parallelism" in why and what in why, why
+        why = profiles.grid_refusal(flat, profiles.make_rules(
+            cfg, shape, flat), cfg)
+        assert "FSDP" in why and "later slice" in why, why
+        assert profiles.grid_refusal(flat, profiles.make_rules(
+            cfg, shape, flat, fsdp=False), cfg) is None
+    eight = Layout((1, 8), ("data", "model"))
+    why = profiles.grid_refusal(eight, profiles.make_rules(
+        dense, shape, eight, fsdp=False), dense)
+    assert "seq_attn" in why and "later slice" in why
+    assert "serving" in profiles.grid_refusal(layout, None, serving=True)
+    assert profiles.grid_refusal(flat, None, serving=True) is None
+
+
+@pytest.mark.parametrize("entry", ["engine", "session"])
+def test_serving_refuses_a_lease_with_a_model_axis(entry, monkeypatch):
+    """``Engine.from_lease`` and ``runtime.serve.make_lease_session`` ask
+    ``grid_refusal(..., serving=True)`` on the mesh their lease binds: one
+    device (the CLI's) has no ``model`` axis over 1 and serves; a lease
+    with ``model_parallel`` 2 bound to two devices is refused, naming the
+    later slice, where the engine would otherwise serve on the first
+    device alone."""
+    import torch
+    from repro_torch.models.api import build_model
+    from repro_torch.pool import smoke_pool
+    from repro_torch.pool.lease import Lease
+    from repro_torch.runtime.serve import make_lease_session
+    from repro_torch.serve import Engine, EngineConfig
+
+    model = build_model(SMOKE_ARCHS["qwen1.5-0.5b"], device="cpu")
+    lease = smoke_pool("scalepool").lease("serve", 4, model_parallel=2)
+
+    def bind(**kw):
+        if entry == "engine":
+            return Engine.from_lease(
+                model, lease, EngineConfig(max_slots=2, max_seq=64),
+                generator=torch.Generator().manual_seed(0), **kw)
+        return make_lease_session(model, ShapeConfig("s", "decode", 64, 2),
+                                  lease, **kw)
+
+    bound = bind(device="cpu")
+    assert bound is not None
+    one = Lease.materialize
+    monkeypatch.setattr(Lease, "materialize",
+                        lambda self, devices=None: one(self, ["cpu", "cpu"]))
+    assert lease.materialize().shape == (1, 2)
+    with pytest.raises(ValueError, match="serving under a model axis of 2"):
+        bind()
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "olmo-1b", "qwen3-14b",
+                                  "command-r-plus-104b"])
+def test_axes_trees_match_the_reference(arch):
+    """``transformer.param_axes`` (and ``Model.param_axes``, ``AdamW.
+    state_axes``) carry the reference's logical names leaf for leaf: the
+    port's ``layers`` is a list of block trees, the reference's one
+    stacked tree with a leading ``("layers",)`` axis; and the blocks the
+    port cuts are the reference's ``PartitionSpec`` of each leaf."""
+    from repro.models import transformer as ref_tf
+    from repro.optim.adamw import AdamW as RefAdamW
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.adamw import AdamW
+    cfg, ref_cfg = SMOKE_ARCHS[arch], REF_SMOKE[arch]
+    port = dict(partition.named_axes(tf.param_axes(cfg)))
+    ref = {}
+
+    def walk(t, prefix):
+        if ref_partition.is_axes_leaf(t):
+            ref[prefix] = t
+        else:
+            for k in sorted(t):
+                walk(t[k], f"{prefix}/{k}" if prefix else k)
+    walk(ref_tf.param_axes(ref_cfg), "")
+    assert port.keys() == ref.keys()
+    for name, axes in port.items():
+        want = ref[name][1:] if name.startswith("layers/") else ref[name]
+        assert axes == want, name
+    assert build_model(cfg, device="cpu").param_axes() == tf.param_axes(cfg)
+    state = AdamW().state_axes(tf.param_axes(cfg))
+    ref_state = RefAdamW().state_axes(ref_tf.param_axes(ref_cfg))
+    assert state.step == ref_state.step == ()
+    layout = Layout((2, 2), ("data", "model"))
+    shape = ShapeConfig("s", "train", 32, 8)
+    ref_shape = RefShape("s", "train", 32, 8)
+    mesh = types.SimpleNamespace(axis_names=("data", "model"),
+                                 devices=np.zeros((2, 2)))
+    rules = profiles.make_rules(cfg, shape, layout)
+    ref_rules = ref_profiles.make_rules(ref_cfg, ref_shape, mesh)
+    for name, axes in port.items():
+        spec = tuple(ref_rules.spec(*ref[name]))
+        spec = spec[1:] if name.startswith("layers/") else spec
+        block = partition.block_of(layout, layout.coords(3), rules, axes)
+        assert block.axes == tuple(() if e is None else
+                                   ((e,) if isinstance(e, str) else tuple(e))
+                                   for e in spec), name

@@ -374,3 +374,30 @@ def test_cli_trains_on_the_cpu_when_asked(capsys, tmp_path, extra):
     assert out["loss_drop"] > 0 and out["restarts"] == 0
     if "--pool" in extra:
         assert out["lease"]["offload_optimizer"] and out["dp_mode"] == "auto"
+
+
+@pytest.mark.parametrize("layers", [1, 2])
+def test_cli_layers_trains_the_first_layers(capsys, tmp_path, monkeypatch,
+                                            layers):
+    from repro_torch.launch import train as cli
+    built = []
+    real = cli.build_model
+    monkeypatch.setattr(cli, "build_model",
+                        lambda cfg, **kw: built.append(cfg) or real(cfg, **kw))
+    rc = cli.main(["--smoke", "--layers", str(layers), "--steps", "2",
+                   "--batch", "8", "--seq", "32", "--device", "cpu",
+                   "--ckpt-dir", str(tmp_path)])
+    out = json.loads(capsys.readouterr().out)
+    full = get_config("olmo-1b", smoke=True)
+    assert rc == 0 and out["device"] == "cpu"
+    assert [c.n_layers for c in built] == [layers]
+    assert built[0] == dataclasses.replace(full, n_layers=layers)
+
+
+def test_cli_layers_refuses_more_than_the_config_has(tmp_path):
+    from repro_torch.launch.train import main
+    n = get_config("olmo-1b", smoke=True).n_layers
+    with pytest.raises(SystemExit) as e:
+        main(["--smoke", "--layers", str(n + 1), "--device", "cpu",
+              "--ckpt-dir", str(tmp_path)])
+    assert e.value.code == 2

@@ -13,10 +13,14 @@ states).
 The CLI under ``python -m torch.distributed.run --standalone`` on
 ``--device cpu --smoke``: 4 ranks on the lease's (2, 2, 1) layout with
 ``--dp-mode hierarchical --compress-pod`` exit 0 with rank 0's summary;
-a one-pod lease falls back to ``auto`` with a warning; a layout with a
-``model`` axis over 1, or one the world does not fill, exits 2 with the
-reason before any process group is made.  Every world and every
-``torch.distributed.run`` is killed past its time limit.
+a one-pod lease falls back to ``auto`` with a warning; 4 ranks without
+``--pool`` train with tensor parallelism on the reference's smoke mesh
+(data 2, model 2), as the reference's CLI does, and so does
+``--pool-model-parallel 2`` on the lease's (pod 2, data 1, model 2);
+the moe family under a ``model`` axis, or a layout the world does not
+fill, exits 2 with the reason before any process group is made.  Every
+world and every ``torch.distributed.run`` is killed past its time
+limit.
 """
 
 import ast
@@ -152,7 +156,8 @@ def test_cli_trains_hierarchical_on_four_ranks(tmp_path):
     assert rc == 0, err[-3000:]
     summary = json.loads(out)      # rank 0 alone prints
     assert list(summary) == _reference_cli_keys() + [
-        "device", "world", "compress_pod", "backend"]
+        "device", "world", "compress_pod", "backend", "rules",
+        "resumed_from"]
     assert summary["mesh"] == {"pod": 2, "data": 2, "model": 1}
     assert summary["dp_mode"] == "hierarchical"
     assert summary["compress_pod"] is True
@@ -176,18 +181,41 @@ def test_cli_falls_back_to_auto_without_a_pod_axis(tmp_path):
 
 def test_cli_refuses_a_model_axis_before_the_loop(tmp_path):
     """Without a lease, 4 ranks take the reference's smoke mesh (2, 2)
-    over (data, model): tensor parallelism, refused with exit 2."""
-    rc, _, err = _torchrun(4, ["--steps", "2", "--ckpt-dir",
-                               str(tmp_path)])
+    over (data, model): the moe family under tensor parallelism (expert
+    parallelism is a later slice), refused with exit 2."""
+    rc, _, err = _torchrun(4, ["--arch", "olmoe-1b-7b", "--steps", "2",
+                               "--ckpt-dir", str(tmp_path)])
     assert rc != 0
     assert "tensor parallelism" in err and "exitcode  : 2" in err
+    assert "expert parallelism" in err and "later slice" in err
+
+
+@pytest.mark.parametrize("argv,mesh", [
+    ([], {"data": 2, "model": 2}),
+    (["--pool", "scalepool", "--pool-accels", "12", "--pool-model-parallel",
+      "2"], {"pod": 2, "data": 1, "model": 2})])
+def test_cli_trains_tensor_parallel_on_four_ranks(tmp_path, argv, mesh):
+    """The reference CLI's own default on 4 devices: tensor parallelism
+    with ``make_rules(..., fsdp=False)``."""
+    rc, out, err = _torchrun(4, argv + [
+        "--steps", "3", "--batch", "8", "--seq", "32", "--ckpt-dir",
+        str(tmp_path)])
+    assert rc == 0, err[-3000:]
+    summary = json.loads(out)
+    assert summary["mesh"] == mesh and summary["world"] == 4
+    assert summary["dp_mode"] == "auto" and summary["backend"] == "gloo"
+    assert "heads=model" in summary["rules"]
+    assert "embed=" not in summary["rules"]         # FSDP off
+    assert summary["resumed_from"] is None and summary["restarts"] == 0
+    assert summary["loss_drop"] > 0
 
 
 @pytest.mark.parametrize("world,argv,reason", [
-    ("4", [], "tensor parallelism"),
+    ("4", ["--arch", "olmoe-1b-7b"], "tensor parallelism"),
     ("2", [], "does not fill the layout"),
     ("4", ["--pool", "scalepool", "--pool-accels", "12",
-           "--pool-model-parallel", "2"], "tensor parallelism")])
+           "--pool-model-parallel", "2", "--arch", "mamba2-780m"],
+     "tensor parallelism")])
 def test_cli_layout_refusals_exit_2(monkeypatch, capsys, tmp_path, world,
                                     argv, reason):
     from repro_torch.launch.train import main
