@@ -249,7 +249,7 @@ no result line):
               compressed mean over the two pods' gradients, within one
               code step (scale / 2) plus 1e-6 of the largest |mean|, the
               share of code sums that differ reported; (b) qwen1.5-0.5b
-              at full width on its first 6 of 24 layers (``DP_DEPTH``)
+              at full width on its first 2 of 24 layers (``DP_DEPTH``)
               in bf16, 4 ranks x B=2 x S=512 (the weights of seed 0,
               phase 10 (c)'s batches), 4 steps each of
               ``auto``, ``hierarchical`` and ``compress_pod``: s/step,
@@ -269,11 +269,12 @@ no result line):
               Every time here is 4 ranks sharing one card: it measures
               nothing of a fabric;
 12. tp      - (run after phase 11) tensor parallelism over ``model`` and
-              FSDP over ``data`` (``repro_torch.sharding.tp``): two
-              spawned worlds of 4 ranks sharing the card over gloo as
-              phase 11's, (data 2, model 2) with FSDP off (the reference
-              CLI's rules) and on, and (pod 2, data 1, model 2)
-              ``hierarchical`` with ``compress_pod``.  (a) qwen1.5-0.5b at
+              FSDP over ``data`` (``repro_torch.sharding.tp``): one
+              spawned world of 4 ranks sharing the card over gloo as
+              phase 11's, holding two grids in turn, their groups formed
+              in the same processes: (data 2, model 2) with FSDP off
+              (the reference CLI's rules) and on, and (pod 2, data 1,
+              model 2) ``hierarchical`` with ``compress_pod``.  (a) qwen1.5-0.5b at
               full width on its first 2 layers in fp32, global B=8 x
               S=512, 3 steps of each case against the one-process step on
               the same weights and batches (the compressed case against
@@ -300,6 +301,31 @@ no result line):
               ``--ckpt-every 1``: exit 0, the resume reported, every
               step's loss equal in bits to the first run's.  Every time
               here is 4 ranks sharing one card: nothing of a fabric;
+13. tp serve - (in phase 12's world, after its grids, their state
+              freed) the request-level engine under a (data 1, model 4)
+              lease (``Engine.from_lease``: each rank joins the lease's
+              grid, serves 4 of qwen1.5-0.5b's 16 heads over a page pool
+              of its 4 kv heads, the MLP column -> row, greedy tokens by
+              ``tp.vocab_parallel_argmax``), on phase 4's trace, quota
+              and tier-2 budget.  (a) the first 2 layers in fp32: every
+              rank's tokens, the modeled latency summary, every handle's
+              clocks and the KV stats (spills, fetches) equal the
+              one-card fp32 engine's on the same weights (rank 0 runs
+              it), a divergence passing only as a documented tie: the
+              one-card top-2 logit margin at that step within
+              ``TS_TIE_MARGIN`` (C-ref3); the first prompt's prefill
+              logits, gathered over ``model``, against the one-card
+              ones; (b) full width and depth in bf16: every rank
+              completes the 16 requests with spills and fetches, its
+              tokens equal rank 0's, its launches exact (B1 a decode
+              step and B3 a prefill per layer, B2 49 a call, all flash
+              on the tensor cores), wall seconds, decode tokens per wall
+              second and host seconds in collectives a step by (axes,
+              op); the one-card tokens of phase 4 beside, reported (bf16
+              rounding parts them, C-port2); (c) each rank's B1 and B3
+              at its local shapes (4 of 16 heads) against their plain
+              versions within ``TOL``.  4 ranks share one card over
+              gloo: nothing of a fabric;
 5. times    - each kernel's time (CUDA graphs of back-to-back calls,
               timed with CUDA events, median of trials) beside its plain
               version, a PyTorch library call where one computes the
@@ -1119,32 +1145,38 @@ def ssd_backward_checks(device):
 # phase 4: the slice at full width
 # ---------------------------------------------------------------------------
 
+def serve_parts(cfg):
+    """Phase 4's engine shape, KV budget and trace (phase 13 serves them
+    too): 8 slots of 1024 tokens in 64-token pages, a 32-page quota, 4
+    GB of tier 2, 16 requests of 120/250/500 prompt tokens and 64 new.
+    The prompts end a few tokens short of a page boundary, so decode
+    grows each sequence by a page: page-aligned prompts with 64 new
+    tokens never outgrow their admission pages, and no quota could then
+    force a spill without failing a request OOM."""
+    from repro_torch.core.tiering import KVBudget
+    from repro_torch.serve import EngineConfig, synthetic_trace
+    return (EngineConfig(max_slots=8, max_seq=1024, page_size=64),
+            KVBudget(tier1_pages=32, tier2_bytes=4e9, page_size=64),
+            synthetic_trace(16, prompt_lens=PROMPT_LENS, max_new_tokens=64,
+                            mean_interarrival_s=0.002, vocab=cfg.vocab,
+                            seed=0))
+
+
 def serve_full_width(device):
     import torch
     from repro_torch import kernels
     from repro_torch.configs import get_config
-    from repro_torch.core.tiering import KVBudget
     from repro_torch.models.api import build_model
     from repro_torch.obs import Tracer
-    from repro_torch.serve import (Engine, EngineConfig, latency_summary,
-                                   run_trace, synthetic_trace)
+    from repro_torch.serve import Engine, latency_summary, run_trace
 
     cfg = get_config("qwen1.5-0.5b")
     model = build_model(cfg, device=device)
     gen = torch.Generator(device=device).manual_seed(0)
     tracer = Tracer(1 << 20)
-    engine = Engine.local(
-        model, EngineConfig(max_slots=8, max_seq=1024, page_size=64),
-        generator=gen, budget=KVBudget(tier1_pages=32, tier2_bytes=4e9,
-                                       page_size=64),
-        tracer=tracer, device=device)
-    # prompts end a few tokens short of a page boundary, so decode grows
-    # each sequence by a page: page-aligned prompts with 64 new tokens
-    # never outgrow their admission pages, and no quota could then force
-    # a spill without failing a request OOM
-    trace = synthetic_trace(16, prompt_lens=PROMPT_LENS,
-                            max_new_tokens=64, mean_interarrival_s=0.002,
-                            vocab=cfg.vocab, seed=0)
+    ecfg, budget, trace = serve_parts(cfg)
+    engine = Engine.local(model, ecfg, generator=gen, budget=budget,
+                          tracer=tracer, device=device)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1202,7 +1234,8 @@ def serve_full_width(device):
                  trace[0].prompt_tokens, device, gate=True, n_flash=(L, 0))
     del model32
     profile_window(model, engine.params, device)
-    return counts, variants, model, engine.params
+    return (counts, variants, model, engine.params,
+            [h.tokens for h in handles])
 
 
 def profile_window(model, params, device):
@@ -3907,12 +3940,12 @@ def train_phase(device, smi, record=None):
 
 DP_LAYOUT = ((2, 2, 1), ("pod", "data", "model"))
 DP_STEPS = 4                    # (b)'s steps a mode; s/step over 2-4
-# (b)'s depth: qwen1.5-0.5b's first 6 of 24 layers, cut when phase 12
-# took the smoke past 1050 s (1064 s on an H100 80GB HBM3 at 700 W);
-# the collectives move the 0.93 GB flat buffer of 6 layers and the table
-# (1.86 GB at full depth); auto's losses are held to the one-process
-# step's on the same cut, run by rank 0
-DP_DEPTH = 6
+# (b)'s depth: qwen1.5-0.5b's first 2 of 24 layers (6 until phase 13
+# needed the time; 24 until phase 12 took the smoke past 1050 s on an
+# H100 80GB HBM3 at 700 W); the collectives move the flat buffer of 2
+# layers and the table (1.86 GB at full depth); auto's losses are held
+# to the one-process step's on the same cut, run by rank 0
+DP_DEPTH = 2
 DP_MODES = {"auto": ("auto", False), "hierarchical": ("hierarchical", False),
             "compress_pod": ("hierarchical", True)}
 DP_DIR = Path(__file__).resolve().parent / "build" / "phase11"
@@ -4226,6 +4259,7 @@ def dp_rank(rank: int, init: str, out_dir: str) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(1)    # as in tp_rank
     t0 = time.perf_counter()
     grid = mesh_lib.init_grid(mesh_lib.Layout(*DP_LAYOUT), rank=rank,
                               device=torch.device("cuda", 0),
@@ -4451,8 +4485,9 @@ def dp_phase(smi):
 # cross-pod phase, 4 ranks sharing the one card over gloo
 # ---------------------------------------------------------------------------
 
-# world -> (layout, [(case, dp_mode, compress_pod, fsdp)])
-TP_WORLDS = {
+# the world's grids, in turn -> (layout, [(case, dp_mode, compress_pod,
+# fsdp)]); phase 13 then serves on (data 1, model 4) in the same world
+TP_GRIDS = {
     "2x2": (((2, 2), ("data", "model")),
             [("tp", "auto", False, False), ("tp_fsdp", "auto", False, True)]),
     "2x1x2": (((2, 1, 2), ("pod", "data", "model")),
@@ -4461,7 +4496,8 @@ TP_WORLDS = {
 TP_GATE_STEPS = 3               # (a)'s steps
 TP_STEPS = 4                    # (b)'s steps a case; s/step over 2-4
 TP_DIR = Path(__file__).resolve().parent / "build" / "phase12"
-TP_WORLD_LIMIT_S = 300.0        # each world's wall-clock limit
+TP_WORLD_LIMIT_S = 600.0        # the world's wall-clock limit (phases 12
+                                # (a)-(c) on both grids, then phase 13)
 TP_CLI_LIMIT_S = 240.0          # each of (d)'s torch.distributed.run
 TP_FAIL_AT = 2                  # (d)'s injected failure: rank 1, step 2
 TP_CLI_WRAPPER = """
@@ -4710,38 +4746,54 @@ def tp_twice(grid):
             "seconds": time.perf_counter() - t0}
 
 
-def tp_rank(rank: int, init: str, out_dir: str, world: str) -> None:
-    """One rank of one of phase 12's worlds (a spawned process; any
-    failure exits it non-zero): (a), (b) and, on (data 2, model 2), (c);
-    its report to ``<out_dir>/<world>.rank<r>.json``."""
+def tp_rank(rank: int, init: str, out_dir: str) -> None:
+    """One rank of phase 12's world (a spawned process; any failure exits
+    it non-zero): on each of ``TP_GRIDS`` in turn (the second's groups
+    formed in the world the first started) (a), (b) and, with FSDP,
+    (c); then phase 13; its report to ``<out_dir>/rank<r>.json``."""
     import torch
     from repro_torch.launch import mesh as mesh_lib
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    layout, cases = TP_WORLDS[world]
+    # one intra-op thread a rank, as torch.distributed.run sets each
+    # worker: four ranks' thread pools would contend for the host's cores
+    torch.set_num_threads(1)
+    t_world = time.perf_counter()
+    report = {"rank": rank, "grids": {}}
+    world = None
+    for name, (layout, cases) in TP_GRIDS.items():
+        t0 = time.perf_counter()
+        grid = mesh_lib.init_grid(mesh_lib.Layout(*layout), rank=rank,
+                                  device=torch.device("cuda", 0),
+                                  init_method=init,
+                                  timeout_s=DP_COLLECTIVE_LIMIT_S)
+        world = world or grid
+        r = {"grid": grid.describe()}
+        t1 = time.perf_counter()
+        r["fp32_gate"] = tp_fp32_gate(grid, cases)
+        dp_progress(rank, f"{name} (a)", t_world, r["fp32_gate"], phase=12)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t2 = time.perf_counter()
+        r["full_depth"] = tp_full_depth(grid, cases)
+        t3 = time.perf_counter()
+        if any(fsdp for *_, fsdp in cases):
+            r["twice"] = tp_twice(grid)
+            dp_progress(rank, f"{name} (c)", t_world, r["twice"], phase=12)
+        r["seconds"] = {"setup": t1 - t0, "fp32_gate": t2 - t1,
+                        "full_depth": t3 - t2,
+                        "twice": time.perf_counter() - t3}
+        report["grids"][name] = r
+        if grid is not world:
+            grid.close()
+        gc.collect()
+        torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    grid = mesh_lib.init_grid(mesh_lib.Layout(*layout), rank=rank,
-                              device=torch.device("cuda", 0),
-                              init_method=init,
-                              timeout_s=DP_COLLECTIVE_LIMIT_S)
-    report = {"rank": rank, "grid": grid.describe()}
-    t1 = time.perf_counter()
-    report["fp32_gate"] = tp_fp32_gate(grid, cases)
-    dp_progress(rank, f"{world} (a)", t0, report["fp32_gate"], phase=12)
-    gc.collect()
-    torch.cuda.empty_cache()
-    t2 = time.perf_counter()
-    report["full_depth"] = tp_full_depth(grid, cases)
-    t3 = time.perf_counter()
-    if any(fsdp for *_, fsdp in cases):
-        report["twice"] = tp_twice(grid)
-        dp_progress(rank, f"{world} (c)", t0, report["twice"], phase=12)
-    report["seconds"] = {"setup": t1 - t0, "fp32_gate": t2 - t1,
-                         "full_depth": t3 - t2,
-                         "twice": time.perf_counter() - t3}
-    grid.close()
-    Path(out_dir, f"{world}.rank{rank}.json").write_text(json.dumps(report))
+    report["serve"] = ts_rank(rank)
+    report["serve"]["seconds"] = time.perf_counter() - t0
+    world.close()
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(report))
 
 
 def tp_torchrun(argv, name):
@@ -4833,16 +4885,19 @@ def tp_cli(smi):
           f"phase 12 (d) restart: {summary}, losses {same}")
 
 
-def tp_phase(smi, qwen_losses):
-    """Phase 12: each of ``TP_WORLDS`` spawned as 4 ranks sharing the
-    card (the kernels built by this process before), then (d) the CLI.
-    (b)'s trajectories are held to the one-card trajectory of phase 10
-    (c) (``qwen_losses``), the compressed one to the plain in-process
+def tp_phase(smi, qwen_losses, qwen_tokens):
+    """Phases 12 and 13: one world of 4 ranks sharing the card (the
+    kernels built by this process before) on each of ``TP_GRIDS`` in
+    turn, then serving (``ts_rank``), then phase 12 (d), the CLI.  (b)'s
+    trajectories are held to the one-card trajectory of phase 10 (c)
+    (``qwen_losses``), the compressed one to the plain in-process
     evaluation of the same schedule (``tp_plain_compressed_steps``, rank
     0): int8 codes change the gradient, so a compressed trajectory
     leaves the uncompressed one by more than the bf16 bound (phase 11's
-    own by 4.6% at step 4 of its full-depth run on an H100).  Returns
-    each rank's (b) launches, its cases together."""
+    own by 4.6% at step 4 of its full-depth run on an H100).  Phase 13's
+    bf16 tokens are reported beside phase 4's (``qwen_tokens``).
+    Returns each rank's (b) launches, its cases together, and phase 13
+    (b)'s."""
     import multiprocessing
     import shutil
 
@@ -4854,40 +4909,41 @@ def tp_phase(smi, qwen_losses):
     TP_DIR.mkdir(parents=True)
     cfg = get_config("qwen1.5-0.5b")
     want = train_launches(cfg, TP_STEPS)
-    counts, world_s = {}, {}
+    counts = {}
     ctx = multiprocessing.get_context("spawn")
-    for world, (layout, cases) in TP_WORLDS.items():
-        gc.collect()
-        torch.cuda.empty_cache()
-        store = TP_DIR / f"store_{world}"
-        procs = [ctx.Process(target=tp_rank, args=(
-            r, f"file://{store}", str(TP_DIR), world)) for r in range(4)]
-        with dp_allocator_env():
-            for p in procs:
-                p.start()
-        world_s[world] = wait_world(procs, TP_WORLD_LIMIT_S,
-                                    f"phase 12 {world}")
-        reports = [json.loads((TP_DIR / f"{world}.rank{r}.json").read_text())
-                   for r in range(4)]
-        gate = reports[0]["fp32_gate"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    store = TP_DIR / "store"
+    procs = [ctx.Process(target=tp_rank, args=(
+        r, f"file://{store}", str(TP_DIR))) for r in range(4)]
+    with dp_allocator_env():
+        for p in procs:
+            p.start()
+    world_s = wait_world(procs, TP_WORLD_LIMIT_S, "phase 12 world")
+    reports = [json.loads((TP_DIR / f"rank{r}.json").read_text())
+               for r in range(4)]
+    for world in TP_GRIDS:
+        _, cases = TP_GRIDS[world]
+        grids = [r["grids"][world] for r in reports]
+        gate = grids[0]["fp32_gate"]
         emit({"phase": "tp", "check": "(a) fp32 gate", "world": world,
-              "layout": reports[0]["grid"]["mesh"], "layers": TRAIN_CUT,
+              "layout": grids[0]["grid"]["mesh"], "layers": TRAIN_CUT,
               "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
               "steps": TP_GATE_STEPS, "tol": TOL["float32"],
               "param_share_allowed": DP_PARAM_SHARE, "rank0": gate})
         check(all(g["ok"] for g in gate.values())
               and all(r["fp32_gate"][c]["metrics"] == gate[c]["metrics"]
-                      for r in reports for c in gate),
+                      for r in grids for c in gate),
               f"phase 12 (a) {world}: {gate}")
         for name, _, compress, _ in cases:
-            per = [r["full_depth"][name] for r in reports]
+            per = [r["full_depth"][name] for r in grids]
             losses = per[0]["losses"]
-            ref = (reports[0]["full_depth"]["plain_compressed_losses"]
+            ref = (grids[0]["full_depth"]["plain_compressed_losses"]
                    if compress else qwen_losses)
             gaps = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
             emit({"phase": "tp", "check": f"(b) {name}", "nvidia_smi": smi,
                   "arch": cfg.name, "layers": cfg.n_layers,
-                  "layout": reports[0]["grid"]["mesh"],
+                  "layout": grids[0]["grid"]["mesh"],
                   "ranks": "4 ranks sharing one card (gloo, host-staged)",
                   "seq": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
                   "steps": TP_STEPS,
@@ -4917,17 +4973,291 @@ def tp_phase(smi, qwen_losses):
                 for k, v in p["launches"].items():
                     c[k] = c.get(k, 0) + v
         if any(fsdp for *_, fsdp in cases):
-            twice = [r["twice"] for r in reports]
+            twice = [r["twice"] for r in grids]
             emit({"phase": "tp", "check": "(c) FSDP step twice",
                   "world": world, "per_rank": twice})
             check(all(t["same_bits"] for t in twice),
                   f"phase 12 (c): a rank's step twice gave other bits: "
                   f"{twice}")
-        emit({"phase": "tp", "world": world, "seconds": world_s[world],
-              "rank_seconds": [r["seconds"] for r in reports]})
+        emit({"phase": "tp", "world": world,
+              "rank_seconds": [r["seconds"] for r in grids]})
+    counts.update(ts_checks(smi, [r["serve"] for r in reports],
+                            qwen_tokens))
+    emit({"phase": "tp", "world_seconds": world_s,
+          "serve_rank_seconds": [r["serve"]["seconds"] for r in reports]})
     tp_cli(smi)
-    emit({"phase": "tp", "seconds": time.perf_counter() - t_start,
-          "world_seconds": world_s})
+    emit({"phase": "tp", "seconds": time.perf_counter() - t_start})
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the request-level engine under a (data 1, model 4) lease, in
+# phase 12's world: 4 ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+TS_MODEL = 4                    # the lease's model axis: the world's ranks
+TS_TIE_MARGIN = 1e-4            # an fp32 top-2 logit margin this small is
+                                # a documented tie (C-ref3): the ranks sum
+                                # attention and MLP outputs over ``model``
+                                # in another order than one card (logits
+                                # part by ~1e-6), so such a step may take
+                                # the other token
+TS_RANKS = "4 ranks sharing one card (gloo, host-staged): no fabric measured"
+
+
+def ts_engine(model, device, tracer=None):
+    """``Engine.from_lease`` on a (data 1, model 4) lease of the smoke
+    pool, phase 4's engine shape and budget, the weights of seed 0
+    drawn whole on every rank and cut to its shards; and phase 4's
+    trace."""
+    import torch
+    from repro_torch.pool import smoke_pool
+    from repro_torch.serve import Engine
+
+    ecfg, budget, trace = serve_parts(model.cfg)
+    lease = smoke_pool("scalepool").lease("serve-tp", TS_MODEL, tier2_gb=8,
+                                          kv_gb=4, model_parallel=TS_MODEL)
+    eng = Engine.from_lease(
+        model, lease, ecfg,
+        generator=torch.Generator(device=device).manual_seed(0),
+        budget=budget, tracer=tracer, device=device)
+    return eng, trace
+
+
+def ts_run(eng, trace):
+    from repro_torch.serve import latency_summary, run_trace
+    handles = run_trace(eng, trace)
+    st = eng.stats()
+    return {"tokens": [h.tokens for h in handles],
+            "clocks": [(h.submit_clock, h.first_token_clock, h.done_clock)
+                       for h in handles],
+            "latency": latency_summary(handles), "kv": st["kv"],
+            "completed": st["completed"], "failed_oom": st["failed_oom"],
+            "tokens_decoded": st["tokens_decoded"]}
+
+
+def ts_prefill_logits(eng, prompt):
+    """The engine's prefill logits of ``prompt`` (fp32), gathered over
+    ``model`` when it has a plan, sliced to the vocab."""
+    import torch
+    from repro_torch.core import hierarchy
+
+    n = len(prompt)
+    bucket = -(-n // eng.cfg.page_size) * eng.cfg.page_size
+    toks = torch.zeros((1, bucket), dtype=torch.long, device=eng.device)
+    toks[0, :n] = torch.as_tensor(prompt, device=eng.device)
+    with eng._scope():
+        cache = eng.model.init_cache(1, bucket, dtype=torch.float32)
+        logits, _ = eng.model.prefill_at(eng.params, {"tokens": toks},
+                                         cache, n - 1)
+    if eng.plan is not None:
+        logits = hierarchy.all_gather_dim(logits.contiguous(), eng.grid,
+                                          ("model",), 2)
+    return logits[0, -1, :eng.model.cfg.vocab].float()
+
+
+def ts_fp32_gate(rank, device):
+    """(a) the first ``TRAIN_CUT`` layers in fp32 under the lease; rank 0
+    also runs the one-card fp32 engine on the same weights and holds
+    every rank's run (by the report) to it."""
+    import torch
+    from repro_torch.models.api import build_model
+    from repro_torch.serve import Engine
+
+    cfg = cut("qwen1.5-0.5b", TRAIN_CUT, compute_dtype="float32")
+    model = build_model(cfg, device=device)
+    eng, trace = ts_engine(model, device)
+    out = ts_run(eng, trace)
+    got_logits = ts_prefill_logits(eng, trace[0].prompt_tokens)
+    del eng
+    if rank == 0:
+        ecfg, budget, _ = serve_parts(cfg)
+        one = Engine.local(
+            model, ecfg, budget=budget, device=device,
+            generator=torch.Generator(device=device).manual_seed(0))
+        want = ts_run(one, trace)
+        ties = []
+        for i, (a, b) in enumerate(zip(out["tokens"], want["tokens"])):
+            step = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y),
+                        None)
+            if step is not None:
+                h = trace[i]
+                m = top2_margin(model, one.params, device,
+                                list(h.prompt_tokens) + b[:step])
+                ties.append({"request": i, "step": step, "top2_margin": m,
+                             "tie": m <= TS_TIE_MARGIN})
+        want_logits = ts_prefill_logits(one, trace[0].prompt_tokens)
+        out["one_card"] = {
+            "requests_parting": len(ties), "divergences": ties,
+            "clocks_equal": out["clocks"] == want["clocks"],
+            "latency_equal": out["latency"] == want["latency"],
+            "kv_equal": out["kv"] == want["kv"],
+            "kv": want["kv"],
+            "prefill_logits_max_abs_err": max_err(got_logits, want_logits),
+            "prefill_logits_max_abs": float(want_logits.abs().max())}
+        del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ts_full_depth(device):
+    """(b) full width and depth in bf16 under the lease: the run, its
+    wall seconds, the kernels' launches and variants and the host
+    seconds in collectives."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.obs import Tracer
+    from repro_torch.sharding.profiles import describe
+
+    cfg = get_config("qwen1.5-0.5b")
+    model = build_model(cfg, device=device)
+    tracer = Tracer(1 << 20)
+    eng, trace = ts_engine(model, device, tracer)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng.grid.stats.reset()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = ts_run(eng, trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    names = [e.name for e in tracer.events()]
+    decodes, prefills = names.count("decode"), names.count("prefill")
+    stats = eng.grid.stats
+    out.update({
+        "wall_s": wall, "decode_tokens_per_wall_s":
+            out["tokens_decoded"] / wall,
+        "decodes": decodes, "prefills": prefills,
+        "engine_steps": eng.steps, "trace_dropped": tracer.dropped,
+        "launches": kernels.launch_counts(),
+        "variants": kernels.variant_counts(),
+        "collective_host_s": stats.seconds,
+        "collective_host_s_per_engine_step_by_op": {
+            k: v / eng.steps for k, v in stats.seconds_by.items()},
+        "collective_calls": dict(stats.calls),
+        "moved_bytes": dict(stats.moved_bytes),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "rules": describe(eng.plan.rules)})
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ts_kernels(device):
+    """(c) B1 and B3 at a rank's local shapes, 4 of qwen's 16 heads: the
+    engine's 8-row decode over an fp32 pool of 64-token pages and its
+    512-token prefill (bf16 q, fp32 K/V), each against its plain
+    version."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+
+    gen = torch.Generator(device=device).manual_seed(13)
+    bf16, f32 = torch.bfloat16, torch.float32
+    H = 16 // TS_MODEL
+    out = {}
+    args = paged_inputs(gen, 8, H, H, 64, 64, 16,
+                        [130, 260, 520, 150, 300, 563, 0, 400], bf16, f32,
+                        device)
+    got = paged_decode_attention(*args)
+    want = ref.paged_attention_ref(*args)
+    torch.cuda.synchronize()
+    out["paged_attention"] = {
+        "case": f"B=8 H=KV={H} D=64 ps=64 q=bf16 pages=fp32",
+        "max_abs_err": max_err(got, want),
+        "ok": within(got, want, TOL["bfloat16"])
+        and bool(torch.isfinite(got).all())}
+    q = torch.randn(1, 512, H, 64, generator=gen, device=device).to(bf16)
+    k, v = (torch.randn(1, 512, H, 64, generator=gen, device=device)
+            for _ in range(2))
+    got = flash_attention(q, k, v, causal=True)
+    with ops.plain_versions():
+        want = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    out["flash_attention"] = {
+        "case": f"B=1 Sq=Skv=512 H={H} D=64 q=bf16 kv=fp32",
+        "max_abs_err": max_err(got, want),
+        "ok": within(got, want, TOL["bfloat16"])
+        and bool(torch.isfinite(got).all())}
+    return out
+
+
+def ts_rank(rank: int) -> dict:
+    """Phase 13 in one rank of phase 12's world: (a), (b), (c)."""
+    import torch
+    device = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    out = {"fp32_gate": ts_fp32_gate(rank, device)}
+    dp_progress(rank, "(a)", t0, out["fp32_gate"].get("one_card"),
+                phase=13)
+    out["full_depth"] = ts_full_depth(device)
+    dp_progress(rank, "(b)", t0, {k: out["full_depth"][k] for k in (
+        "wall_s", "kv", "launches")}, phase=13)
+    out["kernels"] = ts_kernels(device)
+    return out
+
+
+def ts_checks(smi, per, qwen_tokens):
+    """Phase 13's lines and checks from every rank's report; returns each
+    rank's (b) launches."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen1.5-0.5b")
+    L = cfg.n_layers
+    gate = [p["fp32_gate"] for p in per]
+    one = gate[0]["one_card"]
+    emit({"phase": "tp serve", "check": "(a) fp32 gate", "nvidia_smi": smi,
+          "arch": cfg.name, "layers": TRAIN_CUT, "lease": {"data": 1,
+                                                           "model": TS_MODEL},
+          "ranks": TS_RANKS, "tie_margin": TS_TIE_MARGIN,
+          "kv": gate[0]["kv"], "latency_modeled": gate[0]["latency"],
+          "one_card": one})
+    check(all(g["tokens"] == gate[0]["tokens"] and g["kv"] == gate[0]["kv"]
+              and g["clocks"] == gate[0]["clocks"] for g in gate),
+          "phase 13 (a): the ranks' runs differ")
+    check(one["clocks_equal"] and one["latency_equal"] and one["kv_equal"]
+          and all(d["tie"] for d in one["divergences"])
+          and gate[0]["kv"]["spills"] > 0 and gate[0]["kv"]["fetches"] > 0,
+          f"phase 13 (a): against the one-card fp32 engine: {one}")
+    full = [p["full_depth"] for p in per]
+    b0 = full[0]
+    parting = sum(a != b for a, b in zip(b0["tokens"], qwen_tokens))
+    emit({"phase": "tp serve", "check": "(b) full width and depth",
+          "nvidia_smi": smi, "arch": cfg.name, "layers": L,
+          "lease": {"data": 1, "model": TS_MODEL}, "ranks": TS_RANKS,
+          "rules": b0["rules"],
+          "requests_parting_phase_4_one_card_bf16": parting,
+          "per_rank": [{k: f[k] for k in f if k not in ("tokens", "clocks")}
+                       for f in full]})
+    counts = {}
+    for r, f in enumerate(full):
+        check(f["completed"] == 16 and f["failed_oom"] == 0
+              and f["kv"]["spills"] > 0 and f["kv"]["fetches"] > 0
+              and f["tokens"] == b0["tokens"] and f["clocks"] == b0["clocks"]
+              and f["trace_dropped"] == 0
+              and all(0 <= t < cfg.vocab for h in f["tokens"] for t in h),
+              f"phase 13 (b) rank {r}: {f['kv']}, {f['completed']} done")
+        n = f["launches"]
+        check(n["paged_attention"] == f["decodes"] * L
+              and n["flash_attention"] == f["prefills"] * L
+              and n["rmsnorm"] == (f["decodes"] + f["prefills"]) * (2 * L + 1),
+              f"phase 13 (b) rank {r}: launches {n} for {f['decodes']} "
+              f"decode steps and {f['prefills']} prefills")
+        check_flash_variant(f"phase 13 rank {r}", cfg.compute_dtype,
+                            f["variants"], n["flash_attention"])
+        counts[f"qwen1.5-0.5b serve tp rank {r}"] = dict(n)
+    kern = [p["kernels"] for p in per]
+    emit({"phase": "tp serve", "check": "(c) B1 and B3 at a rank's shapes",
+          "tol": TOL["bfloat16"], "per_rank": kern})
+    check(all(k["ok"] for ks in kern for k in ks.values()),
+          f"phase 13 (c): {kern}")
     return counts
 
 
@@ -5051,6 +5381,11 @@ def kernel_times(device, counts, errs):
                "window=4096 q=bf16 pages=bf16", 8, 64, 8,
                [120, 151, 182, 213, 250, 260, 270, 282], H=32, KV=8, D=128,
                kv=bf16, window=4096)
+    # a rank's decode under phase 13's (data 1, model 4) lease: the
+    # engine's 8 rows on 4 of qwen's 16 heads
+    paged_time("tp rank (model 4) decode B=8 len 130..563 H=KV=4 D=64 "
+               "ps=64 q=bf16 pages=fp32", 8, 64, 16,
+               [130, 260, 520, 150, 300, 563, 200, 400], H=4, KV=4)
 
     def flash_time(B, Sq, Skv, H, D, q_offset=0, kv_len=None,
                    q_dtype=bf16, kv_dtype=f32, causal=True):
@@ -5117,6 +5452,8 @@ def kernel_times(device, counts, errs):
     flash_line("zamba2 decode B=4 Sq=1 Skv=516 q_offset=499 kv_len=500 "
                "H=KV=32 D=112 q=bf16 kv=fp32",
                flash_time(4, 1, 516, 32, 112, q_offset=499, kv_len=500))
+    flash_line("tp rank (model 4) prefill B=1 Sq=Skv=512 H=4 D=64 q=bf16 "
+               "kv=fp32", flash_time(1, 512, 512, 4, 64))
     flash_line("fp32 q B=1 Sq=Skv=512 H=16 D=64 kv=fp32",
                flash_time(1, 512, 512, 16, 64, q_dtype=f32), variant="f32")
     # the moe and encdec paths: olmoe's 512-token prefill over its bf16
@@ -5361,7 +5698,7 @@ def main() -> int:
     # serving never differentiates)
     counts, variants = {}, {}
     (counts["qwen1.5-0.5b"], variants["qwen1.5-0.5b"], qwen,
-     qwen_params) = serve_full_width(device)
+     qwen_params, qwen_tokens) = serve_full_width(device)
     counts["qwen1.5-0.5b"].update(kernels.backward_counts())
     gc.collect()
     torch.cuda.empty_cache()
@@ -5408,7 +5745,7 @@ def main() -> int:
     counts.update(dp_phase(smi))
     gc.collect()
     torch.cuda.empty_cache()
-    counts.update(tp_phase(smi, losses["qwen1.5-0.5b"]))
+    counts.update(tp_phase(smi, losses["qwen1.5-0.5b"], qwen_tokens))
     names = sorted({name for c in counts.values() for name in c})
     total = {name: sum(c.get(name, 0) for c in counts.values())
              for name in names}

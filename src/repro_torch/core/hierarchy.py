@@ -34,9 +34,20 @@ tries (``all_reduce``, ``broadcast``, ``all_gather``,
 ``all_gather_into_tensor``, ``reduce_scatter``,
 ``reduce_scatter_tensor``, ``all_to_all_single``).  The port stages
 every op all the same, so one rule holds whatever the version takes.
+Under gloo an all-reduce of at most ``EXCHANGE_BYTES`` is an exchange
+instead: each rank sends its tensor to every other rank of the group at
+once and sums (or maxes) the group's tensors in rank order, the same
+bits on every rank.  gloo's ring takes 2 (n - 1) dependent steps, each a
+thread handoff; the exchange takes one but receives n - 1 whole tensors.
+On an H100 host whose sockets run under gVisor
+(``chip_tools/collective_latency.py``, staged from the card), 4 ranks:
+the exchange 2.1 ms against the ring's 7.8 at 16 KB, 3.4 against 7.3 at
+512 KB, 16.1 against 8.0 at 1 MiB; 2 ranks: the exchange ahead up to 1
+MiB, behind from 2 MiB.  Larger tensors, and every op under nccl, take
+the backend's own collective.
 Each call adds its ring-accounted bytes (the reference's
-``repro.launch.hlo_analysis.moved_bytes``) and its host seconds to the
-grid's ``stats``.
+``repro.launch.hlo_analysis.moved_bytes``, whatever the algorithm) and
+its host seconds to the grid's ``stats``.
 """
 
 from __future__ import annotations
@@ -73,6 +84,11 @@ def moved_bytes(kind: str, result_bytes: int, n: int) -> float:
     raise ValueError(f"unknown collective {kind!r}")
 
 
+# at or under this many bytes a gloo all-reduce is an exchange: the
+# largest size at which it beat gloo's ring over both 2 and 4 ranks
+EXCHANGE_BYTES = 512 << 10
+
+
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
@@ -81,6 +97,33 @@ def _host(t: torch.Tensor) -> torch.Tensor:
     h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     h.copy_(t)
     return h
+
+
+def _exchange_reduce(out: torch.Tensor, inp: torch.Tensor, group,
+                     op: str) -> None:
+    """``out`` = the sum (or max) of the group's ``inp`` in rank order:
+    every rank sends its tensor to every other and receives theirs, all
+    at once."""
+    me = dist.get_rank()
+    ranks = dist.get_process_group_ranks(group)
+    parts, ops = [], []
+    for r in ranks:
+        if r == me:
+            parts.append(inp)
+            continue
+        buf = torch.empty_like(inp)
+        parts.append(buf)
+        ops.append(dist.P2POp(dist.isend, inp, r, group))
+        ops.append(dist.P2POp(dist.irecv, buf, r, group))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    acc = parts[0].clone()
+    for part in parts[1:]:
+        if op == "sum":
+            acc += part
+        else:
+            torch.maximum(acc, part, out=acc)
+    out.copy_(acc)
 
 
 def _collective(grid: RankGrid, axes: Tuple[str, ...], kind: str, out,
@@ -118,8 +161,12 @@ def all_reduce(t: torch.Tensor, grid: RankGrid, axes: Tuple[str, ...],
     if grid.group(axes) is None:
         return t
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-    _collective(grid, axes, "all-reduce", t, t,
-                lambda o, i, g: dist.all_reduce(o, op=red, group=g))
+    if grid.backend == "gloo" and _nbytes(t) <= EXCHANGE_BYTES:
+        _collective(grid, axes, "all-reduce", t, t,
+                    lambda o, i, g: _exchange_reduce(o, i, g, op))
+    else:
+        _collective(grid, axes, "all-reduce", t, t,
+                    lambda o, i, g: dist.all_reduce(o, op=red, group=g))
     return t
 
 

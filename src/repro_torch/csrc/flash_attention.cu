@@ -26,6 +26,12 @@
 // 32-key K/V tiles through shared memory once per q tile, and stops at
 // the causal limit of its last row (and starts at the sliding-window
 // limit of its first row), so masked tiles are never loaded.
+//
+// Build: the fully unrolled kernel makes its six instantiations (D 64,
+// 112, 128 x K/V fp32, bf16) a minute of one nvcc, so the build
+// compiles this file in parts, all at once (kernels/_build.py PARTS):
+// REPRO_FLASH_PART 0 the entry point, 1..6 one instantiation each.
+// Without the macro one nvcc emits everything.
 #include "common.cuh"
 
 namespace repro {
@@ -146,6 +152,34 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// the instantiations, one a part (see the header)
+#define REPRO_FLASH_LAUNCH(PREFIX, KT, D)                                 \
+  PREFIX template cudaError_t launch_flash<float, KT, D>(                 \
+      const void*, const void*, const void*, void*, float*, int, int, int, \
+      int, int, float, int, int, int, int, cudaStream_t);
+#if defined(REPRO_FLASH_PART) && REPRO_FLASH_PART == 0
+REPRO_FLASH_LAUNCH(extern, float, 64)
+REPRO_FLASH_LAUNCH(extern, float, 112)
+REPRO_FLASH_LAUNCH(extern, float, 128)
+REPRO_FLASH_LAUNCH(extern, __nv_bfloat16, 64)
+REPRO_FLASH_LAUNCH(extern, __nv_bfloat16, 112)
+REPRO_FLASH_LAUNCH(extern, __nv_bfloat16, 128)
+#elif defined(REPRO_FLASH_PART) && REPRO_FLASH_PART == 1
+REPRO_FLASH_LAUNCH(, float, 64)
+#elif defined(REPRO_FLASH_PART) && REPRO_FLASH_PART == 2
+REPRO_FLASH_LAUNCH(, float, 112)
+#elif defined(REPRO_FLASH_PART) && REPRO_FLASH_PART == 3
+REPRO_FLASH_LAUNCH(, float, 128)
+#elif defined(REPRO_FLASH_PART) && REPRO_FLASH_PART == 4
+REPRO_FLASH_LAUNCH(, __nv_bfloat16, 64)
+#elif defined(REPRO_FLASH_PART) && REPRO_FLASH_PART == 5
+REPRO_FLASH_LAUNCH(, __nv_bfloat16, 112)
+#elif defined(REPRO_FLASH_PART) && REPRO_FLASH_PART == 6
+REPRO_FLASH_LAUNCH(, __nv_bfloat16, 128)
+#endif
+#undef REPRO_FLASH_LAUNCH
+
+#if !defined(REPRO_FLASH_PART) || REPRO_FLASH_PART == 0
 template <typename QT, typename KT>
 cudaError_t flash_dispatch_d(int D, const void* q, const void* k,
                              const void* v, void* out, float* lse, int B,
@@ -167,9 +201,11 @@ cudaError_t flash_dispatch_d(int D, const void* q, const void* k,
                                      kv_len, s);
   return cudaErrorInvalidValue;
 }
+#endif
 
 }  // namespace repro
 
+#if !defined(REPRO_FLASH_PART) || REPRO_FLASH_PART == 0
 using namespace repro;
 
 // q and out fp32; k and v fp32 or bf16 (kv_dtype); lse (B,H,Sq) fp32
@@ -194,3 +230,4 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
 #undef ARGS
   return (int)e;
 }
+#endif

@@ -173,7 +173,9 @@ class CollectiveStats:
 
 @dataclasses.dataclass
 class RankGrid:
-    """One rank's place on the grid, its device and its groups."""
+    """One rank's place on the grid, its device and its groups.
+    ``owns_world``: whether ``init_grid`` started the process group (a
+    grid formed in a world already running leaves it to its owner)."""
     layout: Layout
     rank: int
     device: torch.device
@@ -183,6 +185,7 @@ class RankGrid:
         default_factory=dict)
     stats: CollectiveStats = dataclasses.field(
         default_factory=CollectiveStats)
+    owns_world: bool = False
 
     @property
     def axis_names(self) -> Tuple[str, ...]:
@@ -245,8 +248,10 @@ class RankGrid:
                 "backend_why": self.backend_why}
 
     def close(self) -> None:
-        """Leave the process group (every rank, at the end)."""
-        if dist.is_initialized():
+        """Leave the process group (every rank, at the end) if this grid
+        started it; a grid formed in a running world only drops its
+        groups."""
+        if self.owns_world and dist.is_initialized():
             dist.destroy_process_group()
         self.groups.clear()
 
@@ -286,6 +291,35 @@ def elastic_store(world: int, timeout: datetime.timedelta):
                       is_master=False, timeout=timeout))
 
 
+def world_from_env() -> Optional[Dict[str, int]]:
+    """The rank, world and host-local rank ``torch.distributed.run``
+    sets, or None when run as one process."""
+    if "WORLD_SIZE" not in os.environ:
+        return None
+    world = int(os.environ["WORLD_SIZE"])
+    rank = int(os.environ.get("RANK", "0"))
+    return {"world": world, "rank": rank,
+            "local_rank": int(os.environ.get("LOCAL_RANK", str(rank))),
+            "local_world": int(os.environ.get("LOCAL_WORLD_SIZE",
+                                              str(world)))}
+
+
+def running_world() -> Dict[str, int]:
+    """This process's place in its world: the running process group's
+    (its host-local rank from ``LOCAL_RANK``, else its rank), else what
+    ``torch.distributed.run`` set (``world_from_env``), else a world of
+    one."""
+    env = world_from_env()
+    if not dist.is_initialized():
+        return env or {"world": 1, "rank": 0, "local_rank": 0,
+                       "local_world": 1}
+    world, rank = dist.get_world_size(), dist.get_rank()
+    env = env or {}
+    return {"world": world, "rank": rank,
+            "local_rank": env.get("local_rank", rank),
+            "local_world": env.get("local_world", world)}
+
+
 def init_grid(layout: Layout, *, rank: int, device: torch.device,
               backend: Optional[str] = None, local_world: Optional[int] = None,
               init_method: str = "env://",
@@ -294,25 +328,37 @@ def init_grid(layout: Layout, *, rank: int, device: torch.device,
     grid's groups.  ``backend`` None applies ``choose_backend``'s rule
     over ``local_world`` ranks on this host (default: the whole world).
     ``timeout_s`` bounds each collective, so a dead rank makes the
-    others raise instead of waiting forever."""
+    others raise instead of waiting forever.  In a world already joined
+    (a second layout over the same ranks) only the groups are made, by
+    every rank in the same order; the backend is the world's."""
     if not 0 <= rank < layout.size:
         raise ValueError(f"rank {rank} outside a world of {layout.size}")
     grid = RankGrid(layout, rank, device)
     if layout.size == 1:
         return grid
-    grid.backend, grid.backend_why = choose_backend(
-        device, local_world or layout.size, backend)
-    if device.type == "cuda":
-        torch.cuda.set_device(device)
     timeout = datetime.timedelta(seconds=timeout_s)
-    store = elastic_store(layout.size, timeout) \
-        if init_method == "env://" else None
-    dist.init_process_group(
-        grid.backend, init_method=None if store else init_method,
-        store=store, rank=rank, world_size=layout.size, timeout=timeout)
+    if dist.is_initialized():
+        if (dist.get_world_size(), dist.get_rank()) != (layout.size, rank):
+            raise ValueError(
+                f"rank {rank} of a layout of {layout.size} in a running "
+                f"world where this process is rank {dist.get_rank()} of "
+                f"{dist.get_world_size()}")
+        grid.backend = dist.get_backend()
+        grid.backend_why = "the running world's"
+    else:
+        grid.backend, grid.backend_why = choose_backend(
+            device, local_world or layout.size, backend)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        store = elastic_store(layout.size, timeout) \
+            if init_method == "env://" else None
+        dist.init_process_group(
+            grid.backend, init_method=None if store else init_method,
+            store=store, rank=rank, world_size=layout.size, timeout=timeout)
+        grid.owns_world = True
     for axes in grid_axes(layout):
         for ranks in layout.groups(axes):
-            g = dist.new_group(ranks)
+            g = dist.new_group(ranks, timeout=timeout)
             if rank in ranks:
                 grid.groups[axes] = g
     return grid

@@ -21,6 +21,12 @@ the request-level engine mode (the paged-KV families, dense and moe).
     # lease-backed: the pool grants the tier-2 KV budget
     ... --requests 16 --pool scalepool --pool-accels 4 --tier2-kv-gb 1
 
+    # a (data 1, model 2) lease across two ranks, one process each:
+    # tensor-parallel engine, rank 0 prints the summary
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 2 -m repro_torch.launch.serve --requests 16 \
+        --pool scalepool --pool-accels 2 --pool-model-parallel 2
+
     # multi-tenant: N engines fair-sharing ONE physical page pool
     ... --requests 16 --tenants 3 --tier1-pages 24 --tier2-kv-gb 3
     # (+ --pool scalepool: the tenants share one lease's KV grant)
@@ -33,14 +39,25 @@ the request-level engine mode (the paged-KV families, dense and moe).
 paged KV refuses (exit 2); otherwise the fixed-batch mode runs.  Prints
 the JSON summary of ``repro.launch.serve``'s mode plus ``"device"``; the
 engine modes (``--disagg`` too) exit 0 iff no request failed OOM.
+
+Under ``torch.distributed.run`` (a world of ranks) the engine mode serves
+a ``--pool`` lease whose ``--pool-model-parallel`` is the world's size:
+every rank runs the same loop on its shards (``Engine.from_lease``), rank
+0 prints the summary plus ``"world"``, ``"mesh"`` and ``"ranks_agree"``,
+and a rank whose tokens differ from rank 0's makes every rank exit 1.
+What is not served across ranks yet (the fixed-batch mode, ``--tenants``,
+``--disagg``, a lease with a ``data`` axis over 1) exits 2 with the
+slice that brings it.
 """
 
 from __future__ import annotations
 
 import argparse
 import time
+from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.core import fabric as fb
@@ -48,6 +65,7 @@ from repro_torch.core.tiering import KVBudget
 from repro_torch.device import resolve_device
 from repro_torch.disagg import DisaggCluster, DisaggConfig, PrefillWorker
 from repro_torch.fabric import Topology, Transport
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.api import build_model
 from repro_torch.obs import Tracer, write_chrome_trace
 from repro_torch.obs.console import emit_json, warn
@@ -56,6 +74,8 @@ from repro_torch.runtime import serve as serve_rt
 from repro_torch.serve import (Engine, EngineConfig, PoolArbiter,
                                latency_summary, load_trace, run_multi_trace,
                                run_trace, synthetic_trace)
+from repro_torch.sharding.profiles import (serving_path,
+                                          serving_path_refusal)
 
 
 def _flush_trace(tracer, transports, path: str) -> dict:
@@ -112,9 +132,13 @@ def _engine_mode(args, cfg, model, device) -> int:
 
     generator = torch.Generator(device=device).manual_seed(args.seed)
     if args.pool != "none":
-        engine = Engine.from_lease(model, _lease(args), ecfg,
-                                   generator=generator, budget=budget,
-                                   tracer=tracer, device=device)
+        try:
+            engine = Engine.from_lease(model, _lease(args), ecfg,
+                                       generator=generator, budget=budget,
+                                       tracer=tracer, device=device)
+        except ValueError as e:
+            warn(str(e))
+            return 2
     else:
         engine = Engine.local(model, ecfg, generator=generator,
                               budget=budget, tracer=tracer, device=device)
@@ -125,6 +149,18 @@ def _engine_mode(args, cfg, model, device) -> int:
     _sync(device)
     wall = time.time() - t0
     stats = engine.stats()
+    ranks = {}
+    if engine.grid is not None:
+        # every rank must have drawn rank 0's tokens
+        tokens = [h.tokens for h in handles]
+        every = [None] * engine.grid.world
+        dist.all_gather_object(every, tokens)
+        ranks = {"world": engine.grid.world,
+                 "mesh": engine.grid.layout.as_dict(),
+                 "ranks_agree": all(t == every[0] for t in every)}
+        engine.grid.close()
+        if engine.grid.rank != 0:
+            return 0 if ranks["ranks_agree"] else 1
     out = {
         "arch": cfg.name, "mode": "engine",
         "lease": args.pool if args.pool != "none" else None,
@@ -134,12 +170,14 @@ def _engine_mode(args, cfg, model, device) -> int:
         "stats": stats,
         "wall_s": round(wall, 2),
         "sample_tokens": handles[0].tokens[:8] if handles else [],
+        **ranks,
     }
     if tracer is not None:
         out["trace_out"] = _flush_trace(tracer, [engine.transport],
                                         args.trace_out)
     emit_json(out)
-    return 0 if stats["failed_oom"] == 0 else 1
+    return 0 if stats["failed_oom"] == 0 and ranks.get("ranks_agree",
+                                                       True) else 1
 
 
 def _disagg_mode(args, cfg, model, device) -> int:
@@ -354,6 +392,20 @@ def _legacy_batch_mode(args, cfg, model, device) -> int:
     return 0
 
 
+def across_ranks_refusal(args) -> Optional[str]:
+    """Why this run cannot be served across a world's ranks, or None:
+    only the engine mode on a lease (``--pool``) is."""
+    path = serving_path(session=not (args.requests or args.trace),
+                        shared_fabric=args.disagg,
+                        multi_tenant=args.tenants > 1)
+    if path is not None:
+        return serving_path_refusal(path, "across ranks")
+    if args.pool == "none":
+        return ("serving across ranks takes a lease: --pool with "
+                "--pool-model-parallel set to the world's size")
+    return None
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--arch", default="qwen1.5-0.5b")
@@ -419,6 +471,13 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
+    world = mesh_lib.running_world()
+    if world["world"] > 1:
+        why = across_ranks_refusal(args)
+        if why is not None:
+            warn(why)
+            return 2
+        device = mesh_lib.rank_device(device.type, world["local_rank"])
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False

@@ -79,7 +79,7 @@ import os
 import sys
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
 
@@ -161,19 +161,6 @@ def latest_checkpoint(ckpt_dir: Path, run_id: Optional[str]
     return best
 
 
-def world_from_env() -> Optional[Dict[str, int]]:
-    """The rank, world and host-local rank ``torch.distributed.run``
-    sets, or None when run as one process."""
-    if "WORLD_SIZE" not in os.environ:
-        return None
-    world = int(os.environ["WORLD_SIZE"])
-    rank = int(os.environ.get("RANK", "0"))
-    return {"world": world, "rank": rank,
-            "local_rank": int(os.environ.get("LOCAL_RANK", str(rank))),
-            "local_world": int(os.environ.get("LOCAL_WORLD_SIZE",
-                                              str(world)))}
-
-
 def main(argv=None, failure_hook=None):
     """The CLI.  ``failure_hook(step)``, called before each step, may
     raise (an injected failure, as ``runtime.ft``'s tests inject one)."""
@@ -213,7 +200,7 @@ def main(argv=None, failure_hook=None):
     p.add_argument("--ckpt-every", type=int, default=50)
     p.add_argument("--log-every", type=int, default=10)
     args = p.parse_args(argv)
-    env = world_from_env()
+    env = mesh_lib.world_from_env()
     if env is None:
         device = resolve_device(args.device)
     else:

@@ -16,6 +16,9 @@
                                             (the dense family; None on
                                             the others)
     model.init_cache(batch, max_seq, dtype=...) -> the family's cache
+    model.cache_axes()                   -> the logical axes of its leaves
+                                            (the dense, moe and encdec
+                                            K/V; None on the others)
     model.prefill(params, batch, cache)  -> (last-position logits, cache
                                             [, enc_states for encdec])
     model.decode(params, tokens, cache, index[, enc_states])
@@ -63,6 +66,7 @@ class Model:
     prefill_at: Optional[Callable[..., Any]] = None
     decode_paged: Optional[Callable[..., Any]] = None
     param_axes: Optional[Callable[[], Any]] = None
+    cache_axes: Optional[Callable[[], Any]] = None
 
     @property
     def supports_paged_kv(self) -> bool:
@@ -100,5 +104,6 @@ def build_model(cfg: ModelConfig, *, device: DeviceLike = None) -> Model:
         loss=loss,
         param_axes=((lambda: m.param_axes(cfg)) if cfg.family == "dense"
                     else None),
+        cache_axes=getattr(m, "cache_axes", None),
         **paged,
     )

@@ -221,6 +221,7 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
 
 
 init_cache = T.init_cache
+cache_axes = T.cache_axes
 
 
 def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],

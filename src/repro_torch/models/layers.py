@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.sharding import tp
 
 # ---------------------------------------------------------------------------
 # initializers (same shapes and scales as the reference; torch's generator
@@ -294,6 +295,11 @@ def attention_fwd_paged(params, x: torch.Tensor, cfg: AttentionConfig, *,
     PLACE (the reference's ``.at[].set`` copy gives the same contents),
     then the paged kernel gathers the whole prefix through the page
     table.  Returns out (B, 1, d).
+
+    Under tensor parallelism ``cfg`` holds the rank's local heads
+    (``tp.Plan.local_attention``), the projections are its columns and
+    the pages hold its kv heads only: the scatter writes those heads,
+    and the kernel reads them.
     """
     B, S, _ = x.shape
     if S != 1:
@@ -384,10 +390,16 @@ def embed(params, tokens: torch.Tensor) -> torch.Tensor:
     return F.embedding(tokens, params["table"])
 
 
-def unembed(params, x: torch.Tensor,
-            vocab: Optional[int] = None) -> torch.Tensor:
+def unembed(params, x: torch.Tensor, vocab: Optional[int] = None,
+            plan: Optional[tp.Plan] = None) -> torch.Tensor:
     """Logits over the padded table, sliced to ``vocab``: the padded rows
-    are random, so an argmax must come after the slice."""
+    are random, so an argmax must come after the slice.  Under a plan
+    with a ``model`` axis over 1 the table is the rank's rows of the
+    padded vocab and the logits are its columns, unsliced: the last
+    rank's hold padded columns, which ``tp.vocab_parallel_argmax`` and
+    ``tp.vocab_parallel_cross_entropy`` leave out."""
+    if plan is not None and plan.model_n > 1:
+        return tp.copy_to_model(x, plan) @ params["table"].t()
     logits = x @ params["table"].t()
     if vocab is not None and vocab != logits.shape[-1]:
         logits = logits[..., :vocab]

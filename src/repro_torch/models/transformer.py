@@ -12,11 +12,14 @@ inside, so the gradients reach the masters.  KV caches and page pools
 are updated in place.
 
 Under a tensor-parallel / FSDP plan (``repro_torch.sharding.tp``: the
-rules and rank grid of the training step) the parameters are this
-rank's blocks (``param_axes``, the reference's logical names): attention
-runs on ``n_heads / model`` and ``n_kv_heads / model`` local heads, the
-MLP is Megatron column -> row over ``ff``, the table's vocab rows are
-split over ``model`` (the lookup and the loss are vocab-parallel), and
+rules and rank grid of the training step, or of the serving engine on a
+``model``-axis lease) the parameters are this rank's blocks
+(``param_axes``, the reference's logical names): attention runs on
+``n_heads / model`` and ``n_kv_heads / model`` local heads (the KV
+caches and page pools hold the local kv heads, ``cache_axes``), the MLP
+is Megatron column -> row over ``ff``, the table's vocab rows are split
+over ``model`` (the lookup, the loss and the logits are vocab-parallel:
+``prefill_at`` and ``decode_paged`` return the rank's columns), and
 FSDP's ``embed``-sharded leaves are gathered over ``data`` where they
 are used: a layer's at the top of ``block_fwd`` (again in a remat
 recompute), the table once a step in ``lm_loss``.
@@ -121,13 +124,20 @@ def block_fwd_paged(params, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, page_table: torch.Tensor,
                     lengths: torch.Tensor) -> torch.Tensor:
-    """``block_fwd`` for decode over a paged KV pool (one token/row)."""
+    """``block_fwd`` for decode over a paged KV pool (one token/row);
+    under a plan, attention on the rank's local heads over its pages
+    (its kv heads) and the MLP column -> row, as ``block_fwd``."""
+    plan = tp.plan()
+    acfg = attn_config(cfg)
+    if plan is not None:
+        acfg = plan.local_attention(acfg)
     h = L.apply_norm(x, params["norm1"], cfg.norm_type)
     attn_out = L.attention_fwd_paged(
-        params["attn"], h, attn_config(cfg), positions=positions,
-        k_pages=k_pages, v_pages=v_pages, page_table=page_table,
-        lengths=lengths)
-    return _mlp_residual(params, x, h, attn_out, cfg)
+        params["attn"], tp.copy_to_model(h, plan), acfg,
+        positions=positions, k_pages=k_pages, v_pages=v_pages,
+        page_table=page_table, lengths=lengths)
+    attn_out = tp.reduce_from_model(attn_out, plan)
+    return _mlp_residual(params, x, h, attn_out, cfg, plan)
 
 
 # ---------------------------------------------------------------------------
@@ -239,7 +249,9 @@ def _remat_block(layer, x, cfg: ModelConfig, positions) -> torch.Tensor:
 
 
 def logits_fn(params, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
-    return L.unembed(params["embedding"], hidden, cfg.vocab)
+    """Logits of ``hidden``; under a plan the rank's columns of the
+    padded vocab (``layers.unembed``)."""
+    return L.unembed(params["embedding"], hidden, cfg.vocab, tp.plan())
 
 
 def lm_loss(forward_fn, params, cfg: ModelConfig,
@@ -271,7 +283,7 @@ def _lm_loss_tp(forward_fn, params, cfg: ModelConfig, batch, remat: bool,
     params["embedding"] = tp.gather_params(params["embedding"],
                                            axes["embedding"], plan, dtype)
     hidden = forward_fn(params, cfg, batch, remat=remat)[0]
-    logits = tp.copy_to_model(hidden, plan) @ params["embedding"]["table"].t()
+    logits = L.unembed(params["embedding"], hidden, plan=plan)
     return tp.vocab_parallel_cross_entropy(logits, batch["labels"],
                                            batch.get("mask"), cfg.vocab, plan)
 
@@ -289,10 +301,22 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device: DeviceLike = None
                ) -> Dict[str, torch.Tensor]:
+    """Zero K/V caches (L, batch, max_seq, KV, hd); under a plan the
+    rank's kv heads, ``KV / model`` (``cache_axes``: ``kv_heads``)."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    plan = tp.plan()
+    kv = cfg.n_kv_heads // (plan.model_n if plan is not None else 1)
+    shape = (cfg.n_layers, batch, max_seq, kv, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype_of(dtype), device=dev),
             "v": torch.zeros(shape, dtype=dtype_of(dtype), device=dev)}
+
+
+def cache_axes() -> Dict[str, Any]:
+    """The logical axes of ``init_cache``'s leaves (and of the engine's
+    page pools, whose ``batch`` is the page and ``seq_kv`` the slot in
+    it): the reference's."""
+    ax = ("layers", "batch", "seq_kv", "kv_heads", "head_dim")
+    return {"k": ax, "v": ax}
 
 
 def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
@@ -338,7 +362,9 @@ def decode_paged(params, cfg: ModelConfig, tokens: torch.Tensor,
     device-side physical page pool shared by every sequence, updated in
     place; page_table: (B, PMAX) int32 logical->physical; lengths: (B,)
     int32 current KV length per row (idle rows: 0 + trash-page table
-    entries).  Returns (logits (B, 1, V), pools).
+    entries).  Returns (logits (B, 1, V), pools); under a plan the pools
+    hold the rank's kv heads and the logits are its columns of the
+    padded vocab.
     """
     x = _embed_inputs(params, cfg, {"tokens": tokens})
     positions = lengths.long()[:, None]                     # (B, 1)

@@ -6,10 +6,14 @@ needs to *use* it: the devices it runs on, a logical mesh shape that
 mirrors the lease's pod topology, and a ``TieringPolicy`` that routes
 state to the capacity tier exactly when the lease carries a tier-2
 reservation.  ``materialize`` returns a ``LeaseBinding`` (devices, mesh
-shape and axes, policy) where the reference builds a ``jax`` mesh: the
-port runs on one card, so the shape is bookkeeping the lease==local
-contract keeps, not a device layout.  Elastic grow/shrink produces a
-re-sharding plan via ``repro_torch.ckpt.elastic.resize_plan``.
+shape and axes, policy) where the reference builds a ``jax`` mesh.  In a
+process of its own the binding is the devices it names (one, for every
+path that serves); in a world of ranks (``torch.distributed``, one
+process a rank) it is the rank's device and the lease's mesh shape over
+the world, and ``LeaseBinding.join`` makes the rank grid
+(``repro_torch.launch.mesh``) the engine shards the model over.  Elastic
+grow/shrink produces a re-sharding plan via
+``repro_torch.ckpt.elastic.resize_plan``.
 
 ``ResourcePool`` is the user-facing facade: build one over an inventory,
 take leases, hand them to ``Engine.from_lease`` /
@@ -28,6 +32,7 @@ from repro_torch.analysis import tiebreak
 from repro_torch.ckpt.elastic import resize_plan
 from repro_torch.core.tiering import KVBudget, TieringPolicy
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.pool.allocator import (Allocation, AllocationError, Allocator,
                                   JobRequest)
 from repro_torch.pool.inventory import Inventory, build_inventory
@@ -46,12 +51,17 @@ def _largest_divisor_leq(n: int, cap: int) -> int:
 class LeaseBinding:
     """What ``Lease.materialize`` binds: the devices the runtime runs on
     (the first is the engine's), the logical mesh ``shape`` / ``axes``
-    of ``Lease.mesh_shape`` over them, and the lease's tiering policy."""
+    of ``Lease.mesh_shape`` over them, and the lease's tiering policy.
+    In a world of ranks: ``devices`` is this rank's, ``shape`` spans the
+    ``world``, and ``rank`` / ``local_world`` place this process."""
 
     devices: Tuple[torch.device, ...]
     shape: Tuple[int, ...]
     axes: Tuple[str, ...]
     policy: TieringPolicy
+    world: int = 1
+    rank: int = 0
+    local_world: int = 1
 
     @property
     def device(self) -> torch.device:
@@ -60,6 +70,20 @@ class LeaseBinding:
     @property
     def axis_names(self) -> Tuple[str, ...]:
         return self.axes
+
+    @property
+    def layout(self) -> mesh_lib.Layout:
+        return mesh_lib.Layout(self.shape, self.axes)
+
+    def join(self, timeout_s: float = mesh_lib.DEFAULT_TIMEOUT_S
+             ) -> mesh_lib.RankGrid:
+        """This rank's grid over the binding's world: the running process
+        group's (its groups made here, by every rank), else one joined
+        through ``torch.distributed.run``'s environment."""
+        return mesh_lib.init_grid(self.layout, rank=self.rank,
+                                  device=self.device,
+                                  local_world=self.local_world,
+                                  timeout_s=timeout_s)
 
 
 @dataclass(frozen=True)
@@ -225,8 +249,22 @@ class Lease:
 
         ``devices``: optional explicit device list (``["cpu"]`` to run on
         the CPU); the default is every visible card, and without CUDA
-        that raises, as every entry point of the port does.
+        that raises, as every entry point of the port does.  In a world
+        of ranks (``launch.mesh.running_world``: a running process
+        group, or ``torch.distributed.run``'s environment) the binding
+        is this rank's device of the type ``devices`` names (default
+        the card: ``launch.mesh.rank_device``) and the mesh shape over
+        the world.
         """
+        world = mesh_lib.running_world()
+        if world["world"] > 1:
+            kind = (resolve_device(devices[0]).type if devices
+                    else "cuda")
+            dev = mesh_lib.rank_device(kind, world["local_rank"])
+            shape, axes = self.mesh_shape(world["world"])
+            return LeaseBinding((dev,), shape, axes, self.tiering_policy(),
+                                world=world["world"], rank=world["rank"],
+                                local_world=world["local_world"])
         if devices is not None:
             devs = [resolve_device(d) for d in devices]
         else:

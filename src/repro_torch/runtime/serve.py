@@ -95,10 +95,13 @@ def make_lease_session(model: Model, shape: ShapeConfig, lease, *,
     The reference also derives sharding rules for ``shape`` from the
     lease's mesh and scopes its jitted steps to them; one device has
     nothing to shard, so the port keeps ``shape`` as a record only, and
-    refuses a lease whose mesh has a ``model`` axis over 1
-    (``profiles.grid_refusal``)."""
+    refuses a lease whose mesh has a ``model`` axis over 1 or that binds
+    a world of ranks (``profiles.grid_refusal``, path ``"session"``:
+    the steps under the lease's rules are a later slice; the
+    request-level engine serves such a lease)."""
     binding = lease.materialize(None if device is None else [device])
-    why = grid_refusal(binding, None, serving=True)
+    why = grid_refusal(binding, None, model.cfg, serving=True,
+                       path="session")
     if why is not None:
         raise ValueError(why)
     if binding.device.type != model.device.type:

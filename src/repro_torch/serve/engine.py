@@ -52,6 +52,17 @@ tensors live on the arbiter (``self._pool`` reads and writes them), and
 the pressure/resume decisions.  A lone tenant's allowance is the whole
 pool, so it behaves bit for bit as a private engine.
 
+Under a ``model``-axis lease (``Engine.from_lease`` in a world of
+ranks, one process a rank; ``repro_torch.sharding.tp``) every rank runs
+this same host loop on its shards of the model: attention on its local
+heads over a page pool of its kv heads, the MLP column -> row, the
+vocab's logits split over ``model`` and the greedy token taken by
+``tp.vocab_parallel_argmax``, the same int on every rank.  Tokens alone
+fix the schedule, so every rank pages, spills and fetches alike (each
+moving its own head shard) and keeps the reference's modeled clocks;
+``page_bytes`` stays the whole model's, so tier-2 charges are the
+reference's too.
+
 The pool tensors are updated IN PLACE (``copy_``, ``index_copy_``,
 ``index_put_``) where the reference builds functional copies; the pool
 contents are the same.
@@ -59,6 +70,7 @@ contents are the same.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from collections import deque
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -69,12 +81,15 @@ import torch
 from repro_torch.core.tiering import KVBudget, PagedKV
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.api import Model
+from repro_torch.models.config import ShapeConfig
 from repro_torch.models.transformer import dtype_of
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import CAT_ENGINE, CAT_KV, CAT_REQUEST, resolve
 from repro_torch.serve.api import (EngineConfig, Request, RequestHandle,
                                    RequestStatus, ServeCostModel)
-from repro_torch.sharding.profiles import grid_refusal
+from repro_torch.sharding import partition, tp
+from repro_torch.sharding.profiles import (grid_refusal, make_rules,
+                                          serving_path)
 
 
 def _pow2_buckets(start: int, cap: int) -> List[int]:
@@ -187,13 +202,17 @@ class Engine:
                  budget: Optional[KVBudget] = None,
                  cost_model: Optional[ServeCostModel] = None,
                  arbiter=None, tenant: Optional[str] = None,
-                 transport=None, route=None, tracer=None):
+                 transport=None, route=None, tracer=None,
+                 plan: Optional[tp.Plan] = None):
         if not model.supports_paged_kv:
             raise NotImplementedError(
                 f"Engine serves through the paged decode kernel, which "
                 f"{model.cfg.family!r} does not implement")
         self.model = model
         self.device = device
+        # tensor parallelism: ``params`` are this rank's blocks, and every
+        # model call runs under the plan's rules and grid (``_scope``)
+        self.plan = plan
         self.params = model.load(params)       # cast once, at load
         self.cfg = cfg
         # tier-2 transfer routing: a shared Transport (+ this engine's
@@ -221,9 +240,14 @@ class Engine:
                 raise NotImplementedError(
                     f"paged serving expects (layers, batch=1, seq, ...) "
                     f"KV cache leaves, got {tuple(leaf.shape)}")
+        # the whole model's page: every tier-2 charge and byte budget is
+        # the reference's, whatever share of the heads this rank holds
         slot_bytes = sum(l.numel() * l.element_size()
                          for l in slot_shapes.values())
         page_bytes = slot_bytes * cfg.page_size / max(1, cfg.max_seq)
+        with self._scope():
+            local_shapes = model.init_cache(1, cfg.max_seq, dtype=dt,
+                                            device="meta")
 
         full = budget or KVBudget(page_size=cfg.page_size)
         self.arbiter = arbiter
@@ -262,7 +286,7 @@ class Engine:
                 name: torch.zeros((l.shape[0], self.kv.num_pages + 1,
                                    cfg.page_size) + tuple(l.shape[3:]),
                                   dtype=l.dtype, device=device)
-                for name, l in slot_shapes.items()}
+                for name, l in local_shapes.items()}
         self._table = np.full((cfg.max_slots, cfg.pages_per_slot),
                               self._trash, np.int32)
         self._lengths = np.zeros(cfg.max_slots, np.int32)
@@ -293,6 +317,18 @@ class Engine:
         self._buckets_used: set = set()
         self._row_buckets = _pow2_buckets(1, cfg.max_slots)
         self._row_buckets_used: set = set()
+
+    def _scope(self):
+        """The rules and rank grid every model call runs under (the
+        reference's ``_scoped``); nothing without a plan."""
+        if self.plan is None:
+            return contextlib.nullcontext()
+        return partition.use_rules(self.plan.rules, self.plan.grid)
+
+    @property
+    def grid(self):
+        """The rank grid of a ``model``-axis lease, or None."""
+        return None if self.plan is None else self.plan.grid
 
     @property
     def _track(self) -> str:
@@ -374,18 +410,35 @@ class Engine:
                    arbiter=None, tenant: Optional[str] = None,
                    transport=None, route=None, tracer=None,
                    device: DeviceLike = None) -> "Engine":
-        """Bind a ``repro_torch.pool.Lease``: the engine runs on the first
-        device ``lease.materialize()`` binds (``device=`` picks it, e.g.
-        ``"cpu"``), and the lease's tier-2 KV grant becomes the engine's
+        """Bind a ``repro_torch.pool.Lease``: the lease's mesh shapes the
+        sharding rules (``make_rules`` for decode, FSDP off, as the
+        reference's) and its tier-2 KV grant becomes the engine's
         ``KVBudget.tier2_bytes`` — serving capacity is composed by the
-        orchestrator, not hard-coded per deployment.  The reference also
-        derives sharding rules from the lease's mesh and scopes its jit
-        programs to them; on one device there is nothing to shard, so
-        the port has no counterpart of that step, and a lease whose mesh
-        has a ``model`` axis over 1 (several cards bound) is refused
-        (``profiles.grid_refusal``)."""
+        orchestrator, not hard-coded per deployment.
+
+        In a process of its own the engine runs on the first device
+        ``lease.materialize()`` binds (``device=`` picks it, e.g.
+        ``"cpu"``).  In a world of m ranks on a ``(data 1, model m)``
+        lease each rank joins the grid (``LeaseBinding.join``) and serves
+        its shards of ``params`` (the full tree, default
+        ``model.init(generator)``, cut here): tensor parallelism over
+        ``model`` (``repro_torch.sharding.tp``).  Refused
+        (``profiles.grid_refusal``), each naming the slice that brings
+        it: a ``model`` axis over 1 outside a world of as many ranks, a
+        ``data`` or ``pod`` axis over 1 across ranks, a family or head
+        count the rules do not shard, and a multi-tenant (``arbiter``,
+        a lease with tenants) or shared-fabric (``transport``) engine
+        under ``model``."""
         binding = lease.materialize(None if device is None else [device])
-        why = grid_refusal(binding, None, serving=True)
+        rules = make_rules(model.cfg, ShapeConfig(
+            "engine", "decode", cfg.max_seq, cfg.max_slots), binding,
+            fsdp=False)
+        path = serving_path(
+            multi_tenant=arbiter is not None or bool(getattr(
+                lease, "tenants", ())),
+            shared_fabric=transport is not None)
+        why = grid_refusal(binding, rules, model.cfg, serving=True,
+                           path=path)
         if why is not None:
             raise ValueError(why)
         dev = binding.device
@@ -404,11 +457,16 @@ class Engine:
                 budget = KVBudget(tier1_pages=base.tier1_pages,
                                   tier2_bytes=base.tier2_bytes,
                                   page_size=cfg.page_size)
+        plan = tp.make_plan(binding.join(), rules) \
+            if binding.world > 1 else None
         if params is None:
             params = model.init(generator)
+        if plan is not None:
+            params = tp.shard_params(params, model.param_axes(), plan)
         return cls(model, params, cfg, device=dev, budget=budget,
                    cost_model=cost_model, arbiter=arbiter, tenant=tenant,
-                   transport=transport, route=route, tracer=tracer)
+                   transport=transport, route=route, tracer=tracer,
+                   plan=plan)
 
     # ---- client API ------------------------------------------------------
     def submit(self, request: Request) -> RequestHandle:
@@ -898,14 +956,16 @@ class Engine:
         self._buckets_used.add(bucket)
         tokens = torch.zeros((1, bucket), dtype=torch.long)
         tokens[0, :plen] = torch.as_tensor(prompt)
-        slot_cache = self.model.init_cache(1, bucket,
-                                           dtype=self._cache_dtype)
-        logits, cache = self.model.prefill_at(
-            self.params, {"tokens": tokens.to(self.device)}, slot_cache,
-            plen - 1)
+        with self._scope():
+            slot_cache = self.model.init_cache(1, bucket,
+                                               dtype=self._cache_dtype)
+            logits, cache = self.model.prefill_at(
+                self.params, {"tokens": tokens.to(self.device)}, slot_cache,
+                plen - 1)
+            tok = int(tp.vocab_parallel_argmax(
+                logits[0, -1], self.model.cfg.vocab, self.plan))
         # the padded tail is real (wasted) compute on hardware: charge it
         cost = self.cost.prefill_s(bucket)
-        tok = int(torch.argmax(logits[0, -1]))
         return bucket, tok, cache, cost
 
     def _prefill_into(self, st: _SlotState, slot: int,
@@ -1040,9 +1100,12 @@ class Engine:
                                dtype=torch.long).to(dev)
         table = torch.as_tensor(self._table[sel]).to(dev)
         lengths = torch.as_tensor(self._lengths[sel]).to(dev)
-        logits, _ = self.model.decode_paged(self.params, toks, self._pool,
-                                            table, lengths)
-        new_toks = torch.argmax(logits[:, -1, :], dim=-1).cpu().numpy()
+        with self._scope():
+            logits, _ = self.model.decode_paged(self.params, toks,
+                                                self._pool, table, lengths)
+            new_toks = tp.vocab_parallel_argmax(
+                logits[:, -1, :], self.model.cfg.vocab,
+                self.plan).cpu().numpy()
         pos = {slot: i for i, slot in enumerate(rows)}
         cost = self.cost.decode_s(len(running))
         at = self.clock + elapsed + cost

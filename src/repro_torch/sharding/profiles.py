@@ -21,8 +21,9 @@ tuple of sizes): the port's ``launch.mesh.Layout`` and ``RankGrid``
 serve it.  The training step reads ``batch`` for each rank's rows, and
 for the dense family the parameters' entries: ``model`` (tensor
 parallelism) and ``embed`` (FSDP) place each leaf's block
-(``partition.tree_shardings``); ``grid_refusal`` says what waits for a
-later slice.
+(``partition.tree_shardings``); the serving engine on a ``model``-axis
+lease reads the decode table's (``kv_heads`` over ``model``, FSDP off);
+``grid_refusal`` says what waits for a later slice.
 """
 
 from __future__ import annotations
@@ -58,38 +59,86 @@ def hierarchical_unsafe(cfg: ModelConfig) -> Optional[str]:
     return None
 
 
+# the serving paths that stay refused across ranks, each with the
+# ROADMAP item (Queue A) that brings it
+SERVING_LATER = {
+    "session": ("the fixed-batch session (runtime.serve."
+                "make_lease_session)", "3c.1"),
+    "multi-tenant": ("a multi-tenant engine (a PoolArbiter or a lease "
+                     "with tenants)", "3c.2"),
+    "shared-fabric": ("a disaggregated or co-resident engine (a shared "
+                      "transport)", "3c.2"),
+}
+
+
+def serving_path(*, session: bool = False, multi_tenant: bool = False,
+                 shared_fabric: bool = False) -> Optional[str]:
+    """The ``SERVING_LATER`` path of a serving run, or None for the
+    request-level engine alone: the fixed-batch session, then a shared
+    transport, then tenants."""
+    return ("session" if session else "shared-fabric" if shared_fabric
+            else "multi-tenant" if multi_tenant else None)
+
+
+def serving_path_refusal(path: str, where: str) -> str:
+    """Why ``path`` of ``SERVING_LATER`` does not serve ``where`` (e.g.
+    "across ranks"): the later slice that brings it."""
+    what, item = SERVING_LATER[path]
+    return (f"{what} {where} comes with a later slice of the port "
+            f"(ROADMAP Queue A {item})")
+
+
 def grid_refusal(mesh, rules: Optional[Rules],
                  cfg: Optional[ModelConfig] = None, *,
-                 serving: bool = False) -> Optional[str]:
+                 serving: bool = False,
+                 path: Optional[str] = None) -> Optional[str]:
     """Why the port cannot run ``cfg`` on ``mesh`` (anything with
     ``axis_names`` and ``shape``: a ``RankGrid``, a ``Layout``, a lease's
     ``LeaseBinding``) with ``rules``, or None.  Tensor parallelism over
     ``model`` and FSDP (``embed`` on a mesh axis) run the dense family's
-    training step (``repro_torch.sharding.tp``); what waits for a later
-    slice is: attention heads or kv heads that do not divide the
-    ``model`` axis (the reference's context-parallel ``seq_attn``
-    fallback), the moe, ssm, hybrid and encdec families under a
-    ``model`` axis over 1 or FSDP, and ``serving`` under a ``model`` axis
-    over 1 (``Engine.from_lease`` and ``runtime.serve.make_lease_session``
-    ask, on the mesh their lease binds: one device has no such axis)."""
+    training step, and ``serving`` the request-level engine on a
+    ``(data 1, model m)`` lease, one rank a process
+    (``repro_torch.sharding.tp``).  What waits for a later slice is:
+    attention heads or kv heads that do not divide the ``model`` axis
+    (the reference's context-parallel ``seq_attn`` fallback), the moe,
+    ssm, hybrid and encdec families under a ``model`` axis over 1 or
+    FSDP, and, serving across ranks, a ``data`` or ``pod`` axis over 1
+    and the ``path`` of ``SERVING_LATER`` named.  A ``model`` axis over
+    1 outside a world of as many ranks (``mesh.world``: a lease binding
+    several cards to one process) is refused: a lease never serves on
+    one card alone."""
     sizes = axis_sizes(mesh)
     model_n = sizes.get("model", 1)
     embed = rules.table.get("embed") if rules is not None else None
     embed = (embed,) if isinstance(embed, str) else tuple(embed or ())
     fsdp = any(sizes.get(a, 1) > 1 for a in embed)
-    if serving and model_n > 1:
-        return (f"serving under a model axis of {model_n} (tensor "
-                f"parallelism) comes with a later slice of the port")
+    world = getattr(mesh, "world", 1)
+    if serving and (model_n > 1 or world > 1):
+        over = {a: n for a, n in sizes.items() if a != "model" and n > 1}
+        if over:
+            what = " and ".join(f"a {a} axis of {n}" for a, n in over.items())
+            return (f"serving with {what} (replicas of the engine across "
+                    f"ranks) comes with a later slice of the port (ROADMAP "
+                    f"Queue A 3c.3); this one serves on (data 1, model m)")
+        if world != model_n:
+            return (f"serving under a model axis of {model_n} needs a world "
+                    f"of {model_n} ranks, one process each "
+                    f"(torch.distributed.run), not {world}: a lease never "
+                    f"serves on one card alone")
+        if path is not None:
+            return serving_path_refusal(path,
+                                        f"under a model axis of {model_n}")
     if cfg is None or (model_n == 1 and not fsdp):
         return None
     what = " and ".join(
         w for w, on in ((f"tensor parallelism (a model axis of {model_n})",
                          model_n > 1), ("FSDP", fsdp)) if on)
     if cfg.family != "dense":
-        later = {"moe": "expert parallelism",
-                 "ssm": "the ssm_* sharding rules",
-                 "hybrid": "the ssm_* sharding rules",
-                 "encdec": "the encoder-decoder's sharded step"}
+        later = {"moe": "expert parallelism (ROADMAP Queue A 3d)",
+                 "ssm": "the ssm_* sharding rules (ROADMAP Queue A 3e)",
+                 "hybrid": "the ssm_* sharding rules (ROADMAP Queue A 3e)",
+                 "encdec": "the encoder-decoder's sharded step (ROADMAP "
+                           "Queue A 3f)"}
         return (f"{cfg.name}: the {cfg.family} family under {what} needs "
                 f"{later.get(cfg.family, 'its sharded step')}, which comes "
                 f"with a later slice of the port; this one shards the dense "
@@ -98,7 +147,8 @@ def grid_refusal(mesh, rules: Optional[Rules],
         return (f"{cfg.name}: {cfg.n_heads} heads and {cfg.n_kv_heads} kv "
                 f"heads do not both divide a model axis of {model_n}; the "
                 f"reference's context-parallel seq_attn fallback for "
-                f"tensor parallelism comes with a later slice of the port")
+                f"tensor parallelism comes with a later slice of the port "
+                f"(ROADMAP Queue A 3g)")
     return None
 
 

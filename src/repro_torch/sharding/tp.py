@@ -1,6 +1,7 @@
 """Tensor parallelism over the grid's ``model`` axis and FSDP over its
 ``data`` axis, as explicit collectives (what GSPMD inserts in the
-reference's sharded training step).
+reference's sharded training step and in its engine's programs on a
+lease's mesh).
 
 A model reads the ``Plan`` of the rules and rank grid in force
 (``partition.use_rules(rules, grid)``; ``plan()`` is None without them
@@ -25,7 +26,12 @@ counted by ``repro_torch.core.hierarchy``:
   all-reduced over ``model``, in fp32.  The table has
   ``cfg.padded_vocab`` rows; the reference slices the logits to
   ``vocab`` before its loss, so the padded columns are left out of the
-  log-sum-exp here.
+  log-sum-exp here;
+* ``vocab_parallel_argmax``: the serving engine's greedy token over the
+  rank's columns of the logits: each rank's best value and its global
+  index, gathered over ``model``, the largest value winning and the
+  lowest index among equals (``torch.argmax``'s rule on the whole row),
+  the padded columns never.
 
 The collectives run in program order, the same on every rank of a
 group; a remat recompute (``transformer.remat``) re-runs the forward's
@@ -89,6 +95,14 @@ def make_plan(grid, rules: Optional[partition.Rules]) -> Optional[Plan]:
 def plan() -> Optional[Plan]:
     """The plan in force (``partition.use_rules``), or None."""
     return make_plan(partition.current_mesh(), partition.current_rules())
+
+
+def shard_params(params, axes_tree, plan_: Plan):
+    """This rank's blocks (``partition.shard_leaf``) of the full tree
+    ``params`` whose logical axes are ``axes_tree``."""
+    return partition.map_axes(
+        lambda axes, t: partition.shard_leaf(t, plan_.block(axes)),
+        axes_tree, params)
 
 
 # ---------------------------------------------------------------------------
@@ -260,3 +274,35 @@ def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     start = plan_.model_index * logits.shape[-1]
     return _VocabParallelCE.apply(logits, labels, mask, start, vocab,
                                   plan_.grid)
+
+
+def vocab_parallel_argmax(local_logits: torch.Tensor, vocab: int,
+                          plan_: Optional[Plan]) -> torch.Tensor:
+    """The greedy token of each row of logits whose columns (the padded
+    vocab's, in rank order) are split over ``model``: ``local_logits``
+    (..., V_pad / model) are this rank's.  Columns at or beyond
+    ``vocab`` (the table's random padding) never win.  Each rank takes
+    its best column (the first of equals) and its global index; one
+    all-gather over ``model`` brings every rank's pair, in float64,
+    which holds any fp32 or bf16 logit and any index exactly; the
+    largest value wins, and among equals the lowest rank, whose columns
+    come first: ``torch.argmax`` over the whole row.  Every rank returns
+    the same int64 tensor (...,).  Without a plan, or with a ``model``
+    axis of 1, it is ``torch.argmax`` of the first ``vocab`` columns."""
+    if plan_ is None or plan_.model_n == 1:
+        return torch.argmax(local_logits[..., :vocab], dim=-1)
+    V = local_logits.shape[-1]
+    start = plan_.model_index * V
+    lf = local_logits
+    if start + V > vocab:
+        lf = lf[..., :max(vocab - start, 0)]
+    if lf.shape[-1]:
+        index = torch.argmax(lf, dim=-1)
+        value = torch.gather(lf, -1, index[..., None])[..., 0]
+        pair = torch.stack([value.double(), (index + start).double()], -1)
+    else:                       # a rank holding only padded columns
+        pair = torch.full(local_logits.shape[:-1] + (2,), float("-inf"),
+                          dtype=torch.float64, device=local_logits.device)
+    every = hierarchy.all_gather_dim(pair[None], plan_.grid, MODEL, 0)
+    best = torch.argmax(every[..., 0], dim=0)
+    return torch.gather(every[..., 1], 0, best[None])[0].long()

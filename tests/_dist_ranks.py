@@ -50,8 +50,9 @@ def _save(out_dir, name, rank, obj) -> None:
 def hierarchy(out_dir, seed: int = 0):
     """The collectives on a (pod 2, data 2, model 1) grid: flat and
     hierarchical all-reduce of each rank's rows, the compressed mean of
-    each pod's vector with its residual, 20 error-feedback steps, and the
-    byte counter under the three gradient schedules."""
+    each pod's vector with its residual, 20 error-feedback steps, the
+    byte counter under the three gradient schedules, and all-reduces on
+    both sides of ``EXCHANGE_BYTES``."""
     grid = _grid(*POD_GRID)
     r, out = grid.rank, {}
     x = torch.arange(32.0).reshape(8, 4)[2 * r:2 * r + 2]
@@ -82,6 +83,15 @@ def hierarchy(out_dir, seed: int = 0):
         fn()
         out[f"bytes_{name}"] = dict(grid.stats.moved_bytes)
         out[f"pod_bytes_{name}"] = grid.stats.axis_bytes("pod")
+    # all-reduces at the exchange's bound and one element over (gloo's
+    # ring), of each rank's seeded fp32 vector
+    for name, n in (("exchange", h.EXCHANGE_BYTES // 4),
+                    ("ring", h.EXCHANGE_BYTES // 4 + 1)):
+        v = torch.from_numpy(np.random.default_rng(seed + r).standard_normal(
+            n).astype(np.float32))
+        for op in ("sum", "max"):
+            out[f"{name}_{op}"] = h.all_reduce(v.clone(), grid,
+                                               ("pod", "data"), op=op)
     _save(out_dir, "hierarchy", r, out)
     grid.close()
 
@@ -474,3 +484,78 @@ def ckpt_read(out_dir, layout: str, fsdp: bool, src: str,
         "restored": tree, "step": extra["step"],
         "blocks": partition.tree_shardings(grid, rules, axes)})
     grid.close()
+
+
+# ---------------------------------------------------------------------------
+# serving under a model-axis lease (tests/test_torch_serve_tp.py)
+# ---------------------------------------------------------------------------
+
+def _join_world():
+    """The running world over the ``file://`` store: the engine's grid is
+    formed inside it (``LeaseBinding.join``)."""
+    import datetime
+    import torch.distributed as dist
+    dist.init_process_group(
+        "gloo", init_method=os.environ["DIST_INIT"],
+        rank=int(os.environ["RANK"]), world_size=int(os.environ["WORLD_SIZE"]),
+        timeout=datetime.timedelta(seconds=100))
+    return dist
+
+
+def serve_tp(out_dir, vocab: int, n_requests: int, prompt_len: int,
+             max_new: int, slots: int, max_seq: int, page_size: int,
+             tier1_pages: int, tier2_bytes: float, argmax_cases: str = ""):
+    """The request-level engine from a ``(data 1, model m)`` lease on this
+    world of m ranks, qwen1.5-0.5b smoke in fp32 with the reference's
+    parameters (``<out_dir>/params.pkl``) over a burst trace; writes the
+    tokens, clocks, stats, the Chrome trace and the page pool.  With
+    ``argmax_cases`` (an ``.npz`` of full logits rows and vocab sizes)
+    also ``tp.vocab_parallel_argmax`` of each case's columns of this
+    rank."""
+    from repro_torch.obs import Tracer, to_chrome_trace
+    from repro_torch.pool import smoke_pool
+    from repro_torch.serve import (Engine, EngineConfig, KVBudget,
+                                   burst_trace, latency_summary, run_trace)
+    from repro_torch.sharding import tp
+    dist = _join_world()
+    m = dist.get_world_size()
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b", smoke=True),
+                              compute_dtype="float32", vocab=vocab)
+    model = build_model(cfg, device="cpu")
+    with open(Path(out_dir) / "params.pkl", "rb") as f:
+        params = bridge.params_from_reference(pickle.load(f), "cpu")
+    lease = smoke_pool("scalepool").lease("serve-tp", m, tier2_gb=64,
+                                          kv_gb=1.0, model_parallel=m)
+    tracer = Tracer(1 << 16)
+    engine = Engine.from_lease(
+        model, lease, EngineConfig(max_slots=slots, max_seq=max_seq,
+                                   page_size=page_size),
+        params=params, budget=KVBudget(tier1_pages, tier2_bytes, page_size),
+        tracer=tracer, device="cpu")
+    trace = burst_trace(n_requests, prompt_len=prompt_len,
+                        max_new_tokens=max_new, vocab=vocab, seed=0)
+    handles = run_trace(engine, trace)
+    out = {"tokens": [h.tokens for h in handles],
+           "clocks": [(h.submit_clock, h.first_token_clock, h.done_clock)
+                      for h in handles],
+           "latency": latency_summary(handles), "stats": engine.stats(),
+           "trace": to_chrome_trace(tracer),
+           "pool": {k: v.clone() for k, v in engine._pool.items()},
+           "grid": engine.grid.describe(),
+           "collectives": dict(engine.grid.stats.calls),
+           "page_bytes": engine.kv.page_bytes}
+    if argmax_cases:
+        plan = engine.plan
+        data = np.load(argmax_cases)
+        got = []
+        for k in range(int(data["n"])):
+            full = torch.from_numpy(data[f"logits{k}"])
+            if bool(data[f"bf16{k}"]):
+                full = full.to(torch.bfloat16)
+            w = full.shape[-1] // m
+            local = full[..., plan.model_index * w:(plan.model_index + 1) * w]
+            got.append(tp.vocab_parallel_argmax(local, int(data[f"vocab{k}"]),
+                                                plan))
+        out["argmax"] = got
+    _save(out_dir, "serve_tp", engine.grid.rank, out)
+    dist.destroy_process_group()

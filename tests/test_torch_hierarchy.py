@@ -82,6 +82,30 @@ def test_flat_and_hierarchical_allreduce_equal_the_literal_sum(world):
                                    rank["flat"].numpy(), rtol=1e-6)
 
 
+@pytest.mark.parametrize("path", ["exchange", "ring"])
+@pytest.mark.parametrize("op", ["sum", "max"])
+def test_all_reduce_on_both_sides_of_the_exchange_bound(world, path, op):
+    """At ``EXCHANGE_BYTES`` gloo's all-reduce is the exchange: the sum
+    in rank order, in bits; one element over, gloo's ring: the sum within
+    fp32 rounding.  Either way every rank holds the same bits."""
+    n = h.EXCHANGE_BYTES // 4 + (path == "ring")
+    xs = [np.random.default_rng(r).standard_normal(n).astype(np.float32)
+          for r in range(4)]
+    if op == "max":
+        want = np.maximum.reduce(xs)
+    else:
+        want = xs[0].copy()
+        for x in xs[1:]:
+            want += x
+    got = [rank[f"{path}_{op}"].numpy() for rank in world]
+    for g in got:
+        assert g.tobytes() == got[0].tobytes()
+    if path == "exchange" or op == "max":
+        assert got[0].tobytes() == want.tobytes()
+    else:
+        np.testing.assert_allclose(got[0], want, rtol=1e-5, atol=1e-6)
+
+
 def test_compressed_cross_pod_mean_matches_reference(world):
     """Each rank passes its pod's vector and residual; the reference
     runs under ``vmap`` with ``axis_name="pod"`` over the stacked pods."""
