@@ -323,9 +323,34 @@ no result line):
               second and host seconds in collectives a step by (axes,
               op); the one-card tokens of phase 4 beside, reported (bf16
               rounding parts them, C-port2); (c) each rank's B1 and B3
-              at its local shapes (4 of 16 heads) against their plain
-              versions within ``TOL``.  4 ranks share one card over
-              gloo: nothing of a fabric;
+              at its local shapes (4 of 16 heads), and B3 and B2 at (d)'s
+              session shapes on each grid, against their plain versions
+              within ``TOL``; (d) the fixed-batch session
+              (``runtime.serve.make_lease_session``) on the (data 1,
+              model 4) lease and on a (data 2, model 2) lease, a second
+              grid formed in the running world: rows over ``data``,
+              heads over ``model``, the greedy token gathered over the
+              batch axes; in fp32 on the first 2 layers every step's
+              gathered logits within 1e-5 of the largest |logit| of the
+              one-card session's (rank 0 runs it) on rows whose tokens
+              agree, the tokens equal or parted at a documented tie
+              (C-ref3); in bf16 at full depth B=8 rows of 512-token
+              prompts and 32 new tokens: every rank's tokens rank 0's,
+              B2 and B3 launches exact (B3 on the tensor cores),
+              prefill and decode seconds, decode tokens per wall second
+              and host seconds in collectives by (axes, op); (e) two
+              tenants of one (data 1, model 4) lease over one
+              ``PoolArbiter`` a rank, phase 4's trace split
+              round-robin over a ``TS_MT_PAGES``-page pool that revokes
+              pages, fp32 on the first 2 layers: every rank's tokens,
+              clocks and arbiter stats equal, the pages checked after
+              every step, the trace sanitized, both tenants on one grid
+              over a pool of the rank's kv heads, every rank's B1-B3
+              launches exact (fp32 flash on the CUDA cores); held to the
+              one-card
+              two-tenant run (rank 0) in tokens (or a documented tie),
+              every handle's clocks and the arbiter's stats.  4 ranks
+              share one card over gloo: nothing of a fabric;
 5. times    - each kernel's time (CUDA graphs of back-to-back calls,
               timed with CUDA events, median of trials) beside its plain
               version, a PyTorch library call where one computes the
@@ -342,7 +367,8 @@ no result line):
               RMSNorm at 512 and 8 rows of 1024, 8 of 1536 and 3072,
               2000 of 3584 and 7168; the SSD scan at mamba2's and
               zamba2's prefill; paged at olmoe's and mixtral's 8-row
-              decode, flash at olmoe's 512 prefill and whisper's encoder
+              decode, flash at a session rank's decode (phase 13 (d)),
+              at olmoe's 512 prefill and whisper's encoder
               and cross-attention, RMSNorm at 512 and 8 rows of 2048; the
               backward kernels at phase 10's shapes: flash at olmo's and
               qwen's B=8 x S=512 in bf16 (tensor cores), at olmo's in
@@ -5152,12 +5178,15 @@ def ts_full_depth(device):
 def ts_kernels(device):
     """(c) B1 and B3 at a rank's local shapes, 4 of qwen's 16 heads: the
     engine's 8-row decode over an fp32 pool of 64-token pages and its
-    512-token prefill (bf16 q, fp32 K/V), each against its plain
+    512-token prefill (bf16 q, fp32 K/V); and (d)'s session on each
+    grid: B3 at a rank's last decode step (its rows and heads) and B2
+    over its prefill's and a decode step's rows; each against its plain
     version."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
 
     gen = torch.Generator(device=device).manual_seed(13)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -5186,11 +5215,319 @@ def ts_kernels(device):
         "max_abs_err": max_err(got, want),
         "ok": within(got, want, TOL["bfloat16"])
         and bool(torch.isfinite(got).all())}
+    # (d)'s session on each grid: a rank's last decode step (one query
+    # over the 544-token fp32 cache) and its norms over the prefill's
+    # rows and a decode step's
+    S = TS_SESSION["prompt"] + TS_SESSION["generate"]
+    for name, (accels, mp) in TS_SESSION_GRIDS.items():
+        rows, heads = TS_SESSION["batch"] * mp // accels, 16 // mp
+        q = torch.randn(rows, 1, heads, 64, generator=gen,
+                        device=device).to(bf16)
+        k, v = (torch.randn(rows, S, heads, 64, generator=gen,
+                            device=device) for _ in range(2))
+        kw = dict(causal=True, q_offset=S - 1, kv_len=S)
+        got = flash_attention(q, k, v, **kw)
+        with ops.plain_versions():
+            want = ops.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        out[f"flash_attention session {name}"] = {
+            "case": f"B={rows} Sq=1 Skv={S} q_offset={S - 1} H=KV={heads} "
+                    f"D=64 q=bf16 kv=fp32",
+            "max_abs_err": max_err(got, want),
+            "ok": within(got, want, TOL["bfloat16"])
+            and bool(torch.isfinite(got).all())}
+        for n in (rows * TS_SESSION["prompt"], rows):
+            x = torch.randn(n, 1024, generator=gen, device=device).to(bf16)
+            w = (1 + 0.1 * torch.randn(1024, generator=gen,
+                                       device=device)).to(bf16)
+            got = rmsnorm(x, w)
+            want = ref.rmsnorm_ref(x, w)
+            torch.cuda.synchronize()
+            out[f"rmsnorm session {name} rows={n}"] = {
+                "case": f"rows={n} d=1024 bf16",
+                "max_abs_err": max_err(got, want),
+                "ok": within(got, want, TOL["bfloat16"])
+                and bool(torch.isfinite(got).all())}
+    return out
+
+
+# (d): the fixed-batch session on two grids of the running world, the
+# lease's (accels, model_parallel) and mesh each; (e): two tenants of one
+# (data 1, model 4) lease over one arbiter a rank
+TS_SESSION_GRIDS = {"1x4": (4, 4), "2x2": (4, 2)}
+TS_SESSION = dict(batch=8, prompt=512, generate=32)
+TS_SESSION_GATE_GEN = 8         # (d)'s fp32 gate: generated tokens a row
+TS_MT_TENANTS = ("a", "b")
+TS_MT_PAGES = 32                # (e)'s shared tier-1 pool: revokes pages
+                                # on phase 4's trace split two ways
+
+
+def ts_session_steps(sess, params, inputs, generate, keep_logits=False):
+    """A prefill and ``generate - 1`` greedy decode steps of the session
+    over an fp32 cache: the global tokens (B, generate) on the host and,
+    with ``keep_logits``, every step's global logits (fp32, on the
+    card)."""
+    import torch
+    batch, prompt = inputs["tokens"].shape
+    cache = sess.init_cache(batch, prompt + generate, dtype=torch.float32)
+    logits, cache = sess.prefill_step(params, inputs, cache)
+    carry = {"tokens": sess.greedy(logits), "cache": cache, "index": prompt}
+    steps = [sess.gather_logits(logits)[:, -1].float()] if keep_logits \
+        else []
+    tokens = [carry["tokens"]]
+    for _ in range(generate - 1):
+        logits, carry = sess.decode_step(params, carry)
+        tokens.append(carry["tokens"])
+        if keep_logits:
+            steps.append(sess.gather_logits(logits)[:, -1].float())
+    return torch.cat(tokens, 1).cpu(), steps
+
+
+def ts_session_lease(name, model, device):
+    """``make_lease_session`` on the grid ``name`` of
+    ``TS_SESSION_GRIDS`` (its groups formed in the running world) for
+    ``TS_SESSION``'s decode shape."""
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.pool import smoke_pool
+    from repro_torch.runtime.serve import make_lease_session
+
+    accels, mp = TS_SESSION_GRIDS[name]
+    lease = smoke_pool("scalepool").lease(f"session-{name}", accels,
+                                          tier2_gb=8, kv_gb=4,
+                                          model_parallel=mp)
+    B, S, G = (TS_SESSION[k] for k in ("batch", "prompt", "generate"))
+    return make_lease_session(model, ShapeConfig("session", "decode", S + G,
+                                                 B), lease, device=device)
+
+
+def ts_session_gate(rank, device):
+    """(d) fp32 on the first ``TRAIN_CUT`` layers at full width: on each
+    grid every step's logits (gathered from the ranks) against the
+    one-card session's on the same weights and prompts (rank 0 runs
+    it), on rows whose tokens so far agree; tokens equal, or parted
+    only at a documented tie (the one-card top-2 margin within
+    ``TS_TIE_MARGIN``, C-ref3)."""
+    import torch
+    from repro_torch.launch.serve import fixed_batch_inputs
+    from repro_torch.models.api import build_model
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.runtime.serve import make_session
+
+    cfg = cut("qwen1.5-0.5b", TRAIN_CUT, compute_dtype="float32")
+    model = build_model(cfg, device=device)
+    B, S, G = TS_SESSION["batch"], TS_SESSION["prompt"], TS_SESSION_GATE_GEN
+    raw, inputs = fixed_batch_inputs(model, B, S, 0, device)
+    want = None
+    if rank == 0:
+        one = make_session(model, ShapeConfig("one", "decode", S + G, B))
+        want = ts_session_steps(one, one.load(raw), inputs, G, True)
+    out = {}
+    for name in TS_SESSION_GRIDS:
+        sess = ts_session_lease(name, model, device)
+        got = ts_session_steps(sess, sess.load(raw), inputs, G, True)
+        r = {"tokens": got[0].tolist(), "mesh": sess.grid.layout.as_dict()}
+        if want is not None:
+            same = torch.ones(B, dtype=torch.bool)
+            errs, parted = [], []
+            for k in range(G):
+                a, b = got[1][k][same], want[1][k][same]
+                if len(a):
+                    errs.append(max_err(a, b)
+                                / float(b.abs().max()))
+                for i in torch.nonzero(same & (got[0][:, k]
+                                               != want[0][:, k])).flatten():
+                    top = torch.topk(want[1][k][i], 2).values
+                    m = float(top[0] - top[1])
+                    parted.append({"row": int(i), "step": k,
+                                   "top2_margin": m,
+                                   "tie": m <= TS_TIE_MARGIN})
+                    same[i] = False
+            r["one_card"] = {"rel_err_by_step": errs,
+                             "max_rel_err": max(errs), "parted": parted}
+        sess.grid.close()
+        out[name] = r
+    del raw
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ts_session_full(device):
+    """(d) bf16 at full width and depth on each grid: ``TS_SESSION``'s
+    rows, prompts and new tokens through ``launch.serve.
+    fixed_batch_generate``; the tokens, the launches and kernel variants
+    of the run, prefill and decode seconds, decode tokens per wall
+    second, host seconds in collectives by (axes, op)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import (fixed_batch_generate,
+                                          fixed_batch_inputs)
+    from repro_torch.models.api import build_model
+    from repro_torch.sharding.profiles import describe
+
+    model = build_model(get_config("qwen1.5-0.5b"), device=device)
+    B, S, G = (TS_SESSION[k] for k in ("batch", "prompt", "generate"))
+    raw, inputs = fixed_batch_inputs(model, B, S, 0, device)
+    out = {}
+    for name in TS_SESSION_GRIDS:
+        sess = ts_session_lease(name, model, device)
+        params = sess.load(raw)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        sess.grid.stats.reset()
+        kernels.reset_launch_counts()
+        run = fixed_batch_generate(model, params, inputs, G, device, sess)
+        stats = sess.grid.stats
+        out[name] = {
+            "mesh": sess.grid.layout.as_dict(), "rows": sess.rows(B),
+            "rules": describe(sess.plan.rules),
+            "tokens": run["tokens"].tolist(),
+            "finite": run["logits_finite"],
+            "prefill_s": run["prefill_s"], "decode_s": run["decode_s"],
+            "decode_tokens_per_wall_s": run["decode_tokens_per_s"],
+            "launches": kernels.launch_counts(),
+            "variants": kernels.variant_counts(),
+            "collective_host_s": stats.seconds,
+            "collective_host_s_by_op": dict(stats.seconds_by),
+            "collective_calls": dict(stats.calls),
+            "moved_bytes": dict(stats.moved_bytes)}
+        sess.grid.close()
+        del params, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    del raw
+    return out
+
+
+def ts_tenant_engines(model, device, lease, tracer=None):
+    """Two tenants of ``lease`` (its grid when it binds one) over one
+    ``PoolArbiter`` of ``TS_MT_PAGES`` pages, phase 4's engine shape,
+    each tenant's ``kv_share`` of the lease's grant, the weights of seed
+    0; the pages checked after every engine step."""
+    import torch
+    from repro_torch.serve import Engine, PoolArbiter
+
+    ecfg, _, trace = serve_parts(model.cfg)
+    arb = PoolArbiter(TS_MT_PAGES, page_size=ecfg.page_size, tracer=tracer)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    engines = []
+    for t in TS_MT_TENANTS:
+        kw = dict(params=params, arbiter=arb, tenant=t, tracer=tracer,
+                  device=device)
+        if lease.tenants and lease.model_parallel > 1:
+            eng = Engine.from_lease(model, lease, ecfg, **kw)
+        else:
+            eng = Engine.local(model, ecfg, budget=lease.kv_share(
+                t, page_size=ecfg.page_size), **kw)
+        engines.append(eng)
+    checked = [0]
+    for eng in engines:
+        def step(orig=eng.step):
+            dt = orig()
+            arb.check_conservation()
+            checked[0] += 1
+            return dt
+        eng.step = step
+    n = len(TS_MT_TENANTS)
+    split = [trace[i::n] for i in range(n)]
+    return arb, engines, split, checked
+
+
+def ts_tenant_outcome(arb, engines, lists, checked):
+    return {"tokens": [[h.tokens for h in hs] for hs in lists],
+            "clocks": [[(h.submit_clock, h.first_token_clock, h.done_clock)
+                        for h in hs] for hs in lists],
+            "arbiter": arb.stats(), "checked": checked[0],
+            "completed": [e.stats()["completed"] for e in engines],
+            "failed_oom": [e.stats()["failed_oom"] for e in engines]}
+
+
+def ts_tenants(rank, device):
+    """(e) two tenants of one (data 1, model 4) lease over one arbiter a
+    rank, fp32 on the first ``TRAIN_CUT`` layers at full width, phase
+    4's trace split round-robin under ``TS_MT_PAGES``; rank 0 also runs
+    the one-card two-tenant run (``Engine.local`` with each tenant's
+    ``kv_share``) on the same weights.  Every rank's trace through the
+    port's sanitizer."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.analysis import sanitize_tracer
+    from repro_torch.models.api import build_model
+    from repro_torch.obs import Tracer
+    from repro_torch.pool import smoke_pool
+    from repro_torch.serve import run_multi_trace
+
+    cfg = cut("qwen1.5-0.5b", TRAIN_CUT, compute_dtype="float32")
+    model = build_model(cfg, device=device)
+    lease = smoke_pool("scalepool").lease(
+        "serve-tenants", TS_MODEL, tier2_gb=8, kv_gb=4,
+        model_parallel=TS_MODEL, tenants=TS_MT_TENANTS)
+    tracer = Tracer(1 << 20)
+    arb, engines, split, checked = ts_tenant_engines(model, device, lease,
+                                                     tracer)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    lists = run_multi_trace(list(zip(engines, split)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = ts_tenant_outcome(arb, engines, lists, checked)
+    names = [e.name for e in tracer.events()]
+    out.update({"launches": kernels.launch_counts(),
+                "variants": kernels.variant_counts(),
+                "decodes": names.count("decode"),
+                "prefills": names.count("prefill")})
+    rep = sanitize_tracer(tracer)
+    out.update({"wall_s": wall, "mesh": arb.grid.layout.as_dict(),
+                "one_grid": all(e.grid is arb.grid for e in engines),
+                "pool_kv_heads": int(arb.pool["k"].shape[3]),
+                "page_bytes": arb.page_bytes,
+                "sanitizer": {"ok": rep.ok, "events": rep.events,
+                              "violations": len(rep.violations)},
+                "trace_dropped": tracer.dropped})
+    grid = arb.grid
+    del arb, engines, lists
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        one = smoke_pool("scalepool").lease(
+            "serve-tenants", TS_MODEL, tier2_gb=8, kv_gb=4,
+            tenants=TS_MT_TENANTS)
+        arb1, engines1, split1, checked1 = ts_tenant_engines(model, device,
+                                                             one)
+        want = ts_tenant_outcome(arb1, engines1, run_multi_trace(
+            list(zip(engines1, split1))), checked1)
+        ties = []
+        for t, (a, b, reqs) in enumerate(zip(out["tokens"], want["tokens"],
+                                             split1)):
+            for i, (x, y) in enumerate(zip(a, b)):
+                step = next((k for k, (p, q) in enumerate(zip(x, y))
+                             if p != q), None)
+                if step is not None:
+                    m = top2_margin(model, engines1[0].params, device,
+                                    list(reqs[i].prompt_tokens) + y[:step])
+                    ties.append({"tenant": TS_MT_TENANTS[t], "request": i,
+                                 "step": step, "top2_margin": m,
+                                 "tie": m <= TS_TIE_MARGIN})
+        out["one_card"] = {
+            "tokens_equal": out["tokens"] == want["tokens"],
+            "divergences": ties,
+            "clocks_equal": out["clocks"] == want["clocks"],
+            "arbiter_equal": out["arbiter"] == want["arbiter"],
+            "arbiter": want["arbiter"],
+            "page_bytes": arb1.page_bytes,
+            "pool_kv_heads": int(arb1.pool["k"].shape[3])}
+        del arb1, engines1
+    grid.close()
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
 def ts_rank(rank: int) -> dict:
-    """Phase 13 in one rank of phase 12's world: (a), (b), (c)."""
+    """Phase 13 in one rank of phase 12's world: (a)-(e)."""
     import torch
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
@@ -5201,6 +5538,20 @@ def ts_rank(rank: int) -> dict:
     dp_progress(rank, "(b)", t0, {k: out["full_depth"][k] for k in (
         "wall_s", "kv", "launches")}, phase=13)
     out["kernels"] = ts_kernels(device)
+    t1 = time.perf_counter()
+    out["session_gate"] = ts_session_gate(rank, device)
+    dp_progress(rank, "(d) fp32 gate", t0, {k: v.get("one_card") for k, v
+                                             in out["session_gate"].items()},
+                phase=13)
+    out["session_full"] = ts_session_full(device)
+    dp_progress(rank, "(d) full depth", t0, {
+        k: {f: v[f] for f in ("prefill_s", "decode_s", "collective_host_s")}
+        for k, v in out["session_full"].items()}, phase=13)
+    t2 = time.perf_counter()
+    out["tenants"] = ts_tenants(rank, device)
+    dp_progress(rank, "(e)", t0, {k: out["tenants"][k] for k in (
+        "wall_s", "arbiter", "one_card") if k in out["tenants"]}, phase=13)
+    out["seconds_d_e"] = {"d": t2 - t1, "e": time.perf_counter() - t2}
     return out
 
 
@@ -5254,10 +5605,108 @@ def ts_checks(smi, per, qwen_tokens):
                             f["variants"], n["flash_attention"])
         counts[f"qwen1.5-0.5b serve tp rank {r}"] = dict(n)
     kern = [p["kernels"] for p in per]
-    emit({"phase": "tp serve", "check": "(c) B1 and B3 at a rank's shapes",
+    emit({"phase": "tp serve", "check": "(c) B1-B3 at a rank's shapes",
           "tol": TOL["bfloat16"], "per_rank": kern})
     check(all(k["ok"] for ks in kern for k in ks.values()),
           f"phase 13 (c): {kern}")
+    counts.update(ts_session_checks(smi, per))
+    counts.update(ts_tenant_checks(smi, per))
+    emit({"phase": "tp serve", "seconds_d_e": [p["seconds_d_e"]
+                                               for p in per]})
+    return counts
+
+
+def ts_session_checks(smi, per):
+    """Phase 13 (d)'s lines and checks; returns each rank's launches of
+    the bf16 run on each grid."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen1.5-0.5b")
+    L, G = cfg.n_layers, TS_SESSION["generate"]
+    counts = {}
+    for name in TS_SESSION_GRIDS:
+        gate = [p["session_gate"][name] for p in per]
+        one = gate[0]["one_card"]
+        emit({"phase": "tp serve", "check": "(d) session fp32 gate",
+              "grid": name, "mesh": gate[0]["mesh"], "nvidia_smi": smi,
+              "arch": cfg.name, "layers": TRAIN_CUT,
+              "batch": TS_SESSION["batch"], "prompt": TS_SESSION["prompt"],
+              "generate": TS_SESSION_GATE_GEN, "tol": TOL["float32"],
+              "tie_margin": TS_TIE_MARGIN, "ranks": TS_RANKS,
+              "one_card": one})
+        check(all(g["tokens"] == gate[0]["tokens"] for g in gate),
+              f"phase 13 (d) {name}: the ranks' fp32 tokens differ")
+        check(one["max_rel_err"] <= TOL["float32"]
+              and all(d["tie"] for d in one["parted"]),
+              f"phase 13 (d) {name}: against the one-card fp32 session: "
+              f"{one}")
+        full = [p["session_full"][name] for p in per]
+        f0 = full[0]
+        emit({"phase": "tp serve", "check": "(d) session full width and "
+              "depth", "grid": name, "mesh": f0["mesh"], "nvidia_smi": smi,
+              "arch": cfg.name, "layers": L, "compute": cfg.compute_dtype,
+              **TS_SESSION, "ranks": TS_RANKS, "rules": f0["rules"],
+              "per_rank": [{k: f[k] for k in f if k != "tokens"}
+                           for f in full]})
+        want = {"paged_attention": 0, "flash_attention": L * G,
+                "rmsnorm": (2 * L + 1) * G}
+        for r, f in enumerate(full):
+            n = f["launches"]
+            check(f["tokens"] == f0["tokens"] and f["finite"]
+                  and len(f["tokens"]) == TS_SESSION["batch"]
+                  and all(len(t) == G and all(0 <= x < cfg.vocab for x in t)
+                          for t in f["tokens"]),
+                  f"phase 13 (d) {name} rank {r}: tokens differ from rank "
+                  f"0's or are not {G} in the vocab a row")
+            check(all(n.get(k, 0) == v for k, v in want.items()),
+                  f"phase 13 (d) {name} rank {r}: launches {n} != {want}")
+            check_flash_variant(f"phase 13 (d) {name} rank {r}",
+                                cfg.compute_dtype, f["variants"],
+                                n["flash_attention"])
+            counts[f"qwen1.5-0.5b session {name} rank {r}"] = dict(n)
+    return counts
+
+
+def ts_tenant_checks(smi, per):
+    """Phase 13 (e)'s line and checks; returns each rank's launches."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen1.5-0.5b")
+    L = TRAIN_CUT
+    ten = [p["tenants"] for p in per]
+    t0 = ten[0]
+    one = t0["one_card"]
+    counts = {}
+    emit({"phase": "tp serve", "check": "(e) two tenants over one arbiter",
+          "nvidia_smi": smi, "arch": cfg.name, "layers": TRAIN_CUT,
+          "compute": "float32", "mesh": t0["mesh"], "pages": TS_MT_PAGES,
+          "ranks": TS_RANKS, "tie_margin": TS_TIE_MARGIN,
+          "arbiter": t0["arbiter"], "one_card": one,
+          "per_rank": [{k: t[k] for k in t if k not in (
+              "tokens", "clocks", "arbiter", "one_card")} for t in ten]})
+    for r, t in enumerate(ten):
+        check(t["tokens"] == t0["tokens"] and t["clocks"] == t0["clocks"]
+              and t["arbiter"] == t0["arbiter"] and t["one_grid"]
+              and t["sanitizer"]["ok"] and t["trace_dropped"] == 0
+              and t["checked"] > 0 and t["failed_oom"] == [0, 0]
+              and sum(t["completed"]) == 16
+              and t["pool_kv_heads"] == cfg.n_kv_heads // TS_MODEL,
+              f"phase 13 (e) rank {r}: {t}")
+        n = t["launches"]
+        check(n["paged_attention"] == t["decodes"] * L
+              and n["flash_attention"] == t["prefills"] * L
+              and n["rmsnorm"] == (t["decodes"] + t["prefills"]) * (2 * L + 1),
+              f"phase 13 (e) rank {r}: launches {n} for {t['decodes']} "
+              f"decode steps and {t['prefills']} prefills")
+        check_flash_variant(f"phase 13 (e) rank {r}", "float32",
+                            t["variants"], n["flash_attention"])
+        counts[f"qwen1.5-0.5b tenants tp rank {r}"] = dict(n)
+    check(one["clocks_equal"] and one["arbiter_equal"]
+          and all(d["tie"] for d in one["divergences"])
+          and one["pool_kv_heads"] == cfg.n_kv_heads
+          and one["page_bytes"] == t0["page_bytes"]
+          and t0["arbiter"]["revoked_pages"] > 0,
+          f"phase 13 (e): against the one-card two-tenant run: {one}")
     return counts
 
 
@@ -5454,6 +5903,15 @@ def kernel_times(device, counts, errs):
                flash_time(4, 1, 516, 32, 112, q_offset=499, kv_len=500))
     flash_line("tp rank (model 4) prefill B=1 Sq=Skv=512 H=4 D=64 q=bf16 "
                "kv=fp32", flash_time(1, 512, 512, 4, 64))
+    # a rank's decode step of phase 13 (d)'s session at its last token
+    # (512 prompt + 32 new over an fp32 cache of 544): its rows and
+    # local heads on each grid
+    for n_rows, heads, grid in ((4, 8, "data 2, model 2"),
+                              (8, 4, "data 1, model 4")):
+        flash_line(f"session rank ({grid}) decode B={n_rows} Sq=1 "
+                   f"Skv=544 q_offset=543 kv_len=544 H=KV={heads} D=64 "
+                   f"q=bf16 kv=fp32", flash_time(n_rows, 1, 544, heads, 64,
+                                                 q_offset=543, kv_len=544))
     flash_line("fp32 q B=1 Sq=Skv=512 H=16 D=64 kv=fp32",
                flash_time(1, 512, 512, 16, 64, q_dtype=f32), variant="f32")
     # the moe and encdec paths: olmoe's 512-token prefill over its bf16

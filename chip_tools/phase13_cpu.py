@@ -1,0 +1,130 @@
+"""Rehearse chip_smoke.py's phase 13 (d) and (e) on the CPU, before a
+chip call.
+
+    # the rank code of (d) and (e) in 4 spawned CPU ranks over gloo, at
+    # smoke width (the configs' ``smoke=True``): the session's fp32 gate
+    # against one process, its bf16 run on both grids, the two tenants
+    PYTHONPATH=src python chip_tools/phase13_cpu.py
+    # (e)'s schedule at full width on its first 2 layers, one process,
+    # under each tier-1 pool size given: revoked pages, revocations,
+    # recompute drops, completed requests (tokens do not move the
+    # schedule, so the card's run revokes the same pages)
+    PYTHONPATH=src python chip_tools/phase13_cpu.py --pages 24 32 40
+
+Each rank runs one torch thread; ~45 s for the first, ~30 s a pool size
+for the second.
+"""
+import argparse
+import dataclasses
+import json
+import multiprocessing
+import shutil
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+OUT = ROOT / "build" / "phase13_cpu"
+
+
+def rank_fn(rank, init):
+    import torch
+    torch.set_num_threads(1)
+    for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+        setattr(torch.cuda, name, lambda *a, **k: None)
+    import repro_torch.configs as configs
+    full = configs.get_config
+    configs.get_config = lambda name, smoke=False: full(name, smoke=True)
+    import chip_smoke as cs
+    cs.cut = lambda arch, n, **kw: dataclasses.replace(
+        full(arch, smoke=True), n_layers=n, **kw)
+    from repro_torch.launch import mesh as mesh_lib
+    grid = mesh_lib.init_grid(mesh_lib.Layout((1, 4), ("data", "model")),
+                              rank=rank, device=torch.device("cpu"),
+                              init_method=init, timeout_s=120)
+    cpu = torch.device("cpu")
+    out = {"session_gate": cs.ts_session_gate(rank, cpu),
+           "session_full": cs.ts_session_full(cpu),
+           "tenants": cs.ts_tenants(rank, cpu)}
+    grid.close()
+    (OUT / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def rehearse():
+    shutil.rmtree(OUT, ignore_errors=True)
+    OUT.mkdir(parents=True)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=rank_fn, args=(r, f"file://{OUT}/store"))
+             for r in range(4)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(600)
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        print(f"rank exit codes {codes}")
+        return 1
+    per = [json.loads((OUT / f"rank{r}.json").read_text()) for r in range(4)]
+    r0 = per[0]
+    for name, g in r0["session_gate"].items():
+        print("(d) fp32 gate", name, g.get("one_card"),
+              "ranks agree:", all(p["session_gate"][name]["tokens"]
+                                  == g["tokens"] for p in per))
+    for name, f in r0["session_full"].items():
+        print("(d) full", name, f["rows"], f["collective_calls"],
+              "ranks agree:", all(p["session_full"][name]["tokens"]
+                                  == f["tokens"] for p in per))
+    t = r0["tenants"]
+    print("(e)", {k: t[k] for k in ("arbiter", "one_card", "decodes",
+                                    "prefills", "sanitizer")},
+          "ranks agree:", all(p["tenants"]["tokens"] == t["tokens"]
+                              and p["tenants"]["clocks"] == t["clocks"]
+                              for p in per))
+    return 0
+
+
+def quota(pages_list):
+    import torch
+    torch.set_num_threads(4)
+    import chip_smoke as cs
+    from repro_torch.models.api import build_model
+    from repro_torch.pool import smoke_pool
+    from repro_torch.serve import Engine, PoolArbiter, run_multi_trace
+    cfg = cs.cut("qwen1.5-0.5b", cs.TRAIN_CUT, compute_dtype="float32")
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    ecfg, _, trace = cs.serve_parts(cfg)
+    lease = smoke_pool("scalepool").lease(
+        "serve-tenants", cs.TS_MODEL, tier2_gb=8, kv_gb=4,
+        tenants=cs.TS_MT_TENANTS)
+    n = len(cs.TS_MT_TENANTS)
+    for pages in pages_list:
+        t0 = time.perf_counter()
+        arb = PoolArbiter(pages, page_size=ecfg.page_size)
+        engines = [Engine.local(model, ecfg, params=params, arbiter=arb,
+                                tenant=t, device="cpu",
+                                budget=lease.kv_share(
+                                    t, page_size=ecfg.page_size))
+                   for t in cs.TS_MT_TENANTS]
+        run_multi_trace([(e, trace[i::n]) for i, e in enumerate(engines)])
+        print(json.dumps({"pages": pages,
+                          "revoked_pages": arb.revoked_pages,
+                          "revocations": arb.revocations,
+                          "recompute_drops": arb.recompute_drops,
+                          "completed": [e.stats()["completed"]
+                                        for e in engines],
+                          "seconds": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
+def main():
+    p = argparse.ArgumentParser()
+    p.add_argument("--pages", type=int, nargs="*")
+    args = p.parse_args()
+    return quota(args.pages) if args.pages else rehearse()
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -22,10 +22,15 @@ the request-level engine mode (the paged-KV families, dense and moe).
     ... --requests 16 --pool scalepool --pool-accels 4 --tier2-kv-gb 1
 
     # a (data 1, model 2) lease across two ranks, one process each:
-    # tensor-parallel engine, rank 0 prints the summary
+    # tensor-parallel engine, rank 0 prints the summary (+ --tenants 2
+    # --tier2-kv-gb 1: two tenants of the lease over one arbiter a rank)
     PYTHONPATH=src python -m torch.distributed.run --standalone \
         --nproc-per-node 2 -m repro_torch.launch.serve --requests 16 \
         --pool scalepool --pool-accels 2 --pool-model-parallel 2
+
+    # the fixed-batch mode on 4 ranks: (data 2, model 2)
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 4 -m repro_torch.launch.serve --batch 8
 
     # multi-tenant: N engines fair-sharing ONE physical page pool
     ... --requests 16 --tenants 3 --tier1-pages 24 --tier2-kv-gb 3
@@ -40,21 +45,32 @@ paged KV refuses (exit 2); otherwise the fixed-batch mode runs.  Prints
 the JSON summary of ``repro.launch.serve``'s mode plus ``"device"``; the
 engine modes (``--disagg`` too) exit 0 iff no request failed OOM.
 
-Under ``torch.distributed.run`` (a world of ranks) the engine mode serves
-a ``--pool`` lease whose ``--pool-model-parallel`` is the world's size:
-every rank runs the same loop on its shards (``Engine.from_lease``), rank
-0 prints the summary plus ``"world"``, ``"mesh"`` and ``"ranks_agree"``,
-and a rank whose tokens differ from rank 0's makes every rank exit 1.
-What is not served across ranks yet (the fixed-batch mode, ``--tenants``,
-``--disagg``, a lease with a ``data`` axis over 1) exits 2 with the
-slice that brings it.
+Under ``torch.distributed.run`` (a world of ranks, one process each)
+every rank runs the same loop on its shards and rank 0 prints the
+summary plus ``"world"``, ``"mesh"`` and ``"ranks_agree"``; a rank whose
+tokens differ from rank 0's makes every rank exit 1:
+
+* the engine mode serves a ``--pool`` lease whose
+  ``--pool-model-parallel`` is the world's size (``Engine.from_lease``),
+  and with ``--tenants N`` N tenants of that lease over one arbiter a
+  rank;
+* the fixed-batch mode runs on ``launch.mesh.make_smoke_mesh(world)``'s
+  layout under its decode rules, as the reference's does on its smoke
+  mesh: (data 2, model 2) at 4 ranks, (pod 2, data 2, model 2) at 8,
+  rows over the data axes and heads over ``model``
+  (``runtime.serve.make_session``); a world that does not fill the
+  layout exits 2 before any work.
+
+What is not served across ranks yet (``--disagg``, an engine lease with
+a ``data`` axis over 1, and what ``profiles.grid_refusal`` refuses)
+exits 2 with the slice that brings it.
 """
 
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -67,6 +83,7 @@ from repro_torch.disagg import DisaggCluster, DisaggConfig, PrefillWorker
 from repro_torch.fabric import Topology, Transport
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.api import build_model
+from repro_torch.models.config import ShapeConfig
 from repro_torch.obs import Tracer, write_chrome_trace
 from repro_torch.obs.console import emit_json, warn
 from repro_torch.pool import smoke_pool
@@ -74,7 +91,7 @@ from repro_torch.runtime import serve as serve_rt
 from repro_torch.serve import (Engine, EngineConfig, PoolArbiter,
                                latency_summary, load_trace, run_multi_trace,
                                run_trace, synthetic_trace)
-from repro_torch.sharding.profiles import (serving_path,
+from repro_torch.sharding.profiles import (grid_refusal, make_rules,
                                           serving_path_refusal)
 
 
@@ -149,18 +166,9 @@ def _engine_mode(args, cfg, model, device) -> int:
     _sync(device)
     wall = time.time() - t0
     stats = engine.stats()
-    ranks = {}
-    if engine.grid is not None:
-        # every rank must have drawn rank 0's tokens
-        tokens = [h.tokens for h in handles]
-        every = [None] * engine.grid.world
-        dist.all_gather_object(every, tokens)
-        ranks = {"world": engine.grid.world,
-                 "mesh": engine.grid.layout.as_dict(),
-                 "ranks_agree": all(t == every[0] for t in every)}
-        engine.grid.close()
-        if engine.grid.rank != 0:
-            return 0 if ranks["ranks_agree"] else 1
+    ranks = _ranks_agree(engine.grid, [h.tokens for h in handles])
+    if ranks.pop("rank", 0) != 0:
+        return 0 if ranks["ranks_agree"] else 1
     out = {
         "arch": cfg.name, "mode": "engine",
         "lease": args.pool if args.pool != "none" else None,
@@ -178,6 +186,20 @@ def _engine_mode(args, cfg, model, device) -> int:
     emit_json(out)
     return 0 if stats["failed_oom"] == 0 and ranks.get("ranks_agree",
                                                        True) else 1
+
+
+def _ranks_agree(grid, tokens) -> dict:
+    """Across ranks: ``world``, ``mesh``, ``rank`` and whether every
+    rank drew rank 0's ``tokens`` (a picklable value); the grid is
+    closed.  ``{}`` on one process."""
+    if grid is None:
+        return {}
+    every = [None] * grid.world
+    dist.all_gather_object(every, tokens)
+    grid.close()
+    return {"world": grid.world, "mesh": grid.layout.as_dict(),
+            "rank": grid.rank,
+            "ranks_agree": all(t == every[0] for t in every)}
 
 
 def _disagg_mode(args, cfg, model, device) -> int:
@@ -292,6 +314,10 @@ def _multitenant_mode(args, cfg, model, ecfg, device, tracer=None) -> int:
     results = run_multi_trace([(engines[n], split[n]) for n in names])
     _sync(device)
     wall = time.time() - t0
+    ranks = _ranks_agree(arb.grid, [[h.tokens for h in hs]
+                                    for hs in results])
+    if ranks.pop("rank", 0) != 0:
+        return 0 if ranks["ranks_agree"] else 1
     out = {"arch": cfg.name, "mode": "multitenant", "device": str(device),
            "tenants": args.tenants, "tier1_pages": tier1,
            "wall_s": round(wall, 2), "arbiter": arb.stats(), "per_tenant": {}}
@@ -306,12 +332,13 @@ def _multitenant_mode(args, cfg, model, ecfg, device, tracer=None) -> int:
             "recomputes": st["preempt_recomputes"],
             "tput_busy_tok_s": st["throughput_busy_tok_s"],
         }
+    out.update(ranks)
     if tracer is not None:
         out["trace_out"] = _flush_trace(
             tracer, [e.transport for e in engines.values()],
             args.trace_out)
     emit_json(out)
-    return 0 if failed == 0 else 1
+    return 0 if failed == 0 and ranks.get("ranks_agree", True) else 1
 
 
 def fixed_batch_inputs(model, batch: int, prompt: int, seed: int, device):
@@ -333,37 +360,42 @@ def fixed_batch_inputs(model, batch: int, prompt: int, seed: int, device):
     return raw, inputs
 
 
-def fixed_batch_generate(model, params, inputs, generate: int, device):
+def fixed_batch_generate(model, params, inputs, generate: int, device,
+                         session=None):
     """Prefill ``inputs`` (tokens (B, S), plus frame embeddings for
     encdec), then greedy-decode until ``generate`` tokens per row (the
-    first from the prefill's logits) over an fp32 cache.  Returns
-    ``tokens`` (B, generate) on the host, ``prefill_s``, ``decode_s``
-    (the timed decode ends in ``torch.cuda.synchronize()`` on the card),
-    ``decode_tokens_per_s``, the last ``carry`` and ``logits_finite`` over
-    every step."""
-    prefill = serve_rt.make_prefill_step(model)
-    decode = serve_rt.make_decode_step(model)
+    first from the prefill's logits) over an fp32 cache.  ``session``
+    (``runtime.serve.make_session``; default: one device) runs the steps,
+    ``params`` the ones it serves (``session.load``).  Returns ``tokens``
+    (B, generate) on the host, every row's (the same on every rank),
+    ``prefill_s``, ``decode_s`` (the timed decode ends in
+    ``torch.cuda.synchronize()`` on the card), ``decode_tokens_per_s``
+    (the global batch's), the last ``carry``, the prefill's ``logits``
+    (the rank's block) and ``logits_finite`` over every step's block."""
     batch, prompt = inputs["tokens"].shape
+    if session is None:
+        session = serve_rt.make_session(
+            model, ShapeConfig("cli", "decode", prompt + generate, batch))
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize()
 
-    cache = model.init_cache(batch, prompt + generate, dtype=torch.float32)
+    cache = session.init_cache(batch, prompt + generate, dtype=torch.float32)
     t0 = time.perf_counter()
-    logits, cache, *enc = prefill(params, inputs, cache)
+    first, cache, *enc = session.prefill_step(params, inputs, cache)
     sync()
     t_prefill = time.perf_counter() - t0
 
-    finite = torch.isfinite(logits).all()
-    carry = {"tokens": torch.argmax(logits[:, -1:, :], dim=-1),
-             "cache": cache, "index": prompt}
+    finite = torch.isfinite(first).all()
+    carry = {"tokens": session.greedy(first), "cache": cache,
+             "index": prompt}
     if enc:
         carry["enc_states"] = enc[0]
     generated = [carry["tokens"]]
     t0 = time.perf_counter()
     for _ in range(generate - 1):
-        logits, carry = decode(params, carry)
+        logits, carry = session.decode_step(params, carry)
         generated.append(carry["tokens"])
         finite &= torch.isfinite(logits).all()
     sync()
@@ -372,15 +404,42 @@ def fixed_batch_generate(model, params, inputs, generate: int, device):
             "prefill_s": t_prefill, "decode_s": t_decode,
             "decode_tokens_per_s": batch * (generate - 1) / max(t_decode,
                                                                 1e-9),
-            "carry": carry, "logits_finite": bool(finite)}
+            "carry": carry, "logits": first,
+            "logits_finite": bool(finite)}
 
 
-def _legacy_batch_mode(args, cfg, model, device) -> int:
+def batch_layout(world: int, cfg, shape) -> Tuple[Optional[mesh_lib.Layout],
+                                                  Optional[str]]:
+    """The fixed-batch mode's layout across ``world`` ranks
+    (``make_smoke_mesh(world)``, the reference's smoke mesh) and why it
+    cannot serve ``cfg``'s decode ``shape`` there, or None."""
+    layout = mesh_lib.make_smoke_mesh(world)
+    if layout.size != world:
+        return layout, (f"a world of {world} ranks does not fill the "
+                        f"fixed-batch mode's layout {layout.as_dict()} "
+                        f"({layout.size} ranks)")
+    return layout, grid_refusal(layout, make_rules(cfg, shape, layout,
+                                                   fsdp=False), cfg,
+                                serving=True, path="session", world=world)
+
+
+def _legacy_batch_mode(args, cfg, model, device, layout=None) -> int:
+    shape = ShapeConfig("cli", "decode", args.prompt + args.generate,
+                        args.batch)
+    grid = None
+    if layout is not None:
+        world = mesh_lib.running_world()
+        grid = mesh_lib.init_grid(layout, rank=world["rank"], device=device,
+                                  local_world=world["local_world"])
+    session = serve_rt.make_session(model, shape, grid)
     raw, inputs = fixed_batch_inputs(model, args.batch, args.prompt,
                                      args.seed, device)
-    run = fixed_batch_generate(model, model.load(raw), inputs,
-                               args.generate, device)
+    run = fixed_batch_generate(model, session.load(raw), inputs,
+                               args.generate, device, session)
     toks = run["tokens"]
+    ranks = _ranks_agree(grid, toks.tolist())
+    if ranks.pop("rank", 0) != 0:
+        return 0 if ranks["ranks_agree"] else 1
     emit_json({
         "arch": cfg.name, "mode": "batch", "device": str(device),
         "batch": args.batch, "prompt": args.prompt,
@@ -388,20 +447,20 @@ def _legacy_batch_mode(args, cfg, model, device) -> int:
         "prefill_s": round(run["prefill_s"], 3),
         "decode_tok_per_s": round(run["decode_tokens_per_s"], 1),
         "sample_tokens": toks[0, :8].tolist(),
+        **ranks,
     })
-    return 0
+    return 0 if ranks.get("ranks_agree", True) else 1
 
 
 def across_ranks_refusal(args) -> Optional[str]:
-    """Why this run cannot be served across a world's ranks, or None:
-    only the engine mode on a lease (``--pool``) is."""
-    path = serving_path(session=not (args.requests or args.trace),
-                        shared_fabric=args.disagg,
-                        multi_tenant=args.tenants > 1)
-    if path is not None:
-        return serving_path_refusal(path, "across ranks")
-    if args.pool == "none":
-        return ("serving across ranks takes a lease: --pool with "
+    """Why this run's mode cannot be served across a world's ranks, or
+    None: the fixed-batch mode runs on the smoke layout
+    (``batch_layout``), the engine modes on a lease (``--pool``), a
+    shared transport (``--disagg``) not yet."""
+    if args.disagg:
+        return serving_path_refusal("shared-fabric", "across ranks")
+    if (args.requests or args.trace) and args.pool == "none":
+        return ("the engine across ranks takes a lease: --pool with "
                 "--pool-model-parallel set to the world's size")
     return None
 
@@ -482,6 +541,13 @@ def main(argv=None):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(args.arch, smoke=args.smoke)
+    layout = None
+    if world["world"] > 1 and not (args.requests or args.trace):
+        layout, why = batch_layout(world["world"], cfg, ShapeConfig(
+            "cli", "decode", args.prompt + args.generate, args.batch))
+        if why is not None:
+            warn(why)
+            return 2
     model = build_model(cfg, device=device)
     if args.requests or args.trace:
         if not model.supports_paged_kv:
@@ -493,7 +559,7 @@ def main(argv=None):
         if args.disagg:
             return _disagg_mode(args, cfg, model, device)
         return _engine_mode(args, cfg, model, device)
-    return _legacy_batch_mode(args, cfg, model, device)
+    return _legacy_batch_mode(args, cfg, model, device, layout)
 
 
 if __name__ == "__main__":

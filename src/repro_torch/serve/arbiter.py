@@ -26,7 +26,10 @@ Tenants share only the *memory estate* (tier-1 pages + tier-2 bytes);
 each engine keeps its own slots, compute and modeled clock.  Every
 decision is host bookkeeping identical to the reference's; the pool
 tensors live on the first tenant's device and every tenant writes them
-in place.
+in place.  Under a ``model``-axis lease each rank has an arbiter of its
+own over a pool of its kv heads: every rank makes the same decisions
+(tokens alone fix them) and each spill or fetch moves its shard of a
+page, priced at the whole model's page bytes.
 """
 
 from __future__ import annotations
@@ -132,6 +135,9 @@ class PoolArbiter:
         self._tenants: Dict[str, _Tenant] = {}
         self.pool: Optional[Dict[str, torch.Tensor]] = None   # (+trash)
         self.device: Optional[torch.device] = None
+        # the rank grid of tenants under a model-axis lease (the first
+        # tenant's; the others serve on it), None on one device
+        self.grid = None
         self._leaf_sig: Optional[Tuple] = None
         self.revoked_pages = 0              # pages evicted by revocation
         self.revocations = 0                # revocation episodes
@@ -142,9 +148,11 @@ class PoolArbiter:
                  tier2_bytes: float = 0.0) -> _TenantKV:
         """Join ``engine`` as ``tenant``.  ``slot_shapes``: the engine's
         one-slot cache leaves ``(layers, 1, max_seq, ...)`` (meta
-        tensors); the first tenant's fix the pool, allocated with
-        ``torch.zeros`` on its device as ``(layers, num_pages + 1, page,
-        ...)`` with the trash page last."""
+        tensors; under a ``model``-axis lease the rank's kv heads);
+        the first tenant's fix the pool, allocated with ``torch.zeros``
+        on its device as ``(layers, num_pages + 1, page, ...)`` with the
+        trash page last, and its rank grid the grid every tenant serves
+        on.  ``page_bytes`` is the whole model's page."""
         if tenant in self._tenants:
             raise ValueError(f"tenant {tenant!r} already registered")
         if engine.cfg.page_size != self.page_size:
@@ -158,10 +166,12 @@ class PoolArbiter:
         leaves = sorted(slot_shapes.items())
         sig = tuple((name, (l.shape[0], self.page_size) + tuple(l.shape[3:]),
                      l.dtype) for name, l in leaves)
+        grid = getattr(engine, "grid", None)
         if self.pool is None:
             self.page_bytes = float(page_bytes)
             self._leaf_sig = sig
             self.device = engine.device
+            self.grid = grid
             self.pool = {
                 name: torch.zeros((l.shape[0], self.num_pages + 1,
                                    self.page_size) + tuple(l.shape[3:]),
@@ -176,6 +186,10 @@ class PoolArbiter:
             raise ValueError(
                 f"tenant {tenant!r}: engine device {engine.device} is not "
                 f"the shared pool's {self.device}")
+        elif grid is not self.grid:
+            raise ValueError(
+                f"tenant {tenant!r}: its rank grid is not the shared "
+                f"pool's — tenants of one pool serve on one grid")
         kv = _TenantKV(self, tenant, tier2_bytes)
         self._tenants[tenant] = _Tenant(tenant, engine, kv)
         if self.tracer.enabled and len(self._tenants) >= 2:

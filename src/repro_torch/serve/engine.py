@@ -61,7 +61,9 @@ vocab's logits split over ``model`` and the greedy token taken by
 fix the schedule, so every rank pages, spills and fetches alike (each
 moving its own head shard) and keeps the reference's modeled clocks;
 ``page_bytes`` stays the whole model's, so tier-2 charges are the
-reference's too.
+reference's too.  Tenants of one such lease share one arbiter a rank,
+whose pool holds the rank's kv heads, and the grid its first tenant
+joined.
 
 The pool tensors are updated IN PLACE (``copy_``, ``index_copy_``,
 ``index_put_``) where the reference builds functional copies; the pool
@@ -261,8 +263,10 @@ class Engine:
             self.budget = KVBudget(tier1_pages=arbiter.num_pages,
                                    tier2_bytes=full.tier2_bytes,
                                    page_size=cfg.page_size)
+            # the pool holds this rank's kv heads; its page bytes (every
+            # tier-2 charge, ``kv_share``) stay the whole model's
             self.kv = arbiter.register(self.tenant, self,
-                                       slot_shapes=slot_shapes,
+                                       slot_shapes=local_shapes,
                                        page_bytes=page_bytes,
                                        tier2_bytes=full.tier2_bytes)
         else:
@@ -422,13 +426,15 @@ class Engine:
         lease each rank joins the grid (``LeaseBinding.join``) and serves
         its shards of ``params`` (the full tree, default
         ``model.init(generator)``, cut here): tensor parallelism over
-        ``model`` (``repro_torch.sharding.tp``).  Refused
+        ``model`` (``repro_torch.sharding.tp``).  Tenants of one lease
+        (``arbiter``/``tenant``) share the arbiter's grid, joined once by
+        its first tenant, and its pool of the rank's kv heads.  Refused
         (``profiles.grid_refusal``), each naming the slice that brings
         it: a ``model`` axis over 1 outside a world of as many ranks, a
-        ``data`` or ``pod`` axis over 1 across ranks, a family or head
-        count the rules do not shard, and a multi-tenant (``arbiter``,
-        a lease with tenants) or shared-fabric (``transport``) engine
-        under ``model``."""
+        ``data`` or ``pod`` axis over 1 across ranks (3c.3), a family or
+        head count the rules do not shard (3d-3g), and a shared
+        transport (``transport``: disaggregated or co-resident serving,
+        3c.2) across ranks."""
         binding = lease.materialize(None if device is None else [device])
         rules = make_rules(model.cfg, ShapeConfig(
             "engine", "decode", cfg.max_seq, cfg.max_slots), binding,
@@ -457,8 +463,16 @@ class Engine:
                 budget = KVBudget(tier1_pages=base.tier1_pages,
                                   tier2_bytes=base.tier2_bytes,
                                   page_size=cfg.page_size)
-        plan = tp.make_plan(binding.join(), rules) \
-            if binding.world > 1 else None
+        plan = None
+        if binding.world > 1:
+            grid = arbiter.grid if arbiter is not None else None
+            if grid is None:
+                grid = binding.join()
+            elif grid.layout != binding.layout:
+                raise ValueError(f"the arbiter's tenants serve on "
+                                 f"{grid.layout.as_dict()}, not "
+                                 f"{binding.layout.as_dict()}")
+            plan = tp.make_plan(grid, rules)
         if params is None:
             params = model.init(generator)
         if plan is not None:

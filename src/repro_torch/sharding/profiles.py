@@ -21,9 +21,10 @@ tuple of sizes): the port's ``launch.mesh.Layout`` and ``RankGrid``
 serve it.  The training step reads ``batch`` for each rank's rows, and
 for the dense family the parameters' entries: ``model`` (tensor
 parallelism) and ``embed`` (FSDP) place each leaf's block
-(``partition.tree_shardings``); the serving engine on a ``model``-axis
-lease reads the decode table's (``kv_heads`` over ``model``, FSDP off);
-``grid_refusal`` says what waits for a later slice.
+(``partition.tree_shardings``); serving across ranks reads the decode
+table's (``kv_heads`` over ``model``, FSDP off, and for the fixed-batch
+session's rows ``batch`` over the data axes); ``grid_refusal`` says
+what waits for a later slice.
 """
 
 from __future__ import annotations
@@ -62,22 +63,21 @@ def hierarchical_unsafe(cfg: ModelConfig) -> Optional[str]:
 # the serving paths that stay refused across ranks, each with the
 # ROADMAP item (Queue A) that brings it
 SERVING_LATER = {
-    "session": ("the fixed-batch session (runtime.serve."
-                "make_lease_session)", "3c.1"),
-    "multi-tenant": ("a multi-tenant engine (a PoolArbiter or a lease "
-                     "with tenants)", "3c.2"),
     "shared-fabric": ("a disaggregated or co-resident engine (a shared "
                       "transport)", "3c.2"),
+    "engine-rows": ("the request-level engine with a data or pod axis over "
+                    "1 (its shared page pool split by rows)", "3c.3"),
 }
 
 
 def serving_path(*, session: bool = False, multi_tenant: bool = False,
-                 shared_fabric: bool = False) -> Optional[str]:
-    """The ``SERVING_LATER`` path of a serving run, or None for the
-    request-level engine alone: the fixed-batch session, then a shared
-    transport, then tenants."""
+                 shared_fabric: bool = False) -> str:
+    """The path of a serving run across ranks: the fixed-batch session
+    (``"session"``), a shared transport (``"shared-fabric"``), tenants
+    of one arbiter (``"multi-tenant"``), else the request-level engine
+    alone (``"engine"``)."""
     return ("session" if session else "shared-fabric" if shared_fabric
-            else "multi-tenant" if multi_tenant else None)
+            else "multi-tenant" if multi_tenant else "engine")
 
 
 def serving_path_refusal(path: str, where: str) -> str:
@@ -90,44 +90,59 @@ def serving_path_refusal(path: str, where: str) -> str:
 
 def grid_refusal(mesh, rules: Optional[Rules],
                  cfg: Optional[ModelConfig] = None, *,
-                 serving: bool = False,
-                 path: Optional[str] = None) -> Optional[str]:
+                 serving: bool = False, path: str = "engine",
+                 world: Optional[int] = None) -> Optional[str]:
     """Why the port cannot run ``cfg`` on ``mesh`` (anything with
     ``axis_names`` and ``shape``: a ``RankGrid``, a ``Layout``, a lease's
-    ``LeaseBinding``) with ``rules``, or None.  Tensor parallelism over
-    ``model`` and FSDP (``embed`` on a mesh axis) run the dense family's
-    training step, and ``serving`` the request-level engine on a
-    ``(data 1, model m)`` lease, one rank a process
-    (``repro_torch.sharding.tp``).  What waits for a later slice is:
-    attention heads or kv heads that do not divide the ``model`` axis
-    (the reference's context-parallel ``seq_attn`` fallback), the moe,
-    ssm, hybrid and encdec families under a ``model`` axis over 1 or
-    FSDP, and, serving across ranks, a ``data`` or ``pod`` axis over 1
-    and the ``path`` of ``SERVING_LATER`` named.  A ``model`` axis over
-    1 outside a world of as many ranks (``mesh.world``: a lease binding
-    several cards to one process) is refused: a lease never serves on
-    one card alone."""
+    ``LeaseBinding``) with ``rules``, or None.  ``world``: the ranks the
+    run has, one process each (default ``mesh.world``, else 1).
+
+    Tensor parallelism over ``model`` and FSDP (``embed`` on a mesh
+    axis) run the dense family's training step.  Serving across ranks
+    (``serving``, one rank a process, ``repro_torch.sharding.tp``), by
+    ``path`` (``serving_path``): the fixed-batch session on (pod, data,
+    model), rows over the data axes (any family but moe) and heads over
+    ``model`` (the dense family); the request-level engine and tenants
+    of one arbiter on (data 1, model m).  What waits for a later slice,
+    each refusal naming its ROADMAP item: the engine with a ``data`` or
+    ``pod`` axis over 1 (3c.3), a shared transport (3c.2), moe in the
+    session across ranks (3d: its dispatch groups follow the batch axes,
+    so a row's output depends on its group, C-ref5), the moe, ssm,
+    hybrid and encdec families under a ``model`` axis over 1 or FSDP
+    (3d-3f), and attention heads or kv heads that do not divide
+    ``model`` (3g, the reference's context-parallel ``seq_attn``
+    fallback).  A grid of other than ``world`` ranks with a ``model``
+    axis over 1 (a lease binding several cards to one process) is
+    refused: a lease never serves on one card alone."""
     sizes = axis_sizes(mesh)
     model_n = sizes.get("model", 1)
+    n = _prod(sizes.values())
     embed = rules.table.get("embed") if rules is not None else None
     embed = (embed,) if isinstance(embed, str) else tuple(embed or ())
     fsdp = any(sizes.get(a, 1) > 1 for a in embed)
-    world = getattr(mesh, "world", 1)
+    world = getattr(mesh, "world", 1) if world is None else world
+    rows = {a: k for a, k in sizes.items() if a != "model" and k > 1}
     if serving and (model_n > 1 or world > 1):
-        over = {a: n for a, n in sizes.items() if a != "model" and n > 1}
-        if over:
-            what = " and ".join(f"a {a} axis of {n}" for a, n in over.items())
-            return (f"serving with {what} (replicas of the engine across "
-                    f"ranks) comes with a later slice of the port (ROADMAP "
-                    f"Queue A 3c.3); this one serves on (data 1, model m)")
-        if world != model_n:
-            return (f"serving under a model axis of {model_n} needs a world "
-                    f"of {model_n} ranks, one process each "
-                    f"(torch.distributed.run), not {world}: a lease never "
-                    f"serves on one card alone")
-        if path is not None:
-            return serving_path_refusal(path,
-                                        f"under a model axis of {model_n}")
+        if path == "shared-fabric":
+            return serving_path_refusal(path, "across ranks")
+        if rows and path != "session":
+            what = " and ".join(f"a {a} axis of {k}" for a, k in rows.items())
+            return (f"serving with {what}: "
+                    + serving_path_refusal("engine-rows", "across ranks")
+                    + "; the engine and its tenants serve on (data 1, "
+                    "model m)")
+        if world != n:
+            where = (f"under a model axis of {model_n}" if not rows
+                     else f"on {sizes}")
+            return (f"serving {where} needs a world of {n} ranks, one "
+                    f"process each (torch.distributed.run), not {world}: "
+                    f"a lease never serves on one card alone")
+        if rows and cfg is not None and cfg.family == "moe":
+            return (f"{cfg.name}: the moe family in the fixed-batch session "
+                    f"across ranks comes with expert parallelism, a later "
+                    f"slice of the port (ROADMAP Queue A 3d): its dispatch "
+                    f"groups follow the batch axes, so a row's output "
+                    f"depends on its group (C-ref5)")
     if cfg is None or (model_n == 1 and not fsdp):
         return None
     what = " and ".join(

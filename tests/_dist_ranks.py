@@ -559,3 +559,128 @@ def serve_tp(out_dir, vocab: int, n_requests: int, prompt_len: int,
         out["argmax"] = got
     _save(out_dir, "serve_tp", engine.grid.rank, out)
     dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the fixed-batch session on a lease's grid
+# (tests/test_torch_serve_session_tp.py)
+# ---------------------------------------------------------------------------
+
+def serve_session(out_dir, accels: int, model_parallel: int, cases,
+                  batch: int, prompt: int, generate: int, case_root: str):
+    """``make_lease_session`` on a lease of ``accels`` and
+    ``model_parallel`` in this world, for each case ``(directory, arch,
+    compute, vocab)``: the reference's parameters
+    (``<case_root>/<directory>/params.pkl``) loaded as the rank's shards,
+    the prompts (and whisper's frames) of ``inputs.npz``, a prefill and
+    ``generate - 1`` greedy decode steps over an fp32 cache.  Writes per
+    case every step's global logits (``gather_logits``) and tokens, the
+    rank's rows and cache shape, and the collectives the steps made."""
+    from repro_torch.pool import smoke_pool
+    from repro_torch.runtime.serve import make_lease_session
+    dist = _join_world()
+    out = {}
+    for sub, arch, compute, vocab in cases:
+        d = Path(case_root) / sub
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  compute_dtype=compute, vocab=vocab)
+        model = build_model(cfg, device="cpu")
+        with open(d / "params.pkl", "rb") as f:
+            raw = bridge.params_from_reference(pickle.load(f), "cpu")
+        data = np.load(d / "inputs.npz")
+        inputs = {"tokens": torch.from_numpy(data["tokens"]).long()}
+        if "frames" in data:
+            inputs["frame_embeds"] = torch.from_numpy(
+                data["frames"]).to(torch.bfloat16)
+        lease = smoke_pool("scalepool").lease(
+            f"session-{sub}", accels, tier2_gb=8, kv_gb=1.0,
+            model_parallel=model_parallel)
+        sess = make_lease_session(
+            model, ShapeConfig("s", "decode", prompt + generate, batch),
+            lease, device="cpu")
+        params = sess.load(raw)
+        cache = sess.init_cache(batch, prompt + generate,
+                                dtype=torch.float32)
+        sess.grid.stats.reset()
+        logits, cache, *enc = sess.prefill_step(params, inputs, cache)
+        carry = {"tokens": sess.greedy(logits), "cache": cache,
+                 "index": prompt}
+        if enc:
+            carry["enc_states"] = enc[0]
+        blocks, tokens = [logits], [carry["tokens"]]
+        for _ in range(generate - 1):
+            logits, carry = sess.decode_step(params, carry)
+            blocks.append(logits)
+            tokens.append(carry["tokens"])
+        calls = dict(sess.grid.stats.calls)
+        out[sub] = {
+            "logits": [sess.gather_logits(b) for b in blocks],
+            "tokens": torch.cat(tokens, 1), "rows": sess.rows(batch),
+            "cache": {k: tuple(v.shape) for k, v in carry["cache"].items()},
+            "collectives": calls, "grid": sess.grid.describe(),
+            "rules_batch": sess.plan.rules.spec("batch")[0]}
+        sess.grid.close()
+    _save(out_dir, "serve_session", dist.get_rank(), out)
+    dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# tenants of one lease under a model axis
+# (tests/test_torch_serve_tenants_tp.py)
+# ---------------------------------------------------------------------------
+
+def serve_tenants(out_dir, vocab: int, slots: int, max_seq: int,
+                  page_size: int, pool_pages: int, kv_gb: float, traces):
+    """Two tenants of one ``(data 1, model m)`` lease over one
+    ``PoolArbiter`` on this world of m ranks (qwen1.5-0.5b smoke in fp32,
+    the reference's parameters from ``<out_dir>/params.pkl``), each
+    tenant's requests from ``traces`` ({tenant: [(prompt, max_new,
+    arrival)]}), through ``run_multi_trace`` with the pages checked
+    after every step; writes the tokens, clocks, stats, the arbiter's
+    stats, the Chrome trace and the pool."""
+    from repro_torch.obs import Tracer, to_chrome_trace
+    from repro_torch.pool import smoke_pool
+    from repro_torch.serve import (Engine, EngineConfig, PoolArbiter,
+                                   Request, run_multi_trace)
+    dist = _join_world()
+    m = dist.get_world_size()
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b", smoke=True),
+                              compute_dtype="float32", vocab=vocab)
+    model = build_model(cfg, device="cpu")
+    with open(Path(out_dir) / "params.pkl", "rb") as f:
+        params = bridge.params_from_reference(pickle.load(f), "cpu")
+    names = sorted(traces)
+    lease = smoke_pool("scalepool").lease(
+        "tenants-tp", m, tier2_gb=64, kv_gb=kv_gb, model_parallel=m,
+        tenants=tuple(names))
+    tracer = Tracer(1 << 16)
+    arb = PoolArbiter(pool_pages, page_size=page_size, tracer=tracer)
+    ecfg = EngineConfig(max_slots=slots, max_seq=max_seq,
+                        page_size=page_size)
+    engines = [Engine.from_lease(model, lease, ecfg, params=params,
+                                 arbiter=arb, tenant=n, tracer=tracer,
+                                 device="cpu") for n in names]
+    checked = [0]
+    for eng in engines:
+        def step(orig=eng.step):
+            dt = orig()
+            arb.check_conservation()
+            checked[0] += 1
+            return dt
+        eng.step = step
+    lists = run_multi_trace([
+        (e, [Request(tuple(p), n, arrival_time=t) for p, n, t in traces[name]])
+        for e, name in zip(engines, names)])
+    grid = arb.grid
+    out = {"tokens": [[h.tokens for h in hs] for hs in lists],
+           "clocks": [[(h.submit_clock, h.first_token_clock, h.done_clock)
+                       for h in hs] for hs in lists],
+           "stats": [e.stats() for e in engines], "arbiter": arb.stats(),
+           "trace": to_chrome_trace(tracer), "checked": checked[0],
+           "pool": {k: v.clone() for k, v in arb.pool.items()},
+           "grids": [e.grid is grid for e in engines],
+           "grid": grid.describe(), "page_bytes": arb.page_bytes,
+           "collectives": dict(grid.stats.calls)}
+    _save(out_dir, "serve_tenants", grid.rank, out)
+    grid.close()
+    dist.destroy_process_group()

@@ -21,7 +21,10 @@ spills and fetches:
   the padded columns and a rank holding padding only, at m = 1, 2, 4;
 * the serving CLI under ``torch.distributed.run --nproc-per-node 2``
   prints the one-process CLI's summary;
-* what stays refused raises, naming its slice.
+* what stays refused raises, naming its slice: heads that do not divide
+  ``model`` (3g), the engine or its tenants with a ``data`` axis over 1
+  (3c.3), a shared transport (3c.2), moe under ``model`` and in the
+  fixed-batch session over ``data`` (3d), a model axis in one process.
 """
 
 import concurrent.futures
@@ -338,17 +341,20 @@ def test_what_stays_refused_names_its_slice(case, monkeypatch):
     qwen = build_model(get_config(ARCH, smoke=True), device="cpu")
     gen = torch.Generator().manual_seed(0)
     pool = smoke_pool("scalepool")
-    world, arch, item = {
-        "heads": (2, "qwen3-14b", "3g"), "data": (4, ARCH, "3c.3"),
-        "session": (2, ARCH, "3c.1"), "multi_tenant": (2, ARCH, "3c.2"),
-        "shared_fabric": (2, ARCH, "3c.2"), "moe": (2, "olmoe-1b-7b", "3d"),
-        "one_process": (1, ARCH, None)}[case]
+    # the session: moe rows over data (C-ref5); tenants: a data axis
+    world, arch, item, mp = {
+        "heads": (2, "qwen3-14b", "3g", 2), "data": (4, ARCH, "3c.3", 2),
+        "session": (2, "olmoe-1b-7b", "3d", 1),
+        "multi_tenant": (4, ARCH, "3c.3", 2),
+        "shared_fabric": (2, ARCH, "3c.2", 2),
+        "moe": (2, "olmoe-1b-7b", "3d", 2),
+        "one_process": (1, ARCH, None, 2)}[case]
     model = qwen if arch == ARCH else build_model(get_config(arch,
                                                              smoke=True),
                                                   device="cpu")
     _World(monkeypatch, world)
     lease = pool.lease("tp", 4, tier2_gb=64, kv_gb=1.0,
-                       model_parallel=2,
+                       model_parallel=mp,
                        tenants=("a", "b") if case == "multi_tenant" else ())
     kw = {}
     if case == "shared_fabric":
