@@ -75,7 +75,8 @@ no result line):
               compute, on flash's CUDA-core kernel; the served bf16
               comparison is reported beside it); 4b profiles an engine
               window;
-6.  pooled  - (run right after phase 4, on its model and weights)
+6.  pooled  - (run right after phase 4, on its model and weights cut to
+              their first ``SERVE_DEPTH`` = 4 layers, as phases 7 and 8)
               benchmarks/fig9_multitenant.py's smoke scenario at full
               width: three skewed tenants (hog, mid, burst) served by
               three engines from ONE 24-page ``PoolArbiter`` pool through
@@ -95,12 +96,12 @@ no result line):
               tables after any step, the modeled numbers equal to the
               same scenario at smoke width on the CPU, and the paged,
               flash and RMSNorm launches exact;
-7.  disagg  - (run right after phase 6, on phase 4's model and weights)
+7.  disagg  - (run right after phase 6, on phase 6's cut)
               benchmarks/fig12_disagg.py's smoke scenario at full width:
               12 requests of 224 prompt tokens and 16 new on 4-slot
               engines of 16-token pages, modeled costs priced at the
               full-size model, link capacities in pages per modeled
-              second.  At full depth in bf16: two colocated engines
+              second.  On the cut in bf16: two colocated engines
               (``run_multi_trace``) against a prefill engine handing each
               request's pages over the modeled fabric to a decode engine
               (``DisaggCluster``: direct, and staged through a tier-2
@@ -117,7 +118,7 @@ no result line):
               smoke width on the CPU, and the paged, flash and RMSNorm
               launches exact; the bf16 tokens are reported beside the
               fp32 ones, with the top-2 logit margin where they differ;
-8.  colo    - (run right after phase 7, on phase 4's model and weights)
+8.  colo    - (run right after phase 7, on phase 6's cut)
               benchmarks/fig11_colocation.py's smoke scenario at full
               width: two tenants' bursts (6 requests each, 32 prompt
               tokens, 128 new) on 6-slot engines of 16-token pages under
@@ -126,7 +127,7 @@ no result line):
               tier-2 offload, 8 steps) prices its gradient and offload
               phases on the same ``Transport`` (``repro_torch.colo``,
               ``run_colo``), on 6 pods of 5 accels over 3 CXL leaves and
-              2 tier-2 memory nodes.  At full depth in bf16: the training
+              2 tier-2 memory nodes.  On the cut in bf16: the training
               job placed hop-only, contention-aware, and no training.
               Checked: every request done, fig11's five claims (the
               placements differ, contention-aware placement wins on step
@@ -283,12 +284,13 @@ no result line):
               and grad norm to 1e-5 relative, the parameters gathered
               from the ranks to 1e-5 of the largest |parameter| but at
               most ``DP_PARAM_SHARE`` of them (C-port15); (b) full width
-              and depth in bf16, phase 10 (c)'s weights and batches, 4
-              steps of each case: s/step, host seconds in collectives
-              and bytes by (axes, op), each rank's peak, launches exact
-              in every rank (B2, B3, B5, B6 on a rank's local heads),
-              ranks' losses equal and each within 1e-2 of phase 10
-              (c)'s (the compressed case's of the plain in-process
+              on the first ``TP_DEPTH`` = 4 layers in bf16, phase 10
+              (c)'s weights and batches, 4 steps of each case: s/step,
+              host seconds in collectives and bytes by (axes, op), each
+              rank's peak, launches exact in every rank (B2, B3, B5, B6
+              on a rank's local heads), ranks' losses equal and each
+              within 1e-2 of one card's on the same cut, run by this
+              process (the compressed case's of the plain in-process
               evaluation of the same schedule: int8 codes move a
               trajectory further); (c) a step with FSDP on the 2-layer cut in bf16 run
               twice from one state: the same bits in every rank; (d) the
@@ -315,14 +317,15 @@ no result line):
               one-card top-2 logit margin at that step within
               ``TS_TIE_MARGIN`` (C-ref3); the first prompt's prefill
               logits, gathered over ``model``, against the one-card
-              ones; (b) full width and depth in bf16: every rank
+              ones; (b) full width on the first ``SERVE_DEPTH`` layers
+              in bf16: every rank
               completes the 16 requests with spills and fetches, its
               tokens equal rank 0's, its launches exact (B1 a decode
               step and B3 a prefill per layer, B2 49 a call, all flash
               on the tensor cores), wall seconds, decode tokens per wall
               second and host seconds in collectives a step by (axes,
-              op); the one-card tokens of phase 4 beside, reported (bf16
-              rounding parts them, C-port2); (c) each rank's B1 and B3
+              op); one card's tokens on the same cut beside, reported
+              (bf16 rounding parts them, C-port2); (c) each rank's B1 and B3
               at its local shapes (4 of 16 heads), and B3 and B2 at (d)'s
               session shapes on each grid, against their plain versions
               within ``TOL``; (d) the fixed-batch session
@@ -334,7 +337,8 @@ no result line):
               gathered logits within 1e-5 of the largest |logit| of the
               one-card session's (rank 0 runs it) on rows whose tokens
               agree, the tokens equal or parted at a documented tie
-              (C-ref3); in bf16 at full depth B=8 rows of 512-token
+              (C-ref3); in bf16 on the first ``SERVE_DEPTH`` layers B=8
+              rows of 512-token
               prompts and 32 new tokens: every rank's tokens rank 0's,
               B2 and B3 launches exact (B3 on the tensor cores),
               prefill and decode seconds, decode tokens per wall second
@@ -349,7 +353,21 @@ no result line):
               launches exact (fp32 flash on the CUDA cores); held to the
               one-card
               two-tenant run (rank 0) in tokens (or a documented tie),
-              every handle's clocks and the arbiter's stats.  4 ranks
+              every handle's clocks and the arbiter's stats; (f) phase
+              7's scenario on a gang of two (data 1, model 4) members,
+              every engine on one grid: colocated, direct and the
+              degenerate cluster in fp32 on the first 2 layers, tokens
+              (or a documented tie) and every modeled number equal to
+              one card's (phase 7 runs them); colocated and direct in
+              bf16 on phase 7's cut: tokens equal across ranks and
+              reported beside phase 7's, modeled numbers within 1e-9 of
+              phase 7's, fig12's decode p95 claim, every
+              ``handoff_use`` after its last page; (g) phase 8's three
+              runs on a (data 1, model 4) lease in fp32 on the first 2
+              layers: tokens and modeled numbers equal to one card's
+              (phase 8 runs them), fig11's five claims; in (f) and (g)
+              the traces sanitized, the launches exact in every rank for
+              every run, wall, collectives and peak reported.  4 ranks
               share one card over gloo: nothing of a fabric;
 5. times    - each kernel's time (CUDA graphs of back-to-back calls,
               timed with CUDA events, median of trials) beside its plain
@@ -414,6 +432,14 @@ BOUND_SLACK = 1.05              # a timed kernel under bound / 1.05 fails
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 SSD_TOL = 2e-4                  # fp32 SSD outputs: sums run in another order
 PROMPT_LENS = (120, 250, 500)   # the full-width trace's prompt lengths
+SERVE_DEPTH = 4                 # the serving scenarios' bf16 depth (phases
+                                # 6-8, 13 (b), (d) and (f)): qwen1.5-0.5b's
+                                # first 4 of 24 layers (24 until the script
+                                # overran its 1200 s limit on a slower H100
+                                # host; phase 4 serves all 24); fp32 KV
+                                # pages of 2^19 B, a power of two from the
+                                # smoke width's
+TP_DEPTH = 4                    # phase 12 (b)'s depth, cut from 24 with it
 LONG_KV_TOL = 6e-3              # non-causal bf16 flash over 1500 keys: the
                                 # outputs' RMS is ~0.04, so 2e-2 would pass a
                                 # dropped 28-key tail; errors seen on an H100
@@ -1188,6 +1214,17 @@ def serve_parts(cfg):
                             seed=0))
 
 
+def serve_cut(model, params, n_layers=None):
+    """``model`` at full width on its first ``n_layers`` layers
+    (``SERVE_DEPTH`` by default), with those layers of its loaded
+    ``params``."""
+    from repro_torch.models.api import build_model
+    n = SERVE_DEPTH if n_layers is None else n_layers
+    return (build_model(dataclasses.replace(model.cfg, n_layers=n),
+                        device=model.device),
+            {**params, "layers": params["layers"][:n]})
+
+
 def serve_full_width(device):
     import torch
     from repro_torch import kernels
@@ -1260,8 +1297,7 @@ def serve_full_width(device):
                  trace[0].prompt_tokens, device, gate=True, n_flash=(L, 0))
     del model32
     profile_window(model, engine.params, device)
-    return (counts, variants, model, engine.params,
-            [h.tokens for h in handles])
+    return counts, variants, model, engine.params
 
 
 def profile_window(model, params, device):
@@ -1644,25 +1680,37 @@ def profile_decode_window(params, decode, carry, steps: int):
           **device_time(prof, wall)})
 
 
-def sanitize(what: str, tracers) -> dict:
+def sanitize_report(tracers) -> dict:
     """Each tracer through the port's sanitizer, and its Chrome export
-    through ``validate_trace_events``: zero violations and zero
-    problems, or the run fails."""
+    through ``validate_trace_events``: the events, violations, export
+    problems and rule checks summed, and the first violation's report."""
     from repro_torch.analysis import sanitize_tracer
     from repro_torch.obs import to_chrome_trace, validate_trace_events
     out = {"traces": len(tracers), "events": 0, "violations": 0,
-           "problems": 0, "checks": {}}
+           "problems": 0, "checks": {}, "first": None, "dropped": 0}
     for tr in tracers:
         rep = sanitize_tracer(tr)
         problems = validate_trace_events(to_chrome_trace(tr))
-        check(rep.ok, f"{what}: the sanitizer found violations:\n"
-              f"{rep.format()}")
-        check(not problems, f"{what}: trace export invalid: {problems[:5]}")
+        if out["first"] is None and not (rep.ok and not problems):
+            out["first"] = rep.format() if not rep.ok else str(problems[:5])
         out["events"] += rep.events
         out["violations"] += len(rep.violations)
         out["problems"] += len(problems)
+        out["dropped"] += tr.dropped
         for rule, n in rep.checks.items():
             out["checks"][rule] = out["checks"].get(rule, 0) + n
+    return out
+
+
+def sanitize(what: str, tracers) -> dict:
+    """``sanitize_report`` of the tracers: zero violations and zero
+    problems, or the run fails."""
+    out = sanitize_report(tracers)
+    check(out["violations"] == 0 and out["problems"] == 0,
+          f"{what}: the sanitizer or the trace export found faults:\n"
+          f"{out['first']}")
+    out.pop("first")
+    out.pop("dropped")
     emit({"phase": "sanitize", "path": what, **out})
     return out
 
@@ -1800,8 +1848,8 @@ def same_runs(a, b) -> bool:
 
 def multitenant_full_width(model, params, device):
     """fig9's smoke scenario served on the card from one physical KV
-    pool: (a) the three tenants on one ``PoolArbiter`` at full width and
-    depth, every kernel launch counted and the pages checked after every
+    pool: (a) the three tenants on one ``PoolArbiter`` on ``model`` (full
+    width, ``SERVE_DEPTH`` layers), every kernel launch counted and the pages checked after every
     step, then run again unwatched and untraced for the wall time; (b)
     three static 1/3 private engines; (c) a lone tenant under an 8-page
     arbiter against a private engine with that budget, on the hog's
@@ -1972,7 +2020,7 @@ def multitenant_full_width(model, params, device):
           "static_equal_smoke_width": static_equal,
           "trace_dropped": tracer.dropped})
     check(tracer.dropped == 0, "multitenant: trace ring dropped events")
-    sanitize("multitenant (a) pooled (full depth, bf16)", [tracer])
+    sanitize("multitenant (a) pooled (bf16)", [tracer])
     done = all(h.status is RequestStatus.DONE for h in all_fair + all_static)
     check(done and all(engines[t].stats()["failed_oom"] == 0
                        for t in MT_TENANTS),
@@ -2047,19 +2095,45 @@ def dg_trace():
                        max_new_tokens=DG_MAX_NEW, vocab=vocab, seed=0)
 
 
-def dg_engine(model, params, device, **kw):
+class DgTiers:
+    """Phase 13 (f)'s engines: ``Engine.from_lease`` of the members of
+    one ``lease_gang`` of the smoke pool (``prefill`` and ``decode``,
+    ``model_parallel=TS_MODEL``) on one grid, the one the first engine
+    joined, each with the budget ``Engine.local`` takes when given
+    none."""
+
+    def __init__(self):
+        from repro_torch.pool import smoke_pool
+        self.gang = smoke_pool("scalepool").lease_gang(
+            "disagg-tp", {"prefill": dict(n_accels=TS_MODEL),
+                          "decode": dict(n_accels=TS_MODEL, tier2_gb=8,
+                                         kv_gb=4)},
+            model_parallel=TS_MODEL)
+        self.grid = None
+
+    def engine(self, model, cfg, role: str, **kw):
+        from repro_torch.serve import Engine, KVBudget
+        eng = Engine.from_lease(model, self.gang[role], cfg, grid=self.grid,
+                                budget=KVBudget(page_size=cfg.page_size),
+                                **kw)
+        self.grid = eng.grid
+        return eng
+
+
+def dg_engine(model, params, device, tiers=None, role="decode", **kw):
     """One engine of the scenario: modeled costs priced at the full-size
-    qwen1.5-0.5b (fig12's ``_cost_model``), whatever width is served."""
+    qwen1.5-0.5b (fig12's ``_cost_model``), whatever width is served;
+    with ``tiers`` (a ``DgTiers``), from its member ``role``."""
     from repro_torch.configs import get_config
     from repro_torch.serve import Engine, EngineConfig, ServeCostModel
     full = get_config("qwen1.5-0.5b")
-    return Engine.local(
-        model, EngineConfig(max_slots=DG_SLOTS,
-                            max_seq=DG_PROMPT + DG_MAX_NEW,
-                            page_size=DG_PAGE),
-        params=params, device=device,
-        cost_model=ServeCostModel.from_fabric(2.0 * full.param_count()),
-        **kw)
+    cfg = EngineConfig(max_slots=DG_SLOTS, max_seq=DG_PROMPT + DG_MAX_NEW,
+                       page_size=DG_PAGE)
+    kw.update(params=params, device=device,
+              cost_model=ServeCostModel.from_fabric(2.0 * full.param_count()))
+    if tiers is not None:
+        return tiers.engine(model, cfg, role, **kw)
+    return Engine.local(model, cfg, **kw)
 
 
 def dg_topology(bw: float):
@@ -2084,12 +2158,14 @@ def dg_topology(bw: float):
     return topo
 
 
-def dg_colocated(model, params, device, trace, tracer=None):
+def dg_colocated(model, params, device, trace, tracer=None, tiers=None):
     """The equal-hardware baseline: two colocated engines, the burst
-    split round-robin, on one modeled clock."""
+    split round-robin, on one modeled clock (with ``tiers``, one from
+    each member)."""
     from repro_torch.serve import run_multi_trace
-    engines = [dg_engine(model, params, device, tenant=f"colo{k}",
-                         tracer=tracer) for k in (0, 1)]
+    engines = [dg_engine(model, params, device, tiers, role,
+                         tenant=f"colo{k}", tracer=tracer)
+               for k, role in enumerate(("prefill", "decode"))]
     res = run_multi_trace(list(zip(engines, [trace[0::2], trace[1::2]])))
     out = [None] * len(trace)
     for k in (0, 1):
@@ -2099,14 +2175,16 @@ def dg_colocated(model, params, device, trace, tracer=None):
 
 
 def dg_disagg(model, params, device, trace, *, staging, pages_s,
-              saturate=False, tracer=None):
+              saturate=False, tracer=None, tiers=None):
     """One prefill pod and one decode pod over fig12's fabric, link
     capacity ``pages_s`` pages of the decode engine's page bytes per
     modeled second, so the schedule does not depend on the width."""
     from repro_torch.disagg import DisaggCluster, DisaggConfig, PrefillWorker
     from repro_torch.fabric import Transport
-    pe = dg_engine(model, params, device, tenant="prefill0", tracer=tracer)
-    de = dg_engine(model, params, device, tenant="decode0", tracer=tracer)
+    pe = dg_engine(model, params, device, tiers, "prefill",
+                   tenant="prefill0", tracer=tracer)
+    de = dg_engine(model, params, device, tiers, "decode", tenant="decode0",
+                   tracer=tracer)
     bw = pages_s * de.kv.page_bytes
     topo = dg_topology(bw)
     tx = Transport(topo, tracer=tracer)
@@ -2129,7 +2207,7 @@ def dg_disagg(model, params, device, trace, *, staging, pages_s,
     return handles, cluster
 
 
-def dg_degenerate(model, params, device, trace, tracers):
+def dg_degenerate(model, params, device, trace, tracers, tiers=None):
     """route=None, one pod: the cluster against ``run_trace(Engine)``,
     tokens and trace events."""
     from repro_torch.disagg import DisaggCluster, PrefillWorker
@@ -2137,9 +2215,11 @@ def dg_degenerate(model, params, device, trace, tracers):
     from repro_torch.serve import run_trace
     tr_a, tr_b = Tracer(1 << 16), Tracer(1 << 16)
     tracers += [tr_a, tr_b]
-    plain = run_trace(dg_engine(model, params, device, tracer=tr_a), trace)
-    idle = PrefillWorker(dg_engine(model, params, device, tracer=tr_b))
-    got = DisaggCluster([idle], [dg_engine(model, params, device,
+    plain = run_trace(dg_engine(model, params, device, tiers, tracer=tr_a),
+                      trace)
+    idle = PrefillWorker(dg_engine(model, params, device, tiers, "prefill",
+                                   tracer=tr_b))
+    got = DisaggCluster([idle], [dg_engine(model, params, device, tiers,
                                            tracer=tr_b)]).run(trace)
     key = lambda t: [(e.ph, e.track, e.name, e.ts, e.dur, e.args)
                      for e in t.events()]
@@ -2147,7 +2227,10 @@ def dg_degenerate(model, params, device, trace, tracers):
     return {"tokens_identical": [h.tokens for h in plain]
             == [h.tokens for h in got],
             "events_identical": ev_a == ev_b, "events": len(ev_a),
-            "done": all(h.done for h in plain + got)}
+            "done": all(h.done for h in plain + got),
+            "tokens": [h.tokens for h in got],
+            "clocks": [(h.submit_clock, h.first_token_clock, h.done_clock)
+                       for h in got]}
 
 
 def dg_decode_p95(handles) -> float:
@@ -2161,10 +2244,13 @@ def dg_mean_transit(handles) -> float:
     return sum(h.kv_transit_s for h in handles) / max(1, len(handles))
 
 
-def dg_main_runs(model, params, device, trace, tracers=None):
-    """The three runs fig12 compares at full depth: colocated, direct and
-    tier-2 staged, each with its wall time."""
+def dg_main_runs(model, params, device, trace, tracers=None,
+                 names=DG_MAIN, tiers=None, launches=None):
+    """The runs fig12 compares on ``model`` (of ``names``): colocated,
+    direct and tier-2 staged, each with its wall time; with ``launches``
+    (a dict) each run's kernel launches and variants, counted from 0."""
     import torch
+    from repro_torch import kernels
     from repro_torch.obs import Tracer
     runs, walls = {}, {}
     for name, fn, kw in (
@@ -2173,17 +2259,25 @@ def dg_main_runs(model, params, device, trace, tracers=None):
                                        pages_s=DG_FAST_PAGES_S)),
             ("tier2", dg_disagg, dict(staging="tier2",
                                       pages_s=DG_FAST_PAGES_S))):
+        if name not in names:
+            continue
         tracer = None
         if tracers is not None:
             tracer = Tracer(1 << 18)
             tracers.append(tracer)
         if device.type == "cuda":
             torch.cuda.synchronize()
+        if launches is not None:
+            kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        runs[name] = fn(model, params, device, trace, tracer=tracer, **kw)
+        runs[name] = fn(model, params, device, trace, tracer=tracer,
+                        tiers=tiers, **kw)
         if device.type == "cuda":
             torch.cuda.synchronize()
         walls[name] = time.perf_counter() - t0
+        if launches is not None:
+            launches[name] = {"launches": kernels.launch_counts(),
+                              "variants": kernels.variant_counts()}
     return runs, walls
 
 
@@ -2273,6 +2367,44 @@ def dg_tokens(model, params, device, runs):
                        list(h.request.prompt_tokens) + h.tokens[:step])}
 
 
+def dg_cut_runs(model, params, device, tiers=None, tracers=None,
+                launches=None):
+    """Phase 13 (f)'s fp32 runs, on one card (phase 7) or from ``tiers``:
+    colocated and direct (``TS_DG_MAIN``) and the degenerate cluster on
+    6 requests, on the first ``TRAIN_CUT`` layers of ``model`` at full
+    width in fp32, the weights of ``params`` upcast exactly.  Returns
+    (their tokens, modeled numbers, the degenerate cluster's report and
+    wall seconds; the fp32 model and its full parameters)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models.api import build_model
+
+    trace = dg_trace()
+    m32 = build_model(dataclasses.replace(model.cfg, n_layers=TRAIN_CUT,
+                                          compute_dtype="float32"),
+                      device=device)
+    p32 = m32.load({**params, "layers": params["layers"][:TRAIN_CUT]})
+    runs, walls = dg_main_runs(m32, p32, device, trace, tracers, TS_DG_MAIN,
+                               tiers, launches)
+    if launches is not None:
+        kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    degenerate = dg_degenerate(m32, p32, device, trace[:6],
+                               tracers if tracers is not None else [], tiers)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    walls["degenerate"] = time.perf_counter() - t0
+    if launches is not None:
+        launches["degenerate"] = {"launches": kernels.launch_counts(),
+                                  "variants": kernels.variant_counts()}
+    return ({"tokens": {k: [h.tokens for h in runs[k][0]] for k in runs},
+             "clocks": {k: [(h.submit_clock, h.first_token_clock,
+                             h.done_clock) for h in runs[k][0]]
+                        for k in runs},
+             "modeled": dg_modeled(runs), "degenerate": degenerate,
+             "wall_s": walls}, m32, p32)
+
+
 def disagg_full_width(model, params, device):
     """fig12's smoke scenario served on the card: a prefill engine
     exports each prompt's KV page by page (``prefill_export``), the
@@ -2280,8 +2412,8 @@ def disagg_full_width(model, params, device):
     request on the decode engine (``submit_prefilled``).  At full width
     and depth in bf16, every kernel launch counted: two colocated engines
     against disaggregation direct and tier-2 staged, and the degenerate
-    cluster against ``run_trace(Engine)`` on 6 requests; at full depth in
-    fp32 (TF32 off) the three token streams held equal; on the first
+    cluster against ``run_trace(Engine)`` on 6 requests; at ``model``'s
+    depth in fp32 (TF32 off) the three token streams held equal; on the first
     ``DG_SHALLOW`` layers the four staging runs (saturated and idle
     trunk).  The modeled numbers must equal the same scenario's at smoke
     width on the CPU."""
@@ -2306,7 +2438,7 @@ def disagg_full_width(model, params, device):
     torch.set_num_threads(threads)
     del cpu_runs, small, small_params
 
-    # full width and depth, bf16, every kernel launch counted
+    # full width at model's depth, bf16, every kernel launch counted
     tracers = []
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -2352,6 +2484,13 @@ def disagg_full_width(model, params, device):
     del model32, params32, runs32
 
     claims = dg_claims(modeled, fp32_equal, degenerate)
+    # phase 13 (f)'s one-card references: the fp32 runs on the first
+    # TRAIN_CUT layers, and these bf16 runs' tokens and modeled numbers
+    t1 = time.perf_counter()
+    cut_ref, m32, _ = dg_cut_runs(model, params, device)
+    cut_s = time.perf_counter() - t1
+    del m32
+    refs = ts_dg_refs(runs, modeled, cut_ref)
     L = model.cfg.n_layers
     generated = {k: sum(len(h.tokens) for h in runs[k][0]) for k in DG_MAIN}
     run_steps = {k: sum(e.name == "decode" for e in tracers[i].events())
@@ -2372,11 +2511,13 @@ def disagg_full_width(model, params, device):
           "launches": counts, "kernel_variants": variants,
           "cpu_smoke_width_s": cpu_s,
           "modeled_equal_smoke_width": modeled == cpu_modeled,
-          "trace_dropped": sum(t.dropped for t in tracers)})
+          "trace_dropped": sum(t.dropped for t in tracers),
+          "fp32_cut_for_phase_13": {"layers": TRAIN_CUT, "seconds": cut_s,
+                                    "modeled": cut_ref["modeled"]}})
     check(all(t.dropped == 0 for t in tracers),
           "disagg: trace ring dropped events")
-    sanitize("disagg colocated, direct, tier2 and degenerate (full depth, "
-             "bf16)", tracers)
+    sanitize("disagg colocated, direct, tier2 and degenerate (bf16)",
+             tracers)
     check(all(h.done and len(h.tokens) == h.request.max_new_tokens
               and all(0 <= x < model.cfg.vocab for x in h.tokens)
               for hs, _ in runs.values() for h in hs)
@@ -2403,7 +2544,11 @@ def disagg_full_width(model, params, device):
     check(counts["rmsnorm"] == (decodes + prefills) * (2 * L + 1),
           f"disagg: rmsnorm launches {counts['rmsnorm']} != "
           f"{decodes + prefills} calls x {2 * L + 1}")
-    return counts, variants
+    check(cut_ref["degenerate"]["tokens_identical"]
+          and cut_ref["degenerate"]["events_identical"],
+          f"disagg: the degenerate cluster on {TRAIN_CUT} layers in fp32 "
+          f"is not the engine's run")
+    return counts, variants, refs
 
 
 # ---------------------------------------------------------------------------
@@ -2540,12 +2685,14 @@ def co_bw(model, params, device):
 
 
 def co_run(model, params, device, policy: str, n_steps: int, traces,
-           bw: float, tracer=None):
+           bw: float, tracer=None, lease=None, grid=None):
     """One fig11 run (``_run_policy``): place serving and training under
     ``policy``, serve both tenants over the placement's spill route and
     step the training job on its collective routes, on one shared
     ``Transport`` through ``run_colo``.  The tracer, when given, records
-    the engines as well as the transport."""
+    the engines as well as the transport.  ``lease``: the engines come
+    from it (``Engine.from_lease``; a (data 1, model m) lease in a world
+    of m ranks serves both tenants on one grid, ``grid`` when given)."""
     from repro_torch.colo import TrainActor, job_routes, run_colo
     from repro_torch.fabric import Transport
     from repro_torch.obs import link_report
@@ -2559,11 +2706,17 @@ def co_run(model, params, device, policy: str, n_steps: int, traces,
     cfg = EngineConfig(max_slots=CO_SLOTS, max_seq=CO_PROMPT + CO_MAX_NEW,
                        page_size=CO_PAGE)
     spill = topo.route(f"pod:{svc_pods[0]}", f"mem:{svc_mems[0]}")
-    engines = {t: Engine.local(model, cfg, params=params, device=device,
-                               budget=KVBudget(CO_QUOTA, 1e9, CO_PAGE),
-                               cost_model=cm, transport=tx, route=spill,
-                               tenant=t, tracer=tracer)
-               for t in CO_TENANTS}
+    engines = {}
+    for t in CO_TENANTS:
+        kw = dict(params=params, device=device,
+                  budget=KVBudget(CO_QUOTA, 1e9, CO_PAGE), cost_model=cm,
+                  transport=tx, route=spill, tenant=t, tracer=tracer)
+        if lease is None:
+            engines[t] = Engine.local(model, cfg, **kw)
+        else:
+            engines[t] = Engine.from_lease(model, lease, cfg, grid=grid,
+                                           **kw)
+            grid = engines[t].grid
     actors = []
     if n_steps > 0:
         actors = [TrainActor("job0", bd, tx,
@@ -2580,7 +2733,8 @@ def co_run(model, params, device, policy: str, n_steps: int, traces,
             "train": res.train[0].stats() if actors else None,
             "placement": {"svc_pods": svc_pods, "train_pods": trn_pods,
                           "train_mem": trn_mems},
-            "links": link_report(tx), "transport": tx.stats()}
+            "links": link_report(tx), "transport": tx.stats(),
+            "grid": grid}
 
 
 def co_outcome(r):
@@ -2669,21 +2823,38 @@ def co_token_difference(model, params, device, runs):
     return None
 
 
-def co_three(model, params, device, n_requests, n_steps):
-    """fig11's three runs, each with its wall time, and the page bytes."""
+def co_three(model, params, device, n_requests, n_steps, lease=None,
+             tracers=None, launches=None):
+    """fig11's three runs, each with its wall time, and the page bytes;
+    with ``lease``, every run's engines from it on one grid, with
+    ``tracers`` (a list) each run traced into a new one, and with
+    ``launches`` (a dict) each run's kernel launches and variants,
+    counted from 0."""
     import torch
+    from repro_torch import kernels
+    from repro_torch.obs import Tracer
     bw, page_bytes = co_bw(model, params, device)
-    runs, walls = {}, {}
+    runs, walls, grid = {}, {}, None
     for name, policy, train in CO_RUNS:
+        tracer = None
+        if tracers is not None:
+            tracer = Tracer(1 << 18)
+            tracers.append(tracer)
         if device.type == "cuda":
             torch.cuda.synchronize()
+        if launches is not None:
+            kernels.reset_launch_counts()
         t0 = time.perf_counter()
         runs[name] = co_run(model, params, device, policy,
                             n_steps if train else 0, co_traces(n_requests),
-                            bw)
+                            bw, tracer=tracer, lease=lease, grid=grid)
+        grid = runs[name]["grid"]
         if device.type == "cuda":
             torch.cuda.synchronize()
         walls[name] = time.perf_counter() - t0
+        if launches is not None:
+            launches[name] = {"launches": kernels.launch_counts(),
+                              "variants": kernels.variant_counts()}
     return runs, walls, page_bytes
 
 
@@ -2708,12 +2879,13 @@ def colo_full_width(model, params, device):
     """fig11's smoke scenario on the card: two tenants' bursts served
     while a data-parallel training job's gradient and offload phases
     share the estate's links, placed hop-only, contention-aware, and
-    with no training.  At full width and depth in bf16, every kernel
+    with no training.  At full width on ``model`` (``SERVE_DEPTH`` layers)
+    in bf16, every kernel
     launch counted, the hop-only trace sanitized; on the first
     ``CO_SHALLOW`` layers in fp32 the three runs again, and the racecheck
     in bf16.  The modeled numbers must equal the same scenario's at
-    smoke width on the CPU: to ``CO_REL`` at full depth, exactly at
-    depth ``CO_SHALLOW``."""
+    smoke width on the CPU: to ``CO_REL`` at ``model``'s depth, exactly
+    at depth ``CO_SHALLOW``."""
     import torch
     from repro_torch import kernels
     from repro_torch.configs import get_config
@@ -2738,7 +2910,7 @@ def colo_full_width(model, params, device):
     torch.set_num_threads(threads)
     del cpu_runs, small, small_params
 
-    # full width and depth, bf16, every kernel launch counted per run
+    # full width at model's depth, bf16, every kernel launch counted per run
     L = model.cfg.n_layers
     runs, walls, launches, steps = {}, {}, {}, {}
     tracers = []
@@ -2786,7 +2958,7 @@ def colo_full_width(model, params, device):
         co_token_difference(model, params, device, runs)
     generated = {k: sum(len(h.tokens) for hs in r["handles"].values()
                         for h in hs) for k, r in runs.items()}
-    san = sanitize("colo hop_only (full depth, bf16)", tracers[:1])
+    san = sanitize("colo hop_only (bf16)", tracers[:1])
 
     # the three runs on the first CO_SHALLOW layers in fp32 (the same
     # weights, upcast exactly, TF32 off): pages of 2^18 B, a power of two
@@ -2800,6 +2972,7 @@ def colo_full_width(model, params, device):
                                        CO_REQUESTS, CO_STEPS)
     modeled32 = {k: co_modeled(r, page32) for k, r in runs32.items()}
     claims32 = co_claims(runs32)
+    refs = ts_co_refs(runs32, page32)   # phase 13 (g)'s one-card runs
     del shallow32, params32, runs32
 
     # the racecheck on the card, first CO_SHALLOW layers in bf16
@@ -2846,7 +3019,7 @@ def colo_full_width(model, params, device):
               f"colo {name}: a request did not finish, or its tokens are "
               f"missing or out of range")
     for k, v in claims.items():
-        check(v, f"colo: fig11 claim {k} failed at full depth in bf16")
+        check(v, f"colo: fig11 claim {k} failed on {L} layers in bf16")
     for k, v in claims32.items():
         check(v, f"colo: fig11 claim {k} failed on {CO_SHALLOW} layers in "
               f"fp32")
@@ -2861,7 +3034,7 @@ def colo_full_width(model, params, device):
               f"{modeled32[k]} != smoke width on the CPU {cpu_modeled[k]}")
     check(race.ok, f"colo: the racecheck diverged on the card:\n"
           f"{race.format()}")
-    return total, total_variants
+    return total, total_variants, refs
 
 # ---------------------------------------------------------------------------
 # phase 9: the moe family (olmoe-1b-7b at full width and depth, mixtral-8x7b
@@ -3366,7 +3539,7 @@ def twice_in_bits(step, state, batch):
     return same, torch.cuda.max_memory_allocated()
 
 
-def train_full_width(arch, device, smi, n_layers=None, record=None):
+def train_full_width(arch, device, smi, n_layers=None):
     """10 steps at full width (bf16 compute, fp32 masters, remat on), at
     full depth or on the first ``n_layers``: the loss falls; on step 1
     every parameter leaf has a finite, non-zero gradient
@@ -3376,8 +3549,7 @@ def train_full_width(arch, device, smi, n_layers=None, record=None):
     step twice from the same state, required equal in bits (the moe
     dispatch's fixed-order backward, the SSD backward's fixed-order
     sums).  Then 2 more steps plain and 2 profiled give the device's
-    busy share.  Returns the run's counts and variants; ``record`` (a
-    dict) gets the 10 losses under the config's name."""
+    busy share.  Returns the run's counts and variants."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import kernels
@@ -3417,8 +3589,6 @@ def train_full_width(arch, device, smi, n_layers=None, record=None):
     variants = {**kernels.variant_counts(),
                 **kernels.backward_variant_counts()}
     peak = torch.cuda.max_memory_allocated()
-    if record is not None:
-        record[cfg.name] = losses
 
     L, n = cfg.n_layers, TRAIN_STEPS
     want = train_launches(cfg, n)
@@ -3919,20 +4089,19 @@ def train_ssm_families(device, smi):
     return counts, variants
 
 
-def train_phase(device, smi, record=None):
+def train_phase(device, smi):
     """Phase 10: (a) olmo-1b and (c) qwen1.5-0.5b trained at full width,
     (b) the fp32 gate, (b2) the bf16 trajectory, (d) fault tolerance,
     (e) the optimizer offload, (g) the training CLI itself and its
     refusals, (h) olmoe-1b-7b, (i) whisper-small, (j) mamba2-780m and
     (k) zamba2-7b; the report (f) is in each line.  Returns the six
-    paths' counts and variants; ``record`` gets (a)'s and (c)'s losses
-    (phase 12 holds its trajectories to (c)'s)."""
+    paths' counts and variants."""
     import torch
     t0 = time.perf_counter()
     counts, variants = {}, {}
     for arch in ("olmo-1b", "qwen1.5-0.5b"):
         counts[f"{arch} train"], variants[f"{arch} train"] = \
-            train_full_width(arch, device, smi, record=record)
+            train_full_width(arch, device, smi)
         gc.collect()
         torch.cuda.empty_cache()
     for part in (fp32_gate, bf16_trajectory, fault_tolerance, offload_check):
@@ -4665,19 +4834,18 @@ def tp_fp32_gate(grid, cases):
 
 
 def tp_full_depth(grid, cases):
-    """(b) qwen1.5-0.5b at full width and depth, bf16 compute, the global
-    8 x 512 (phase 10 (c)'s weights, seed 0, and batches), ``TP_STEPS``
-    steps of each case: losses, seconds a step, host seconds in
+    """(b) qwen1.5-0.5b at full width on its first ``TP_DEPTH`` layers,
+    bf16 compute, the global 8 x 512 (phase 10 (c)'s weights, seed 0, and
+    batches), ``TP_STEPS`` steps of each case: losses, seconds a step, host seconds in
     collectives and the byte counter by (axes, op) a step, the peak of
     device memory, the kernels' launches and variants."""
     import torch
     from repro_torch import kernels
-    from repro_torch.configs import get_config
     from repro_torch.models.config import ShapeConfig
     from repro_torch.runtime import train as train_rt
     from repro_torch.sharding.profiles import describe, make_rules
 
-    cfg = get_config("qwen1.5-0.5b")
+    cfg = cut("qwen1.5-0.5b", TP_DEPTH)
     model, opt, _, pipe = train_parts(cfg, grid.device)
     shape = ShapeConfig("smoke", "train", TRAIN_SEQ, TRAIN_BATCH)
     batches = [pipe.next_batch() for _ in range(TP_STEPS)]
@@ -4772,6 +4940,24 @@ def tp_twice(grid):
             "seconds": time.perf_counter() - t0}
 
 
+def tp_reference_losses(device):
+    """(b)'s one-card reference: phase 10 (c)'s run (qwen1.5-0.5b, the
+    weights of seed 0, its batches) on the first ``TP_DEPTH`` layers,
+    ``TP_STEPS`` steps' losses."""
+    import torch
+    from repro_torch.runtime import train as train_rt
+
+    cfg = cut("qwen1.5-0.5b", TP_DEPTH)
+    model, opt, step, pipe = train_parts(cfg, device)
+    state = train_rt.init_state(
+        model, opt, torch.Generator(device=device).manual_seed(0))
+    losses = []
+    for b in train_batches(cfg, pipe, TP_STEPS, device):
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+    return losses
+
+
 def tp_rank(rank: int, init: str, out_dir: str) -> None:
     """One rank of phase 12's world (a spawned process; any failure exits
     it non-zero): on each of ``TP_GRIDS`` in turn (the second's groups
@@ -4816,16 +5002,19 @@ def tp_rank(rank: int, init: str, out_dir: str) -> None:
         gc.collect()
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    report["serve"] = ts_rank(rank)
+    refs = Path(out_dir, TS_REFS)
+    report["serve"] = ts_rank(rank, json.loads(refs.read_text())
+                              if refs.exists() else None)
     report["serve"]["seconds"] = time.perf_counter() - t0
     world.close()
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(report))
 
 
 def tp_torchrun(argv, name):
-    """The training CLI's argv under ``torch.distributed.run`` on 4 ranks,
-    its output in files, its whole process tree killed past
-    ``TP_CLI_LIMIT_S``: (rc, summary or None, stderr, seconds)."""
+    """Start the training CLI's argv under ``torch.distributed.run`` on 4
+    ranks, its output in files.  Returns the process and a function that
+    waits for it (its whole process tree killed past ``TP_CLI_LIMIT_S``
+    from its start) and gives (rc, summary or None, stderr, seconds)."""
     import os
     root = Path(__file__).resolve().parent
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
@@ -4837,17 +5026,21 @@ def tp_torchrun(argv, name):
         proc = subprocess.Popen(cmd, cwd=root, env={
             **os.environ, "PYTHONPATH": str(root / "src")},
             stdout=fo, stderr=fe, text=True)
-    try:
-        proc.wait(timeout=TP_CLI_LIMIT_S)
-    except subprocess.TimeoutExpired:
-        kill_tree(proc.pid)
-        proc.wait(timeout=60)
-        check(False, f"phase 12 (d) {name}: the CLI overran "
-              f"{TP_CLI_LIMIT_S} s: {err_path.read_text()[-2000:]}")
-    secs = time.perf_counter() - t0
-    out, err = out_path.read_text(), err_path.read_text()
-    summary = json.loads(out) if proc.returncode == 0 else None
-    return proc.returncode, summary, err, secs
+
+    def wait():
+        try:
+            proc.wait(timeout=max(1.0, TP_CLI_LIMIT_S
+                                  - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            kill_tree(proc.pid)
+            proc.wait(timeout=60)
+            check(False, f"phase 12 (d) {name}: the CLI overran "
+                  f"{TP_CLI_LIMIT_S} s: {err_path.read_text()[-2000:]}")
+        secs = time.perf_counter() - t0
+        out, err = out_path.read_text(), err_path.read_text()
+        summary = json.loads(out) if proc.returncode == 0 else None
+        return proc.returncode, summary, err, secs
+    return proc, wait
 
 
 def tp_step_losses(err):
@@ -4863,19 +5056,39 @@ def tp_step_losses(err):
 def tp_cli(smi):
     """(d) the training CLI under ``torch.distributed.run`` on 4 ranks
     with no ``--pool``: qwen1.5-0.5b at full width on its first
-    ``TRAIN_CUT`` layers (``--layers``; (b) runs the full depth) on the
-    reference's smoke mesh (data 2, model 2), tensor parallel, 3 steps of
-    8 x 512; then the same under ``--max-restarts 1`` through a wrapper
-    (under the ignored ``build/``) whose failure hook raises on rank 1 at
-    step ``TP_FAIL_AT`` of the first attempt, with ``--ckpt-every 1``:
-    exit 0, the resume reported, every step's loss (the first attempt's
-    and the replayed ones) equal in bits to the first run's."""
+    ``TRAIN_CUT`` layers (``--layers``) on the reference's smoke mesh
+    (data 2, model 2), tensor parallel, 3 steps of 8 x 512; beside it the
+    same under ``--max-restarts 1`` through a wrapper (under the ignored
+    ``build/``) whose failure hook raises on rank 1 at step
+    ``TP_FAIL_AT`` of the first attempt, with ``--ckpt-every 1``: exit 0,
+    the resume reported, every step's loss (the first attempt's and the
+    replayed ones) equal in bits to the first run's.  The two worlds run
+    at once, 8 ranks on the card: their seconds are start-up under each
+    other's load."""
     base = ["--arch", "qwen1.5-0.5b", "--layers", str(TRAIN_CUT),
             "--steps", "3", "--batch",
             str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1"]
-    rc, plain, err, secs = tp_torchrun(
+    wrapper = TP_DIR / "restart_wrapper.py"
+    wrapper.write_text(TP_CLI_WRAPPER.format(fail_at=TP_FAIL_AT))
+    started = [tp_torchrun(
         ["-m", "repro_torch.launch.train"] + base
-        + ["--ckpt-dir", str(TP_DIR / "ckpt_plain")], "cli")
+        + ["--ckpt-dir", str(TP_DIR / "ckpt_plain")], "cli"),
+        tp_torchrun(
+        ["--max-restarts", "1", str(wrapper)] + base
+        + ["--ckpt-every", "1", "--ckpt-dir", str(TP_DIR / "ckpt_restart")],
+        "cli_restart")]
+    try:
+        tp_cli_checks(smi, *(wait for _, wait in started))
+    finally:
+        for proc, _ in started:
+            if proc.poll() is None:
+                kill_tree(proc.pid)
+                proc.wait(timeout=60)
+
+
+def tp_cli_checks(smi, plain_wait, restart_wait):
+    """(d)'s lines and checks, each world's as it ends."""
+    rc, plain, err, secs = plain_wait()
     emit({"phase": "tp", "check": "(d) CLI", "nvidia_smi": smi, "rc": rc,
           "layers": TRAIN_CUT, "seconds": secs, "cli": plain,
           "stderr_tail": err.strip().splitlines()[-6:]})
@@ -4887,12 +5100,7 @@ def tp_cli(smi):
           and plain["resumed_from"] is None,
           f"phase 12 (d): summary {plain}")
     want = dict(tp_step_losses(err))
-    wrapper = TP_DIR / "restart_wrapper.py"
-    wrapper.write_text(TP_CLI_WRAPPER.format(fail_at=TP_FAIL_AT))
-    rc, summary, err, secs = tp_torchrun(
-        ["--max-restarts", "1", str(wrapper)] + base
-        + ["--ckpt-every", "1", "--ckpt-dir", str(TP_DIR / "ckpt_restart")],
-        "cli_restart")
+    rc, summary, err, secs = restart_wait()
     got = tp_step_losses(err)
     same = [(s, x, want.get(s)) for s, x in got]
     emit({"phase": "tp", "check": "(d) CLI world restart", "nvidia_smi": smi,
@@ -4911,29 +5119,32 @@ def tp_cli(smi):
           f"phase 12 (d) restart: {summary}, losses {same}")
 
 
-def tp_phase(smi, qwen_losses, qwen_tokens):
+def tp_phase(smi, qwen_losses, qwen_tokens, serve_refs):
     """Phases 12 and 13: one world of 4 ranks sharing the card (the
     kernels built by this process before) on each of ``TP_GRIDS`` in
     turn, then serving (``ts_rank``), then phase 12 (d), the CLI.  (b)'s
-    trajectories are held to the one-card trajectory of phase 10 (c)
-    (``qwen_losses``), the compressed one to the plain in-process
-    evaluation of the same schedule (``tp_plain_compressed_steps``, rank
-    0): int8 codes change the gradient, so a compressed trajectory
+    trajectories are held to the one-card trajectory of the same cut
+    (``qwen_losses``, ``tp_reference_losses``), the compressed one to the
+    plain in-process evaluation of the same schedule
+    (``tp_plain_compressed_steps``, rank 0): int8 codes change the gradient, so a compressed trajectory
     leaves the uncompressed one by more than the bf16 bound (phase 11's
-    own by 4.6% at step 4 of its full-depth run on an H100).  Phase 13's
-    bf16 tokens are reported beside phase 4's (``qwen_tokens``).
+    own by 4.6% at step 4 of its full-depth run on an H100).  Phase 13
+    (b)'s bf16 tokens are reported beside one card's on the same cut
+    (``qwen_tokens``, ``ts_one_card_tokens``), and (f)
+    and (g) held to one card's runs of phases 7 and 8 (``serve_refs``,
+    written for the ranks before the world starts).
     Returns each rank's (b) launches, its cases together, and phase 13
     (b)'s."""
     import multiprocessing
     import shutil
 
     import torch
-    from repro_torch.configs import get_config
 
     t_start = time.perf_counter()
     shutil.rmtree(TP_DIR, ignore_errors=True)
     TP_DIR.mkdir(parents=True)
-    cfg = get_config("qwen1.5-0.5b")
+    (TP_DIR / TS_REFS).write_text(json.dumps(serve_refs))
+    cfg = cut("qwen1.5-0.5b", TP_DEPTH)
     want = train_launches(cfg, TP_STEPS)
     counts = {}
     ctx = multiprocessing.get_context("spawn")
@@ -4974,9 +5185,9 @@ def tp_phase(smi, qwen_losses, qwen_tokens):
                   "seq": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
                   "steps": TP_STEPS,
                   "held_to": ("the plain compressed evaluation"
-                              if compress else "phase 10 (c)"),
+                              if compress else "one card, the same cut"),
                   "reference_losses": ref[:TP_STEPS], "rel_gaps": gaps,
-                  "rel_gaps_to_phase_10c": [
+                  "rel_gaps_to_one_card": [
                       abs(a - b) / abs(b)
                       for a, b in zip(losses, qwen_losses)],
                   "tol": BF16_TRAJ_TOL, "per_rank": per})
@@ -5008,7 +5219,7 @@ def tp_phase(smi, qwen_losses, qwen_tokens):
         emit({"phase": "tp", "world": world,
               "rank_seconds": [r["seconds"] for r in grids]})
     counts.update(ts_checks(smi, [r["serve"] for r in reports],
-                            qwen_tokens))
+                            qwen_tokens, serve_refs))
     emit({"phase": "tp", "world_seconds": world_s,
           "serve_rank_seconds": [r["serve"]["seconds"] for r in reports]})
     tp_cli(smi)
@@ -5060,6 +5271,36 @@ def ts_run(eng, trace):
             "latency": latency_summary(handles), "kv": st["kv"],
             "completed": st["completed"], "failed_oom": st["failed_oom"],
             "tokens_decoded": st["tokens_decoded"]}
+
+
+def ts_one_card_tokens(device):
+    """(b)'s one-card reference: phase 4's trace served by
+    ``Engine.local`` on the first ``SERVE_DEPTH`` layers in bf16, the
+    weights of seed 0 drawn as ``ts_engine`` draws them."""
+    import torch
+    from repro_torch.models.api import build_model
+    from repro_torch.serve import Engine
+
+    cfg = cut("qwen1.5-0.5b", SERVE_DEPTH)
+    model = build_model(cfg, device=device)
+    ecfg, budget, trace = serve_parts(cfg)
+    eng = Engine.local(
+        model, ecfg, budget=budget, device=device,
+        generator=torch.Generator(device=device).manual_seed(0))
+    return ts_run(eng, trace)["tokens"]
+
+
+def ts_serve_model(device):
+    """(f)'s and (g)'s model: qwen1.5-0.5b's weights of seed 0 drawn whole
+    (phase 4's), loaded and cut to the first ``SERVE_DEPTH`` layers, as
+    phases 7 and 8 serve them."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+
+    full = build_model(get_config("qwen1.5-0.5b"), device=device)
+    return serve_cut(full, full.load(full.init(
+        torch.Generator(device=device).manual_seed(0))))
 
 
 def ts_prefill_logits(eng, prompt):
@@ -5128,18 +5369,16 @@ def ts_fp32_gate(rank, device):
 
 
 def ts_full_depth(device):
-    """(b) full width and depth in bf16 under the lease: the run, its
-    wall seconds, the kernels' launches and variants and the host
-    seconds in collectives."""
+    """(b) full width on the first ``SERVE_DEPTH`` layers in bf16 under
+    the lease: the run, its wall seconds, the kernels' launches and
+    variants and the host seconds in collectives."""
     import torch
     from repro_torch import kernels
-    from repro_torch.configs import get_config
     from repro_torch.models.api import build_model
     from repro_torch.obs import Tracer
     from repro_torch.sharding.profiles import describe
 
-    cfg = get_config("qwen1.5-0.5b")
-    model = build_model(cfg, device=device)
+    model = build_model(cut("qwen1.5-0.5b", SERVE_DEPTH), device=device)
     tracer = Tracer(1 << 20)
     eng, trace = ts_engine(model, device, tracer)
     gc.collect()
@@ -5203,6 +5442,23 @@ def ts_kernels(device):
         "max_abs_err": max_err(got, want),
         "ok": within(got, want, TOL["bfloat16"])
         and bool(torch.isfinite(got).all())}
+    # (f)'s decode tier (bf16 at full depth: 4 rows of 224..240 tokens)
+    # and (g)'s tenants (fp32: 6 rows of 33..160), 16-token pages
+    for name, B, pmax, lens, q_dtype in (
+            ("disagg decode tier", 4, 15, [224, 229, 235, 240], bf16),
+            ("colo tenants", 6, 10, [33, 48, 97, 128, 150, 160], f32)):
+        args = paged_inputs(gen, B, H, H, 64, 16, pmax, lens, q_dtype, f32,
+                            device)
+        got = paged_decode_attention(*args)
+        want = ref.paged_attention_ref(*args)
+        torch.cuda.synchronize()
+        tol = TOL[str(q_dtype).split(".")[1]]
+        out[f"paged_attention {name}"] = {
+            "case": f"B={B} len {lens[0]}..{lens[-1]} H=KV={H} D=64 ps=16 "
+                    f"pages={pmax} q={str(q_dtype).split('.')[1]} "
+                    f"pages=fp32", "tol": tol,
+            "max_abs_err": max_err(got, want),
+            "ok": within(got, want, tol) and bool(torch.isfinite(got).all())}
     q = torch.randn(1, 512, H, 64, generator=gen, device=device).to(bf16)
     k, v = (torch.randn(1, 512, H, 64, generator=gen, device=device)
             for _ in range(2))
@@ -5353,20 +5609,20 @@ def ts_session_gate(rank, device):
 
 
 def ts_session_full(device):
-    """(d) bf16 at full width and depth on each grid: ``TS_SESSION``'s
+    """(d) bf16 at full width on the first ``SERVE_DEPTH`` layers on each
+    grid: ``TS_SESSION``'s
     rows, prompts and new tokens through ``launch.serve.
     fixed_batch_generate``; the tokens, the launches and kernel variants
     of the run, prefill and decode seconds, decode tokens per wall
     second, host seconds in collectives by (axes, op)."""
     import torch
     from repro_torch import kernels
-    from repro_torch.configs import get_config
     from repro_torch.launch.serve import (fixed_batch_generate,
                                           fixed_batch_inputs)
     from repro_torch.models.api import build_model
     from repro_torch.sharding.profiles import describe
 
-    model = build_model(get_config("qwen1.5-0.5b"), device=device)
+    model = build_model(cut("qwen1.5-0.5b", SERVE_DEPTH), device=device)
     B, S, G = (TS_SESSION[k] for k in ("batch", "prompt", "generate"))
     raw, inputs = fixed_batch_inputs(model, B, S, 0, device)
     out = {}
@@ -5526,8 +5782,221 @@ def ts_tenants(rank, device):
     return out
 
 
-def ts_rank(rank: int) -> dict:
-    """Phase 13 in one rank of phase 12's world: (a)-(e)."""
+# (f): phase 7's disaggregated serving on a gang of two (data 1, model 4)
+# members; (g): phase 8's co-residency on one (data 1, model 4) lease;
+# every engine from its lease on one grid, held to one card's runs
+TS_DG_MAIN = ("colocated", "direct")    # (f)'s runs at each depth
+TS_REFS = "serve_refs.json"             # one card's, written before the
+                                        # world (phases 7 and 8)
+
+
+def ts_dg_refs(runs, modeled, cut_ref):
+    """(f)'s one-card references: the bf16 colocated and direct runs'
+    tokens and modeled numbers (of phase 7's ``runs`` and ``modeled``)
+    and ``dg_cut_runs``' report, as JSON gives them back."""
+    return json.loads(json.dumps({"fp32_cut": cut_ref, "bf16": {
+        "tokens": {k: [h.tokens for h in runs[k][0]] for k in TS_DG_MAIN},
+        "modeled": {m: {k: v for k, v in d.items() if k in TS_DG_MAIN}
+                    for m, d in modeled.items()}}}))
+
+
+def ts_co_refs(runs32, page_bytes):
+    """(g)'s one-card reference: fig11's three runs in fp32 on the first
+    ``TRAIN_CUT`` layers (phase 8's), tokens and modeled numbers."""
+    return json.loads(json.dumps({
+        "tokens": {k: co_outcome(r)["tokens"] for k, r in runs32.items()},
+        "modeled": {k: co_modeled(r, page_bytes) for k, r in runs32.items()},
+        "page_bytes": page_bytes}))
+
+
+def ts_serve_refs(device):
+    """(f)'s and (g)'s one-card references outside the smoke's phases 7
+    and 8 (``chip_tools/``): on ``ts_serve_model``'s cut, phase 7's bf16
+    colocated and direct runs, ``dg_cut_runs``, and phase 8's three fp32
+    runs on its cut."""
+    model, params = ts_serve_model(device)
+    runs, _ = dg_main_runs(model, params, device, dg_trace(),
+                           names=TS_DG_MAIN)
+    cut_ref, m32, p32 = dg_cut_runs(model, params, device)
+    runs32, _, page32 = co_three(m32, p32, device, CO_REQUESTS, CO_STEPS)
+    return {"disagg": ts_dg_refs(runs, dg_modeled(runs), cut_ref),
+            "colo": ts_co_refs(runs32, page32)}
+
+
+def ts_divergences(model, params, device, got, want, prompts):
+    """Where ``got`` (a list of token lists) parts from ``want``: each
+    request's first differing step with one card's top-2 logit margin
+    there (``model`` and the full ``params``, outside any plan)."""
+    out = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        step = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y),
+                    None)
+        if step is not None:
+            m = top2_margin(model, params, device,
+                            list(prompts[i]) + list(b[:step]))
+            out.append({"request": i, "step": step, "top2_margin": m,
+                        "tie": m <= TS_TIE_MARGIN})
+    return out
+
+
+def ts_run_counts(tracers, launches):
+    """Each run's launches beside the decode steps and prefills its
+    trace (or traces) recorded."""
+    out = {}
+    for name, trs in tracers.items():
+        names = [e.name for t in trs for e in t.events()]
+        out[name] = {**launches[name], "decodes": names.count("decode"),
+                     "prefills": names.count("prefill")}
+    return out
+
+
+def ts_disagg(rank, device, full_model, full_params, refs):
+    """(f) fig12's scenario (phase 7) on a gang of two (data 1, model 4)
+    members, every engine on one grid (``DgTiers``): colocated, direct
+    and the degenerate cluster in fp32 on the first ``TRAIN_CUT`` layers
+    at full width; colocated and direct in bf16 on ``full_model``
+    (``ts_serve_model``'s ``SERVE_DEPTH`` layers, as phase 7's), with the
+    wall, the host seconds in collectives and the peak memory.
+    Rank 0 takes one card's top-2 margin wherever its tokens part from
+    one card's (``refs``: phase 7's)."""
+    import torch
+
+    tiers = DgTiers()
+    trace = dg_trace()
+    prompts = [r.prompt_tokens for r in trace]
+    tracers32, launches32 = [], {}
+    t0 = time.perf_counter()
+    cut_out, m32, p32 = dg_cut_runs(full_model, full_params, device, tiers,
+                                    tracers32, launches32)
+    cut_s = time.perf_counter() - t0
+    out = {"fp32": {**cut_out, "seconds": cut_s,
+                    "counts": ts_run_counts(
+                        {"colocated": tracers32[:1],
+                         "direct": tracers32[1:2],
+                         "degenerate": tracers32[2:]}, launches32),
+                    "sanitizer": sanitize_report(tracers32),
+                    "handoff_uses": dg_uses_after_pages(tracers32[1])}}
+    if rank == 0:
+        ref = refs["fp32_cut"]
+        out["fp32"]["divergences"] = {
+            k: ts_divergences(m32, p32, device, cut_out["tokens"][k],
+                              ref["tokens"][k], prompts)
+            for k in TS_DG_MAIN}
+        out["fp32"]["divergences"]["degenerate"] = ts_divergences(
+            m32, p32, device, cut_out["degenerate"]["tokens"],
+            ref["degenerate"]["tokens"], prompts)
+    del m32, p32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tracers, launches = [], {}
+    grid = tiers.grid
+    grid.stats.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runs, walls = dg_main_runs(full_model, full_params, device, trace,
+                               tracers, TS_DG_MAIN, tiers, launches)
+    wall = time.perf_counter() - t0
+    stats = grid.stats
+    counts = ts_run_counts({k: [t] for k, t in zip(TS_DG_MAIN, tracers)},
+                           launches)
+    decoded = {k: sum(len(h.tokens) - 1 for h in runs[k][0])
+               for k in TS_DG_MAIN}
+    tokens = {k: [h.tokens for h in runs[k][0]] for k in TS_DG_MAIN}
+    out["bf16"] = {
+        "tokens": tokens, "modeled": dg_modeled(runs), "wall_s": walls,
+        "seconds": wall, "counts": counts,
+        "decode_tokens_per_wall_s": {k: decoded[k] / walls[k]
+                                     for k in TS_DG_MAIN},
+        "collective_host_s": stats.seconds,
+        "collective_host_s_by_op": dict(stats.seconds_by),
+        "collective_calls": dict(stats.calls),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "handoff_uses": dg_uses_after_pages(tracers[1]),
+        "sanitizer": sanitize_report(tracers),
+        "mesh": grid.layout.as_dict(),
+        "one_grid": all(e.grid is grid for e in
+                        [w.engine for w in runs["direct"][1].prefill_workers]
+                        + runs["direct"][1].decode_engines),
+        "kv_heads": runs["direct"][1].decode_engines[0].kv_heads}
+    if rank == 0:
+        out["bf16"]["divergences"] = {
+            k: ts_divergences(full_model, full_params, device, tokens[k],
+                              refs["bf16"]["tokens"][k], prompts)
+            for k in TS_DG_MAIN}
+    del runs
+    grid.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ts_colo(rank, device, full_params, refs):
+    """(g) fig11's three runs (phase 8) in fp32 on the first
+    ``TRAIN_CUT`` layers at full width, both tenants' engines from one
+    (data 1, model 4) lease on one grid; rank 0 takes one card's top-2
+    margin wherever its tokens part from one card's (``refs``: phase
+    8's fp32 runs on the same cut)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.pool import smoke_pool
+
+    m32 = build_model(cut("qwen1.5-0.5b", TRAIN_CUT, compute_dtype="float32"),
+                      device=device)
+    p32 = m32.load({**full_params,
+                    "layers": full_params["layers"][:TRAIN_CUT]})
+    lease = smoke_pool("scalepool").lease("colo-tp", TS_MODEL, tier2_gb=8,
+                                          kv_gb=4, model_parallel=TS_MODEL)
+    tracers, launches = [], {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runs, walls, page = co_three(m32, p32, device, CO_REQUESTS, CO_STEPS,
+                                 lease=lease, tracers=tracers,
+                                 launches=launches)
+    wall = time.perf_counter() - t0
+    grid = runs["hop_only"]["grid"]
+    stats = grid.stats
+    names = [k for k, _, _ in CO_RUNS]
+    tokens = {k: co_outcome(r)["tokens"] for k, r in runs.items()}
+    decoded = {k: sum(len(h.tokens) - 1 for hs in r["handles"].values()
+                      for h in hs) for k, r in runs.items()}
+    out = {"tokens": tokens,
+           "modeled": {k: co_modeled(r, page) for k, r in runs.items()},
+           "claims": co_claims(runs), "page_bytes": page,
+           "wall_s": walls, "seconds": wall,
+           "counts": ts_run_counts(dict(zip(names, ([t] for t in tracers))),
+                                   launches),
+           "decode_tokens_per_wall_s": {k: decoded[k] / walls[k]
+                                        for k in walls},
+           "collective_host_s": stats.seconds,
+           "collective_host_s_by_op": dict(stats.seconds_by),
+           "collective_calls": dict(stats.calls),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "sanitizer": sanitize_report(tracers),
+           "mesh": grid.layout.as_dict(),
+           "one_grid": all(e.grid is grid for r in runs.values()
+                           for e in r["engines"].values()),
+           "kv_heads": runs["hop_only"]["engines"]["a"].kv_heads,
+           "full_kv_heads": get_config("qwen1.5-0.5b").n_kv_heads}
+    if rank == 0:
+        out["divergences"] = {
+            k: {t: ts_divergences(
+                m32, p32, device, tokens[k][t], refs["tokens"][k][t],
+                [h.request.prompt_tokens for h in runs[k]["handles"][t]])
+                for t in CO_TENANTS} for k in names}
+    del runs
+    grid.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ts_rank(rank: int, refs=None) -> dict:
+    """Phase 13 in one rank of phase 12's world: (a)-(e), and with
+    ``refs`` (f) and (g)."""
     import torch
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
@@ -5551,17 +6020,30 @@ def ts_rank(rank: int) -> dict:
     out["tenants"] = ts_tenants(rank, device)
     dp_progress(rank, "(e)", t0, {k: out["tenants"][k] for k in (
         "wall_s", "arbiter", "one_card") if k in out["tenants"]}, phase=13)
-    out["seconds_d_e"] = {"d": t2 - t1, "e": time.perf_counter() - t2}
+    t3 = time.perf_counter()
+    if refs is not None:
+        full, params = ts_serve_model(device)
+        out["disagg"] = ts_disagg(rank, device, full, params,
+                                  refs["disagg"])
+        dp_progress(rank, "(f)", t0, {k: out["disagg"][k]["seconds"]
+                                      for k in ("fp32", "bf16")}, phase=13)
+        t4 = time.perf_counter()
+        out["colo"] = ts_colo(rank, device, params, refs["colo"])
+        dp_progress(rank, "(g)", t0, out["colo"]["seconds"], phase=13)
+        del full, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["seconds_f_g"] = {"f": t4 - t3, "g": time.perf_counter() - t4}
+    out["seconds_d_e"] = {"d": t2 - t1, "e": t3 - t2}
     return out
 
 
-def ts_checks(smi, per, qwen_tokens):
-    """Phase 13's lines and checks from every rank's report; returns each
-    rank's (b) launches."""
+def ts_checks(smi, per, qwen_tokens, refs=None):
+    """Phase 13's lines and checks from every rank's report (with
+    ``refs``, (f)'s and (g)'s too); returns each rank's launches."""
     from repro_torch.configs import get_config
 
     cfg = get_config("qwen1.5-0.5b")
-    L = cfg.n_layers
     gate = [p["fp32_gate"] for p in per]
     one = gate[0]["one_card"]
     emit({"phase": "tp serve", "check": "(a) fp32 gate", "nvidia_smi": smi,
@@ -5579,12 +6061,13 @@ def ts_checks(smi, per, qwen_tokens):
           f"phase 13 (a): against the one-card fp32 engine: {one}")
     full = [p["full_depth"] for p in per]
     b0 = full[0]
+    L = SERVE_DEPTH
     parting = sum(a != b for a, b in zip(b0["tokens"], qwen_tokens))
-    emit({"phase": "tp serve", "check": "(b) full width and depth",
+    emit({"phase": "tp serve", "check": "(b) full width, cut depth",
           "nvidia_smi": smi, "arch": cfg.name, "layers": L,
           "lease": {"data": 1, "model": TS_MODEL}, "ranks": TS_RANKS,
           "rules": b0["rules"],
-          "requests_parting_phase_4_one_card_bf16": parting,
+          "requests_parting_one_card_bf16": parting,
           "per_rank": [{k: f[k] for k in f if k not in ("tokens", "clocks")}
                        for f in full]})
     counts = {}
@@ -5611,8 +6094,12 @@ def ts_checks(smi, per, qwen_tokens):
           f"phase 13 (c): {kern}")
     counts.update(ts_session_checks(smi, per))
     counts.update(ts_tenant_checks(smi, per))
+    if refs is not None:
+        counts.update(ts_disagg_checks(smi, per, refs["disagg"]))
+        counts.update(ts_colo_checks(smi, per, refs["colo"]))
     emit({"phase": "tp serve", "seconds_d_e": [p["seconds_d_e"]
-                                               for p in per]})
+                                               for p in per],
+          "seconds_f_g": [p.get("seconds_f_g") for p in per]})
     return counts
 
 
@@ -5622,7 +6109,7 @@ def ts_session_checks(smi, per):
     from repro_torch.configs import get_config
 
     cfg = get_config("qwen1.5-0.5b")
-    L, G = cfg.n_layers, TS_SESSION["generate"]
+    L, G = SERVE_DEPTH, TS_SESSION["generate"]
     counts = {}
     for name in TS_SESSION_GRIDS:
         gate = [p["session_gate"][name] for p in per]
@@ -5642,7 +6129,7 @@ def ts_session_checks(smi, per):
               f"{one}")
         full = [p["session_full"][name] for p in per]
         f0 = full[0]
-        emit({"phase": "tp serve", "check": "(d) session full width and "
+        emit({"phase": "tp serve", "check": "(d) session full width, cut "
               "depth", "grid": name, "mesh": f0["mesh"], "nvidia_smi": smi,
               "arch": cfg.name, "layers": L, "compute": cfg.compute_dtype,
               **TS_SESSION, "ranks": TS_RANKS, "rules": f0["rules"],
@@ -5707,6 +6194,173 @@ def ts_tenant_checks(smi, per):
           and one["page_bytes"] == t0["page_bytes"]
           and t0["arbiter"]["revoked_pages"] > 0,
           f"phase 13 (e): against the one-card two-tenant run: {one}")
+    return counts
+
+
+def ts_launch_checks(what, per_run, L, compute):
+    """Every run's B1, B3 and B2 launches exact for its decode steps and
+    prefills (``L`` layers); flash on ``compute``'s kernel."""
+    for name, c in per_run.items():
+        n, d, p = c["launches"], c["decodes"], c["prefills"]
+        check(n["paged_attention"] == d * L
+              and n["flash_attention"] == p * L
+              and n["rmsnorm"] == (d + p) * (2 * L + 1),
+              f"{what} {name}: launches {n} for {d} decode steps and {p} "
+              f"prefills of {L} layers")
+        check_flash_variant(f"{what} {name}", compute, c["variants"],
+                            n["flash_attention"])
+
+
+def ts_sum_launches(per_run) -> dict:
+    out = {}
+    for c in per_run.values():
+        for k, v in c["launches"].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def ts_trace_check(what, rep):
+    check(rep["violations"] == 0 and rep["problems"] == 0
+          and rep["dropped"] == 0,
+          f"{what}: the sanitizer or the trace export found faults, or "
+          f"the ring dropped events:\n{rep['first']}")
+
+
+def ts_disagg_checks(smi, per, refs):
+    """Phase 13 (f)'s lines and checks; returns each rank's launches."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen1.5-0.5b")
+    L = SERVE_DEPTH
+    f = [p["disagg"] for p in per]
+    f0 = f[0]
+    ref32, ref16 = refs["fp32_cut"], refs["bf16"]
+    emit({"phase": "tp serve", "check": "(f) disagg fp32", "nvidia_smi": smi,
+          "arch": cfg.name, "layers": TRAIN_CUT, "ranks": TS_RANKS,
+          "lease": "a gang of prefill and decode, (data 1, model 4) each",
+          "tie_margin": TS_TIE_MARGIN, "modeled": f0["fp32"]["modeled"],
+          "modeled_equal_one_card": f0["fp32"]["modeled"]
+          == ref32["modeled"],
+          "divergences": f0["fp32"]["divergences"],
+          "per_rank": [{k: x["fp32"][k] for k in (
+              "seconds", "wall_s", "sanitizer", "handoff_uses")}
+              for x in f]})
+    counts = {}
+    for r, x in enumerate(f):
+        a = x["fp32"]
+        check(a["tokens"] == f0["fp32"]["tokens"]
+              and a["degenerate"]["tokens"]
+              == f0["fp32"]["degenerate"]["tokens"],
+              f"phase 13 (f) fp32 rank {r}: tokens differ from rank 0's")
+        check(a["modeled"] == ref32["modeled"]
+              and a["clocks"] == ref32["clocks"]
+              and a["degenerate"]["clocks"] == ref32["degenerate"]["clocks"],
+              f"phase 13 (f) fp32 rank {r}: modeled numbers "
+              f"{a['modeled']} != one card's {ref32['modeled']}")
+        check(a["degenerate"]["tokens_identical"]
+              and a["degenerate"]["events_identical"]
+              and a["degenerate"]["done"],
+              f"phase 13 (f) fp32 rank {r}: the degenerate cluster is not "
+              f"the engine's run: {a['degenerate']}")
+        uses, ok = a["handoff_uses"]
+        check(uses == a["modeled"]["handoffs"]["direct"] and ok,
+              f"phase 13 (f) fp32 rank {r}: {uses} handoff uses, a use "
+              f"before its last page: {not ok}")
+        ts_trace_check(f"phase 13 (f) fp32 rank {r}", a["sanitizer"])
+        ts_launch_checks(f"phase 13 (f) fp32 rank {r}", a["counts"],
+                         TRAIN_CUT, "float32")
+        b = x["bf16"]
+        check(b["tokens"] == f0["bf16"]["tokens"]
+              and b["modeled"] == f0["bf16"]["modeled"],
+              f"phase 13 (f) bf16 rank {r}: tokens or modeled numbers "
+              f"differ from rank 0's")
+        check(co_close(b["modeled"], ref16["modeled"], CO_REL),
+              f"phase 13 (f) bf16 rank {r}: modeled numbers {b['modeled']} "
+              f"not within {CO_REL} of phase 7's {ref16['modeled']}")
+        m = b["modeled"]["decode_p95_s"]
+        check(m["colocated"] >= 2.0 * m["direct"],
+              f"phase 13 (f) bf16 rank {r}: fig12's decode p95 claim: "
+              f"colocated {m['colocated']} < 2 x direct {m['direct']}")
+        uses, ok = b["handoff_uses"]
+        check(uses == b["modeled"]["handoffs"]["direct"] and ok,
+              f"phase 13 (f) bf16 rank {r}: {uses} handoff uses, a use "
+              f"before its last page: {not ok}")
+        ts_trace_check(f"phase 13 (f) bf16 rank {r}", b["sanitizer"])
+        ts_launch_checks(f"phase 13 (f) bf16 rank {r}", b["counts"], L,
+                         cfg.compute_dtype)
+        check(b["one_grid"] and b["mesh"] == {"data": 1, "model": TS_MODEL}
+              and b["kv_heads"][1] - b["kv_heads"][0]
+              == cfg.n_kv_heads // TS_MODEL,
+              f"phase 13 (f) rank {r}: the tiers' grid {b['mesh']}, one "
+              f"grid {b['one_grid']}, kv heads {b['kv_heads']}")
+        counts[f"qwen1.5-0.5b disagg tp rank {r}"] = {
+            k: ts_sum_launches(a["counts"]).get(k, 0)
+            + ts_sum_launches(b["counts"]).get(k, 0)
+            for k in ts_sum_launches(b["counts"])}
+    div = f0["fp32"]["divergences"]
+    check(all(d["tie"] for ds in div.values() for d in ds),
+          f"phase 13 (f) fp32: tokens part from one card's off a tie: "
+          f"{div}")
+    b0 = f0["bf16"]
+    emit({"phase": "tp serve", "check": "(f) disagg bf16",
+          "nvidia_smi": smi, "arch": cfg.name, "layers": L,
+          "ranks": TS_RANKS, "requests": DG_REQUESTS,
+          "modeled": b0["modeled"], "phase_7_modeled": ref16["modeled"],
+          "modeled_equal_phase_7": b0["modeled"] == ref16["modeled"],
+          "tokens_equal_phase_7": b0["tokens"] == ref16["tokens"],
+          "divergences_from_phase_7": b0["divergences"],
+          "per_rank": [{k: x["bf16"][k] for k in (
+              "seconds", "wall_s", "decode_tokens_per_wall_s",
+              "collective_host_s", "collective_host_s_by_op",
+              "collective_calls", "peak_mem_gb", "counts", "sanitizer",
+              "handoff_uses")} for x in f]})
+    return counts
+
+
+def ts_colo_checks(smi, per, refs):
+    """Phase 13 (g)'s line and checks; returns each rank's launches."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen1.5-0.5b")
+    g = [p["colo"] for p in per]
+    g0 = g[0]
+    emit({"phase": "tp serve", "check": "(g) colo fp32", "nvidia_smi": smi,
+          "arch": cfg.name, "layers": TRAIN_CUT, "ranks": TS_RANKS,
+          "lease": {"data": 1, "model": TS_MODEL},
+          "requests_per_tenant": CO_REQUESTS, "train_steps": CO_STEPS,
+          "claims": g0["claims"], "modeled_equal_one_card":
+              g0["modeled"] == refs["modeled"],
+          "tokens_equal_one_card": g0["tokens"] == refs["tokens"],
+          "divergences": g0["divergences"], "tie_margin": TS_TIE_MARGIN,
+          "per_rank": [{k: x[k] for k in (
+              "seconds", "wall_s", "decode_tokens_per_wall_s",
+              "collective_host_s", "collective_host_s_by_op",
+              "collective_calls", "peak_mem_gb", "counts", "sanitizer")}
+              for x in g]})
+    counts = {}
+    for r, x in enumerate(g):
+        check(x["tokens"] == g0["tokens"],
+              f"phase 13 (g) rank {r}: tokens differ from rank 0's")
+        check(x["modeled"] == refs["modeled"]
+              and x["page_bytes"] == refs["page_bytes"],
+              f"phase 13 (g) rank {r}: modeled numbers {x['modeled']} != "
+              f"one card's {refs['modeled']}")
+        for k, v in x["claims"].items():
+            check(v, f"phase 13 (g) rank {r}: fig11 claim {k} failed")
+        ts_trace_check(f"phase 13 (g) rank {r}", x["sanitizer"])
+        ts_launch_checks(f"phase 13 (g) rank {r}", x["counts"], TRAIN_CUT,
+                         "float32")
+        check(x["one_grid"] and x["mesh"] == {"data": 1, "model": TS_MODEL}
+              and x["kv_heads"][1] - x["kv_heads"][0]
+              == x["full_kv_heads"] // TS_MODEL,
+              f"phase 13 (g) rank {r}: grid {x['mesh']}, one grid "
+              f"{x['one_grid']}, kv heads {x['kv_heads']}")
+        counts[f"qwen1.5-0.5b colo tp rank {r}"] = ts_sum_launches(
+            x["counts"])
+    div = g0["divergences"]
+    check(all(d["tie"] for run in div.values() for ds in run.values()
+              for d in ds),
+          f"phase 13 (g): tokens part from one card's off a tie: {div}")
     return counts
 
 
@@ -5790,19 +6444,19 @@ def kernel_times(device, counts, errs):
         return nbytes, 4 * live * q.shape[1] * q.shape[2]
 
     def paged_time(case, B, ps, pmax, lens, first=False, H=16, KV=16,
-                   D=64, kv=f32, window=None):
-        one = paged_inputs(gen, B, H, KV, D, ps, pmax, lens, bf16, kv,
-                           device)
+                   D=64, kv=f32, window=None, q=bf16):
+        one = paged_inputs(gen, B, H, KV, D, ps, pmax, lens, q, kv, device)
         nbytes, flops = paged_work(one[0], one[1], lens, ps)
         reads = nbytes - one[0].numel() * one[0].element_size()   # - out
         sets = [one] + [paged_inputs(gen, B, H, KV, D, ps, pmax, lens,
-                                     bf16, kv, device)
+                                     q, kv, device)
                         for _ in range(max(4, cold_copies(reads)) - 1)]
         ms = time_ms(lambda i: pa.paged_decode_attention(
             *sets[i], sliding_window=window), len(sets))
         plain = time_ms(lambda i: ref.paged_attention_ref(
             *sets[i], sliding_window=window), len(sets))
-        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+        b_ms, b_by = bound(nbytes, flops,
+                           BF16_FLOPS if q == bf16 else FP32_FLOPS)
         if first:
             row(pa, "paged_attention", ms, plain, b_ms, b_by, None)
         times("paged_attention", case, ms, plain, b_ms, b_by, None,
@@ -5835,6 +6489,13 @@ def kernel_times(device, counts, errs):
     paged_time("tp rank (model 4) decode B=8 len 130..563 H=KV=4 D=64 "
                "ps=64 q=bf16 pages=fp32", 8, 64, 16,
                [130, 260, 520, 150, 300, 563, 200, 400], H=4, KV=4)
+    # phase 13 (f)'s decode tier and (g)'s tenants on a rank's 4 heads
+    paged_time("tp rank (model 4) disagg decode tier B=4 len 224..240 "
+               "H=KV=4 D=64 ps=16 pages=15 q=bf16 pages=fp32", 4, 16, 15,
+               [224, 229, 235, 240], H=4, KV=4)
+    paged_time("tp rank (model 4) colo decode B=6 len 33..160 H=KV=4 D=64 "
+               "ps=16 pages=10 q=fp32 pages=fp32", 6, 16, 10,
+               [33, 48, 97, 128, 150, 160], H=4, KV=4, q=f32)
 
     def flash_time(B, Sq, Skv, H, D, q_offset=0, kv_len=None,
                    q_dtype=bf16, kv_dtype=f32, causal=True):
@@ -6156,8 +6817,12 @@ def main() -> int:
     # serving never differentiates)
     counts, variants = {}, {}
     (counts["qwen1.5-0.5b"], variants["qwen1.5-0.5b"], qwen,
-     qwen_params, qwen_tokens) = serve_full_width(device)
+     qwen_params) = serve_full_width(device)
     counts["qwen1.5-0.5b"].update(kernels.backward_counts())
+    # phases 6-8 serve the first SERVE_DEPTH layers; phase 13 (b)'s
+    # one-card reference is phase 4's trace on that cut
+    qwen, qwen_params = serve_cut(qwen, qwen_params)
+    qwen_tokens = ts_one_card_tokens(device)
     gc.collect()
     torch.cuda.empty_cache()
     counts["qwen1.5-0.5b pooled"], variants["qwen1.5-0.5b pooled"] = \
@@ -6165,13 +6830,14 @@ def main() -> int:
     counts["qwen1.5-0.5b pooled"].update(kernels.backward_counts())
     gc.collect()
     torch.cuda.empty_cache()
-    counts["qwen1.5-0.5b disagg"], variants["qwen1.5-0.5b disagg"] = \
-        disagg_full_width(qwen, qwen_params, device)
+    serve_refs = {}
+    (counts["qwen1.5-0.5b disagg"], variants["qwen1.5-0.5b disagg"],
+     serve_refs["disagg"]) = disagg_full_width(qwen, qwen_params, device)
     counts["qwen1.5-0.5b disagg"].update(kernels.backward_counts())
     gc.collect()
     torch.cuda.empty_cache()
-    counts["qwen1.5-0.5b colo"], variants["qwen1.5-0.5b colo"] = \
-        colo_full_width(qwen, qwen_params, device)
+    (counts["qwen1.5-0.5b colo"], variants["qwen1.5-0.5b colo"],
+     serve_refs["colo"]) = colo_full_width(qwen, qwen_params, device)
     counts["qwen1.5-0.5b colo"].update(kernels.backward_counts())
     del qwen, qwen_params
     gc.collect()
@@ -6194,8 +6860,7 @@ def main() -> int:
           "a serving path launched a backward kernel")
     gc.collect()
     torch.cuda.empty_cache()
-    losses = {}
-    train_counts_, train_variants = train_phase(device, smi, losses)
+    train_counts_, train_variants = train_phase(device, smi)
     counts.update(train_counts_)
     variants.update(train_variants)
     gc.collect()
@@ -6203,7 +6868,10 @@ def main() -> int:
     counts.update(dp_phase(smi))
     gc.collect()
     torch.cuda.empty_cache()
-    counts.update(tp_phase(smi, losses["qwen1.5-0.5b"], qwen_tokens))
+    tp_ref = tp_reference_losses(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts.update(tp_phase(smi, tp_ref, qwen_tokens, serve_refs))
     names = sorted({name for c in counts.values() for name in c})
     total = {name: sum(c.get(name, 0) for c in counts.values())
              for name in names}

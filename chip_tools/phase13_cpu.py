@@ -1,18 +1,26 @@
-"""Rehearse chip_smoke.py's phase 13 (d) and (e) on the CPU, before a
-chip call.
+"""Rehearse chip_smoke.py's phase 13 (d)-(g) on the CPU, before a chip
+call.
 
-    # the rank code of (d) and (e) in 4 spawned CPU ranks over gloo, at
-    # smoke width (the configs' ``smoke=True``): the session's fp32 gate
-    # against one process, its bf16 run on both grids, the two tenants
+    # the rank code of (d)-(g) in 4 spawned CPU ranks over gloo, at smoke
+    # width (the configs' ``smoke=True``): the session's fp32 gate
+    # against one process, its bf16 run on both grids, the two tenants,
+    # the disaggregated tiers and the co-resident tenants held by the
+    # smoke's own checks (launch counts aside: the CPU launches no
+    # kernel) to one process's references (``ts_serve_refs``)
     PYTHONPATH=src python chip_tools/phase13_cpu.py
     # (e)'s schedule at full width on its first 2 layers, one process,
     # under each tier-1 pool size given: revoked pages, revocations,
     # recompute drops, completed requests (tokens do not move the
     # schedule, so the card's run revokes the same pages)
     PYTHONPATH=src python chip_tools/phase13_cpu.py --pages 24 32 40
+    # (f)'s and (g)'s one-card runs at full width on their first 2
+    # layers, one process: each run's engine steps, decode steps and
+    # prefills (the full depth's too: tokens do not move the schedule),
+    # handoffs, fig12's and fig11's modeled numbers, and the seconds
+    PYTHONPATH=src python chip_tools/phase13_cpu.py --serve-counts
 
-Each rank runs one torch thread; ~45 s for the first, ~30 s a pool size
-for the second.
+Each rank runs one torch thread; ~60 s for the first, ~30 s a pool size
+for the second, ~60 s for the third.
 """
 import argparse
 import dataclasses
@@ -29,17 +37,28 @@ sys.path.insert(0, str(ROOT / "src"))
 OUT = ROOT / "build" / "phase13_cpu"
 
 
-def rank_fn(rank, init):
+def smoke_width():
+    """chip_smoke at smoke width on the CPU: every config ``smoke=True``,
+    the card's synchronizing and memory calls no-ops; returns it."""
     import torch
-    torch.set_num_threads(1)
     for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
         setattr(torch.cuda, name, lambda *a, **k: None)
+    torch.cuda.max_memory_allocated = lambda *a, **k: 0
     import repro_torch.configs as configs
     full = configs.get_config
     configs.get_config = lambda name, smoke=False: full(name, smoke=True)
     import chip_smoke as cs
     cs.cut = lambda arch, n, **kw: dataclasses.replace(
         full(arch, smoke=True), n_layers=n, **kw)
+    # ts_serve_model cuts the smoke config, which has only 2 layers
+    cs.SERVE_DEPTH = cs.TP_DEPTH = full("qwen1.5-0.5b", smoke=True).n_layers
+    return cs
+
+
+def rank_fn(rank, init):
+    import torch
+    torch.set_num_threads(1)
+    cs = smoke_width()
     from repro_torch.launch import mesh as mesh_lib
     grid = mesh_lib.init_grid(mesh_lib.Layout((1, 4), ("data", "model")),
                               rank=rank, device=torch.device("cpu"),
@@ -48,13 +67,22 @@ def rank_fn(rank, init):
     out = {"session_gate": cs.ts_session_gate(rank, cpu),
            "session_full": cs.ts_session_full(cpu),
            "tenants": cs.ts_tenants(rank, cpu)}
+    refs = json.loads((OUT / cs.TS_REFS).read_text())
+    full, params = cs.ts_serve_model(cpu)
+    out["disagg"] = cs.ts_disagg(rank, cpu, full, params, refs["disagg"])
+    out["colo"] = cs.ts_colo(rank, cpu, params, refs["colo"])
     grid.close()
     (OUT / f"rank{rank}.json").write_text(json.dumps(out))
 
 
 def rehearse():
+    import torch
     shutil.rmtree(OUT, ignore_errors=True)
     OUT.mkdir(parents=True)
+    torch.set_num_threads(1)
+    cs = smoke_width()
+    refs = cs.ts_serve_refs(torch.device("cpu"))
+    (OUT / cs.TS_REFS).write_text(json.dumps(refs))
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=rank_fn, args=(r, f"file://{OUT}/store"))
              for r in range(4)]
@@ -82,6 +110,56 @@ def rehearse():
           "ranks agree:", all(p["tenants"]["tokens"] == t["tokens"]
                               and p["tenants"]["clocks"] == t["clocks"]
                               for p in per))
+    # (f) and (g) through the smoke's checks, but the launch counts;
+    # each failed check printed (at smoke width fig12's decode p95 claim
+    # and fig11's contention_dominates fail: the modeled costs price the
+    # smoke config here, not the full qwen1.5-0.5b)
+    failed = []
+    cs.ts_launch_checks = lambda *a, **k: None
+    cs.check = lambda cond, msg: cond or failed.append(msg)
+    cs.emit = lambda obj: print(json.dumps(obj)[:1500])
+    cs.ts_disagg_checks("cpu", per, refs["disagg"])
+    cs.ts_colo_checks("cpu", per, refs["colo"])
+    for msg in failed:
+        print("FAILED:", msg[:600])
+    print(f"(f), (g): {len(failed)} checks failed")
+    return 0
+
+
+def serve_counts():
+    import torch
+    torch.set_num_threads(4)
+    import chip_smoke as cs
+    from repro_torch.models.api import build_model
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    full = build_model(cs.cut("qwen1.5-0.5b", cs.TRAIN_CUT), device=cpu)
+    params = full.load(full.init(torch.Generator().manual_seed(0)))
+    tracers = []
+    ref, m32, p32 = cs.dg_cut_runs(full, params, cpu, tracers=tracers)
+    for name, trs in (("colocated", tracers[:1]), ("direct", tracers[1:2]),
+                      ("degenerate", tracers[2:])):
+        names = [e.name for t in trs for e in t.events()]
+        print(json.dumps({"run": f"(f) {name}",
+                          "decodes": names.count("decode"),
+                          "prefills": names.count("prefill")}))
+    print(json.dumps({"(f) modeled": ref["modeled"], "wall_s": ref["wall_s"],
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    t0 = time.perf_counter()
+    tracers = []
+    runs, walls, page = cs.co_three(m32, p32, cpu, cs.CO_REQUESTS,
+                                    cs.CO_STEPS, tracers=tracers)
+    for (name, _, _), t in zip(cs.CO_RUNS, tracers):
+        names = [e.name for e in t.events()]
+        print(json.dumps({"run": f"(g) {name}",
+                          "engine_steps": sum(e.steps for e in
+                                              runs[name]["engines"].values()),
+                          "decodes": names.count("decode"),
+                          "prefills": names.count("prefill"),
+                          "wall_s": walls[name]}))
+    print(json.dumps({"(g) claims": cs.co_claims(runs),
+                      "agg_p95_s": {k: r["agg_p95"] for k, r in runs.items()},
+                      "seconds": time.perf_counter() - t0}), flush=True)
     return 0
 
 
@@ -122,7 +200,10 @@ def quota(pages_list):
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--pages", type=int, nargs="*")
+    p.add_argument("--serve-counts", action="store_true")
     args = p.parse_args()
+    if args.serve_counts:
+        return serve_counts()
     return quota(args.pages) if args.pages else rehearse()
 
 

@@ -20,6 +20,12 @@ Equivalence contracts (pinned by ``tests/test_torch_colo.py``):
   completion — bit-identical to calling ``actor.step()`` in a loop,
   which on a quiet fabric is bit-identical to
   ``simulate_step(...).total`` per step.
+
+Under a ``model``-axis lease the serving engines come from one (data 1,
+model m) lease and serve on one rank grid (``Engine.from_lease(...,
+grid=)``; checked here): every rank runs this loop, its own
+``Transport`` driven by the same events, so each rank keeps the
+reference's clocks, training stats and link report.
 """
 
 from __future__ import annotations
@@ -59,6 +65,9 @@ def run_colo(pairs: Sequence[Pair], train: Sequence[TrainActor] = (), *,
     co-resident estate deadlocks only if every *serving* engine is
     blocked with no training left to run.
     """
+    if len({id(getattr(eng, "grid", None)) for eng, _ in pairs}) > 1:
+        raise ValueError("the serving engines serve on grids of their "
+                         "own: co-resident engines serve on one grid")
     state = [[eng, sorted(tr, key=lambda r: r.arrival_time), 0, []]
              for eng, tr in pairs]
     n_serve = len(state)

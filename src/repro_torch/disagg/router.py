@@ -24,6 +24,10 @@ a write leg then a read leg, two separately-priced transfers
 The resulting per-page completion times gate decode-side admission and
 first decode; the ``disagg-handoff`` sanitizer rule audits
 transferred-before-use from the trace.
+
+Under a ``model``-axis lease every engine of the cluster serves on one
+rank grid (checked at construction, ``serve.engine.handoff_refusal``):
+each rank runs this same loop, its handoffs moving its own kv heads.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from repro_torch.disagg.decode import decode_load
 from repro_torch.disagg.prefill import PrefillRecord, PrefillWorker
 from repro_torch.obs.trace import CAT_KV
 from repro_torch.serve.api import Request, RequestHandle
+from repro_torch.serve.engine import handoff_refusal
 
 _STAGINGS = ("direct", "tier2")
 
@@ -94,6 +99,16 @@ class DisaggCluster:
             raise ValueError("need at least one decode engine")
         self.prefill_workers = list(prefill_workers)
         self.decode_engines = list(decode_engines)
+        # one grid under a model-axis lease: every handoff's tiers, and
+        # the decode engines the router places requests on
+        for w in self.prefill_workers:
+            for eng in self.decode_engines:
+                why = handoff_refusal(w.engine, eng)
+                if why is not None:
+                    raise ValueError(why)
+        if len({id(e.grid) for e in self.decode_engines}) > 1:
+            raise ValueError("the decode engines serve on grids of their "
+                             "own: a cluster's engines serve on one grid")
         self.cfg = config or DisaggConfig()
         self.transport = transport
         self.route = route

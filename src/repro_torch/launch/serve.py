@@ -40,6 +40,11 @@ the request-level engine mode (the paged-KV families, dense and moe).
     # routed fabric (direct pod-to-pod or staged through tier-2 memory)
     ... --requests 16 --disagg --disagg-staging tier2 --min-ready-pages 1
 
+    # the tiers of one gang on a (data 1, model 2) lease across two ranks
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 2 -m repro_torch.launch.serve --requests 16 \
+        --disagg --pool scalepool --pool-model-parallel 2
+
 ``--requests`` or ``--trace`` select the engine, which a family without
 paged KV refuses (exit 2); otherwise the fixed-batch mode runs.  Prints
 the JSON summary of ``repro.launch.serve``'s mode plus ``"device"``; the
@@ -54,6 +59,12 @@ tokens differ from rank 0's makes every rank exit 1:
   ``--pool-model-parallel`` is the world's size (``Engine.from_lease``),
   and with ``--tenants N`` N tenants of that lease over one arbiter a
   rank;
+* ``--disagg`` takes its tiers from one gang of the ``--pool`` estate
+  (``ResourcePool.lease_gang``, ``--pool-accels`` a member) whose
+  ``--pool-model-parallel`` is the world's size: every engine of both
+  tiers serves on one (data 1, model m) grid, with the weights and the
+  budget of the one-process run, so the summary is its summary; rank 0
+  writes ``--trace-out``;
 * the fixed-batch mode runs on ``launch.mesh.make_smoke_mesh(world)``'s
   layout under its decode rules, as the reference's does on its smoke
   mesh: (data 2, model 2) at 4 ranks, (pod 2, data 2, model 2) at 8,
@@ -61,9 +72,11 @@ tokens differ from rank 0's makes every rank exit 1:
   (``runtime.serve.make_session``); a world that does not fill the
   layout exits 2 before any work.
 
-What is not served across ranks yet (``--disagg``, an engine lease with
-a ``data`` axis over 1, and what ``profiles.grid_refusal`` refuses)
-exits 2 with the slice that brings it.
+What is not served across ranks (the engine modes without such a
+lease; an engine lease with a ``data`` axis over 1, and what
+``profiles.grid_refusal`` refuses, each naming the slice that brings
+it) exits 2.  The reference's CLI has no co-resident (train + serve)
+mode, and neither has this one.
 """
 
 from __future__ import annotations
@@ -91,8 +104,7 @@ from repro_torch.runtime import serve as serve_rt
 from repro_torch.serve import (Engine, EngineConfig, PoolArbiter,
                                latency_summary, load_trace, run_multi_trace,
                                run_trace, synthetic_trace)
-from repro_torch.sharding.profiles import (grid_refusal, make_rules,
-                                          serving_path_refusal)
+from repro_torch.sharding.profiles import grid_refusal, make_rules
 
 
 def _flush_trace(tracer, transports, path: str) -> dict:
@@ -202,6 +214,41 @@ def _ranks_agree(grid, tokens) -> dict:
             "ranks_agree": all(t == every[0] for t in every)}
 
 
+def _disagg_tiers(args, model, ecfg, params, budget, tracer, device):
+    """The prefill workers and decode engines of ``--disagg``: local
+    engines in one process (the reference CLI's), else engines of one
+    ``lease_gang``'s members on one grid, each with the budget the local
+    engine would take (unbudgeted without the flags)."""
+    n_pre, n_dec = args.prefill_pods, args.decode_pods
+    if mesh_lib.running_world()["world"] == 1:
+        return ([PrefillWorker(Engine.local(model, ecfg, params=params,
+                                            tracer=tracer, device=device),
+                               name=f"p{i}") for i in range(n_pre)],
+                [Engine.local(model, ecfg, params=params, budget=budget,
+                              tracer=tracer, tenant=f"d{k}", device=device)
+                 for k in range(n_dec)])
+    gang = smoke_pool(args.pool).lease_gang("cli", {
+        "prefill": dict(n_accels=args.pool_accels),
+        "decode": dict(n_accels=args.pool_accels,
+                       tier2_gb=max(args.pool_tier2_gb, args.tier2_kv_gb),
+                       kv_gb=args.tier2_kv_gb)},
+        model_parallel=args.pool_model_parallel)
+    engines = []
+
+    def engine(role, budget, **kw):
+        eng = Engine.from_lease(
+            model, gang[role], ecfg, params=params,
+            budget=budget or KVBudget(page_size=args.page_size),
+            tracer=tracer, device=device,
+            grid=engines[0].grid if engines else None, **kw)
+        engines.append(eng)
+        return eng
+
+    return ([PrefillWorker(engine("prefill", None), name=f"p{i}")
+             for i in range(n_pre)],
+            [engine("decode", budget, tenant=f"d{k}") for k in range(n_dec)])
+
+
 def _disagg_mode(args, cfg, model, device) -> int:
     """--disagg: prefill tier + decode tier on separate pods of one
     routed fabric, KV pages streamed between them (repro_torch.disagg).
@@ -213,13 +260,12 @@ def _disagg_mode(args, cfg, model, device) -> int:
 
     params = model.init(torch.Generator(device=device).manual_seed(args.seed))
     n_pre, n_dec = args.prefill_pods, args.decode_pods
-    workers = [PrefillWorker(Engine.local(model, ecfg, params=params,
-                                          tracer=tracer, device=device),
-                             name=f"p{i}")
-               for i in range(n_pre)]
-    dengines = [Engine.local(model, ecfg, params=params, budget=budget,
-                             tracer=tracer, tenant=f"d{k}", device=device)
-                for k in range(n_dec)]
+    try:
+        workers, dengines = _disagg_tiers(args, model, ecfg, params, budget,
+                                          tracer, device)
+    except ValueError as e:
+        warn(str(e))
+        return 2
 
     # a two-tier estate graph: every pod hangs off one leaf switch, the
     # staging memory node too; capacities default to ~50 page-transfers
@@ -254,6 +300,9 @@ def _disagg_mode(args, cfg, model, device) -> int:
     _sync(device)
     wall = time.time() - t0
     failed = sum(e.stats()["failed_oom"] for e in dengines)
+    ranks = _ranks_agree(dengines[0].grid, [h.tokens for h in handles])
+    if ranks.pop("rank", 0) != 0:
+        return 0 if ranks["ranks_agree"] else 1
     transits = sorted(h.kv_transit_s for h in handles)
     out = {
         "arch": cfg.name, "mode": "disagg", "device": str(device),
@@ -268,13 +317,14 @@ def _disagg_mode(args, cfg, model, device) -> int:
         },
         "wall_s": round(wall, 2),
         "sample_tokens": handles[0].tokens[:8] if handles else [],
+        **ranks,
     }
     if tracer is not None:
         out["trace_out"] = _flush_trace(
             tracer, [tx] + [e.transport for e in dengines]
             + [w.engine.transport for w in workers], args.trace_out)
     emit_json(out)
-    return 0 if failed == 0 else 1
+    return 0 if failed == 0 and ranks.get("ranks_agree", True) else 1
 
 
 def _multitenant_mode(args, cfg, model, ecfg, device, tracer=None) -> int:
@@ -452,13 +502,17 @@ def _legacy_batch_mode(args, cfg, model, device, layout=None) -> int:
     return 0 if ranks.get("ranks_agree", True) else 1
 
 
-def across_ranks_refusal(args) -> Optional[str]:
-    """Why this run's mode cannot be served across a world's ranks, or
+def across_ranks_refusal(args, world: int) -> Optional[str]:
+    """Why this run's mode cannot be served across ``world`` ranks, or
     None: the fixed-batch mode runs on the smoke layout
-    (``batch_layout``), the engine modes on a lease (``--pool``), a
-    shared transport (``--disagg``) not yet."""
-    if args.disagg:
-        return serving_path_refusal("shared-fabric", "across ranks")
+    (``batch_layout``), the engine modes on a lease (``--pool``), and
+    ``--disagg``'s tiers on a gang of that estate on (data 1, model
+    world)."""
+    if (args.disagg and (args.requests or args.trace)
+            and (args.pool == "none" or args.pool_model_parallel != world)):
+        return (f"--disagg across {world} ranks takes its tiers from a "
+                f"lease gang: --pool with --pool-model-parallel {world} "
+                f"(every engine on (data 1, model {world}))")
     if (args.requests or args.trace) and args.pool == "none":
         return ("the engine across ranks takes a lease: --pool with "
                 "--pool-model-parallel set to the world's size")
@@ -532,7 +586,7 @@ def main(argv=None):
     device = resolve_device(args.device)
     world = mesh_lib.running_world()
     if world["world"] > 1:
-        why = across_ranks_refusal(args)
+        why = across_ranks_refusal(args, world["world"])
         if why is not None:
             warn(why)
             return 2

@@ -319,7 +319,10 @@ class ResourcePool:
         placement scores the handoff route back to the earlier tiers
         (``policy="contention"``).  Each sub-lease is a full ``Lease``
         named ``<name>/<role>`` — releasable individually or together
-        via ``release_gang``."""
+        via ``release_gang``.  Every member takes ``model_parallel``, so
+        in a world of ranks each materializes on the running world with
+        one layout: the tiers of a disaggregated cluster then serve on
+        one grid (``Engine.from_lease(..., grid=)``)."""
         reqs = []
         for role, kw in roles.items():
             extra = sorted(set(kw) - {"n_accels", "tier2_gb", "kv_gb",

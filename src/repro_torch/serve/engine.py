@@ -63,7 +63,13 @@ moving its own head shard) and keeps the reference's modeled clocks;
 ``page_bytes`` stays the whole model's, so tier-2 charges are the
 reference's too.  Tenants of one such lease share one arbiter a rank,
 whose pool holds the rank's kv heads, and the grid its first tenant
-joined.
+joined.  The tiers of a disaggregated cluster and co-resident engines
+on one shared ``Transport`` serve on one grid too (``grid=``): every
+rank holds every tier, a rank's ``prefill_export`` returns its own kv
+heads of each page and ``submit_prefilled`` writes them into its own
+decode pool, so nothing moves between ranks for a handoff, and each
+rank's transport prices the whole model's pages as the reference's
+does (``handoff_refusal`` refuses tiers that differ in grid or heads).
 
 The pool tensors are updated IN PLACE (``copy_``, ``index_copy_``,
 ``index_put_``) where the reference builds functional copies; the pool
@@ -194,6 +200,27 @@ def _check_device(model: Model, dev: torch.device) -> None:
                          f"model's {model.device}")
 
 
+def handoff_refusal(exporter: "Engine", importer: "Engine") -> Optional[str]:
+    """Why ``importer`` (a decode engine) cannot take the pages
+    ``exporter`` (a prefill engine) exports, or None.  A rank's
+    ``prefill_export`` holds its own kv heads of each page and
+    ``submit_prefilled`` writes them into its own pool, so both engines
+    serve on one rank grid and hold one block of the kv heads (the
+    pages' geometry ``submit_prefilled`` checks)."""
+    def where(e):
+        return ("one process" if e.grid is None else
+                f"a grid {e.grid.layout.as_dict()} of its own")
+    if exporter.grid is not importer.grid:
+        return (f"the decode engine serves on {where(importer)}, not on "
+                f"the exporting engine's grid ({where(exporter)}): a "
+                f"rank's handoff writes its own kv heads into its own "
+                f"pool, so the tiers serve on one grid")
+    if exporter.kv_heads != importer.kv_heads:
+        return (f"the decode engine holds kv heads {importer.kv_heads}, "
+                f"the exporting engine {exporter.kv_heads}")
+    return None
+
+
 class Engine:
     """Continuous-batching serving engine.  Build with ``Engine.local``
     (explicit config) or ``Engine.from_lease`` (a ``repro_torch.pool``
@@ -250,6 +277,10 @@ class Engine:
         with self._scope():
             local_shapes = model.init_cache(1, cfg.max_seq, dtype=dt,
                                             device="meta")
+        # one page of this rank's pool per leaf, as ``slice_page`` cuts it
+        self.page_shape = {name: (l.shape[0], cfg.page_size)
+                           + tuple(l.shape[3:])
+                           for name, l in local_shapes.items()}
 
         full = budget or KVBudget(page_size=cfg.page_size)
         self.arbiter = arbiter
@@ -335,6 +366,15 @@ class Engine:
         return None if self.plan is None else self.plan.grid
 
     @property
+    def kv_heads(self) -> Tuple[int, int]:
+        """``(start, stop)`` of the kv heads this rank's pool holds."""
+        n = self.model.cfg.n_kv_heads
+        if self.plan is None:
+            return 0, n
+        s = self.plan.block(("kv_heads",)).slices((n,))[0]
+        return s.start, s.stop
+
+    @property
     def _track(self) -> str:
         """This engine's trace track (one timeline row per tenant)."""
         return f"engine:{self.tenant}" if self.tenant else "engine"
@@ -413,7 +453,7 @@ class Engine:
                    cost_model: Optional[ServeCostModel] = None,
                    arbiter=None, tenant: Optional[str] = None,
                    transport=None, route=None, tracer=None,
-                   device: DeviceLike = None) -> "Engine":
+                   grid=None, device: DeviceLike = None) -> "Engine":
         """Bind a ``repro_torch.pool.Lease``: the lease's mesh shapes the
         sharding rules (``make_rules`` for decode, FSDP off, as the
         reference's) and its tier-2 KV grant becomes the engine's
@@ -426,15 +466,18 @@ class Engine:
         lease each rank joins the grid (``LeaseBinding.join``) and serves
         its shards of ``params`` (the full tree, default
         ``model.init(generator)``, cut here): tensor parallelism over
-        ``model`` (``repro_torch.sharding.tp``).  Tenants of one lease
-        (``arbiter``/``tenant``) share the arbiter's grid, joined once by
-        its first tenant, and its pool of the rank's kv heads.  Refused
-        (``profiles.grid_refusal``), each naming the slice that brings
-        it: a ``model`` axis over 1 outside a world of as many ranks, a
-        ``data`` or ``pod`` axis over 1 across ranks (3c.3), a family or
-        head count the rules do not shard (3d-3g), and a shared
-        transport (``transport``: disaggregated or co-resident serving,
-        3c.2) across ranks."""
+        ``model`` (``repro_torch.sharding.tp``).  ``grid``: a grid an
+        earlier engine of this world joined, so several engines (a
+        disaggregated cluster's tiers, co-resident engines on a shared
+        ``transport``) serve on one grid and make its process groups
+        once; refused when its layout is not the binding's.  Tenants of
+        one lease (``arbiter``/``tenant``) share the arbiter's grid,
+        joined once by its first tenant, and its pool of the rank's kv
+        heads.  Refused (``profiles.grid_refusal``), each naming the
+        slice that brings it: a ``model`` axis over 1 outside a world of
+        as many ranks, a ``data`` or ``pod`` axis over 1 across ranks
+        (3c.3), and a family or head count the rules do not shard
+        (3d-3g)."""
         binding = lease.materialize(None if device is None else [device])
         rules = make_rules(model.cfg, ShapeConfig(
             "engine", "decode", cfg.max_seq, cfg.max_slots), binding,
@@ -447,6 +490,15 @@ class Engine:
                            path=path)
         if why is not None:
             raise ValueError(why)
+        shared = arbiter.grid if arbiter is not None else None
+        if grid is not None and shared is not None and grid is not shared:
+            raise ValueError("grid= is not the arbiter's: its tenants "
+                             "serve on the grid its first tenant joined")
+        grid = grid if grid is not None else shared
+        if grid is not None and grid.layout != binding.layout:
+            raise ValueError(f"the grid serves on {grid.layout.as_dict()}, "
+                             f"not on the lease's "
+                             f"{binding.layout.as_dict()}")
         dev = binding.device
         _check_device(model, dev)
         if budget is None:
@@ -465,14 +517,8 @@ class Engine:
                                   page_size=cfg.page_size)
         plan = None
         if binding.world > 1:
-            grid = arbiter.grid if arbiter is not None else None
-            if grid is None:
-                grid = binding.join()
-            elif grid.layout != binding.layout:
-                raise ValueError(f"the arbiter's tenants serve on "
-                                 f"{grid.layout.as_dict()}, not "
-                                 f"{binding.layout.as_dict()}")
-            plan = tp.make_plan(grid, rules)
+            plan = tp.make_plan(grid if grid is not None else binding.join(),
+                                rules)
         if params is None:
             params = model.init(generator)
         if plan is not None:
@@ -565,6 +611,11 @@ class Engine:
                              f"ready times")
         if not pages:
             raise ValueError("handoff with no KV pages")
+        got = {name: tuple(leaf.shape) for name, leaf in pages[0].items()}
+        if got != self.page_shape:
+            raise ValueError(f"pages of {got} into a pool of "
+                             f"{self.page_shape}: the exporting engine "
+                             f"cuts another kv-head block or geometry")
         rid = self._next_rid
         self._next_rid += 1
         handle = RequestHandle(rid=rid, request=request,

@@ -63,8 +63,6 @@ def hierarchical_unsafe(cfg: ModelConfig) -> Optional[str]:
 # the serving paths that stay refused across ranks, each with the
 # ROADMAP item (Queue A) that brings it
 SERVING_LATER = {
-    "shared-fabric": ("a disaggregated or co-resident engine (a shared "
-                      "transport)", "3c.2"),
     "engine-rows": ("the request-level engine with a data or pod axis over "
                     "1 (its shared page pool split by rows)", "3c.3"),
 }
@@ -73,9 +71,11 @@ SERVING_LATER = {
 def serving_path(*, session: bool = False, multi_tenant: bool = False,
                  shared_fabric: bool = False) -> str:
     """The path of a serving run across ranks: the fixed-batch session
-    (``"session"``), a shared transport (``"shared-fabric"``), tenants
-    of one arbiter (``"multi-tenant"``), else the request-level engine
-    alone (``"engine"``)."""
+    (``"session"``), a shared transport (``"shared-fabric"``: the tiers
+    of a disaggregated cluster, co-resident engines), tenants of one
+    arbiter (``"multi-tenant"``), else the request-level engine alone
+    (``"engine"``).  Every path but the session serves on (data 1,
+    model m)."""
     return ("session" if session else "shared-fabric" if shared_fabric
             else "multi-tenant" if multi_tenant else "engine")
 
@@ -102,12 +102,14 @@ def grid_refusal(mesh, rules: Optional[Rules],
     (``serving``, one rank a process, ``repro_torch.sharding.tp``), by
     ``path`` (``serving_path``): the fixed-batch session on (pod, data,
     model), rows over the data axes (any family but moe) and heads over
-    ``model`` (the dense family); the request-level engine and tenants
-    of one arbiter on (data 1, model m).  What waits for a later slice,
-    each refusal naming its ROADMAP item: the engine with a ``data`` or
-    ``pod`` axis over 1 (3c.3), a shared transport (3c.2), moe in the
-    session across ranks (3d: its dispatch groups follow the batch axes,
-    so a row's output depends on its group, C-ref5), the moe, ssm,
+    ``model`` (the dense family); the request-level engine, tenants of
+    one arbiter, and engines on a shared transport (a disaggregated
+    cluster's tiers, co-resident engines) on (data 1, model m).  What
+    waits for a later slice, each refusal naming its ROADMAP item: the
+    engine on any of these paths with a ``data`` or ``pod`` axis over 1
+    (3c.3), moe in the session across ranks (3d: its dispatch groups
+    follow the batch axes, so a row's output depends on its group,
+    C-ref5), the moe, ssm,
     hybrid and encdec families under a ``model`` axis over 1 or FSDP
     (3d-3f), and attention heads or kv heads that do not divide
     ``model`` (3g, the reference's context-parallel ``seq_attn``
@@ -123,14 +125,12 @@ def grid_refusal(mesh, rules: Optional[Rules],
     world = getattr(mesh, "world", 1) if world is None else world
     rows = {a: k for a, k in sizes.items() if a != "model" and k > 1}
     if serving and (model_n > 1 or world > 1):
-        if path == "shared-fabric":
-            return serving_path_refusal(path, "across ranks")
         if rows and path != "session":
             what = " and ".join(f"a {a} axis of {k}" for a, k in rows.items())
             return (f"serving with {what}: "
                     + serving_path_refusal("engine-rows", "across ranks")
-                    + "; the engine and its tenants serve on (data 1, "
-                    "model m)")
+                    + "; the engine, its tenants and engines on a shared "
+                    "transport serve on (data 1, model m)")
         if world != n:
             where = (f"under a model axis of {model_n}" if not rows
                      else f"on {sizes}")

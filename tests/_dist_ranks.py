@@ -684,3 +684,121 @@ def serve_tenants(out_dir, vocab: int, slots: int, max_seq: int,
     _save(out_dir, "serve_tenants", grid.rank, out)
     grid.close()
     dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# disaggregated tiers and co-resident engines under a model axis
+# (tests/test_torch_disagg_tp.py, tests/test_torch_colo_tp.py)
+# ---------------------------------------------------------------------------
+
+def _smoke_fp32(out_dir, vocab: int):
+    """qwen1.5-0.5b smoke in fp32 and the reference's parameters
+    (``<out_dir>/params.pkl``) as the port's full tree."""
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b", smoke=True),
+                              compute_dtype="float32", vocab=vocab)
+    model = build_model(cfg, device="cpu")
+    with open(Path(out_dir) / "params.pkl", "rb") as f:
+        params = bridge.params_from_reference(pickle.load(f), "cpu")
+    return model, params
+
+
+def _port_namespace():
+    import types
+    from repro_torch import disagg, serve
+    from repro_torch.core import fabric as fb
+    from repro_torch.fabric import Topology, Transport
+    from repro_torch.obs import Tracer
+    return types.SimpleNamespace(serve=serve, disagg=disagg, fb=fb,
+                                 Topology=Topology, Transport=Transport,
+                                 Tracer=Tracer)
+
+
+def serve_disagg(out_dir, vocab: int, cases):
+    """Each of ``cases`` (``tests/_disagg_scenarios.py``) on this world
+    of m ranks: every engine of both tiers from the members of one
+    ``lease_gang`` with ``model_parallel=m``, on one grid; writes each
+    case's outcome, Chrome trace and decode pools, whether every engine
+    served on the one grid, both members' layouts, and the message a
+    cluster whose decode engine sits on a second grid raises."""
+    import _disagg_scenarios as D
+    from repro_torch.disagg import DisaggCluster, PrefillWorker
+    from repro_torch.obs import to_chrome_trace
+    from repro_torch.pool import smoke_pool
+    from repro_torch.serve import Engine
+    dist = _join_world()
+    m = dist.get_world_size()
+    model, params = _smoke_fp32(out_dir, vocab)
+    S = _port_namespace()
+    gang = smoke_pool("scalepool").lease_gang(
+        "disagg-tp", {"prefill": dict(n_accels=m),
+                      "decode": dict(n_accels=m, tier2_gb=8, kv_gb=1.0)},
+        model_parallel=m)
+    bindings = {role: gang[role].materialize(["cpu"]) for role in gang}
+    grid = bindings["prefill"].join()
+
+    def engine(role, tenant, tracer, on=grid):
+        return Engine.from_lease(model, gang[role], D.engine_config(S),
+                                 params=params, budget=D.budget(S, role),
+                                 tenant=tenant, tracer=tracer, grid=on,
+                                 device="cpu")
+
+    out = {"layouts": {r: b.layout.as_dict() for r, b in bindings.items()},
+           "grid": grid.describe(), "cases": {}}
+    for case in cases:
+        cluster, tx, handles, tracer = D.run(S, case, engine, vocab)
+        engines = ([w.engine for w in cluster.prefill_workers]
+                   + cluster.decode_engines)
+        out["cases"][case] = {
+            **D.outcome(cluster, tx, handles),
+            "trace": to_chrome_trace(tracer), "dropped": tracer.dropped,
+            "pools": [{k: v.clone() for k, v in e._pool.items()}
+                      for e in cluster.decode_engines],
+            "one_grid": all(e.grid is grid for e in engines),
+            "kv_heads": [e.kv_heads for e in engines]}
+    other = bindings["decode"].join()
+    try:
+        DisaggCluster([PrefillWorker(engine("prefill", None, None))],
+                      [engine("decode", "d0", None, on=other)])
+        out["refusal"] = None
+    except ValueError as e:
+        out["refusal"] = str(e)
+    out["collectives"] = dict(grid.stats.calls)
+    _save(out_dir, "serve_disagg", grid.rank, out)
+    other.close()
+    grid.close()
+    dist.destroy_process_group()
+
+
+def serve_colo(out_dir, vocab: int, n_requests: int, n_steps: int):
+    """fig11's hop-only run (``chip_smoke.co_run``) on this world of m
+    ranks: both tenants' engines from one (data 1, model m) lease on one
+    grid, sharing one ``Transport`` with the training job's
+    ``TrainActor``; writes the outcome, the clocks, every engine's clock
+    and stats, the Chrome trace and whether both served on one grid."""
+    import sys
+    from repro_torch.obs import Tracer, to_chrome_trace
+    from repro_torch.pool import smoke_pool
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke as cs
+    dist = _join_world()
+    m = dist.get_world_size()
+    model, params = _smoke_fp32(out_dir, vocab)
+    lease = smoke_pool("scalepool").lease("colo-tp", m, tier2_gb=8,
+                                          kv_gb=1.0, model_parallel=m)
+    bw, page_bytes = cs.co_bw(model, params, torch.device("cpu"))
+    tracer = Tracer(1 << 18)
+    r = cs.co_run(model, params, torch.device("cpu"), "scalepool", n_steps,
+                  cs.co_traces(n_requests), bw, tracer=tracer, lease=lease)
+    grid = r["grid"]
+    out = {"outcome": cs.co_outcome(r),
+           "clocks": {t: [(h.submit_clock, h.first_token_clock, h.done_clock)
+                          for h in hs] for t, hs in r["handles"].items()},
+           "engine_clocks": {t: e.clock for t, e in r["engines"].items()},
+           "stats": {t: e.stats() for t, e in r["engines"].items()},
+           "trace": to_chrome_trace(tracer), "dropped": tracer.dropped,
+           "one_grid": all(e.grid is grid for e in r["engines"].values()),
+           "mesh": grid.layout.as_dict(), "bw": bw, "page_bytes": page_bytes,
+           "kv_heads": [e.kv_heads for e in r["engines"].values()]}
+    _save(out_dir, "serve_colo", grid.rank, out)
+    grid.close()
+    dist.destroy_process_group()

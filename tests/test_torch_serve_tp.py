@@ -22,9 +22,12 @@ spills and fetches:
 * the serving CLI under ``torch.distributed.run --nproc-per-node 2``
   prints the one-process CLI's summary;
 * what stays refused raises, naming its slice: heads that do not divide
-  ``model`` (3g), the engine or its tenants with a ``data`` axis over 1
-  (3c.3), a shared transport (3c.2), moe under ``model`` and in the
-  fixed-batch session over ``data`` (3d), a model axis in one process.
+  ``model`` (3g), the engine, its tenants or an engine on a shared
+  transport with a ``data`` axis over 1 (3c.3), moe under ``model`` and
+  in the fixed-batch session over ``data`` (3d), a model axis in one
+  process; and ``grid=`` on another layout than the lease's, and a
+  disaggregated cluster whose decode engine is not on the exporting
+  engine's grid.
 """
 
 import concurrent.futures
@@ -54,6 +57,8 @@ from _dist_world import ROOT, load, run_world                 # noqa: E402
 
 from repro_torch import analysis, bridge, serve               # noqa: E402
 from repro_torch.configs import get_config                    # noqa: E402
+from repro_torch.disagg import DisaggCluster, PrefillWorker   # noqa: E402
+from repro_torch.launch import mesh as mesh_lib               # noqa: E402
 from repro_torch.models.api import build_model                # noqa: E402
 from repro_torch.models.config import ShapeConfig             # noqa: E402
 from repro_torch.pool import smoke_pool                       # noqa: E402
@@ -336,19 +341,23 @@ def _ecfg():
 
 @pytest.mark.parametrize("case", ["heads", "data", "session",
                                   "multi_tenant", "shared_fabric", "moe",
-                                  "one_process"])
+                                  "one_process", "grid_layout",
+                                  "handoff_grid"])
 def test_what_stays_refused_names_its_slice(case, monkeypatch):
     qwen = build_model(get_config(ARCH, smoke=True), device="cpu")
     gen = torch.Generator().manual_seed(0)
     pool = smoke_pool("scalepool")
-    # the session: moe rows over data (C-ref5); tenants: a data axis
+    # the session: moe rows over data (C-ref5); tenants and a shared
+    # transport: a data axis
     world, arch, item, mp = {
         "heads": (2, "qwen3-14b", "3g", 2), "data": (4, ARCH, "3c.3", 2),
         "session": (2, "olmoe-1b-7b", "3d", 1),
         "multi_tenant": (4, ARCH, "3c.3", 2),
-        "shared_fabric": (2, ARCH, "3c.2", 2),
+        "shared_fabric": (4, ARCH, "3c.3", 2),
         "moe": (2, "olmoe-1b-7b", "3d", 2),
-        "one_process": (1, ARCH, None, 2)}[case]
+        "one_process": (1, ARCH, None, 2),
+        "grid_layout": (2, ARCH, "layout", 2),
+        "handoff_grid": (2, ARCH, "grid", 2)}[case]
     model = qwen if arch == ARCH else build_model(get_config(arch,
                                                              smoke=True),
                                                   device="cpu")
@@ -367,15 +376,33 @@ def test_what_stays_refused_names_its_slice(case, monkeypatch):
         one = lease.materialize
         monkeypatch.setattr(type(lease), "materialize",
                             lambda self, devices=None: one(["cpu", "cpu"]))
+    if case in ("grid_layout", "handoff_grid"):
+        # a grid of this rank's place, its groups never made: no engine
+        # call below runs a collective
+        shape = (2, 1) if case == "grid_layout" else (1, 2)
+        kw = dict(grid=mesh_lib.RankGrid(
+            mesh_lib.Layout(shape, ("data", "model")), 0,
+            torch.device("cpu")))
     with pytest.raises(ValueError) as err:
         if case == "session":
             make_lease_session(model, ShapeConfig("s", "decode", 64, 2),
                                lease, device="cpu")
+        elif case == "handoff_grid":
+            decode = serve.Engine.from_lease(model, lease, _ecfg(),
+                                             generator=gen, device="cpu",
+                                             **kw)
+            exporter = serve.Engine.local(qwen, _ecfg(), generator=gen,
+                                          device="cpu")
+            DisaggCluster([PrefillWorker(exporter)], [decode])
         else:
             serve.Engine.from_lease(model, lease, _ecfg(), generator=gen,
                                     device="cpu", **kw)
     msg = str(err.value)
     if item is None:
         assert "needs a world of 2 ranks" in msg, msg
+    elif item == "layout":
+        assert "not on the lease's {'data': 1, 'model': 2}" in msg, msg
+    elif item == "grid":
+        assert "not on the exporting engine's grid (one process)" in msg, msg
     else:
         assert f"ROADMAP Queue A {item}" in msg and "later slice" in msg, msg
