@@ -76,7 +76,7 @@ no result line):
               comparison is reported beside it); 4b profiles an engine
               window;
 6.  pooled  - (run right after phase 4, on its model and weights cut to
-              their first ``SERVE_DEPTH`` = 4 layers, as phases 7 and 8)
+              their first ``SERVE_DEPTH`` = 2 layers, as phases 7 and 8)
               benchmarks/fig9_multitenant.py's smoke scenario at full
               width: three skewed tenants (hog, mid, burst) served by
               three engines from ONE 24-page ``PoolArbiter`` pool through
@@ -137,9 +137,9 @@ no result line):
               numbers within 1e-9 of the same scenario's at smoke width
               on the CPU, the paged, flash and RMSNorm launches exact per
               run, and the hop-only trace clean under the port's
-              sanitizer; on the first 2 layers in fp32 the three runs
-              again, every modeled number equal to the CPU's to the last
-              digit; on the first 2 layers in bf16 the port's racecheck
+              sanitizer; on the first layer (``CO_SHALLOW``) in fp32 the
+              three runs again, every modeled number equal to the CPU's
+              to the last digit; on it in bf16 the port's racecheck
               (fig11's racecheck shape, seeds 1 and 2) bit-identical;
 6-8.         the traces of phases 6 (a), 7 and 8 pass the port's
               sanitizer (``repro_torch.analysis``) with zero violations,
@@ -284,7 +284,7 @@ no result line):
               and grad norm to 1e-5 relative, the parameters gathered
               from the ranks to 1e-5 of the largest |parameter| but at
               most ``DP_PARAM_SHARE`` of them (C-port15); (b) full width
-              on the first ``TP_DEPTH`` = 4 layers in bf16, phase 10
+              on the first ``TP_DEPTH`` = 2 layers in bf16, phase 10
               (c)'s weights and batches, 4 steps of each case: s/step,
               host seconds in collectives and bytes by (axes, op), each
               rank's peak, launches exact in every rank (B2, B3, B5, B6
@@ -326,9 +326,9 @@ no result line):
               second and host seconds in collectives a step by (axes,
               op); one card's tokens on the same cut beside, reported
               (bf16 rounding parts them, C-port2); (c) each rank's B1 and B3
-              at its local shapes (4 of 16 heads), and B3 and B2 at (d)'s
-              session shapes on each grid, against their plain versions
-              within ``TOL``; (d) the fixed-batch session
+              at its local shapes (4 of 16 heads; B1 also at (h)'s, 4 rows
+              on 8 heads), and B3 and B2 at (d)'s session shapes on each
+              grid, against their plain versions within ``TOL``; (d) the fixed-batch session
               (``runtime.serve.make_lease_session``) on the (data 1,
               model 4) lease and on a (data 2, model 2) lease, a second
               grid formed in the running world: rows over ``data``,
@@ -363,12 +363,30 @@ no result line):
               reported beside phase 7's, modeled numbers within 1e-9 of
               phase 7's, fig12's decode p95 claim, every
               ``handoff_use`` after its last page; (g) phase 8's three
-              runs on a (data 1, model 4) lease in fp32 on the first 2
-              layers: tokens and modeled numbers equal to one card's
+              runs on a (data 1, model 4) lease in fp32 on the first
+              layer (``CO_SHALLOW``): tokens and modeled numbers equal
+              to one card's
               (phase 8 runs them), fig11's five claims; in (f) and (g)
               the traces sanitized, the launches exact in every rank for
-              every run, wall, collectives and peak reported.  4 ranks
-              share one card over gloo: nothing of a fabric;
+              every run, wall, collectives and peak reported; (h) the
+              engine on a (data 2, model 2) lease (one grid, joined by
+              its first engine): each rank decodes its block of every
+              decode bucket's rows on 8 of the 16 heads, its page pool
+              replicated over ``data`` and kept equal by one all-gather
+              a decode step: phase 4's trace in fp32 on the first 2
+              layers, every rank's tokens (or a documented tie), clocks,
+              latency summary and KV stats equal to (a)'s one-card run,
+              the pools of the two data replicas of each ``model`` index
+              equal in bits (a digest of each); in bf16 on the first
+              ``SERVE_DEPTH`` layers tokens equal across ranks, B1-B3
+              launches exact, one ``data`` gather a decode step, wall,
+              decode tokens per wall second and collectives beside (b)'s
+              and one card's on the same cut; (f)'s direct cluster on a
+              gang of two (data 2, model 2) members in fp32 on 2 layers,
+              tokens (or a tie) and modeled numbers equal to one card's
+              (``dg_cut_runs``), its decode replicas equal in bits; the
+              traces sanitized.  4 ranks share one card over gloo:
+              nothing of a fabric;
 5. times    - each kernel's time (CUDA graphs of back-to-back calls,
               timed with CUDA events, median of trials) beside its plain
               version, a PyTorch library call where one computes the
@@ -385,7 +403,9 @@ no result line):
               RMSNorm at 512 and 8 rows of 1024, 8 of 1536 and 3072,
               2000 of 3584 and 7168; the SSD scan at mamba2's and
               zamba2's prefill; paged at olmoe's and mixtral's 8-row
-              decode, flash at a session rank's decode (phase 13 (d)),
+              decode and at a rank's decode in phase 13 ((b), (f), (g)
+              and (h)'s 4 rows on 8 heads), flash at a session rank's
+              decode (phase 13 (d)),
               at olmoe's 512 prefill and whisper's encoder
               and cross-attention, RMSNorm at 512 and 8 rows of 2048; the
               backward kernels at phase 10's shapes: flash at olmo's and
@@ -432,14 +452,15 @@ BOUND_SLACK = 1.05              # a timed kernel under bound / 1.05 fails
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 SSD_TOL = 2e-4                  # fp32 SSD outputs: sums run in another order
 PROMPT_LENS = (120, 250, 500)   # the full-width trace's prompt lengths
-SERVE_DEPTH = 4                 # the serving scenarios' bf16 depth (phases
-                                # 6-8, 13 (b), (d) and (f)): qwen1.5-0.5b's
-                                # first 4 of 24 layers (24 until the script
-                                # overran its 1200 s limit on a slower H100
-                                # host; phase 4 serves all 24); fp32 KV
-                                # pages of 2^19 B, a power of two from the
-                                # smoke width's
-TP_DEPTH = 4                    # phase 12 (b)'s depth, cut from 24 with it
+SERVE_DEPTH = 2                 # the serving scenarios' bf16 depth (phases
+                                # 6-8, 13 (b), (d), (f) and (h)):
+                                # qwen1.5-0.5b's first 2 of 24 layers (24
+                                # until the script overran its 1200 s limit
+                                # on a slower H100 host, then 4 until phase
+                                # 13 (h) took it past 1000 s on one; phase
+                                # 4 serves all 24); fp32 KV pages of 2^18
+                                # B, a power of two from the smoke width's
+TP_DEPTH = 2                    # phase 12 (b)'s depth, cut from 24 with it
 LONG_KV_TOL = 6e-3              # non-causal bf16 flash over 1500 keys: the
                                 # outputs' RMS is ~0.04, so 2e-2 would pass a
                                 # dropped 28-key tail; errors seen on an H100
@@ -2096,20 +2117,21 @@ def dg_trace():
 
 
 class DgTiers:
-    """Phase 13 (f)'s engines: ``Engine.from_lease`` of the members of
-    one ``lease_gang`` of the smoke pool (``prefill`` and ``decode``,
-    ``model_parallel=TS_MODEL``) on one grid, the one the first engine
-    joined, each with the budget ``Engine.local`` takes when given
-    none."""
+    """Phase 13 (f)'s and (h)'s engines: ``Engine.from_lease`` of the
+    members of one ``lease_gang`` of the smoke pool (``prefill`` and
+    ``decode``, as many accelerators as the world's ranks each, and
+    ``model_parallel``, ``TS_MODEL`` by default) on one grid, ``grid`` or the one the first
+    engine joined, each with the budget ``Engine.local`` takes when
+    given none."""
 
-    def __init__(self):
+    def __init__(self, model_parallel=None, grid=None):
         from repro_torch.pool import smoke_pool
         self.gang = smoke_pool("scalepool").lease_gang(
             "disagg-tp", {"prefill": dict(n_accels=TS_MODEL),
                           "decode": dict(n_accels=TS_MODEL, tier2_gb=8,
                                          kv_gb=4)},
-            model_parallel=TS_MODEL)
-        self.grid = None
+            model_parallel=model_parallel or TS_MODEL)
+        self.grid = grid
 
     def engine(self, model, cfg, role: str, **kw):
         from repro_torch.serve import Engine, KVBudget
@@ -2367,6 +2389,16 @@ def dg_tokens(model, params, device, runs):
                        list(h.request.prompt_tokens) + h.tokens[:step])}
 
 
+def dg_fp32_cut(model, params, device):
+    """``model``'s first ``TRAIN_CUT`` layers at full width in fp32 and
+    those layers of ``params``, upcast exactly."""
+    from repro_torch.models.api import build_model
+    m32 = build_model(dataclasses.replace(model.cfg, n_layers=TRAIN_CUT,
+                                          compute_dtype="float32"),
+                      device=device)
+    return m32, m32.load({**params, "layers": params["layers"][:TRAIN_CUT]})
+
+
 def dg_cut_runs(model, params, device, tiers=None, tracers=None,
                 launches=None):
     """Phase 13 (f)'s fp32 runs, on one card (phase 7) or from ``tiers``:
@@ -2377,13 +2409,9 @@ def dg_cut_runs(model, params, device, tiers=None, tracers=None,
     wall seconds; the fp32 model and its full parameters)."""
     import torch
     from repro_torch import kernels
-    from repro_torch.models.api import build_model
 
     trace = dg_trace()
-    m32 = build_model(dataclasses.replace(model.cfg, n_layers=TRAIN_CUT,
-                                          compute_dtype="float32"),
-                      device=device)
-    p32 = m32.load({**params, "layers": params["layers"][:TRAIN_CUT]})
+    m32, p32 = dg_fp32_cut(model, params, device)
     runs, walls = dg_main_runs(m32, p32, device, trace, tracers, TS_DG_MAIN,
                                tiers, launches)
     if launches is not None:
@@ -2568,7 +2596,9 @@ CO_TRAIN_TIER2_GB = 16.0
 CO_REQUESTS, CO_STEPS = 6, 8            # the smoke's burst, training steps
 CO_RACE_REQUESTS, CO_RACE_STEPS = 4, 4  # fig11's racecheck scenario
 CO_RACE_SEEDS = (1, 2)
-CO_SHALLOW = 2              # depth of the fp32 pass and the racecheck
+CO_SHALLOW = 1              # depth of the fp32 pass, the racecheck and
+                            # phase 13 (g) (2 until phase 13 (h) took the
+                            # script past 1000 s on a slower H100 host)
 CO_REL = 1e-9               # full-depth pages round otherwise (see phase 7)
 # (name, allocator policy, train?): fig11's three runs
 CO_RUNS = (("hop_only", "scalepool", True),
@@ -2961,7 +2991,7 @@ def colo_full_width(model, params, device):
     san = sanitize("colo hop_only (bf16)", tracers[:1])
 
     # the three runs on the first CO_SHALLOW layers in fp32 (the same
-    # weights, upcast exactly, TF32 off): pages of 2^18 B, a power of two
+    # weights, upcast exactly, TF32 off): pages of 2^17 B, a power of two
     # from the smoke width's, so every modeled number must equal the CPU's
     shallow32 = build_model(dataclasses.replace(
         model.cfg, n_layers=CO_SHALLOW, compute_dtype="float32"),
@@ -5119,7 +5149,7 @@ def tp_cli_checks(smi, plain_wait, restart_wait):
           f"phase 12 (d) restart: {summary}, losses {same}")
 
 
-def tp_phase(smi, qwen_losses, qwen_tokens, serve_refs):
+def tp_phase(smi, qwen_losses, qwen_run, serve_refs):
     """Phases 12 and 13: one world of 4 ranks sharing the card (the
     kernels built by this process before) on each of ``TP_GRIDS`` in
     turn, then serving (``ts_rank``), then phase 12 (d), the CLI.  (b)'s
@@ -5130,7 +5160,7 @@ def tp_phase(smi, qwen_losses, qwen_tokens, serve_refs):
     leaves the uncompressed one by more than the bf16 bound (phase 11's
     own by 4.6% at step 4 of its full-depth run on an H100).  Phase 13
     (b)'s bf16 tokens are reported beside one card's on the same cut
-    (``qwen_tokens``, ``ts_one_card_tokens``), and (f)
+    (``qwen_run``, ``ts_one_card_run``, beside (h)'s bf16 run), and (f)
     and (g) held to one card's runs of phases 7 and 8 (``serve_refs``,
     written for the ranks before the world starts).
     Returns each rank's (b) launches, its cases together, and phase 13
@@ -5219,7 +5249,7 @@ def tp_phase(smi, qwen_losses, qwen_tokens, serve_refs):
         emit({"phase": "tp", "world": world,
               "rank_seconds": [r["seconds"] for r in grids]})
     counts.update(ts_checks(smi, [r["serve"] for r in reports],
-                            qwen_tokens, serve_refs))
+                            qwen_run, serve_refs))
     emit({"phase": "tp", "world_seconds": world_s,
           "serve_rank_seconds": [r["serve"]["seconds"] for r in reports]})
     tp_cli(smi)
@@ -5242,22 +5272,25 @@ TS_TIE_MARGIN = 1e-4            # an fp32 top-2 logit margin this small is
 TS_RANKS = "4 ranks sharing one card (gloo, host-staged): no fabric measured"
 
 
-def ts_engine(model, device, tracer=None):
-    """``Engine.from_lease`` on a (data 1, model 4) lease of the smoke
-    pool, phase 4's engine shape and budget, the weights of seed 0
-    drawn whole on every rank and cut to its shards; and phase 4's
-    trace."""
+def ts_engine(model, device, tracer=None, model_parallel=TS_MODEL,
+              grid=None):
+    """``Engine.from_lease`` on a lease of the smoke pool of the world's
+    4 ranks with ``model_parallel`` ((data 1, model 4) by default; 2
+    gives (h)'s (data 2, model 2)), on ``grid`` when given, phase 4's
+    engine shape and budget, the weights of seed 0 drawn whole on every
+    rank and cut to its shards; and phase 4's trace."""
     import torch
     from repro_torch.pool import smoke_pool
     from repro_torch.serve import Engine
 
     ecfg, budget, trace = serve_parts(model.cfg)
     lease = smoke_pool("scalepool").lease("serve-tp", TS_MODEL, tier2_gb=8,
-                                          kv_gb=4, model_parallel=TS_MODEL)
+                                          kv_gb=4,
+                                          model_parallel=model_parallel)
     eng = Engine.from_lease(
         model, lease, ecfg,
         generator=torch.Generator(device=device).manual_seed(0),
-        budget=budget, tracer=tracer, device=device)
+        budget=budget, tracer=tracer, grid=grid, device=device)
     return eng, trace
 
 
@@ -5273,10 +5306,11 @@ def ts_run(eng, trace):
             "tokens_decoded": st["tokens_decoded"]}
 
 
-def ts_one_card_tokens(device):
-    """(b)'s one-card reference: phase 4's trace served by
+def ts_one_card_run(device):
+    """(b)'s and (h)'s one-card reference: phase 4's trace served by
     ``Engine.local`` on the first ``SERVE_DEPTH`` layers in bf16, the
-    weights of seed 0 drawn as ``ts_engine`` draws them."""
+    weights of seed 0 drawn as ``ts_engine`` draws them: its tokens, wall
+    seconds and decode tokens per wall second."""
     import torch
     from repro_torch.models.api import build_model
     from repro_torch.serve import Engine
@@ -5287,7 +5321,13 @@ def ts_one_card_tokens(device):
     eng = Engine.local(
         model, ecfg, budget=budget, device=device,
         generator=torch.Generator(device=device).manual_seed(0))
-    return ts_run(eng, trace)["tokens"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = ts_run(eng, trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"tokens": out["tokens"], "wall_s": wall,
+            "decode_tokens_per_wall_s": out["tokens_decoded"] / wall}
 
 
 def ts_serve_model(device):
@@ -5326,7 +5366,8 @@ def ts_prefill_logits(eng, prompt):
 def ts_fp32_gate(rank, device):
     """(a) the first ``TRAIN_CUT`` layers in fp32 under the lease; rank 0
     also runs the one-card fp32 engine on the same weights and holds
-    every rank's run (by the report) to it."""
+    every rank's run (by the report) to it, and keeps that run
+    (``one_card_run``) for (h)."""
     import torch
     from repro_torch.models.api import build_model
     from repro_torch.serve import Engine
@@ -5362,16 +5403,19 @@ def ts_fp32_gate(rank, device):
             "kv": want["kv"],
             "prefill_logits_max_abs_err": max_err(got_logits, want_logits),
             "prefill_logits_max_abs": float(want_logits.abs().max())}
+        # (h) holds its (data 2, model 2) run to the same one-card run
+        out["one_card_run"] = want
         del one
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def ts_full_depth(device):
+def ts_full_depth(device, model_parallel=TS_MODEL, grid=None):
     """(b) full width on the first ``SERVE_DEPTH`` layers in bf16 under
-    the lease: the run, its wall seconds, the kernels' launches and
-    variants and the host seconds in collectives."""
+    the lease (``ts_engine``'s; (h) passes its (data 2, model 2)): the
+    run, its wall seconds, the kernels' launches and variants, the host
+    seconds in collectives and the trace's sanitizer report."""
     import torch
     from repro_torch import kernels
     from repro_torch.models.api import build_model
@@ -5380,7 +5424,7 @@ def ts_full_depth(device):
 
     model = build_model(cut("qwen1.5-0.5b", SERVE_DEPTH), device=device)
     tracer = Tracer(1 << 20)
-    eng, trace = ts_engine(model, device, tracer)
+    eng, trace = ts_engine(model, device, tracer, model_parallel, grid)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -5407,7 +5451,9 @@ def ts_full_depth(device):
         "collective_calls": dict(stats.calls),
         "moved_bytes": dict(stats.moved_bytes),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "rules": describe(eng.plan.rules)})
+        "rules": describe(eng.plan.rules),
+        "mesh": eng.grid.layout.as_dict(),
+        "sanitizer": sanitize_report([tracer])})
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -5439,6 +5485,19 @@ def ts_kernels(device):
     torch.cuda.synchronize()
     out["paged_attention"] = {
         "case": f"B=8 H=KV={H} D=64 ps=64 q=bf16 pages=fp32",
+        "max_abs_err": max_err(got, want),
+        "ok": within(got, want, TOL["bfloat16"])
+        and bool(torch.isfinite(got).all())}
+    # (h)'s rank on (data 2, model 2): its block of the engine's 8-row
+    # bucket, 4 rows on 8 of the 16 heads
+    Hd = 16 // TS_DP_MODEL
+    args = paged_inputs(gen, 4, Hd, Hd, 64, 64, 16, [130, 260, 520, 150],
+                        bf16, f32, device)
+    got = paged_decode_attention(*args)
+    want = ref.paged_attention_ref(*args)
+    torch.cuda.synchronize()
+    out["paged_attention (data 2, model 2) rank"] = {
+        "case": f"B=4 len 130..520 H=KV={Hd} D=64 ps=64 q=bf16 pages=fp32",
         "max_abs_err": max_err(got, want),
         "ok": within(got, want, TOL["bfloat16"])
         and bool(torch.isfinite(got).all())}
@@ -5813,11 +5872,15 @@ def ts_serve_refs(device):
     """(f)'s and (g)'s one-card references outside the smoke's phases 7
     and 8 (``chip_tools/``): on ``ts_serve_model``'s cut, phase 7's bf16
     colocated and direct runs, ``dg_cut_runs``, and phase 8's three fp32
-    runs on its cut."""
+    runs on the first ``CO_SHALLOW`` layers."""
+    from repro_torch.models.api import build_model
     model, params = ts_serve_model(device)
     runs, _ = dg_main_runs(model, params, device, dg_trace(),
                            names=TS_DG_MAIN)
-    cut_ref, m32, p32 = dg_cut_runs(model, params, device)
+    cut_ref, _, _ = dg_cut_runs(model, params, device)
+    m32 = build_model(cut("qwen1.5-0.5b", CO_SHALLOW,
+                          compute_dtype="float32"), device=device)
+    p32 = m32.load({**params, "layers": params["layers"][:CO_SHALLOW]})
     runs32, _, page32 = co_three(m32, p32, device, CO_REQUESTS, CO_STEPS)
     return {"disagg": ts_dg_refs(runs, dg_modeled(runs), cut_ref),
             "colo": ts_co_refs(runs32, page32)}
@@ -5934,7 +5997,7 @@ def ts_disagg(rank, device, full_model, full_params, refs):
 
 def ts_colo(rank, device, full_params, refs):
     """(g) fig11's three runs (phase 8) in fp32 on the first
-    ``TRAIN_CUT`` layers at full width, both tenants' engines from one
+    ``CO_SHALLOW`` layers at full width, both tenants' engines from one
     (data 1, model 4) lease on one grid; rank 0 takes one card's top-2
     margin wherever its tokens part from one card's (``refs``: phase
     8's fp32 runs on the same cut)."""
@@ -5943,10 +6006,10 @@ def ts_colo(rank, device, full_params, refs):
     from repro_torch.models.api import build_model
     from repro_torch.pool import smoke_pool
 
-    m32 = build_model(cut("qwen1.5-0.5b", TRAIN_CUT, compute_dtype="float32"),
-                      device=device)
+    m32 = build_model(cut("qwen1.5-0.5b", CO_SHALLOW,
+                          compute_dtype="float32"), device=device)
     p32 = m32.load({**full_params,
-                    "layers": full_params["layers"][:TRAIN_CUT]})
+                    "layers": full_params["layers"][:CO_SHALLOW]})
     lease = smoke_pool("scalepool").lease("colo-tp", TS_MODEL, tier2_gb=8,
                                           kv_gb=4, model_parallel=TS_MODEL)
     tracers, launches = [], {}
@@ -5994,9 +6057,131 @@ def ts_colo(rank, device, full_params, refs):
     return out
 
 
+# (h): the engine on a (data 2, model 2) lease of the world's 4 ranks:
+# each rank decodes its block of every decode bucket's rows (at most 4
+# of phase 4's 8 slots) on 8 of qwen's 16 heads, the page pool
+# replicated over data and kept equal by one all-gather a decode step
+TS_DP_MODEL = 2
+TS_DP_MESH = {"data": TS_MODEL // TS_DP_MODEL, "model": TS_DP_MODEL}
+
+
+def ts_pool_digest(eng) -> str:
+    """sha256 of ``eng``'s page pool, its trash page left out (the idle
+    rows of a data rank's block write it)."""
+    import hashlib
+    import torch
+    h = hashlib.sha256()
+    for name, leaf in eng._pool.items():
+        h.update(name.encode())
+        h.update(leaf[:, :eng._trash].contiguous().cpu().view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def ts_dp_fp32(rank, device, one_card):
+    """(h) 1: phase 4's trace in fp32 on the first ``TRAIN_CUT`` layers
+    on a (data 2, model 2) lease (the engine joins the grid (h) serves
+    on), its launches, its trace's sanitizer report and its pool's
+    digest; rank 0 takes one card's top-2 margin wherever its tokens
+    part from ``one_card`` ((a)'s one-card fp32 run).  Returns (report,
+    grid)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models.api import build_model
+    from repro_torch.obs import Tracer
+
+    cfg = cut("qwen1.5-0.5b", TRAIN_CUT, compute_dtype="float32")
+    model = build_model(cfg, device=device)
+    tracer = Tracer(1 << 20)
+    eng, trace = ts_engine(model, device, tracer, TS_DP_MODEL)
+    grid = eng.grid
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = ts_run(eng, trace)
+    torch.cuda.synchronize()
+    names = [e.name for e in tracer.events()]
+    out.update({
+        "wall_s": time.perf_counter() - t0,
+        "launches": kernels.launch_counts(),
+        "variants": kernels.variant_counts(),
+        "decodes": names.count("decode"), "prefills": names.count("prefill"),
+        "pool_sha256": ts_pool_digest(eng), "kv_heads": eng.kv_heads,
+        "mesh": grid.layout.as_dict(), "batch_axes": eng.plan.batch_axes,
+        "sanitizer": sanitize_report([tracer])})
+    del eng
+    if rank == 0:
+        params = model.load(model.init(
+            torch.Generator(device=device).manual_seed(0)))
+        out["divergences"] = ts_divergences(
+            model, params, device, out["tokens"], one_card["tokens"],
+            [r.prompt_tokens for r in trace])
+        del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, grid
+
+
+def ts_dp_disagg(rank, device, full_model, full_params, refs, grid):
+    """(h) 3: (f)'s direct cluster in fp32 on the first ``TRAIN_CUT``
+    layers, both tiers from a gang of two (data 2, model 2) members on
+    ``grid``; rank 0 takes one card's top-2 margin wherever its tokens
+    part from one card's (``refs``: ``dg_cut_runs``')."""
+    import torch
+
+    tiers = DgTiers(TS_DP_MODEL, grid)
+    trace = dg_trace()
+    m32, p32 = dg_fp32_cut(full_model, full_params, device)
+    tracers, launches = [], {}
+    runs, walls = dg_main_runs(m32, p32, device, trace, tracers,
+                               ("direct",), tiers, launches)
+    handles, cluster = runs["direct"]
+    engines = [w.engine for w in cluster.prefill_workers] \
+        + cluster.decode_engines
+    out = {"tokens": [h.tokens for h in handles],
+           "clocks": [(h.submit_clock, h.first_token_clock, h.done_clock)
+                      for h in handles],
+           "modeled": dg_modeled(runs), "wall_s": walls["direct"],
+           "counts": ts_run_counts({"direct": tracers}, launches),
+           "sanitizer": sanitize_report(tracers),
+           "handoff_uses": dg_uses_after_pages(tracers[0]),
+           "mesh": grid.layout.as_dict(),
+           "one_grid": all(e.grid is grid for e in engines),
+           "decode_pool_sha256": ts_pool_digest(cluster.decode_engines[0])}
+    if rank == 0:
+        out["divergences"] = ts_divergences(
+            m32, p32, device, out["tokens"], refs["tokens"]["direct"],
+            [r.prompt_tokens for r in trace])
+    del runs, cluster, engines, m32, p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ts_dp(rank, device, one_card, full_model, full_params, refs):
+    """(h) on one (data 2, model 2) grid, joined once by its first
+    engine: the fp32 run against (a)'s one-card run (``one_card``), the
+    bf16 run on ``SERVE_DEPTH`` layers (``ts_full_depth``), and (f)'s
+    direct cluster in fp32 against one card's (``refs``)."""
+    t0 = time.perf_counter()
+    out = {}
+    out["fp32"], grid = ts_dp_fp32(rank, device, one_card)
+    dp_progress(rank, "(h) fp32", t0, {k: out["fp32"][k] for k in (
+        "wall_s", "kv", "launches")}, phase=13)
+    out["bf16"] = ts_full_depth(device, TS_DP_MODEL, grid)
+    dp_progress(rank, "(h) bf16", t0, {k: out["bf16"][k] for k in (
+        "wall_s", "kv", "launches")}, phase=13)
+    out["disagg"] = ts_dp_disagg(rank, device, full_model, full_params,
+                                 refs["fp32_cut"], grid)
+    dp_progress(rank, "(h) disagg", t0, out["disagg"]["modeled"], phase=13)
+    grid.close()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def ts_rank(rank: int, refs=None) -> dict:
     """Phase 13 in one rank of phase 12's world: (a)-(e), and with
-    ``refs`` (f) and (g)."""
+    ``refs`` (f), (g) and (h)."""
     import torch
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
@@ -6030,17 +6215,23 @@ def ts_rank(rank: int, refs=None) -> dict:
         t4 = time.perf_counter()
         out["colo"] = ts_colo(rank, device, params, refs["colo"])
         dp_progress(rank, "(g)", t0, out["colo"]["seconds"], phase=13)
+        t5 = time.perf_counter()
+        out["dp"] = ts_dp(rank, device, out["fp32_gate"].get("one_card_run"),
+                          full, params, refs["disagg"])
         del full, params
         gc.collect()
         torch.cuda.empty_cache()
-        out["seconds_f_g"] = {"f": t4 - t3, "g": time.perf_counter() - t4}
+        out["seconds_f_g"] = {"f": t4 - t3, "g": t5 - t4,
+                              "h": time.perf_counter() - t5}
     out["seconds_d_e"] = {"d": t2 - t1, "e": t3 - t2}
     return out
 
 
-def ts_checks(smi, per, qwen_tokens, refs=None):
+def ts_checks(smi, per, qwen_run, refs=None):
     """Phase 13's lines and checks from every rank's report (with
-    ``refs``, (f)'s and (g)'s too); returns each rank's launches."""
+    ``refs``, (f)'s, (g)'s and (h)'s too; ``qwen_run``: one card's bf16
+    run on (b)'s cut, ``ts_one_card_run``); returns each rank's
+    launches."""
     from repro_torch.configs import get_config
 
     cfg = get_config("qwen1.5-0.5b")
@@ -6062,7 +6253,7 @@ def ts_checks(smi, per, qwen_tokens, refs=None):
     full = [p["full_depth"] for p in per]
     b0 = full[0]
     L = SERVE_DEPTH
-    parting = sum(a != b for a, b in zip(b0["tokens"], qwen_tokens))
+    parting = sum(a != b for a, b in zip(b0["tokens"], qwen_run["tokens"]))
     emit({"phase": "tp serve", "check": "(b) full width, cut depth",
           "nvidia_smi": smi, "arch": cfg.name, "layers": L,
           "lease": {"data": 1, "model": TS_MODEL}, "ranks": TS_RANKS,
@@ -6097,9 +6288,137 @@ def ts_checks(smi, per, qwen_tokens, refs=None):
     if refs is not None:
         counts.update(ts_disagg_checks(smi, per, refs["disagg"]))
         counts.update(ts_colo_checks(smi, per, refs["colo"]))
+        counts.update(ts_dp_checks(smi, per, refs["disagg"], qwen_run))
     emit({"phase": "tp serve", "seconds_d_e": [p["seconds_d_e"]
                                                for p in per],
           "seconds_f_g": [p.get("seconds_f_g") for p in per]})
+    return counts
+
+
+def ts_dp_checks(smi, per, refs, qwen_run):
+    """Phase 13 (h)'s lines and checks; returns each rank's launches."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen1.5-0.5b")
+    h = [p["dp"] for p in per]
+    h0 = h[0]
+    want = per[0]["fp32_gate"]["one_card_run"]
+    counts = {}
+    # 1: fp32 on 2 layers against (a)'s one-card run
+    a0 = h0["fp32"]
+    emit({"phase": "tp serve", "check": "(h) fp32 against one card",
+          "nvidia_smi": smi, "arch": cfg.name, "layers": TRAIN_CUT,
+          "lease": TS_DP_MESH, "ranks": TS_RANKS,
+          "tie_margin": TS_TIE_MARGIN, "kv": a0["kv"],
+          "latency_modeled": a0["latency"],
+          "divergences": a0["divergences"],
+          "per_rank": [{k: x["fp32"][k] for k in (
+              "wall_s", "kv_heads", "batch_axes", "pool_sha256",
+              "launches", "sanitizer")} for x in h]})
+    digests = {}
+    for r, x in enumerate(h):
+        a = x["fp32"]
+        check(a["tokens"] == a0["tokens"] and a["mesh"] == TS_DP_MESH
+              and a["batch_axes"] == ["data"],
+              f"phase 13 (h) fp32 rank {r}: tokens differ from rank 0's, "
+              f"or a grid {a['mesh']} splitting rows over "
+              f"{a['batch_axes']}")
+        check(a["clocks"] == want["clocks"]
+              and a["latency"] == want["latency"] and a["kv"] == want["kv"]
+              and a["completed"] == 16 and a["failed_oom"] == 0
+              and a["kv"]["spills"] > 0 and a["kv"]["fetches"] > 0,
+              f"phase 13 (h) fp32 rank {r}: clocks, latency or KV stats "
+              f"{a['kv']} differ from one card's {want['kv']}")
+        ts_trace_check(f"phase 13 (h) fp32 rank {r}", a["sanitizer"])
+        ts_launch_checks(f"phase 13 (h) fp32 rank {r}", {"run": a},
+                         TRAIN_CUT, "float32")
+        heads = tuple(a["kv_heads"])
+        check(digests.setdefault(heads, a["pool_sha256"])
+              == a["pool_sha256"],
+              f"phase 13 (h) fp32 rank {r}: its pool of kv heads {heads} "
+              f"differs in bits from its data replica's")
+    check(len(digests) == TS_DP_MODEL
+          and all(d["tie"] for d in a0["divergences"]),
+          f"phase 13 (h) fp32: tokens part from one card's off a tie: "
+          f"{a0['divergences']}")
+    # 2: bf16 on SERVE_DEPTH layers, beside (b)'s (data 1, model 4) and
+    # one card's on the same cut
+    b0 = h0["bf16"]
+    L = SERVE_DEPTH
+    keep = ("wall_s", "decode_tokens_per_wall_s", "collective_host_s",
+            "collective_host_s_per_engine_step_by_op", "collective_calls",
+            "moved_bytes", "peak_mem_gb", "launches", "decodes", "prefills",
+            "engine_steps", "sanitizer")
+    emit({"phase": "tp serve", "check": "(h) bf16, cut depth",
+          "nvidia_smi": smi, "arch": cfg.name, "layers": L,
+          "lease": TS_DP_MESH, "ranks": TS_RANKS, "rules": b0["rules"],
+          "requests_parting_one_card_bf16": sum(
+              a != b for a, b in zip(b0["tokens"], qwen_run["tokens"])),
+          "one_card": {k: qwen_run[k] for k in (
+              "wall_s", "decode_tokens_per_wall_s")},
+          "data1_model4": [{k: p["full_depth"][k] for k in (
+              "wall_s", "decode_tokens_per_wall_s", "collective_host_s")}
+              for p in per],
+          "per_rank": [{k: x["bf16"][k] for k in keep} for x in h]})
+    for r, x in enumerate(h):
+        b = x["bf16"]
+        check(b["tokens"] == b0["tokens"] and b["clocks"] == b0["clocks"]
+              and b["kv"] == b0["kv"] and b["mesh"] == TS_DP_MESH
+              and b["completed"] == 16 and b["failed_oom"] == 0
+              and b["kv"]["spills"] > 0 and b["kv"]["fetches"] > 0
+              and b["trace_dropped"] == 0
+              and all(0 <= t < cfg.vocab for q in b["tokens"] for t in q),
+              f"phase 13 (h) bf16 rank {r}: {b['kv']}, {b['completed']} "
+              f"done, tokens equal rank 0's: {b['tokens'] == b0['tokens']}")
+        ts_trace_check(f"phase 13 (h) bf16 rank {r}", b["sanitizer"])
+        ts_launch_checks(f"phase 13 (h) bf16 rank {r}", {"run": b}, L,
+                         cfg.compute_dtype)
+        check(b["collective_calls"].get("data:all-gather") == b["decodes"],
+              f"phase 13 (h) bf16 rank {r}: {b['collective_calls']} for "
+              f"{b['decodes']} decode steps (one gather over data each)")
+    # 3: (f)'s direct cluster in fp32 against one card's
+    d0 = h0["disagg"]
+    emit({"phase": "tp serve", "check": "(h) disagg direct fp32",
+          "nvidia_smi": smi, "arch": cfg.name, "layers": TRAIN_CUT,
+          "lease": f"a gang of prefill and decode, {TS_DP_MESH} each",
+          "ranks": TS_RANKS, "modeled": d0["modeled"],
+          "divergences": d0["divergences"],
+          "per_rank": [{k: x["disagg"][k] for k in (
+              "wall_s", "counts", "sanitizer", "handoff_uses",
+              "decode_pool_sha256")} for x in h]})
+    digests = {}
+    for r, (x, p) in enumerate(zip(h, per)):
+        d = x["disagg"]
+        one = {m: {"direct": v["direct"]} for m, v
+               in refs["fp32_cut"]["modeled"].items() if "direct" in v}
+        check(d["tokens"] == d0["tokens"] and d["modeled"] == one
+              and d["clocks"] == refs["fp32_cut"]["clocks"]["direct"],
+              f"phase 13 (h) disagg rank {r}: tokens differ from rank "
+              f"0's, or modeled numbers {d['modeled']} != one card's "
+              f"{one}")
+        uses, ok = d["handoff_uses"]
+        check(uses == d["modeled"]["handoffs"]["direct"] > 0 and ok
+              and d["sanitizer"]["checks"].get("disagg-handoff", 0) > 0
+              and d["one_grid"] and d["mesh"] == TS_DP_MESH,
+              f"phase 13 (h) disagg rank {r}: {uses} handoff uses, a use "
+              f"before its last page: {not ok}, one grid {d['one_grid']}")
+        ts_trace_check(f"phase 13 (h) disagg rank {r}", d["sanitizer"])
+        ts_launch_checks(f"phase 13 (h) disagg rank {r}", d["counts"],
+                         TRAIN_CUT, "float32")
+        heads = tuple(x["fp32"]["kv_heads"])
+        check(digests.setdefault(heads, d["decode_pool_sha256"])
+              == d["decode_pool_sha256"],
+              f"phase 13 (h) disagg rank {r}: its decode pool differs in "
+              f"bits from its data replica's")
+        counts[f"qwen1.5-0.5b serve dp rank {r}"] = {
+            k: x["fp32"]["launches"].get(k, 0) + x["bf16"]["launches"].get(
+                k, 0) + ts_sum_launches(d["counts"]).get(k, 0)
+            for k in x["bf16"]["launches"]}
+    check(all(v["tie"] for v in d0["divergences"]),
+          f"phase 13 (h) disagg: tokens part from one card's off a tie: "
+          f"{d0['divergences']}")
+    emit({"phase": "tp serve", "check": "(h) seconds",
+          "per_rank": [x["seconds"] for x in h]})
     return counts
 
 
@@ -6325,7 +6644,7 @@ def ts_colo_checks(smi, per, refs):
     g = [p["colo"] for p in per]
     g0 = g[0]
     emit({"phase": "tp serve", "check": "(g) colo fp32", "nvidia_smi": smi,
-          "arch": cfg.name, "layers": TRAIN_CUT, "ranks": TS_RANKS,
+          "arch": cfg.name, "layers": CO_SHALLOW, "ranks": TS_RANKS,
           "lease": {"data": 1, "model": TS_MODEL},
           "requests_per_tenant": CO_REQUESTS, "train_steps": CO_STEPS,
           "claims": g0["claims"], "modeled_equal_one_card":
@@ -6348,7 +6667,7 @@ def ts_colo_checks(smi, per, refs):
         for k, v in x["claims"].items():
             check(v, f"phase 13 (g) rank {r}: fig11 claim {k} failed")
         ts_trace_check(f"phase 13 (g) rank {r}", x["sanitizer"])
-        ts_launch_checks(f"phase 13 (g) rank {r}", x["counts"], TRAIN_CUT,
+        ts_launch_checks(f"phase 13 (g) rank {r}", x["counts"], CO_SHALLOW,
                          "float32")
         check(x["one_grid"] and x["mesh"] == {"data": 1, "model": TS_MODEL}
               and x["kv_heads"][1] - x["kv_heads"][0]
@@ -6496,6 +6815,11 @@ def kernel_times(device, counts, errs):
     paged_time("tp rank (model 4) colo decode B=6 len 33..160 H=KV=4 D=64 "
                "ps=16 pages=10 q=fp32 pages=fp32", 6, 16, 10,
                [33, 48, 97, 128, 150, 160], H=4, KV=4, q=f32)
+    # a rank's decode in phase 13 (h) on (data 2, model 2): its block of
+    # the engine's 8-row bucket, 4 rows on 8 of the 16 heads
+    paged_time("dp rank (data 2, model 2) decode B=4 len 130..520 H=KV=8 "
+               "D=64 ps=64 q=bf16 pages=fp32", 4, 64, 16,
+               [130, 260, 520, 150], H=8, KV=8)
 
     def flash_time(B, Sq, Skv, H, D, q_offset=0, kv_len=None,
                    q_dtype=bf16, kv_dtype=f32, causal=True):
@@ -6822,7 +7146,7 @@ def main() -> int:
     # phases 6-8 serve the first SERVE_DEPTH layers; phase 13 (b)'s
     # one-card reference is phase 4's trace on that cut
     qwen, qwen_params = serve_cut(qwen, qwen_params)
-    qwen_tokens = ts_one_card_tokens(device)
+    qwen_run = ts_one_card_run(device)
     gc.collect()
     torch.cuda.empty_cache()
     counts["qwen1.5-0.5b pooled"], variants["qwen1.5-0.5b pooled"] = \
@@ -6871,7 +7195,7 @@ def main() -> int:
     tp_ref = tp_reference_losses(device)
     gc.collect()
     torch.cuda.empty_cache()
-    counts.update(tp_phase(smi, tp_ref, qwen_tokens, serve_refs))
+    counts.update(tp_phase(smi, tp_ref, qwen_run, serve_refs))
     names = sorted({name for c in counts.values() for name in c})
     total = {name: sum(c.get(name, 0) for c in counts.values())
              for name in names}

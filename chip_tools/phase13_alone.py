@@ -1,13 +1,16 @@
-"""chip_smoke.py's phase 13 alone on the card: the kernels built, (f)'s
-and (g)'s one-card references (``ts_serve_refs``), 4 spawned ranks
-sharing the card on a (data 1, model 4) world running
-``chip_smoke.ts_rank`` on one torch thread each (as ``tp_rank``), the
-parent's checks (``ts_checks``, phase 13 (b)'s tokens standing in for
-phase 4's), then phase 5's times.
+"""chip_smoke.py's phase 13 alone on the card: the kernels built, one
+card's references ((b)'s and (h)'s bf16 run, ``ts_one_card_run``; (f)'s
+and (g)'s, ``ts_serve_refs``), 4 spawned ranks sharing the card on a
+(data 1, model 4) world running ``chip_smoke.ts_rank`` on one torch
+thread each (as ``tp_rank``), the parent's checks (``ts_checks``), then
+phase 5's times.
 
     python3 chip_tools/phase13_alone.py
     # only (c), (f) and (g) in the ranks, and their checks
     python3 chip_tools/phase13_alone.py --fg
+    # only (a), (b), (c) and (h) (the engine on (data 2, model 2)), and
+    # their checks; of (f)'s references only dg_cut_runs'
+    python3 chip_tools/phase13_alone.py --h
 """
 import collections, json, multiprocessing, shutil, sys, time
 from pathlib import Path
@@ -31,7 +34,23 @@ def fg_rank(rank, refs):
     return out
 
 
-def rank_fn(rank, init, fg):
+def h_rank(rank, refs):
+    """(a), (b), (c) and (h) of ``ts_rank``: (h) needs (a)'s one-card
+    run, and its line prints (b)'s beside its own."""
+    import torch
+    device = torch.device("cuda", 0)
+    out = {"fp32_gate": cs.ts_fp32_gate(rank, device),
+           "full_depth": cs.ts_full_depth(device),
+           "kernels": cs.ts_kernels(device)}
+    full, params = cs.ts_serve_model(device)
+    t0 = time.perf_counter()
+    out["dp"] = cs.ts_dp(rank, device, out["fp32_gate"].get("one_card_run"),
+                         full, params, refs["disagg"])
+    out["seconds_f_g"] = {"h": time.perf_counter() - t0}
+    return out
+
+
+def rank_fn(rank, init, mode):
     import torch
     from repro_torch.launch import mesh as mesh_lib
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -41,7 +60,7 @@ def rank_fn(rank, init, fg):
                               init_method=init, timeout_s=180)
     refs = json.loads((OUT / cs.TS_REFS).read_text())
     t0 = time.perf_counter()
-    out = fg_rank(rank, refs) if fg else cs.ts_rank(rank, refs)
+    out = {"fg": fg_rank, "h": h_rank}.get(mode, cs.ts_rank)(rank, refs)
     out["seconds"] = time.perf_counter() - t0
     grid.close()
     (OUT / f"rank{rank}.json").write_text(json.dumps(out))
@@ -50,7 +69,8 @@ def rank_fn(rank, init, fg):
 def main():
     import torch
     from repro_torch.kernels import _build
-    fg = "--fg" in sys.argv[1:]
+    mode = ("fg" if "--fg" in sys.argv[1:] else
+            "h" if "--h" in sys.argv[1:] else "all")
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = cs.nvidia_smi_line()
     print(smi, flush=True)
@@ -61,12 +81,21 @@ def main():
     shutil.rmtree(OUT, ignore_errors=True)
     OUT.mkdir(parents=True)
     t0 = time.perf_counter()
-    refs = cs.ts_serve_refs(torch.device("cuda"))
+    dev = torch.device("cuda")
+    qwen_run = cs.ts_one_card_run(dev)
+    if mode == "h":
+        model, params = cs.ts_serve_model(dev)
+        cut_ref, _, _ = cs.dg_cut_runs(model, params, dev)
+        refs = json.loads(json.dumps({"disagg": {"fp32_cut": cut_ref}}))
+        del model, params
+    else:
+        refs = cs.ts_serve_refs(dev)
     (OUT / cs.TS_REFS).write_text(json.dumps(refs))
     print("one-card references", time.perf_counter() - t0, flush=True)
     torch.cuda.empty_cache()
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=rank_fn, args=(r, f"file://{OUT}/store", fg))
+    procs = [ctx.Process(target=rank_fn,
+                         args=(r, f"file://{OUT}/store", mode))
              for r in range(4)]
     with cs.dp_allocator_env():
         for p in procs:
@@ -76,16 +105,18 @@ def main():
     cs.emit({"phase": "tp serve", "world_seconds": secs,
              "rank_seconds": [p["seconds"] for p in per],
              "seconds_f_g": [p["seconds_f_g"] for p in per]})
-    if fg:
+    if mode != "all":
         kern = [p["kernels"] for p in per]
         cs.emit({"phase": "tp serve", "check": "(c)", "per_rank": kern})
         cs.check(all(k["ok"] for ks in kern for k in ks.values()),
                  f"phase 13 (c): {kern}")
+    if mode == "fg":
         counts = cs.ts_disagg_checks(smi, per, refs["disagg"])
         counts.update(cs.ts_colo_checks(smi, per, refs["colo"]))
+    elif mode == "h":
+        counts = cs.ts_dp_checks(smi, per, refs["disagg"], qwen_run)
     else:
-        counts = cs.ts_checks(smi, per, per[0]["full_depth"]["tokens"],
-                              refs)
+        counts = cs.ts_checks(smi, per, qwen_run, refs)
     total = collections.defaultdict(int)
     for c in counts.values():
         for k, v in c.items():

@@ -1,12 +1,17 @@
-"""Rehearse chip_smoke.py's phase 13 (d)-(g) on the CPU, before a chip
+"""Rehearse chip_smoke.py's phase 13 (d)-(h) on the CPU, before a chip
 call.
 
-    # the rank code of (d)-(g) in 4 spawned CPU ranks over gloo, at smoke
+    # the rank code of (d)-(h) in 4 spawned CPU ranks over gloo, at smoke
     # width (the configs' ``smoke=True``): the session's fp32 gate
     # against one process, its bf16 run on both grids, the two tenants,
-    # the disaggregated tiers and the co-resident tenants held by the
-    # smoke's own checks (launch counts aside: the CPU launches no
-    # kernel) to one process's references (``ts_serve_refs``)
+    # the disaggregated tiers, the co-resident tenants and (h)'s engine
+    # on (data 2, model 2) (with (a) and (b), whose runs (h) is held to
+    # and printed beside) held by the smoke's own checks (launch counts
+    # aside: the CPU launches no kernel) to one process's references
+    # (``ts_serve_refs``, ``ts_one_card_run``); (h)'s seconds a rank.
+    # At smoke width the modeled costs price the smoke config, so phase
+    # 4's trace never fills the quota: (h)'s spill checks fail here, as
+    # fig12's p95 and fig11's contention claims do
     PYTHONPATH=src python chip_tools/phase13_cpu.py
     # (e)'s schedule at full width on its first 2 layers, one process,
     # under each tier-1 pool size given: revoked pages, revocations,
@@ -71,6 +76,12 @@ def rank_fn(rank, init):
     full, params = cs.ts_serve_model(cpu)
     out["disagg"] = cs.ts_disagg(rank, cpu, full, params, refs["disagg"])
     out["colo"] = cs.ts_colo(rank, cpu, params, refs["colo"])
+    out["fp32_gate"] = cs.ts_fp32_gate(rank, cpu)
+    out["full_depth"] = cs.ts_full_depth(cpu)
+    t0 = time.perf_counter()
+    out["dp"] = cs.ts_dp(rank, cpu, out["fp32_gate"].get("one_card_run"),
+                         full, params, refs["disagg"])
+    out["seconds_h"] = time.perf_counter() - t0
     grid.close()
     (OUT / f"rank{rank}.json").write_text(json.dumps(out))
 
@@ -83,6 +94,7 @@ def rehearse():
     cs = smoke_width()
     refs = cs.ts_serve_refs(torch.device("cpu"))
     (OUT / cs.TS_REFS).write_text(json.dumps(refs))
+    qwen_run = cs.ts_one_card_run(torch.device("cpu"))
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=rank_fn, args=(r, f"file://{OUT}/store"))
              for r in range(4)]
@@ -123,6 +135,12 @@ def rehearse():
     for msg in failed:
         print("FAILED:", msg[:600])
     print(f"(f), (g): {len(failed)} checks failed")
+    failed.clear()
+    cs.ts_dp_checks("cpu", per, refs["disagg"], qwen_run)
+    for msg in failed:
+        print("FAILED:", msg[:600])
+    print(f"(h): {len(failed)} checks failed; seconds a rank "
+          f"{[round(p['seconds_h'], 1) for p in per]}")
     return 0
 
 

@@ -21,8 +21,8 @@ Equivalence contracts (pinned by ``tests/test_torch_colo.py``):
   which on a quiet fabric is bit-identical to
   ``simulate_step(...).total`` per step.
 
-Under a ``model``-axis lease the serving engines come from one (data 1,
-model m) lease and serve on one rank grid (``Engine.from_lease(...,
+On a lease's (pod, data, model) grid the serving engines come from one
+lease and serve on one rank grid (``Engine.from_lease(...,
 grid=)``; checked here): every rank runs this loop, its own
 ``Transport`` driven by the same events, so each rank keeps the
 reference's clocks, training stats and link report.

@@ -22,12 +22,13 @@ A degenerate cluster (``route=None``) replays the plain colocated
 subsystem's correctness anchor: disaggregation moves *when* decode may
 start, never *what* it computes.
 
-Under a ``model``-axis lease (a world of m ranks, one process each)
-every rank holds both tiers on one (data 1, model m) grid, the engines
+On a lease's (pod, data, model) grid (a world of as many ranks, one
+process each) every rank holds both tiers on one grid, the engines
 from the members of one ``ResourcePool.lease_gang``
 (``Engine.from_lease(..., grid=)``): a rank's exported pages hold its
-kv heads and land in its own decode pool, its ``Transport`` prices the
-whole model's pages, and every rank keeps the reference's clocks.
+kv heads (the same on every data replica) and land in its own decode
+pool, its ``Transport`` prices the whole model's pages, and every rank
+keeps the reference's clocks.
 """
 
 from repro_torch.disagg.decode import decode_load, pick_decode_engine

@@ -25,9 +25,10 @@ The resulting per-page completion times gate decode-side admission and
 first decode; the ``disagg-handoff`` sanitizer rule audits
 transferred-before-use from the trace.
 
-Under a ``model``-axis lease every engine of the cluster serves on one
-rank grid (checked at construction, ``serve.engine.handoff_refusal``):
-each rank runs this same loop, its handoffs moving its own kv heads.
+On a lease's (pod, data, model) grid every engine of the cluster
+serves on one rank grid (checked at construction,
+``serve.engine.handoff_refusal``): each rank runs this same loop, its
+handoffs moving its own kv heads.
 """
 
 from __future__ import annotations

@@ -23,7 +23,9 @@ the request-level engine mode (the paged-KV families, dense and moe).
 
     # a (data 1, model 2) lease across two ranks, one process each:
     # tensor-parallel engine, rank 0 prints the summary (+ --tenants 2
-    # --tier2-kv-gb 1: two tenants of the lease over one arbiter a rank)
+    # --tier2-kv-gb 1: two tenants of the lease over one arbiter a rank;
+    # --pool-model-parallel 1: (data 2, model 1), each rank decoding its
+    # half of every decode bucket's rows over a replicated page pool)
     PYTHONPATH=src python -m torch.distributed.run --standalone \
         --nproc-per-node 2 -m repro_torch.launch.serve --requests 16 \
         --pool scalepool --pool-accels 2 --pool-model-parallel 2
@@ -40,10 +42,10 @@ the request-level engine mode (the paged-KV families, dense and moe).
     # routed fabric (direct pod-to-pod or staged through tier-2 memory)
     ... --requests 16 --disagg --disagg-staging tier2 --min-ready-pages 1
 
-    # the tiers of one gang on a (data 1, model 2) lease across two ranks
+    # the tiers of one gang on (data 2, model 1) members across two ranks
     PYTHONPATH=src python -m torch.distributed.run --standalone \
         --nproc-per-node 2 -m repro_torch.launch.serve --requests 16 \
-        --disagg --pool scalepool --pool-model-parallel 2
+        --disagg --pool scalepool --pool-accels 2 --pool-model-parallel 1
 
 ``--requests`` or ``--trace`` select the engine, which a family without
 paged KV refuses (exit 2); otherwise the fixed-batch mode runs.  Prints
@@ -55,16 +57,17 @@ every rank runs the same loop on its shards and rank 0 prints the
 summary plus ``"world"``, ``"mesh"`` and ``"ranks_agree"``; a rank whose
 tokens differ from rank 0's makes every rank exit 1:
 
-* the engine mode serves a ``--pool`` lease whose
-  ``--pool-model-parallel`` is the world's size (``Engine.from_lease``),
-  and with ``--tenants N`` N tenants of that lease over one arbiter a
-  rank;
+* the engine mode serves a ``--pool`` lease of ``--pool-accels`` a,
+  the world's size, with ``--pool-model-parallel`` m on its grid: (data
+  a/m, model m), or (pod, data, model) for a lease across pods
+  (``Engine.from_lease``: heads over ``model``, each decode bucket's
+  rows over the data axes, the page pool replicated over them); with
+  ``--tenants N`` N tenants of that lease over one arbiter a rank;
 * ``--disagg`` takes its tiers from one gang of the ``--pool`` estate
-  (``ResourcePool.lease_gang``, ``--pool-accels`` a member) whose
-  ``--pool-model-parallel`` is the world's size: every engine of both
-  tiers serves on one (data 1, model m) grid, with the weights and the
-  budget of the one-process run, so the summary is its summary; rank 0
-  writes ``--trace-out``;
+  (``ResourcePool.lease_gang``, ``--pool-accels`` a member, the world's
+  size): every engine of both tiers serves on one such grid, with the
+  weights and the budget of the one-process run, so the summary is its
+  summary; rank 0 writes ``--trace-out``;
 * the fixed-batch mode runs on ``launch.mesh.make_smoke_mesh(world)``'s
   layout under its decode rules, as the reference's does on its smoke
   mesh: (data 2, model 2) at 4 ranks, (pod 2, data 2, model 2) at 8,
@@ -73,10 +76,10 @@ tokens differ from rank 0's makes every rank exit 1:
   layout exits 2 before any work.
 
 What is not served across ranks (the engine modes without such a
-lease; an engine lease with a ``data`` axis over 1, and what
+lease, or on a world that does not fill its grid, and what
 ``profiles.grid_refusal`` refuses, each naming the slice that brings
-it) exits 2.  The reference's CLI has no co-resident (train + serve)
-mode, and neither has this one.
+it) exits 2 before any work.  The reference's CLI has no co-resident
+(train + serve) mode, and neither has this one.
 """
 
 from __future__ import annotations
@@ -470,7 +473,7 @@ def batch_layout(world: int, cfg, shape) -> Tuple[Optional[mesh_lib.Layout],
                         f"({layout.size} ranks)")
     return layout, grid_refusal(layout, make_rules(cfg, shape, layout,
                                                    fsdp=False), cfg,
-                                serving=True, path="session", world=world)
+                                serving=True, world=world)
 
 
 def _legacy_batch_mode(args, cfg, model, device, layout=None) -> int:
@@ -505,17 +508,26 @@ def _legacy_batch_mode(args, cfg, model, device, layout=None) -> int:
 def across_ranks_refusal(args, world: int) -> Optional[str]:
     """Why this run's mode cannot be served across ``world`` ranks, or
     None: the fixed-batch mode runs on the smoke layout
-    (``batch_layout``), the engine modes on a lease (``--pool``), and
-    ``--disagg``'s tiers on a gang of that estate on (data 1, model
-    world)."""
-    if (args.disagg and (args.requests or args.trace)
-            and (args.pool == "none" or args.pool_model_parallel != world)):
-        return (f"--disagg across {world} ranks takes its tiers from a "
-                f"lease gang: --pool with --pool-model-parallel {world} "
-                f"(every engine on (data 1, model {world}))")
-    if (args.requests or args.trace) and args.pool == "none":
-        return ("the engine across ranks takes a lease: --pool with "
-                "--pool-model-parallel set to the world's size")
+    (``batch_layout``); the engine modes (``--tenants``, ``--disagg``
+    too) on the grid of a ``--pool`` lease (each member of
+    ``--disagg``'s gang) of ``--pool-accels`` a with
+    ``--pool-model-parallel`` m, (data a/m, model m) or with the pod
+    span of a lease across pods, which the world must fill."""
+    if not (args.requests or args.trace):
+        return None
+    if args.pool == "none":
+        return ("across ranks the engine modes serve on a lease's grid: "
+                "--pool with --pool-accels set to the world's size")
+    shape, axes = _lease(args).mesh_shape(args.pool_accels)
+    layout = mesh_lib.Layout(shape, axes)
+    if world != args.pool_accels or \
+            layout.axis_size("model") != args.pool_model_parallel:
+        return (f"a world of {world} ranks does not fill the grid of a "
+                f"lease of {args.pool_accels} accelerators with "
+                f"--pool-model-parallel {args.pool_model_parallel} "
+                f"({layout.as_dict()}): across ranks the engine modes "
+                f"serve on --pool-accels {world}, one rank an accelerator, "
+                f"with a model axis that divides it")
     return None
 
 

@@ -128,7 +128,7 @@ class ServeSession:
             logits = hierarchy.all_gather_dim(logits.contiguous(), grid,
                                               tp.MODEL, logits.dim() - 1)
         logits = logits[..., :self.model.cfg.vocab]
-        axes = _batch_axes(self.plan)
+        axes = self.plan.batch_axes
         if axes:
             logits = hierarchy.all_gather_dim(logits.contiguous(), grid,
                                               axes, 0)
@@ -166,22 +166,14 @@ def _scope(plan_):
     return partition.use_rules(plan_.rules, plan_.grid)
 
 
-def _batch_axes(plan_) -> Tuple[str, ...]:
-    """The grid axes over 1 that split the batch under the rules."""
-    axes = plan_.rules.spec("batch")[0]
-    axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
-    return tuple(a for a in axes if plan_.grid.size((a,)) > 1)
-
-
 def _rows(plan_, batch: int) -> Tuple[int, int]:
     if plan_ is None:
         return 0, batch
-    axes = _batch_axes(plan_)
-    n = plan_.grid.size(axes)
+    n = plan_.grid.size(plan_.batch_axes)
     if batch % n:
         raise ValueError(f"a batch of {batch} rows does not split over "
-                         f"{n} ranks of {axes}")
-    return plan_.grid.index(axes) * (batch // n), batch // n
+                         f"{n} ranks of {plan_.batch_axes}")
+    return plan_.rows(batch)
 
 
 def _take_rows(plan_, x: torch.Tensor) -> torch.Tensor:
@@ -196,7 +188,7 @@ def _greedy(plan_, last: torch.Tensor, vocab: int) -> torch.Tensor:
     if plan_ is None:
         return torch.argmax(last, dim=-1)
     tok = tp.vocab_parallel_argmax(last, vocab, plan_)
-    axes = _batch_axes(plan_)
+    axes = plan_.batch_axes
     if axes:
         tok = hierarchy.all_gather_dim(tok.contiguous(), plan_.grid, axes, 0)
     return tok
@@ -208,7 +200,7 @@ def make_session(model: Model, shape: ShapeConfig,
     of one), or across the ranks of ``grid`` (a
     ``launch.mesh.RankGrid``) under its decode rules for ``shape``
     (FSDP off, the reference's); the caller checks the grid
-    (``profiles.grid_refusal(..., serving=True, path="session")``)."""
+    (``profiles.grid_refusal(..., serving=True)``)."""
     return ServeSession(model, shape, *_steps(model, shape, grid))
 
 
@@ -254,14 +246,13 @@ def make_lease_session(model: Model, shape: ShapeConfig, lease, *,
     steps run under its decode rules for ``shape`` (the reference's
     ``make_rules(..., fsdp=False)``): rows over the data axes, heads
     over ``model`` (see the module's docstring).  Refused
-    (``profiles.grid_refusal``, path ``"session"``), each naming its
-    slice: a ``model`` axis over 1 bound to one process (several
-    cards), moe across ranks, the other families under a ``model`` axis
-    over 1, heads that do not divide it."""
+    (``profiles.grid_refusal``), each naming its slice: a ``model`` axis
+    over 1 bound to one process (several cards), moe across ranks with a
+    data axis over 1, the other families under a ``model`` axis over 1,
+    heads that do not divide it."""
     binding = lease.materialize(None if device is None else [device])
     rules = make_rules(model.cfg, shape, binding, fsdp=False)
-    why = grid_refusal(binding, rules, model.cfg, serving=True,
-                       path="session")
+    why = grid_refusal(binding, rules, model.cfg, serving=True)
     if why is not None:
         raise ValueError(why)
     if binding.device.type != model.device.type:

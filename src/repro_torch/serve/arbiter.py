@@ -135,7 +135,7 @@ class PoolArbiter:
         self._tenants: Dict[str, _Tenant] = {}
         self.pool: Optional[Dict[str, torch.Tensor]] = None   # (+trash)
         self.device: Optional[torch.device] = None
-        # the rank grid of tenants under a model-axis lease (the first
+        # the rank grid of tenants of a lease across ranks (the first
         # tenant's; the others serve on it), None on one device
         self.grid = None
         self._leaf_sig: Optional[Tuple] = None
@@ -152,7 +152,9 @@ class PoolArbiter:
         the first tenant's fix the pool, allocated with ``torch.zeros``
         on its device as ``(layers, num_pages + 1, page, ...)`` with the
         trash page last, and its rank grid the grid every tenant serves
-        on.  ``page_bytes`` is the whole model's page."""
+        on (with data axes over 1 the pool is replicated over them, each
+        tenant's decode keeping the replicas equal).  ``page_bytes`` is
+        the whole model's page."""
         if tenant in self._tenants:
             raise ValueError(f"tenant {tenant!r} already registered")
         if engine.cfg.page_size != self.page_size:

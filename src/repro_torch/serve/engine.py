@@ -52,24 +52,30 @@ tensors live on the arbiter (``self._pool`` reads and writes them), and
 the pressure/resume decisions.  A lone tenant's allowance is the whole
 pool, so it behaves bit for bit as a private engine.
 
-Under a ``model``-axis lease (``Engine.from_lease`` in a world of
-ranks, one process a rank; ``repro_torch.sharding.tp``) every rank runs
-this same host loop on its shards of the model: attention on its local
-heads over a page pool of its kv heads, the MLP column -> row, the
-vocab's logits split over ``model`` and the greedy token taken by
-``tp.vocab_parallel_argmax``, the same int on every rank.  Tokens alone
-fix the schedule, so every rank pages, spills and fetches alike (each
-moving its own head shard) and keeps the reference's modeled clocks;
-``page_bytes`` stays the whole model's, so tier-2 charges are the
-reference's too.  Tenants of one such lease share one arbiter a rank,
-whose pool holds the rank's kv heads, and the grid its first tenant
-joined.  The tiers of a disaggregated cluster and co-resident engines
-on one shared ``Transport`` serve on one grid too (``grid=``): every
-rank holds every tier, a rank's ``prefill_export`` returns its own kv
-heads of each page and ``submit_prefilled`` writes them into its own
-decode pool, so nothing moves between ranks for a handoff, and each
-rank's transport prices the whole model's pages as the reference's
-does (``handoff_refusal`` refuses tiers that differ in grid or heads).
+On a lease's (pod, data, model) grid (``Engine.from_lease`` in a world
+of as many ranks, one process a rank; ``repro_torch.sharding.tp``) every
+rank runs this same host loop on its shards of the model: attention on
+its local heads over a page pool of its kv heads, the MLP column -> row,
+the vocab's logits split over ``model`` and the greedy token taken by
+``tp.vocab_parallel_argmax``, the same int on every rank.  With the
+decode rules' ``batch`` over data axes (``data``, ``pod``) each rank
+decodes its block of each decode bucket's rows; the pool is replicated
+over those axes, as the reference's unconstrained pool is under GSPMD,
+and kept equal by one all-gather a step of the rows' new K/V and tokens
+(``_decode_rows``).  Tokens alone fix the schedule, so every rank pages,
+spills and fetches alike (each moving its own head shard) and keeps the
+reference's modeled clocks; ``page_bytes`` stays the whole model's, so
+tier-2 charges are the reference's too.  Tenants of one such lease share
+one arbiter a rank, whose pool holds the rank's kv heads (replicated
+over the data axes as an engine's), and the grid its first tenant
+joined.  The tiers of a disaggregated cluster and co-resident engines on
+one shared ``Transport`` serve on one grid too (``grid=``): every rank
+holds every tier, a rank's ``prefill_export`` returns its own kv heads
+of each page and ``submit_prefilled`` writes them into its own decode
+pool (the same on every data replica), so nothing moves between ranks
+for a handoff, and each rank's transport prices the whole model's pages
+as the reference's does (``handoff_refusal`` refuses tiers that differ
+in grid or heads).
 
 The pool tensors are updated IN PLACE (``copy_``, ``index_copy_``,
 ``index_put_``) where the reference builds functional copies; the pool
@@ -86,6 +92,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import hierarchy
 from repro_torch.core.tiering import KVBudget, PagedKV
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.api import Model
@@ -96,8 +103,7 @@ from repro_torch.obs.trace import CAT_ENGINE, CAT_KV, CAT_REQUEST, resolve
 from repro_torch.serve.api import (EngineConfig, Request, RequestHandle,
                                    RequestStatus, ServeCostModel)
 from repro_torch.sharding import partition, tp
-from repro_torch.sharding.profiles import (grid_refusal, make_rules,
-                                          serving_path)
+from repro_torch.sharding.profiles import grid_refusal, make_rules
 
 
 def _pow2_buckets(start: int, cap: int) -> List[int]:
@@ -362,7 +368,7 @@ class Engine:
 
     @property
     def grid(self):
-        """The rank grid of a ``model``-axis lease, or None."""
+        """The rank grid of a lease served across ranks, or None."""
         return None if self.plan is None else self.plan.grid
 
     @property
@@ -462,11 +468,14 @@ class Engine:
 
         In a process of its own the engine runs on the first device
         ``lease.materialize()`` binds (``device=`` picks it, e.g.
-        ``"cpu"``).  In a world of m ranks on a ``(data 1, model m)``
-        lease each rank joins the grid (``LeaseBinding.join``) and serves
-        its shards of ``params`` (the full tree, default
-        ``model.init(generator)``, cut here): tensor parallelism over
-        ``model`` (``repro_torch.sharding.tp``).  ``grid``: a grid an
+        ``"cpu"``).  In a world of as many ranks as the lease's (pod,
+        data, model) grid each rank joins the grid
+        (``LeaseBinding.join``) and serves its shards of ``params`` (the
+        full tree, default ``model.init(generator)``, cut here): tensor
+        parallelism over ``model`` (``repro_torch.sharding.tp``), and
+        each decode bucket's rows split over the data axes with the
+        page pool replicated over them (``_decode_once``); FSDP stays
+        off, as the reference's ``fsdp=False``.  ``grid``: a grid an
         earlier engine of this world joined, so several engines (a
         disaggregated cluster's tiers, co-resident engines on a shared
         ``transport``) serve on one grid and make its process groups
@@ -475,19 +484,13 @@ class Engine:
         joined once by its first tenant, and its pool of the rank's kv
         heads.  Refused (``profiles.grid_refusal``), each naming the
         slice that brings it: a ``model`` axis over 1 outside a world of
-        as many ranks, a ``data`` or ``pod`` axis over 1 across ranks
-        (3c.3), and a family or head count the rules do not shard
-        (3d-3g)."""
+        as many ranks, moe with a ``data`` or ``pod`` axis over 1 (3d),
+        and a family or head count the rules do not shard (3d-3g)."""
         binding = lease.materialize(None if device is None else [device])
         rules = make_rules(model.cfg, ShapeConfig(
             "engine", "decode", cfg.max_seq, cfg.max_slots), binding,
             fsdp=False)
-        path = serving_path(
-            multi_tenant=arbiter is not None or bool(getattr(
-                lease, "tenants", ())),
-            shared_fabric=transport is not None)
-        why = grid_refusal(binding, rules, model.cfg, serving=True,
-                           path=path)
+        why = grid_refusal(binding, rules, model.cfg, serving=True)
         if why is not None:
             raise ValueError(why)
         shared = arbiter.grid if arbiter is not None else None
@@ -517,11 +520,11 @@ class Engine:
                                   page_size=cfg.page_size)
         plan = None
         if binding.world > 1:
-            plan = tp.make_plan(grid if grid is not None else binding.join(),
-                                rules)
+            plan = tp.Plan(grid if grid is not None else binding.join(),
+                           rules)
         if params is None:
             params = model.init(generator)
-        if plan is not None:
+        if plan is not None and plan.model_n > 1:
             params = tp.shard_params(params, model.param_axes(), plan)
         return cls(model, params, cfg, device=dev, budget=budget,
                    cost_model=cost_model, arbiter=arbiter, tenant=tenant,
@@ -1019,6 +1022,8 @@ class Engine:
         plen = len(prompt)
         bucket = self._bucket_len(plen)
         self._buckets_used.add(bucket)
+        # with data axes over 1 every replica runs this prefill whole and
+        # writes the same pages: only decode splits rows (_decode_rows)
         tokens = torch.zeros((1, bucket), dtype=torch.long)
         tokens[0, :plen] = torch.as_tensor(prompt)
         with self._scope():
@@ -1160,17 +1165,7 @@ class Engine:
         else:
             sel = np.arange(self.cfg.max_slots, dtype=np.int64)
             rows = list(sel)                # full array: row == slot
-        dev = self.device
-        toks = torch.as_tensor(self._slot_tok[sel][:, None],
-                               dtype=torch.long).to(dev)
-        table = torch.as_tensor(self._table[sel]).to(dev)
-        lengths = torch.as_tensor(self._lengths[sel]).to(dev)
-        with self._scope():
-            logits, _ = self.model.decode_paged(self.params, toks,
-                                                self._pool, table, lengths)
-            new_toks = tp.vocab_parallel_argmax(
-                logits[:, -1, :], self.model.cfg.vocab,
-                self.plan).cpu().numpy()
+        new_toks = self._decode_rows(sel, running)
         pos = {slot: i for i, slot in enumerate(rows)}
         cost = self.cost.decode_s(len(running))
         at = self.clock + elapsed + cost
@@ -1185,6 +1180,92 @@ class Engine:
             self._decoded_tokens += 1
             self._emit(st, tok, at)
         return cost
+
+    def _decode_rows(self, sel: np.ndarray,
+                     running: List[_SlotState]) -> np.ndarray:
+        """The greedy tokens of the bucket's rows (slots ``sel``, in
+        order) after one paged decode, every row's on every rank.
+
+        With the rules' ``batch`` over data axes of n ranks
+        (``tp.Plan.rows``) a rank decodes only its block of ceil(b / n)
+        of the bucket's b rows, padded to that size with idle rows (the
+        trash page table, length 0), so every rank's ``model`` group
+        runs its collectives each step.  The page pool stays whole on
+        every data replica, as the reference's unconstrained pool does
+        under GSPMD: the new K/V of the rank's rows and their tokens are
+        gathered over the batch axes once a step (``_share_rows``) and
+        the other blocks' K/V written into the local pool, so every
+        replica holds the same pages.  Prefill, recompute, swap-out,
+        swap-in and a handoff's pages run on every replica alike; only
+        decode is split."""
+        start, count = 0, len(sel)
+        axes = () if self.plan is None else self.plan.batch_axes
+        if axes:
+            start, count = self.plan.rows(len(sel))
+            per = -(-len(sel) // self.grid.size(axes))
+        block = sel[start:start + count]
+        tok = self._slot_tok[block].astype(np.int64)
+        table = self._table[block]
+        lengths = self._lengths[block]
+        if axes and count < per:
+            pad = per - count
+            tok = np.concatenate([tok, np.zeros(pad, np.int64)])
+            table = np.concatenate([table, np.full(
+                (pad, table.shape[1]), self._trash, np.int32)])
+            lengths = np.concatenate([lengths, np.zeros(pad, np.int32)])
+        dev = self.device
+        toks = torch.as_tensor(tok[:, None]).to(dev)
+        table = torch.as_tensor(table).to(dev)
+        lengths = torch.as_tensor(lengths).to(dev)
+        with self._scope():
+            logits, _ = self.model.decode_paged(self.params, toks,
+                                                self._pool, table, lengths)
+            new_toks = tp.vocab_parallel_argmax(
+                logits[:, -1, :], self.model.cfg.vocab, self.plan)
+        if axes:
+            new_toks = self._share_rows(new_toks, table, lengths, axes,
+                                        sel, running)
+        return new_toks[:len(sel)].cpu().numpy()
+
+    def _share_rows(self, new_toks: torch.Tensor, table: torch.Tensor,
+                    lengths: torch.Tensor, axes: Tuple[str, ...],
+                    sel: np.ndarray,
+                    running: List[_SlotState]) -> torch.Tensor:
+        """One all-gather over ``axes`` of this rank's block: its rows'
+        greedy tokens and the K/V each wrote this step, read back from
+        its pool at (page, offset).  Every running row of another block
+        has its K/V written into the local pool at the same place; a
+        row reads only its own pages within a step, so one gather at
+        its end keeps the replicas equal.  Returns every block's tokens
+        in the ranks' order: the bucket's rows, then the padding."""
+        ps = self.cfg.page_size
+        lens = lengths.long()
+        phys = table.long()[torch.arange(len(lens), device=lens.device),
+                            lens // ps]
+        off = lens % ps
+        parts = [leaf[:, phys, off] for leaf in self._pool.values()]
+        packed = torch.cat([t.contiguous().view(torch.uint8).reshape(-1)
+                            for t in parts + [new_toks.long()]])
+        every = hierarchy.all_gather_dim(packed[None], self.grid, axes, 0)
+        cut = np.cumsum([0] + [t.numel() * t.element_size()
+                               for t in parts]).tolist()
+        toks = every[:, cut[-1]:].contiguous().view(torch.int64).reshape(-1)
+        per, mine = len(lens), self.grid.index(axes)
+        live = {st.slot for st in running}
+        rows = [j for j, slot in enumerate(sel)
+                if j // per != mine and int(slot) in live]
+        if rows:
+            slots = sel[rows]
+            at = self._lengths[slots]
+            p = torch.as_tensor(self._table[slots, at // ps].astype(np.int64),
+                                device=self.device)
+            o = torch.as_tensor((at % ps).astype(np.int64),
+                                device=self.device)
+            for i, (leaf, t) in enumerate(zip(self._pool.values(), parts)):
+                got = torch.cat([every[r, cut[i]:cut[i + 1]].view(
+                    t.dtype).reshape(t.shape) for r in range(len(every))], 1)
+                leaf[:, p, o] = got[:, rows]
+        return toks
 
     # ---- observability ---------------------------------------------------
     # flat scalar keys of the stats() dict; each maps 1:1 onto the

@@ -22,9 +22,9 @@ serve it.  The training step reads ``batch`` for each rank's rows, and
 for the dense family the parameters' entries: ``model`` (tensor
 parallelism) and ``embed`` (FSDP) place each leaf's block
 (``partition.tree_shardings``); serving across ranks reads the decode
-table's (``kv_heads`` over ``model``, FSDP off, and for the fixed-batch
-session's rows ``batch`` over the data axes); ``grid_refusal`` says
-what waits for a later slice.
+table's (``kv_heads`` over ``model``, FSDP off, and the rows of a
+fixed-batch step or of an engine's decode bucket by ``batch`` over the
+data axes); ``grid_refusal`` says what waits for a later slice.
 """
 
 from __future__ import annotations
@@ -60,37 +60,9 @@ def hierarchical_unsafe(cfg: ModelConfig) -> Optional[str]:
     return None
 
 
-# the serving paths that stay refused across ranks, each with the
-# ROADMAP item (Queue A) that brings it
-SERVING_LATER = {
-    "engine-rows": ("the request-level engine with a data or pod axis over "
-                    "1 (its shared page pool split by rows)", "3c.3"),
-}
-
-
-def serving_path(*, session: bool = False, multi_tenant: bool = False,
-                 shared_fabric: bool = False) -> str:
-    """The path of a serving run across ranks: the fixed-batch session
-    (``"session"``), a shared transport (``"shared-fabric"``: the tiers
-    of a disaggregated cluster, co-resident engines), tenants of one
-    arbiter (``"multi-tenant"``), else the request-level engine alone
-    (``"engine"``).  Every path but the session serves on (data 1,
-    model m)."""
-    return ("session" if session else "shared-fabric" if shared_fabric
-            else "multi-tenant" if multi_tenant else "engine")
-
-
-def serving_path_refusal(path: str, where: str) -> str:
-    """Why ``path`` of ``SERVING_LATER`` does not serve ``where`` (e.g.
-    "across ranks"): the later slice that brings it."""
-    what, item = SERVING_LATER[path]
-    return (f"{what} {where} comes with a later slice of the port "
-            f"(ROADMAP Queue A {item})")
-
-
 def grid_refusal(mesh, rules: Optional[Rules],
                  cfg: Optional[ModelConfig] = None, *,
-                 serving: bool = False, path: str = "engine",
+                 serving: bool = False,
                  world: Optional[int] = None) -> Optional[str]:
     """Why the port cannot run ``cfg`` on ``mesh`` (anything with
     ``axis_names`` and ``shape``: a ``RankGrid``, a ``Layout``, a lease's
@@ -99,23 +71,22 @@ def grid_refusal(mesh, rules: Optional[Rules],
 
     Tensor parallelism over ``model`` and FSDP (``embed`` on a mesh
     axis) run the dense family's training step.  Serving across ranks
-    (``serving``, one rank a process, ``repro_torch.sharding.tp``), by
-    ``path`` (``serving_path``): the fixed-batch session on (pod, data,
-    model), rows over the data axes (any family but moe) and heads over
-    ``model`` (the dense family); the request-level engine, tenants of
-    one arbiter, and engines on a shared transport (a disaggregated
-    cluster's tiers, co-resident engines) on (data 1, model m).  What
-    waits for a later slice, each refusal naming its ROADMAP item: the
-    engine on any of these paths with a ``data`` or ``pod`` axis over 1
-    (3c.3), moe in the session across ranks (3d: its dispatch groups
-    follow the batch axes, so a row's output depends on its group,
-    C-ref5), the moe, ssm,
+    (``serving``, one rank a process, ``repro_torch.sharding.tp``) runs
+    on (pod, data, model) on every path: the fixed-batch session, the
+    request-level engine, tenants of one arbiter and engines on a shared
+    transport (a disaggregated cluster's tiers, co-resident engines)
+    take their rows over the data axes (the rules' ``batch``) and their
+    heads over ``model``.  What waits for a later slice, each refusal
+    naming its ROADMAP item: moe on any serving path with a ``data`` or
+    ``pod`` axis over 1 (3d: its dispatch groups follow the batch axes,
+    so a row's output depends on its group, C-ref5), the moe, ssm,
     hybrid and encdec families under a ``model`` axis over 1 or FSDP
     (3d-3f), and attention heads or kv heads that do not divide
     ``model`` (3g, the reference's context-parallel ``seq_attn``
-    fallback).  A grid of other than ``world`` ranks with a ``model``
-    axis over 1 (a lease binding several cards to one process) is
-    refused: a lease never serves on one card alone."""
+    fallback).  A grid of other than ``world`` ranks under a ``model``
+    axis over 1 or in a world of ranks (a lease binding several cards to
+    one process, a world that does not fill the grid) is refused: a
+    lease never serves on one card alone."""
     sizes = axis_sizes(mesh)
     model_n = sizes.get("model", 1)
     n = _prod(sizes.values())
@@ -125,12 +96,6 @@ def grid_refusal(mesh, rules: Optional[Rules],
     world = getattr(mesh, "world", 1) if world is None else world
     rows = {a: k for a, k in sizes.items() if a != "model" and k > 1}
     if serving and (model_n > 1 or world > 1):
-        if rows and path != "session":
-            what = " and ".join(f"a {a} axis of {k}" for a, k in rows.items())
-            return (f"serving with {what}: "
-                    + serving_path_refusal("engine-rows", "across ranks")
-                    + "; the engine, its tenants and engines on a shared "
-                    "transport serve on (data 1, model m)")
         if world != n:
             where = (f"under a model axis of {model_n}" if not rows
                      else f"on {sizes}")
@@ -138,8 +103,9 @@ def grid_refusal(mesh, rules: Optional[Rules],
                     f"process each (torch.distributed.run), not {world}: "
                     f"a lease never serves on one card alone")
         if rows and cfg is not None and cfg.family == "moe":
-            return (f"{cfg.name}: the moe family in the fixed-batch session "
-                    f"across ranks comes with expert parallelism, a later "
+            what = " and ".join(f"a {a} axis of {k}" for a, k in rows.items())
+            return (f"{cfg.name}: the moe family serving across ranks "
+                    f"with {what} comes with expert parallelism, a later "
                     f"slice of the port (ROADMAP Queue A 3d): its dispatch "
                     f"groups follow the batch axes, so a row's output "
                     f"depends on its group (C-ref5)")

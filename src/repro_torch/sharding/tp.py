@@ -41,7 +41,7 @@ in the same order during the backward.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -75,6 +75,25 @@ class Plan:
         """Whether parameters are sharded on ``embed`` (over an axis of
         more than one rank)."""
         return not self.block(("embed",)).whole
+
+    @property
+    def batch_axes(self) -> Tuple[str, ...]:
+        """The grid axes over 1 that split a batch's rows under the
+        rules' ``batch`` (none where they leave it unsharded)."""
+        axes = self.rules.spec("batch")[0]
+        axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
+        return tuple(a for a in axes if self.grid.size((a,)) > 1)
+
+    def rows(self, batch: int) -> Tuple[int, int]:
+        """(first row, rows) of this rank's block of ``batch`` rows over
+        the n ranks of ``batch_axes``: blocks of ceil(batch / n) rows in
+        the ranks' order, the last ones short (or empty) where n does
+        not divide ``batch``; every row without batch axes."""
+        axes = self.batch_axes
+        n = self.grid.size(axes)
+        per = -(-batch // n)
+        start = min(self.grid.index(axes) * per, batch)
+        return start, min(per, batch - start)
 
     def local_attention(self, acfg):
         """``acfg`` with this rank's heads: ``n_heads / model`` and

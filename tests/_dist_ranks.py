@@ -13,6 +13,7 @@ import dataclasses
 import os
 import pickle
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -713,13 +714,17 @@ def _port_namespace():
                                  Tracer=Tracer)
 
 
-def serve_disagg(out_dir, vocab: int, cases):
+def serve_disagg(out_dir, vocab: int, cases,
+                 model_parallel: Optional[int] = None,
+                 slots: Optional[int] = None):
     """Each of ``cases`` (``tests/_disagg_scenarios.py``) on this world
-    of m ranks: every engine of both tiers from the members of one
-    ``lease_gang`` with ``model_parallel=m``, on one grid; writes each
-    case's outcome, Chrome trace and decode pools, whether every engine
-    served on the one grid, both members' layouts, and the message a
-    cluster whose decode engine sits on a second grid raises."""
+    of n ranks: every engine of both tiers from the members of one
+    ``lease_gang`` of n accelerators each with ``model_parallel``
+    (default n), on one grid, with ``slots`` decode rows an engine
+    (default the scenarios'); writes each case's outcome, Chrome trace
+    and decode pools, whether every engine served on the one grid, both
+    members' layouts, and the message a cluster whose decode engine sits
+    on a second grid raises."""
     import _disagg_scenarios as D
     from repro_torch.disagg import DisaggCluster, PrefillWorker
     from repro_torch.obs import to_chrome_trace
@@ -732,12 +737,15 @@ def serve_disagg(out_dir, vocab: int, cases):
     gang = smoke_pool("scalepool").lease_gang(
         "disagg-tp", {"prefill": dict(n_accels=m),
                       "decode": dict(n_accels=m, tier2_gb=8, kv_gb=1.0)},
-        model_parallel=m)
+        model_parallel=model_parallel or m)
     bindings = {role: gang[role].materialize(["cpu"]) for role in gang}
     grid = bindings["prefill"].join()
+    ecfg = D.engine_config(S)
+    if slots is not None:
+        ecfg = dataclasses.replace(ecfg, max_slots=slots)
 
     def engine(role, tenant, tracer, on=grid):
-        return Engine.from_lease(model, gang[role], D.engine_config(S),
+        return Engine.from_lease(model, gang[role], ecfg,
                                  params=params, budget=D.budget(S, role),
                                  tenant=tenant, tracer=tracer, grid=on,
                                  device="cpu")
@@ -754,7 +762,8 @@ def serve_disagg(out_dir, vocab: int, cases):
             "pools": [{k: v.clone() for k, v in e._pool.items()}
                       for e in cluster.decode_engines],
             "one_grid": all(e.grid is grid for e in engines),
-            "kv_heads": [e.kv_heads for e in engines]}
+            "kv_heads": [e.kv_heads for e in engines],
+            "trash": [e._trash for e in cluster.decode_engines]}
     other = bindings["decode"].join()
     try:
         DisaggCluster([PrefillWorker(engine("prefill", None, None))],
@@ -769,12 +778,14 @@ def serve_disagg(out_dir, vocab: int, cases):
     dist.destroy_process_group()
 
 
-def serve_colo(out_dir, vocab: int, n_requests: int, n_steps: int):
-    """fig11's hop-only run (``chip_smoke.co_run``) on this world of m
-    ranks: both tenants' engines from one (data 1, model m) lease on one
-    grid, sharing one ``Transport`` with the training job's
-    ``TrainActor``; writes the outcome, the clocks, every engine's clock
-    and stats, the Chrome trace and whether both served on one grid."""
+def serve_colo(out_dir, vocab: int, n_requests: int, n_steps: int,
+               model_parallel: Optional[int] = None):
+    """fig11's hop-only run (``chip_smoke.co_run``) on this world of n
+    ranks: both tenants' engines from one lease of n accelerators with
+    ``model_parallel`` (default n) on one grid, sharing one
+    ``Transport`` with the training job's ``TrainActor``; writes the
+    outcome, the clocks, every engine's clock and stats, the Chrome
+    trace, whether both served on one grid and each engine's pool."""
     import sys
     from repro_torch.obs import Tracer, to_chrome_trace
     from repro_torch.pool import smoke_pool
@@ -783,8 +794,9 @@ def serve_colo(out_dir, vocab: int, n_requests: int, n_steps: int):
     dist = _join_world()
     m = dist.get_world_size()
     model, params = _smoke_fp32(out_dir, vocab)
-    lease = smoke_pool("scalepool").lease("colo-tp", m, tier2_gb=8,
-                                          kv_gb=1.0, model_parallel=m)
+    lease = smoke_pool("scalepool").lease(
+        "colo-tp", m, tier2_gb=8, kv_gb=1.0,
+        model_parallel=model_parallel or m)
     bw, page_bytes = cs.co_bw(model, params, torch.device("cpu"))
     tracer = Tracer(1 << 18)
     r = cs.co_run(model, params, torch.device("cpu"), "scalepool", n_steps,
@@ -798,7 +810,122 @@ def serve_colo(out_dir, vocab: int, n_requests: int, n_steps: int):
            "trace": to_chrome_trace(tracer), "dropped": tracer.dropped,
            "one_grid": all(e.grid is grid for e in r["engines"].values()),
            "mesh": grid.layout.as_dict(), "bw": bw, "page_bytes": page_bytes,
-           "kv_heads": [e.kv_heads for e in r["engines"].values()]}
+           "kv_heads": [e.kv_heads for e in r["engines"].values()],
+           "pools": {t: {k: v[:, :e._trash].clone()
+                         for k, v in e._pool.items()}
+                     for t, e in r["engines"].items()},
+           "collectives": dict(grid.stats.calls)}
     _save(out_dir, "serve_colo", grid.rank, out)
+    grid.close()
+    dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the engine on a lease with a data or pod axis over 1
+# (tests/test_torch_serve_dp.py, tests/test_torch_disagg_colo_dp.py)
+# ---------------------------------------------------------------------------
+
+def _record_rows(engine, calls):
+    """Each ``decode_paged`` call of ``engine`` appends its rows: (count,
+    lengths, first page of each row's table)."""
+    inner = engine.model.decode_paged
+
+    def decode_paged(p, toks, pools, table, lengths):
+        calls.append((int(toks.shape[0]), lengths.tolist(),
+                      table[:, 0].tolist()))
+        return inner(p, toks, pools, table, lengths)
+    engine.model = dataclasses.replace(engine.model,
+                                       decode_paged=decode_paged)
+
+
+def _record_slots(engine, placed):
+    """Each placement of a row by ``engine`` appends its slot to
+    ``placed[rid]``."""
+    place = engine._place
+
+    def record(st, slot):
+        placed.setdefault(st.rid, []).append(slot)
+        place(st, slot)
+    engine._place = record
+
+
+def _requests(rows):
+    from repro_torch.serve import Request
+    return [Request(tuple(p), n, arrival_time=t) for p, n, t in rows]
+
+
+def serve_dp(out_dir, vocab: int, accels: int, model_parallel: int,
+             cases, requests, tenant_traces, max_seq: int, page_size: int,
+             tier2_bytes: float, kv_gb: float):
+    """The request-level engine from a lease of ``accels`` with
+    ``model_parallel`` on this world (its (pod, data, model) grid),
+    qwen1.5-0.5b smoke in fp32 with the reference's parameters
+    (``<out_dir>/params.pkl``), for each of ``cases`` (``(name, slots,
+    pages)``) over ``requests`` (``[(prompt, max_new, arrival)]``), every
+    engine on the grid the first joined; with ``tenant_traces``
+    ({tenant: requests}, ``(slots, pages)`` the case ``"tenants"``) two
+    tenants of one lease over one arbiter.  Writes each case's tokens,
+    clocks, stats, Chrome trace, pool, every decode call's rows, every
+    row's slots and the collectives."""
+    from repro_torch.obs import Tracer, to_chrome_trace
+    from repro_torch.pool import smoke_pool
+    from repro_torch.serve import (Engine, EngineConfig, KVBudget,
+                                   PoolArbiter, latency_summary,
+                                   run_multi_trace, run_trace)
+    dist = _join_world()
+    model, params = _smoke_fp32(out_dir, vocab)
+    pool = smoke_pool("scalepool")
+    lease = pool.lease("serve-dp", accels, tier2_gb=64, kv_gb=kv_gb,
+                       model_parallel=model_parallel)
+    grid, out = None, {}
+    for name, slots, pages in cases:
+        ecfg = EngineConfig(max_slots=slots, max_seq=max_seq,
+                            page_size=page_size)
+        tracer = Tracer(1 << 16)
+        if name == "tenants":
+            tl = pool.lease("serve-dp-tenants", accels, tier2_gb=64,
+                            kv_gb=kv_gb, model_parallel=model_parallel,
+                            tenants=tuple(sorted(tenant_traces)))
+            arb = PoolArbiter(pages, page_size=page_size, tracer=tracer)
+            engines = [Engine.from_lease(model, tl, ecfg, params=params,
+                                         arbiter=arb, tenant=t,
+                                         tracer=tracer, grid=grid,
+                                         device="cpu")
+                       for t in sorted(tenant_traces)]
+        else:
+            arb = None
+            engines = [Engine.from_lease(
+                model, lease, ecfg, params=params, tracer=tracer, grid=grid,
+                budget=KVBudget(pages, tier2_bytes, page_size),
+                device="cpu")]
+        grid = engines[0].grid
+        calls, placed = [[] for _ in engines], [{} for _ in engines]
+        for e, c, p in zip(engines, calls, placed):
+            _record_rows(e, c)
+            _record_slots(e, p)
+        grid.stats.reset()
+        if arb is None:
+            lists = [run_trace(engines[0], _requests(requests))]
+        else:
+            lists = run_multi_trace([
+                (e, _requests(tenant_traces[t]))
+                for e, t in zip(engines, sorted(tenant_traces))])
+        out[name] = {
+            "tokens": [[h.tokens for h in hs] for hs in lists],
+            "clocks": [[(h.submit_clock, h.first_token_clock, h.done_clock)
+                        for h in hs] for hs in lists],
+            "latency": [latency_summary(hs) for hs in lists],
+            "stats": [e.stats() for e in engines],
+            "arbiter": None if arb is None else arb.stats(),
+            "trace": to_chrome_trace(tracer), "dropped": tracer.dropped,
+            "pool": {k: v.clone() for k, v in engines[0]._pool.items()},
+            "trash": engines[0]._trash, "calls": calls, "placed": placed,
+            "rules_batch": engines[0].plan.rules.spec("batch")[0],
+            "batch_axes": engines[0].plan.batch_axes,
+            "collectives": dict(grid.stats.calls),
+            "one_grid": all(e.grid is grid for e in engines),
+            "kv_heads": engines[0].kv_heads}
+    out["grid"] = grid.describe()
+    _save(out_dir, "serve_dp", grid.rank, out)
     grid.close()
     dist.destroy_process_group()

@@ -22,10 +22,11 @@ spills and fetches:
 * the serving CLI under ``torch.distributed.run --nproc-per-node 2``
   prints the one-process CLI's summary;
 * what stays refused raises, naming its slice: heads that do not divide
-  ``model`` (3g), the engine, its tenants or an engine on a shared
-  transport with a ``data`` axis over 1 (3c.3), moe under ``model`` and
-  in the fixed-batch session over ``data`` (3d), a model axis in one
-  process; and ``grid=`` on another layout than the lease's, and a
+  ``model`` (3g), moe in the engine, its tenants, an engine on a shared
+  transport or the fixed-batch session with a ``data`` axis over 1 and
+  moe under ``model`` (3d), a model axis in one process, a world that
+  does not fill a (data 2, model 2) grid (the rules and the serving
+  CLI); and ``grid=`` on another layout than the lease's, and a
   disaggregated cluster whose decode engine is not on the exporting
   engine's grid.
 """
@@ -62,8 +63,11 @@ from repro_torch.launch import mesh as mesh_lib               # noqa: E402
 from repro_torch.models.api import build_model                # noqa: E402
 from repro_torch.models.config import ShapeConfig             # noqa: E402
 from repro_torch.pool import smoke_pool                       # noqa: E402
+from repro_torch.launch import serve as serve_cli             # noqa: E402
 from repro_torch.runtime.serve import make_lease_session      # noqa: E402
 from repro_torch.sharding import tp                           # noqa: E402
+from repro_torch.sharding.profiles import (grid_refusal,      # noqa: E402
+                                           make_rules)
 
 ARCH = "qwen1.5-0.5b"
 # the engine's shape and the trace: a 6-page quota of 8-token pages
@@ -342,22 +346,25 @@ def _ecfg():
 @pytest.mark.parametrize("case", ["heads", "data", "session",
                                   "multi_tenant", "shared_fabric", "moe",
                                   "one_process", "grid_layout",
-                                  "handoff_grid"])
-def test_what_stays_refused_names_its_slice(case, monkeypatch):
+                                  "handoff_grid", "world_fill"])
+def test_what_stays_refused_names_its_slice(case, monkeypatch, capsys):
     qwen = build_model(get_config(ARCH, smoke=True), device="cpu")
     gen = torch.Generator().manual_seed(0)
     pool = smoke_pool("scalepool")
-    # the session: moe rows over data (C-ref5); tenants and a shared
-    # transport: a data axis
+    # the engine, its tenants, a shared transport and the session: moe
+    # rows over a data axis of 4 (its dispatch groups follow the rows,
+    # C-ref5), with no model axis that could refuse it first
     world, arch, item, mp = {
-        "heads": (2, "qwen3-14b", "3g", 2), "data": (4, ARCH, "3c.3", 2),
+        "heads": (2, "qwen3-14b", "3g", 2),
+        "data": (4, "olmoe-1b-7b", "3d", 1),
         "session": (2, "olmoe-1b-7b", "3d", 1),
-        "multi_tenant": (4, ARCH, "3c.3", 2),
-        "shared_fabric": (4, ARCH, "3c.3", 2),
+        "multi_tenant": (4, "olmoe-1b-7b", "3d", 1),
+        "shared_fabric": (4, "olmoe-1b-7b", "3d", 1),
         "moe": (2, "olmoe-1b-7b", "3d", 2),
         "one_process": (1, ARCH, None, 2),
         "grid_layout": (2, ARCH, "layout", 2),
-        "handoff_grid": (2, ARCH, "grid", 2)}[case]
+        "handoff_grid": (2, ARCH, "grid", 2),
+        "world_fill": (2, ARCH, "fill", 2)}[case]
     model = qwen if arch == ARCH else build_model(get_config(arch,
                                                              smoke=True),
                                                   device="cpu")
@@ -383,7 +390,23 @@ def test_what_stays_refused_names_its_slice(case, monkeypatch):
         kw = dict(grid=mesh_lib.RankGrid(
             mesh_lib.Layout(shape, ("data", "model")), 0,
             torch.device("cpu")))
+    if case == "world_fill":
+        # the serving CLI takes a (data 2, model 2) lease in a world of
+        # 2 ranks: exit 2 before any work, naming the grid
+        assert serve_cli.main(["--smoke", "--requests", "4", "--pool",
+                               "scalepool", "--pool-accels", "4",
+                               "--pool-model-parallel", "2", "--device",
+                               "cpu"]) == 2
+        said = capsys.readouterr().err
+        assert "does not fill the grid" in said, said
+        assert "{'data': 2, 'model': 2}" in said, said
     with pytest.raises(ValueError) as err:
+        if case == "world_fill":
+            layout = mesh_lib.Layout((2, 2), ("data", "model"))
+            why = grid_refusal(layout, make_rules(
+                qwen.cfg, ShapeConfig("s", "decode", 64, 2), layout,
+                fsdp=False), qwen.cfg, serving=True, world=2)
+            raise ValueError(why)
         if case == "session":
             make_lease_session(model, ShapeConfig("s", "decode", 64, 2),
                                lease, device="cpu")
@@ -400,6 +423,8 @@ def test_what_stays_refused_names_its_slice(case, monkeypatch):
     msg = str(err.value)
     if item is None:
         assert "needs a world of 2 ranks" in msg, msg
+    elif item == "fill":
+        assert "needs a world of 4 ranks" in msg and "not 2" in msg, msg
     elif item == "layout":
         assert "not on the lease's {'data': 1, 'model': 2}" in msg, msg
     elif item == "grid":
