@@ -265,7 +265,8 @@ no result line):
               CLI under ``torch.distributed.run`` on 4 ranks
               (qwen1.5-0.5b at full width on its first 2 layers,
               ``--layers``, the lease's (2, 2, 1) layout,
-              ``hierarchical`` with ``compress_pod``, 3 steps) exits 0
+              ``hierarchical`` with ``compress_pod``, 3 steps; started
+              beside phase 12 (d)'s two CLI worlds) exits 0
               with mesh, dp_mode and backend ``gloo`` in its summary.
               Every time here is 4 ranks sharing one card: it measures
               nothing of a fabric;
@@ -301,8 +302,22 @@ no result line):
               ``--max-restarts 1`` through a wrapper whose failure hook
               raises on rank 1 at step 2 of the first attempt, with
               ``--ckpt-every 1``: exit 0, the resume reported, every
-              step's loss equal in bits to the first run's.  Every time
-              here is 4 ranks sharing one card: nothing of a fabric;
+              step's loss equal in bits to the first run's (both worlds
+              and phase 11 (d)'s at once); (e) expert parallelism on
+              the world's (data 2, model 2) grid: olmoe-1b-7b at full
+              width on its first ``EP_DEPTH`` = 1 layer (64 experts, 32
+              a rank over ``model``, the dispatch group the whole
+              batch: each layer's entries' experts gathered over
+              ``data``),
+              the fp32 gate of ``tp`` and ``tp_fsdp`` (2 steps each
+              against one card, as (a)), then 3 timed bf16 steps of
+              ``tp``: s/step, each rank's peak, host seconds and bytes
+              in collectives by (axes, op), the expert gather
+              (``moe-experts``) and the expert layer's sum over ``model``
+              (``moe``) apart, launches exact (B2, B3, B5, B6 on local
+              heads), the ranks' losses equal and within 1e-2 of one
+              card's.  Every time here is 4 ranks sharing one card:
+              nothing of a fabric;
 13. tp serve - (in phase 12's world, after its grids, their state
               freed) the request-level engine under a (data 1, model 4)
               lease (``Engine.from_lease``: each rank joins the lease's
@@ -385,8 +400,23 @@ no result line):
               gang of two (data 2, model 2) members in fp32 on 2 layers,
               tokens (or a tie) and modeled numbers equal to one card's
               (``dg_cut_runs``), its decode replicas equal in bits; the
-              traces sanitized.  4 ranks share one card over gloo:
-              nothing of a fabric;
+              traces sanitized; (i) the engine serving olmoe-1b-7b at
+              full width on the first ``SERVE_DEPTH`` layers on a (data
+              2, model 2) lease (32 of its 64 experts and 8 of its 16
+              heads a rank, each decode bucket's dispatch group the
+              whole bucket), on phase 9's trace, quota and budget: in
+              fp32 every rank's tokens (or a documented tie), clocks,
+              latency summary and KV stats equal to one card's on the
+              same weights (rank 0 runs it); in bf16 on phase 9's bf16
+              pages tokens equal across ranks, wall seconds and decode
+              tokens per wall second beside one card's; in both the
+              data replicas' pool digests equal, B1-B3 launches exact,
+              one K/V gather and an expert gather a layer over ``data``
+              each decode step, one expert sum over ``model`` a layer
+              each model call, the traces sanitized; (c) holds B1 and
+              B3 at its rank's shapes (4 rows on 8 heads at D=128 over
+              bf16 pages; a 512-token prefill on 8 heads).  4 ranks
+              share one card over gloo: nothing of a fabric;
 5. times    - each kernel's time (CUDA graphs of back-to-back calls,
               timed with CUDA events, median of trials) beside its plain
               version, a PyTorch library call where one computes the
@@ -404,8 +434,9 @@ no result line):
               2000 of 3584 and 7168; the SSD scan at mamba2's and
               zamba2's prefill; paged at olmoe's and mixtral's 8-row
               decode and at a rank's decode in phase 13 ((b), (f), (g)
-              and (h)'s 4 rows on 8 heads), flash at a session rank's
-              decode (phase 13 (d)),
+              and (h)'s 4 rows on 8 heads, (i)'s 4 rows on 8 of olmoe's
+              heads at D=128), flash at a session rank's decode (phase
+              13 (d)) and at (i)'s rank prefill (8 heads, D=128),
               at olmoe's 512 prefill and whisper's encoder
               and cross-attention, RMSNorm at 512 and 8 rows of 2048; the
               backward kernels at phase 10's shapes: flash at olmo's and
@@ -423,7 +454,7 @@ no result line):
               L2 a cycle.
               A time under its bound / 1.05 fails the run;
 then the ``launches`` and ``kernels`` lines (phases 6, 7, 8, 9, 4f, 10,
-11 and 12's launches among the paths, phases 11 and 12 per rank, the
+11, 12 and 13's launches among the paths, phases 11-13 per rank, the
 backward kernels B5, B6 and B8 counted apart), and
 the contract line ``{"ok": true, "device":
 {...}}``, last.
@@ -4507,11 +4538,14 @@ def dp_rank(rank: int, init: str, out_dir: str) -> None:
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(report))
 
 
-def wait_world(procs, limit_s: float, what: str) -> float:
-    """Wait for every process; a non-zero exit or the limit kills the
-    rest and fails the run.  Returns the seconds taken."""
+def wait_world(procs, limit_s: float, what: str, tick=None) -> float:
+    """Wait for every process, calling ``tick()`` (if given) as it polls;
+    a non-zero exit or the limit kills the rest and fails the run.
+    Returns the seconds taken."""
     t0 = time.perf_counter()
     while any(p.is_alive() for p in procs):
+        if tick is not None:
+            tick()
         failed = [p.exitcode for p in procs
                   if p.exitcode is not None and p.exitcode != 0]
         over = time.perf_counter() - t0 > limit_s
@@ -4573,45 +4607,38 @@ def dp_allocator_env():
             os.environ[key] = old
 
 
-def dp_cli(smi):
+def dp_cli_start():
     """(d) the training CLI under ``torch.distributed.run`` on 4 ranks:
     qwen1.5-0.5b at full width on its first ``TRAIN_CUT`` layers
-    (``--layers``), the lease's (2, 2, 1) layout,
-    ``hierarchical`` with ``compress_pod``, 3 steps of 8 x 512; its
-    output in files, and past ``DP_CLI_LIMIT_S`` its whole process tree
-    killed."""
-    import os
-    root = Path(__file__).resolve().parent
-    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-            "--nproc-per-node", "4", "-m", "repro_torch.launch.train",
+    (``--layers``), the lease's (2, 2, 1) layout, ``hierarchical`` with
+    ``compress_pod``, 3 steps of 8 x 512; its output in files.  Started
+    beside phase 12 (d)'s two CLI worlds (``tp_cli``); returns
+    ``torchrun_start``'s (process, wait)."""
+    argv = ["-m", "repro_torch.launch.train",
             "--arch", "qwen1.5-0.5b", "--layers", str(TRAIN_CUT),
             "--dp-mode", "hierarchical",
             "--compress-pod", "--pool", "scalepool", "--pool-accels", "12",
             "--steps", "3", "--batch", str(TRAIN_BATCH), "--seq",
             str(TRAIN_SEQ), "--ckpt-dir", str(DP_DIR / "ckpt")]
-    t0 = time.perf_counter()
-    out_path, err_path = DP_DIR / "cli.out", DP_DIR / "cli.err"
-    with open(out_path, "w") as fo, open(err_path, "w") as fe, \
-            dp_allocator_env():
-        proc = subprocess.Popen(argv, cwd=root, env={
-            **os.environ, "PYTHONPATH": str(root / "src")},
-            stdout=fo, stderr=fe, text=True)
-    try:
-        proc.wait(timeout=DP_CLI_LIMIT_S)
-    except subprocess.TimeoutExpired:
-        kill_tree(proc.pid)
-        proc.wait(timeout=60)
-        check(False, f"phase 11 (d): the CLI overran {DP_CLI_LIMIT_S} s: "
-              f"{err_path.read_text()[-2000:]}")
-    secs = time.perf_counter() - t0
-    out, err = out_path.read_text(), err_path.read_text()
-    summary = json.loads(out) if proc.returncode == 0 else None
-    emit({"phase": "dp", "check": "(d) CLI", "nvidia_smi": smi,
-          "argv": argv[3:], "rc": proc.returncode, "seconds": secs,
-          "cli": summary,
+    return torchrun_start(argv, DP_DIR, "cli", DP_CLI_LIMIT_S,
+                          "phase 11 (d)")
+
+
+def cli_error(err: str) -> str:
+    """A failed CLI world's stderr, from its first traceback (a rank's,
+    ahead of ``torch.distributed.run``'s report), else its end."""
+    at = err.find("Traceback")
+    return err[at:at + 3000] if at >= 0 else err[-2000:]
+
+
+def dp_cli_checks(smi, wait):
+    """(d)'s line and checks once its world ends."""
+    rc, summary, err, secs = wait()
+    emit({"phase": "dp", "check": "(d) CLI", "nvidia_smi": smi, "rc": rc,
+          "seconds": secs, "cli": summary,
+          "started_with": "phase 12 (d)'s two CLI worlds",
           "stderr_tail": err.strip().splitlines()[-6:]})
-    check(proc.returncode == 0, f"phase 11 (d): rc {proc.returncode}: "
-          f"{err[-2000:]}")
+    check(rc == 0, f"phase 11 (d): rc {rc}: {cli_error(err)}")
     check(summary["mesh"] == {"pod": 2, "data": 2, "model": 1}
           and summary["dp_mode"] == "hierarchical"
           and summary["backend"] == "gloo" and summary["compress_pod"]
@@ -4622,8 +4649,9 @@ def dp_cli(smi):
 
 def dp_phase(smi):
     """Phase 11: (a)-(c) in one spawned world of 4 ranks sharing the card
-    (the kernels built by this process before), then (d) the CLI.
-    Returns each rank's (b) launches, all three modes together."""
+    (the kernels built by this process before); (d), the CLI, runs with
+    phase 12 (d)'s (``tp_cli``).  Returns each rank's (b) launches, all
+    three modes together."""
     import multiprocessing
     import shutil
 
@@ -4697,7 +4725,6 @@ def dp_phase(smi):
           "per_rank": twice})
     check(all(t["same_bits"] for t in twice),
           f"phase 11 (c): a rank's step twice gave other bits: {twice}")
-    dp_cli(smi)
     emit({"phase": "dp", "seconds": time.perf_counter() - t_start,
           "world_seconds": world_s,
           "rank_seconds": [r["seconds"] for r in reports]})
@@ -4725,6 +4752,7 @@ TP_WORLD_LIMIT_S = 600.0        # the world's wall-clock limit (phases 12
                                 # (a)-(c) on both grids, then phase 13)
 TP_CLI_LIMIT_S = 240.0          # each of (d)'s torch.distributed.run
 TP_FAIL_AT = 2                  # (d)'s injected failure: rank 1, step 2
+TP_CLI_GO = "cli_go"            # rank 0's file: (e), (i) done, (d) may start
 TP_CLI_WRAPPER = """
 import os, sys
 from repro_torch.launch.train import main
@@ -4736,6 +4764,17 @@ def hook(step):
 
 raise SystemExit(main(sys.argv[1:], failure_hook=hook))
 """
+
+
+# (e): expert parallelism in training on the world's (data 2, model 2)
+# grid, olmoe-1b-7b at full width on its first ``EP_DEPTH`` layers (64
+# experts, 32 a rank over model): the fp32 gate of both cases, then a
+# timed bf16 run of ``tp``
+EP_ARCH = "olmoe-1b-7b"
+EP_GRID = "2x2"
+EP_DEPTH = 1
+EP_GATE_STEPS = 2
+EP_STEPS = 3                    # s/step over 2-3
 
 
 def tp_plain_compressed_steps(model, opt, params, batches):
@@ -4802,12 +4841,14 @@ def tp_gap(got_metrics, got_params, want_metrics, want_params, lr, steps):
                    and worst <= 2 * lr * steps)}
 
 
-def tp_fp32_gate(grid, cases):
-    """(a) qwen1.5-0.5b at full width on its first 2 layers in fp32 (TF32
-    off), global B=8 x S=512, ``TP_GATE_STEPS`` steps of each case from
-    the same draw, the parameters gathered from the ranks; rank 0 holds
-    them, the losses and grad norms against the one-process step (for
-    ``compress_pod``, ``tp_plain_compressed_steps``)."""
+def tp_fp32_gate(grid, cases, arch="qwen1.5-0.5b", layers=TRAIN_CUT,
+                 steps=TP_GATE_STEPS):
+    """(a) ``arch`` (qwen1.5-0.5b; (e): olmoe-1b-7b) at full width on its
+    first ``layers`` layers in fp32 (TF32 off), global B=8 x S=512,
+    ``steps`` steps of each case from the same draw, the parameters
+    gathered from the ranks; rank 0 holds them, the losses and grad
+    norms against the one-process step (for ``compress_pod``,
+    ``tp_plain_compressed_steps``)."""
     import torch
     from repro_torch.models.config import ShapeConfig
     from repro_torch.runtime import train as train_rt
@@ -4815,13 +4856,14 @@ def tp_fp32_gate(grid, cases):
     from repro_torch.sharding.profiles import make_rules
     from repro_torch.tree import tree_map
 
-    cfg = cut("qwen1.5-0.5b", TRAIN_CUT, compute_dtype="float32")
+    cfg = cut(arch, layers, compute_dtype="float32")
     model, opt, one_step, pipe = train_parts(cfg, grid.device)
     shape = ShapeConfig("smoke", "train", TRAIN_SEQ, TRAIN_BATCH)
     params = model.init(torch.Generator(device=grid.device).manual_seed(1))
-    batches = [pipe.next_batch() for _ in range(TP_GATE_STEPS)]
+    batches = [pipe.next_batch() for _ in range(steps)]
     out, plain = {}, None
     for name, mode, compress, fsdp in cases:
+        t0 = time.perf_counter()
         tcfg = train_rt.TrainStepConfig(dp_mode=mode, compress_pod=compress)
         rules = make_rules(cfg, shape, grid, fsdp=fsdp, dp_mode=mode)
         step = train_rt.make_train_step(model, opt, shape, mesh=grid,
@@ -4830,13 +4872,17 @@ def tp_fp32_gate(grid, cases):
             tree_map(torch.clone, params), opt, tcfg, mesh=grid,
             rules=rules, axes=model.param_axes())
         metrics = []
+        t1 = time.perf_counter()
         for b in batches:
             state, m = step(state, b)
             metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        t2 = time.perf_counter()
         blocks = partition.tree_shardings(grid, rules, model.param_axes())
         full = tree_map(lambda t, b: partition.gather_leaf(t, b, grid),
                         state.params, blocks)
         del state, step
+        seconds = {"setup": t1 - t0, "steps": t2 - t1,
+                   "gather": time.perf_counter() - t2}
         if grid.rank == 0:
             if compress:
                 want = tp_plain_compressed_steps(model, opt, params, batches)
@@ -4853,32 +4899,38 @@ def tp_fp32_gate(grid, cases):
                 want = plain
             out[name] = {"metrics": metrics, "one_process": want[0],
                          **tp_gap(metrics, full, want[0], want[1], opt.lr,
-                                  TP_GATE_STEPS)}
+                                  steps)}
             del want
         else:
             out[name] = {"metrics": metrics}
+        out[name]["seconds"] = {**seconds, "one_card_and_compare":
+                                time.perf_counter() - t0 - sum(
+                                    seconds.values())}
         del full
         gc.collect()
         torch.cuda.empty_cache()
     return out
 
 
-def tp_full_depth(grid, cases):
-    """(b) qwen1.5-0.5b at full width on its first ``TP_DEPTH`` layers,
-    bf16 compute, the global 8 x 512 (phase 10 (c)'s weights, seed 0, and
-    batches), ``TP_STEPS`` steps of each case: losses, seconds a step, host seconds in
-    collectives and the byte counter by (axes, op) a step, the peak of
-    device memory, the kernels' launches and variants."""
+def tp_full_depth(grid, cases, arch="qwen1.5-0.5b", layers=TP_DEPTH,
+                  steps=TP_STEPS, one_card=False):
+    """(b) ``arch`` (qwen1.5-0.5b; (e): olmoe-1b-7b) at full width on its
+    first ``layers`` layers, bf16 compute, the global 8 x 512 (phase 10
+    (c)'s weights, seed 0, and batches), ``steps`` steps of each case:
+    losses, seconds a step, host seconds in collectives and the byte
+    counter by (axes, op) a step, the peak of device memory, the
+    kernels' launches and variants; with ``one_card`` rank 0 also
+    steps one card on the same cut, weights and batches (its losses)."""
     import torch
     from repro_torch import kernels
     from repro_torch.models.config import ShapeConfig
     from repro_torch.runtime import train as train_rt
     from repro_torch.sharding.profiles import describe, make_rules
 
-    cfg = cut("qwen1.5-0.5b", TP_DEPTH)
-    model, opt, _, pipe = train_parts(cfg, grid.device)
+    cfg = cut(arch, layers)
+    model, opt, one_step, pipe = train_parts(cfg, grid.device)
     shape = ShapeConfig("smoke", "train", TRAIN_SEQ, TRAIN_BATCH)
-    batches = [pipe.next_batch() for _ in range(TP_STEPS)]
+    batches = [pipe.next_batch() for _ in range(steps)]
     out = {}
     state = step = None
     t_start = time.perf_counter()
@@ -4930,6 +4982,16 @@ def tp_full_depth(grid, cases):
     del state, step
     gc.collect()
     torch.cuda.empty_cache()
+    if grid.rank == 0 and one_card:
+        state = train_rt.init_state(
+            model, opt, torch.Generator(device=grid.device).manual_seed(0))
+        out["one_card_losses"] = []
+        for b in batches:
+            state, m = one_step(state, b)
+            out["one_card_losses"].append(float(m["loss"]))
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
     if grid.rank == 0 and any(compress for _, _, compress, _ in cases):
         params = model.init(torch.Generator(device=grid.device).manual_seed(0))
         metrics, _ = tp_plain_compressed_steps(model, opt, params, batches)
@@ -5031,26 +5093,110 @@ def tp_rank(rank: int, init: str, out_dir: str) -> None:
             grid.close()
         gc.collect()
         torch.cuda.empty_cache()
+    report["ep"] = ep_rank(world)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 13 (i) first: its fp32 draws of olmoe's layers are the
+    # world's largest, and (d)'s CLI worlds start once they are freed
+    moe = ts_moe(rank, torch.device("cuda", 0))
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:               # (d)'s CLI worlds may start beside ours
+        Path(out_dir, TP_CLI_GO).write_text("")
     t0 = time.perf_counter()
     refs = Path(out_dir, TS_REFS)
     report["serve"] = ts_rank(rank, json.loads(refs.read_text())
                               if refs.exists() else None)
+    report["serve"]["moe"] = moe
     report["serve"]["seconds"] = time.perf_counter() - t0
     world.close()
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(report))
 
 
-def tp_torchrun(argv, name):
-    """Start the training CLI's argv under ``torch.distributed.run`` on 4
-    ranks, its output in files.  Returns the process and a function that
-    waits for it (its whole process tree killed past ``TP_CLI_LIMIT_S``
-    from its start) and gives (rc, summary or None, stderr, seconds)."""
+def ep_rank(grid) -> dict:
+    """(e) on ``grid`` (the world's (data 2, model 2)): olmoe-1b-7b at
+    full width on its first ``EP_DEPTH`` layers, the fp32 gate of ``tp``
+    and ``tp_fsdp`` (``EP_GATE_STEPS`` steps each against one card),
+    then ``EP_STEPS`` timed bf16 steps of ``tp`` beside one card's
+    losses on the same cut."""
+    t0 = time.perf_counter()
+    cases = TP_GRIDS[EP_GRID][1]
+    out = {"fp32_gate": tp_fp32_gate(grid, cases, EP_ARCH, EP_DEPTH,
+                                     EP_GATE_STEPS)}
+    dp_progress(grid.rank, "(e) fp32 gate", t0, out["fp32_gate"], phase=12)
+    t1 = time.perf_counter()
+    out["full_depth"] = tp_full_depth(grid, cases[:1], EP_ARCH, EP_DEPTH,
+                                      EP_STEPS, one_card=True)
+    out["seconds"] = {"fp32_gate": t1 - t0,
+                      "bf16": time.perf_counter() - t1}
+    return out
+
+
+def ep_checks(smi, reports) -> dict:
+    """(e)'s lines and checks; returns each rank's launches."""
+    cfg = cut(EP_ARCH, EP_DEPTH)
+    per = [r["ep"] for r in reports]
+    gate = per[0]["fp32_gate"]
+    emit({"phase": "tp", "check": "(e) expert parallel fp32 gate",
+          "arch": cfg.name, "layers": EP_DEPTH, "experts": cfg.n_experts,
+          "experts_a_rank": cfg.n_experts // 2,
+          "layout": reports[0]["grids"][EP_GRID]["grid"]["mesh"],
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": EP_GATE_STEPS,
+          "tol": TOL["float32"], "param_share_allowed": DP_PARAM_SHARE,
+          "rank0": gate})
+    check(all(g["ok"] for g in gate.values())
+          and all(p["fp32_gate"][c]["metrics"] == gate[c]["metrics"]
+                  for p in per for c in gate),
+          f"phase 12 (e) fp32 gate: {gate}")
+    want = train_launches(cfg, EP_STEPS)
+    counts = {}
+    for name, *_ in TP_GRIDS[EP_GRID][1][:1]:
+        full = [p["full_depth"][name] for p in per]
+        losses = full[0]["losses"]
+        ref = per[0]["full_depth"]["one_card_losses"]
+        gaps = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+        emit({"phase": "tp", "check": f"(e) expert parallel bf16 {name}",
+              "nvidia_smi": smi, "arch": cfg.name, "layers": EP_DEPTH,
+              "layout": reports[0]["grids"][EP_GRID]["grid"]["mesh"],
+              "ranks": "4 ranks sharing one card (gloo, host-staged)",
+              "seq": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
+              "steps": EP_STEPS, "one_card_losses": ref, "rel_gaps": gaps,
+              "tol": BF16_TRAJ_TOL, "per_rank": full})
+        check(all(f["losses"] == losses for f in full)
+              and all(math.isfinite(x) for x in losses)
+              and all(g <= BF16_TRAJ_TOL for g in gaps),
+              f"phase 12 (e) {name}: losses {[f['losses'] for f in full]} "
+              f"against one card's {ref}")
+        for r, f in enumerate(full):
+            calls = f["calls_per_step"]
+            check(f["launches"] == want
+                  and calls.get("data:all-gather:moe-experts", 0) > 0
+                  and calls.get("model:all-reduce:moe", 0) > 0,
+                  f"phase 12 (e) {name} rank {r}: launches {f['launches']} "
+                  f"!= {want}, or no moe collective in {calls}")
+            check_flash_variant(f"phase 12 (e) rank {r}", cfg.compute_dtype,
+                                f["variants"], want["flash_attention"])
+            check_backward_variant(f"phase 12 (e) rank {r}",
+                                   cfg.compute_dtype, f["variants"],
+                                   want["flash_attention_bwd"])
+            counts[f"olmoe-1b-7b ep rank {r}"] = dict(f["launches"])
+    emit({"phase": "tp", "check": "(e) seconds",
+          "per_rank": [p["seconds"] for p in per]})
+    return counts
+
+
+def torchrun_start(argv, out_dir, name, limit_s, what):
+    """Start ``argv`` under ``torch.distributed.run`` on 4 ranks, its
+    output in ``<out_dir>/<name>.out`` and ``.err``.  Returns the process
+    and a function that waits for it (its whole process tree killed past
+    ``limit_s`` from its start) and gives (rc, summary or None, stderr,
+    seconds)."""
     import os
     root = Path(__file__).resolve().parent
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", "4"] + argv
     t0 = time.perf_counter()
-    out_path, err_path = TP_DIR / f"{name}.out", TP_DIR / f"{name}.err"
+    out_path, err_path = out_dir / f"{name}.out", out_dir / f"{name}.err"
     with open(out_path, "w") as fo, open(err_path, "w") as fe, \
             dp_allocator_env():
         proc = subprocess.Popen(cmd, cwd=root, env={
@@ -5059,18 +5205,23 @@ def tp_torchrun(argv, name):
 
     def wait():
         try:
-            proc.wait(timeout=max(1.0, TP_CLI_LIMIT_S
+            proc.wait(timeout=max(1.0, limit_s
                                   - (time.perf_counter() - t0)))
         except subprocess.TimeoutExpired:
             kill_tree(proc.pid)
             proc.wait(timeout=60)
-            check(False, f"phase 12 (d) {name}: the CLI overran "
-                  f"{TP_CLI_LIMIT_S} s: {err_path.read_text()[-2000:]}")
+            check(False, f"{what} {name}: the CLI overran {limit_s} s: "
+                  f"{err_path.read_text()[-2000:]}")
         secs = time.perf_counter() - t0
         out, err = out_path.read_text(), err_path.read_text()
         summary = json.loads(out) if proc.returncode == 0 else None
         return proc.returncode, summary, err, secs
     return proc, wait
+
+
+def tp_torchrun(argv, name):
+    """``torchrun_start`` of a phase 12 (d) world."""
+    return torchrun_start(argv, TP_DIR, name, TP_CLI_LIMIT_S, "phase 12 (d)")
 
 
 def tp_step_losses(err):
@@ -5083,7 +5234,7 @@ def tp_step_losses(err):
     return out
 
 
-def tp_cli(smi):
+def tp_cli_start():
     """(d) the training CLI under ``torch.distributed.run`` on 4 ranks
     with no ``--pool``: qwen1.5-0.5b at full width on its first
     ``TRAIN_CUT`` layers (``--layers``) on the reference's smoke mesh
@@ -5092,28 +5243,24 @@ def tp_cli(smi):
     ``build/``) whose failure hook raises on rank 1 at step
     ``TP_FAIL_AT`` of the first attempt, with ``--ckpt-every 1``: exit 0,
     the resume reported, every step's loss (the first attempt's and the
-    replayed ones) equal in bits to the first run's.  The two worlds run
-    at once, 8 ranks on the card: their seconds are start-up under each
-    other's load."""
+    replayed ones) equal in bits to the first run's.  The two worlds
+    start at once, and beside them phase 11 (d)'s (``dp_cli_start``), 12
+    ranks on the card, while phase 12's world serves phase 13 (the
+    ranks' (e) and (i) done, ``TP_CLI_GO``): their seconds are start-up
+    under each other's load and the world's.  Returns the three
+    (process, wait)."""
     base = ["--arch", "qwen1.5-0.5b", "--layers", str(TRAIN_CUT),
             "--steps", "3", "--batch",
             str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1"]
     wrapper = TP_DIR / "restart_wrapper.py"
     wrapper.write_text(TP_CLI_WRAPPER.format(fail_at=TP_FAIL_AT))
-    started = [tp_torchrun(
+    return [tp_torchrun(
         ["-m", "repro_torch.launch.train"] + base
         + ["--ckpt-dir", str(TP_DIR / "ckpt_plain")], "cli"),
         tp_torchrun(
         ["--max-restarts", "1", str(wrapper)] + base
         + ["--ckpt-every", "1", "--ckpt-dir", str(TP_DIR / "ckpt_restart")],
-        "cli_restart")]
-    try:
-        tp_cli_checks(smi, *(wait for _, wait in started))
-    finally:
-        for proc, _ in started:
-            if proc.poll() is None:
-                kill_tree(proc.pid)
-                proc.wait(timeout=60)
+        "cli_restart"), dp_cli_start()]
 
 
 def tp_cli_checks(smi, plain_wait, restart_wait):
@@ -5122,7 +5269,7 @@ def tp_cli_checks(smi, plain_wait, restart_wait):
     emit({"phase": "tp", "check": "(d) CLI", "nvidia_smi": smi, "rc": rc,
           "layers": TRAIN_CUT, "seconds": secs, "cli": plain,
           "stderr_tail": err.strip().splitlines()[-6:]})
-    check(rc == 0, f"phase 12 (d): rc {rc}: {err[-2000:]}")
+    check(rc == 0, f"phase 12 (d): rc {rc}: {cli_error(err)}")
     check(plain["mesh"] == {"data": 2, "model": 2}
           and plain["dp_mode"] == "auto" and plain["backend"] == "gloo"
           and plain["world"] == 4 and "heads=model" in plain["rules"]
@@ -5137,7 +5284,7 @@ def tp_cli_checks(smi, plain_wait, restart_wait):
           "rc": rc, "layers": TRAIN_CUT, "seconds": secs, "cli": summary,
           "steps_and_losses_against_the_first_run": same,
           "stderr_tail": err.strip().splitlines()[-6:]})
-    check(rc == 0, f"phase 12 (d) restart: rc {rc}: {err[-2000:]}")
+    check(rc == 0, f"phase 12 (d) restart: rc {rc}: {cli_error(err)}")
     check(f"injected failure on rank 1 at step {TP_FAIL_AT}" in err
           and summary["restarts"] == 1
           and summary["resumed_from"] in (TP_FAIL_AT - 1, TP_FAIL_AT)
@@ -5152,7 +5299,10 @@ def tp_cli_checks(smi, plain_wait, restart_wait):
 def tp_phase(smi, qwen_losses, qwen_run, serve_refs):
     """Phases 12 and 13: one world of 4 ranks sharing the card (the
     kernels built by this process before) on each of ``TP_GRIDS`` in
-    turn, then serving (``ts_rank``), then phase 12 (d), the CLI.  (b)'s
+    turn, then (e) (``ep_rank``) and 13 (i) (``ts_moe``), then the rest
+    of serving (``ts_rank``), beside which phase 12 (d)'s and phase 11
+    (d)'s CLI worlds run, started once the ranks' (i) is done
+    (``tp_cli_start``).  (b)'s
     trajectories are held to the one-card trajectory of the same cut
     (``qwen_losses``, ``tp_reference_losses``), the compressed one to the
     plain in-process evaluation of the same schedule
@@ -5174,8 +5324,6 @@ def tp_phase(smi, qwen_losses, qwen_run, serve_refs):
     shutil.rmtree(TP_DIR, ignore_errors=True)
     TP_DIR.mkdir(parents=True)
     (TP_DIR / TS_REFS).write_text(json.dumps(serve_refs))
-    cfg = cut("qwen1.5-0.5b", TP_DEPTH)
-    want = train_launches(cfg, TP_STEPS)
     counts = {}
     ctx = multiprocessing.get_context("spawn")
     gc.collect()
@@ -5186,7 +5334,34 @@ def tp_phase(smi, qwen_losses, qwen_run, serve_refs):
     with dp_allocator_env():
         for p in procs:
             p.start()
-    world_s = wait_world(procs, TP_WORLD_LIMIT_S, "phase 12 world")
+    clis = []
+
+    def start_clis(now=False):
+        if not clis and (now or (TP_DIR / TP_CLI_GO).exists()):
+            clis.extend(tp_cli_start())
+    try:
+        world_s = wait_world(procs, TP_WORLD_LIMIT_S, "phase 12 world",
+                             start_clis)
+        start_clis(now=True)
+        counts.update(tp_world_checks(smi, qwen_losses, qwen_run,
+                                      serve_refs, world_s))
+        tp_cli_checks(smi, *(wait for _, wait in clis[:2]))
+        dp_cli_checks(smi, clis[2][1])
+    finally:
+        for proc, _ in clis:
+            if proc.poll() is None:
+                kill_tree(proc.pid)
+                proc.wait(timeout=60)
+    emit({"phase": "tp", "seconds": time.perf_counter() - t_start})
+    return counts
+
+
+def tp_world_checks(smi, qwen_losses, qwen_run, serve_refs, world_s):
+    """Phase 12 (a)-(c) and (e) and phase 13's lines and checks from the
+    world's reports; returns each rank's launches."""
+    cfg = cut("qwen1.5-0.5b", TP_DEPTH)
+    want = train_launches(cfg, TP_STEPS)
+    counts = {}
     reports = [json.loads((TP_DIR / f"rank{r}.json").read_text())
                for r in range(4)]
     for world in TP_GRIDS:
@@ -5248,12 +5423,11 @@ def tp_phase(smi, qwen_losses, qwen_run, serve_refs):
                   f"{twice}")
         emit({"phase": "tp", "world": world,
               "rank_seconds": [r["seconds"] for r in grids]})
+    counts.update(ep_checks(smi, reports))
     counts.update(ts_checks(smi, [r["serve"] for r in reports],
                             qwen_run, serve_refs))
     emit({"phase": "tp", "world_seconds": world_s,
           "serve_rank_seconds": [r["serve"]["seconds"] for r in reports]})
-    tp_cli(smi)
-    emit({"phase": "tp", "seconds": time.perf_counter() - t_start})
     return counts
 
 
@@ -5273,17 +5447,20 @@ TS_RANKS = "4 ranks sharing one card (gloo, host-staged): no fabric measured"
 
 
 def ts_engine(model, device, tracer=None, model_parallel=TS_MODEL,
-              grid=None):
+              grid=None, cache=None):
     """``Engine.from_lease`` on a lease of the smoke pool of the world's
     4 ranks with ``model_parallel`` ((data 1, model 4) by default; 2
-    gives (h)'s (data 2, model 2)), on ``grid`` when given, phase 4's
-    engine shape and budget, the weights of seed 0 drawn whole on every
-    rank and cut to its shards; and phase 4's trace."""
+    gives (h)'s and (i)'s (data 2, model 2)), on ``grid`` when given,
+    phase 4's engine shape (its pages in ``cache``'s dtype when given:
+    phase 9 serves bf16) and budget, the weights of seed 0 drawn whole
+    on every rank and cut to its shards; and phase 4's trace."""
     import torch
     from repro_torch.pool import smoke_pool
     from repro_torch.serve import Engine
 
     ecfg, budget, trace = serve_parts(model.cfg)
+    if cache is not None:
+        ecfg = dataclasses.replace(ecfg, cache_dtype=cache)
     lease = smoke_pool("scalepool").lease("serve-tp", TS_MODEL, tier2_gb=8,
                                           kv_gb=4,
                                           model_parallel=model_parallel)
@@ -5414,17 +5591,31 @@ def ts_fp32_gate(rank, device):
 def ts_full_depth(device, model_parallel=TS_MODEL, grid=None):
     """(b) full width on the first ``SERVE_DEPTH`` layers in bf16 under
     the lease (``ts_engine``'s; (h) passes its (data 2, model 2)): the
-    run, its wall seconds, the kernels' launches and variants, the host
-    seconds in collectives and the trace's sanitizer report."""
+    run as ``ts_timed_run`` reports it."""
     import torch
-    from repro_torch import kernels
     from repro_torch.models.api import build_model
     from repro_torch.obs import Tracer
-    from repro_torch.sharding.profiles import describe
 
     model = build_model(cut("qwen1.5-0.5b", SERVE_DEPTH), device=device)
     tracer = Tracer(1 << 20)
     eng, trace = ts_engine(model, device, tracer, model_parallel, grid)
+    out = ts_timed_run(eng, trace, tracer)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ts_timed_run(eng, trace, tracer):
+    """``ts_run`` of ``eng`` timed: its wall seconds, decode tokens per
+    wall second, decode steps and prefills, the kernels' launches and
+    variants, the host seconds and calls in collectives, the peak of
+    device memory, the rules, the page pool's digest and kv heads, and
+    the trace's sanitizer report."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.sharding.profiles import describe
+
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -5436,12 +5627,11 @@ def ts_full_depth(device, model_parallel=TS_MODEL, grid=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     names = [e.name for e in tracer.events()]
-    decodes, prefills = names.count("decode"), names.count("prefill")
     stats = eng.grid.stats
     out.update({
-        "wall_s": wall, "decode_tokens_per_wall_s":
-            out["tokens_decoded"] / wall,
-        "decodes": decodes, "prefills": prefills,
+        "wall_s": wall,
+        "decode_tokens_per_wall_s": out["tokens_decoded"] / wall,
+        "decodes": names.count("decode"), "prefills": names.count("prefill"),
         "engine_steps": eng.steps, "trace_dropped": tracer.dropped,
         "launches": kernels.launch_counts(),
         "variants": kernels.variant_counts(),
@@ -5452,11 +5642,10 @@ def ts_full_depth(device, model_parallel=TS_MODEL, grid=None):
         "moved_bytes": dict(stats.moved_bytes),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "rules": describe(eng.plan.rules),
+        "pool_sha256": ts_pool_digest(eng), "kv_heads": eng.kv_heads,
         "mesh": eng.grid.layout.as_dict(),
+        "batch_axes": eng.plan.batch_axes,
         "sanitizer": sanitize_report([tracer])})
-    del eng
-    gc.collect()
-    torch.cuda.empty_cache()
     return out
 
 
@@ -5498,6 +5687,29 @@ def ts_kernels(device):
     torch.cuda.synchronize()
     out["paged_attention (data 2, model 2) rank"] = {
         "case": f"B=4 len 130..520 H=KV={Hd} D=64 ps=64 q=bf16 pages=fp32",
+        "max_abs_err": max_err(got, want),
+        "ok": within(got, want, TOL["bfloat16"])
+        and bool(torch.isfinite(got).all())}
+    # (i)'s rank: olmoe's 8 of 16 heads at D=128 over its bf16 pages, 4
+    # rows (its block of the 8-row bucket), and its 512-token prefill
+    args = paged_inputs(gen, 4, Hd, Hd, 128, 64, 16, [130, 260, 520, 150],
+                        bf16, bf16, device)
+    got = paged_decode_attention(*args)
+    want = ref.paged_attention_ref(*args)
+    torch.cuda.synchronize()
+    out["paged_attention olmoe (data 2, model 2) rank"] = {
+        "case": f"B=4 len 130..520 H=KV={Hd} D=128 ps=64 q=bf16 pages=bf16",
+        "max_abs_err": max_err(got, want),
+        "ok": within(got, want, TOL["bfloat16"])
+        and bool(torch.isfinite(got).all())}
+    q, k, v = (torch.randn(1, 512, Hd, 128, generator=gen,
+                           device=device).to(bf16) for _ in range(3))
+    got = flash_attention(q, k, v, causal=True)
+    with ops.plain_versions():
+        want = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    out["flash_attention olmoe (model 2) rank prefill"] = {
+        "case": f"B=1 Sq=Skv=512 H={Hd} D=128 q=bf16 kv=bf16",
         "max_abs_err": max_err(got, want),
         "ok": within(got, want, TOL["bfloat16"])
         and bool(torch.isfinite(got).all())}
@@ -6086,7 +6298,6 @@ def ts_dp_fp32(rank, device, one_card):
     part from ``one_card`` ((a)'s one-card fp32 run).  Returns (report,
     grid)."""
     import torch
-    from repro_torch import kernels
     from repro_torch.models.api import build_model
     from repro_torch.obs import Tracer
 
@@ -6095,20 +6306,7 @@ def ts_dp_fp32(rank, device, one_card):
     tracer = Tracer(1 << 20)
     eng, trace = ts_engine(model, device, tracer, TS_DP_MODEL)
     grid = eng.grid
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    out = ts_run(eng, trace)
-    torch.cuda.synchronize()
-    names = [e.name for e in tracer.events()]
-    out.update({
-        "wall_s": time.perf_counter() - t0,
-        "launches": kernels.launch_counts(),
-        "variants": kernels.variant_counts(),
-        "decodes": names.count("decode"), "prefills": names.count("prefill"),
-        "pool_sha256": ts_pool_digest(eng), "kv_heads": eng.kv_heads,
-        "mesh": grid.layout.as_dict(), "batch_axes": eng.plan.batch_axes,
-        "sanitizer": sanitize_report([tracer])})
+    out = ts_timed_run(eng, trace, tracer)
     del eng
     if rank == 0:
         params = model.load(model.init(
@@ -6174,6 +6372,139 @@ def ts_dp(rank, device, one_card, full_model, full_params, refs):
     out["disagg"] = ts_dp_disagg(rank, device, full_model, full_params,
                                  refs["fp32_cut"], grid)
     dp_progress(rank, "(h) disagg", t0, out["disagg"]["modeled"], phase=13)
+    grid.close()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# (i): the engine serving olmoe-1b-7b at full width (64 experts, 32 a rank)
+# on the first ``SERVE_DEPTH`` layers on a (data 2, model 2) lease, on
+# phase 9's trace
+TS_MOE_ARCH = "olmoe-1b-7b"
+
+
+def ts_moe_routing(eng):
+    """Record the routing of every expert layer of ``eng``'s model calls,
+    in call order: the list of calls, each ``{"kind": "prefill" or
+    "decode", "layers": [{"expert_idx", "kept", "gap"}]}`` of the
+    tokens the call routed (a decode call on a data grid: the rank's
+    block's real rows)."""
+    from repro_torch.models import moe
+
+    calls = []
+
+    def wrap(fn, kind):
+        def call(*args):
+            with moe.record_routing() as rec:
+                out = fn(*args)
+            calls.append({"kind": kind, "layers": [
+                {"expert_idx": r["expert_idx"][0].tolist(),
+                 "kept": r["kept"][0].int().tolist(),
+                 "gap": r["gap"][0].tolist()} for r in rec]})
+            return out
+        return call
+    eng.model = dataclasses.replace(
+        eng.model, prefill_at=wrap(eng.model.prefill_at, "prefill"),
+        decode_paged=wrap(eng.model.decode_paged, "decode"))
+    return calls
+
+
+def ts_moe_first_flip(runs, one_card):
+    """Where the ranks' routing first parts from one card's: every call's
+    routing put together (a prefill's from rank 0, a decode step's from
+    the data ranks' blocks in order), compared call by call and layer by
+    layer with ``one_card``'s.  Returns None where they never part, else
+    the first differing layer's tokens whose experts differ, each with
+    its router gap on both paths, the keep bits that differ, and whether
+    it is a routing tie: experts that differ, each at a gap under
+    ``GAP_NOISE`` (a later keep bit follows from them)."""
+    blocks = sorted({r["data_index"]: r["routing"] for r in runs}.items())
+    for i, want in enumerate(one_card):
+        got = (blocks[0][1][i] if want["kind"] == "prefill" else {
+            "layers": [{k: sum((b[1][i]["layers"][l][k] for b in blocks),
+                               []) for k in ("expert_idx", "kept", "gap")}
+                       for l in range(len(want["layers"]))]})
+        for layer, (a, b) in enumerate(zip(got["layers"], want["layers"])):
+            if a["expert_idx"] == b["expert_idx"] and a["kept"] == b["kept"]:
+                continue
+            flips = [{"token": t, "gap": a["gap"][t], "gap_one_card":
+                      b["gap"][t]}
+                     for t, (x, y) in enumerate(zip(a["expert_idx"],
+                                                    b["expert_idx"]))
+                     if x != y]
+            keep = sum(x != y for p, q in zip(a["kept"], b["kept"])
+                       for x, y in zip(p, q))
+            return {"call": i, "kind": want["kind"], "layer": layer,
+                    "flips": flips[:8], "n_flips": len(flips),
+                    "keep_differences": keep,
+                    "tie": bool(flips) and all(
+                        max(f["gap"], f["gap_one_card"]) < GAP_NOISE
+                        for f in flips)}
+    return None
+
+
+def ts_moe(rank, device):
+    """(i): phase 9's trace in fp32 on the first ``SERVE_DEPTH`` layers of
+    olmoe-1b-7b on a (data 2, model 2) lease, rank 0 also serving it on
+    one card (``Engine.local``, the same weights) and taking one card's
+    top-2 margin wherever the ranks' tokens part from its; then in bf16
+    on phase 9's bf16 pages, one card's bf16 run beside (rank 0)."""
+    import torch
+    from repro_torch.models.api import build_model
+    from repro_torch.obs import Tracer
+    from repro_torch.serve import Engine
+
+    t0 = time.perf_counter()
+    out = {}
+    grid = None
+    for compute, cache in (("float32", "float32"),
+                           ("bfloat16", "bfloat16")):
+        cfg = cut(TS_MOE_ARCH, SERVE_DEPTH, compute_dtype=compute)
+        model = build_model(cfg, device=device)
+        tracer = Tracer(1 << 20)
+        eng, trace = ts_engine(model, device, tracer, TS_DP_MODEL, grid,
+                               cache)
+        grid = eng.grid
+        gate = compute == "float32"
+        routing = ts_moe_routing(eng) if gate else None
+        run = ts_timed_run(eng, trace, tracer)
+        if gate:
+            run.update(routing=routing, data_index=grid.index(("data",)))
+        del eng
+        if rank == 0:
+            ecfg, budget, _ = serve_parts(cfg)
+            one = Engine.local(
+                model, dataclasses.replace(ecfg, cache_dtype=cache),
+                budget=budget, device=device,
+                generator=torch.Generator(device=device).manual_seed(0))
+            if gate:
+                run["one_card_routing"] = ts_moe_routing(one)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            want = ts_run(one, trace)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            run["one_card"] = {
+                "wall_s": wall,
+                "decode_tokens_per_wall_s": want["tokens_decoded"] / wall,
+                "clocks_equal": run["clocks"] == want["clocks"],
+                "latency_equal": run["latency"] == want["latency"],
+                "kv_equal": run["kv"] == want["kv"],
+                "requests_parting": sum(a != b for a, b in zip(
+                    run["tokens"], want["tokens"]))}
+            if gate:
+                run["one_card"]["divergences"] = ts_divergences(
+                    model, one.params, device, run["tokens"],
+                    want["tokens"], [r.prompt_tokens for r in trace])
+            del one
+        out[compute] = run
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        dp_progress(rank, f"(i) {compute}", t0, {k: run[k] for k in (
+            "wall_s", "kv", "launches")}, phase=13)
     grid.close()
     out["seconds"] = time.perf_counter() - t0
     return out
@@ -6289,6 +6620,7 @@ def ts_checks(smi, per, qwen_run, refs=None):
         counts.update(ts_disagg_checks(smi, per, refs["disagg"]))
         counts.update(ts_colo_checks(smi, per, refs["colo"]))
         counts.update(ts_dp_checks(smi, per, refs["disagg"], qwen_run))
+    counts.update(ts_moe_checks(smi, per))
     emit({"phase": "tp serve", "seconds_d_e": [p["seconds_d_e"]
                                                for p in per],
           "seconds_f_g": [p.get("seconds_f_g") for p in per]})
@@ -6419,6 +6751,86 @@ def ts_dp_checks(smi, per, refs, qwen_run):
           f"{d0['divergences']}")
     emit({"phase": "tp serve", "check": "(h) seconds",
           "per_rank": [x["seconds"] for x in h]})
+    return counts
+
+
+def ts_moe_checks(smi, per):
+    """Phase 13 (i)'s lines and checks; returns each rank's launches."""
+    cfg = cut(TS_MOE_ARCH, SERVE_DEPTH)
+    L = SERVE_DEPTH
+    runs = [p["moe"] for p in per]
+    counts = {}
+    keep = ("wall_s", "decode_tokens_per_wall_s", "collective_host_s",
+            "collective_host_s_per_engine_step_by_op", "collective_calls",
+            "moved_bytes", "peak_mem_gb", "launches", "decodes", "prefills",
+            "engine_steps", "kv_heads", "pool_sha256", "sanitizer")
+    for compute in ("float32", "bfloat16"):
+        r0 = runs[0][compute]
+        one = r0["one_card"]
+        emit({"phase": "tp serve", "check": f"(i) moe engine {compute}",
+              "nvidia_smi": smi, "arch": cfg.name, "layers": L,
+              "experts": cfg.n_experts,
+              "experts_a_rank": cfg.n_experts // TS_DP_MODEL,
+              "capacity_factor": cfg.capacity_factor, "lease": TS_DP_MESH,
+              "ranks": TS_RANKS, "tie_margin": TS_TIE_MARGIN,
+              "kv": r0["kv"], "latency_modeled": r0["latency"],
+              "one_card": one,
+              "per_rank": [{k: x[compute][k] for k in keep} for x in runs]})
+        digests = {}
+        for r, x in enumerate(runs):
+            a = x[compute]
+            check(a["tokens"] == r0["tokens"] and a["clocks"] == r0["clocks"]
+                  and a["kv"] == r0["kv"] and a["mesh"] == TS_DP_MESH
+                  and a["batch_axes"] == ["data"]
+                  and a["completed"] == 16 and a["failed_oom"] == 0
+                  and a["kv"]["spills"] > 0 and a["kv"]["fetches"] > 0
+                  and a["trace_dropped"] == 0
+                  and all(0 <= t < cfg.vocab for q in a["tokens"] for t in q),
+                  f"phase 13 (i) {compute} rank {r}: {a['kv']}, "
+                  f"{a['completed']} done, tokens equal rank 0's: "
+                  f"{a['tokens'] == r0['tokens']}, on {a['mesh']} over "
+                  f"{a['batch_axes']}")
+            ts_trace_check(f"phase 13 (i) {compute} rank {r}",
+                           a["sanitizer"])
+            ts_launch_checks(f"phase 13 (i) {compute} rank {r}", {"run": a},
+                             L, compute)
+            calls = a["collective_calls"]
+            check(calls.get("data:all-gather") == a["decodes"]
+                  and calls.get("data:all-gather:moe-experts")
+                  == a["decodes"] * L
+                  and calls.get("model:all-reduce:moe")
+                  == (a["decodes"] + a["prefills"]) * L,
+                  f"phase 13 (i) {compute} rank {r}: {calls} for "
+                  f"{a['decodes']} decode steps and {a['prefills']} "
+                  f"prefills of {L} layers")
+            heads = tuple(a["kv_heads"])
+            check(digests.setdefault(heads, a["pool_sha256"])
+                  == a["pool_sha256"],
+                  f"phase 13 (i) {compute} rank {r}: its pool of kv heads "
+                  f"{heads} differs in bits from its data replica's")
+            c = counts.setdefault(f"olmoe-1b-7b serve dp rank {r}", {})
+            for k, v in a["launches"].items():
+                c[k] = c.get(k, 0) + v
+        check(len(digests) == TS_DP_MODEL,
+              f"phase 13 (i) {compute}: pools of {sorted(digests)}")
+        if compute == "float32":
+            # a divergence passes as a documented tie (C-ref3): a top-2
+            # logit margin within fp32 noise, or where the routing first
+            # parts from one card's, a router top-k decision at a gap
+            # under GAP_NOISE (the ranks sum the expert and attention
+            # outputs over model in another order than one card)
+            flip = ts_moe_first_flip([x[compute] for x in runs],
+                                     r0["one_card_routing"])
+            emit({"phase": "tp serve", "check": "(i) moe routing fp32",
+                  "gap_noise": GAP_NOISE, "first_difference": flip})
+            check(one["clocks_equal"] and one["latency_equal"]
+                  and one["kv_equal"]
+                  and (all(d["tie"] for d in one["divergences"])
+                       or (flip is not None and flip["tie"])),
+                  f"phase 13 (i) fp32: against the one-card engine: {one}, "
+                  f"the routing first parting at {flip}")
+    emit({"phase": "tp serve", "check": "(i) seconds",
+          "per_rank": [x["seconds"] for x in runs]})
     return counts
 
 
@@ -6820,6 +7232,11 @@ def kernel_times(device, counts, errs):
     paged_time("dp rank (data 2, model 2) decode B=4 len 130..520 H=KV=8 "
                "D=64 ps=64 q=bf16 pages=fp32", 4, 64, 16,
                [130, 260, 520, 150], H=8, KV=8)
+    # phase 13 (i)'s rank: olmoe's 8 of 16 heads at D=128 over its bf16
+    # pages, its block of the 8-row bucket
+    paged_time("olmoe ep rank (data 2, model 2) decode B=4 len 130..520 "
+               "H=KV=8 D=128 ps=64 q=bf16 pages=bf16", 4, 64, 16,
+               [130, 260, 520, 150], H=8, KV=8, D=128, kv=bf16)
 
     def flash_time(B, Sq, Skv, H, D, q_offset=0, kv_len=None,
                    q_dtype=bf16, kv_dtype=f32, causal=True):
@@ -6905,6 +7322,10 @@ def kernel_times(device, counts, errs):
     flash_line("olmoe prefill B=1 Sq=Skv=512 H=16 D=128 q=bf16 kv=bf16",
                flash_time(1, 512, 512, 16, 128, kv_dtype=bf16),
                max_abs_err=errs["flash_attention olmoe prefill"])
+    # phase 13 (i)'s rank prefill on 8 of olmoe's 16 heads
+    flash_line("olmoe ep rank (model 2) prefill B=1 Sq=Skv=512 H=8 D=128 "
+               "q=bf16 kv=bf16", flash_time(1, 512, 512, 8, 128,
+                                            kv_dtype=bf16))
     for tag, Sq in (("encoder", 1500), ("cross prefill", 64),
                     ("cross decode", 1)):
         flash_line(f"whisper {tag} B=4 Sq={Sq} Skv=1500 H=12 D=64 "

@@ -11,6 +11,9 @@ phase 5's times.
     # only (a), (b), (c) and (h) (the engine on (data 2, model 2)), and
     # their checks; of (f)'s references only dg_cut_runs'
     python3 chip_tools/phase13_alone.py --h
+    # phase 12 (e) and phase 13 (c) and (i), olmoe-1b-7b expert parallel
+    # on the world's (data 2, model 2) grid, and their checks
+    python3 chip_tools/phase13_alone.py --moe
 """
 import collections, json, multiprocessing, shutil, sys, time
 from pathlib import Path
@@ -50,17 +53,35 @@ def h_rank(rank, refs):
     return out
 
 
+def moe_rank(rank, grid):
+    """Phase 12 (e) on the world's (data 2, model 2) grid, then phase 13
+    (c) and (i)."""
+    import torch
+    device = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    out = {"ep": cs.ep_rank(grid)}
+    t1 = time.perf_counter()
+    out["kernels"] = cs.ts_kernels(device)
+    out["moe"] = cs.ts_moe(rank, device)
+    out["seconds_f_g"] = {"e": t1 - t0, "i": time.perf_counter() - t1}
+    return out
+
+
 def rank_fn(rank, init, mode):
     import torch
     from repro_torch.launch import mesh as mesh_lib
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_num_threads(1)
-    grid = mesh_lib.init_grid(mesh_lib.Layout((1, 4), ("data", "model")),
+    shape = (2, 2) if mode == "moe" else (1, 4)
+    grid = mesh_lib.init_grid(mesh_lib.Layout(shape, ("data", "model")),
                               rank=rank, device=torch.device("cuda", 0),
                               init_method=init, timeout_s=180)
     refs = json.loads((OUT / cs.TS_REFS).read_text())
     t0 = time.perf_counter()
-    out = {"fg": fg_rank, "h": h_rank}.get(mode, cs.ts_rank)(rank, refs)
+    if mode == "moe":
+        out = moe_rank(rank, grid)
+    else:
+        out = {"fg": fg_rank, "h": h_rank}.get(mode, cs.ts_rank)(rank, refs)
     out["seconds"] = time.perf_counter() - t0
     grid.close()
     (OUT / f"rank{rank}.json").write_text(json.dumps(out))
@@ -70,7 +91,8 @@ def main():
     import torch
     from repro_torch.kernels import _build
     mode = ("fg" if "--fg" in sys.argv[1:] else
-            "h" if "--h" in sys.argv[1:] else "all")
+            "h" if "--h" in sys.argv[1:] else
+            "moe" if "--moe" in sys.argv[1:] else "all")
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = cs.nvidia_smi_line()
     print(smi, flush=True)
@@ -82,8 +104,10 @@ def main():
     OUT.mkdir(parents=True)
     t0 = time.perf_counter()
     dev = torch.device("cuda")
-    qwen_run = cs.ts_one_card_run(dev)
-    if mode == "h":
+    qwen_run = cs.ts_one_card_run(dev) if mode != "moe" else None
+    if mode == "moe":
+        refs = {}
+    elif mode == "h":
         model, params = cs.ts_serve_model(dev)
         cut_ref, _, _ = cs.dg_cut_runs(model, params, dev)
         refs = json.loads(json.dumps({"disagg": {"fp32_cut": cut_ref}}))
@@ -115,6 +139,11 @@ def main():
         counts.update(cs.ts_colo_checks(smi, per, refs["colo"]))
     elif mode == "h":
         counts = cs.ts_dp_checks(smi, per, refs["disagg"], qwen_run)
+    elif mode == "moe":
+        layout = {"mesh": {"data": 2, "model": 2}}
+        counts = cs.ep_checks(smi, [{"ep": p["ep"], "grids": {cs.EP_GRID: {
+            "grid": layout}}} for p in per])
+        counts.update(cs.ts_moe_checks(smi, per))
     else:
         counts = cs.ts_checks(smi, per, qwen_run, refs)
     total = collections.defaultdict(int)

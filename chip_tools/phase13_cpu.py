@@ -23,6 +23,15 @@ call.
     # prefills (the full depth's too: tokens do not move the schedule),
     # handoffs, fig12's and fig11's modeled numbers, and the seconds
     PYTHONPATH=src python chip_tools/phase13_cpu.py --serve-counts
+    # phase 12 (e) and 13 (i), the moe family across the ranks of a
+    # (data 2, model 2) grid, at smoke width in 4 CPU ranks: (e)'s fp32
+    # gate of tp and tp_fsdp against one process and its bf16 steps
+    # against one process's, (i)'s engine in fp32 against one process
+    # and in bf16, through the smoke's own checks (each failure printed;
+    # the launch counts fail here, the CPU launches no kernel, and so
+    # does (i)'s spill check: phase 4's trace does not spill at smoke
+    # width); the collectives a rank made and its seconds
+    PYTHONPATH=src python chip_tools/phase13_cpu.py --moe
 
 Each rank runs one torch thread; ~60 s for the first, ~30 s a pool size
 for the second, ~60 s for the third.
@@ -144,6 +153,60 @@ def rehearse():
     return 0
 
 
+def moe_rank_fn(rank, init):
+    import torch
+    torch.set_num_threads(1)
+    cs = smoke_width()
+    from repro_torch.launch import mesh as mesh_lib
+    grid = mesh_lib.init_grid(mesh_lib.Layout((2, 2), ("data", "model")),
+                              rank=rank, device=torch.device("cpu"),
+                              init_method=init, timeout_s=120)
+    t0 = time.perf_counter()
+    out = {"ep": cs.ep_rank(grid)}
+    t1 = time.perf_counter()
+    out["moe"] = cs.ts_moe(rank, torch.device("cpu"))
+    out["seconds"] = {"e": t1 - t0, "i": time.perf_counter() - t1}
+    grid.close()
+    (OUT / f"moe_rank{rank}.json").write_text(json.dumps(out))
+
+
+def moe():
+    """Phase 12 (e) and 13 (i) at smoke width in 4 CPU ranks, through
+    the smoke's checks."""
+    import torch
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "moe_store").unlink(missing_ok=True)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=moe_rank_fn,
+                         args=(r, f"file://{OUT}/moe_store"))
+             for r in range(4)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(600)
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        print(f"rank exit codes {codes}")
+        return 1
+    torch.set_num_threads(1)
+    cs = smoke_width()
+    per = [json.loads((OUT / f"moe_rank{r}.json").read_text())
+           for r in range(4)]
+    failed = []
+    cs.check = lambda cond, msg: cond or failed.append(msg)
+    cs.emit = lambda obj: print(json.dumps(obj)[:1500])
+    layout = {"mesh": {"data": 2, "model": 2}}
+    cs.ep_checks("cpu", [{"ep": p["ep"], "grids": {cs.EP_GRID: {
+        "grid": layout}}} for p in per])
+    cs.ts_moe_checks("cpu", per)
+    for msg in failed:
+        print("FAILED:", msg[:600])
+    print(f"(e), (i): {len(failed)} checks failed; seconds a rank "
+          f"{[p['seconds'] for p in per]}; (i) collectives on rank 0 "
+          f"{per[0]['moe']['bfloat16']['collective_calls']}")
+    return 0
+
+
 def serve_counts():
     import torch
     torch.set_num_threads(4)
@@ -219,9 +282,12 @@ def main():
     p = argparse.ArgumentParser()
     p.add_argument("--pages", type=int, nargs="*")
     p.add_argument("--serve-counts", action="store_true")
+    p.add_argument("--moe", action="store_true")
     args = p.parse_args()
     if args.serve_counts:
         return serve_counts()
+    if args.moe:
+        return moe()
     return quota(args.pages) if args.pages else rehearse()
 
 

@@ -127,10 +127,12 @@ def _exchange_reduce(out: torch.Tensor, inp: torch.Tensor, group,
 
 
 def _collective(grid: RankGrid, axes: Tuple[str, ...], kind: str, out,
-                inp, run) -> None:
+                inp, run, what: str = "") -> None:
     """``run(out, inp, group)`` over the group of ``axes``, staged on
     pinned host copies when ``grid.stages_on_host`` (gloo, tensors on a
-    card), else on the tensors themselves; counted in ``grid.stats``."""
+    card), else on the tensors themselves; counted in ``grid.stats``
+    under ``kind``, or ``kind:what`` where the caller names what it
+    moves (the moe layer's, ``sharding.tp``)."""
     group = grid.group(axes)
     n = grid.size(axes)
     if grid.stages_on_host:
@@ -150,23 +152,24 @@ def _collective(grid: RankGrid, axes: Tuple[str, ...], kind: str, out,
             torch.cuda.current_stream(out.device).synchronize()
     grid.stats.add(tuple(a for a in grid.axis_names
                          if a in axes and grid.layout.axis_size(a) > 1),
-                   kind,
+                   f"{kind}:{what}" if what else kind,
                    moved_bytes(kind, _nbytes(out), n),
                    time.perf_counter() - t0)
 
 
 def all_reduce(t: torch.Tensor, grid: RankGrid, axes: Tuple[str, ...],
-               op: str = "sum") -> torch.Tensor:
+               op: str = "sum", what: str = "") -> torch.Tensor:
     """In place: ``t`` becomes its sum (or ``"max"``) over the group."""
     if grid.group(axes) is None:
         return t
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     if grid.backend == "gloo" and _nbytes(t) <= EXCHANGE_BYTES:
         _collective(grid, axes, "all-reduce", t, t,
-                    lambda o, i, g: _exchange_reduce(o, i, g, op))
+                    lambda o, i, g: _exchange_reduce(o, i, g, op), what)
     else:
         _collective(grid, axes, "all-reduce", t, t,
-                    lambda o, i, g: dist.all_reduce(o, op=red, group=g))
+                    lambda o, i, g: dist.all_reduce(o, op=red, group=g),
+                    what)
     return t
 
 
@@ -184,25 +187,25 @@ def reduce_scatter(x: torch.Tensor, grid: RankGrid,
 
 
 def all_gather(x: torch.Tensor, grid: RankGrid,
-               axes: Tuple[str, ...]) -> torch.Tensor:
+               axes: Tuple[str, ...], what: str = "") -> torch.Tensor:
     """The group's 1-D tensors concatenated in rank order."""
     n = grid.size(axes)
     if grid.group(axes) is None:
         return x.clone()
     out = torch.empty(x.numel() * n, dtype=x.dtype, device=x.device)
     _collective(grid, axes, "all-gather", out, x.contiguous(),
-                lambda o, i, g: _ALL_GATHER(o, i, group=g))
+                lambda o, i, g: _ALL_GATHER(o, i, group=g), what)
     return out
 
 
 def all_gather_dim(x: torch.Tensor, grid: RankGrid, axes: Tuple[str, ...],
-                   dim: int) -> torch.Tensor:
+                   dim: int, what: str = "") -> torch.Tensor:
     """The group's tensors concatenated along ``dim`` in rank order."""
     n = grid.size(axes)
     if grid.group(axes) is None:
         return x
     front = x.movedim(dim, 0).contiguous()
-    out = all_gather(front.reshape(-1), grid, axes)
+    out = all_gather(front.reshape(-1), grid, axes, what)
     return out.reshape((n * front.shape[0],) + front.shape[1:]).movedim(
         0, dim)
 

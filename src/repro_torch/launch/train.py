@@ -22,6 +22,14 @@
         --nproc-per-node 4 --max-restarts 1 -m repro_torch.launch.train \
         --smoke --device cpu --steps 3 --batch 8 --seq 32
 
+    # expert parallelism: olmoe's experts over the model axis of a
+    # 2-accelerator lease (--pool-model-parallel 1: its rows over data,
+    # the dispatch group the whole batch)
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 2 -m repro_torch.launch.train --smoke \
+        --device cpu --arch olmoe-1b-7b --steps 3 --batch 8 --seq 32 \
+        --pool scalepool --pool-accels 2 --pool-model-parallel 2
+
 Runs the full stack: data pipeline → train step (remat, microbatches,
 data-parallel reduction) → AdamW → async checkpointing → fault-tolerant
 loop with straggler monitoring.  ``--offload-optimizer`` keeps the AdamW
@@ -64,8 +72,9 @@ pipeline yields no ``frame_embeds``; it trains through
 attention or SSD scan the backward kernels do not take (the smoke
 configs' head_dim 16, or SSD head_dim P 16), and across processes a
 layout the world does not fill or that ``profiles.grid_refusal``
-leaves to a later slice (the moe, ssm, hybrid and encdec families under
-a ``model`` axis, heads that do not divide it).  Collectives time out
+leaves to a later slice (the ssm, hybrid and encdec families under a
+``model`` axis, heads that do not divide it; the dense and moe families
+train there, moe with its experts over ``model``).  Collectives time out
 (``launch.mesh.DEFAULT_TIMEOUT_S``), so a dead rank makes the others
 raise instead of waiting forever.
 """

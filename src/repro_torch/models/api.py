@@ -13,8 +13,8 @@
                                             ``batch`` carries
                                             ``frame_embeds``)
     model.param_axes()                   -> the logical axes of init's tree
-                                            (the dense family; None on
-                                            the others)
+                                            (the dense and moe families;
+                                            None on the others)
     model.init_cache(batch, max_seq, dtype=...) -> the family's cache
     model.cache_axes()                   -> the logical axes of its leaves
                                             (the dense, moe and encdec
@@ -102,8 +102,8 @@ def build_model(cfg: ModelConfig, *, device: DeviceLike = None) -> Model:
         prefill=lambda p, b, c: m.prefill(p, cfg, b, c),
         decode=decode,
         loss=loss,
-        param_axes=((lambda: m.param_axes(cfg)) if cfg.family == "dense"
-                    else None),
+        param_axes=((lambda: m.param_axes(cfg))
+                    if cfg.family in ("dense", "moe") else None),
         cache_axes=getattr(m, "cache_axes", None),
         **paged,
     )

@@ -294,7 +294,11 @@ def attention_fwd_paged(params, x: torch.Tensor, cfg: AttentionConfig, *,
     The new token's K/V is scattered into each row's current page IN
     PLACE (the reference's ``.at[].set`` copy gives the same contents),
     then the paged kernel gathers the whole prefix through the page
-    table.  Returns out (B, 1, d).
+    table.  Rows that write one slot (idle rows, all at the trash page's
+    first) write the last such row's K/V: every one of them then reads
+    it, as the reference's scatter leaves it on the CPU, in the same
+    bits on every launch (a scatter of duplicate indices leaves either
+    on the card).  Returns out (B, 1, d).
 
     Under tensor parallelism ``cfg`` holds the rank's local heads
     (``tp.Plan.local_attention``), the projections are its columns and
@@ -308,10 +312,13 @@ def attention_fwd_paged(params, x: torch.Tensor, cfg: AttentionConfig, *,
     ps = k_pages.shape[1]
     q, k, v = project_qkv(params, x, cfg, positions=positions)
     lens = lengths.long()
-    phys = page_table.long()[torch.arange(B, device=x.device), lens // ps]
+    rows = torch.arange(B, device=x.device)
+    phys = page_table.long()[rows, lens // ps]
     off = lens % ps
-    k_pages.index_put_((phys, off), k[:, 0].to(k_pages.dtype))
-    v_pages.index_put_((phys, off), v[:, 0].to(v_pages.dtype))
+    slot = phys * ps + off
+    last = torch.where(slot[:, None] == slot[None, :], rows, -1).amax(1)
+    k_pages.index_put_((phys, off), k[last, 0].to(k_pages.dtype))
+    v_pages.index_put_((phys, off), v[last, 0].to(v_pages.dtype))
     out = ops.paged_attention(q, k_pages, v_pages, page_table, lengths + 1,
                               sliding_window=cfg.sliding_window)
     return out.reshape(B, S, H * hd) @ params["wo"]

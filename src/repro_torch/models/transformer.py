@@ -103,20 +103,50 @@ def _mlp_residual(params, x, h, attn_out, cfg: ModelConfig, plan=None):
     return x + _mlp(params, h2, cfg, plan)
 
 
-def block_fwd(params, x: torch.Tensor, cfg: ModelConfig, *,
+def attention(params, x: torch.Tensor, cfg: ModelConfig, plan, *,
               positions: torch.Tensor, kv_cache=None,
-              cache_index: Optional[int] = None) -> torch.Tensor:
-    plan = tp.plan()
+              cache_index: Optional[int] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(norm1(x), the block's attention output): under a plan on the
+    rank's local heads, its input behind ``copy_to_model`` and its
+    output summed over ``model`` (the dense and moe blocks)."""
     acfg = attn_config(cfg)
     if plan is not None:
-        params = tp.gather_params(params, block_axes(cfg), plan,
-                                  dtype_of(cfg.compute_dtype))
         acfg = plan.local_attention(acfg)
     h = L.apply_norm(x, params["norm1"], cfg.norm_type)
     attn_out, _ = L.attention_fwd(params["attn"], tp.copy_to_model(h, plan),
                                   acfg, positions=positions,
                                   kv_cache=kv_cache, cache_index=cache_index)
-    attn_out = tp.reduce_from_model(attn_out, plan)
+    return h, tp.reduce_from_model(attn_out, plan)
+
+
+def attention_paged(params, x: torch.Tensor, cfg: ModelConfig, plan, *,
+                    positions: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, page_table: torch.Tensor,
+                    lengths: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``attention`` for decode over a paged KV pool (one token a row):
+    under a plan the rank's local heads over its pages (its kv heads)."""
+    acfg = attn_config(cfg)
+    if plan is not None:
+        acfg = plan.local_attention(acfg)
+    h = L.apply_norm(x, params["norm1"], cfg.norm_type)
+    attn_out = L.attention_fwd_paged(
+        params["attn"], tp.copy_to_model(h, plan), acfg,
+        positions=positions, k_pages=k_pages, v_pages=v_pages,
+        page_table=page_table, lengths=lengths)
+    return h, tp.reduce_from_model(attn_out, plan)
+
+
+def block_fwd(params, x: torch.Tensor, cfg: ModelConfig, *,
+              positions: torch.Tensor, kv_cache=None,
+              cache_index: Optional[int] = None) -> torch.Tensor:
+    plan = tp.plan()
+    if plan is not None:
+        params = tp.gather_params(params, block_axes(cfg), plan,
+                                  dtype_of(cfg.compute_dtype))
+    h, attn_out = attention(params, x, cfg, plan, positions=positions,
+                            kv_cache=kv_cache, cache_index=cache_index)
     return _mlp_residual(params, x, h, attn_out, cfg, plan)
 
 
@@ -128,15 +158,9 @@ def block_fwd_paged(params, x: torch.Tensor, cfg: ModelConfig, *,
     under a plan, attention on the rank's local heads over its pages
     (its kv heads) and the MLP column -> row, as ``block_fwd``."""
     plan = tp.plan()
-    acfg = attn_config(cfg)
-    if plan is not None:
-        acfg = plan.local_attention(acfg)
-    h = L.apply_norm(x, params["norm1"], cfg.norm_type)
-    attn_out = L.attention_fwd_paged(
-        params["attn"], tp.copy_to_model(h, plan), acfg,
-        positions=positions, k_pages=k_pages, v_pages=v_pages,
-        page_table=page_table, lengths=lengths)
-    attn_out = tp.reduce_from_model(attn_out, plan)
+    h, attn_out = attention_paged(
+        params, x, cfg, plan, positions=positions, k_pages=k_pages,
+        v_pages=v_pages, page_table=page_table, lengths=lengths)
     return _mlp_residual(params, x, h, attn_out, cfg, plan)
 
 
@@ -230,15 +254,17 @@ def remat(fn, x: torch.Tensor):
     """``fn(x)`` whose activations are recomputed in the backward pass
     (the reference's ``jax.checkpoint(..., nothing_saveable)`` layer
     body), through the same kernels or plain versions as this forward,
-    under the same rules and grid: the recompute runs on autograd's
-    thread, where the caller's ``plain_versions()`` and ``use_rules`` are
-    not set, so both are read here."""
+    under the same rules, grid and row split: the recompute runs on
+    autograd's thread, where the caller's ``plain_versions()``,
+    ``use_rules`` and ``tp.split_rows`` are not set, so all three are
+    read here."""
     plain = ops.plain_enabled()
     rules, mesh = partition.current_rules(), partition.current_mesh()
+    split = tp.row_split()
 
     def body(h):
         with ops.plain_versions() if plain else contextlib.nullcontext(), \
-                partition.use_rules(rules, mesh):
+                partition.use_rules(rules, mesh), tp.split_rows(split):
             return fn(h)
 
     return checkpoint(body, x, use_reentrant=False)
@@ -255,37 +281,41 @@ def logits_fn(params, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
 
 
 def lm_loss(forward_fn, params, cfg: ModelConfig,
-            batch: Dict[str, torch.Tensor], remat: bool) -> torch.Tensor:
+            batch: Dict[str, torch.Tensor], remat: bool, *,
+            aux_coef: Optional[float] = None,
+            axes_fn=None) -> torch.Tensor:
     """Mean next-token cross entropy of ``batch`` ({"tokens", "labels"}
     and an optional "mask") through a family's ``forward_fn`` (returning
     hidden states first), differentiable in the masters ``params``: they
     are cast to the compute dtype here, inside the graph, as the
-    reference's ``forward`` casts them.  Under a plan
-    (``repro_torch.sharding.tp``; the dense family) the lookup and the
-    loss are vocab-parallel and the table is gathered once."""
+    reference's ``forward`` casts them.  ``aux_coef``: plus that times
+    the last thing ``forward_fn`` returns (the moe family's
+    load-balancing loss).  Under a plan (``repro_torch.sharding.tp``;
+    the dense and moe families, ``axes_fn(cfg)`` the family's
+    ``param_axes``) the lookup and the loss are vocab-parallel and the
+    table is gathered once."""
     plan = tp.plan()
     if plan is not None:
-        return _lm_loss_tp(forward_fn, params, cfg, batch, remat, plan)
-    params = cast_params(params, cfg)
-    hidden = forward_fn(params, cfg, batch, remat=remat)[0]
-    logits = logits_fn(params, cfg, hidden)
-    return L.cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
-
-
-def _lm_loss_tp(forward_fn, params, cfg: ModelConfig, batch, remat: bool,
-                plan) -> torch.Tensor:
-    if cfg.family != "dense":
-        raise ValueError(f"{cfg.name}: only the dense family runs under a "
-                         f"tensor-parallel / FSDP plan")
-    dtype = dtype_of(cfg.compute_dtype)
-    axes = param_axes(cfg)
-    params = tp.cast_params(params, axes, plan, dtype)
-    params["embedding"] = tp.gather_params(params["embedding"],
-                                           axes["embedding"], plan, dtype)
-    hidden = forward_fn(params, cfg, batch, remat=remat)[0]
-    logits = L.unembed(params["embedding"], hidden, plan=plan)
-    return tp.vocab_parallel_cross_entropy(logits, batch["labels"],
-                                           batch.get("mask"), cfg.vocab, plan)
+        if cfg.family not in ("dense", "moe"):
+            raise ValueError(f"{cfg.name}: only the dense and moe families "
+                             f"run under a tensor-parallel / FSDP plan")
+        dtype = dtype_of(cfg.compute_dtype)
+        axes = (axes_fn or param_axes)(cfg)
+        params = tp.cast_params(params, axes, plan, dtype)
+        params["embedding"] = tp.gather_params(params["embedding"],
+                                               axes["embedding"], plan, dtype)
+    else:
+        params = cast_params(params, cfg)
+    out = forward_fn(params, cfg, batch, remat=remat)
+    if plan is not None:
+        logits = L.unembed(params["embedding"], out[0], plan=plan)
+        loss = tp.vocab_parallel_cross_entropy(
+            logits, batch["labels"], batch.get("mask"), cfg.vocab, plan)
+    else:
+        logits = logits_fn(params, cfg, out[0])
+        loss = L.cross_entropy_loss(logits, batch["labels"],
+                                    batch.get("mask"))
+    return loss if aux_coef is None else loss + aux_coef * out[-1]
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,

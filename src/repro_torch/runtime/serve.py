@@ -20,7 +20,9 @@ of the grid (``make_rules(..., fsdp=False)``, the reference's): a step
 takes the global batch and serves the rank's block of its rows (the
 rules' ``batch`` axes, every row where they leave it unsharded) on the
 rank's shards of the model (``sharding.tp``: heads and kv heads over
-``model``, the dense family), over a cache of its rows and kv heads.
+``model``, the dense and moe families, moe's experts too), over a cache
+of its rows and kv heads; moe's dispatch group stays the whole batch
+(``tp.split_rows``), the reference's one group.
 The greedy token is ``tp.vocab_parallel_argmax`` of the rank's vocab
 columns, gathered over the batch axes (``core.hierarchy``, counted in
 the grid's ``CollectiveStats``): the carry's ``tokens`` are the global
@@ -211,16 +213,19 @@ def _steps(model: Model, shape: ShapeConfig, grid):
     plan_ = tp.Plan(grid, make_rules(model.cfg, shape, grid, fsdp=False))
     encdec = model.cfg.family == "encdec"
     vocab = model.cfg.vocab
+    # the rank's rows are its block of the batch: the moe layer's
+    # dispatch group stays the whole batch
+    split = tp.split_of(grid, plan_.batch_axes)
 
     def prefill_step(params, batch, cache):
         local = {k: _take_rows(plan_, v) for k, v in batch.items()}
-        with _scope(plan_):
+        with _scope(plan_), tp.split_rows(split):
             return model.prefill(params, local, cache)
 
     def decode_step(params, carry: Dict[str, Any]
                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         extra = (carry["enc_states"],) if encdec else ()
-        with _scope(plan_):
+        with _scope(plan_), tp.split_rows(split):
             logits, cache = model.decode(
                 params, _take_rows(plan_, carry["tokens"]), carry["cache"],
                 carry["index"], *extra)
@@ -247,9 +252,9 @@ def make_lease_session(model: Model, shape: ShapeConfig, lease, *,
     ``make_rules(..., fsdp=False)``): rows over the data axes, heads
     over ``model`` (see the module's docstring).  Refused
     (``profiles.grid_refusal``), each naming its slice: a ``model`` axis
-    over 1 bound to one process (several cards), moe across ranks with a
-    data axis over 1, the other families under a ``model`` axis over 1,
-    heads that do not divide it."""
+    over 1 bound to one process (several cards), the ssm, hybrid and
+    encdec families under a ``model`` axis over 1, heads that do not
+    divide it."""
     binding = lease.materialize(None if device is None else [device])
     rules = make_rules(model.cfg, shape, binding, fsdp=False)
     why = grid_refusal(binding, rules, model.cfg, serving=True)

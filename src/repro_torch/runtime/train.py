@@ -21,18 +21,28 @@ gradients on them, reduces, and runs the same AdamW update, so every
 rank ends with the same parameters.  Without a grid the step is the
 one-device step; on a world of one, ``auto`` is that step too.
 
-Tensor parallelism and FSDP (the dense family; ``repro_torch.sharding.
-tp``): where the rules shard the parameters (a ``model`` axis over 1,
-``embed`` on a mesh axis), the state holds this rank's blocks
-(``state_from_params`` cuts them from a full tree), the loss runs under
-the rules and grid, and the ranks of one data coordinate take the same
-rows.  The gradients of leaves FSDP does not shard go through the
-schedules above over the data axes, within the rank's model coordinate;
-those of FSDP's leaves come back from the gathers' backward already
-summed over ``data``: they are divided by its size and take only the
-pod phase (flat or cross-pod mean, compressed or not).  Under
+Tensor parallelism and FSDP (the dense and moe families;
+``repro_torch.sharding.tp``): where the rules shard the parameters (a
+``model`` axis over 1, ``embed`` on a mesh axis), the state holds this
+rank's blocks (``state_from_params`` cuts them from a full tree), the
+loss runs under the rules and grid, and the ranks of one data
+coordinate take the same rows.  The gradients of leaves FSDP does not
+shard go through the schedules above over the data axes, within the
+rank's model coordinate; those of FSDP's leaves come back from the
+gathers' backward already summed over ``data``: they are divided by its
+size and take only the pod phase (flat or cross-pod mean, compressed or
+not).  Under
 ``compress_pod`` a compressed leaf's scale is its largest |gradient|
 over every rank (pods, data and model blocks).
+
+The moe family's dispatch group is the reference's: the step's whole
+batch under ``auto`` (the step states that its rows are split,
+``tp.split_rows``; ``moe_mlp_fwd`` gathers every rank's entries'
+experts), and each pod's rows under ``hierarchical``, whose per-pod
+program in the reference routes and balances a pod's tokens alone
+(ROADMAP C-ref10).
+Every rank's loss holds the group's load-balancing term, which the mean
+over the data ranks counts once (``tp.sum_over_rows``).
 
 The step takes and returns a ``TrainState`` of fp32 masters, AdamW
 state and residuals; it is functional (the inputs are not modified), and
@@ -124,6 +134,21 @@ def batch_rows(mesh, rules: Optional[Rules], shape: ShapeConfig,
         raise ValueError(f"batch {B} does not split over {n} ranks x "
                          f"{microbatches} microbatches")
     return mesh.index(axes) * (B // n), B // n
+
+
+def dispatch_split(mesh, rules: Optional[Rules],
+                   tcfg: TrainStepConfig) -> Optional[tp.RowSplit]:
+    """The ``RowSplit`` a step's loss runs under: its rows over the
+    rules' ``batch`` axes (``batch_rows``) but ``pod`` under
+    ``hierarchical``, whose pods each take their rows as a batch of
+    their own; None where no axis over 1 is left."""
+    if mesh is None:
+        return None
+    axes = rules.spec("batch")[0] if rules is not None else mesh.data_axes
+    axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
+    if tcfg.dp_mode == "hierarchical":
+        axes = tuple(a for a in axes if a != "pod")
+    return tp.split_of(mesh, axes)
 
 
 def _fsdp_axes(block) -> Tuple[str, ...]:
@@ -252,6 +277,7 @@ def make_train_step(model: Model, optimizer: AdamW, shape: ShapeConfig, *,
             raise ValueError(why)
         rows = batch_rows(mesh, rules, shape, tcfg.microbatches)
         blocks = param_blocks(model, mesh, rules)
+    split = dispatch_split(mesh, rules, tcfg)
     distributed = mesh is not None and (mesh.world > 1
                                         or tcfg.dp_mode != "auto")
     moments_out = tiering is not None and tiering.offload_optimizer
@@ -269,7 +295,7 @@ def make_train_step(model: Model, optimizer: AdamW, shape: ShapeConfig, *,
         params = tree_map(onload, state.params) if masters_out \
             else state.params
         with partition.use_rules(rules, mesh) if blocks is not None \
-                else contextlib.nullcontext():
+                else contextlib.nullcontext(), tp.split_rows(split):
             loss, grads = _accumulated_grads(model, params, batch, tcfg)
         residuals = state.residuals
         if distributed:

@@ -62,7 +62,9 @@ decode rules' ``batch`` over data axes (``data``, ``pod``) each rank
 decodes its block of each decode bucket's rows; the pool is replicated
 over those axes, as the reference's unconstrained pool is under GSPMD,
 and kept equal by one all-gather a step of the rows' new K/V and tokens
-(``_decode_rows``).  Tokens alone fix the schedule, so every rank pages,
+(``_decode_rows``); an moe block with idle rows carries the bucket's
+last idle row, whose K/V its idle rows read, as a shadow
+(``_trash_source``).  Tokens alone fix the schedule, so every rank pages,
 spills and fetches alike (each moving its own head shard) and keeps the
 reference's modeled clocks; ``page_bytes`` stays the whole model's, so
 tier-2 charges are the reference's too.  Tenants of one such lease share
@@ -484,8 +486,8 @@ class Engine:
         joined once by its first tenant, and its pool of the rank's kv
         heads.  Refused (``profiles.grid_refusal``), each naming the
         slice that brings it: a ``model`` axis over 1 outside a world of
-        as many ranks, moe with a ``data`` or ``pod`` axis over 1 (3d),
-        and a family or head count the rules do not shard (3d-3g)."""
+        as many ranks, and a family or head count the rules do not shard
+        (3e-3g)."""
         binding = lease.materialize(None if device is None else [device])
         rules = make_rules(model.cfg, ShapeConfig(
             "engine", "decode", cfg.max_seq, cfg.max_slots), binding,
@@ -1155,7 +1157,8 @@ class Engine:
         # expert capacity grows with the bucket, and in the full bucket
         # (rows in slot order) an idle slot can take a live row's place.
         # So the bucket, the row order and the idle tokens are the
-        # reference's
+        # reference's, and on a data grid the dispatch group stays the
+        # whole bucket (_decode_rows)
         bucket = self._row_bucket(len(running))
         self._row_buckets_used.add(bucket)
         rows = [st.slot for st in running]
@@ -1197,35 +1200,70 @@ class Engine:
         the other blocks' K/V written into the local pool, so every
         replica holds the same pages.  Prefill, recompute, swap-out,
         swap-in and a handoff's pages run on every replica alike; only
-        decode is split."""
+        decode is split.  The moe layer's dispatch group stays the
+        bucket's b rows (``tp.split_rows``: every block's entries'
+        experts gathered, the padding rows routed nowhere), as the
+        reference's one group over the whole bucket."""
         start, count = 0, len(sel)
         axes = () if self.plan is None else self.plan.batch_axes
+        shadow = None
         if axes:
             start, count = self.plan.rows(len(sel))
             per = -(-len(sel) // self.grid.size(axes))
+            if self.model.cfg.family == "moe":
+                shadow = self._trash_source(sel, start, count, per)
         block = sel[start:start + count]
+        if shadow is not None:
+            block = np.append(block, sel[shadow])
         tok = self._slot_tok[block].astype(np.int64)
         table = self._table[block]
         lengths = self._lengths[block]
         if axes and count < per:
             pad = per - count
-            tok = np.concatenate([tok, np.zeros(pad, np.int64)])
-            table = np.concatenate([table, np.full(
-                (pad, table.shape[1]), self._trash, np.int32)])
-            lengths = np.concatenate([lengths, np.zeros(pad, np.int32)])
+            at = [count] * pad
+            tok = np.insert(tok, at, 0)
+            table = np.insert(table, at, self._trash, axis=0)
+            lengths = np.insert(lengths, at, 0)
         dev = self.device
         toks = torch.as_tensor(tok[:, None]).to(dev)
         table = torch.as_tensor(table).to(dev)
         lengths = torch.as_tensor(lengths).to(dev)
-        with self._scope():
+        # the moe layer's dispatch group is the bucket's rows, every
+        # block's, the padding of a short block and a shadow row not
+        # among them
+        split = (tp.split_of(self.grid, axes, rows=len(sel), real=count,
+                             shadow=shadow) if axes else None)
+        with self._scope(), tp.split_rows(split):
             logits, _ = self.model.decode_paged(self.params, toks,
                                                 self._pool, table, lengths)
             new_toks = tp.vocab_parallel_argmax(
                 logits[:, -1, :], self.model.cfg.vocab, self.plan)
         if axes:
-            new_toks = self._share_rows(new_toks, table, lengths, axes,
-                                        sel, running)
+            new_toks = self._share_rows(new_toks[:per], table[:per],
+                                        lengths[:per], axes, sel, running)
         return new_toks[:len(sel)].cpu().numpy()
+
+    def _trash_source(self, sel: np.ndarray, start: int, count: int,
+                      per: int) -> Optional[int]:
+        """The row of ``sel`` this rank appends to its block (``start``,
+        ``count`` rows, padded to ``per``) as a shadow, or None.  Every
+        idle row writes the trash page's first slot and reads the K/V
+        the bucket's last such row wrote there (``layers.
+        attention_fwd_paged``); an moe idle row's output, and so the
+        capacity it takes from the others, follows it.  A block that has
+        idle rows but not that row last among its trash writers (its
+        padding rows write there too) appends that row, computed as its
+        owner computes it and counted nowhere (``tp.RowSplit.shadow``),
+        so the slot holds its K/V on every replica."""
+        ps = self.cfg.page_size
+        lens = self._lengths[sel]
+        trash = self._table[sel, lens // ps] == self._trash
+        if not trash[start:start + count].any():
+            return None
+        last = int(np.nonzero(trash)[0][-1])
+        if start <= last < start + count and count == per:
+            return None
+        return last
 
     def _share_rows(self, new_toks: torch.Tensor, table: torch.Tensor,
                     lengths: torch.Tensor, axes: Tuple[str, ...],

@@ -19,12 +19,15 @@ The table is the reference's, entry for entry, from the same inputs.
 ``make_rules`` reads only the mesh's ``axis_names`` and ``shape`` (a
 tuple of sizes): the port's ``launch.mesh.Layout`` and ``RankGrid``
 serve it.  The training step reads ``batch`` for each rank's rows, and
-for the dense family the parameters' entries: ``model`` (tensor
-parallelism) and ``embed`` (FSDP) place each leaf's block
-(``partition.tree_shardings``); serving across ranks reads the decode
-table's (``kv_heads`` over ``model``, FSDP off, and the rows of a
-fixed-batch step or of an engine's decode bucket by ``batch`` over the
-data axes); ``grid_refusal`` says what waits for a later slice.
+for the dense and moe families the parameters' entries: ``model``
+(tensor and expert parallelism: ``expert`` or ``expert_ff``) and
+``embed`` (FSDP) place each leaf's block (``partition.tree_shardings``);
+serving across ranks reads the decode table's (``kv_heads`` over
+``model``, FSDP off, and the rows of a fixed-batch step or of an
+engine's decode bucket by ``batch`` over the data axes); ``moe_groups``
+has no reader: the port's dispatch group is the whole batch, the
+reference's one group (``tp.split_rows``); ``grid_refusal`` says what
+waits for a later slice.
 """
 
 from __future__ import annotations
@@ -70,23 +73,23 @@ def grid_refusal(mesh, rules: Optional[Rules],
     run has, one process each (default ``mesh.world``, else 1).
 
     Tensor parallelism over ``model`` and FSDP (``embed`` on a mesh
-    axis) run the dense family's training step.  Serving across ranks
-    (``serving``, one rank a process, ``repro_torch.sharding.tp``) runs
-    on (pod, data, model) on every path: the fixed-batch session, the
-    request-level engine, tenants of one arbiter and engines on a shared
-    transport (a disaggregated cluster's tiers, co-resident engines)
-    take their rows over the data axes (the rules' ``batch``) and their
-    heads over ``model``.  What waits for a later slice, each refusal
-    naming its ROADMAP item: moe on any serving path with a ``data`` or
-    ``pod`` axis over 1 (3d: its dispatch groups follow the batch axes,
-    so a row's output depends on its group, C-ref5), the moe, ssm,
-    hybrid and encdec families under a ``model`` axis over 1 or FSDP
-    (3d-3f), and attention heads or kv heads that do not divide
-    ``model`` (3g, the reference's context-parallel ``seq_attn``
-    fallback).  A grid of other than ``world`` ranks under a ``model``
-    axis over 1 or in a world of ranks (a lease binding several cards to
-    one process, a world that does not fill the grid) is refused: a
-    lease never serves on one card alone."""
+    axis) run the dense and moe families' training steps (moe: expert
+    parallelism, its experts or their ``expert_ff`` columns over
+    ``model``).  Serving across ranks (``serving``, one rank a process,
+    ``repro_torch.sharding.tp``) runs both families on (pod, data,
+    model) on every path: the fixed-batch session, the request-level
+    engine, tenants of one arbiter and engines on a shared transport (a
+    disaggregated cluster's tiers, co-resident engines) take their rows
+    over the data axes (the rules' ``batch``; moe's dispatch group stays
+    the whole batch) and their heads over ``model``.  What waits for a
+    later slice, each refusal naming its ROADMAP item: the ssm, hybrid
+    and encdec families under a ``model`` axis over 1 or FSDP (3e, 3f),
+    and attention heads or kv heads that do not divide ``model`` (3g,
+    the reference's context-parallel ``seq_attn`` fallback).  A grid of
+    other than ``world`` ranks under a ``model`` axis over 1 or in a
+    world of ranks (a lease binding several cards to one process, a
+    world that does not fill the grid) is refused: a lease never serves
+    on one card alone."""
     sizes = axis_sizes(mesh)
     model_n = sizes.get("model", 1)
     n = _prod(sizes.values())
@@ -95,35 +98,26 @@ def grid_refusal(mesh, rules: Optional[Rules],
     fsdp = any(sizes.get(a, 1) > 1 for a in embed)
     world = getattr(mesh, "world", 1) if world is None else world
     rows = {a: k for a, k in sizes.items() if a != "model" and k > 1}
-    if serving and (model_n > 1 or world > 1):
-        if world != n:
-            where = (f"under a model axis of {model_n}" if not rows
-                     else f"on {sizes}")
-            return (f"serving {where} needs a world of {n} ranks, one "
-                    f"process each (torch.distributed.run), not {world}: "
-                    f"a lease never serves on one card alone")
-        if rows and cfg is not None and cfg.family == "moe":
-            what = " and ".join(f"a {a} axis of {k}" for a, k in rows.items())
-            return (f"{cfg.name}: the moe family serving across ranks "
-                    f"with {what} comes with expert parallelism, a later "
-                    f"slice of the port (ROADMAP Queue A 3d): its dispatch "
-                    f"groups follow the batch axes, so a row's output "
-                    f"depends on its group (C-ref5)")
+    if serving and (model_n > 1 or world > 1) and world != n:
+        where = (f"under a model axis of {model_n}" if not rows
+                 else f"on {sizes}")
+        return (f"serving {where} needs a world of {n} ranks, one "
+                f"process each (torch.distributed.run), not {world}: "
+                f"a lease never serves on one card alone")
     if cfg is None or (model_n == 1 and not fsdp):
         return None
     what = " and ".join(
         w for w, on in ((f"tensor parallelism (a model axis of {model_n})",
                          model_n > 1), ("FSDP", fsdp)) if on)
-    if cfg.family != "dense":
-        later = {"moe": "expert parallelism (ROADMAP Queue A 3d)",
-                 "ssm": "the ssm_* sharding rules (ROADMAP Queue A 3e)",
+    if cfg.family not in ("dense", "moe"):
+        later = {"ssm": "the ssm_* sharding rules (ROADMAP Queue A 3e)",
                  "hybrid": "the ssm_* sharding rules (ROADMAP Queue A 3e)",
                  "encdec": "the encoder-decoder's sharded step (ROADMAP "
                            "Queue A 3f)"}
         return (f"{cfg.name}: the {cfg.family} family under {what} needs "
                 f"{later.get(cfg.family, 'its sharded step')}, which comes "
                 f"with a later slice of the port; this one shards the dense "
-                f"family")
+                f"and moe families")
     if model_n > 1 and (cfg.n_heads % model_n or cfg.n_kv_heads % model_n):
         return (f"{cfg.name}: {cfg.n_heads} heads and {cfg.n_kv_heads} kv "
                 f"heads do not both divide a model axis of {model_n}; the "

@@ -33,6 +33,23 @@ counted by ``repro_torch.core.hierarchy``:
   lowest index among equals (``torch.argmax``'s rule on the whole row),
   the padded columns never.
 
+A model call whose rows are one rank's block of a batch split over the
+grid's batch axes says so (``split_rows``, a ``RowSplit``): the moe
+layer's dispatch group is then the whole batch, as the reference's one
+group (``moe_groups=1``) under GSPMD is.  The caller states it (the
+training step, the fixed-batch session, the engine's decode); a plan
+alone does not tell whether the rows it is given are split.  Two
+collectives over the batch axes serve that group:
+
+* ``gather_experts``: each rank's entries' experts (its tokens' top-k
+  choices), all-gathered: every rank then holds the batch's dispatch
+  list and so every entry's place in it, its own and a shadow row's
+  (``RowSplit.shadow``);
+* ``sum_over_rows``: the all-reduce of the rank's sum of router
+  probabilities (the load-balancing loss's mean); backward, the
+  gradient times the group's size: every rank's loss holds the same
+  aux term, whose gradient the data-parallel mean then divides by it.
+
 The collectives run in program order, the same on every rank of a
 group; a remat recompute (``transformer.remat``) re-runs the forward's
 in the same order during the backward.
@@ -40,8 +57,10 @@ in the same order during the backward.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Any, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -130,24 +149,25 @@ def shard_params(params, axes_tree, plan_: Plan):
 
 class _CopyToModel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, grid):
-        ctx.grid = grid
+    def forward(ctx, x, grid, what):
+        ctx.grid, ctx.what = grid, what
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
         return hierarchy.all_reduce(g.contiguous().clone(), ctx.grid,
-                                    MODEL), None
+                                    MODEL, what=ctx.what), None, None
 
 
 class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, grid):
-        return hierarchy.all_reduce(x.contiguous().clone(), grid, MODEL)
+    def forward(ctx, x, grid, what):
+        return hierarchy.all_reduce(x.contiguous().clone(), grid, MODEL,
+                                    what=what)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
 class _GatherCast(torch.autograd.Function):
@@ -169,16 +189,20 @@ class _GatherCast(torch.autograd.Function):
         return g.to(ctx.dtype), None, None, None
 
 
-def copy_to_model(x: torch.Tensor, plan_: Optional[Plan]) -> torch.Tensor:
+def copy_to_model(x: torch.Tensor, plan_: Optional[Plan],
+                  what: str = "") -> torch.Tensor:
+    """``what``: the name its backward's all-reduce is counted under
+    (``hierarchy``), if any."""
     if plan_ is None or plan_.model_n == 1:
         return x
-    return _CopyToModel.apply(x, plan_.grid)
+    return _CopyToModel.apply(x, plan_.grid, what)
 
 
-def reduce_from_model(x: torch.Tensor, plan_: Optional[Plan]) -> torch.Tensor:
+def reduce_from_model(x: torch.Tensor, plan_: Optional[Plan],
+                      what: str = "") -> torch.Tensor:
     if plan_ is None or plan_.model_n == 1:
         return x
-    return _ReduceFromModel.apply(x, plan_.grid)
+    return _ReduceFromModel.apply(x, plan_.grid, what)
 
 
 def _data_sharded(block: partition.Block) -> bool:
@@ -216,6 +240,98 @@ def gather_params(params, axes_tree, plan_: Plan, dtype):
             else t
         return copy_to_model(t, plan_) if axes == ("head_dim",) else t
     return partition.map_axes(use, axes_tree, params)
+
+
+# ---------------------------------------------------------------------------
+# rows split over the batch axes: the moe layer's whole-batch group
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RowSplit:
+    """A model call's rows as this rank's block of a batch split over
+    ``axes`` of ``grid`` (each over 1), the blocks in the ranks' order
+    end to end (``Plan.rows``).  ``rows``: the batch's rows, every
+    block's together (None: the group's size times this call's, the
+    blocks all alike); ``real``: how many of this block's rows are the
+    batch's, the rest padding it to the others' size (None: all);
+    ``shadow``: the batch row a call appends after its block (and its
+    padding), computed as its owner computes it, counted nowhere (the
+    engine's idle rows read its K/V, ``serve.engine``), or None."""
+    grid: Any                       # launch.mesh.RankGrid
+    axes: Tuple[str, ...]
+    rows: Optional[int] = None
+    real: Optional[int] = None
+    shadow: Optional[int] = None
+
+    @property
+    def n(self) -> int:
+        return self.grid.size(self.axes)
+
+    @property
+    def index(self) -> int:
+        return self.grid.index(self.axes)
+
+    def total(self, local_rows: int) -> int:
+        """The batch's rows, for a call of ``local_rows``."""
+        return self.n * local_rows if self.rows is None else self.rows
+
+
+_SPLIT = contextvars.ContextVar("repro_torch_row_split", default=None)
+
+
+def split_of(grid, axes, rows: Optional[int] = None,
+             real: Optional[int] = None,
+             shadow: Optional[int] = None) -> Optional[RowSplit]:
+    """The ``RowSplit`` of rows over ``axes`` of ``grid``, or None where
+    no grid or no axis over 1 splits them."""
+    if grid is None:
+        return None
+    axes = tuple(a for a in axes if grid.size((a,)) > 1)
+    return RowSplit(grid, axes, rows, real, shadow) if axes else None
+
+
+@contextlib.contextmanager
+def split_rows(split: Optional[RowSplit]) -> Iterator[None]:
+    """Model calls inside run on this rank's block of rows (``split``),
+    or on the whole batch (None)."""
+    token = _SPLIT.set(split)
+    try:
+        yield
+    finally:
+        _SPLIT.reset(token)
+
+
+def row_split() -> Optional[RowSplit]:
+    """The ``RowSplit`` in force (``split_rows``), or None."""
+    return _SPLIT.get()
+
+
+def gather_experts(entries: torch.Tensor, split: RowSplit) -> torch.Tensor:
+    """The batch's dispatch list: every rank's 1-D ``entries`` (its
+    block's token-expert entries, an expert id each, int32), end to end
+    in the ranks' order."""
+    return hierarchy.all_gather(entries.contiguous(), split.grid,
+                                split.axes, what="moe-experts")
+
+
+class _SumOverRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.n = split.n
+        return hierarchy.all_reduce(x.contiguous().clone(), split.grid,
+                                    split.axes, what="moe-aux")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.n, None
+
+
+def sum_over_rows(x: torch.Tensor, split: RowSplit) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``split``'s group.  Every rank
+    of the group computes the same loss term from it, so the sum's
+    gradient, the group's gradients summed, is n times the rank's own;
+    the data-parallel mean of the step then counts the term once."""
+    return _SumOverRows.apply(x, split)
 
 
 # ---------------------------------------------------------------------------

@@ -343,12 +343,15 @@ def tp_pieces(out_dir, seed: int = 0):
 
 
 TP_LAYOUTS = {"2x2": ((2, 2), ("data", "model")),
-              "2x1x2": ((2, 1, 2), ("pod", "data", "model"))}
+              "2x1x2": ((2, 1, 2), ("pod", "data", "model")),
+              "2x2x1": ((2, 2, 1), ("pod", "data", "model"))}
 # (name, dp_mode, compress_pod, fsdp) per layout
 TP_CASES = {"2x2": [("tp", "auto", False, False),
                     ("tp_fsdp", "auto", False, True)],
             "2x1x2": [("hierarchical", "hierarchical", False, False),
-                      ("compress_pod", "hierarchical", True, False)]}
+                      ("compress_pod", "hierarchical", True, False)],
+            "2x2x1": [("auto", "auto", False, False),
+                      ("hierarchical", "hierarchical", False, False)]}
 
 
 def _combo_setup(d, arch, compute, vocab):
@@ -363,11 +366,12 @@ def _combo_setup(d, arch, compute, vocab):
     return model, params, batches
 
 
-def train_tp(out_dir, layout: str, combos, steps: int = 3):
-    """3 steps of each of the layout's ``TP_CASES`` for each combo (a
-    directory under ``out_dir`` with the reference's initial parameters
-    and batches), each case's first step run twice in bits.  Rank 0
-    writes the gathered parameters; every rank its replicated leaves and
+def train_tp(out_dir, layout: str, combos, steps: int = 3, cases=None):
+    """3 steps of each of the layout's ``TP_CASES`` (those named in
+    ``cases``, default all) for each combo (a directory under
+    ``out_dir`` with the reference's initial parameters and batches),
+    each case's first step run twice in bits.  Rank 0 writes the
+    gathered parameters; every rank its replicated leaves and
     (``compress_pod``) its step-1 residual."""
     from repro_torch.sharding import partition
     grid = _grid(*TP_LAYOUTS[layout])
@@ -380,6 +384,8 @@ def train_tp(out_dir, layout: str, combos, steps: int = 3):
         axes = model.param_axes()
         out = {}
         for name, mode, compress, fsdp in TP_CASES[layout]:
+            if cases is not None and name not in cases:
+                continue
             tcfg = train.TrainStepConfig(dp_mode=mode, compress_pod=compress)
             rules = make_rules(model.cfg, shape, grid, fsdp=fsdp,
                                dp_mode=mode)
@@ -408,6 +414,16 @@ def train_tp(out_dir, layout: str, combos, steps: int = 3):
                                     if grid.rank == 0 else None),
                          "residual1": first.residuals.get("g") if compress
                          else None}
+        if grid.rank == 0 and model.cfg.family == "moe" \
+                and compute == "bfloat16":
+            # the port's one-card step on the same batches (the bf16
+            # moe rule of tests/_train_tp_common.py)
+            step = train.make_train_step(model, opt, shape)
+            state = train.state_from_params(_clone(params), opt)
+            for b in batches[:steps]:
+                state, _ = step(state, b)
+            out["one_process"] = {
+                "params": bridge.params_to_reference(state.params)}
         _save(d, f"train_tp_{layout}", grid.rank, out)
     grid.close()
 
@@ -692,10 +708,11 @@ def serve_tenants(out_dir, vocab: int, slots: int, max_seq: int,
 # (tests/test_torch_disagg_tp.py, tests/test_torch_colo_tp.py)
 # ---------------------------------------------------------------------------
 
-def _smoke_fp32(out_dir, vocab: int):
-    """qwen1.5-0.5b smoke in fp32 and the reference's parameters
-    (``<out_dir>/params.pkl``) as the port's full tree."""
-    cfg = dataclasses.replace(get_config("qwen1.5-0.5b", smoke=True),
+def _smoke_fp32(out_dir, vocab: int, arch: str = "qwen1.5-0.5b"):
+    """``arch``'s smoke config (qwen1.5-0.5b's by default) in fp32 and the
+    reference's parameters (``<out_dir>/params.pkl``) as the port's full
+    tree."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
                               compute_dtype="float32", vocab=vocab)
     model = build_model(cfg, device="cpu")
     with open(Path(out_dir) / "params.pkl", "rb") as f:
@@ -716,7 +733,7 @@ def _port_namespace():
 
 def serve_disagg(out_dir, vocab: int, cases,
                  model_parallel: Optional[int] = None,
-                 slots: Optional[int] = None):
+                 slots: Optional[int] = None, arch: str = "qwen1.5-0.5b"):
     """Each of ``cases`` (``tests/_disagg_scenarios.py``) on this world
     of n ranks: every engine of both tiers from the members of one
     ``lease_gang`` of n accelerators each with ``model_parallel``
@@ -724,7 +741,8 @@ def serve_disagg(out_dir, vocab: int, cases,
     (default the scenarios'); writes each case's outcome, Chrome trace
     and decode pools, whether every engine served on the one grid, both
     members' layouts, and the message a cluster whose decode engine sits
-    on a second grid raises."""
+    on a second grid raises.  ``arch``: the smoke config served
+    (qwen1.5-0.5b's by default)."""
     import _disagg_scenarios as D
     from repro_torch.disagg import DisaggCluster, PrefillWorker
     from repro_torch.obs import to_chrome_trace
@@ -732,7 +750,7 @@ def serve_disagg(out_dir, vocab: int, cases,
     from repro_torch.serve import Engine
     dist = _join_world()
     m = dist.get_world_size()
-    model, params = _smoke_fp32(out_dir, vocab)
+    model, params = _smoke_fp32(out_dir, vocab, arch)
     S = _port_namespace()
     gang = smoke_pool("scalepool").lease_gang(
         "disagg-tp", {"prefill": dict(n_accels=m),
@@ -779,13 +797,15 @@ def serve_disagg(out_dir, vocab: int, cases,
 
 
 def serve_colo(out_dir, vocab: int, n_requests: int, n_steps: int,
-               model_parallel: Optional[int] = None):
+               model_parallel: Optional[int] = None,
+               arch: str = "qwen1.5-0.5b"):
     """fig11's hop-only run (``chip_smoke.co_run``) on this world of n
     ranks: both tenants' engines from one lease of n accelerators with
     ``model_parallel`` (default n) on one grid, sharing one
     ``Transport`` with the training job's ``TrainActor``; writes the
     outcome, the clocks, every engine's clock and stats, the Chrome
-    trace, whether both served on one grid and each engine's pool."""
+    trace, whether both served on one grid and each engine's pool.
+    ``arch``: the smoke config served (qwen1.5-0.5b's by default)."""
     import sys
     from repro_torch.obs import Tracer, to_chrome_trace
     from repro_torch.pool import smoke_pool
@@ -793,7 +813,7 @@ def serve_colo(out_dir, vocab: int, n_requests: int, n_steps: int,
     import chip_smoke as cs
     dist = _join_world()
     m = dist.get_world_size()
-    model, params = _smoke_fp32(out_dir, vocab)
+    model, params = _smoke_fp32(out_dir, vocab, arch)
     lease = smoke_pool("scalepool").lease(
         "colo-tp", m, tier2_gb=8, kv_gb=1.0,
         model_parallel=model_parallel or m)
@@ -825,15 +845,23 @@ def serve_colo(out_dir, vocab: int, n_requests: int, n_steps: int,
 # (tests/test_torch_serve_dp.py, tests/test_torch_disagg_colo_dp.py)
 # ---------------------------------------------------------------------------
 
-def _record_rows(engine, calls):
+def _record_rows(engine, calls, drops=None):
     """Each ``decode_paged`` call of ``engine`` appends its rows: (count,
-    lengths, first page of each row's table)."""
+    lengths, first page of each row's table); with ``drops`` (a list of
+    one int) the moe layers' dropped entries of the call's real rows are
+    added to ``drops[0]``."""
+    from repro_torch.models import moe
     inner = engine.model.decode_paged
 
     def decode_paged(p, toks, pools, table, lengths):
         calls.append((int(toks.shape[0]), lengths.tolist(),
                       table[:, 0].tolist()))
-        return inner(p, toks, pools, table, lengths)
+        if drops is None:
+            return inner(p, toks, pools, table, lengths)
+        with moe.record_routing() as routing:
+            out = inner(p, toks, pools, table, lengths)
+        drops[0] += sum(int((~r["kept"]).sum()) for r in routing)
+        return out
     engine.model = dataclasses.replace(engine.model,
                                        decode_paged=decode_paged)
 
@@ -856,27 +884,30 @@ def _requests(rows):
 
 def serve_dp(out_dir, vocab: int, accels: int, model_parallel: int,
              cases, requests, tenant_traces, max_seq: int, page_size: int,
-             tier2_bytes: float, kv_gb: float):
+             tier2_bytes: float, kv_gb: float, arch: str = "qwen1.5-0.5b"):
     """The request-level engine from a lease of ``accels`` with
     ``model_parallel`` on this world (its (pod, data, model) grid),
-    qwen1.5-0.5b smoke in fp32 with the reference's parameters
-    (``<out_dir>/params.pkl``), for each of ``cases`` (``(name, slots,
-    pages)``) over ``requests`` (``[(prompt, max_new, arrival)]``), every
-    engine on the grid the first joined; with ``tenant_traces``
-    ({tenant: requests}, ``(slots, pages)`` the case ``"tenants"``) two
-    tenants of one lease over one arbiter.  Writes each case's tokens,
-    clocks, stats, Chrome trace, pool, every decode call's rows, every
-    row's slots and the collectives."""
+    ``arch``'s smoke config (qwen1.5-0.5b's by default) in fp32 with the
+    reference's parameters (``<out_dir>/params.pkl``), for each of
+    ``cases`` (``(name, slots, pages)``) over ``requests`` (``[(prompt,
+    max_new, arrival)]``, or ``{case: requests}``), every engine on the
+    grid the first joined;
+    with ``tenant_traces`` ({tenant: requests}, ``(slots, pages)`` the
+    case ``"tenants"``) two tenants of one lease over one arbiter.
+    Writes each case's tokens, clocks, stats, Chrome trace, pool, every
+    decode call's rows, every row's slots, the collectives and (moe) the
+    entries its decode calls dropped."""
     from repro_torch.obs import Tracer, to_chrome_trace
     from repro_torch.pool import smoke_pool
     from repro_torch.serve import (Engine, EngineConfig, KVBudget,
                                    PoolArbiter, latency_summary,
                                    run_multi_trace, run_trace)
     dist = _join_world()
-    model, params = _smoke_fp32(out_dir, vocab)
+    model, params = _smoke_fp32(out_dir, vocab, arch)
     pool = smoke_pool("scalepool")
     lease = pool.lease("serve-dp", accels, tier2_gb=64, kv_gb=kv_gb,
                        model_parallel=model_parallel)
+    moe = model.cfg.family == "moe"
     grid, out = None, {}
     for name, slots, pages in cases:
         ecfg = EngineConfig(max_slots=slots, max_seq=max_seq,
@@ -900,12 +931,14 @@ def serve_dp(out_dir, vocab: int, accels: int, model_parallel: int,
                 device="cpu")]
         grid = engines[0].grid
         calls, placed = [[] for _ in engines], [{} for _ in engines]
+        drops = [0] if moe else None
         for e, c, p in zip(engines, calls, placed):
-            _record_rows(e, c)
+            _record_rows(e, c, drops)
             _record_slots(e, p)
         grid.stats.reset()
         if arb is None:
-            lists = [run_trace(engines[0], _requests(requests))]
+            rows = requests[name] if isinstance(requests, dict) else requests
+            lists = [run_trace(engines[0], _requests(rows))]
         else:
             lists = run_multi_trace([
                 (e, _requests(tenant_traces[t]))
@@ -924,8 +957,95 @@ def serve_dp(out_dir, vocab: int, accels: int, model_parallel: int,
             "batch_axes": engines[0].plan.batch_axes,
             "collectives": dict(grid.stats.calls),
             "one_grid": all(e.grid is grid for e in engines),
-            "kv_heads": engines[0].kv_heads}
+            "kv_heads": engines[0].kv_heads,
+            "decode_drops": None if drops is None else drops[0]}
     out["grid"] = grid.describe()
     _save(out_dir, "serve_dp", grid.rank, out)
     grid.close()
+    dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# moe expert parallelism (tests/test_torch_moe_ep.py,
+# tests/test_torch_train_moe_tp.py, tests/test_torch_serve_moe_dp.py)
+# ---------------------------------------------------------------------------
+
+# name -> (grid shape, axes, n_experts): the experts over model (8 of
+# them on 4 ranks), their expert_ff columns (6 do not divide 4), rows
+# over data, rows over pod
+MOE_LAYOUTS = {"1x4": ((1, 4), ("data", "model"), 8),
+               "1x4_ff": ((1, 4), ("data", "model"), 6),
+               "2x2": ((2, 2), ("data", "model"), 8),
+               "2x1x2": ((2, 1, 2), ("pod", "data", "model"), 8)}
+MOE_AUX_WEIGHT = 0.5
+
+
+def moe_layer(out_dir, cases):
+    """``moe.moe_mlp_fwd`` on each of ``MOE_LAYOUTS``' grids (formed in
+    this world of 4 ranks) for each case ``(capacity factor, compute)``:
+    the rank's rows of ``<out_dir>/moe_layer.npz``'s batch (the rules'
+    ``batch`` axes, the dispatch group the whole batch), the rank's
+    blocks of the layer's weights.  Writes the rank's rows of the output,
+    the aux loss, the routing ``record_routing`` saw and, in fp32, the
+    gradients of ``n * sum(out * r) + MOE_AUX_WEIGHT * aux`` (n the
+    group's size) averaged over the batch axes, as the training step's
+    data-parallel mean: the router's and the rank's blocks of ``w_*``,
+    and x's for the rank's rows (over n)."""
+    from repro_torch.models import moe
+    from repro_torch.sharding import partition, tp
+    dist = _join_world()
+    data = np.load(Path(out_dir) / "moe_layer.npz")
+    x_all, r_all = data["x"], data["r"]
+    B, S, _ = x_all.shape
+    out = {}
+    for name, (shape, axes, E) in MOE_LAYOUTS.items():
+        grid = mesh_lib.init_grid(mesh_lib.Layout(shape, axes),
+                                  rank=dist.get_rank(),
+                                  device=torch.device("cpu"))
+        for cf, compute in cases:
+            dtype = getattr(torch, compute)
+            cfg = dataclasses.replace(get_config("olmoe-1b-7b", smoke=True),
+                                      n_experts=E, capacity_factor=cf,
+                                      compute_dtype=compute)
+            rules = make_rules(cfg, ShapeConfig("t", "train", S, B), grid,
+                               fsdp=False)
+            plan = tp.make_plan(grid, rules)
+            split = tp.split_of(grid, plan.batch_axes)
+            start, rows = plan.rows(B)
+            full = {k: torch.from_numpy(data[f"E{E}_{k}"]).to(dtype)
+                    for k in ("router", "w_gate", "w_up", "w_down")}
+            full["router"] = full["router"].float()
+            axes_ = moe.moe_mlp_axes()
+            local = {k: partition.shard_leaf(v, plan.block(axes_[k]))
+                     .requires_grad_(compute == "float32")
+                     for k, v in full.items()}
+            x = torch.from_numpy(x_all[start:start + rows]).to(dtype)
+            x.requires_grad_(compute == "float32")
+            with partition.use_rules(rules, grid), tp.split_rows(split), \
+                    moe.record_routing() as calls:
+                y, aux = moe.moe_mlp_fwd(local, x, cfg)
+                res = {"out": y.detach().float(), "aux": float(aux),
+                       "rows": (start, rows),
+                       "expert_idx": calls[0]["expert_idx"][0],
+                       "kept": calls[0]["kept"][0],
+                       "keep": calls[0]["keep"][0],
+                       "blocks": {k: plan.block(axes_[k]).slices(v.shape)
+                                  for k, v in full.items()}}
+                if compute == "float32":
+                    n = 1 if split is None else split.n
+                    r = torch.from_numpy(r_all[start:start + rows])
+                    leaves = [x] + [local[k] for k in sorted(local)]
+                    loss = n * (y * r).sum() + MOE_AUX_WEIGHT * aux
+                    grads = torch.autograd.grad(loss, leaves)
+                    res["grad_x"] = grads[0] / n
+                    for k, g in zip(sorted(local), grads[1:]):
+                        if split is not None:
+                            g = h.all_reduce(g.clone(), grid,
+                                             split.axes) / split.n
+                        res[f"grad_{k}"] = g
+            res["collectives"] = dict(grid.stats.calls)
+            grid.stats.reset()
+            out[(name, cf, compute)] = res
+        grid.close()
+    _save(out_dir, "moe_layer", dist.get_rank(), out)
     dist.destroy_process_group()

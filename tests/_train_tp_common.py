@@ -11,7 +11,11 @@ Combos: qwen1.5-0.5b and olmo-1b smoke, and qwen with a vocab of 250
 (its table padded to 256 rows: the rank holding the padded rows leaves
 them out of the loss), each in fp32 and bf16 compute.  Tolerances, the
 parameters' rule and the ``compress_pod`` residual comparison (C-ref8)
-are ``tests/test_torch_train_dist.py``'s.
+are ``tests/test_torch_train_dist.py``'s; a bf16 moe combo's parameters
+part from the reference's sharded step's (by more than 3e-3) in at most
+twice as many elements as two bf16 programs of its semantics part, each
+measured beside it: the reference's one-device and sharded steps, the
+port's one-card and the reference's one-device steps (ROADMAP C-port18).
 """
 
 import json
@@ -31,7 +35,7 @@ from repro.models.api import build_model as ref_build
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from _dist_world import load, run_world                       # noqa: E402
-from test_torch_train_dist import (TOL, _close_params,        # noqa: E402
+from test_torch_train_dist import (LR, TOL, _close_params,    # noqa: E402
                                    _port_params, _ref_params)
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -44,12 +48,15 @@ COMBOS = [("qwen_f32", "qwen1.5-0.5b", "float32", 256),
           ("qwen250_bf16", "qwen1.5-0.5b", "bfloat16", 250)]
 B, S, STEPS = 8, 32, 3
 MESHES = {"2x2": ((2, 2), ("data", "model")),
-          "2x1x2": ((2, 1, 2), ("pod", "data", "model"))}
+          "2x1x2": ((2, 1, 2), ("pod", "data", "model")),
+          "2x2x1": ((2, 2, 1), ("pod", "data", "model"))}
 # name -> (dp_mode, compress_pod, fsdp), as _dist_ranks.TP_CASES
 CASES = {"2x2": {"tp": ("auto", False, False),
                  "tp_fsdp": ("auto", False, True)},
          "2x1x2": {"hierarchical": ("hierarchical", False, False),
-                   "compress_pod": ("hierarchical", True, False)}}
+                   "compress_pod": ("hierarchical", True, False)},
+         "2x2x1": {"auto": ("auto", False, False),
+                   "hierarchical": ("hierarchical", False, False)}}
 
 REFERENCE = """
 import json, pickle, sys, dataclasses
@@ -110,6 +117,17 @@ for sub, arch, compute, vocab in json.loads(sys.argv[4]):
             out[f"{name}/params{path}"] = a
         out[f"{name}/metrics"] = np.array(
             [[m["loss"], m["grad_norm"], m["step"]] for m in metrics])
+    if cfg.family == "moe" and compute == "bfloat16":
+        # the reference's own step on one device: how far its bf16 moe
+        # parameters part from its sharded step's
+        step, _ = tr.make_train_step(model, opt, shape)
+        jstep, state = jax.jit(step), tr.TrainState(params, opt.init(params),
+                                                    {})
+        for k in range(data["tokens"].shape[0]):
+            state, _ = jstep(state, {"tokens": jnp.asarray(data["tokens"][k]),
+                                     "labels": jnp.asarray(data["labels"][k])})
+        for path, a in flat(state.params).items():
+            out[f"one_device/params{path}"] = a
     np.savez(d / "reference.npz", **out)
 print("OK")
 """
@@ -130,21 +148,24 @@ def _inputs(d: Path, arch: str, vocab: int) -> None:
              labels=rng.integers(0, vocab, (STEPS, B, S)).astype(np.int32))
 
 
-def run_layout(root: Path, layout: str):
+def run_layout(root: Path, layout: str, combos=COMBOS, cases=None):
     """{combo directory: (reference npz, [each rank's findings])}: the
-    reference in one subprocess, the port's world meanwhile."""
-    for sub, arch, _, vocab in COMBOS:
+    reference in one subprocess, the port's world meanwhile; ``cases``
+    the names of the layout's ``CASES`` to run (default all)."""
+    cases = list(CASES[layout]) if cases is None else list(cases)
+    for sub, arch, _, vocab in combos:
         _inputs(root / sub, arch, vocab)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
     ref = subprocess.Popen(
         [sys.executable, "-c", textwrap.dedent(REFERENCE), str(root),
-         json.dumps(MESHES[layout]), json.dumps(CASES[layout]),
-         json.dumps(COMBOS)], env=env, stdout=subprocess.PIPE,
+         json.dumps(MESHES[layout]),
+         json.dumps({c: CASES[layout][c] for c in cases}),
+         json.dumps(combos)], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
     try:
         run_world(4, "train_tp", root, timeout=240, layout=layout,
-                  combos=COMBOS, steps=STEPS)
+                  combos=combos, steps=STEPS, cases=cases)
         out, _ = ref.communicate(timeout=400)
     finally:
         if ref.poll() is None:
@@ -153,14 +174,14 @@ def run_layout(root: Path, layout: str):
     assert ref.returncode == 0 and "OK" in out, out[-4000:]
     return {c[0]: (np.load(root / c[0] / "reference.npz"),
                    [load(root / c[0], f"train_tp_{layout}", r)
-                    for r in range(4)]) for c in COMBOS}
+                    for r in range(4)], c) for c in combos}
 
 
 def check_against_reference(runs, sub, case):
     """3 steps of ``case``: every rank's loss and grad norm per step, and
     the gathered final parameters, against the reference's."""
-    ref, ranks = runs[sub]
-    compute = next(c[2] for c in COMBOS if c[0] == sub)
+    ref, ranks, combo = runs[sub]
+    compute = combo[2]
     loss_tol, norm_tol, param_tol = TOL[compute]
     want = ref[f"{case}/metrics"]
     for rank in ranks:
@@ -171,18 +192,42 @@ def check_against_reference(runs, sub, case):
             assert abs(got[k]["grad_norm"] - want[k, 1]) <= norm_tol * abs(
                 want[k, 1]), (k, got[k]["grad_norm"], want[k, 1])
             assert got[k]["step"] == want[k, 2] == k + 1
-    _close_params(_port_params(ranks[0][case]["params"]),
-                  _ref_params(ref, case), param_tol)
+    got, want = _port_params(ranks[0][case]["params"]), _ref_params(ref, case)
+    if any(k.startswith("one_device/") for k in ref.files):
+        # bf16 moe: a routing decision a rounding flips moves its tokens'
+        # gradients whole, and AdamW moves a parameter by up to 2 lr a
+        # step where its gradient's sign flips, so two bf16 programs of
+        # the same semantics part in more than 1e-3 of the elements: the
+        # reference's one-device and sharded steps, and the port's
+        # one-card step and the reference's one-device step (C-port4).
+        # The port's grid step may part from the reference's sharded
+        # step in twice the larger of the two at most (the rule ROADMAP
+        # C-port12 holds zamba2's bf16 gradients to; C-port18)
+        own = _ref_params(ref, "one_device")
+        one = _port_params(ranks[0]["one_process"]["params"])
+        atol = param_tol[1]
+
+        def off(a, b):
+            return sum(int((np.abs(a[p] - b[p]) > atol).sum()) for p in b)
+        n = sum(w.size for w in want.values())
+        for path in want:
+            err = np.abs(got[path] - want[path]).max()
+            assert err <= 2 * LR * STEPS, (path, err)
+        bound = max(off(own, want), off(one, own), 1e-3 * n)
+        assert off(got, want) <= 2 * bound, (off(got, want), bound)
+        return
+    _close_params(got, want, param_tol)
 
 
 def check_bits(runs, sub, case):
     """Every rank's first step twice in the same bits, and every
     replicated leaf in the same bits on every rank (the ranks of a
     ``model`` group, and across the data ranks; olmo's norms have no
-    parameters, so all its leaves are sharded)."""
-    _, ranks = runs[sub]
+    parameters, so all its leaves are sharded; moe's router is
+    replicated without FSDP)."""
+    _, ranks, combo = runs[sub]
     first = ranks[0][case]["replicated"]
-    assert bool(first) == sub.startswith("qwen")
+    assert bool(first) == (combo[1] != "olmo-1b")
     for rank in ranks:
         assert rank[case]["twice"]
         got = rank[case]["replicated"]
@@ -209,8 +254,7 @@ def check_residuals(runs, sub, case):
     from repro_torch.sharding import partition
     from repro_torch.sharding.profiles import make_rules
     import dataclasses
-    ref, ranks = runs[sub]
-    arch, vocab = next((c[1], c[3]) for c in COMBOS if c[0] == sub)
+    ref, ranks, (_, arch, _, vocab) = runs[sub]
     cfg = dataclasses.replace(get_config(arch, smoke=True), vocab=vocab)
     layout = Layout(*MESHES["2x1x2"])
     mode, _, fsdp = CASES["2x1x2"][case]

@@ -13,7 +13,9 @@ over an fp32 cache.
 Worlds:
 
 * (data 2, model 2): qwen1.5-0.5b smoke (4 heads, 4 kv heads, 2 layers)
-  at vocab 256, rows over ``data`` and heads over ``model``;
+  at vocab 256, rows over ``data`` and heads over ``model``, and
+  olmoe-1b-7b smoke, its experts over ``model`` too, its dispatch group
+  the whole batch (the reference's one group);
 * (data 1, model 4): qwen at vocab 250, its table padded to 256 rows,
   whose last rank holds padded columns;
   each in fp32 and bf16 compute;
@@ -62,7 +64,9 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 WORLDS = {
     "2x2": (4, 2, {"data": 2, "model": 2},
             [("qwen_f32", "qwen1.5-0.5b", "float32", 256),
-             ("qwen_bf16", "qwen1.5-0.5b", "bfloat16", 256)]),
+             ("qwen_bf16", "qwen1.5-0.5b", "bfloat16", 256),
+             ("olmoe_f32", "olmoe-1b-7b", "float32", 256),
+             ("olmoe_bf16", "olmoe-1b-7b", "bfloat16", 256)]),
     "1x4": (4, 4, {"data": 1, "model": 4},
             [("qwen250_f32", "qwen1.5-0.5b", "float32", 250),
              ("qwen250_bf16", "qwen1.5-0.5b", "bfloat16", 250)]),
@@ -238,7 +242,7 @@ def test_every_rank_holds_the_same_tokens_and_its_block(runs, world):
             assert got["rows"] == (block * B // data, B // data)
             assert got["rules_batch"] == (("pod", "data") if pods > 1
                                           else "data")
-            if cfg.family == "dense":
+            if cfg.family in ("dense", "moe"):
                 want_kv = (cfg.n_layers, B // data, S + G,
                            cfg.n_kv_heads // mp, cfg.head_dim)
                 assert got["cache"] == {"k": want_kv, "v": want_kv}
@@ -252,9 +256,15 @@ def test_every_rank_holds_the_same_tokens_and_its_block(runs, world):
             want = {}
             rows_over = "+".join(a for a in ("pod", "data")
                                  if mesh.get(a, 1) > 1)
+            moe = cfg.family == "moe"
             if rows_over:
                 want[f"{rows_over}:all-gather"] = G
+                if moe:                 # each layer's entries' experts
+                    want[f"{rows_over}:all-gather:moe-experts"] = \
+                        G * cfg.n_layers
             if mp > 1:
                 want["model:all-gather"] = G
-                want["model:all-reduce"] = G * (1 + 2 * cfg.n_layers)
+                want["model:all-reduce"] = G * (1 + (2 - moe) * cfg.n_layers)
+                if moe:                 # each expert layer's sum
+                    want["model:all-reduce:moe"] = G * cfg.n_layers
             assert calls == want, (sub, calls)

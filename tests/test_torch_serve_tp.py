@@ -22,13 +22,14 @@ spills and fetches:
 * the serving CLI under ``torch.distributed.run --nproc-per-node 2``
   prints the one-process CLI's summary;
 * what stays refused raises, naming its slice: heads that do not divide
-  ``model`` (3g), moe in the engine, its tenants, an engine on a shared
-  transport or the fixed-batch session with a ``data`` axis over 1 and
-  moe under ``model`` (3d), a model axis in one process, a world that
-  does not fill a (data 2, model 2) grid (the rules and the serving
-  CLI); and ``grid=`` on another layout than the lease's, and a
-  disaggregated cluster whose decode engine is not on the exporting
-  engine's grid.
+  ``model`` (3g), the ssm, hybrid and encdec families under ``model``
+  in the engine, its tenants, an engine on a shared transport or the
+  fixed-batch session (3e, 3f; moe gets past each of these entries'
+  refusals to the grid's join, with a ``data`` axis over 1 or under
+  ``model``), a model axis in one process, a world that does not fill a
+  (data 2, model 2) grid (the rules and the serving CLI); and ``grid=``
+  on another layout than the lease's, and a disaggregated cluster whose
+  decode engine is not on the exporting engine's grid.
 """
 
 import concurrent.futures
@@ -63,6 +64,7 @@ from repro_torch.launch import mesh as mesh_lib               # noqa: E402
 from repro_torch.models.api import build_model                # noqa: E402
 from repro_torch.models.config import ShapeConfig             # noqa: E402
 from repro_torch.pool import smoke_pool                       # noqa: E402
+from repro_torch.pool.lease import LeaseBinding               # noqa: E402
 from repro_torch.launch import serve as serve_cli             # noqa: E402
 from repro_torch.runtime.serve import make_lease_session      # noqa: E402
 from repro_torch.sharding import tp                           # noqa: E402
@@ -343,35 +345,59 @@ def _ecfg():
     return serve.EngineConfig(max_slots=2, max_seq=64, page_size=8)
 
 
+class _Joined(Exception):
+    """Raised where an entry joins its lease's grid: nothing refused it."""
+
+
+# the cases whose moe refusal the expert-parallel slice lifted: (world,
+# the lease's model_parallel for moe, the family kept refused under a
+# model axis of 2 and its ROADMAP item)
+LIFTED = {"data": (4, 1, "mamba2-780m", "3e"),
+          "session": (2, 1, "whisper-small", "3f"),
+          "multi_tenant": (4, 1, "zamba2-7b", "3e"),
+          "shared_fabric": (4, 1, "mamba2-780m", "3e"),
+          "moe": (2, 2, "whisper-small", "3f")}
+
+
 @pytest.mark.parametrize("case", ["heads", "data", "session",
                                   "multi_tenant", "shared_fabric", "moe",
                                   "one_process", "grid_layout",
                                   "handoff_grid", "world_fill"])
 def test_what_stays_refused_names_its_slice(case, monkeypatch, capsys):
+    """Each refusal names its slice.  Where expert parallelism lifted
+    moe's (rows over a data axis of 4 in the engine, its tenants, an
+    engine on a shared transport and the fixed-batch session; moe under
+    a model axis of 2), olmoe smoke now gets past the refusal to the
+    grid's join, and the ssm, hybrid or encdec family on a model axis of
+    2 through the same entry is refused, naming 3e or 3f."""
     qwen = build_model(get_config(ARCH, smoke=True), device="cpu")
     gen = torch.Generator().manual_seed(0)
     pool = smoke_pool("scalepool")
-    # the engine, its tenants, a shared transport and the session: moe
-    # rows over a data axis of 4 (its dispatch groups follow the rows,
-    # C-ref5), with no model axis that could refuse it first
     world, arch, item, mp = {
         "heads": (2, "qwen3-14b", "3g", 2),
-        "data": (4, "olmoe-1b-7b", "3d", 1),
-        "session": (2, "olmoe-1b-7b", "3d", 1),
-        "multi_tenant": (4, "olmoe-1b-7b", "3d", 1),
-        "shared_fabric": (4, "olmoe-1b-7b", "3d", 1),
-        "moe": (2, "olmoe-1b-7b", "3d", 2),
         "one_process": (1, ARCH, None, 2),
         "grid_layout": (2, ARCH, "layout", 2),
         "handoff_grid": (2, ARCH, "grid", 2),
-        "world_fill": (2, ARCH, "fill", 2)}[case]
+        "world_fill": (2, ARCH, "fill", 2)}.get(case, (None,) * 4)
+    if case in LIFTED:
+        world, mp, arch, item = LIFTED[case]
+        moe = build_model(get_config("olmoe-1b-7b", smoke=True),
+                          device="cpu")
+
+        def joined(self, *a, **kw):
+            raise _Joined()
+        monkeypatch.setattr(LeaseBinding, "join", joined)
     model = qwen if arch == ARCH else build_model(get_config(arch,
                                                              smoke=True),
                                                   device="cpu")
     _World(monkeypatch, world)
-    lease = pool.lease("tp", 4, tier2_gb=64, kv_gb=1.0,
-                       model_parallel=mp,
-                       tenants=("a", "b") if case == "multi_tenant" else ())
+
+    def lease_of(model_parallel, name="tp"):
+        return pool.lease(name, 4, tier2_gb=64, kv_gb=1.0,
+                          model_parallel=model_parallel,
+                          tenants=("a", "b") if case == "multi_tenant"
+                          else ())
+    lease = lease_of(mp)
     kw = {}
     if case == "shared_fabric":
         eng = serve.Engine.local(qwen, _ecfg(), generator=gen, device="cpu")
@@ -400,7 +426,8 @@ def test_what_stays_refused_names_its_slice(case, monkeypatch, capsys):
         said = capsys.readouterr().err
         assert "does not fill the grid" in said, said
         assert "{'data': 2, 'model': 2}" in said, said
-    with pytest.raises(ValueError) as err:
+
+    def enter(model, lease):
         if case == "world_fill":
             layout = mesh_lib.Layout((2, 2), ("data", "model"))
             why = grid_refusal(layout, make_rules(
@@ -420,6 +447,14 @@ def test_what_stays_refused_names_its_slice(case, monkeypatch, capsys):
         else:
             serve.Engine.from_lease(model, lease, _ecfg(), generator=gen,
                                     device="cpu", **kw)
+    if case in LIFTED:
+        with pytest.raises(_Joined):
+            enter(moe, lease)
+        if mp == 1:
+            lease = lease_of(2, "tp-model")
+            _World(monkeypatch, 4)
+    with pytest.raises(ValueError) as err:
+        enter(model, lease)
     msg = str(err.value)
     if item is None:
         assert "needs a world of 2 ranks" in msg, msg

@@ -127,21 +127,23 @@ def test_use_rules_scopes_the_current_rules():
 
 
 def test_grid_refusal_names_the_next_slice():
-    """Tensor parallelism and FSDP run the dense family's step; what
-    ``grid_refusal`` leaves to a later slice is narrowed to heads that do
-    not divide the ``model`` axis, the other families under a ``model``
-    axis or FSDP, and serving under a ``model`` axis."""
+    """Tensor parallelism and FSDP run the dense and moe families' steps
+    (moe: expert parallelism); what ``grid_refusal`` leaves to a later
+    slice is narrowed to heads that do not divide the ``model`` axis,
+    the ssm, hybrid and encdec families under a ``model`` axis or FSDP,
+    and serving under a ``model`` axis."""
     shape = ShapeConfig("s", "train", 32, 8)
     layout = Layout((2, 2), ("data", "model"))
     flat = Layout((2, 2, 1), ("pod", "data", "model"))
     dense = SMOKE_ARCHS["olmo-1b"]
-    for grid in (layout, flat):
-        for fsdp in (False, True):
-            rules = profiles.make_rules(dense, shape, grid, fsdp=fsdp)
-            assert profiles.grid_refusal(grid, rules, dense) is None
+    for cfg in (dense, SMOKE_ARCHS["olmoe-1b-7b"],
+                SMOKE_ARCHS["mixtral-8x7b"]):
+        for grid in (layout, flat):
+            for fsdp in (False, True):
+                rules = profiles.make_rules(cfg, shape, grid, fsdp=fsdp)
+                assert profiles.grid_refusal(grid, rules, cfg) is None
     assert profiles.grid_refusal(layout, None) is None
-    for arch, what in (("olmoe-1b-7b", "expert parallelism"),
-                       ("mamba2-780m", "ssm_*"), ("zamba2-7b", "ssm_*"),
+    for arch, what in (("mamba2-780m", "ssm_*"), ("zamba2-7b", "ssm_*"),
                        ("whisper-small", "encoder-decoder")):
         cfg = SMOKE_ARCHS[arch]
         why = profiles.grid_refusal(layout, profiles.make_rules(

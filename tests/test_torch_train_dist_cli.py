@@ -17,8 +17,9 @@ a one-pod lease falls back to ``auto`` with a warning; 4 ranks without
 ``--pool`` train with tensor parallelism on the reference's smoke mesh
 (data 2, model 2), as the reference's CLI does, and so does
 ``--pool-model-parallel 2`` on the lease's (pod 2, data 1, model 2);
-the moe family under a ``model`` axis, or a layout the world does not
-fill, exits 2 with the reason before any process group is made.  Every
+the ssm, hybrid and encdec families under a ``model`` axis, or a layout
+the world does not fill, exits 2 with the reason before any process
+group is made.  Every
 world and every ``torch.distributed.run`` is killed past its time
 limit.
 """
@@ -181,13 +182,14 @@ def test_cli_falls_back_to_auto_without_a_pod_axis(tmp_path):
 
 def test_cli_refuses_a_model_axis_before_the_loop(tmp_path):
     """Without a lease, 4 ranks take the reference's smoke mesh (2, 2)
-    over (data, model): the moe family under tensor parallelism (expert
-    parallelism is a later slice), refused with exit 2."""
-    rc, _, err = _torchrun(4, ["--arch", "olmoe-1b-7b", "--steps", "2",
+    over (data, model): the ssm family under tensor parallelism (its
+    ``ssm_*`` rules are a later slice, 3e), refused with exit 2; the moe
+    family trains there (expert parallelism)."""
+    rc, _, err = _torchrun(4, ["--arch", "mamba2-780m", "--steps", "2",
                                "--ckpt-dir", str(tmp_path)])
     assert rc != 0
     assert "tensor parallelism" in err and "exitcode  : 2" in err
-    assert "expert parallelism" in err and "later slice" in err
+    assert "ssm_*" in err and "3e" in err and "later slice" in err
 
 
 @pytest.mark.parametrize("argv,mesh", [
@@ -211,7 +213,7 @@ def test_cli_trains_tensor_parallel_on_four_ranks(tmp_path, argv, mesh):
 
 
 @pytest.mark.parametrize("world,argv,reason", [
-    ("4", ["--arch", "olmoe-1b-7b"], "tensor parallelism"),
+    ("4", ["--arch", "zamba2-7b"], "tensor parallelism"),
     ("2", [], "does not fill the layout"),
     ("4", ["--pool", "scalepool", "--pool-accels", "12",
            "--pool-model-parallel", "2", "--arch", "mamba2-780m"],
@@ -224,3 +226,38 @@ def test_cli_layout_refusals_exit_2(monkeypatch, capsys, tmp_path, world,
     rc = main(["--smoke", "--device", "cpu", "--steps", "1", "--ckpt-dir",
                str(tmp_path)] + argv)
     assert rc == 2 and reason in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("mp,mesh", [(1, {"data": 2, "model": 1}),
+                                     (2, {"data": 1, "model": 2})])
+def test_cli_trains_moe_on_two_ranks_as_one_process(tmp_path, mp, mesh):
+    """olmoe-1b-7b smoke (bf16 compute) on a lease of 2 accelerators:
+    its rows over data, the dispatch group the whole batch, or its
+    experts over model, 2 ranks under ``torch.distributed.run``; the
+    first and last losses within the bf16 loss tolerance of
+    ``tests/test_torch_train_dist.py`` (2e-2 relative) of one process
+    training the same lease."""
+    argv = ["--arch", "olmoe-1b-7b", "--steps", "3", "--batch", "8",
+            "--seq", "32", "--pool", "scalepool", "--pool-accels", "2",
+            "--pool-model-parallel", str(mp)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    env.pop("XLA_FLAGS", None)
+    one = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
+         "--device", "cpu", *argv, "--ckpt-dir", str(tmp_path / "one")],
+        env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        rc, out, err = _torchrun(2, argv + ["--ckpt-dir",
+                                            str(tmp_path / "two")])
+        out1, err1 = one.communicate(timeout=WORLD_TIMEOUT_S)
+    finally:
+        one.kill()
+    assert rc == 0, err[-3000:]
+    assert one.returncode == 0, err1[-3000:]
+    two, alone = json.loads(out), json.loads(out1)
+    assert two["mesh"] == mesh and two["world"] == 2
+    assert alone["devices"] == 1
+    for key in ("loss_first", "loss_last"):
+        assert abs(two[key] - alone[key]) <= 2e-2 * abs(alone[key]), key
+    assert two["loss_drop"] > 0
