@@ -7,7 +7,11 @@ no result line):
 
 1. device   - the card's name and power limit, TF32 off;
 2. build    - the CUDA kernels of ``src/repro_torch/csrc`` compiled by
-              nvcc, with the build time;
+              nvcc, with the build time; then, beside the card's phases,
+              phases 6-8's CPU references in a process of their own and
+              phases 11-13's world's 4 ranks spawned to import and wait
+              for its go (every process this script starts is stopped
+              before it exits);
 3. kernels  - each kernel against its plain PyTorch version on the card
               at the serving paths' shapes, max errors beside their
               tolerances; split-KV paged attention bitwise invariant
@@ -94,8 +98,10 @@ no result line):
               engines' (revocation fired there too), the timed rerun
               identical to the watched run, no live page in two tenants'
               tables after any step, the modeled numbers equal to the
-              same scenario at smoke width on the CPU, and the paged,
-              flash and RMSNorm launches exact;
+              same scenario at smoke width on the CPU (computed, with
+              phases 7's and 8's, by a process of this run's own while
+              the card runs phases 3-5, ``cpu_smoke_refs``), and the
+              paged, flash and RMSNorm launches exact;
 7.  disagg  - (run right after phase 6, on phase 6's cut)
               benchmarks/fig12_disagg.py's smoke scenario at full width:
               12 requests of 224 prompt tokens and 16 new on 4-slot
@@ -232,12 +238,13 @@ no result line):
               mamba2-780m 3 steps and refuses its ``--smoke`` (SSD head_dim
               P 16) within 30 s; serving paths launch no backward kernel;
 11. dp      - (run after phase 10) data-parallel training across
-              processes: one spawned world of 4 ranks sharing the card
-              as (pod 2, data 2, model 1) over gloo (``launch.mesh``;
-              NCCL refuses two ranks on one card), each collective on a
-              pinned host copy (``core.hierarchy``), the kernels built
-              by this process first; any rank's failure or the world's
-              overrunning ``DP_WORLD_LIMIT_S`` fails the run.  The
+              processes: the first grid of phase 12's spawned world of
+              4 ranks sharing the card, (pod 2, data 2, model 1) over
+              gloo (``launch.mesh``; NCCL refuses two ranks on one
+              card), each collective on a pinned host copy
+              (``core.hierarchy``), the kernels built by this process
+              first; any rank's failure or the world's overrunning
+              ``TP_WORLD_LIMIT_S`` fails the run.  The
               probe: which collectives this torch's gloo takes on CUDA
               tensors.  (a) qwen1.5-0.5b at full width on its first 2
               layers in fp32 (TF32 off), global B=8 x S=512: one
@@ -252,7 +259,7 @@ no result line):
               share of code sums that differ reported; (b) qwen1.5-0.5b
               at full width on its first 2 of 24 layers (``DP_DEPTH``)
               in bf16, 4 ranks x B=2 x S=512 (the weights of seed 0,
-              phase 10 (c)'s batches), 4 steps each of
+              phase 10 (c)'s batches), 3 steps each of
               ``auto``, ``hierarchical`` and ``compress_pod``: s/step,
               each rank's peak, host seconds in collectives by op, the
               byte counter by axis and op, each rank's launches exact
@@ -266,19 +273,19 @@ no result line):
               (qwen1.5-0.5b at full width on its first 2 layers,
               ``--layers``, the lease's (2, 2, 1) layout,
               ``hierarchical`` with ``compress_pod``, 3 steps; started
-              beside phase 12 (d)'s two CLI worlds) exits 0
+              after phase 12 (d)'s two CLI worlds) exits 0
               with mesh, dp_mode and backend ``gloo`` in its summary.
               Every time here is 4 ranks sharing one card: it measures
               nothing of a fabric;
-12. tp      - (run after phase 11) tensor parallelism over ``model`` and
-              FSDP over ``data`` (``repro_torch.sharding.tp``): one
-              spawned world of 4 ranks sharing the card over gloo as
-              phase 11's, holding two grids in turn, their groups formed
-              in the same processes: (data 2, model 2) with FSDP off
-              (the reference CLI's rules) and on, and (pod 2, data 1,
-              model 2) ``hierarchical`` with ``compress_pod``.  (a) qwen1.5-0.5b at
+12. tp      - (run after phase 11, in its world) tensor parallelism
+              over ``model`` and FSDP over ``data``
+              (``repro_torch.sharding.tp``): the world's ranks hold two
+              more grids in turn, their groups formed in the same
+              processes: (data 2, model 2) with FSDP off (the reference
+              CLI's rules) and on, and (pod 2, data 1, model 2)
+              ``hierarchical`` with ``compress_pod``.  (a) qwen1.5-0.5b at
               full width on its first 2 layers in fp32, global B=8 x
-              S=512, 3 steps of each case against the one-process step on
+              S=512, 2 steps of each case against the one-process step on
               the same weights and batches (the compressed case against
               the plain in-process evaluation of the reference's
               compressed mean over the two pods, residuals carried): loss
@@ -286,19 +293,22 @@ no result line):
               from the ranks to 1e-5 of the largest |parameter| but at
               most ``DP_PARAM_SHARE`` of them (C-port15); (b) full width
               on the first ``TP_DEPTH`` = 2 layers in bf16, phase 10
-              (c)'s weights and batches, 4 steps of each case: s/step,
+              (c)'s weights and batches, 3 steps of each case: s/step,
               host seconds in collectives and bytes by (axes, op), each
               rank's peak, launches exact in every rank (B2, B3, B5, B6
               on a rank's local heads), ranks' losses equal and each
               within 1e-2 of one card's on the same cut, run by this
-              process (the compressed case's of the plain in-process
+              process while the world runs phase 11 (``tp_one_card``,
+              as (e)'s and (f)'s) (the compressed case's of the plain
+              in-process
               evaluation of the same schedule: int8 codes move a
               trajectory further); (c) a step with FSDP on the 2-layer cut in bf16 run
               twice from one state: the same bits in every rank; (d) the
               training CLI under ``torch.distributed.run`` on 4 ranks
               with no ``--pool`` (qwen1.5-0.5b at full width on its
               first 2 layers, the reference's smoke mesh (data 2, model
-              2), tensor parallel, 3 steps of 8 x 512), then under
+              2), tensor parallel, 3 steps of 8 x ``CLI_SEQ`` = 128),
+              then under
               ``--max-restarts 1`` through a wrapper whose failure hook
               raises on rank 1 at step 2 of the first attempt, with
               ``--ckpt-every 1``: exit 0, the resume reported, every
@@ -316,8 +326,24 @@ no result line):
               (``moe-experts``) and the expert layer's sum over ``model``
               (``moe``) apart, launches exact (B2, B3, B5, B6 on local
               heads), the ranks' losses equal and within 1e-2 of one
-              card's.  Every time here is 4 ranks sharing one card:
-              nothing of a fabric;
+              card's; (f) the ssm and hybrid families under the ``ssm_*``
+              rules on that grid (``models/mamba2.py``: the SSD heads,
+              ``in_proj``'s contiguous column blocks and the conv
+              channels over ``model``, one gather of the projection and
+              conv weights a layer, the gated norm's sum of squares
+              summed over ``model`` in plain ops, the row-parallel
+              ``out_proj``): mamba2-780m at full width on its first 2 of
+              48 layers (24 of 48 SSD heads a rank) with FSDP off and on,
+              zamba2-7b on its first ``ZAMBA2_GATE_DEPTH`` = 7 of 81 (the
+              shared block's 16 of 32 heads and 56 of 112 SSD heads a
+              rank, a tail layer) with FSDP off, each the fp32 gate (2
+              steps against one card, as (a); zamba2 at ``TRAJ_LR``)
+              then 3 timed bf16 steps of ``tp`` as (e), the launches
+              exact (one RMSNorm a Mamba2 layer: its gated norm is not
+              B2's under ``model``; every B4 and B8 call on the tensor
+              cores), the ``ssm`` and ``ssm-norm`` collectives made.
+              Every time here is 4 ranks sharing one card: nothing of a
+              fabric;
 13. tp serve - (in phase 12's world, after its grids, their state
               freed) the request-level engine under a (data 1, model 4)
               lease (``Engine.from_lease``: each rank joins the lease's
@@ -359,7 +385,8 @@ no result line):
               prefill and decode seconds, decode tokens per wall second
               and host seconds in collectives by (axes, op); (e) two
               tenants of one (data 1, model 4) lease over one
-              ``PoolArbiter`` a rank, phase 4's trace split
+              ``PoolArbiter`` a rank, phase 4's trace with
+              ``TS_MT_NEW`` = 32 new tokens a request split
               round-robin over a ``TS_MT_PAGES``-page pool that revokes
               pages, fp32 on the first 2 layers: every rank's tokens,
               clocks and arbiter stats equal, the pages checked after
@@ -415,8 +442,21 @@ no result line):
               each decode step, one expert sum over ``model`` a layer
               each model call, the traces sanitized; (c) holds B1 and
               B3 at its rank's shapes (4 rows on 8 heads at D=128 over
-              bf16 pages; a 512-token prefill on 8 heads).  4 ranks
-              share one card over gloo: nothing of a fabric;
+              bf16 pages; a 512-token prefill on 8 heads); (j) the
+              fixed-batch session on a (data 2, model 2) lease for
+              mamba2-780m on its first 2 layers and zamba2-7b on its
+              first 7: in fp32 ``TS_SESSION``'s rows and prompts, 8 new
+              tokens, every step's gathered logits within 1e-5 of the
+              largest |logit| of the one-card session's (rank 0 runs it),
+              tokens equal or parted at a documented tie; in bf16 32 new
+              tokens: tokens equal across ranks, B2-B4 launches exact (an
+              SSD scan a Mamba2 layer in the prefill, one B2 a Mamba2
+              layer a call), the three collectives a Mamba2 layer a call,
+              decode tokens per wall second beside one card's; (c) holds
+              B4 and B8 at (f)'s and (j)'s rank shapes (4 rows of 512,
+              24 or 56 SSD heads) and B3 and B5 at zamba2's rank shapes
+              (16 heads at D=112).  4 ranks share one card over gloo:
+              nothing of a fabric;
 5. times    - each kernel's time (CUDA graphs of back-to-back calls,
               timed with CUDA events, median of trials) beside its plain
               version, a PyTorch library call where one computes the
@@ -432,7 +472,9 @@ no result line):
               256 / 512 buckets and zamba2's prefill and decode;
               RMSNorm at 512 and 8 rows of 1024, 8 of 1536 and 3072,
               2000 of 3584 and 7168; the SSD scan at mamba2's and
-              zamba2's prefill; paged at olmoe's and mixtral's 8-row
+              zamba2's prefill and at phase 13 (j)'s rank prefill (4
+              rows of 512 on 24 and 56 heads), flash at its zamba2 rank
+              prefill (16 heads, D=112); paged at olmoe's and mixtral's 8-row
               decode and at a rank's decode in phase 13 ((b), (f), (g)
               and (h)'s 4 rows on 8 heads, (i)'s 4 rows on 8 of olmoe's
               heads at D=128), flash at a session rank's decode (phase
@@ -445,8 +487,10 @@ no result line):
               and cross-attention (448 x 1500) in bf16, RMSNorm at
               qwen's 4096 x 1024, olmoe's 4096 x 2048, mamba2's 1536 and
               3072 and zamba2's 3584 and 7168 wide, flash at
-              zamba2's B=8 x S=512, H=32, D=112 and the SSD backward at
-              mamba2's and zamba2's training calls (no library call
+              zamba2's B=8 x S=512, H=32, D=112 and at phase 12 (f)'s
+              rank (B=4, H=16), and the SSD backward at mamba2's and
+              zamba2's training calls and at (f)'s rank shapes (B=4, 24
+              and 56 heads; no library call
               computes it), beside autograd's backward of the plain
               version and of bf16 SDPA / ``F.rms_norm``: graphs of forward
               and backward less the forward's).  Every call reads cold
@@ -1767,6 +1811,76 @@ def sanitize(what: str, tracers) -> dict:
     return out
 
 
+def cpu_smoke_refs() -> dict:
+    """Phases 6, 7 and 8's scenarios at smoke width on the CPU, the
+    numbers their full-width runs on the card must equal: {"mt": fig9's
+    modeled numbers and the static partitions' clocks, "dg": fig12's
+    modeled numbers, "co": fig11's modeled numbers, claims and page
+    bytes}, each with its seconds.  ``main`` computes them in a process
+    of its own while the card runs phases 3-5 (``cpu_refs_start``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+
+    small = build_model(get_config("qwen1.5-0.5b", smoke=True),
+                        device="cpu")
+    params = small.init(torch.Generator().manual_seed(0))
+    cpu = torch.device("cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)        # its ops are tiny: threads only wait
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        modeled = mt_modeled(*mt_pooled(small, params, cpu, watch=True)[:3])
+        static = mt_static(small, params, cpu)
+        out["mt"] = {"modeled": modeled, "static_clocks": {
+            t: [(h.submit_clock, h.first_token_clock, h.done_clock)
+                for h in static[t]] for t in MT_TENANTS},
+            "seconds": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        trace = dg_trace()
+        runs, _ = dg_main_runs(small, params, cpu, trace)
+        runs.update(dg_staging_runs(small, params, cpu, trace))
+        out["dg"] = {"modeled": dg_modeled(runs),
+                     "seconds": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        runs, _, page = co_three(small, params, cpu, CO_REQUESTS, CO_STEPS)
+        out["co"] = {"modeled": {k: co_modeled(r, page)
+                                 for k, r in runs.items()},
+                     "claims": co_claims(runs), "page": page,
+                     "seconds": time.perf_counter() - t0}
+    finally:
+        torch.set_num_threads(threads)
+    return out
+
+
+def cpu_refs_child(path: str) -> None:
+    """``cpu_smoke_refs`` in a spawned process, pickled to ``path``."""
+    import pickle
+    Path(path).write_bytes(pickle.dumps(cpu_smoke_refs()))
+
+
+def cpu_refs_start():
+    """Start ``cpu_refs_child``; returns (process, path)."""
+    import multiprocessing
+    path = Path(__file__).resolve().parent / "build" / "cpu_refs.pkl"
+    path.parent.mkdir(exist_ok=True)
+    path.unlink(missing_ok=True)
+    proc = multiprocessing.get_context("spawn").Process(
+        target=cpu_refs_child, args=(str(path),))
+    proc.start()
+    return proc, path
+
+
+def cpu_refs_join(proc, path) -> dict:
+    """The side process's references, once it exits 0."""
+    import pickle
+    proc.join(timeout=600)
+    check(proc.exitcode == 0, f"the CPU smoke-width references' process "
+          f"exited {proc.exitcode}")
+    return pickle.loads(path.read_bytes())
+
+
 # ---------------------------------------------------------------------------
 # phase 6: multi-tenant pooled serving (fig9's smoke scenario) at full width
 # ---------------------------------------------------------------------------
@@ -1898,7 +2012,7 @@ def same_runs(a, b) -> bool:
         for x, y in zip(a, b))
 
 
-def multitenant_full_width(model, params, device):
+def multitenant_full_width(model, params, device, cpu_refs):
     """fig9's smoke scenario served on the card from one physical KV
     pool: (a) the three tenants on one ``PoolArbiter`` on ``model`` (full
     width, ``SERVE_DEPTH`` layers), every kernel launch counted and the pages checked after every
@@ -1914,10 +2028,9 @@ def multitenant_full_width(model, params, device):
     modeled numbers do not depend on depth (checked against the CPU run
     below), and the smoke's time stays in bounds.  (a)'s and (b)'s
     modeled numbers must equal the same scenario's at smoke width on
-    the CPU."""
+    the CPU (``cpu_refs``, ``cpu_smoke_refs``' report)."""
     import torch
     from repro_torch import kernels
-    from repro_torch.configs import get_config
     from repro_torch.models.api import build_model
     from repro_torch.obs import Tracer
     from repro_torch.pool import smoke_pool
@@ -1925,19 +2038,10 @@ def multitenant_full_width(model, params, device):
                                    latency_summary, run_multi_trace,
                                    run_trace)
 
-    # the same scenario at smoke width on the CPU, inside this run
-    small = build_model(get_config("qwen1.5-0.5b", smoke=True),
-                        device="cpu")
-    small_params = small.init(torch.Generator().manual_seed(0))
-    cpu = torch.device("cpu")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)        # its ops are tiny: threads only wait
-    t0 = time.perf_counter()
-    cpu_modeled = mt_modeled(*mt_pooled(small, small_params, cpu,
-                                        watch=True)[:3])
-    cpu_static = mt_static(small, small_params, cpu)
-    cpu_s = time.perf_counter() - t0
-    torch.set_num_threads(threads)
+    # the same scenario at smoke width on the CPU (``cpu_refs``)
+    ref = cpu_refs["mt"]
+    cpu_modeled, cpu_static, cpu_s = (ref["modeled"], ref["static_clocks"],
+                                      ref["seconds"])
 
     # (a) on the card, every kernel launch counted
     tracer = Tracer(1 << 20)
@@ -2049,9 +2153,7 @@ def multitenant_full_width(model, params, device):
                 arb.stats()["tenants"][t]["revocation_charged_s"]}
     agg_fair = latency_summary(all_fair)["p95_s"]
     agg_static = latency_summary(all_static)["p95_s"]
-    static_equal = static_clocks == {
-        t: [(h.submit_clock, h.first_token_clock, h.done_clock)
-            for h in cpu_static[t]] for t in MT_TENANTS}
+    static_equal = static_clocks == cpu_static
     emit({"phase": "multitenant", "arch": model.cfg.name,
           "layers": L, "d_model": model.cfg.d_model,
           "comparison_layers": MT_SHALLOW,
@@ -2464,7 +2566,7 @@ def dg_cut_runs(model, params, device, tiers=None, tracers=None,
              "wall_s": walls}, m32, p32)
 
 
-def disagg_full_width(model, params, device):
+def disagg_full_width(model, params, device, cpu_refs):
     """fig12's smoke scenario served on the card: a prefill engine
     exports each prompt's KV page by page (``prefill_export``), the
     router streams the pages over the modeled fabric and plants each
@@ -2475,27 +2577,14 @@ def disagg_full_width(model, params, device):
     depth in fp32 (TF32 off) the three token streams held equal; on the first
     ``DG_SHALLOW`` layers the four staging runs (saturated and idle
     trunk).  The modeled numbers must equal the same scenario's at smoke
-    width on the CPU."""
+    width on the CPU (``cpu_refs``, as phase 6's)."""
     import torch
     from repro_torch import kernels
-    from repro_torch.configs import get_config
     from repro_torch.models.api import build_model
 
     trace = dg_trace()
-    # the same scenario at smoke width on the CPU, inside this run
-    small = build_model(get_config("qwen1.5-0.5b", smoke=True),
-                        device="cpu")
-    small_params = small.init(torch.Generator().manual_seed(0))
-    cpu = torch.device("cpu")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)        # its ops are tiny: threads only wait
-    t0 = time.perf_counter()
-    cpu_runs, _ = dg_main_runs(small, small_params, cpu, trace)
-    cpu_runs.update(dg_staging_runs(small, small_params, cpu, trace))
-    cpu_modeled = dg_modeled(cpu_runs)
-    cpu_s = time.perf_counter() - t0
-    torch.set_num_threads(threads)
-    del cpu_runs, small, small_params
+    ref = cpu_refs["dg"]
+    cpu_modeled, cpu_s = ref["modeled"], ref["seconds"]
 
     # full width at model's depth, bf16, every kernel launch counted
     tracers = []
@@ -2936,7 +3025,7 @@ def co_racecheck(model, params, device):
     return racecheck(scenario, seeds=CO_RACE_SEEDS, label="fig11 hop_only")
 
 
-def colo_full_width(model, params, device):
+def colo_full_width(model, params, device, cpu_refs):
     """fig11's smoke scenario on the card: two tenants' bursts served
     while a data-parallel training job's gradient and offload phases
     share the estate's links, placed hop-only, contention-aware, and
@@ -2945,31 +3034,19 @@ def colo_full_width(model, params, device):
     launch counted, the hop-only trace sanitized; on the first
     ``CO_SHALLOW`` layers in fp32 the three runs again, and the racecheck
     in bf16.  The modeled numbers must equal the same scenario's at
-    smoke width on the CPU: to ``CO_REL`` at ``model``'s depth, exactly
-    at depth ``CO_SHALLOW``."""
+    smoke width on the CPU (``cpu_refs``, as phase 6's): to ``CO_REL`` at
+    ``model``'s depth, exactly at depth ``CO_SHALLOW``."""
     import torch
     from repro_torch import kernels
-    from repro_torch.configs import get_config
     from repro_torch.models.api import build_model
     from repro_torch.obs import Tracer
     from repro_torch.serve import RequestStatus
 
     phase_t0 = time.perf_counter()
-    # the same scenario at smoke width on the CPU, inside this run
-    small = build_model(get_config("qwen1.5-0.5b", smoke=True),
-                        device="cpu")
-    small_params = small.init(torch.Generator().manual_seed(0))
-    cpu = torch.device("cpu")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)        # its ops are tiny: threads only wait
-    t0 = time.perf_counter()
-    cpu_runs, _, cpu_page = co_three(small, small_params, cpu, CO_REQUESTS,
-                                     CO_STEPS)
-    cpu_modeled = {k: co_modeled(r, cpu_page) for k, r in cpu_runs.items()}
-    cpu_claims = co_claims(cpu_runs)
-    cpu_s = time.perf_counter() - t0
-    torch.set_num_threads(threads)
-    del cpu_runs, small, small_params
+    # the same scenario at smoke width on the CPU (``cpu_refs``)
+    ref = cpu_refs["co"]
+    cpu_modeled, cpu_claims, cpu_page, cpu_s = (
+        ref["modeled"], ref["claims"], ref["page"], ref["seconds"])
 
     # full width at model's depth, bf16, every kernel launch counted per run
     L = model.cfg.n_layers
@@ -3438,14 +3515,17 @@ def attention_layers(cfg) -> int:
     return cfg.n_layers
 
 
-def train_launches(cfg, steps: int) -> dict:
+def train_launches(cfg, steps: int, sharded: bool = False) -> dict:
     """Kernel launches of ``steps`` training steps (remat on), forward and
     backward: each rematted layer runs its forward kernels twice (forward
     and recompute) and its backward kernels once.  Every layer is
     rematted but a hybrid's tail Mamba2 layers (the reference's remat is
     its group body).  RMSNorm: two per block (a Mamba2 layer's input and
     gated norms, a transformer block's two) and the final norm, where the
-    model has RMSNorm; the SSD scan once per Mamba2 layer."""
+    model has RMSNorm; the SSD scan once per Mamba2 layer.  ``sharded``:
+    under a ``model`` axis over 1, where a Mamba2 layer's gated norm runs
+    in plain ops with its sum of squares summed over ``model``
+    (``models/mamba2.py``): one RMSNorm a Mamba2 layer."""
     L = cfg.n_layers
     A = attention_layers(cfg)
     mamba = L if cfg.family in ("ssm", "hybrid") else 0
@@ -3454,8 +3534,11 @@ def train_launches(cfg, steps: int) -> dict:
         remat_mamba = A * cfg.attn_every        # the groups' layers
     blocks = L + (A if cfg.family == "hybrid" else 0)
     remat_blocks = blocks - (mamba - remat_mamba)
-    norms = 2 * blocks + 1 if cfg.norm_type == "rmsnorm" else 0
-    remat_norms = 2 * remat_blocks if norms else 0
+    k = 1 if sharded else 2                     # norms a Mamba2 layer
+    norms = (2 * (blocks - mamba) + k * mamba + 1
+             if cfg.norm_type == "rmsnorm" else 0)
+    remat_norms = (2 * (remat_blocks - remat_mamba) + k * remat_mamba
+                   if norms else 0)
     return {"paged_attention": 0,
             "ssd_scan": (mamba + remat_mamba) * steps,
             "ssd_scan_bwd": mamba * steps,
@@ -4053,35 +4136,53 @@ def train_cli(device, smi):
           time.perf_counter() - t_start})
 
 
-def train_cli_refusals():
+def train_cli_refusals_start():
+    """Start ``train_cli_refusals``' two ``--smoke`` CLI processes (at
+    the start of phase 10, beside its training: they only read the
+    config and exit); each one's exit time is kept as it exits."""
+    import os
+    import threading
+
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    started = {}
+    for arch, reason in (("olmo-1b", "head_dim"),
+                         ("mamba2-780m", "P in (32, 64)")):
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
+             "--arch", arch, "--steps", "2", "--ckpt-dir", str(CKPT_DIR)],
+            cwd=root, env={**os.environ, "PYTHONPATH": str(root / "src")},
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        done = {}
+
+        def wait(proc=proc, done=done):
+            done["stderr"] = proc.communicate(timeout=120)[1]
+            done["seconds"] = time.perf_counter() - t0
+        thread = threading.Thread(target=wait, daemon=True)
+        thread.start()
+        started[arch] = (proc, reason, thread, done)
+    return started
+
+
+def train_cli_refusals(started):
     """The training CLI refuses before its loop what no step could do
     (its fault-tolerant loop would retry the step forever): ``--smoke``
-    on the card, each in a process of its own (exit code 2 and the reason
-    within 30 s): olmo-1b's head_dim 16, which the flash backward does
+    on the card, each in a process of its own (``started``,
+    ``train_cli_refusals_start``: exit code 2 and the reason within 30 s
+    of its start): olmo-1b's head_dim 16, which the flash backward does
     not take, and mamba2-780m's SSD head_dim P=16, which the SSD kernels
     do not take; and whisper-small, for whose encoder the data pipeline
     yields no ``frame_embeds``."""
     import io
-    import os
 
     from repro_torch.launch import train as train_cli_mod
 
-    root = Path(__file__).resolve().parent
-    # both at once; each one's seconds run to its exit or later
-    t0 = time.perf_counter()
-    started = {arch: (subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
-         "--arch", arch, "--steps", "2", "--ckpt-dir", str(CKPT_DIR)],
-        cwd=root, env={**os.environ, "PYTHONPATH": str(root / "src")},
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), reason)
-        for arch, reason in (("olmo-1b", "head_dim"),
-                             ("mamba2-780m", "P in (32, 64)"))}
     smoke = {}
-    for arch, (proc, reason) in started.items():
-        _, stderr = proc.communicate(timeout=120)
+    for arch, (proc, reason, thread, done) in started.items():
+        thread.join(timeout=150)
         smoke[arch] = (subprocess.CompletedProcess(
-            proc.args, proc.returncode, stderr=stderr),
-            time.perf_counter() - t0, reason)
+            proc.args, proc.returncode, stderr=done.get("stderr", "")),
+            done.get("seconds", float("inf")), reason)
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
         rc_encdec = train_cli_mod.main(["--arch", "whisper-small",
@@ -4160,6 +4261,7 @@ def train_phase(device, smi):
     import torch
     t0 = time.perf_counter()
     counts, variants = {}, {}
+    refusals = train_cli_refusals_start()
     for arch in ("olmo-1b", "qwen1.5-0.5b"):
         counts[f"{arch} train"], variants[f"{arch} train"] = \
             train_full_width(arch, device, smi)
@@ -4170,7 +4272,7 @@ def train_phase(device, smi):
         gc.collect()
         torch.cuda.empty_cache()
     train_cli(device, smi)
-    train_cli_refusals()
+    train_cli_refusals(refusals)
     # the CLI runs in this process: what its last run left in reference
     # cycles goes before the largest training check, (h)'s twice-in-bits
     gc.collect()
@@ -4195,7 +4297,7 @@ def train_phase(device, smi):
 # ---------------------------------------------------------------------------
 
 DP_LAYOUT = ((2, 2, 1), ("pod", "data", "model"))
-DP_STEPS = 4                    # (b)'s steps a mode; s/step over 2-4
+DP_STEPS = 3                    # (b)'s steps a mode; s/step over 2-3
 # (b)'s depth: qwen1.5-0.5b's first 2 of 24 layers (6 until phase 13
 # needed the time; 24 until phase 12 took the smoke past 1050 s on an
 # H100 80GB HBM3 at 700 W); the collectives move the flat buffer of 2
@@ -4205,7 +4307,6 @@ DP_DEPTH = 2
 DP_MODES = {"auto": ("auto", False), "hierarchical": ("hierarchical", False),
             "compress_pod": ("hierarchical", True)}
 DP_DIR = Path(__file__).resolve().parent / "build" / "phase11"
-DP_WORLD_LIMIT_S = 300.0        # the (a)-(c) world's wall-clock limit
 DP_CLI_LIMIT_S = 240.0          # (d)'s torch.distributed.run
 DP_COLLECTIVE_LIMIT_S = 180.0   # a rank's collective, then it raises
 DP_PARAM_SHARE = 1e-3           # parameters allowed past 1e-5 of the
@@ -4506,21 +4607,12 @@ def dp_progress(rank: int, part: str, t0: float, what,
               file=sys.stderr, flush=True)
 
 
-def dp_rank(rank: int, init: str, out_dir: str) -> None:
-    """One rank of phase 11 (a spawned process; any failure exits it
-    non-zero): the probe, (a), (b) and (c), its report to
-    ``<out_dir>/rank<r>.json``."""
+def dp_part(grid, t0: float) -> dict:
+    """Phase 11 in a rank of phase 12's world, on ``grid`` (``DP_LAYOUT``,
+    the grid that started the world at ``t0``): the probe, (a), (b) and
+    (c); its report."""
     import torch
-    from repro_torch.launch import mesh as mesh_lib
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_num_threads(1)    # as in tp_rank
-    t0 = time.perf_counter()
-    grid = mesh_lib.init_grid(mesh_lib.Layout(*DP_LAYOUT), rank=rank,
-                              device=torch.device("cuda", 0),
-                              init_method=init,
-                              timeout_s=DP_COLLECTIVE_LIMIT_S)
+    rank = grid.rank
     report = {"rank": rank, "grid": grid.describe(),
               "gloo_cuda": gloo_cuda_probe(grid)}
     dp_progress(rank, "probe", t0, report["gloo_cuda"])
@@ -4534,8 +4626,7 @@ def dp_rank(rank: int, init: str, out_dir: str) -> None:
     dp_progress(rank, "(b), (c)", t0, report["twice"])
     report["seconds"] = {"setup": t1 - t0, "fp32_gate": t2 - t1,
                          "schedules": time.perf_counter() - t2}
-    grid.close()
-    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(report))
+    return report
 
 
 def wait_world(procs, limit_s: float, what: str, tick=None) -> float:
@@ -4611,24 +4702,34 @@ def dp_cli_start():
     """(d) the training CLI under ``torch.distributed.run`` on 4 ranks:
     qwen1.5-0.5b at full width on its first ``TRAIN_CUT`` layers
     (``--layers``), the lease's (2, 2, 1) layout, ``hierarchical`` with
-    ``compress_pod``, 3 steps of 8 x 512; its output in files.  Started
-    beside phase 12 (d)'s two CLI worlds (``tp_cli``); returns
-    ``torchrun_start``'s (process, wait)."""
+    ``compress_pod``, 3 steps of 8 x ``CLI_SEQ``; its output in files.
+    Started once phase 12 (d)'s two CLI worlds have exited
+    (``tp_cli_start``); returns ``torchrun_start``'s (process, wait)."""
     argv = ["-m", "repro_torch.launch.train",
             "--arch", "qwen1.5-0.5b", "--layers", str(TRAIN_CUT),
             "--dp-mode", "hierarchical",
             "--compress-pod", "--pool", "scalepool", "--pool-accels", "12",
             "--steps", "3", "--batch", str(TRAIN_BATCH), "--seq",
-            str(TRAIN_SEQ), "--ckpt-dir", str(DP_DIR / "ckpt")]
+            str(CLI_SEQ), "--ckpt-dir", str(DP_DIR / "ckpt")]
     return torchrun_start(argv, DP_DIR, "cli", DP_CLI_LIMIT_S,
                           "phase 11 (d)")
 
 
 def cli_error(err: str) -> str:
-    """A failed CLI world's stderr, from its first traceback (a rank's,
-    ahead of ``torch.distributed.run``'s report), else its end."""
+    """A failed CLI world's stderr from its first traceback (a rank's,
+    ahead of ``torch.distributed.run``'s report), its head and the
+    exception that ends it, else the stderr's end."""
     at = err.find("Traceback")
-    return err[at:at + 3000] if at >= 0 else err[-2000:]
+    if at < 0:
+        return err[-2000:]
+    import re
+    lines = err[at:].splitlines()
+    end = next((i for i, line in enumerate(lines[1:], 1)
+                if not re.sub(r"^\[rank\d+\]: ?", "", line).startswith(
+                    (" ", "\t"))), len(lines) - 1)
+    if end < 16:
+        return "\n".join(lines[:end + 1])
+    return "\n".join(lines[:12] + ["..."] + lines[end - 3:end + 1])
 
 
 def dp_cli_checks(smi, wait):
@@ -4636,7 +4737,7 @@ def dp_cli_checks(smi, wait):
     rc, summary, err, secs = wait()
     emit({"phase": "dp", "check": "(d) CLI", "nvidia_smi": smi, "rc": rc,
           "seconds": secs, "cli": summary,
-          "started_with": "phase 12 (d)'s two CLI worlds",
+          "started_after": "phase 12 (d)'s two CLI worlds",
           "stderr_tail": err.strip().splitlines()[-6:]})
     check(rc == 0, f"phase 11 (d): rc {rc}: {cli_error(err)}")
     check(summary["mesh"] == {"pod": 2, "data": 2, "model": 1}
@@ -4647,30 +4748,13 @@ def dp_cli_checks(smi, wait):
           f"phase 11 (d): summary {summary}")
 
 
-def dp_phase(smi):
-    """Phase 11: (a)-(c) in one spawned world of 4 ranks sharing the card
-    (the kernels built by this process before); (d), the CLI, runs with
-    phase 12 (d)'s (``tp_cli``).  Returns each rank's (b) launches, all
-    three modes together."""
-    import multiprocessing
-    import shutil
-
+def dp_checks(smi, reports):
+    """Phase 11 (a)-(c)'s lines and checks from each rank's ``dp_part``
+    report (phase 12's world ran them on its first grid); (d), the CLI,
+    runs with phase 12 (d)'s (``tp_cli``).  Returns each rank's (b)
+    launches, all three modes together."""
     import torch
 
-    t_start = time.perf_counter()
-    gc.collect()
-    torch.cuda.empty_cache()
-    shutil.rmtree(DP_DIR, ignore_errors=True)
-    DP_DIR.mkdir(parents=True)
-    ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=dp_rank, args=(
-        r, f"file://{DP_DIR / 'store'}", str(DP_DIR))) for r in range(4)]
-    with dp_allocator_env():
-        for p in procs:
-            p.start()
-    world_s = wait_world(procs, DP_WORLD_LIMIT_S, "phase 11 (a)-(c)")
-    reports = [json.loads((DP_DIR / f"rank{r}.json").read_text())
-               for r in range(4)]
     cfg = cut("qwen1.5-0.5b", DP_DEPTH)
     want = train_launches(cfg, DP_STEPS)
     emit({"phase": "dp", "check": "gloo on CUDA tensors",
@@ -4725,9 +4809,7 @@ def dp_phase(smi):
           "per_rank": twice})
     check(all(t["same_bits"] for t in twice),
           f"phase 11 (c): a rank's step twice gave other bits: {twice}")
-    emit({"phase": "dp", "seconds": time.perf_counter() - t_start,
-          "world_seconds": world_s,
-          "rank_seconds": [r["seconds"] for r in reports]})
+    emit({"phase": "dp", "rank_seconds": [r["seconds"] for r in reports]})
     return counts
 
 
@@ -4745,14 +4827,22 @@ TP_GRIDS = {
     "2x1x2": (((2, 1, 2), ("pod", "data", "model")),
               [("pod_compress", "hierarchical", True, False)]),
 }
-TP_GATE_STEPS = 3               # (a)'s steps
-TP_STEPS = 4                    # (b)'s steps a case; s/step over 2-4
+TP_GATE_STEPS = 2               # (a)'s steps
+TP_STEPS = 3                    # (b)'s steps a case; s/step over 2-3
 TP_DIR = Path(__file__).resolve().parent / "build" / "phase12"
-TP_WORLD_LIMIT_S = 600.0        # the world's wall-clock limit (phases 12
-                                # (a)-(c) on both grids, then phase 13)
+TP_WORLD_LIMIT_S = 780.0        # the world's wall-clock limit (phase 11
+                                # (a)-(c), phase 12 (a)-(c) on both grids,
+                                # (e), (f), then phase 13)
 TP_CLI_LIMIT_S = 240.0          # each of (d)'s torch.distributed.run
 TP_FAIL_AT = 2                  # (d)'s injected failure: rank 1, step 2
 TP_CLI_GO = "cli_go"            # rank 0's file: (e), (i) done, (d) may start
+TP_WORLD_GO = "world_go"        # tp_phase's file: the spawned ranks begin
+TP_WAIT_LIMIT_S = 1200.0        # a spawned rank waits this long for it
+CLI_NICE = 19                   # the CLI worlds' niceness (torchrun_start)
+CLI_SEQ = 128                   # the CLI worlds' sequence (8 x 128 a step):
+                                # their 12 ranks held ~74 GB of an H100
+                                # 80GB at 8 x 512, and beside phase 13's
+                                # world one ran out of memory
 TP_CLI_WRAPPER = """
 import os, sys
 from repro_torch.launch.train import main
@@ -4775,6 +4865,19 @@ EP_GRID = "2x2"
 EP_DEPTH = 1
 EP_GATE_STEPS = 2
 EP_STEPS = 3                    # s/step over 2-3
+
+
+# (f): the ssm and hybrid families in training on the world's (data 2,
+# model 2) grid, the mamba2 block's SSD heads over model: mamba2-780m on
+# its first 2 of 48 layers (24 of 48 heads a rank) FSDP off and on,
+# zamba2-7b on its first ZAMBA2_GATE_DEPTH of 81 (one group, the shared
+# block's 16 of 32 heads and 56 of 112 SSD heads a rank, and a tail
+# layer) FSDP off; the fp32 gate against one card, then timed bf16 steps
+# of tp beside one card's losses on the same cut (zamba2 at TRAJ_LR)
+SSM_TRAIN = (("mamba2-780m", TRAIN_CUT, ("tp", "tp_fsdp")),
+             ("zamba2-7b", ZAMBA2_GATE_DEPTH, ("tp",)))
+SSM_GATE_STEPS = 2
+SSM_STEPS = 3                   # s/step over 2-3
 
 
 def tp_plain_compressed_steps(model, opt, params, batches):
@@ -4842,12 +4945,13 @@ def tp_gap(got_metrics, got_params, want_metrics, want_params, lr, steps):
 
 
 def tp_fp32_gate(grid, cases, arch="qwen1.5-0.5b", layers=TRAIN_CUT,
-                 steps=TP_GATE_STEPS):
-    """(a) ``arch`` (qwen1.5-0.5b; (e): olmoe-1b-7b) at full width on its
-    first ``layers`` layers in fp32 (TF32 off), global B=8 x S=512,
-    ``steps`` steps of each case from the same draw, the parameters
-    gathered from the ranks; rank 0 holds them, the losses and grad
-    norms against the one-process step (for ``compress_pod``,
+                 steps=TP_GATE_STEPS, lr=None):
+    """(a) ``arch`` (qwen1.5-0.5b; (e): olmoe-1b-7b; (f): mamba2-780m,
+    zamba2-7b) at full width on its first ``layers`` layers in fp32 (TF32
+    off), global B=8 x S=512, ``steps`` steps of each case from the same
+    draw (AdamW at ``lr``, default the CLI's), the parameters gathered
+    from the ranks; rank 0 holds them, the losses and grad norms against
+    the one-process step (for ``compress_pod``,
     ``tp_plain_compressed_steps``)."""
     import torch
     from repro_torch.models.config import ShapeConfig
@@ -4857,7 +4961,7 @@ def tp_fp32_gate(grid, cases, arch="qwen1.5-0.5b", layers=TRAIN_CUT,
     from repro_torch.tree import tree_map
 
     cfg = cut(arch, layers, compute_dtype="float32")
-    model, opt, one_step, pipe = train_parts(cfg, grid.device)
+    model, opt, one_step, pipe = train_parts(cfg, grid.device, lr)
     shape = ShapeConfig("smoke", "train", TRAIN_SEQ, TRAIN_BATCH)
     params = model.init(torch.Generator(device=grid.device).manual_seed(1))
     batches = [pipe.next_batch() for _ in range(steps)]
@@ -4913,14 +5017,16 @@ def tp_fp32_gate(grid, cases, arch="qwen1.5-0.5b", layers=TRAIN_CUT,
 
 
 def tp_full_depth(grid, cases, arch="qwen1.5-0.5b", layers=TP_DEPTH,
-                  steps=TP_STEPS, one_card=False):
-    """(b) ``arch`` (qwen1.5-0.5b; (e): olmoe-1b-7b) at full width on its
-    first ``layers`` layers, bf16 compute, the global 8 x 512 (phase 10
-    (c)'s weights, seed 0, and batches), ``steps`` steps of each case:
+                  steps=TP_STEPS, lr=None):
+    """(b) ``arch`` (qwen1.5-0.5b; (e): olmoe-1b-7b; (f): mamba2-780m,
+    zamba2-7b) at full width on its first ``layers`` layers, bf16
+    compute, AdamW at ``lr`` (default the CLI's), the global 8 x 512
+    (phase 10 (c)'s weights, seed 0, and batches), ``steps`` steps of
+    each case:
     losses, seconds a step, host seconds in collectives and the byte
     counter by (axes, op) a step, the peak of device memory, the
-    kernels' launches and variants; with ``one_card`` rank 0 also
-    steps one card on the same cut, weights and batches (its losses)."""
+    kernels' launches and variants (one card's losses on the same cut,
+    weights and batches: ``tp_reference_losses``, run by the parent)."""
     import torch
     from repro_torch import kernels
     from repro_torch.models.config import ShapeConfig
@@ -4928,7 +5034,7 @@ def tp_full_depth(grid, cases, arch="qwen1.5-0.5b", layers=TP_DEPTH,
     from repro_torch.sharding.profiles import describe, make_rules
 
     cfg = cut(arch, layers)
-    model, opt, one_step, pipe = train_parts(cfg, grid.device)
+    model, opt, one_step, pipe = train_parts(cfg, grid.device, lr)
     shape = ShapeConfig("smoke", "train", TRAIN_SEQ, TRAIN_BATCH)
     batches = [pipe.next_batch() for _ in range(steps)]
     out = {}
@@ -4982,16 +5088,6 @@ def tp_full_depth(grid, cases, arch="qwen1.5-0.5b", layers=TP_DEPTH,
     del state, step
     gc.collect()
     torch.cuda.empty_cache()
-    if grid.rank == 0 and one_card:
-        state = train_rt.init_state(
-            model, opt, torch.Generator(device=grid.device).manual_seed(0))
-        out["one_card_losses"] = []
-        for b in batches:
-            state, m = one_step(state, b)
-            out["one_card_losses"].append(float(m["loss"]))
-        del state
-        gc.collect()
-        torch.cuda.empty_cache()
     if grid.rank == 0 and any(compress for _, _, compress, _ in cases):
         params = model.init(torch.Generator(device=grid.device).manual_seed(0))
         metrics, _ = tp_plain_compressed_steps(model, opt, params, batches)
@@ -5032,32 +5128,65 @@ def tp_twice(grid):
             "seconds": time.perf_counter() - t0}
 
 
-def tp_reference_losses(device):
-    """(b)'s one-card reference: phase 10 (c)'s run (qwen1.5-0.5b, the
-    weights of seed 0, its batches) on the first ``TP_DEPTH`` layers,
-    ``TP_STEPS`` steps' losses."""
+# the one-card bf16 trajectories that (b), (e) and (f) are held to:
+# (arch, layers, steps), each at TRAJ_LR where it has one
+TP_ONE_CARD = (("qwen1.5-0.5b", TP_DEPTH, TP_STEPS),
+               (EP_ARCH, EP_DEPTH, EP_STEPS),
+               ("mamba2-780m", TRAIN_CUT, SSM_STEPS),
+               ("zamba2-7b", ZAMBA2_GATE_DEPTH, SSM_STEPS))
+
+
+def tp_reference_losses(device, arch="qwen1.5-0.5b", layers=TP_DEPTH,
+                        steps=TP_STEPS):
+    """A one-card bf16 reference of (b), (e) or (f): phase 10 (c)'s run
+    (the weights of seed 0, its batches) of ``arch`` on its first
+    ``layers`` layers at ``TRAJ_LR`` where it has one, ``steps`` steps'
+    losses: ``tp_full_depth``'s cut, weights and batches."""
     import torch
     from repro_torch.runtime import train as train_rt
 
-    cfg = cut("qwen1.5-0.5b", TP_DEPTH)
-    model, opt, step, pipe = train_parts(cfg, device)
+    cfg = cut(arch, layers)
+    model, opt, step, pipe = train_parts(cfg, device, TRAJ_LR.get(arch))
     state = train_rt.init_state(
         model, opt, torch.Generator(device=device).manual_seed(0))
     losses = []
-    for b in train_batches(cfg, pipe, TP_STEPS, device):
+    for b in train_batches(cfg, pipe, steps, device):
         state, m = step(state, b)
         losses.append(float(m["loss"]))
     return losses
 
 
+def tp_one_card(device) -> dict:
+    """{arch: ``tp_reference_losses``} of every ``TP_ONE_CARD`` entry."""
+    import torch
+    out = {}
+    for arch, layers, steps in TP_ONE_CARD:
+        out[arch] = tp_reference_losses(device, arch, layers, steps)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def tp_rank(rank: int, init: str, out_dir: str) -> None:
     """One rank of phase 12's world (a spawned process; any failure exits
-    it non-zero): on each of ``TP_GRIDS`` in turn (the second's groups
-    formed in the world the first started) (a), (b) and, with FSDP,
-    (c); then phase 13; its report to ``<out_dir>/rank<r>.json``."""
+    it non-zero): phase 11 (a)-(c) on ``DP_LAYOUT``'s grid, which starts
+    the world; on each of ``TP_GRIDS`` in turn (their groups formed in
+    that world) (a), (b) and, with FSDP, (c); (e) and (f) on (data 2,
+    model 2); then phase 13; its report to ``<out_dir>/rank<r>.json``."""
     import torch
+    import repro_torch.runtime.serve  # noqa: F401  (imported while waiting)
+    import repro_torch.runtime.train  # noqa: F401
+    import repro_torch.serve  # noqa: F401
     from repro_torch.launch import mesh as mesh_lib
 
+    # spawned while the card runs phases 4-10 (``tp_world_start``): the
+    # imports above are done by then, and the card untouched until
+    # ``tp_phase``'s go
+    go, t_wait = Path(out_dir, TP_WORLD_GO), time.perf_counter()
+    while not go.exists():
+        if time.perf_counter() - t_wait > TP_WAIT_LIMIT_S:
+            raise SystemExit(3)
+        time.sleep(0.2)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # one intra-op thread a rank, as torch.distributed.run sets each
@@ -5065,14 +5194,20 @@ def tp_rank(rank: int, init: str, out_dir: str) -> None:
     torch.set_num_threads(1)
     t_world = time.perf_counter()
     report = {"rank": rank, "grids": {}}
-    world = None
+    world = mesh_lib.init_grid(mesh_lib.Layout(*DP_LAYOUT), rank=rank,
+                               device=torch.device("cuda", 0),
+                               init_method=init,
+                               timeout_s=DP_COLLECTIVE_LIMIT_S)
+    report["dp"] = dp_part(world, t_world)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ep_grid = None
     for name, (layout, cases) in TP_GRIDS.items():
         t0 = time.perf_counter()
         grid = mesh_lib.init_grid(mesh_lib.Layout(*layout), rank=rank,
                                   device=torch.device("cuda", 0),
                                   init_method=init,
                                   timeout_s=DP_COLLECTIVE_LIMIT_S)
-        world = world or grid
         r = {"grid": grid.describe()}
         t1 = time.perf_counter()
         r["fp32_gate"] = tp_fp32_gate(grid, cases)
@@ -5089,16 +5224,26 @@ def tp_rank(rank: int, init: str, out_dir: str) -> None:
                         "full_depth": t3 - t2,
                         "twice": time.perf_counter() - t3}
         report["grids"][name] = r
-        if grid is not world:
+        if name == EP_GRID:
+            ep_grid = grid
+        else:
             grid.close()
         gc.collect()
         torch.cuda.empty_cache()
-    report["ep"] = ep_rank(world)
+    report["ep"] = ep_rank(ep_grid)
     gc.collect()
     torch.cuda.empty_cache()
-    # phase 13 (i) first: its fp32 draws of olmoe's layers are the
-    # world's largest, and (d)'s CLI worlds start once they are freed
+    report["ssm"] = ssm_rank(ep_grid)
+    ep_grid.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 13 (i) and (j) first: their fp32 draws of olmoe's and
+    # zamba2's layers are the world's largest, and (d)'s CLI worlds, which
+    # hold tens of GB of the card, start once they are freed
     moe = ts_moe(rank, torch.device("cuda", 0))
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssm = ts_ssm(rank, torch.device("cuda", 0))
     gc.collect()
     torch.cuda.empty_cache()
     if rank == 0:               # (d)'s CLI worlds may start beside ours
@@ -5107,7 +5252,7 @@ def tp_rank(rank: int, init: str, out_dir: str) -> None:
     refs = Path(out_dir, TS_REFS)
     report["serve"] = ts_rank(rank, json.loads(refs.read_text())
                               if refs.exists() else None)
-    report["serve"]["moe"] = moe
+    report["serve"].update(moe=moe, ssm=ssm)
     report["serve"]["seconds"] = time.perf_counter() - t0
     world.close()
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(report))
@@ -5126,14 +5271,15 @@ def ep_rank(grid) -> dict:
     dp_progress(grid.rank, "(e) fp32 gate", t0, out["fp32_gate"], phase=12)
     t1 = time.perf_counter()
     out["full_depth"] = tp_full_depth(grid, cases[:1], EP_ARCH, EP_DEPTH,
-                                      EP_STEPS, one_card=True)
+                                      EP_STEPS)
     out["seconds"] = {"fp32_gate": t1 - t0,
                       "bf16": time.perf_counter() - t1}
     return out
 
 
-def ep_checks(smi, reports) -> dict:
-    """(e)'s lines and checks; returns each rank's launches."""
+def ep_checks(smi, reports, one_card) -> dict:
+    """(e)'s lines and checks (``one_card``: ``tp_one_card``'s); returns
+    each rank's launches."""
     cfg = cut(EP_ARCH, EP_DEPTH)
     per = [r["ep"] for r in reports]
     gate = per[0]["fp32_gate"]
@@ -5153,7 +5299,7 @@ def ep_checks(smi, reports) -> dict:
     for name, *_ in TP_GRIDS[EP_GRID][1][:1]:
         full = [p["full_depth"][name] for p in per]
         losses = full[0]["losses"]
-        ref = per[0]["full_depth"]["one_card_losses"]
+        ref = one_card[EP_ARCH]
         gaps = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
         emit({"phase": "tp", "check": f"(e) expert parallel bf16 {name}",
               "nvidia_smi": smi, "arch": cfg.name, "layers": EP_DEPTH,
@@ -5185,9 +5331,105 @@ def ep_checks(smi, reports) -> dict:
     return counts
 
 
+def ssm_rank(grid) -> dict:
+    """(f) on ``grid`` (the world's (data 2, model 2)): each of
+    ``SSM_TRAIN`` at full width on its cut, the fp32 gate of its cases
+    (``SSM_GATE_STEPS`` steps each against one card), then
+    ``SSM_STEPS`` timed bf16 steps of ``tp`` beside one card's losses on
+    the same cut."""
+    import torch
+    out = {}
+    for arch, layers, names in SSM_TRAIN:
+        t0 = time.perf_counter()
+        cases = [c for c in TP_GRIDS[EP_GRID][1] if c[0] in names]
+        lr = TRAJ_LR.get(arch)
+        r = {"fp32_gate": tp_fp32_gate(grid, cases, arch, layers,
+                                       SSM_GATE_STEPS, lr)}
+        dp_progress(grid.rank, f"(f) {arch} fp32 gate", t0, r["fp32_gate"],
+                    phase=12)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        r["full_depth"] = tp_full_depth(grid, cases[:1], arch, layers,
+                                        SSM_STEPS, lr=lr)
+        r["seconds"] = {"fp32_gate": t1 - t0,
+                        "bf16": time.perf_counter() - t1}
+        out[arch] = r
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def ssm_checks(smi, reports, one_card) -> dict:
+    """(f)'s lines and checks (``one_card``: ``tp_one_card``'s); returns
+    each rank's launches."""
+    counts = {}
+    mesh = reports[0]["grids"][EP_GRID]["grid"]["mesh"]
+    for arch, layers, names in SSM_TRAIN:
+        cfg = cut(arch, layers)
+        per = [r["ssm"][arch] for r in reports]
+        gate = per[0]["fp32_gate"]
+        emit({"phase": "tp", "check": "(f) ssm_* rules fp32 gate",
+              "arch": cfg.name, "layers": layers, "layout": mesh,
+              "ssd_heads_a_rank": cfg.ssm_heads // 2,
+              "lr": TRAJ_LR.get(arch, "the CLI's"),
+              "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+              "steps": SSM_GATE_STEPS, "tol": TOL["float32"],
+              "param_share_allowed": DP_PARAM_SHARE, "rank0": gate})
+        check(all(g["ok"] for g in gate.values())
+              and all(p["fp32_gate"][c]["metrics"] == gate[c]["metrics"]
+                      for p in per for c in gate),
+              f"phase 12 (f) {arch} fp32 gate: {gate}")
+        want = train_launches(cfg, SSM_STEPS, sharded=True)
+        full = [p["full_depth"]["tp"] for p in per]
+        losses = full[0]["losses"]
+        ref = one_card[arch]
+        gaps = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+        emit({"phase": "tp", "check": "(f) ssm_* rules bf16 tp",
+              "nvidia_smi": smi, "arch": cfg.name, "layers": layers,
+              "layout": mesh,
+              "ranks": "4 ranks sharing one card (gloo, host-staged)",
+              "seq": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
+              "steps": SSM_STEPS, "lr": TRAJ_LR.get(arch, "the CLI's"),
+              "one_card_losses": ref, "rel_gaps": gaps,
+              "tol": BF16_TRAJ_TOL, "per_rank": full})
+        check(all(f["losses"] == losses for f in full)
+              and all(math.isfinite(x) for x in losses)
+              and all(g <= BF16_TRAJ_TOL for g in gaps),
+              f"phase 12 (f) {arch}: losses {[f['losses'] for f in full]} "
+              f"against one card's {ref}")
+        for r, f in enumerate(full):
+            calls = f["calls_per_step"]
+            check(f["launches"] == want
+                  and all(calls.get(k, 0) > 0 for k in (
+                      "model:all-gather:ssm", "model:reduce-scatter:ssm",
+                      "model:all-reduce:ssm", "model:all-reduce:ssm-norm")),
+                  f"phase 12 (f) {arch} rank {r}: launches {f['launches']} "
+                  f"!= {want}, or no ssm collective in {calls}")
+            check_ssd_variant(f"phase 12 (f) {arch} rank {r}",
+                              cfg.compute_dtype, f["variants"],
+                              want["ssd_scan"])
+            check_backward_variant(f"phase 12 (f) {arch} rank {r}",
+                                   cfg.compute_dtype, f["variants"],
+                                   want["ssd_scan_bwd"], "ssd_scan_bwd")
+            check_flash_variant(f"phase 12 (f) {arch} rank {r}",
+                                cfg.compute_dtype, f["variants"],
+                                want["flash_attention"])
+            check_backward_variant(f"phase 12 (f) {arch} rank {r}",
+                                   cfg.compute_dtype, f["variants"],
+                                   want["flash_attention_bwd"])
+            counts[f"{arch} ssm tp rank {r}"] = dict(f["launches"])
+        emit({"phase": "tp", "check": f"(f) {arch} seconds",
+              "per_rank": [p["seconds"] for p in per]})
+    return counts
+
+
 def torchrun_start(argv, out_dir, name, limit_s, what):
     """Start ``argv`` under ``torch.distributed.run`` on 4 ranks, its
-    output in ``<out_dir>/<name>.out`` and ``.err``.  Returns the process
+    output in ``<out_dir>/<name>.out`` and ``.err``, at ``CLI_NICE``: the
+    CLI worlds run beside phase 13's world on the host's cores, whose
+    ranks wait on each other's collectives, so the world's ranks go
+    first and the CLIs take the cores they leave.  Returns the process
     and a function that waits for it (its whole process tree killed past
     ``limit_s`` from its start) and gives (rc, summary or None, stderr,
     seconds)."""
@@ -5201,7 +5443,8 @@ def torchrun_start(argv, out_dir, name, limit_s, what):
             dp_allocator_env():
         proc = subprocess.Popen(cmd, cwd=root, env={
             **os.environ, "PYTHONPATH": str(root / "src")},
-            stdout=fo, stderr=fe, text=True)
+            stdout=fo, stderr=fe, text=True,
+            preexec_fn=lambda: os.nice(CLI_NICE))
 
     def wait():
         try:
@@ -5238,20 +5481,23 @@ def tp_cli_start():
     """(d) the training CLI under ``torch.distributed.run`` on 4 ranks
     with no ``--pool``: qwen1.5-0.5b at full width on its first
     ``TRAIN_CUT`` layers (``--layers``) on the reference's smoke mesh
-    (data 2, model 2), tensor parallel, 3 steps of 8 x 512; beside it the
+    (data 2, model 2), tensor parallel, 3 steps of 8 x ``CLI_SEQ``; beside
+    it the
     same under ``--max-restarts 1`` through a wrapper (under the ignored
     ``build/``) whose failure hook raises on rank 1 at step
     ``TP_FAIL_AT`` of the first attempt, with ``--ckpt-every 1``: exit 0,
     the resume reported, every step's loss (the first attempt's and the
     replayed ones) equal in bits to the first run's.  The two worlds
-    start at once, and beside them phase 11 (d)'s (``dp_cli_start``), 12
-    ranks on the card, while phase 12's world serves phase 13 (the
-    ranks' (e) and (i) done, ``TP_CLI_GO``): their seconds are start-up
-    under each other's load and the world's.  Returns the three
-    (process, wait)."""
+    start at once, while phase 12's world serves phase 13 (the ranks'
+    (e), (i) and (j) done, ``TP_CLI_GO``), and phase 11 (d)'s
+    (``dp_cli_start``) once both have exited: the three at once held
+    ~67 GB of an H100 80GB's 79 at 8 x 128 tokens a step, and beside the
+    serving world one ran out of memory.  Their
+    seconds are start-up under each other's load and the world's.
+    Returns the two (process, wait)."""
     base = ["--arch", "qwen1.5-0.5b", "--layers", str(TRAIN_CUT),
             "--steps", "3", "--batch",
-            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1"]
+            str(TRAIN_BATCH), "--seq", str(CLI_SEQ), "--log-every", "1"]
     wrapper = TP_DIR / "restart_wrapper.py"
     wrapper.write_text(TP_CLI_WRAPPER.format(fail_at=TP_FAIL_AT))
     return [tp_torchrun(
@@ -5260,7 +5506,7 @@ def tp_cli_start():
         tp_torchrun(
         ["--max-restarts", "1", str(wrapper)] + base
         + ["--ckpt-every", "1", "--ckpt-dir", str(TP_DIR / "ckpt_restart")],
-        "cli_restart"), dp_cli_start()]
+        "cli_restart")]
 
 
 def tp_cli_checks(smi, plain_wait, restart_wait):
@@ -5296,15 +5542,36 @@ def tp_cli_checks(smi, plain_wait, restart_wait):
           f"phase 12 (d) restart: {summary}, losses {same}")
 
 
-def tp_phase(smi, qwen_losses, qwen_run, serve_refs):
-    """Phases 12 and 13: one world of 4 ranks sharing the card (the
-    kernels built by this process before) on each of ``TP_GRIDS`` in
-    turn, then (e) (``ep_rank``) and 13 (i) (``ts_moe``), then the rest
-    of serving (``ts_rank``), beside which phase 12 (d)'s and phase 11
-    (d)'s CLI worlds run, started once the ranks' (i) is done
-    (``tp_cli_start``).  (b)'s
-    trajectories are held to the one-card trajectory of the same cut
-    (``qwen_losses``, ``tp_reference_losses``), the compressed one to the
+def tp_world_start():
+    """Spawn the 4 ranks of phases 11-13's world (``tp_rank``): each
+    imports, then waits for ``tp_phase``'s go file before it touches
+    the card.  Returns the processes."""
+    import multiprocessing
+    import shutil
+    for d in (DP_DIR, TP_DIR):
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+    ctx = multiprocessing.get_context("spawn")
+    store = TP_DIR / "store"
+    procs = [ctx.Process(target=tp_rank, args=(
+        r, f"file://{store}", str(TP_DIR))) for r in range(4)]
+    with dp_allocator_env():
+        for p in procs:
+            p.start()
+    return procs
+
+
+def tp_phase(smi, qwen_run, serve_refs, procs):
+    """Phases 11, 12 and 13: one world of 4 ranks sharing the card (the
+    kernels built by this process before): phase 11 (a)-(c) on its grid
+    (``dp_part``), then each of ``TP_GRIDS`` in turn, then (e)
+    (``ep_rank``), (f) (``ssm_rank``), 13 (i) (``ts_moe``) and (j)
+    (``ts_ssm``), then the rest of serving (``ts_rank``), beside which
+    phase 12 (d)'s two CLI worlds run, started once the ranks' (j) is
+    done (``tp_cli_start``), and phase 11 (d)'s once they have exited.
+    (b)'s, (e)'s and (f)'s trajectories are held to one card's of the
+    same cut (``tp_one_card``, run by this process while the world runs
+    phase 11: the ranks do not read it), the compressed one to the
     plain in-process evaluation of the same schedule
     (``tp_plain_compressed_steps``, rank 0): int8 codes change the gradient, so a compressed trajectory
     leaves the uncompressed one by more than the bf16 bound (phase 11's
@@ -5313,37 +5580,45 @@ def tp_phase(smi, qwen_losses, qwen_run, serve_refs):
     (``qwen_run``, ``ts_one_card_run``, beside (h)'s bf16 run), and (f)
     and (g) held to one card's runs of phases 7 and 8 (``serve_refs``,
     written for the ranks before the world starts).
-    Returns each rank's (b) launches, its cases together, and phase 13
-    (b)'s."""
-    import multiprocessing
-    import shutil
-
+    ``procs``: the world's ranks (``tp_world_start``), started by this
+    function's go file.  Returns each rank's (b) launches, its cases
+    together, and phase 13 (b)'s."""
     import torch
 
     t_start = time.perf_counter()
-    shutil.rmtree(TP_DIR, ignore_errors=True)
-    TP_DIR.mkdir(parents=True)
     (TP_DIR / TS_REFS).write_text(json.dumps(serve_refs))
     counts = {}
-    ctx = multiprocessing.get_context("spawn")
     gc.collect()
     torch.cuda.empty_cache()
-    store = TP_DIR / "store"
-    procs = [ctx.Process(target=tp_rank, args=(
-        r, f"file://{store}", str(TP_DIR))) for r in range(4)]
-    with dp_allocator_env():
-        for p in procs:
-            p.start()
+    (TP_DIR / TP_WORLD_GO).write_text("")
     clis = []
+    try:
+        one_card = tp_one_card(torch.device("cuda"))
+    except BaseException:
+        for p in procs:
+            p.kill()
+        raise
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the card's least free memory while the world runs, and while the
+    # CLI worlds run beside it
+    least = {"world": float("inf"), "with_clis": float("inf")}
 
     def start_clis(now=False):
+        free = torch.cuda.mem_get_info()[0] / 1e9
+        key = "with_clis" if clis else "world"
+        least[key] = min(least[key], free)
         if not clis and (now or (TP_DIR / TP_CLI_GO).exists()):
             clis.extend(tp_cli_start())
+        if len(clis) == 2 and (now or all(proc.poll() is not None
+                                          for proc, _ in clis)):
+            clis.append(dp_cli_start())
     try:
         world_s = wait_world(procs, TP_WORLD_LIMIT_S, "phase 12 world",
                              start_clis)
         start_clis(now=True)
-        counts.update(tp_world_checks(smi, qwen_losses, qwen_run,
+        counts.update(tp_world_checks(smi, one_card, qwen_run,
                                       serve_refs, world_s))
         tp_cli_checks(smi, *(wait for _, wait in clis[:2]))
         dp_cli_checks(smi, clis[2][1])
@@ -5352,18 +5627,21 @@ def tp_phase(smi, qwen_losses, qwen_run, serve_refs):
             if proc.poll() is None:
                 kill_tree(proc.pid)
                 proc.wait(timeout=60)
-    emit({"phase": "tp", "seconds": time.perf_counter() - t_start})
+    emit({"phase": "tp", "seconds": time.perf_counter() - t_start,
+          "least_free_gb": least})
     return counts
 
 
-def tp_world_checks(smi, qwen_losses, qwen_run, serve_refs, world_s):
-    """Phase 12 (a)-(c) and (e) and phase 13's lines and checks from the
-    world's reports; returns each rank's launches."""
+def tp_world_checks(smi, one_card, qwen_run, serve_refs, world_s):
+    """Phases 11, 12 and 13's lines and checks from the world's reports
+    (``one_card``: ``tp_one_card``'s); returns each rank's launches."""
     cfg = cut("qwen1.5-0.5b", TP_DEPTH)
     want = train_launches(cfg, TP_STEPS)
+    qwen_losses = one_card["qwen1.5-0.5b"]
     counts = {}
     reports = [json.loads((TP_DIR / f"rank{r}.json").read_text())
                for r in range(4)]
+    counts.update(dp_checks(smi, [r["dp"] for r in reports]))
     for world in TP_GRIDS:
         _, cases = TP_GRIDS[world]
         grids = [r["grids"][world] for r in reports]
@@ -5423,7 +5701,8 @@ def tp_world_checks(smi, qwen_losses, qwen_run, serve_refs, world_s):
                   f"{twice}")
         emit({"phase": "tp", "world": world,
               "rank_seconds": [r["seconds"] for r in grids]})
-    counts.update(ep_checks(smi, reports))
+    counts.update(ep_checks(smi, reports, one_card))
+    counts.update(ssm_checks(smi, reports, one_card))
     counts.update(ts_checks(smi, [r["serve"] for r in reports],
                             qwen_run, serve_refs))
     emit({"phase": "tp", "world_seconds": world_s,
@@ -5654,8 +5933,13 @@ def ts_kernels(device):
     engine's 8-row decode over an fp32 pool of 64-token pages and its
     512-token prefill (bf16 q, fp32 K/V); and (d)'s session on each
     grid: B3 at a rank's last decode step (its rows and heads) and B2
-    over its prefill's and a decode step's rows; each against its plain
-    version."""
+    over its prefill's and a decode step's rows; phase 12 (f)'s and (j)'s
+    ranks on (data 2, model 2): B4 on a rank's SSD heads (its 4 rows of
+    512, mamba2's 24 of 48 heads, zamba2's 56 of 112) with its backward
+    B8 (each gradient within the bf16 tolerance of its largest |value|,
+    against autograd of the plain version on fp32 copies), and B3 and B5
+    on zamba2's shared block, 16 of 32 heads at head_dim 112; each
+    against its plain version."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import flash_attention
@@ -5742,6 +6026,63 @@ def ts_kernels(device):
         "max_abs_err": max_err(got, want),
         "ok": within(got, want, TOL["bfloat16"])
         and bool(torch.isfinite(got).all())}
+    # (f)'s and (j)'s ranks on (data 2, model 2): the SSD scan on a
+    # rank's heads, its 4 rows of 512, forward and backward (bf16), and
+    # zamba2's shared block on 16 of its 32 heads at head_dim 112
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    for arch, H, N in (("mamba2", 24, 128), ("zamba2", 56, 64)):
+        args = ssd_inputs(gen, 4, 512, H, 1, N, bf16, device)
+        leaves = [t.clone().requires_grad_(True) for t in args]
+        dy = torch.randn(4, 512, H, 64, generator=gen, device=device).to(bf16)
+        y, st = ssd_scan(*leaves, chunk=128)
+        torch.autograd.backward(y, dy)
+        plain = [t.detach().float().clone().requires_grad_(True)
+                 for t in args]
+        y32, st32 = ref.ssd_chunked_ref(*plain, 128)
+        torch.autograd.backward(y32, dy.float())
+        torch.cuda.synchronize()
+        errs = [max_err(a.grad, b.grad) for a, b in zip(leaves, plain)]
+        scales = [float(b.grad.abs().max()) for b in plain]
+        case = f"B=4 S=512 H={H} P=64 G=1 N={N} Q=128 bf16"
+        out[f"ssd_scan {arch} (data 2, model 2) rank"] = {
+            "case": case, "max_abs_err": max_err(y, y32),
+            "state_max_abs_err": max_err(st, st32),
+            "ok": within(y, y32, TOL["bfloat16"])
+            and within(st, st32, TOL["bfloat16"])
+            and bool(torch.isfinite(y).all())}
+        out[f"ssd_scan_bwd {arch} (data 2, model 2) rank"] = {
+            "case": case, "gradients": ["dx", "ddt", "dA", "dB", "dC", "dD"],
+            "max_abs_err": errs, "max_abs_grad": scales,
+            "tol_of_max_grad": TOL["bfloat16"],
+            "ok": all(e <= TOL["bfloat16"] * sc for e, sc in zip(errs, scales))
+            and all(bool(torch.isfinite(a.grad).all()) for a in leaves)}
+        del args, leaves, plain, y, y32
+    q, k, v = (torch.randn(4, 512, 16, 112, generator=gen,
+                           device=device).to(bf16).requires_grad_(True)
+               for _ in range(3))
+    do = torch.randn(4, 512, 16, 112, generator=gen, device=device).to(bf16)
+    got = flash_attention(q, k, v, causal=True)
+    got.backward(do)
+    q32, k32, v32 = (t.detach().float().requires_grad_(True)
+                     for t in (q, k, v))
+    with ops.plain_versions():
+        want = ops.flash_attention(q32, k32, v32, causal=True)
+    want.backward(do.float())
+    torch.cuda.synchronize()
+    errs = [max_err(a.grad, b.grad) for a, b in ((q, q32), (k, k32),
+                                                 (v, v32))]
+    scales = [float(b.grad.abs().max()) for b in (q32, k32, v32)]
+    out["flash_attention zamba2 (model 2) rank"] = {
+        "case": "B=4 Sq=Skv=512 H=KV=16 D=112 q=bf16 kv=bf16 causal",
+        "max_abs_err": max_err(got, want),
+        "ok": within(got, want, TOL["bfloat16"])
+        and bool(torch.isfinite(got).all())}
+    out["flash_attention_bwd zamba2 (model 2) rank"] = {
+        "case": "B=4 Sq=Skv=512 H=KV=16 D=112 bf16 causal",
+        "gradients": ["dq", "dk", "dv"], "max_abs_err": errs,
+        "max_abs_grad": scales, "tol_of_max_grad": TOL["bfloat16"],
+        "ok": all(e <= TOL["bfloat16"] * sc for e, sc in zip(errs, scales))}
+    del q, k, v, q32, k32, v32, got, want
     # (d)'s session on each grid: a rank's last decode step (one query
     # over the 544-token fp32 cache) and its norms over the prefill's
     # rows and a decode step's
@@ -5787,6 +6128,9 @@ TS_SESSION_GATE_GEN = 8         # (d)'s fp32 gate: generated tokens a row
 TS_MT_TENANTS = ("a", "b")
 TS_MT_PAGES = 32                # (e)'s shared tier-1 pool: revokes pages
                                 # on phase 4's trace split two ways
+TS_MT_NEW = 32                  # (e)'s new tokens a request (phase 4's are
+                                # 64): each sequence still grows by a page,
+                                # and the pool still revokes 2
 
 
 def ts_session_steps(sess, params, inputs, generate, keep_logits=False):
@@ -5854,29 +6198,37 @@ def ts_session_gate(rank, device):
         got = ts_session_steps(sess, sess.load(raw), inputs, G, True)
         r = {"tokens": got[0].tolist(), "mesh": sess.grid.layout.as_dict()}
         if want is not None:
-            same = torch.ones(B, dtype=torch.bool)
-            errs, parted = [], []
-            for k in range(G):
-                a, b = got[1][k][same], want[1][k][same]
-                if len(a):
-                    errs.append(max_err(a, b)
-                                / float(b.abs().max()))
-                for i in torch.nonzero(same & (got[0][:, k]
-                                               != want[0][:, k])).flatten():
-                    top = torch.topk(want[1][k][i], 2).values
-                    m = float(top[0] - top[1])
-                    parted.append({"row": int(i), "step": k,
-                                   "top2_margin": m,
-                                   "tie": m <= TS_TIE_MARGIN})
-                    same[i] = False
-            r["one_card"] = {"rel_err_by_step": errs,
-                             "max_rel_err": max(errs), "parted": parted}
+            r["one_card"] = ts_session_compare(got, want)
         sess.grid.close()
         out[name] = r
     del raw
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def ts_session_compare(got, want) -> dict:
+    """Two sessions' ``ts_session_steps`` with logits, each step's logits
+    on the rows whose tokens so far agree: the error over the largest
+    |logit| a step, and where tokens part, the second's top-2 margin
+    (within ``TS_TIE_MARGIN``: a tie, C-ref3)."""
+    import torch
+    B, G = want[0].shape
+    same = torch.ones(B, dtype=torch.bool)
+    errs, parted = [], []
+    for k in range(G):
+        a, b = got[1][k][same], want[1][k][same]
+        if len(a):
+            errs.append(max_err(a, b) / float(b.abs().max()))
+        for i in torch.nonzero(same & (got[0][:, k]
+                                       != want[0][:, k])).flatten():
+            top = torch.topk(want[1][k][i], 2).values
+            m = float(top[0] - top[1])
+            parted.append({"row": int(i), "step": k, "top2_margin": m,
+                           "tie": m <= TS_TIE_MARGIN})
+            same[i] = False
+    return {"rel_err_by_step": errs, "max_rel_err": max(errs),
+            "parted": parted}
 
 
 def ts_session_full(device):
@@ -5928,6 +6280,187 @@ def ts_session_full(device):
     return out
 
 
+# (j): the ssm and hybrid families' fixed-batch session on the world's
+# (data 2, model 2) grid: mamba2-780m on its first 2 layers, zamba2-7b on
+# its first ZAMBA2_GATE_DEPTH (the SSD heads, conv channels and shared
+# attention heads over model)
+TS_SSM = (("mamba2-780m", TRAIN_CUT), ("zamba2-7b", ZAMBA2_GATE_DEPTH))
+TS_SSM_GRID = "2x2"
+
+
+def ts_ssm(rank, device):
+    """(j) each of ``TS_SSM`` at full width on its cut: fp32 on
+    ``TS_SESSION``'s rows and prompts, ``TS_SESSION_GATE_GEN`` new
+    tokens, every step's logits (gathered) against one card's session
+    on the same weights (rank 0 runs it, and again through the plain
+    versions: how far two fp32 programs of one semantics part on one
+    card, ``ts_ssm_checks``' bound); then bf16 with
+    ``TS_SESSION``'s new tokens through ``launch.serve.
+    fixed_batch_generate``: the tokens, launches, kernel variants,
+    collectives, seconds and decode tokens per wall second, beside one
+    card's run of the same (rank 0)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import (fixed_batch_generate,
+                                          fixed_batch_inputs)
+    from repro_torch.models.api import build_model
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.runtime.serve import make_session
+    from repro_torch.sharding.profiles import describe
+
+    B, S = TS_SESSION["batch"], TS_SESSION["prompt"]
+    out = {}
+    for arch, layers in TS_SSM:
+        t0 = time.perf_counter()
+        cfg = cut(arch, layers, compute_dtype="float32")
+        model = build_model(cfg, device=device)
+        G = TS_SESSION_GATE_GEN
+        raw, inputs = fixed_batch_inputs(model, B, S, 0, device)
+        sess = ts_session_lease(TS_SSM_GRID, model, device)
+        got = ts_session_steps(sess, sess.load(raw), inputs, G, True)
+        r = {"gate": {"tokens": got[0].tolist(),
+                      "mesh": sess.grid.layout.as_dict()}}
+        sess.grid.close()
+        if rank == 0:
+            one = make_session(model, ShapeConfig("one", "decode", S + G, B))
+            want = ts_session_steps(one, one.load(raw), inputs, G, True)
+            r["gate"]["one_card"] = ts_session_compare(got, want)
+            with ops.plain_versions():
+                plain = ts_session_steps(one, one.load(raw), inputs, G, True)
+            r["gate"]["one_card_plain"] = ts_session_compare(plain, want)
+            del want, plain
+        del raw, got, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        model = build_model(cut(arch, layers), device=device)
+        G = TS_SESSION["generate"]
+        raw, inputs = fixed_batch_inputs(model, B, S, 0, device)
+        sess = ts_session_lease(TS_SSM_GRID, model, device)
+        params = sess.load(raw)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        sess.grid.stats.reset()
+        kernels.reset_launch_counts()
+        run = fixed_batch_generate(model, params, inputs, G, device, sess)
+        stats = sess.grid.stats
+        r["full"] = {
+            "mesh": sess.grid.layout.as_dict(), "rows": sess.rows(B),
+            "rules": describe(sess.plan.rules),
+            "tokens": run["tokens"].tolist(),
+            "finite": run["logits_finite"],
+            "prefill_s": run["prefill_s"], "decode_s": run["decode_s"],
+            "decode_tokens_per_wall_s": run["decode_tokens_per_s"],
+            "launches": kernels.launch_counts(),
+            "variants": kernels.variant_counts(),
+            "collective_host_s": stats.seconds,
+            "collective_host_s_by_op": dict(stats.seconds_by),
+            "collective_calls": dict(stats.calls)}
+        sess.grid.close()
+        del params, run
+        gc.collect()
+        torch.cuda.empty_cache()
+        if rank == 0:
+            one = fixed_batch_generate(model, model.load(raw), inputs, G,
+                                       device)
+            r["full"]["one_card"] = {
+                "prefill_s": one["prefill_s"], "decode_s": one["decode_s"],
+                "decode_tokens_per_wall_s": one["decode_tokens_per_s"],
+                "rows_parting": sum(a != b for a, b in zip(
+                    r["full"]["tokens"], one["tokens"].tolist()))}
+            del one
+        del raw, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        r["seconds"] = {"fp32": t1 - t0, "bf16": time.perf_counter() - t1}
+        out[arch] = r
+        dp_progress(rank, f"(j) {arch}", t0, r["seconds"], phase=13)
+    return out
+
+
+def ts_ssm_checks(smi, per):
+    """Phase 13 (j)'s lines and checks; returns each rank's launches of
+    the bf16 runs."""
+    counts = {}
+    for arch, layers in TS_SSM:
+        cfg = cut(arch, layers)
+        runs = [p["ssm"][arch] for p in per]
+        gate = [r["gate"] for r in runs]
+        one = gate[0]["one_card"]
+        # the fp32 sums of 4 ranks part from one card's by as much as the
+        # kernels' from the plain versions' on one card: zamba2's 7
+        # layers at d=3584 part by ~1.1e-5 of the largest |logit| on an
+        # H100; held to twice the latter where it is the larger
+        plain = gate[0]["one_card_plain"]
+        tol = max(TOL["float32"], 2 * plain["max_rel_err"])
+        emit({"phase": "tp serve", "check": "(j) ssm_* session fp32 gate",
+              "grid": TS_SSM_GRID, "mesh": gate[0]["mesh"],
+              "nvidia_smi": smi, "arch": cfg.name, "layers": layers,
+              "batch": TS_SESSION["batch"], "prompt": TS_SESSION["prompt"],
+              "generate": TS_SESSION_GATE_GEN, "tol": tol,
+              "tie_margin": TS_TIE_MARGIN, "ranks": TS_RANKS,
+              "one_card": one, "one_card_kernels_vs_plain": plain})
+        check(all(g["tokens"] == gate[0]["tokens"] for g in gate),
+              f"phase 13 (j) {arch}: the ranks' fp32 tokens differ")
+        check(one["max_rel_err"] <= tol and not one["parted"]
+              and not plain["parted"],
+              f"phase 13 (j) {arch}: against the one-card fp32 session "
+              f"(bound {tol}): {one}")
+        full = [r["full"] for r in runs]
+        f0 = full[0]
+        G = TS_SESSION["generate"]
+        A = attention_layers(cfg)
+        L = cfg.n_layers                        # Mamba2 layers
+        emit({"phase": "tp serve", "check": "(j) ssm_* session full width, "
+              "cut depth", "grid": TS_SSM_GRID, "mesh": f0["mesh"],
+              "nvidia_smi": smi, "arch": cfg.name, "layers": layers,
+              "compute": cfg.compute_dtype, **TS_SESSION,
+              "ranks": TS_RANKS, "rules": f0["rules"],
+              "one_card": f0["one_card"],
+              "per_rank": [{k: f[k] for k in f if k not in (
+                  "tokens", "one_card")} for f in full]})
+        # a call's norms: the shared block's two, each Mamba2 layer's
+        # input norm (its gated norm runs in plain ops under model), the
+        # final norm; the SSD scan in the prefill (decode steps the
+        # state); flash in each shared block call
+        want = {"paged_attention": 0, "flash_attention": A * G,
+                "ssd_scan": L, "rmsnorm": (2 * A + L + 1) * G}
+        for r, f in enumerate(full):
+            n, calls = f["launches"], f["collective_calls"]
+            check(f["tokens"] == f0["tokens"] and f["finite"]
+                  and len(f["tokens"]) == TS_SESSION["batch"]
+                  and all(len(t) == G and all(0 <= x < cfg.vocab for x in t)
+                          for t in f["tokens"]),
+                  f"phase 13 (j) {arch} rank {r}: tokens differ from rank "
+                  f"0's or are not {G} in the vocab a row")
+            check(all(n.get(k, 0) == v for k, v in want.items())
+                  and calls.get("model:all-gather:ssm") == L * G
+                  and calls.get("model:all-reduce:ssm-norm") == L * G,
+                  f"phase 13 (j) {arch} rank {r}: launches {n} != {want}, "
+                  f"or collectives {calls}")
+            check_flash_variant(f"phase 13 (j) {arch} rank {r}",
+                                cfg.compute_dtype, f["variants"],
+                                want["flash_attention"])
+            check_ssd_variant(f"phase 13 (j) {arch} rank {r}",
+                              cfg.compute_dtype, f["variants"],
+                              want["ssd_scan"])
+            counts[f"{arch} session ssm tp rank {r}"] = dict(n)
+    emit({"phase": "tp serve", "check": "(j) seconds",
+          "per_rank": [{a: p["ssm"][a]["seconds"] for a, _ in TS_SSM}
+                       for p in per]})
+    return counts
+
+
+def ts_tenant_parts(cfg):
+    """(e)'s engine shape and trace: phase 4's, each request's new tokens
+    ``TS_MT_NEW``."""
+    ecfg, _, trace = serve_parts(cfg)
+    return ecfg, [dataclasses.replace(r, max_new_tokens=TS_MT_NEW)
+                  for r in trace]
+
+
 def ts_tenant_engines(model, device, lease, tracer=None):
     """Two tenants of ``lease`` (its grid when it binds one) over one
     ``PoolArbiter`` of ``TS_MT_PAGES`` pages, phase 4's engine shape,
@@ -5936,7 +6469,7 @@ def ts_tenant_engines(model, device, lease, tracer=None):
     import torch
     from repro_torch.serve import Engine, PoolArbiter
 
-    ecfg, _, trace = serve_parts(model.cfg)
+    ecfg, trace = ts_tenant_parts(model.cfg)
     arb = PoolArbiter(TS_MT_PAGES, page_size=ecfg.page_size, tracer=tracer)
     params = model.init(torch.Generator(device=device).manual_seed(0))
     engines = []
@@ -6621,6 +7154,7 @@ def ts_checks(smi, per, qwen_run, refs=None):
         counts.update(ts_colo_checks(smi, per, refs["colo"]))
         counts.update(ts_dp_checks(smi, per, refs["disagg"], qwen_run))
     counts.update(ts_moe_checks(smi, per))
+    counts.update(ts_ssm_checks(smi, per))
     emit({"phase": "tp serve", "seconds_d_e": [p["seconds_d_e"]
                                                for p in per],
           "seconds_f_g": [p.get("seconds_f_g") for p in per]})
@@ -7305,6 +7839,11 @@ def kernel_times(device, counts, errs):
                flash_time(4, 1, 516, 32, 112, q_offset=499, kv_len=500))
     flash_line("tp rank (model 4) prefill B=1 Sq=Skv=512 H=4 D=64 q=bf16 "
                "kv=fp32", flash_time(1, 512, 512, 4, 64))
+    # phase 13 (j)'s rank: zamba2's shared block on 16 of its 32 heads,
+    # its 4 rows of 512 over the session's fp32 cache
+    flash_line("zamba2 session rank (data 2, model 2) prefill B=4 "
+               "Sq=Skv=512 H=KV=16 D=112 q=bf16 kv=fp32",
+               flash_time(4, 512, 512, 16, 112))
     # a rank's decode step of phase 13 (d)'s session at its last token
     # (512 prompt + 32 new over an fp32 cache of 544): its rows and
     # local heads on each grid
@@ -7418,7 +7957,10 @@ def kernel_times(device, counts, errs):
             ("whisper cross train B=8 Sq=448 Skv=1500 H=KV=12 D=64 "
              "non-causal", 8, 448, 1500, 12, 64, bf16, False),
             ("zamba2 train B=8 S=512 H=KV=32 D=112 causal", 8, 512, 512,
-             32, 112, bf16, True)):
+             32, 112, bf16, True),
+            # phase 12 (f)'s rank: 4 rows, 16 of zamba2's 32 heads
+            ("zamba2 (model 2) rank train B=4 S=512 H=KV=16 D=112 causal",
+             4, 512, 512, 16, 112, bf16, True)):
         ms, plain, b_ms, b_by, lib, n = flash_bwd_time(B, Sq, Skv, H, D, dt,
                                                        causal)
         if case.startswith("olmo train"):
@@ -7461,10 +8003,18 @@ def kernel_times(device, counts, errs):
     # ssd: the prefill's shapes (bf16 x and B/C, fp32 dt, the cache's
     # zero fp32 state) on the tensor-core kernel, input copies cycled so
     # each call reads cold
-    for arch, B, H, N in (("mamba2", 8, 48, 128), ("zamba2", 4, 112, 64)):
-        nbytes, flops = ssd_work(B, 500, H, 64, 1, N, 128, 2)
-        reads = nbytes - B * 500 * H * 64 * 2 - B * H * 64 * N * 4  # - y, h
-        sets = [ssd_inputs(gen, B, 500, H, 1, N, bf16, device)
+    # phase 9's prefills (500 tokens), then a rank's 4 rows of 512 on
+    # (data 2, model 2) (phase 13 (j)'s prefill, 24 of mamba2's 48 heads
+    # and 56 of zamba2's 112)
+    for arch, B, S, H, N in (("mamba2", 8, 500, 48, 128),
+                             ("zamba2", 4, 500, 112, 64),
+                             ("mamba2 (data 2, model 2) rank", 4, 512, 24,
+                              128),
+                             ("zamba2 (data 2, model 2) rank", 4, 512, 56,
+                              64)):
+        nbytes, flops = ssd_work(B, S, H, 64, 1, N, 128, 2)
+        reads = nbytes - B * S * H * 64 * 2 - B * H * 64 * N * 4  # - y, h
+        sets = [ssd_inputs(gen, B, S, H, 1, N, bf16, device)
                 + (torch.zeros(B, H, 64, N, device=device),)
                 for _ in range(cold_copies(reads))]
         ms = time_ms(lambda i: ssd.ssd_scan(
@@ -7474,7 +8024,7 @@ def kernel_times(device, counts, errs):
         b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
         if arch == "mamba2":
             row(ssd, "ssd_scan", ms, plain, b_ms, b_by, None, variant="tc")
-        times("ssd_scan", f"{arch} prefill B={B} S=500 H={H} P=64 N={N} "
+        times("ssd_scan", f"{arch} prefill B={B} S={S} H={H} P=64 N={N} "
               f"G=1 Q=128 bf16", ms, plain, b_ms, b_by, None, variant="tc",
               input_copies=len(sets))
         del sets
@@ -7484,8 +8034,13 @@ def kernel_times(device, counts, errs):
     # the kernel (its three launches) beside autograd's backward of the
     # plain version on the same inputs; no single PyTorch call computes
     # it, so no library time
-    for arch, H, N in (("mamba2", 48, 128), ("zamba2", 112, 64)):
-        B, S = TRAIN_BATCH, TRAIN_SEQ
+    # and a rank's on phase 12 (f)'s (data 2, model 2): its 4 rows, 24
+    # of mamba2's heads, 56 of zamba2's
+    for arch, B, H, N in (("mamba2", TRAIN_BATCH, 48, 128),
+                          ("zamba2", TRAIN_BATCH, 112, 64),
+                          ("mamba2 (data 2, model 2) rank", 4, 24, 128),
+                          ("zamba2 (data 2, model 2) rank", 4, 56, 64)):
+        S = TRAIN_SEQ
         nbytes, flops = ssd_bwd_work(B, S, H, 64, 1, N, 2)
         # - dx, dB, dC, ddt, dA, dD
         reads = nbytes - (B * S * H * 64 * 2 + 2 * B * S * N * 2
@@ -7530,7 +8085,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip smoke needs a CUDA device; none is visible")
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    from repro_torch import kernels
     from repro_torch.kernels import _build
 
     device = torch.device("cuda")
@@ -7554,6 +8108,26 @@ def main() -> int:
                 or line.startswith("==")):
             print(line, file=sys.stderr)
 
+    # beside the card's phases: the CPU smoke-width references of phases
+    # 6-8 in a process of their own, and phases 11-13's world's ranks
+    # spawned to import and wait (``tp_world_start``)
+    refs = cpu_refs_start()
+    world = tp_world_start()
+    try:
+        return smoke_phases(device, smi, t_start, refs, world)
+    finally:
+        for proc in [refs[0]] + world:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(timeout=30)
+
+
+def smoke_phases(device, smi, t_start, refs, world) -> int:
+    """Phases 3-13 and 5 of ``main`` (its docstring), ``refs`` and
+    ``world`` the side processes ``main`` started."""
+    import torch
+    from repro_torch import kernels
+
     errs = kernel_checks(device)
     errs.update(backward_checks(device))
     errs.update(ssd_backward_checks(device))
@@ -7570,19 +8144,22 @@ def main() -> int:
     qwen_run = ts_one_card_run(device)
     gc.collect()
     torch.cuda.empty_cache()
+    cpu_refs = cpu_refs_join(*refs)
     counts["qwen1.5-0.5b pooled"], variants["qwen1.5-0.5b pooled"] = \
-        multitenant_full_width(qwen, qwen_params, device)
+        multitenant_full_width(qwen, qwen_params, device, cpu_refs)
     counts["qwen1.5-0.5b pooled"].update(kernels.backward_counts())
     gc.collect()
     torch.cuda.empty_cache()
     serve_refs = {}
     (counts["qwen1.5-0.5b disagg"], variants["qwen1.5-0.5b disagg"],
-     serve_refs["disagg"]) = disagg_full_width(qwen, qwen_params, device)
+     serve_refs["disagg"]) = disagg_full_width(qwen, qwen_params, device,
+                                               cpu_refs)
     counts["qwen1.5-0.5b disagg"].update(kernels.backward_counts())
     gc.collect()
     torch.cuda.empty_cache()
     (counts["qwen1.5-0.5b colo"], variants["qwen1.5-0.5b colo"],
-     serve_refs["colo"]) = colo_full_width(qwen, qwen_params, device)
+     serve_refs["colo"]) = colo_full_width(qwen, qwen_params, device,
+                                           cpu_refs)
     counts["qwen1.5-0.5b colo"].update(kernels.backward_counts())
     del qwen, qwen_params
     gc.collect()
@@ -7610,13 +8187,7 @@ def main() -> int:
     variants.update(train_variants)
     gc.collect()
     torch.cuda.empty_cache()
-    counts.update(dp_phase(smi))
-    gc.collect()
-    torch.cuda.empty_cache()
-    tp_ref = tp_reference_losses(device)
-    gc.collect()
-    torch.cuda.empty_cache()
-    counts.update(tp_phase(smi, tp_ref, qwen_run, serve_refs))
+    counts.update(tp_phase(smi, qwen_run, serve_refs, world))
     names = sorted({name for c in counts.values() for name in c})
     total = {name: sum(c.get(name, 0) for c in counts.values())
              for name in names}

@@ -14,6 +14,10 @@ phase 5's times.
     # phase 12 (e) and phase 13 (c) and (i), olmoe-1b-7b expert parallel
     # on the world's (data 2, model 2) grid, and their checks
     python3 chip_tools/phase13_alone.py --moe
+    # phase 12 (f) and phase 13 (c) and (j), mamba2-780m and zamba2-7b
+    # under the ssm_* rules on the world's (data 2, model 2) grid, and
+    # their checks
+    python3 chip_tools/phase13_alone.py --ssm
 """
 import collections, json, multiprocessing, shutil, sys, time
 from pathlib import Path
@@ -67,12 +71,26 @@ def moe_rank(rank, grid):
     return out
 
 
+def ssm_rank(rank, grid):
+    """Phase 12 (f) on the world's (data 2, model 2) grid, then phase 13
+    (c) and (j)."""
+    import torch
+    device = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    out = {"ssm": cs.ssm_rank(grid)}
+    t1 = time.perf_counter()
+    out["kernels"] = cs.ts_kernels(device)
+    out["serve_ssm"] = cs.ts_ssm(rank, device)
+    out["seconds_f_g"] = {"f": t1 - t0, "j": time.perf_counter() - t1}
+    return out
+
+
 def rank_fn(rank, init, mode):
     import torch
     from repro_torch.launch import mesh as mesh_lib
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_num_threads(1)
-    shape = (2, 2) if mode == "moe" else (1, 4)
+    shape = (2, 2) if mode in ("moe", "ssm") else (1, 4)
     grid = mesh_lib.init_grid(mesh_lib.Layout(shape, ("data", "model")),
                               rank=rank, device=torch.device("cuda", 0),
                               init_method=init, timeout_s=180)
@@ -80,6 +98,8 @@ def rank_fn(rank, init, mode):
     t0 = time.perf_counter()
     if mode == "moe":
         out = moe_rank(rank, grid)
+    elif mode == "ssm":
+        out = ssm_rank(rank, grid)
     else:
         out = {"fg": fg_rank, "h": h_rank}.get(mode, cs.ts_rank)(rank, refs)
     out["seconds"] = time.perf_counter() - t0
@@ -92,7 +112,8 @@ def main():
     from repro_torch.kernels import _build
     mode = ("fg" if "--fg" in sys.argv[1:] else
             "h" if "--h" in sys.argv[1:] else
-            "moe" if "--moe" in sys.argv[1:] else "all")
+            "moe" if "--moe" in sys.argv[1:] else
+            "ssm" if "--ssm" in sys.argv[1:] else "all")
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = cs.nvidia_smi_line()
     print(smi, flush=True)
@@ -104,8 +125,9 @@ def main():
     OUT.mkdir(parents=True)
     t0 = time.perf_counter()
     dev = torch.device("cuda")
-    qwen_run = cs.ts_one_card_run(dev) if mode != "moe" else None
-    if mode == "moe":
+    qwen_run = (cs.ts_one_card_run(dev) if mode not in ("moe", "ssm")
+                else None)
+    if mode in ("moe", "ssm"):
         refs = {}
     elif mode == "h":
         model, params = cs.ts_serve_model(dev)
@@ -115,6 +137,11 @@ def main():
     else:
         refs = cs.ts_serve_refs(dev)
     (OUT / cs.TS_REFS).write_text(json.dumps(refs))
+    # (e)'s and (f)'s one-card bf16 trajectories
+    one_card = {arch: cs.tp_reference_losses(dev, arch, layers, steps)
+                for arch, layers, steps in cs.TP_ONE_CARD
+                if (arch == cs.EP_ARCH) == (mode == "moe")
+                and arch != "qwen1.5-0.5b"} if mode in ("moe", "ssm") else {}
     print("one-card references", time.perf_counter() - t0, flush=True)
     torch.cuda.empty_cache()
     ctx = multiprocessing.get_context("spawn")
@@ -142,8 +169,14 @@ def main():
     elif mode == "moe":
         layout = {"mesh": {"data": 2, "model": 2}}
         counts = cs.ep_checks(smi, [{"ep": p["ep"], "grids": {cs.EP_GRID: {
-            "grid": layout}}} for p in per])
+            "grid": layout}}} for p in per], one_card)
         counts.update(cs.ts_moe_checks(smi, per))
+    elif mode == "ssm":
+        layout = {"mesh": {"data": 2, "model": 2}}
+        counts = cs.ssm_checks(smi, [{"ssm": p["ssm"], "grids": {
+            cs.EP_GRID: {"grid": layout}}} for p in per], one_card)
+        counts.update(cs.ts_ssm_checks(smi, [{"ssm": p["serve_ssm"]}
+                                             for p in per]))
     else:
         counts = cs.ts_checks(smi, per, qwen_run, refs)
     total = collections.defaultdict(int)

@@ -32,6 +32,14 @@ call.
     # does (i)'s spill check: phase 4's trace does not spill at smoke
     # width); the collectives a rank made and its seconds
     PYTHONPATH=src python chip_tools/phase13_cpu.py --moe
+    # phase 12 (f) and 13 (j), the ssm and hybrid families under the
+    # ssm_* rules on a (data 2, model 2) grid, at smoke width in 4 CPU
+    # ranks: (f)'s fp32 gates against one process and bf16 steps against
+    # one process's, (j)'s fp32 session against one process and its bf16
+    # run, through the smoke's own checks (each failure printed; the
+    # launch counts and kernel variants fail here, the CPU launches no
+    # kernel); the collectives a rank made and its seconds
+    PYTHONPATH=src python chip_tools/phase13_cpu.py --ssm
 
 Each rank runs one torch thread; ~60 s for the first, ~30 s a pool size
 for the second, ~60 s for the third.
@@ -197,13 +205,71 @@ def moe():
     cs.emit = lambda obj: print(json.dumps(obj)[:1500])
     layout = {"mesh": {"data": 2, "model": 2}}
     cs.ep_checks("cpu", [{"ep": p["ep"], "grids": {cs.EP_GRID: {
-        "grid": layout}}} for p in per])
+        "grid": layout}}} for p in per], {cs.EP_ARCH: cs.tp_reference_losses(
+            torch.device("cpu"), cs.EP_ARCH, cs.EP_DEPTH, cs.EP_STEPS)})
     cs.ts_moe_checks("cpu", per)
     for msg in failed:
         print("FAILED:", msg[:600])
     print(f"(e), (i): {len(failed)} checks failed; seconds a rank "
           f"{[p['seconds'] for p in per]}; (i) collectives on rank 0 "
           f"{per[0]['moe']['bfloat16']['collective_calls']}")
+    return 0
+
+
+def ssm_rank_fn(rank, init):
+    import torch
+    torch.set_num_threads(1)
+    cs = smoke_width()
+    from repro_torch.launch import mesh as mesh_lib
+    grid = mesh_lib.init_grid(mesh_lib.Layout((2, 2), ("data", "model")),
+                              rank=rank, device=torch.device("cpu"),
+                              init_method=init, timeout_s=120)
+    t0 = time.perf_counter()
+    out = {"ssm": cs.ssm_rank(grid)}
+    t1 = time.perf_counter()
+    out["serve_ssm"] = cs.ts_ssm(rank, torch.device("cpu"))
+    out["seconds"] = {"f": t1 - t0, "j": time.perf_counter() - t1}
+    grid.close()
+    (OUT / f"ssm_rank{rank}.json").write_text(json.dumps(out))
+
+
+def ssm():
+    """Phase 12 (f) and 13 (j) at smoke width in 4 CPU ranks, through the
+    smoke's checks."""
+    import torch
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "ssm_store").unlink(missing_ok=True)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=ssm_rank_fn,
+                         args=(r, f"file://{OUT}/ssm_store"))
+             for r in range(4)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(900)
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        print(f"rank exit codes {codes}")
+        return 1
+    torch.set_num_threads(1)
+    cs = smoke_width()
+    per = [json.loads((OUT / f"ssm_rank{r}.json").read_text())
+           for r in range(4)]
+    failed = []
+    cs.check = lambda cond, msg: cond or failed.append(msg)
+    cs.emit = lambda obj: print(json.dumps(obj)[:1500])
+    layout = {"mesh": {"data": 2, "model": 2}}
+    cs.ssm_checks("cpu", [{"ssm": p["ssm"], "grids": {cs.EP_GRID: {
+        "grid": layout}}} for p in per], {
+            arch: cs.tp_reference_losses(torch.device("cpu"), arch, layers,
+                                         steps)
+            for arch, layers, steps in cs.TP_ONE_CARD[2:]})
+    cs.ts_ssm_checks("cpu", [{"ssm": p["serve_ssm"]} for p in per])
+    for msg in failed:
+        print("FAILED:", msg[:600])
+    print(f"(f), (j): {len(failed)} checks failed; seconds a rank "
+          f"{[p['seconds'] for p in per]}; (j) collectives on rank 0 "
+          f"{per[0]['serve_ssm']['mamba2-780m']['full']['collective_calls']}")
     return 0
 
 
@@ -254,7 +320,7 @@ def quota(pages_list):
     cfg = cs.cut("qwen1.5-0.5b", cs.TRAIN_CUT, compute_dtype="float32")
     model = build_model(cfg, device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
-    ecfg, _, trace = cs.serve_parts(cfg)
+    ecfg, trace = cs.ts_tenant_parts(cfg)
     lease = smoke_pool("scalepool").lease(
         "serve-tenants", cs.TS_MODEL, tier2_gb=8, kv_gb=4,
         tenants=cs.TS_MT_TENANTS)
@@ -283,11 +349,14 @@ def main():
     p.add_argument("--pages", type=int, nargs="*")
     p.add_argument("--serve-counts", action="store_true")
     p.add_argument("--moe", action="store_true")
+    p.add_argument("--ssm", action="store_true")
     args = p.parse_args()
     if args.serve_counts:
         return serve_counts()
     if args.moe:
         return moe()
+    if args.ssm:
+        return ssm()
     return quota(args.pages) if args.pages else rehearse()
 
 

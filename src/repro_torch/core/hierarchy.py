@@ -174,7 +174,7 @@ def all_reduce(t: torch.Tensor, grid: RankGrid, axes: Tuple[str, ...],
 
 
 def reduce_scatter(x: torch.Tensor, grid: RankGrid,
-                   axes: Tuple[str, ...]) -> torch.Tensor:
+                   axes: Tuple[str, ...], what: str = "") -> torch.Tensor:
     """The sum over the group of ``x`` (1-D, its length a multiple of the
     group's size), scattered: this rank's chunk, by its index."""
     n = grid.size(axes)
@@ -182,7 +182,7 @@ def reduce_scatter(x: torch.Tensor, grid: RankGrid,
         return x.clone()
     out = torch.empty(x.numel() // n, dtype=x.dtype, device=x.device)
     _collective(grid, axes, "reduce-scatter", out, x.contiguous(),
-                lambda o, i, g: _REDUCE_SCATTER(o, i, group=g))
+                lambda o, i, g: _REDUCE_SCATTER(o, i, group=g), what)
     return out
 
 

@@ -71,9 +71,10 @@ tokens differ from rank 0's makes every rank exit 1:
 * the fixed-batch mode runs on ``launch.mesh.make_smoke_mesh(world)``'s
   layout under its decode rules, as the reference's does on its smoke
   mesh: (data 2, model 2) at 4 ranks, (pod 2, data 2, model 2) at 8,
-  rows over the data axes and heads over ``model``
-  (``runtime.serve.make_session``); a world that does not fill the
-  layout exits 2 before any work.
+  rows over the data axes and heads over ``model`` (attention heads;
+  the ssm and hybrid families' SSD heads too; encdec on a model axis of
+  1 only) (``runtime.serve.make_session``); a world that does not fill
+  the layout exits 2 before any work.
 
 What is not served across ranks (the engine modes without such a
 lease, or on a world that does not fill its grid, and what

@@ -72,9 +72,11 @@ pipeline yields no ``frame_embeds``; it trains through
 attention or SSD scan the backward kernels do not take (the smoke
 configs' head_dim 16, or SSD head_dim P 16), and across processes a
 layout the world does not fill or that ``profiles.grid_refusal``
-leaves to a later slice (the ssm, hybrid and encdec families under a
-``model`` axis, heads that do not divide it; the dense and moe families
-train there, moe with its experts over ``model``).  Collectives time out
+leaves to a later slice (the encdec family under a ``model`` axis,
+heads that do not divide it: attention heads, or the ssm and hybrid
+families' SSD heads; the dense, moe, ssm and hybrid families train
+there, moe with its experts over ``model``, ssm and hybrid with their
+SSD heads over it).  Collectives time out
 (``launch.mesh.DEFAULT_TIMEOUT_S``), so a dead rank makes the others
 raise instead of waiting forever.
 """

@@ -13,12 +13,12 @@
                                             ``batch`` carries
                                             ``frame_embeds``)
     model.param_axes()                   -> the logical axes of init's tree
-                                            (the dense and moe families;
-                                            None on the others)
+                                            (every family but encdec;
+                                            None there)
     model.init_cache(batch, max_seq, dtype=...) -> the family's cache
     model.cache_axes()                   -> the logical axes of its leaves
-                                            (the dense, moe and encdec
-                                            K/V; None on the others)
+                                            (every family but encdec;
+                                            None there)
     model.prefill(params, batch, cache)  -> (last-position logits, cache
                                             [, enc_states for encdec])
     model.decode(params, tokens, cache, index[, enc_states])
@@ -51,6 +51,8 @@ _FAMILIES = {"dense": (transformer, torch.bfloat16),
              "hybrid": (hybrid, torch.bfloat16),
              "encdec": (encdec, torch.bfloat16)}
 _PAGED = ("dense", "moe")
+# the families with logical axes, which the sharding rules place
+_SHARDED = ("dense", "moe", "ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,7 +105,8 @@ def build_model(cfg: ModelConfig, *, device: DeviceLike = None) -> Model:
         decode=decode,
         loss=loss,
         param_axes=((lambda: m.param_axes(cfg))
-                    if cfg.family in ("dense", "moe") else None),
-        cache_axes=getattr(m, "cache_axes", None),
+                    if cfg.family in _SHARDED else None),
+        cache_axes=((lambda: m.cache_axes(cfg)) if cfg.family == "hybrid"
+                    else getattr(m, "cache_axes", None)),
         **paged,
     )

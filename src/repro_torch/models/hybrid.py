@@ -17,6 +17,14 @@ graph; the shared block's gradient sums over its uses.  With ``remat``
 each group (the shared block and its Mamba2 layers) is recomputed in the
 backward pass, as the reference's ``jax.checkpoint`` of ``group_body``;
 the tail layers are not, as in the reference.
+
+Under a tensor-parallel / FSDP plan (``repro_torch.sharding.tp``) the
+parameters are this rank's blocks (``param_axes``, the reference's
+names): the shared block runs through the dense family's
+``transformer.block_fwd`` (attention on the rank's heads, its KV cache
+the rank's kv heads; the MLP column -> row), each Mamba2 layer through
+``mamba2.block_fwd`` on the rank's SSD heads, and the cache holds the
+rank's rows, kv heads, SSD heads and conv channels (``init_cache``).
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import tp
 
 
 def group_layout(cfg: ModelConfig) -> Tuple[int, int, int]:
@@ -62,16 +71,35 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return p
 
 
+def param_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The logical axes of ``init_params``' tree, leaf for leaf (the
+    reference's names; the port's lists have no leading ``("layers",)``
+    axes)."""
+    n_groups, per, tail = group_layout(cfg)
+    p = {
+        "embedding": L.embedding_axes(),
+        "shared_attn": T.block_axes(cfg),
+        "mamba_main": [[M.block_axes(cfg) for _ in range(per)]
+                       for _ in range(n_groups)],
+        "final_norm": L.norm_axes(cfg.norm_type),
+    }
+    if tail:
+        p["mamba_tail"] = [M.block_axes(cfg) for _ in range(tail)]
+    return p
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device: DeviceLike = None
                ) -> Dict[str, torch.Tensor]:
-    """K/V in ``dtype``; the recurrent conv and SSD states always fp32."""
+    """K/V in ``dtype``; the recurrent conv and SSD states always fp32.
+    Under a plan the rank's kv heads, SSD heads and conv channels."""
     dev = resolve_device(device)
     n_groups, per, tail = group_layout(cfg)
     f32 = torch.float32
-    conv = (cfg.ssm_conv_width - 1, M.conv_channels(cfg))
-    ssd = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
-    kv = (n_groups, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    conv, ssd = M.local_state(cfg)
+    plan = tp.plan()
+    kv_heads = cfg.n_kv_heads // (plan.model_n if plan is not None else 1)
+    kv = (n_groups, batch, max_seq, kv_heads, cfg.head_dim)
     c = {
         "k": torch.zeros(kv, dtype=T.dtype_of(dtype), device=dev),
         "v": torch.zeros(kv, dtype=T.dtype_of(dtype), device=dev),
@@ -85,6 +113,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                                      device=dev)
         c["ssd_tail"] = torch.zeros((tail, batch) + ssd, dtype=f32,
                                     device=dev)
+    return c
+
+
+def cache_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The logical axes of ``init_cache``'s leaves, the reference's (the
+    conv tails under ``model``: ``mamba2.cache_axes``)."""
+    tail = group_layout(cfg)[2]
+    kv = ("layers", "batch", "seq_kv", "kv_heads", "head_dim")
+    c = {
+        "k": kv, "v": kv,
+        "conv": ("layers", "layers2", "batch", None, "ssm_conv_ch"),
+        "ssd": ("layers", "layers2", "batch", "ssm_heads", None, None),
+    }
+    if tail:
+        c["conv_tail"] = ("layers", "batch", None, "ssm_conv_ch")
+        c["ssd_tail"] = ("layers", "batch", "ssm_heads", None, None)
     return c
 
 
@@ -126,8 +170,10 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             remat: bool = True) -> torch.Tensor:
-    """``transformer.lm_loss`` through this family's ``forward``."""
-    return T.lm_loss(forward, params, cfg, batch, remat)
+    """``transformer.lm_loss`` through this family's ``forward``
+    (vocab-parallel under a plan)."""
+    return T.lm_loss(forward, params, cfg, batch, remat,
+                     axes_fn=param_axes)
 
 
 def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],

@@ -20,9 +20,12 @@ of the grid (``make_rules(..., fsdp=False)``, the reference's): a step
 takes the global batch and serves the rank's block of its rows (the
 rules' ``batch`` axes, every row where they leave it unsharded) on the
 rank's shards of the model (``sharding.tp``: heads and kv heads over
-``model``, the dense and moe families, moe's experts too), over a cache
-of its rows and kv heads; moe's dispatch group stays the whole batch
-(``tp.split_rows``), the reference's one group.
+``model``, the dense and moe families, moe's experts too; the ssm and
+hybrid families' SSD heads and conv channels, the hybrid's shared
+attention heads), over a cache of its rows, kv heads, SSD heads and conv
+channels (the family's ``init_cache`` under the plan); moe's dispatch
+group stays the whole batch (``tp.split_rows``), the reference's one
+group.
 The greedy token is ``tp.vocab_parallel_argmax`` of the rank's vocab
 columns, gathered over the batch axes (``core.hierarchy``, counted in
 the grid's ``CollectiveStats``): the carry's ``tokens`` are the global
@@ -252,9 +255,9 @@ def make_lease_session(model: Model, shape: ShapeConfig, lease, *,
     ``make_rules(..., fsdp=False)``): rows over the data axes, heads
     over ``model`` (see the module's docstring).  Refused
     (``profiles.grid_refusal``), each naming its slice: a ``model`` axis
-    over 1 bound to one process (several cards), the ssm, hybrid and
-    encdec families under a ``model`` axis over 1, heads that do not
-    divide it."""
+    over 1 bound to one process (several cards), the encdec family
+    under a ``model`` axis over 1, heads (attention or SSD heads) that
+    do not divide it."""
     binding = lease.materialize(None if device is None else [device])
     rules = make_rules(model.cfg, shape, binding, fsdp=False)
     why = grid_refusal(binding, rules, model.cfg, serving=True)

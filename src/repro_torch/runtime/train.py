@@ -21,7 +21,7 @@ gradients on them, reduces, and runs the same AdamW update, so every
 rank ends with the same parameters.  Without a grid the step is the
 one-device step; on a world of one, ``auto`` is that step too.
 
-Tensor parallelism and FSDP (the dense and moe families;
+Tensor parallelism and FSDP (the dense, moe, ssm and hybrid families;
 ``repro_torch.sharding.tp``): where the rules shard the parameters (a
 ``model`` axis over 1, ``embed`` on a mesh axis), the state holds this
 rank's blocks (``state_from_params`` cuts them from a full tree), the

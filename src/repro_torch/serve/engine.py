@@ -487,7 +487,8 @@ class Engine:
         heads.  Refused (``profiles.grid_refusal``), each naming the
         slice that brings it: a ``model`` axis over 1 outside a world of
         as many ranks, and a family or head count the rules do not shard
-        (3e-3g)."""
+        (3f, 3g); a family without paged KV (ssm, hybrid) is refused
+        after the grid's join, as on one device."""
         binding = lease.materialize(None if device is None else [device])
         rules = make_rules(model.cfg, ShapeConfig(
             "engine", "decode", cfg.max_seq, cfg.max_slots), binding,

@@ -19,9 +19,11 @@ The table is the reference's, entry for entry, from the same inputs.
 ``make_rules`` reads only the mesh's ``axis_names`` and ``shape`` (a
 tuple of sizes): the port's ``launch.mesh.Layout`` and ``RankGrid``
 serve it.  The training step reads ``batch`` for each rank's rows, and
-for the dense and moe families the parameters' entries: ``model``
-(tensor and expert parallelism: ``expert`` or ``expert_ff``) and
-``embed`` (FSDP) place each leaf's block (``partition.tree_shardings``);
+for the dense, moe, ssm and hybrid families the parameters' entries:
+``model`` (tensor and expert parallelism: ``expert`` or ``expert_ff``;
+the mamba2 block's ``ssm_inner_proj``, ``ssm_conv_ch``, ``ssm_heads``
+and ``ssm_inner``) and ``embed`` (FSDP) place each leaf's block
+(``partition.tree_shardings``);
 serving across ranks reads the decode table's (``kv_heads`` over
 ``model``, FSDP off, and the rows of a fixed-batch step or of an
 engine's decode bucket by ``batch`` over the data axes); ``moe_groups``
@@ -73,19 +75,23 @@ def grid_refusal(mesh, rules: Optional[Rules],
     run has, one process each (default ``mesh.world``, else 1).
 
     Tensor parallelism over ``model`` and FSDP (``embed`` on a mesh
-    axis) run the dense and moe families' training steps (moe: expert
-    parallelism, its experts or their ``expert_ff`` columns over
+    axis) run the dense, moe, ssm and hybrid families' training steps
+    (moe: expert parallelism, its experts or their ``expert_ff`` columns
+    over ``model``; ssm and hybrid: the mamba2 block's SSD heads over
     ``model``).  Serving across ranks (``serving``, one rank a process,
-    ``repro_torch.sharding.tp``) runs both families on (pod, data,
-    model) on every path: the fixed-batch session, the request-level
-    engine, tenants of one arbiter and engines on a shared transport (a
-    disaggregated cluster's tiers, co-resident engines) take their rows
-    over the data axes (the rules' ``batch``; moe's dispatch group stays
-    the whole batch) and their heads over ``model``.  What waits for a
-    later slice, each refusal naming its ROADMAP item: the ssm, hybrid
-    and encdec families under a ``model`` axis over 1 or FSDP (3e, 3f),
-    and attention heads or kv heads that do not divide ``model`` (3g,
-    the reference's context-parallel ``seq_attn`` fallback).  A grid of
+    ``repro_torch.sharding.tp``) runs the dense and moe families on
+    (pod, data, model) on every path: the fixed-batch session, the
+    request-level engine, tenants of one arbiter and engines on a shared
+    transport (a disaggregated cluster's tiers, co-resident engines)
+    take their rows over the data axes (the rules' ``batch``; moe's
+    dispatch group stays the whole batch) and their heads over
+    ``model``; the ssm and hybrid families, which have no paged KV,
+    through the fixed-batch session, likewise.  What waits for a later
+    slice, each refusal naming its ROADMAP item: the encdec family under
+    a ``model`` axis over 1 or FSDP (3f), and heads that do not divide
+    ``model`` (3g): attention heads or kv heads (the reference's
+    context-parallel ``seq_attn`` fallback) or the mamba2 block's SSD
+    heads, which ``make_rules`` then leaves unsharded.  A grid of
     other than ``world`` ranks under a ``model`` axis over 1 or in a
     world of ranks (a lease binding several cards to one process, a
     world that does not fill the grid) is refused: a lease never serves
@@ -109,15 +115,20 @@ def grid_refusal(mesh, rules: Optional[Rules],
     what = " and ".join(
         w for w, on in ((f"tensor parallelism (a model axis of {model_n})",
                          model_n > 1), ("FSDP", fsdp)) if on)
-    if cfg.family not in ("dense", "moe"):
-        later = {"ssm": "the ssm_* sharding rules (ROADMAP Queue A 3e)",
-                 "hybrid": "the ssm_* sharding rules (ROADMAP Queue A 3e)",
-                 "encdec": "the encoder-decoder's sharded step (ROADMAP "
-                           "Queue A 3f)"}
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         return (f"{cfg.name}: the {cfg.family} family under {what} needs "
-                f"{later.get(cfg.family, 'its sharded step')}, which comes "
-                f"with a later slice of the port; this one shards the dense "
-                f"and moe families")
+                f"the encoder-decoder's sharded step (ROADMAP Queue A 3f), "
+                f"which comes with a later slice of the port; this one "
+                f"shards the dense, moe, ssm and hybrid families")
+    if model_n > 1 and cfg.family in ("ssm", "hybrid") and (
+            cfg.ssm_heads % model_n
+            or (2 * cfg.d_inner + 2 * cfg.ssm_n_groups * cfg.ssm_state
+                + cfg.ssm_heads) % model_n):
+        return (f"{cfg.name}: {cfg.ssm_heads} SSD heads (and in_proj's "
+                f"columns) do not divide a model axis of {model_n}, where "
+                f"the reference's rules leave ssm_heads unsharded; that "
+                f"fallback comes with a later slice of the port (ROADMAP "
+                f"Queue A 3g)")
     if model_n > 1 and (cfg.n_heads % model_n or cfg.n_kv_heads % model_n):
         return (f"{cfg.name}: {cfg.n_heads} heads and {cfg.n_kv_heads} kv "
                 f"heads do not both divide a model axis of {model_n}; the "

@@ -21,6 +21,16 @@ counted by ``repro_torch.core.hierarchy``:
   compute dtype and all-gathered just before use (cast first: cast and
   gather commute, and half the bytes move); backward, the fp32
   reduce-scatter of the gradient's sum over ``data``;
+* ``gather_model``: tensors whose blocks are split over ``model``
+  (the mamba2 block's ``in_proj`` output and conv weights, in
+  contiguous blocks that are not head-aligned) all-gathered in one
+  collective; backward, the reduce-scatter of their gradients' sum
+  over ``model``, in fp32 (a rank's gradient of the whole is nonzero
+  only where it used it: its heads' columns and the shared B and C);
+* ``sum_over_model``: an all-reduce over ``model`` whose backward is an
+  all-reduce too: the sum (the gated RMSNorm's sum of squares over the
+  whole ``d_inner``) feeds only the rank's own elements, so each
+  rank's gradient of it is partial;
 * ``vocab_parallel_cross_entropy``: the loss over the rank's columns
   of the logits, its row max, sum of exponentials and gold logit
   all-reduced over ``model``, in fp32.  The table has
@@ -203,6 +213,70 @@ def reduce_from_model(x: torch.Tensor, plan_: Optional[Plan],
     if plan_ is None or plan_.model_n == 1:
         return x
     return _ReduceFromModel.apply(x, plan_.grid, what)
+
+
+class _GatherModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, grid, dims, what, *parts):
+        ctx.grid, ctx.dims, ctx.what = grid, dims, what
+        fronts = [t.movedim(d, 0).contiguous() for t, d in zip(parts, dims)]
+        ctx.shapes = [f.shape for f in fronts]
+        ctx.dtypes = [t.dtype for t in parts]
+        n = grid.size(MODEL)
+        every = hierarchy.all_gather(
+            torch.cat([f.reshape(-1) for f in fronts]), grid, MODEL,
+            what).view(n, -1)
+        out, at = [], 0
+        for f, d in zip(fronts, dims):
+            k = f.numel()
+            out.append(every[:, at:at + k].reshape(
+                (n * f.shape[0],) + f.shape[1:]).movedim(0, d))
+            at += k
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        n = ctx.grid.size(MODEL)
+        flat = torch.cat([g.float().movedim(d, 0).reshape(n, -1)
+                          for g, d in zip(grads, ctx.dims)], 1)
+        mine = hierarchy.reduce_scatter(flat.reshape(-1), ctx.grid, MODEL,
+                                        ctx.what)
+        out, at = [], 0
+        for shape, d, dtype in zip(ctx.shapes, ctx.dims, ctx.dtypes):
+            k = shape.numel()
+            out.append(mine[at:at + k].reshape(shape).movedim(0, d)
+                       .to(dtype))
+            at += k
+        return (None, None, None, *out)
+
+
+def gather_model(parts, dims, plan_: Plan, what: str = ""):
+    """Each tensor of ``parts``, this rank's block along its dimension of
+    ``dims`` of a tensor split in contiguous blocks over ``model``, made
+    whole: one all-gather for all of them (counted under ``what``);
+    backward, one reduce-scatter of their gradients' sum, in fp32."""
+    return _GatherModel.apply(plan_.grid, tuple(dims), what, *parts)
+
+
+class _SumOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grid, what):
+        ctx.grid, ctx.what = grid, what
+        return hierarchy.all_reduce(x.contiguous().clone(), grid, MODEL,
+                                    what=what)
+
+    @staticmethod
+    def backward(ctx, g):
+        return hierarchy.all_reduce(g.contiguous().clone(), ctx.grid, MODEL,
+                                    what=ctx.what), None, None
+
+
+def sum_over_model(x: torch.Tensor, plan_: Plan,
+                   what: str = "") -> torch.Tensor:
+    """The sum of ``x`` over ``model`` where every rank uses it only on
+    its own elements: its gradient, each rank's partial one, is summed
+    over ``model`` too."""
+    return _SumOverModel.apply(x, plan_.grid, what)
 
 
 def _data_sharded(block: partition.Block) -> bool:

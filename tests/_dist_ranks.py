@@ -342,6 +342,82 @@ def tp_pieces(out_dir, seed: int = 0):
     grid.close()
 
 
+def ssm_block(out_dir, seed: int = 0):
+    """The mamba2 block under a 2-rank ``model`` plan in fp32 (mamba2-780m
+    smoke's widths: 8 SSD heads, 4 a rank), beside the one-process block
+    on the same inputs: ``block_fwd`` over a prompt (its output, its
+    gradients of the input and of every leaf, cut to this rank's block,
+    its conv tail and final SSD state) and then ``block_decode`` of one
+    token from those states.  Writes {piece: [(name, got, want), ...]}
+    and the collectives' counts."""
+    from repro_torch.models import mamba2 as M
+    from repro_torch.sharding import partition, tp
+    grid = _grid((1, 2), ("data", "model"))
+    cfg = dataclasses.replace(get_config("mamba2-780m", smoke=True),
+                              compute_dtype="float32")
+    plan, rules = _tp_plan(grid, cfg)
+    axes = M.block_axes(cfg)
+    gen = torch.Generator().manual_seed(seed)
+    full = M.init_block(gen, cfg, torch.float32, torch.device("cpu"))
+    full["A_log"] = full["A_log"] + 0.1 * torch.randn(cfg.ssm_heads,
+                                                      generator=gen)
+    full["dt_bias"] = 0.3 * torch.randn(cfg.ssm_heads, generator=gen)
+    full["norm"]["scale"] = 1 + 0.2 * torch.randn(cfg.d_inner, generator=gen)
+    full["conv_bias"] = 0.1 * torch.randn(M.conv_channels(cfg),
+                                          generator=gen)
+    full = tree_map(lambda t: t.detach().requires_grad_(True), full)
+    local = partition.map_axes(
+        lambda ax, t: _cut(t, plan, ax), axes, full)
+    B, S = 2, 12
+    x_np = np.random.default_rng(seed).standard_normal(
+        (B, S + 1, cfg.d_model)).astype(np.float32)
+    r = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        (B, S, cfg.d_model)).astype(np.float32))
+    x1, x2 = _leaf(x_np[:, :S]), _leaf(x_np[:, :S])
+    want, (wc, ws) = M.block_fwd(full, x1, cfg)
+    with partition.use_rules(rules, grid):
+        got, (gc, gs) = M.block_fwd(local, x2, cfg)
+    fa, fl, ll = (dict(_flat_named(t)) for t in (axes, full, local))
+    names = ["x"] + list(fa)
+    gw = _grads(want, r, [x1] + [fl[n] for n in fa])
+    gg = _grads(got, r, [x2] + [ll[n] for n in fa])
+    out = {"prefill": [("out", got.detach(), want.detach())] + [
+        (n, a, b if n == "x" else _cut(b, plan, fa[n]).detach())
+        for n, a, b in zip(names, gg, gw)]}
+    # the rank's states: its heads' SSD state; its heads' x channels and
+    # all of B and C of the conv tail
+    di, m, k = cfg.d_inner, 2, grid.index(("model",))
+    xs = slice(k * di // m, (k + 1) * di // m)
+    rank_tail = torch.cat([wc[..., xs], wc[..., di:]], -1)
+    rank_state = ws[:, k * 4:(k + 1) * 4]
+    out["states"] = [("conv", gc.detach(), rank_tail.detach()),
+                     ("ssd", gs.detach(), rank_state.detach())]
+    one = _leaf(x_np[:, S:])
+    with torch.no_grad():
+        want, (wc, ws) = M.block_decode(full, one, cfg, conv_state=wc,
+                                        ssd_state=ws)
+        with partition.use_rules(rules, grid):
+            grid.stats.reset()
+            got, (gc, gs) = M.block_decode(local, one, cfg, conv_state=gc,
+                                           ssd_state=gs)
+            out["decode_stats"] = dict(grid.stats.calls)
+    out["decode"] = [("out", got, want),
+                     ("conv", gc, torch.cat([wc[..., xs], wc[..., di:]], -1)),
+                     ("ssd", gs, ws[:, k * 4:(k + 1) * 4])]
+    _save(out_dir, "ssm_block", grid.rank, out)
+    grid.close()
+
+
+def _flat_named(tree, prefix=""):
+    """(name, leaf) of a tree of dicts, keys sorted."""
+    for k in sorted(tree):
+        name = f"{prefix}/{k}" if prefix else k
+        if isinstance(tree[k], dict):
+            yield from _flat_named(tree[k], name)
+        else:
+            yield name, tree[k]
+
+
 TP_LAYOUTS = {"2x2": ((2, 2), ("data", "model")),
               "2x1x2": ((2, 1, 2), ("pod", "data", "model")),
               "2x2x1": ((2, 2, 1), ("pod", "data", "model"))}
@@ -414,10 +490,10 @@ def train_tp(out_dir, layout: str, combos, steps: int = 3, cases=None):
                                     if grid.rank == 0 else None),
                          "residual1": first.residuals.get("g") if compress
                          else None}
-        if grid.rank == 0 and model.cfg.family == "moe" \
+        if grid.rank == 0 and model.cfg.family in ("moe", "ssm", "hybrid") \
                 and compute == "bfloat16":
             # the port's one-card step on the same batches (the bf16
-            # moe rule of tests/_train_tp_common.py)
+            # rule of tests/_train_tp_common.py)
             step = train.make_train_step(model, opt, shape)
             state = train.state_from_params(_clone(params), opt)
             for b in batches[:steps]:

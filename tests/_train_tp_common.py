@@ -94,7 +94,8 @@ for sub, arch, compute, vocab in json.loads(sys.argv[4]):
     B, S = data["tokens"].shape[1:]
     shape = ShapeConfig("t", "train", int(S), int(B))
     out = {}
-    for name, (mode, compress, fsdp) in cases.items():
+
+    def run(mesh, name, mode, compress, fsdp):
         tcfg = tr.TrainStepConfig(dp_mode=mode, compress_pod=compress)
         rules = make_rules(cfg, shape, mesh, fsdp=fsdp, dp_mode=mode)
         step, shardings = tr.make_train_step(model, opt, shape, mesh=mesh,
@@ -117,8 +118,19 @@ for sub, arch, compute, vocab in json.loads(sys.argv[4]):
             out[f"{name}/params{path}"] = a
         out[f"{name}/metrics"] = np.array(
             [[m["loss"], m["grad_norm"], m["step"]] for m in metrics])
-    if cfg.family == "moe" and compute == "bfloat16":
-        # the reference's own step on one device: how far its bf16 moe
+
+    for name, (mode, compress, fsdp) in cases.items():
+        run(mesh, name, mode, compress, fsdp)
+        if compress and compute == "float32" and cfg.family in ("ssm",
+                                                                "hybrid"):
+            # the same compressed schedule on (pod 2, data 2, model 1):
+            # how far two of the reference's own programs of one
+            # semantics part (ROADMAP C-port19)
+            run(jax.make_mesh((2, 2, 1), ("pod", "data", "model"),
+                              axis_types=(AxisType.Auto,) * 3),
+                f"{name}_alt", mode, compress, fsdp)
+    if cfg.family in ("moe", "ssm", "hybrid") and compute == "bfloat16":
+        # the reference's own step on one device: how far its bf16
         # parameters part from its sharded step's
         step, _ = tr.make_train_step(model, opt, shape)
         jstep, state = jax.jit(step), tr.TrainState(params, opt.init(params),
@@ -148,30 +160,35 @@ def _inputs(d: Path, arch: str, vocab: int) -> None:
              labels=rng.integers(0, vocab, (STEPS, B, S)).astype(np.int32))
 
 
-def run_layout(root: Path, layout: str, combos=COMBOS, cases=None):
+def run_layout(root: Path, layout: str, combos=COMBOS, cases=None,
+               ref_procs: int = 1):
     """{combo directory: (reference npz, [each rank's findings])}: the
-    reference in one subprocess, the port's world meanwhile; ``cases``
-    the names of the layout's ``CASES`` to run (default all)."""
+    reference in ``ref_procs`` subprocesses (the combos dealt among
+    them), the port's world meanwhile; ``cases`` the names of the
+    layout's ``CASES`` to run (default all)."""
     cases = list(CASES[layout]) if cases is None else list(cases)
     for sub, arch, _, vocab in combos:
         _inputs(root / sub, arch, vocab)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
-    ref = subprocess.Popen(
+    refs = [subprocess.Popen(
         [sys.executable, "-c", textwrap.dedent(REFERENCE), str(root),
          json.dumps(MESHES[layout]),
          json.dumps({c: CASES[layout][c] for c in cases}),
-         json.dumps(combos)], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
+         json.dumps(combos[i::ref_procs])], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for i in range(ref_procs)]
+    outs = []
     try:
         run_world(4, "train_tp", root, timeout=240, layout=layout,
                   combos=combos, steps=STEPS, cases=cases)
-        out, _ = ref.communicate(timeout=400)
+        outs = [ref.communicate(timeout=400)[0] for ref in refs]
     finally:
-        if ref.poll() is None:
-            ref.kill()
-            ref.communicate()
-    assert ref.returncode == 0 and "OK" in out, out[-4000:]
+        for ref in refs:
+            if ref.poll() is None:
+                ref.kill()
+                ref.communicate()
+    for ref, out in zip(refs, outs):
+        assert ref.returncode == 0 and "OK" in out, out[-4000:]
     return {c[0]: (np.load(root / c[0] / "reference.npz"),
                    [load(root / c[0], f"train_tp_{layout}", r)
                     for r in range(4)], c) for c in combos}
@@ -184,25 +201,35 @@ def check_against_reference(runs, sub, case):
     compute = combo[2]
     loss_tol, norm_tol, param_tol = TOL[compute]
     want = ref[f"{case}/metrics"]
+    # a compressed ssm or hybrid run: int8 codes flip on fp32 rounding,
+    # so each step is held to twice the reference's own distance between
+    # its (pod 2, data 1, model 2) and (pod 2, data 2, model 1) programs
+    # where that is the larger (ROADMAP C-port19)
+    alt = ref[f"{case}_alt/metrics"] if f"{case}_alt/metrics" in ref.files \
+        else want
+    own = 2 * np.abs(alt[:, :2] - want[:, :2]) / np.abs(want[:, :2])
     for rank in ranks:
         got = rank[case]["metrics"]
         for k in range(STEPS):
-            assert abs(got[k]["loss"] - want[k, 0]) <= loss_tol * abs(
-                want[k, 0]), (k, got[k]["loss"], want[k, 0])
-            assert abs(got[k]["grad_norm"] - want[k, 1]) <= norm_tol * abs(
-                want[k, 1]), (k, got[k]["grad_norm"], want[k, 1])
+            assert abs(got[k]["loss"] - want[k, 0]) <= max(
+                loss_tol, own[k, 0]) * abs(want[k, 0]), (
+                k, got[k]["loss"], want[k, 0])
+            assert abs(got[k]["grad_norm"] - want[k, 1]) <= max(
+                norm_tol, own[k, 1]) * abs(want[k, 1]), (
+                k, got[k]["grad_norm"], want[k, 1], own[k])
             assert got[k]["step"] == want[k, 2] == k + 1
     got, want = _port_params(ranks[0][case]["params"]), _ref_params(ref, case)
     if any(k.startswith("one_device/") for k in ref.files):
-        # bf16 moe: a routing decision a rounding flips moves its tokens'
-        # gradients whole, and AdamW moves a parameter by up to 2 lr a
-        # step where its gradient's sign flips, so two bf16 programs of
-        # the same semantics part in more than 1e-3 of the elements: the
-        # reference's one-device and sharded steps, and the port's
-        # one-card step and the reference's one-device step (C-port4).
-        # The port's grid step may part from the reference's sharded
-        # step in twice the larger of the two at most (the rule ROADMAP
-        # C-port12 holds zamba2's bf16 gradients to; C-port18)
+        # bf16 moe, ssm and hybrid: a routing decision a rounding flips
+        # moves its tokens' gradients whole (moe), the SSD scan's decays
+        # amplify rounding (C-port12), and AdamW moves a parameter by up
+        # to 2 lr a step where its gradient's sign flips, so two bf16
+        # programs of the same semantics part in more than 1e-3 of the
+        # elements: the reference's one-device and sharded steps, and
+        # the port's one-card step and the reference's one-device step
+        # (C-port4).  The port's grid step may part from the reference's
+        # sharded step in twice the larger of the two at most (the rule
+        # ROADMAP C-port12 holds zamba2's bf16 gradients to; C-port18)
         own = _ref_params(ref, "one_device")
         one = _port_params(ranks[0]["one_process"]["params"])
         atol = param_tol[1]
@@ -245,11 +272,9 @@ def check_residuals(runs, sub, case):
     1, model 2)`` ranks 0 and 1 are pod 0's model blocks, each holding
     its blocks of every leaf laid end to end in the reference's leaf
     order: each reference leaf is cut to each rank's block to compare."""
-    import torch
     from repro_torch.launch.mesh import Layout
-    from repro_torch.models.transformer import block_axes
     from repro_torch.configs import get_config
-    from repro_torch.models.layers import embedding_axes, norm_axes
+    from repro_torch.models.api import build_model
     from repro_torch.models.config import ShapeConfig
     from repro_torch.sharding import partition
     from repro_torch.sharding.profiles import make_rules
@@ -260,9 +285,8 @@ def check_residuals(runs, sub, case):
     mode, _, fsdp = CASES["2x1x2"][case]
     rules = make_rules(cfg, ShapeConfig("t", "train", S, B), layout,
                        fsdp=fsdp, dp_mode=mode)
-    axes = dict(partition.named_axes({
-        "embedding": embedding_axes(), "layers": [block_axes(cfg)],
-        "final_norm": norm_axes(cfg.norm_type)}))
+    axes = dict(partition.named_axes(
+        build_model(cfg, device="cpu").param_axes()))
     pre = f"{case}/residual1"
     keys = [k for k in ref.files if k.startswith(pre)]
     at = flips = 0
@@ -282,9 +306,18 @@ def check_residuals(runs, sub, case):
             at += want.size
             step = 2 * np.abs(whole).max()
             diff = np.abs(part - want)
-            flip = diff > 1e-5 * 127 * step
+            near = 1e-5 * 127 * step
+            alt = f"{case}_alt/residual1{key[len(pre):]}"
+            if alt in ref.files:
+                # ssm and hybrid: the per-head leaves sum every position's
+                # cancelling dA and ddt (C-port13); a difference that is no
+                # flip may be as large as twice the reference's own between
+                # its two programs of the same compressed schedule (C-port19)
+                own = np.abs(ref[alt] - whole)
+                near = max(near, 2 * float(
+                    own[np.abs(own - step) > 0.01 * step].max(initial=0)))
+            flip = diff > near
             assert np.all(np.abs(diff[flip] - step) <= 0.01 * step), key
             flips += int(flip.sum())
         assert not got[at:].any()               # the padding stays 0
     assert flips <= 1e-4 * 2 * at, (flips, at)
-    del torch

@@ -22,11 +22,14 @@ spills and fetches:
 * the serving CLI under ``torch.distributed.run --nproc-per-node 2``
   prints the one-process CLI's summary;
 * what stays refused raises, naming its slice: heads that do not divide
-  ``model`` (3g), the ssm, hybrid and encdec families under ``model``
-  in the engine, its tenants, an engine on a shared transport or the
-  fixed-batch session (3e, 3f; moe gets past each of these entries'
+  ``model`` (3g; attention heads, or the ssm and hybrid families' SSD
+  heads on a model axis of 3), the encdec family under ``model`` in the
+  fixed-batch session (3f; moe gets past each of these entries'
   refusals to the grid's join, with a ``data`` axis over 1 or under
-  ``model``), a model axis in one process, a world that does not fill a
+  ``model``, and so do ssm and hybrid under a model axis of 2 in the
+  engine, its tenants and an engine on a shared transport, which then
+  refuse them for having no paged KV), a model axis in one process, a
+  world that does not fill a
   (data 2, model 2) grid (the rules and the serving CLI); and ``grid=``
   on another layout than the lease's, and a disaggregated cluster whose
   decode engine is not on the exporting engine's grid.
@@ -350,12 +353,13 @@ class _Joined(Exception):
 
 
 # the cases whose moe refusal the expert-parallel slice lifted: (world,
-# the lease's model_parallel for moe, the family kept refused under a
-# model axis of 2 and its ROADMAP item)
-LIFTED = {"data": (4, 1, "mamba2-780m", "3e"),
+# the lease's model_parallel for moe, the family kept refused and its
+# ROADMAP item: encdec under a model axis of 2, ssm and hybrid, which
+# the ssm_* rules let through under a model axis of 2, on one of 3)
+LIFTED = {"data": (4, 1, "mamba2-780m", "3g"),
           "session": (2, 1, "whisper-small", "3f"),
-          "multi_tenant": (4, 1, "zamba2-7b", "3e"),
-          "shared_fabric": (4, 1, "mamba2-780m", "3e"),
+          "multi_tenant": (4, 1, "zamba2-7b", "3g"),
+          "shared_fabric": (4, 1, "mamba2-780m", "3g"),
           "moe": (2, 2, "whisper-small", "3f")}
 
 
@@ -368,8 +372,10 @@ def test_what_stays_refused_names_its_slice(case, monkeypatch, capsys):
     moe's (rows over a data axis of 4 in the engine, its tenants, an
     engine on a shared transport and the fixed-batch session; moe under
     a model axis of 2), olmoe smoke now gets past the refusal to the
-    grid's join, and the ssm, hybrid or encdec family on a model axis of
-    2 through the same entry is refused, naming 3e or 3f."""
+    grid's join; the encdec family on a model axis of 2 through the same
+    entry is refused, naming 3f; the ssm and hybrid families get through
+    to the join on a model axis of 2 and are refused on one of 3, where
+    their 8 SSD heads do not divide it, naming 3g."""
     qwen = build_model(get_config(ARCH, smoke=True), device="cpu")
     gen = torch.Generator().manual_seed(0)
     pool = smoke_pool("scalepool")
@@ -392,8 +398,8 @@ def test_what_stays_refused_names_its_slice(case, monkeypatch, capsys):
                                                   device="cpu")
     _World(monkeypatch, world)
 
-    def lease_of(model_parallel, name="tp"):
-        return pool.lease(name, 4, tier2_gb=64, kv_gb=1.0,
+    def lease_of(model_parallel, name="tp", accels=4):
+        return pool.lease(name, accels, tier2_gb=64, kv_gb=1.0,
                           model_parallel=model_parallel,
                           tenants=("a", "b") if case == "multi_tenant"
                           else ())
@@ -453,6 +459,11 @@ def test_what_stays_refused_names_its_slice(case, monkeypatch, capsys):
         if mp == 1:
             lease = lease_of(2, "tp-model")
             _World(monkeypatch, 4)
+        if model.cfg.family in ("ssm", "hybrid"):
+            with pytest.raises(_Joined):
+                enter(model, lease)
+            lease = lease_of(3, "tp-three", accels=3)
+            _World(monkeypatch, 3)
     with pytest.raises(ValueError) as err:
         enter(model, lease)
     msg = str(err.value)

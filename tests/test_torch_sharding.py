@@ -127,11 +127,12 @@ def test_use_rules_scopes_the_current_rules():
 
 
 def test_grid_refusal_names_the_next_slice():
-    """Tensor parallelism and FSDP run the dense and moe families' steps
-    (moe: expert parallelism); what ``grid_refusal`` leaves to a later
-    slice is narrowed to heads that do not divide the ``model`` axis,
-    the ssm, hybrid and encdec families under a ``model`` axis or FSDP,
-    and serving under a ``model`` axis."""
+    """Tensor parallelism and FSDP run the dense, moe, ssm and hybrid
+    families' steps (moe: expert parallelism; ssm and hybrid: the mamba2
+    block's SSD heads over ``model``); what ``grid_refusal`` leaves to a
+    later slice is narrowed to heads that do not divide the ``model``
+    axis (attention heads, or SSD heads: 3g), the encdec family under a
+    ``model`` axis or FSDP (3f), and serving under a ``model`` axis."""
     shape = ShapeConfig("s", "train", 32, 8)
     layout = Layout((2, 2), ("data", "model"))
     flat = Layout((2, 2, 1), ("pod", "data", "model"))
@@ -143,17 +144,31 @@ def test_grid_refusal_names_the_next_slice():
                 rules = profiles.make_rules(cfg, shape, grid, fsdp=fsdp)
                 assert profiles.grid_refusal(grid, rules, cfg) is None
     assert profiles.grid_refusal(layout, None) is None
-    for arch, what in (("mamba2-780m", "ssm_*"), ("zamba2-7b", "ssm_*"),
-                       ("whisper-small", "encoder-decoder")):
+    pod = Layout((2, 1, 2), ("pod", "data", "model"))
+    for arch in ("mamba2-780m", "zamba2-7b"):
         cfg = SMOKE_ARCHS[arch]
-        why = profiles.grid_refusal(layout, profiles.make_rules(
-            cfg, shape, layout, fsdp=False), cfg)
-        assert "tensor parallelism" in why and what in why, why
-        why = profiles.grid_refusal(flat, profiles.make_rules(
-            cfg, shape, flat), cfg)
-        assert "FSDP" in why and "later slice" in why, why
-        assert profiles.grid_refusal(flat, profiles.make_rules(
-            cfg, shape, flat, fsdp=False), cfg) is None
+        for grid in (layout, flat, pod):
+            for fsdp in (False, True):
+                rules = profiles.make_rules(cfg, shape, grid, fsdp=fsdp)
+                assert profiles.grid_refusal(grid, rules, cfg) is None
+    cfg = SMOKE_ARCHS["whisper-small"]
+    why = profiles.grid_refusal(layout, profiles.make_rules(
+        cfg, shape, layout, fsdp=False), cfg)
+    assert "tensor parallelism" in why and "encoder-decoder" in why, why
+    assert "3f" in why, why
+    why = profiles.grid_refusal(flat, profiles.make_rules(
+        cfg, shape, flat), cfg)
+    assert "FSDP" in why and "later slice" in why, why
+    assert profiles.grid_refusal(flat, profiles.make_rules(
+        cfg, shape, flat, fsdp=False), cfg) is None
+    # mamba2 smoke's 8 SSD heads on a model axis of 3: the reference's
+    # rules leave ssm_heads unsharded there
+    three = Layout((1, 3), ("data", "model"))
+    cfg = SMOKE_ARCHS["mamba2-780m"]
+    rules = profiles.make_rules(cfg, shape, three, fsdp=False)
+    assert rules.table["ssm_heads"] is None
+    why = profiles.grid_refusal(three, rules, cfg)
+    assert "SSD heads" in why and "3g" in why and "later slice" in why, why
     eight = Layout((1, 8), ("data", "model"))
     why = profiles.grid_refusal(eight, profiles.make_rules(
         dense, shape, eight, fsdp=False), dense)

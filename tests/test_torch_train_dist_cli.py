@@ -182,14 +182,15 @@ def test_cli_falls_back_to_auto_without_a_pod_axis(tmp_path):
 
 def test_cli_refuses_a_model_axis_before_the_loop(tmp_path):
     """Without a lease, 4 ranks take the reference's smoke mesh (2, 2)
-    over (data, model): the ssm family under tensor parallelism (its
-    ``ssm_*`` rules are a later slice, 3e), refused with exit 2; the moe
-    family trains there (expert parallelism)."""
-    rc, _, err = _torchrun(4, ["--arch", "mamba2-780m", "--steps", "2",
+    over (data, model): heads that do not divide the model axis (the
+    reference's context-parallel ``seq_attn`` fallback is a later slice,
+    3g) are refused with exit 2; the moe, ssm and hybrid families train
+    there (``tests/test_torch_train_ssm_cli.py``)."""
+    rc, _, err = _torchrun(4, ["--arch", "qwen3-14b", "--steps", "2",
                                "--ckpt-dir", str(tmp_path)])
     assert rc != 0
-    assert "tensor parallelism" in err and "exitcode  : 2" in err
-    assert "ssm_*" in err and "3e" in err and "later slice" in err
+    assert "seq_attn" in err and "exitcode  : 2" in err
+    assert "3g" in err and "later slice" in err
 
 
 @pytest.mark.parametrize("argv,mesh", [
@@ -213,13 +214,19 @@ def test_cli_trains_tensor_parallel_on_four_ranks(tmp_path, argv, mesh):
 
 
 @pytest.mark.parametrize("world,argv,reason", [
-    ("4", ["--arch", "zamba2-7b"], "tensor parallelism"),
+    ("4", ["--arch", "qwen3-14b"], "tensor parallelism"),
     ("2", [], "does not fill the layout"),
     ("4", ["--pool", "scalepool", "--pool-accels", "12",
-           "--pool-model-parallel", "2", "--arch", "mamba2-780m"],
-     "tensor parallelism")])
+           "--pool-model-parallel", "2", "--arch", "qwen3-14b"],
+     "tensor parallelism"),
+    ("3", ["--pool", "scalepool", "--pool-accels", "3",
+           "--pool-model-parallel", "3", "--arch", "mamba2-780m"],
+     "SSD heads")])
 def test_cli_layout_refusals_exit_2(monkeypatch, capsys, tmp_path, world,
                                     argv, reason):
+    """Refused before any work (exit 2): heads that do not divide the
+    model axis (qwen3-14b smoke's 5 heads; mamba2 smoke's 8 SSD heads on
+    a model axis of 3), a world that does not fill the layout."""
     from repro_torch.launch.train import main
     monkeypatch.setenv("WORLD_SIZE", world)
     monkeypatch.setenv("RANK", "0")
