@@ -341,7 +341,19 @@ no result line):
               then 3 timed bf16 steps of ``tp`` as (e), the launches
               exact (one RMSNorm a Mamba2 layer: its gated norm is not
               B2's under ``model``; every B4 and B8 call on the tensor
-              cores), the ``ssm`` and ``ssm-norm`` collectives made.
+              cores), the ``ssm`` and ``ssm-norm`` collectives made;
+              (g) the encdec family on that grid (``models/encdec.py``:
+              each attention of the encoder and decoder on a rank's
+              heads, the cross K/V from encoder states behind one
+              ``copy_to_model`` whose backward sums their gradient over
+              ``model`` once a step, ``cross``): whisper-small at full
+              width on the first 2 layers of each stack (6 of 12 heads a
+              rank), phase 10 (i)'s frames, B=8 x 448 decoder tokens x
+              1500 frames, FSDP off and on, the fp32 gate (2 steps
+              against one card, as (a)) then 3 timed bf16 steps of
+              ``tp`` as (e): launches exact (B3 and B5 on the tensor
+              cores), one ``cross`` all-reduce a step, its host seconds
+              and the step's share in collectives reported.
               Every time here is 4 ranks sharing one card: nothing of a
               fabric;
 13. tp serve - (in phase 12's world, after its grids, their state
@@ -455,8 +467,19 @@ no result line):
               decode tokens per wall second beside one card's; (c) holds
               B4 and B8 at (f)'s and (j)'s rank shapes (4 rows of 512,
               24 or 56 SSD heads) and B3 and B5 at zamba2's rank shapes
-              (16 heads at D=112).  4 ranks share one card over gloo:
-              nothing of a fabric;
+              (16 heads at D=112); (k) the fixed-batch session on that
+              lease for whisper-small on the first 2 layers of each
+              stack: 8 rows of 1500 seeded frames and 64-token prompts,
+              in fp32 8 new tokens held to one card's session as (j), in
+              bf16 32 new tokens through ``launch.serve``'s fixed-batch
+              loop: tokens equal across ranks, B3 launches exact (on the
+              tensor cores), the lookup's and three sums a decoder layer
+              a call (two an encoder layer in the prefill), decode
+              tokens per wall second beside one card's; (c) holds B3 and
+              B5 at (g)'s rank shapes (4 rows, 6 heads: the encoder's
+              1500 x 1500 and the cross-attention's 448 x 1500,
+              non-causal).  4 ranks share one card over gloo: nothing of
+              a fabric;
 5. times    - each kernel's time (CUDA graphs of back-to-back calls,
               timed with CUDA events, median of trials) beside its plain
               version, a PyTorch library call where one computes the
@@ -488,7 +511,9 @@ no result line):
               qwen's 4096 x 1024, olmoe's 4096 x 2048, mamba2's 1536 and
               3072 and zamba2's 3584 and 7168 wide, flash at
               zamba2's B=8 x S=512, H=32, D=112 and at phase 12 (f)'s
-              rank (B=4, H=16), and the SSD backward at mamba2's and
+              rank (B=4, H=16), flash forward and backward at phase 12
+              (g)'s rank (whisper's encoder and cross-attention, B=4,
+              H=6), and the SSD backward at mamba2's and
               zamba2's training calls and at (f)'s rank shapes (B=4, 24
               and 56 heads; no library call
               computes it), beside autograd's backward of the plain
@@ -4876,8 +4901,15 @@ EP_STEPS = 3                    # s/step over 2-3
 # of tp beside one card's losses on the same cut (zamba2 at TRAJ_LR)
 SSM_TRAIN = (("mamba2-780m", TRAIN_CUT, ("tp", "tp_fsdp")),
              ("zamba2-7b", ZAMBA2_GATE_DEPTH, ("tp",)))
-SSM_GATE_STEPS = 2
+SSM_GATE_STEPS = 2              # (f)'s and (g)'s
 SSM_STEPS = 3                   # s/step over 2-3
+
+# (g): the encdec family in training on the world's (data 2, model 2)
+# grid: whisper-small at full width on the first 2 layers of each stack
+# (6 of its 12 heads a rank; phase 10 (i)'s frames, B=8 x 448 decoder
+# tokens x 1500 frames) FSDP off and on: the fp32 gate against one card,
+# then timed bf16 steps of tp beside one card's losses on the same cut
+ENCDEC_TRAIN = (("whisper-small", TRAIN_CUT, ("tp", "tp_fsdp")),)
 
 
 def tp_plain_compressed_steps(model, opt, params, batches):
@@ -4947,8 +4979,9 @@ def tp_gap(got_metrics, got_params, want_metrics, want_params, lr, steps):
 def tp_fp32_gate(grid, cases, arch="qwen1.5-0.5b", layers=TRAIN_CUT,
                  steps=TP_GATE_STEPS, lr=None):
     """(a) ``arch`` (qwen1.5-0.5b; (e): olmoe-1b-7b; (f): mamba2-780m,
-    zamba2-7b) at full width on its first ``layers`` layers in fp32 (TF32
-    off), global B=8 x S=512, ``steps`` steps of each case from the same
+    zamba2-7b; (g): whisper-small) at full width on its first ``layers``
+    layers in fp32 (TF32 off), global B=8 x S=512 (whisper: 448 decoder
+    tokens and phase 10 (i)'s frames), ``steps`` steps of each case from the same
     draw (AdamW at ``lr``, default the CLI's), the parameters gathered
     from the ranks; rank 0 holds them, the losses and grad norms against
     the one-process step (for ``compress_pod``,
@@ -4962,9 +4995,9 @@ def tp_fp32_gate(grid, cases, arch="qwen1.5-0.5b", layers=TRAIN_CUT,
 
     cfg = cut(arch, layers, compute_dtype="float32")
     model, opt, one_step, pipe = train_parts(cfg, grid.device, lr)
-    shape = ShapeConfig("smoke", "train", TRAIN_SEQ, TRAIN_BATCH)
+    shape = ShapeConfig("smoke", "train", train_seq(cfg), TRAIN_BATCH)
     params = model.init(torch.Generator(device=grid.device).manual_seed(1))
-    batches = [pipe.next_batch() for _ in range(steps)]
+    batches = train_batches(cfg, pipe, steps, grid.device)
     out, plain = {}, None
     for name, mode, compress, fsdp in cases:
         t0 = time.perf_counter()
@@ -5019,8 +5052,8 @@ def tp_fp32_gate(grid, cases, arch="qwen1.5-0.5b", layers=TRAIN_CUT,
 def tp_full_depth(grid, cases, arch="qwen1.5-0.5b", layers=TP_DEPTH,
                   steps=TP_STEPS, lr=None):
     """(b) ``arch`` (qwen1.5-0.5b; (e): olmoe-1b-7b; (f): mamba2-780m,
-    zamba2-7b) at full width on its first ``layers`` layers, bf16
-    compute, AdamW at ``lr`` (default the CLI's), the global 8 x 512
+    zamba2-7b; (g): whisper-small) at full width on its first ``layers``
+    layers, bf16 compute, AdamW at ``lr`` (default the CLI's), the global 8 x 512
     (phase 10 (c)'s weights, seed 0, and batches), ``steps`` steps of
     each case:
     losses, seconds a step, host seconds in collectives and the byte
@@ -5035,8 +5068,8 @@ def tp_full_depth(grid, cases, arch="qwen1.5-0.5b", layers=TP_DEPTH,
 
     cfg = cut(arch, layers)
     model, opt, one_step, pipe = train_parts(cfg, grid.device, lr)
-    shape = ShapeConfig("smoke", "train", TRAIN_SEQ, TRAIN_BATCH)
-    batches = [pipe.next_batch() for _ in range(steps)]
+    shape = ShapeConfig("smoke", "train", train_seq(cfg), TRAIN_BATCH)
+    batches = train_batches(cfg, pipe, steps, grid.device)
     out = {}
     state = step = None
     t_start = time.perf_counter()
@@ -5128,17 +5161,18 @@ def tp_twice(grid):
             "seconds": time.perf_counter() - t0}
 
 
-# the one-card bf16 trajectories that (b), (e) and (f) are held to:
-# (arch, layers, steps), each at TRAJ_LR where it has one
+# the one-card bf16 trajectories that (b), (e), (f) and (g) are held
+# to: (arch, layers, steps), each at TRAJ_LR where it has one
 TP_ONE_CARD = (("qwen1.5-0.5b", TP_DEPTH, TP_STEPS),
                (EP_ARCH, EP_DEPTH, EP_STEPS),
                ("mamba2-780m", TRAIN_CUT, SSM_STEPS),
-               ("zamba2-7b", ZAMBA2_GATE_DEPTH, SSM_STEPS))
+               ("zamba2-7b", ZAMBA2_GATE_DEPTH, SSM_STEPS),
+               ("whisper-small", TRAIN_CUT, SSM_STEPS))
 
 
 def tp_reference_losses(device, arch="qwen1.5-0.5b", layers=TP_DEPTH,
                         steps=TP_STEPS):
-    """A one-card bf16 reference of (b), (e) or (f): phase 10 (c)'s run
+    """A one-card bf16 reference of (b), (e), (f) or (g): phase 10 (c)'s run
     (the weights of seed 0, its batches) of ``arch`` on its first
     ``layers`` layers at ``TRAJ_LR`` where it has one, ``steps`` steps'
     losses: ``tp_full_depth``'s cut, weights and batches."""
@@ -5172,7 +5206,8 @@ def tp_rank(rank: int, init: str, out_dir: str) -> None:
     it non-zero): phase 11 (a)-(c) on ``DP_LAYOUT``'s grid, which starts
     the world; on each of ``TP_GRIDS`` in turn (their groups formed in
     that world) (a), (b) and, with FSDP, (c); (e) and (f) on (data 2,
-    model 2); then phase 13; its report to ``<out_dir>/rank<r>.json``."""
+    model 2), and (g) there; then phase 13; its report to
+    ``<out_dir>/rank<r>.json``."""
     import torch
     import repro_torch.runtime.serve  # noqa: F401  (imported while waiting)
     import repro_torch.runtime.train  # noqa: F401
@@ -5233,7 +5268,10 @@ def tp_rank(rank: int, init: str, out_dir: str) -> None:
     report["ep"] = ep_rank(ep_grid)
     gc.collect()
     torch.cuda.empty_cache()
-    report["ssm"] = ssm_rank(ep_grid)
+    report["ssm"] = family_rank(ep_grid, SSM_TRAIN, "(f)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["encdec"] = family_rank(ep_grid, ENCDEC_TRAIN, "(g)")
     ep_grid.close()
     gc.collect()
     torch.cuda.empty_cache()
@@ -5243,16 +5281,21 @@ def tp_rank(rank: int, init: str, out_dir: str) -> None:
     moe = ts_moe(rank, torch.device("cuda", 0))
     gc.collect()
     torch.cuda.empty_cache()
-    ssm = ts_ssm(rank, torch.device("cuda", 0))
+    ssm = ts_fixed_batch(rank, torch.device("cuda", 0), TS_SSM, "(j)")
     gc.collect()
     torch.cuda.empty_cache()
     if rank == 0:               # (d)'s CLI worlds may start beside ours
         Path(out_dir, TP_CLI_GO).write_text("")
+    # (k)'s whisper cut is small beside the CLI worlds
+    encdec = ts_fixed_batch(rank, torch.device("cuda", 0), TS_ENCDEC, "(k)",
+                            TS_ENCDEC_PROMPT)
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     refs = Path(out_dir, TS_REFS)
     report["serve"] = ts_rank(rank, json.loads(refs.read_text())
                               if refs.exists() else None)
-    report["serve"].update(moe=moe, ssm=ssm)
+    report["serve"].update(moe=moe, ssm=ssm, encdec=encdec)
     report["serve"]["seconds"] = time.perf_counter() - t0
     world.close()
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(report))
@@ -5331,22 +5374,22 @@ def ep_checks(smi, reports, one_card) -> dict:
     return counts
 
 
-def ssm_rank(grid) -> dict:
-    """(f) on ``grid`` (the world's (data 2, model 2)): each of
-    ``SSM_TRAIN`` at full width on its cut, the fp32 gate of its cases
-    (``SSM_GATE_STEPS`` steps each against one card), then
-    ``SSM_STEPS`` timed bf16 steps of ``tp`` beside one card's losses on
-    the same cut."""
+def family_rank(grid, entries, tag) -> dict:
+    """(f) or (g) (``tag``) on ``grid`` (the world's (data 2, model 2)):
+    each of ``entries`` (``SSM_TRAIN``, ``ENCDEC_TRAIN``) at full width on
+    its cut, the fp32 gate of its cases (``SSM_GATE_STEPS`` steps each
+    against one card), then ``SSM_STEPS`` timed bf16 steps of ``tp``
+    beside one card's losses on the same cut."""
     import torch
     out = {}
-    for arch, layers, names in SSM_TRAIN:
+    for arch, layers, names in entries:
         t0 = time.perf_counter()
         cases = [c for c in TP_GRIDS[EP_GRID][1] if c[0] in names]
         lr = TRAJ_LR.get(arch)
         r = {"fp32_gate": tp_fp32_gate(grid, cases, arch, layers,
                                        SSM_GATE_STEPS, lr)}
-        dp_progress(grid.rank, f"(f) {arch} fp32 gate", t0, r["fp32_gate"],
-                    phase=12)
+        dp_progress(grid.rank, f"{tag} {arch} fp32 gate", t0,
+                    r["fp32_gate"], phase=12)
         gc.collect()
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
@@ -5420,6 +5463,79 @@ def ssm_checks(smi, reports, one_card) -> dict:
                                    want["flash_attention_bwd"])
             counts[f"{arch} ssm tp rank {r}"] = dict(f["launches"])
         emit({"phase": "tp", "check": f"(f) {arch} seconds",
+              "per_rank": [p["seconds"] for p in per]})
+    return counts
+
+
+def encdec_checks(smi, reports, one_card) -> dict:
+    """(g)'s lines and checks (``one_card``: ``tp_one_card``'s): the fp32
+    gates, the bf16 ``tp`` steps against one card's losses, each rank's
+    launches (B3 forward and recompute, B5 on the tensor cores, no
+    RMSNorm: LayerNorm is no kernel), one ``cross`` all-reduce a step
+    (the encoder states' gradient, summed over ``model`` once for every
+    decoder layer's cross K/V), and the share of a step in collectives;
+    returns each rank's launches."""
+    counts = {}
+    mesh = reports[0]["grids"][EP_GRID]["grid"]["mesh"]
+    for arch, layers, names in ENCDEC_TRAIN:
+        cfg = cut(arch, layers)
+        per = [r["encdec"][arch] for r in reports]
+        gate = per[0]["fp32_gate"]
+        emit({"phase": "tp", "check": "(g) encdec fp32 gate",
+              "arch": cfg.name, "layers": layers, "layout": mesh,
+              "heads_a_rank": cfg.n_heads // 2, "batch": TRAIN_BATCH,
+              "seq": train_seq(cfg), "frames": cfg.enc_seq,
+              "steps": SSM_GATE_STEPS, "tol": TOL["float32"],
+              "param_share_allowed": DP_PARAM_SHARE, "rank0": gate})
+        check(all(g["ok"] for g in gate.values())
+              and all(p["fp32_gate"][c]["metrics"] == gate[c]["metrics"]
+                      for p in per for c in gate),
+              f"phase 12 (g) {arch} fp32 gate: {gate}")
+        want = train_launches(cfg, SSM_STEPS, sharded=True)
+        full = [p["full_depth"]["tp"] for p in per]
+        losses = full[0]["losses"]
+        ref = one_card[arch]
+        gaps = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+        emit({"phase": "tp", "check": "(g) encdec bf16 tp",
+              "nvidia_smi": smi, "arch": cfg.name, "layers": layers,
+              "layout": mesh,
+              "ranks": "4 ranks sharing one card (gloo, host-staged)",
+              "seq": train_seq(cfg), "frames": cfg.enc_seq,
+              "global_batch": TRAIN_BATCH, "steps": SSM_STEPS,
+              "one_card_losses": ref, "rel_gaps": gaps,
+              "tol": BF16_TRAJ_TOL, "per_rank": full})
+        check(all(f["losses"] == losses for f in full)
+              and all(math.isfinite(x) for x in losses)
+              and all(g <= BF16_TRAJ_TOL for g in gaps),
+              f"phase 12 (g) {arch}: losses {[f['losses'] for f in full]} "
+              f"against one card's {ref}")
+        cross = "model:all-reduce:cross"
+        for r, f in enumerate(full):
+            calls = f["calls_per_step"]
+            check(f["launches"] == want and calls.get(cross) == 1,
+                  f"phase 12 (g) {arch} rank {r}: launches {f['launches']} "
+                  f"!= {want}, or not one {cross} a step in {calls}")
+            check_flash_variant(f"phase 12 (g) {arch} rank {r}",
+                                cfg.compute_dtype, f["variants"],
+                                want["flash_attention"])
+            check_backward_variant(f"phase 12 (g) {arch} rank {r}",
+                                   cfg.compute_dtype, f["variants"],
+                                   want["flash_attention_bwd"])
+            counts[f"{arch} encdec tp rank {r}"] = dict(f["launches"])
+        emit({"phase": "tp", "check": "(g) cross", "arch": cfg.name,
+              "what": "the encoder states' gradient summed over model, "
+                      "once a step for every decoder layer's cross K/V",
+              "per_rank": [{
+                  "s_per_step": f["s_per_step"],
+                  "collective_share": f["collective_host_s_per_step"]
+                  / f["s_per_step"],
+                  "cross_host_s": f["collective_host_s_by_op"].get(cross),
+                  "cross_share": f["collective_host_s_by_op"].get(cross, 0)
+                  / f["s_per_step"],
+                  "cross_bytes": f["moved_bytes_per_step"].get(cross),
+                  "cross_calls": f["calls_per_step"].get(cross)}
+                  for f in full]})
+        emit({"phase": "tp", "check": f"(g) {arch} seconds",
               "per_rank": [p["seconds"] for p in per]})
     return counts
 
@@ -5565,13 +5681,14 @@ def tp_phase(smi, qwen_run, serve_refs, procs):
     """Phases 11, 12 and 13: one world of 4 ranks sharing the card (the
     kernels built by this process before): phase 11 (a)-(c) on its grid
     (``dp_part``), then each of ``TP_GRIDS`` in turn, then (e)
-    (``ep_rank``), (f) (``ssm_rank``), 13 (i) (``ts_moe``) and (j)
-    (``ts_ssm``), then the rest of serving (``ts_rank``), beside which
-    phase 12 (d)'s two CLI worlds run, started once the ranks' (j) is
-    done (``tp_cli_start``), and phase 11 (d)'s once they have exited.
-    (b)'s, (e)'s and (f)'s trajectories are held to one card's of the
-    same cut (``tp_one_card``, run by this process while the world runs
-    phase 11: the ranks do not read it), the compressed one to the
+    (``ep_rank``), (f) and (g) (``family_rank``), 13 (i) (``ts_moe``),
+    (j) and (k) (``ts_fixed_batch``), then the rest of serving
+    (``ts_rank``), beside which phase 12 (d)'s two CLI worlds run,
+    started once the ranks' (j) is done (``tp_cli_start``), and phase 11
+    (d)'s once they have exited.  (b)'s, (e)'s, (f)'s and (g)'s
+    trajectories are held to one card's of the same cut
+    (``tp_one_card``, run by this process while the world runs phase 11:
+    the ranks do not read it), the compressed one to the
     plain in-process evaluation of the same schedule
     (``tp_plain_compressed_steps``, rank 0): int8 codes change the gradient, so a compressed trajectory
     leaves the uncompressed one by more than the bf16 bound (phase 11's
@@ -5703,6 +5820,7 @@ def tp_world_checks(smi, one_card, qwen_run, serve_refs, world_s):
               "rank_seconds": [r["seconds"] for r in grids]})
     counts.update(ep_checks(smi, reports, one_card))
     counts.update(ssm_checks(smi, reports, one_card))
+    counts.update(encdec_checks(smi, reports, one_card))
     counts.update(ts_checks(smi, [r["serve"] for r in reports],
                             qwen_run, serve_refs))
     emit({"phase": "tp", "world_seconds": world_s,
@@ -5938,8 +6056,9 @@ def ts_kernels(device):
     512, mamba2's 24 of 48 heads, zamba2's 56 of 112) with its backward
     B8 (each gradient within the bf16 tolerance of its largest |value|,
     against autograd of the plain version on fp32 copies), and B3 and B5
-    on zamba2's shared block, 16 of 32 heads at head_dim 112; each
-    against its plain version."""
+    on zamba2's shared block, 16 of 32 heads at head_dim 112; phase 12
+    (g)'s: B3 and B5 at whisper's encoder and cross-attention on a
+    rank's 6 of 12 heads; each against its plain version."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import flash_attention
@@ -6083,6 +6202,41 @@ def ts_kernels(device):
         "max_abs_grad": scales, "tol_of_max_grad": TOL["bfloat16"],
         "ok": all(e <= TOL["bfloat16"] * sc for e, sc in zip(errs, scales))}
     del q, k, v, q32, k32, v32, got, want
+    # phase 12 (g)'s rank on (data 2, model 2): whisper's encoder and
+    # cross-attention on 6 of its 12 heads, 4 rows (its block of 8),
+    # non-causal over 1500 frames, forward (``LONG_KV_TOL``: a dropped
+    # ragged tail moves the outputs past it) and backward (each gradient
+    # within the bf16 tolerance of its largest |value|), bf16 q and K/V,
+    # against the plain versions on fp32 copies
+    for tag, Sq in (("encoder", 1500), ("cross", WHISPER_DEC_SEQ)):
+        shape = [(4, Sq, 6, 64), (4, 1500, 6, 64), (4, 1500, 6, 64)]
+        q, k, v = (torch.randn(*sh, generator=gen, device=device).to(bf16)
+                   .requires_grad_(True) for sh in shape)
+        do = torch.randn(4, Sq, 6, 64, generator=gen, device=device).to(bf16)
+        got = flash_attention(q, k, v, causal=False)
+        got.backward(do)
+        q32, k32, v32 = (t.detach().float().requires_grad_(True)
+                         for t in (q, k, v))
+        with ops.plain_versions():
+            want = ops.flash_attention(q32, k32, v32, causal=False)
+        want.backward(do.float())
+        torch.cuda.synchronize()
+        errs = [max_err(a.grad, b.grad) for a, b in ((q, q32), (k, k32),
+                                                     (v, v32))]
+        scales = [float(b.grad.abs().max()) for b in (q32, k32, v32)]
+        case = f"B=4 Sq={Sq} Skv=1500 H=KV=6 D=64 q=bf16 kv=bf16 non-causal"
+        out[f"flash_attention whisper {tag} (model 2) rank"] = {
+            "case": case, "tol": LONG_KV_TOL,
+            "max_abs_err": max_err(got, want),
+            "ok": within(got, want, LONG_KV_TOL)
+            and bool(torch.isfinite(got).all())}
+        out[f"flash_attention_bwd whisper {tag} (model 2) rank"] = {
+            "case": case, "gradients": ["dq", "dk", "dv"],
+            "max_abs_err": errs, "max_abs_grad": scales,
+            "tol_of_max_grad": TOL["bfloat16"],
+            "ok": all(e <= TOL["bfloat16"] * sc
+                      for e, sc in zip(errs, scales))}
+        del q, k, v, q32, k32, v32, got, want
     # (d)'s session on each grid: a rank's last decode step (one query
     # over the 544-token fp32 cache) and its norms over the prefill's
     # rows and a decode step's
@@ -6135,14 +6289,16 @@ TS_MT_NEW = 32                  # (e)'s new tokens a request (phase 4's are
 
 def ts_session_steps(sess, params, inputs, generate, keep_logits=False):
     """A prefill and ``generate - 1`` greedy decode steps of the session
-    over an fp32 cache: the global tokens (B, generate) on the host and,
-    with ``keep_logits``, every step's global logits (fp32, on the
-    card)."""
+    over an fp32 cache (encdec: its encoder states in the carry): the
+    global tokens (B, generate) on the host and, with ``keep_logits``,
+    every step's global logits (fp32, on the card)."""
     import torch
     batch, prompt = inputs["tokens"].shape
     cache = sess.init_cache(batch, prompt + generate, dtype=torch.float32)
-    logits, cache = sess.prefill_step(params, inputs, cache)
+    logits, cache, *enc = sess.prefill_step(params, inputs, cache)
     carry = {"tokens": sess.greedy(logits), "cache": cache, "index": prompt}
+    if enc:
+        carry["enc_states"] = enc[0]
     steps = [sess.gather_logits(logits)[:, -1].float()] if keep_logits \
         else []
     tokens = [carry["tokens"]]
@@ -6286,15 +6442,21 @@ def ts_session_full(device):
 # attention heads over model)
 TS_SSM = (("mamba2-780m", TRAIN_CUT), ("zamba2-7b", ZAMBA2_GATE_DEPTH))
 TS_SSM_GRID = "2x2"
+# (k): the encdec family's there: whisper-small on the first 2 layers of
+# each stack (6 of 12 heads a rank), TS_SESSION's 8 rows of 1500 frames
+# and 64-token prompts
+TS_ENCDEC = (("whisper-small", TRAIN_CUT),)
+TS_ENCDEC_PROMPT = 64
 
 
-def ts_ssm(rank, device):
-    """(j) each of ``TS_SSM`` at full width on its cut: fp32 on
-    ``TS_SESSION``'s rows and prompts, ``TS_SESSION_GATE_GEN`` new
+def ts_fixed_batch(rank, device, entries, tag, prompt=TS_SESSION["prompt"]):
+    """(j) or (k) (``tag``) each of ``entries`` (``TS_SSM``,
+    ``TS_ENCDEC``) at full width on its cut: fp32 on ``TS_SESSION``'s
+    rows and ``prompt``-token prompts, ``TS_SESSION_GATE_GEN`` new
     tokens, every step's logits (gathered) against one card's session
     on the same weights (rank 0 runs it, and again through the plain
     versions: how far two fp32 programs of one semantics part on one
-    card, ``ts_ssm_checks``' bound); then bf16 with
+    card, ``ts_family_gate``'s bound); then bf16 with
     ``TS_SESSION``'s new tokens through ``launch.serve.
     fixed_batch_generate``: the tokens, launches, kernel variants,
     collectives, seconds and decode tokens per wall second, beside one
@@ -6309,9 +6471,9 @@ def ts_ssm(rank, device):
     from repro_torch.runtime.serve import make_session
     from repro_torch.sharding.profiles import describe
 
-    B, S = TS_SESSION["batch"], TS_SESSION["prompt"]
+    B, S = TS_SESSION["batch"], prompt
     out = {}
-    for arch, layers in TS_SSM:
+    for arch, layers in entries:
         t0 = time.perf_counter()
         cfg = cut(arch, layers, compute_dtype="float32")
         model = build_model(cfg, device=device)
@@ -6376,7 +6538,7 @@ def ts_ssm(rank, device):
         torch.cuda.empty_cache()
         r["seconds"] = {"fp32": t1 - t0, "bf16": time.perf_counter() - t1}
         out[arch] = r
-        dp_progress(rank, f"(j) {arch}", t0, r["seconds"], phase=13)
+        dp_progress(rank, f"{tag} {arch}", t0, r["seconds"], phase=13)
     return out
 
 
@@ -6387,27 +6549,8 @@ def ts_ssm_checks(smi, per):
     for arch, layers in TS_SSM:
         cfg = cut(arch, layers)
         runs = [p["ssm"][arch] for p in per]
-        gate = [r["gate"] for r in runs]
-        one = gate[0]["one_card"]
-        # the fp32 sums of 4 ranks part from one card's by as much as the
-        # kernels' from the plain versions' on one card: zamba2's 7
-        # layers at d=3584 part by ~1.1e-5 of the largest |logit| on an
-        # H100; held to twice the latter where it is the larger
-        plain = gate[0]["one_card_plain"]
-        tol = max(TOL["float32"], 2 * plain["max_rel_err"])
-        emit({"phase": "tp serve", "check": "(j) ssm_* session fp32 gate",
-              "grid": TS_SSM_GRID, "mesh": gate[0]["mesh"],
-              "nvidia_smi": smi, "arch": cfg.name, "layers": layers,
-              "batch": TS_SESSION["batch"], "prompt": TS_SESSION["prompt"],
-              "generate": TS_SESSION_GATE_GEN, "tol": tol,
-              "tie_margin": TS_TIE_MARGIN, "ranks": TS_RANKS,
-              "one_card": one, "one_card_kernels_vs_plain": plain})
-        check(all(g["tokens"] == gate[0]["tokens"] for g in gate),
-              f"phase 13 (j) {arch}: the ranks' fp32 tokens differ")
-        check(one["max_rel_err"] <= tol and not one["parted"]
-              and not plain["parted"],
-              f"phase 13 (j) {arch}: against the one-card fp32 session "
-              f"(bound {tol}): {one}")
+        ts_family_gate(smi, cfg, layers, runs, "(j) ssm_* session",
+                       TS_SESSION["prompt"])
         full = [r["full"] for r in runs]
         f0 = full[0]
         G = TS_SESSION["generate"]
@@ -6449,6 +6592,87 @@ def ts_ssm_checks(smi, per):
             counts[f"{arch} session ssm tp rank {r}"] = dict(n)
     emit({"phase": "tp serve", "check": "(j) seconds",
           "per_rank": [{a: p["ssm"][a]["seconds"] for a, _ in TS_SSM}
+                       for p in per]})
+    return counts
+
+
+def ts_family_gate(smi, cfg, layers, runs, what, prompt):
+    """(j)'s or (k)'s fp32 gate line and checks: the ranks' tokens equal,
+    every step's logits within the bound of one card's session, no row
+    parting."""
+    tag = what.split()[0]
+    gate = [r["gate"] for r in runs]
+    one = gate[0]["one_card"]
+    # the fp32 sums of 4 ranks part from one card's by as much as the
+    # kernels' from the plain versions' on one card: zamba2's 7 layers at
+    # d=3584 part by ~1.1e-5 of the largest |logit| on an H100; held to
+    # twice the latter where it is the larger
+    plain = gate[0]["one_card_plain"]
+    tol = max(TOL["float32"], 2 * plain["max_rel_err"])
+    emit({"phase": "tp serve", "check": f"{what} fp32 gate",
+          "grid": TS_SSM_GRID, "mesh": gate[0]["mesh"], "nvidia_smi": smi,
+          "arch": cfg.name, "layers": layers, "batch": TS_SESSION["batch"],
+          "prompt": prompt, "generate": TS_SESSION_GATE_GEN, "tol": tol,
+          "tie_margin": TS_TIE_MARGIN, "ranks": TS_RANKS, "one_card": one,
+          "one_card_kernels_vs_plain": plain})
+    check(all(g["tokens"] == gate[0]["tokens"] for g in gate),
+          f"phase 13 {tag} {cfg.name}: the ranks' fp32 tokens differ")
+    check(one["max_rel_err"] <= tol and not one["parted"]
+          and not plain["parted"],
+          f"phase 13 {tag} {cfg.name}: against the one-card fp32 session "
+          f"(bound {tol}): {one}")
+
+
+def ts_encdec_checks(smi, per):
+    """Phase 13 (k)'s lines and checks; returns each rank's launches of
+    the bf16 run."""
+    counts = {}
+    for arch, layers in TS_ENCDEC:
+        cfg = cut(arch, layers)
+        runs = [p["encdec"][arch] for p in per]
+        ts_family_gate(smi, cfg, layers, runs, "(k) encdec session",
+                       TS_ENCDEC_PROMPT)
+        full = [r["full"] for r in runs]
+        f0 = full[0]
+        G = TS_SESSION["generate"]
+        L, E = cfg.n_layers, cfg.n_enc_layers
+        emit({"phase": "tp serve", "check": "(k) encdec session full "
+              "width, cut depth", "grid": TS_SSM_GRID, "mesh": f0["mesh"],
+              "nvidia_smi": smi, "arch": cfg.name, "layers": layers,
+              "compute": cfg.compute_dtype, "batch": TS_SESSION["batch"],
+              "frames": cfg.enc_seq, "prompt": TS_ENCDEC_PROMPT,
+              "generate": G, "ranks": TS_RANKS, "rules": f0["rules"],
+              "one_card": f0["one_card"],
+              "per_rank": [{k: f[k] for k in f if k not in (
+                  "tokens", "one_card")} for f in full]})
+        # flash: the prefill's encoder layers and each decoder layer's
+        # self- and cross-attention, then those two a decode step; no
+        # RMSNorm (LayerNorm is no kernel).  Collectives over model: the
+        # lookup's sum and three a decoder layer each call, two an
+        # encoder layer in the prefill; the greedy token's gathers over
+        # model and data each call
+        want = {"paged_attention": 0, "ssd_scan": 0, "rmsnorm": 0,
+                "flash_attention": E + 2 * L * G}
+        want_calls = {"model:all-reduce": G * (1 + 3 * L) + 2 * E,
+                      "model:all-gather": G, "data:all-gather": G}
+        for r, f in enumerate(full):
+            n, calls = f["launches"], f["collective_calls"]
+            check(f["tokens"] == f0["tokens"] and f["finite"]
+                  and len(f["tokens"]) == TS_SESSION["batch"]
+                  and all(len(t) == G and all(0 <= x < cfg.vocab for x in t)
+                          for t in f["tokens"]),
+                  f"phase 13 (k) {arch} rank {r}: tokens differ from rank "
+                  f"0's or are not {G} in the vocab a row")
+            check(all(n.get(k, 0) == v for k, v in want.items())
+                  and calls == want_calls,
+                  f"phase 13 (k) {arch} rank {r}: launches {n} != {want}, "
+                  f"or collectives {calls} != {want_calls}")
+            check_flash_variant(f"phase 13 (k) {arch} rank {r}",
+                                cfg.compute_dtype, f["variants"],
+                                want["flash_attention"])
+            counts[f"{arch} session encdec tp rank {r}"] = dict(n)
+    emit({"phase": "tp serve", "check": "(k) seconds",
+          "per_rank": [{a: p["encdec"][a]["seconds"] for a, _ in TS_ENCDEC}
                        for p in per]})
     return counts
 
@@ -7155,6 +7379,7 @@ def ts_checks(smi, per, qwen_run, refs=None):
         counts.update(ts_dp_checks(smi, per, refs["disagg"], qwen_run))
     counts.update(ts_moe_checks(smi, per))
     counts.update(ts_ssm_checks(smi, per))
+    counts.update(ts_encdec_checks(smi, per))
     emit({"phase": "tp serve", "seconds_d_e": [p["seconds_d_e"]
                                                for p in per],
           "seconds_f_g": [p.get("seconds_f_g") for p in per]})
@@ -7872,6 +8097,13 @@ def kernel_times(device, counts, errs):
                    flash_time(4, Sq, 1500, 12, 64, kv_dtype=bf16,
                               causal=False),
                    max_abs_err=errs[f"flash_attention whisper {tag}"])
+    # phase 12 (g)'s rank: whisper's encoder and cross-attention on 6 of
+    # its 12 heads, its 4 rows of the 8
+    for tag, Sq in (("encoder", 1500), ("cross", WHISPER_DEC_SEQ)):
+        flash_line(f"whisper {tag} (model 2) rank B=4 Sq={Sq} Skv=1500 "
+                   f"H=6 D=64 non-causal q=bf16 kv=bf16",
+                   flash_time(4, Sq, 1500, 6, 64, kv_dtype=bf16,
+                              causal=False))
 
     # rmsnorm: bf16 rows at d_model: qwen's 512-row bucket, decode's 8
     # rows at each path's width, zamba2's prefill (4 x 500 rows) at
@@ -7960,7 +8192,12 @@ def kernel_times(device, counts, errs):
              32, 112, bf16, True),
             # phase 12 (f)'s rank: 4 rows, 16 of zamba2's 32 heads
             ("zamba2 (model 2) rank train B=4 S=512 H=KV=16 D=112 causal",
-             4, 512, 512, 16, 112, bf16, True)):
+             4, 512, 512, 16, 112, bf16, True),
+            # phase 12 (g)'s rank: 4 rows, 6 of whisper's 12 heads
+            ("whisper encoder (model 2) rank train B=4 S=1500 H=KV=6 D=64 "
+             "non-causal", 4, 1500, 1500, 6, 64, bf16, False),
+            ("whisper cross (model 2) rank train B=4 Sq=448 Skv=1500 "
+             "H=KV=6 D=64 non-causal", 4, 448, 1500, 6, 64, bf16, False)):
         ms, plain, b_ms, b_by, lib, n = flash_bwd_time(B, Sq, Skv, H, D, dt,
                                                        causal)
         if case.startswith("olmo train"):

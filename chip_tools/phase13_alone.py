@@ -18,6 +18,9 @@ phase 5's times.
     # under the ssm_* rules on the world's (data 2, model 2) grid, and
     # their checks
     python3 chip_tools/phase13_alone.py --ssm
+    # phase 12 (g) and phase 13 (c) and (k), whisper-small (the encdec
+    # family) on the world's (data 2, model 2) grid, and their checks
+    python3 chip_tools/phase13_alone.py --encdec
 """
 import collections, json, multiprocessing, shutil, sys, time
 from pathlib import Path
@@ -71,17 +74,23 @@ def moe_rank(rank, grid):
     return out
 
 
-def ssm_rank(rank, grid):
-    """Phase 12 (f) on the world's (data 2, model 2) grid, then phase 13
-    (c) and (j)."""
+def family_rank(rank, grid, mode):
+    """Phase 12 (f) (``mode`` "ssm") or (g) ("encdec") on the world's
+    (data 2, model 2) grid, then phase 13 (c) and (j) or (k)."""
     import torch
     device = torch.device("cuda", 0)
+    train, serve, tags = {
+        "ssm": (cs.SSM_TRAIN, cs.TS_SSM, ("(f)", "(j)")),
+        "encdec": (cs.ENCDEC_TRAIN, cs.TS_ENCDEC, ("(g)", "(k)"))}[mode]
+    prompt = (cs.TS_ENCDEC_PROMPT if mode == "encdec"
+              else cs.TS_SESSION["prompt"])
     t0 = time.perf_counter()
-    out = {"ssm": cs.ssm_rank(grid)}
+    out = {mode: cs.family_rank(grid, train, tags[0])}
     t1 = time.perf_counter()
     out["kernels"] = cs.ts_kernels(device)
-    out["serve_ssm"] = cs.ts_ssm(rank, device)
-    out["seconds_f_g"] = {"f": t1 - t0, "j": time.perf_counter() - t1}
+    out[f"serve_{mode}"] = cs.ts_fixed_batch(rank, device, serve, tags[1],
+                                             prompt)
+    out["seconds_f_g"] = {tags[0]: t1 - t0, tags[1]: time.perf_counter() - t1}
     return out
 
 
@@ -90,7 +99,7 @@ def rank_fn(rank, init, mode):
     from repro_torch.launch import mesh as mesh_lib
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_num_threads(1)
-    shape = (2, 2) if mode in ("moe", "ssm") else (1, 4)
+    shape = (2, 2) if mode in ("moe", "ssm", "encdec") else (1, 4)
     grid = mesh_lib.init_grid(mesh_lib.Layout(shape, ("data", "model")),
                               rank=rank, device=torch.device("cuda", 0),
                               init_method=init, timeout_s=180)
@@ -98,8 +107,8 @@ def rank_fn(rank, init, mode):
     t0 = time.perf_counter()
     if mode == "moe":
         out = moe_rank(rank, grid)
-    elif mode == "ssm":
-        out = ssm_rank(rank, grid)
+    elif mode in ("ssm", "encdec"):
+        out = family_rank(rank, grid, mode)
     else:
         out = {"fg": fg_rank, "h": h_rank}.get(mode, cs.ts_rank)(rank, refs)
     out["seconds"] = time.perf_counter() - t0
@@ -113,7 +122,8 @@ def main():
     mode = ("fg" if "--fg" in sys.argv[1:] else
             "h" if "--h" in sys.argv[1:] else
             "moe" if "--moe" in sys.argv[1:] else
-            "ssm" if "--ssm" in sys.argv[1:] else "all")
+            "ssm" if "--ssm" in sys.argv[1:] else
+            "encdec" if "--encdec" in sys.argv[1:] else "all")
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = cs.nvidia_smi_line()
     print(smi, flush=True)
@@ -125,9 +135,9 @@ def main():
     OUT.mkdir(parents=True)
     t0 = time.perf_counter()
     dev = torch.device("cuda")
-    qwen_run = (cs.ts_one_card_run(dev) if mode not in ("moe", "ssm")
-                else None)
-    if mode in ("moe", "ssm"):
+    family = mode in ("moe", "ssm", "encdec")
+    qwen_run = None if family else cs.ts_one_card_run(dev)
+    if family:
         refs = {}
     elif mode == "h":
         model, params = cs.ts_serve_model(dev)
@@ -137,11 +147,12 @@ def main():
     else:
         refs = cs.ts_serve_refs(dev)
     (OUT / cs.TS_REFS).write_text(json.dumps(refs))
-    # (e)'s and (f)'s one-card bf16 trajectories
+    # (e)'s, (f)'s or (g)'s one-card bf16 trajectories
+    mine = {"moe": [cs.EP_ARCH],
+            "ssm": [a for a, *_ in cs.SSM_TRAIN],
+            "encdec": [a for a, *_ in cs.ENCDEC_TRAIN]}.get(mode, [])
     one_card = {arch: cs.tp_reference_losses(dev, arch, layers, steps)
-                for arch, layers, steps in cs.TP_ONE_CARD
-                if (arch == cs.EP_ARCH) == (mode == "moe")
-                and arch != "qwen1.5-0.5b"} if mode in ("moe", "ssm") else {}
+                for arch, layers, steps in cs.TP_ONE_CARD if arch in mine}
     print("one-card references", time.perf_counter() - t0, flush=True)
     torch.cuda.empty_cache()
     ctx = multiprocessing.get_context("spawn")
@@ -171,12 +182,14 @@ def main():
         counts = cs.ep_checks(smi, [{"ep": p["ep"], "grids": {cs.EP_GRID: {
             "grid": layout}}} for p in per], one_card)
         counts.update(cs.ts_moe_checks(smi, per))
-    elif mode == "ssm":
+    elif mode in ("ssm", "encdec"):
         layout = {"mesh": {"data": 2, "model": 2}}
-        counts = cs.ssm_checks(smi, [{"ssm": p["ssm"], "grids": {
+        train, serve = {"ssm": (cs.ssm_checks, cs.ts_ssm_checks),
+                        "encdec": (cs.encdec_checks, cs.ts_encdec_checks)
+                        }[mode]
+        counts = train(smi, [{mode: p[mode], "grids": {
             cs.EP_GRID: {"grid": layout}}} for p in per], one_card)
-        counts.update(cs.ts_ssm_checks(smi, [{"ssm": p["serve_ssm"]}
-                                             for p in per]))
+        counts.update(serve(smi, [{mode: p[f"serve_{mode}"]} for p in per]))
     else:
         counts = cs.ts_checks(smi, per, qwen_run, refs)
     total = collections.defaultdict(int)

@@ -40,6 +40,9 @@ call.
     # launch counts and kernel variants fail here, the CPU launches no
     # kernel); the collectives a rank made and its seconds
     PYTHONPATH=src python chip_tools/phase13_cpu.py --ssm
+    # phase 12 (g) and 13 (k), the encdec family (whisper-small) on a
+    # (data 2, model 2) grid, likewise
+    PYTHONPATH=src python chip_tools/phase13_cpu.py --encdec
 
 Each rank runs one torch thread; ~60 s for the first, ~30 s a pool size
 for the second, ~60 s for the third.
@@ -216,7 +219,15 @@ def moe():
     return 0
 
 
-def ssm_rank_fn(rank, init):
+def family_parts(cs, mode):
+    """(training entries, serving entries, tags, prompt) of ``mode``."""
+    if mode == "encdec":
+        return (cs.ENCDEC_TRAIN, cs.TS_ENCDEC, ("(g)", "(k)"),
+                cs.TS_ENCDEC_PROMPT)
+    return cs.SSM_TRAIN, cs.TS_SSM, ("(f)", "(j)"), cs.TS_SESSION["prompt"]
+
+
+def family_rank_fn(rank, init, mode):
     import torch
     torch.set_num_threads(1)
     cs = smoke_width()
@@ -224,24 +235,27 @@ def ssm_rank_fn(rank, init):
     grid = mesh_lib.init_grid(mesh_lib.Layout((2, 2), ("data", "model")),
                               rank=rank, device=torch.device("cpu"),
                               init_method=init, timeout_s=120)
+    train, serve, tags, prompt = family_parts(cs, mode)
     t0 = time.perf_counter()
-    out = {"ssm": cs.ssm_rank(grid)}
+    out = {mode: cs.family_rank(grid, train, tags[0])}
     t1 = time.perf_counter()
-    out["serve_ssm"] = cs.ts_ssm(rank, torch.device("cpu"))
-    out["seconds"] = {"f": t1 - t0, "j": time.perf_counter() - t1}
+    out[f"serve_{mode}"] = cs.ts_fixed_batch(rank, torch.device("cpu"),
+                                             serve, tags[1], prompt)
+    out["seconds"] = {tags[0]: t1 - t0, tags[1]: time.perf_counter() - t1}
     grid.close()
-    (OUT / f"ssm_rank{rank}.json").write_text(json.dumps(out))
+    (OUT / f"{mode}_rank{rank}.json").write_text(json.dumps(out))
 
 
-def ssm():
-    """Phase 12 (f) and 13 (j) at smoke width in 4 CPU ranks, through the
-    smoke's checks."""
+def family(mode):
+    """Phase 12 (f) and 13 (j) (``mode`` "ssm"), or (g) and (k)
+    ("encdec"), at smoke width in 4 CPU ranks, through the smoke's
+    checks."""
     import torch
     OUT.mkdir(parents=True, exist_ok=True)
-    (OUT / "ssm_store").unlink(missing_ok=True)
+    (OUT / f"{mode}_store").unlink(missing_ok=True)
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=ssm_rank_fn,
-                         args=(r, f"file://{OUT}/ssm_store"))
+    procs = [ctx.Process(target=family_rank_fn,
+                         args=(r, f"file://{OUT}/{mode}_store", mode))
              for r in range(4)]
     for p in procs:
         p.start()
@@ -253,23 +267,27 @@ def ssm():
         return 1
     torch.set_num_threads(1)
     cs = smoke_width()
-    per = [json.loads((OUT / f"ssm_rank{r}.json").read_text())
+    per = [json.loads((OUT / f"{mode}_rank{r}.json").read_text())
            for r in range(4)]
     failed = []
     cs.check = lambda cond, msg: cond or failed.append(msg)
     cs.emit = lambda obj: print(json.dumps(obj)[:1500])
     layout = {"mesh": {"data": 2, "model": 2}}
-    cs.ssm_checks("cpu", [{"ssm": p["ssm"], "grids": {cs.EP_GRID: {
+    train, serve, tags, _ = family_parts(cs, mode)
+    mine = [a for a, *_ in train]
+    checks = {"ssm": (cs.ssm_checks, cs.ts_ssm_checks),
+              "encdec": (cs.encdec_checks, cs.ts_encdec_checks)}[mode]
+    checks[0]("cpu", [{mode: p[mode], "grids": {cs.EP_GRID: {
         "grid": layout}}} for p in per], {
             arch: cs.tp_reference_losses(torch.device("cpu"), arch, layers,
                                          steps)
-            for arch, layers, steps in cs.TP_ONE_CARD[2:]})
-    cs.ts_ssm_checks("cpu", [{"ssm": p["serve_ssm"]} for p in per])
+            for arch, layers, steps in cs.TP_ONE_CARD if arch in mine})
+    checks[1]("cpu", [{mode: p[f"serve_{mode}"]} for p in per])
     for msg in failed:
         print("FAILED:", msg[:600])
-    print(f"(f), (j): {len(failed)} checks failed; seconds a rank "
-          f"{[p['seconds'] for p in per]}; (j) collectives on rank 0 "
-          f"{per[0]['serve_ssm']['mamba2-780m']['full']['collective_calls']}")
+    print(f"{tags}: {len(failed)} checks failed; seconds a rank "
+          f"{[p['seconds'] for p in per]}; {tags[1]} collectives on rank 0 "
+          f"{per[0][f'serve_{mode}'][serve[0][0]]['full']['collective_calls']}")
     return 0
 
 
@@ -350,13 +368,14 @@ def main():
     p.add_argument("--serve-counts", action="store_true")
     p.add_argument("--moe", action="store_true")
     p.add_argument("--ssm", action="store_true")
+    p.add_argument("--encdec", action="store_true")
     args = p.parse_args()
     if args.serve_counts:
         return serve_counts()
     if args.moe:
         return moe()
-    if args.ssm:
-        return ssm()
+    if args.ssm or args.encdec:
+        return family("ssm" if args.ssm else "encdec")
     return quota(args.pages) if args.pages else rehearse()
 
 

@@ -71,10 +71,12 @@ tokens differ from rank 0's makes every rank exit 1:
 * the fixed-batch mode runs on ``launch.mesh.make_smoke_mesh(world)``'s
   layout under its decode rules, as the reference's does on its smoke
   mesh: (data 2, model 2) at 4 ranks, (pod 2, data 2, model 2) at 8,
-  rows over the data axes and heads over ``model`` (attention heads;
-  the ssm and hybrid families' SSD heads too; encdec on a model axis of
-  1 only) (``runtime.serve.make_session``); a world that does not fill
-  the layout exits 2 before any work.
+  rows over the data axes and heads over ``model`` (attention heads,
+  encdec's encoder, decoder and cross-attention heads among them; the
+  ssm and hybrid families' SSD heads too) (``runtime.serve.
+  make_session``); each rank draws the global batch (encdec's frames
+  too) from the seed and takes its rows; a world that does not fill the
+  layout exits 2 before any work.
 
 What is not served across ranks (the engine modes without such a
 lease, or on a world that does not fill its grid, and what
@@ -108,7 +110,7 @@ from repro_torch.runtime import serve as serve_rt
 from repro_torch.serve import (Engine, EngineConfig, PoolArbiter,
                                latency_summary, load_trace, run_multi_trace,
                                run_trace, synthetic_trace)
-from repro_torch.sharding.profiles import grid_refusal, make_rules
+from repro_torch.sharding.profiles import grid_refusal
 
 
 def _flush_trace(tracer, transports, path: str) -> dict:
@@ -462,19 +464,17 @@ def fixed_batch_generate(model, params, inputs, generate: int, device,
             "logits_finite": bool(finite)}
 
 
-def batch_layout(world: int, cfg, shape) -> Tuple[Optional[mesh_lib.Layout],
-                                                  Optional[str]]:
+def batch_layout(world: int, cfg) -> Tuple[Optional[mesh_lib.Layout],
+                                           Optional[str]]:
     """The fixed-batch mode's layout across ``world`` ranks
     (``make_smoke_mesh(world)``, the reference's smoke mesh) and why it
-    cannot serve ``cfg``'s decode ``shape`` there, or None."""
+    cannot serve ``cfg`` there, or None."""
     layout = mesh_lib.make_smoke_mesh(world)
     if layout.size != world:
         return layout, (f"a world of {world} ranks does not fill the "
                         f"fixed-batch mode's layout {layout.as_dict()} "
                         f"({layout.size} ranks)")
-    return layout, grid_refusal(layout, make_rules(cfg, shape, layout,
-                                                   fsdp=False), cfg,
-                                serving=True, world=world)
+    return layout, grid_refusal(layout, cfg, serving=True, world=world)
 
 
 def _legacy_batch_mode(args, cfg, model, device, layout=None) -> int:
@@ -610,8 +610,7 @@ def main(argv=None):
     cfg = get_config(args.arch, smoke=args.smoke)
     layout = None
     if world["world"] > 1 and not (args.requests or args.trace):
-        layout, why = batch_layout(world["world"], cfg, ShapeConfig(
-            "cli", "decode", args.prompt + args.generate, args.batch))
+        layout, why = batch_layout(world["world"], cfg)
         if why is not None:
             warn(why)
             return 2

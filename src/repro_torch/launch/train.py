@@ -72,11 +72,12 @@ pipeline yields no ``frame_embeds``; it trains through
 attention or SSD scan the backward kernels do not take (the smoke
 configs' head_dim 16, or SSD head_dim P 16), and across processes a
 layout the world does not fill or that ``profiles.grid_refusal``
-leaves to a later slice (the encdec family under a ``model`` axis,
-heads that do not divide it: attention heads, or the ssm and hybrid
-families' SSD heads; the dense, moe, ssm and hybrid families train
-there, moe with its experts over ``model``, ssm and hybrid with their
-SSD heads over it).  Collectives time out
+leaves to a later slice (heads that do not divide a ``model`` axis:
+attention heads, or the ssm and hybrid families' SSD heads; every
+family's step trains on such a grid, moe with its experts over
+``model``, ssm and hybrid with their SSD heads over it, encdec with its
+heads over it through ``runtime.train.make_train_step``, the CLI
+refusing encdec for its pipeline alone).  Collectives time out
 (``launch.mesh.DEFAULT_TIMEOUT_S``), so a dead rank makes the others
 raise instead of waiting forever.
 """
@@ -146,14 +147,13 @@ def refusal(cfg: ModelConfig, device: torch.device) -> Optional[str]:
 
 
 def layout_refusal(layout: mesh_lib.Layout, world: int,
-                   cfg: Optional[ModelConfig] = None,
-                   rules=None) -> Optional[str]:
+                   cfg: Optional[ModelConfig] = None) -> Optional[str]:
     """Why the port cannot train ``cfg`` on ``layout`` with ``world``
-    ranks and ``rules``, or None."""
+    ranks, or None."""
     if layout.size != world:
         return (f"a world of {world} ranks does not fill the layout "
                 f"{layout.as_dict()} ({layout.size} ranks)")
-    return grid_refusal(layout, rules, cfg)
+    return grid_refusal(layout, cfg)
 
 
 def latest_checkpoint(ckpt_dir: Path, run_id: Optional[str]
@@ -270,8 +270,7 @@ def main(argv=None, failure_hook=None):
                                               offload_optimizer=True)
     dp_mode = args.dp_mode
     if layout is not None:
-        why = layout_refusal(layout, env["world"], cfg, make_rules(
-            cfg, shape, layout, fsdp=False, dp_mode="auto"))
+        why = layout_refusal(layout, env["world"], cfg)
         if why is not None:
             emit(f"error: {why}", stream=sys.stderr)
             return 2
@@ -324,8 +323,8 @@ def _train(args, cfg, device, optimizer, shape, tcfg, tier_policy, lease,
     ckpt_dir = Path(args.ckpt_dir)
     ranks = 1 if grid is None else grid.world
     run_id = os.environ.get("TORCHELASTIC_RUN_ID")
-    pa = model.param_axes() if model.param_axes is not None else None
-    axes = None if pa is None else {"params": pa, "mu": pa, "nu": pa}
+    pa = model.param_axes()
+    axes = {"params": pa, "mu": pa, "nu": pa}
     resumed_from = first_loss = None
     # the world's restarts (torch.distributed.run's), beside the loop's
     world_restarts = 0 if ranks == 1 else int(

@@ -13,12 +13,10 @@
                                             ``batch`` carries
                                             ``frame_embeds``)
     model.param_axes()                   -> the logical axes of init's tree
-                                            (every family but encdec;
-                                            None there)
+                                            (every family)
     model.init_cache(batch, max_seq, dtype=...) -> the family's cache
     model.cache_axes()                   -> the logical axes of its leaves
-                                            (every family but encdec;
-                                            None there)
+                                            (every family)
     model.prefill(params, batch, cache)  -> (last-position logits, cache
                                             [, enc_states for encdec])
     model.decode(params, tokens, cache, index[, enc_states])
@@ -51,8 +49,6 @@ _FAMILIES = {"dense": (transformer, torch.bfloat16),
              "hybrid": (hybrid, torch.bfloat16),
              "encdec": (encdec, torch.bfloat16)}
 _PAGED = ("dense", "moe")
-# the families with logical axes, which the sharding rules place
-_SHARDED = ("dense", "moe", "ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,10 +61,10 @@ class Model:
     prefill: Callable[..., Any]
     decode: Callable[..., Any]
     loss: Callable[..., Any]
+    param_axes: Callable[[], Any]
+    cache_axes: Callable[[], Any]
     prefill_at: Optional[Callable[..., Any]] = None
     decode_paged: Optional[Callable[..., Any]] = None
-    param_axes: Optional[Callable[[], Any]] = None
-    cache_axes: Optional[Callable[[], Any]] = None
 
     @property
     def supports_paged_kv(self) -> bool:
@@ -104,9 +100,8 @@ def build_model(cfg: ModelConfig, *, device: DeviceLike = None) -> Model:
         prefill=lambda p, b, c: m.prefill(p, cfg, b, c),
         decode=decode,
         loss=loss,
-        param_axes=((lambda: m.param_axes(cfg))
-                    if cfg.family in _SHARDED else None),
+        param_axes=lambda: m.param_axes(cfg),
         cache_axes=((lambda: m.cache_axes(cfg)) if cfg.family == "hybrid"
-                    else getattr(m, "cache_axes", None)),
+                    else m.cache_axes),
         **paged,
     )

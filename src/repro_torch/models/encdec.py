@@ -18,6 +18,21 @@ K/V from the encoder states.  The decoder's KV cache is the dense
 transformer's layout, updated in place.  ``loss_fn`` is the reference's
 cross entropy of the decoder over a batch of ``frame_embeds``,
 ``tokens`` and ``labels``, with remat per layer in both stacks.
+
+Under a tensor-parallel / FSDP plan (``repro_torch.sharding.tp``) the
+parameters are this rank's blocks (``param_axes``, the reference's
+names): each attention (the encoder's, the decoder's causal
+self-attention over its cache of the rank's kv heads, its
+cross-attention) runs on the rank's local heads behind
+``copy_to_model`` and ``reduce_from_model``, the MLP is column -> row
+over ``ff``, the LayerNorms stay whole, the decoder's lookup, logits and
+loss are vocab-parallel, and FSDP's leaves are gathered inside each
+block (again in a remat recompute).  The cross-attention K/V are
+computed outside the remat, as the reference computes them before its
+layer scan: a layer's ``wk``, ``wv``, ``bk`` and ``bv`` are gathered
+there alone, and the encoder states go behind one ``copy_to_model``
+(counted as ``cross``) shared by every decoder layer, so their gradient
+is summed over ``model`` once a step.
 """
 
 from __future__ import annotations
@@ -30,8 +45,11 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import tp
 
 _NORM = "layernorm"
+# the cross-attention leaves ``cross_kv`` reads, outside the remat
+_CROSS_KV = ("wk", "wv", "bk", "bv")
 
 
 def _sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
@@ -83,15 +101,57 @@ def init_dec_block(gen, cfg: ModelConfig, dtype, device) -> Dict[str, Any]:
     }
 
 
+def enc_block_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    return {
+        "attn": L.attention_axes(_attn_cfg(cfg, causal=False)),
+        "mlp": L.mlp_axes(_mlp_cfg(cfg)),
+        "norm1": L.norm_axes(_NORM),
+        "norm2": L.norm_axes(_NORM),
+    }
+
+
+def dec_block_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    return {
+        "self_attn": L.attention_axes(_attn_cfg(cfg, causal=True)),
+        "cross_attn": L.attention_axes(_attn_cfg(cfg, causal=False)),
+        "mlp": L.mlp_axes(_mlp_cfg(cfg)),
+        "norm1": L.norm_axes(_NORM),
+        "norm2": L.norm_axes(_NORM),
+        "norm3": L.norm_axes(_NORM),
+    }
+
+
+def _gathered(params, axes, cfg: ModelConfig, plan):
+    """The leaves of ``axes`` as the rank uses them
+    (``tp.gather_params``)."""
+    return tp.gather_params(params, axes, plan, T.dtype_of(cfg.compute_dtype))
+
+
+def _attention(params, h: torch.Tensor, acfg: L.AttentionConfig, plan,
+               **kw) -> torch.Tensor:
+    """An attention on the rank's local heads under a plan: its input
+    behind ``copy_to_model``, its output summed over ``model``."""
+    if plan is not None:
+        acfg = plan.local_attention(acfg)
+    out, _ = L.attention_fwd(params, tp.copy_to_model(h, plan), acfg, **kw)
+    return tp.reduce_from_model(out, plan)
+
+
+def _mlp(params, h: torch.Tensor, cfg: ModelConfig, plan) -> torch.Tensor:
+    out = L.mlp_fwd(params, tp.copy_to_model(h, plan), _mlp_cfg(cfg))
+    return tp.reduce_from_model(out, plan)
+
+
 def enc_block_fwd(params, x: torch.Tensor, cfg: ModelConfig,
                   positions: torch.Tensor) -> torch.Tensor:
+    plan = tp.plan()
+    if plan is not None:
+        params = _gathered(params, enc_block_axes(cfg), cfg, plan)
     h = L.apply_norm(x, params["norm1"], _NORM)
-    attn, _ = L.attention_fwd(params["attn"], h,
-                              _attn_cfg(cfg, causal=False),
-                              positions=positions)
-    x = x + attn
+    x = x + _attention(params["attn"], h, _attn_cfg(cfg, causal=False), plan,
+                       positions=positions)
     h = L.apply_norm(x, params["norm2"], _NORM)
-    return x + L.mlp_fwd(params["mlp"], h, _mlp_cfg(cfg))
+    return x + _mlp(params["mlp"], h, cfg, plan)
 
 
 def dec_block_fwd(params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -100,29 +160,42 @@ def dec_block_fwd(params, x: torch.Tensor, cfg: ModelConfig, *,
                   kv_cache=None, cache_index: Optional[int] = None
                   ) -> torch.Tensor:
     """enc_kv: (k, v) of this layer's cross-attention (``cross_kv``);
-    the self-attention cache is written in place."""
+    the self-attention cache is written in place.  Under a plan the
+    layer's leaves but the cross K/V's are gathered here."""
+    plan = tp.plan()
+    if plan is not None:
+        axes = dec_block_axes(cfg)
+        axes["cross_attn"] = {k: v for k, v in axes["cross_attn"].items()
+                              if k not in _CROSS_KV}
+        params = _gathered(params, axes, cfg, plan)
     h = L.apply_norm(x, params["norm1"], _NORM)
-    attn, _ = L.attention_fwd(params["self_attn"], h,
-                              _attn_cfg(cfg, causal=True),
-                              positions=positions, kv_cache=kv_cache,
-                              cache_index=cache_index)
-    x = x + attn
+    x = x + _attention(params["self_attn"], h, _attn_cfg(cfg, causal=True),
+                       plan, positions=positions, kv_cache=kv_cache,
+                       cache_index=cache_index)
     h = L.apply_norm(x, params["norm2"], _NORM)
-    cross, _ = L.attention_fwd(params["cross_attn"], h,
-                               _attn_cfg(cfg, causal=False),
-                               positions=positions, kv_override=enc_kv)
-    x = x + cross
+    x = x + _attention(params["cross_attn"], h,
+                       _attn_cfg(cfg, causal=False), plan,
+                       positions=positions, kv_override=enc_kv)
     h = L.apply_norm(x, params["norm3"], _NORM)
-    return x + L.mlp_fwd(params["mlp"], h, _mlp_cfg(cfg))
+    return x + _mlp(params["mlp"], h, cfg, plan)
 
 
 def cross_kv(params, cfg: ModelConfig, enc_states: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross-attention K/V of one decoder layer from the encoder
-    states: each (B, enc_seq, KV, hd)."""
+    states: each (B, enc_seq, KV, hd); under a plan the rank's kv heads,
+    from its blocks of ``wk``, ``wv``, ``bk`` and ``bv`` (gathered here
+    under FSDP).  ``enc_states`` go in as every rank of a ``model``
+    group holds them (``decode`` puts them behind ``copy_to_model``)."""
     B, S, _ = enc_states.shape
     KV, hd = cfg.n_kv_heads, cfg.head_dim
     p = params["cross_attn"]
+    plan = tp.plan()
+    if plan is not None:
+        axes = L.attention_axes(_attn_cfg(cfg, causal=False))
+        p = _gathered({k: p[k] for k in _CROSS_KV},
+                      {k: axes[k] for k in _CROSS_KV}, cfg, plan)
+        KV //= plan.model_n
     k = (enc_states @ p["wk"] + p["bk"]).reshape(B, S, KV, hd)
     v = (enc_states @ p["wv"] + p["bv"]).reshape(B, S, KV, hd)
     return k, v
@@ -152,6 +225,19 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     }
 
 
+def param_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The logical axes of ``init_params``' tree, leaf for leaf (the
+    reference's names; the port's lists have no leading ``("layers",)``
+    axis)."""
+    return {
+        "embedding": L.embedding_axes(),
+        "enc_layers": [enc_block_axes(cfg) for _ in range(cfg.n_enc_layers)],
+        "dec_layers": [dec_block_axes(cfg) for _ in range(cfg.n_layers)],
+        "enc_norm": L.norm_axes(_NORM),
+        "dec_norm": L.norm_axes(_NORM),
+    }
+
+
 def encode(params, cfg: ModelConfig, frame_embeds: torch.Tensor,
            remat: bool = False) -> torch.Tensor:
     """frame_embeds: (B, enc_seq, d_model), the stub frontend's output ->
@@ -178,13 +264,16 @@ def decode(params, cfg: ModelConfig, tokens: torch.Tensor,
     (0 without a cache); returns the normed hidden states.  ``remat``
     (no cache) recomputes each layer in the backward pass; the
     cross-attention K/V are computed outside it and kept, as the
-    reference computes them before its layer scan."""
+    reference computes them before its layer scan.  Under a plan the
+    lookup is vocab-parallel and ``enc_states`` go behind one
+    ``copy_to_model`` for every layer's cross K/V."""
     dtype = T.dtype_of(cfg.compute_dtype)
     S = tokens.shape[1]
     start = 0 if cache_index is None else cache_index
     positions = start + torch.arange(S, device=tokens.device)
-    x = L.embed(params["embedding"], tokens).to(dtype)
+    x = T._embed_inputs(params, cfg, {"tokens": tokens})
     x = x + _sinusoidal(positions, cfg.d_model).to(dtype)[None]
+    enc_states = tp.copy_to_model(enc_states, tp.plan(), what="cross")
     for i, layer in enumerate(params["dec_layers"]):
         kv = None if cache is None else (cache["k"][i], cache["v"][i])
         enc_kv = cross_kv(layer, cfg, enc_states)
@@ -216,8 +305,10 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             remat: bool = True) -> torch.Tensor:
     """``transformer.lm_loss`` of the decoder over ``batch``
-    ({"frame_embeds", "tokens", "labels"} and an optional "mask")."""
-    return T.lm_loss(forward, params, cfg, batch, remat)
+    ({"frame_embeds", "tokens", "labels"} and an optional "mask"),
+    vocab-parallel under a plan."""
+    return T.lm_loss(forward, params, cfg, batch, remat,
+                     axes_fn=param_axes)
 
 
 init_cache = T.init_cache

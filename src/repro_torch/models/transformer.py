@@ -291,14 +291,10 @@ def lm_loss(forward_fn, params, cfg: ModelConfig,
     reference's ``forward`` casts them.  ``aux_coef``: plus that times
     the last thing ``forward_fn`` returns (the moe family's
     load-balancing loss).  Under a plan (``repro_torch.sharding.tp``;
-    the dense, moe, ssm and hybrid families, ``axes_fn(cfg)`` the
-    family's ``param_axes``) the lookup and the loss are vocab-parallel
+    every family, ``axes_fn(cfg)`` the family's ``param_axes``) the lookup and the loss are vocab-parallel
     and the table is gathered once."""
     plan = tp.plan()
     if plan is not None:
-        if cfg.family == "encdec":
-            raise ValueError(f"{cfg.name}: the encdec family does not run "
-                             f"under a tensor-parallel / FSDP plan")
         dtype = dtype_of(cfg.compute_dtype)
         axes = (axes_fn or param_axes)(cfg)
         params = tp.cast_params(params, axes, plan, dtype)

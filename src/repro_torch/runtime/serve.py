@@ -22,10 +22,15 @@ rules' ``batch`` axes, every row where they leave it unsharded) on the
 rank's shards of the model (``sharding.tp``: heads and kv heads over
 ``model``, the dense and moe families, moe's experts too; the ssm and
 hybrid families' SSD heads and conv channels, the hybrid's shared
-attention heads), over a cache of its rows, kv heads, SSD heads and conv
-channels (the family's ``init_cache`` under the plan); moe's dispatch
-group stays the whole batch (``tp.split_rows``), the reference's one
-group.
+attention heads; the encdec family's encoder, decoder and
+cross-attention heads), over a cache of its rows, kv heads, SSD heads
+and conv channels (the family's ``init_cache`` under the plan); moe's
+dispatch group stays the whole batch (``tp.split_rows``), the
+reference's one group.  An encdec prefill takes the rank's rows of the
+batch's ``frame_embeds`` and returns their encoder states (the
+reference's ``("batch", None, "embed")``), which the carry keeps; each
+decode step projects them onto the rank's kv heads for the cross K/V,
+as the reference recomputes them every step.
 The greedy token is ``tp.vocab_parallel_argmax`` of the rank's vocab
 columns, gathered over the batch axes (``core.hierarchy``, counted in
 the grid's ``CollectiveStats``): the carry's ``tokens`` are the global
@@ -255,12 +260,10 @@ def make_lease_session(model: Model, shape: ShapeConfig, lease, *,
     ``make_rules(..., fsdp=False)``): rows over the data axes, heads
     over ``model`` (see the module's docstring).  Refused
     (``profiles.grid_refusal``), each naming its slice: a ``model`` axis
-    over 1 bound to one process (several cards), the encdec family
-    under a ``model`` axis over 1, heads (attention or SSD heads) that
-    do not divide it."""
+    over 1 bound to one process (several cards), heads (attention or SSD
+    heads) that do not divide it."""
     binding = lease.materialize(None if device is None else [device])
-    rules = make_rules(model.cfg, shape, binding, fsdp=False)
-    why = grid_refusal(binding, rules, model.cfg, serving=True)
+    why = grid_refusal(binding, model.cfg, serving=True)
     if why is not None:
         raise ValueError(why)
     if binding.device.type != model.device.type:

@@ -16,13 +16,14 @@ Modes, on a rank grid (``repro_torch.launch.mesh``; one process a rank):
                            the port's is the explicit reduce-scatter.
 
 Each rank takes its rows of the global batch by the rules' ``batch``
-axes (the reference's ``batch_shardings``), computes its loss and
+axes (the reference's ``batch_shardings``; every array of the batch,
+the encdec family's ``frame_embeds`` too), computes its loss and
 gradients on them, reduces, and runs the same AdamW update, so every
 rank ends with the same parameters.  Without a grid the step is the
 one-device step; on a world of one, ``auto`` is that step too.
 
-Tensor parallelism and FSDP (the dense, moe, ssm and hybrid families;
-``repro_torch.sharding.tp``): where the rules shard the parameters (a
+Tensor parallelism and FSDP (every family; ``repro_torch.sharding.tp``):
+where the rules shard the parameters (a
 ``model`` axis over 1, ``embed`` on a mesh axis), the state holds this
 rank's blocks (``state_from_params`` cuts them from a full tree), the
 loss runs under the rules and grid, and the ranks of one data
@@ -272,7 +273,7 @@ def make_train_step(model: Model, optimizer: AdamW, shape: ShapeConfig, *,
                          f"{tcfg.microbatches} microbatches")
     rows = blocks = None
     if mesh is not None:
-        why = grid_refusal(mesh, rules, model.cfg)
+        why = grid_refusal(mesh, model.cfg)
         if why is not None:
             raise ValueError(why)
         rows = batch_rows(mesh, rules, shape, tcfg.microbatches)
@@ -328,9 +329,8 @@ def init_state(model: Model, optimizer: AdamW,
     Every rank of a grid draws the same full masters from the same seed
     and keeps its blocks of them (``rules``)."""
     params = model.init(generator)
-    axes = model.param_axes() if model.param_axes is not None else None
     return state_from_params(params, optimizer, tcfg, tiering, mesh,
-                             rules=rules, axes=axes)
+                             rules=rules, axes=model.param_axes())
 
 
 def state_from_params(params, optimizer: AdamW,

@@ -487,13 +487,13 @@ class Engine:
         heads.  Refused (``profiles.grid_refusal``), each naming the
         slice that brings it: a ``model`` axis over 1 outside a world of
         as many ranks, and a family or head count the rules do not shard
-        (3f, 3g); a family without paged KV (ssm, hybrid) is refused
-        after the grid's join, as on one device."""
+        (3g); a family without paged KV (ssm, hybrid, encdec) is
+        refused after the grid's join, as on one device."""
         binding = lease.materialize(None if device is None else [device])
         rules = make_rules(model.cfg, ShapeConfig(
             "engine", "decode", cfg.max_seq, cfg.max_slots), binding,
             fsdp=False)
-        why = grid_refusal(binding, rules, model.cfg, serving=True)
+        why = grid_refusal(binding, model.cfg, serving=True)
         if why is not None:
             raise ValueError(why)
         shared = arbiter.grid if arbiter is not None else None

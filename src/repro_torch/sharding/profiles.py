@@ -19,7 +19,7 @@ The table is the reference's, entry for entry, from the same inputs.
 ``make_rules`` reads only the mesh's ``axis_names`` and ``shape`` (a
 tuple of sizes): the port's ``launch.mesh.Layout`` and ``RankGrid``
 serve it.  The training step reads ``batch`` for each rank's rows, and
-for the dense, moe, ssm and hybrid families the parameters' entries:
+for every family the parameters' entries:
 ``model`` (tensor and expert parallelism: ``expert`` or ``expert_ff``;
 the mamba2 block's ``ssm_inner_proj``, ``ssm_conv_ch``, ``ssm_heads``
 and ``ssm_inner``) and ``embed`` (FSDP) place each leaf's block
@@ -65,31 +65,31 @@ def hierarchical_unsafe(cfg: ModelConfig) -> Optional[str]:
     return None
 
 
-def grid_refusal(mesh, rules: Optional[Rules],
-                 cfg: Optional[ModelConfig] = None, *,
+def grid_refusal(mesh, cfg: Optional[ModelConfig] = None, *,
                  serving: bool = False,
                  world: Optional[int] = None) -> Optional[str]:
     """Why the port cannot run ``cfg`` on ``mesh`` (anything with
     ``axis_names`` and ``shape``: a ``RankGrid``, a ``Layout``, a lease's
-    ``LeaseBinding``) with ``rules``, or None.  ``world``: the ranks the
-    run has, one process each (default ``mesh.world``, else 1).
+    ``LeaseBinding``) under the rules ``make_rules`` gives it, or None.
+    ``world``: the ranks the run has, one process each (default
+    ``mesh.world``, else 1).
 
     Tensor parallelism over ``model`` and FSDP (``embed`` on a mesh
-    axis) run the dense, moe, ssm and hybrid families' training steps
-    (moe: expert parallelism, its experts or their ``expert_ff`` columns
-    over ``model``; ssm and hybrid: the mamba2 block's SSD heads over
-    ``model``).  Serving across ranks (``serving``, one rank a process,
+    axis) run every family's training step (moe: expert parallelism,
+    its experts or their ``expert_ff`` columns over ``model``; ssm and
+    hybrid: the mamba2 block's SSD heads over ``model``; encdec: the
+    encoder's and decoder's heads, its cross-attention's too).  Serving
+    across ranks (``serving``, one rank a process,
     ``repro_torch.sharding.tp``) runs the dense and moe families on
     (pod, data, model) on every path: the fixed-batch session, the
     request-level engine, tenants of one arbiter and engines on a shared
     transport (a disaggregated cluster's tiers, co-resident engines)
     take their rows over the data axes (the rules' ``batch``; moe's
     dispatch group stays the whole batch) and their heads over
-    ``model``; the ssm and hybrid families, which have no paged KV,
-    through the fixed-batch session, likewise.  What waits for a later
-    slice, each refusal naming its ROADMAP item: the encdec family under
-    a ``model`` axis over 1 or FSDP (3f), and heads that do not divide
-    ``model`` (3g): attention heads or kv heads (the reference's
+    ``model``; the ssm, hybrid and encdec families, which have no paged
+    KV, through the fixed-batch session, likewise.  What waits for a
+    later slice, the refusal naming its ROADMAP item: heads that do not
+    divide ``model`` (3g): attention heads or kv heads (the reference's
     context-parallel ``seq_attn`` fallback) or the mamba2 block's SSD
     heads, which ``make_rules`` then leaves unsharded.  A grid of
     other than ``world`` ranks under a ``model`` axis over 1 or in a
@@ -99,9 +99,6 @@ def grid_refusal(mesh, rules: Optional[Rules],
     sizes = axis_sizes(mesh)
     model_n = sizes.get("model", 1)
     n = _prod(sizes.values())
-    embed = rules.table.get("embed") if rules is not None else None
-    embed = (embed,) if isinstance(embed, str) else tuple(embed or ())
-    fsdp = any(sizes.get(a, 1) > 1 for a in embed)
     world = getattr(mesh, "world", 1) if world is None else world
     rows = {a: k for a, k in sizes.items() if a != "model" and k > 1}
     if serving and (model_n > 1 or world > 1) and world != n:
@@ -110,17 +107,9 @@ def grid_refusal(mesh, rules: Optional[Rules],
         return (f"serving {where} needs a world of {n} ranks, one "
                 f"process each (torch.distributed.run), not {world}: "
                 f"a lease never serves on one card alone")
-    if cfg is None or (model_n == 1 and not fsdp):
+    if cfg is None or model_n == 1:
         return None
-    what = " and ".join(
-        w for w, on in ((f"tensor parallelism (a model axis of {model_n})",
-                         model_n > 1), ("FSDP", fsdp)) if on)
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        return (f"{cfg.name}: the {cfg.family} family under {what} needs "
-                f"the encoder-decoder's sharded step (ROADMAP Queue A 3f), "
-                f"which comes with a later slice of the port; this one "
-                f"shards the dense, moe, ssm and hybrid families")
-    if model_n > 1 and cfg.family in ("ssm", "hybrid") and (
+    if cfg.family in ("ssm", "hybrid") and (
             cfg.ssm_heads % model_n
             or (2 * cfg.d_inner + 2 * cfg.ssm_n_groups * cfg.ssm_state
                 + cfg.ssm_heads) % model_n):
@@ -129,7 +118,7 @@ def grid_refusal(mesh, rules: Optional[Rules],
                 f"the reference's rules leave ssm_heads unsharded; that "
                 f"fallback comes with a later slice of the port (ROADMAP "
                 f"Queue A 3g)")
-    if model_n > 1 and (cfg.n_heads % model_n or cfg.n_kv_heads % model_n):
+    if cfg.n_heads % model_n or cfg.n_kv_heads % model_n:
         return (f"{cfg.name}: {cfg.n_heads} heads and {cfg.n_kv_heads} kv "
                 f"heads do not both divide a model axis of {model_n}; the "
                 f"reference's context-parallel seq_attn fallback for "

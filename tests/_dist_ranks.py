@@ -104,9 +104,19 @@ def _setup(out_dir, arch, compute):
     data = np.load(Path(out_dir) / "inputs.npz")
     with open(Path(out_dir) / "params.pkl", "rb") as f:
         params = bridge.params_from_reference(pickle.load(f), "cpu")
-    batches = [{"tokens": data["tokens"][k], "labels": data["labels"][k]}
-               for k in range(data["tokens"].shape[0])]
-    return model, params, batches
+    return model, params, _batches(data)
+
+
+def _batches(data):
+    """Each step's batch of ``inputs.npz``, with its frame embeddings
+    (``frames``, encdec) where it has them."""
+    out = []
+    for k in range(data["tokens"].shape[0]):
+        b = {"tokens": data["tokens"][k], "labels": data["labels"][k]}
+        if "frames" in data:
+            b["frame_embeds"] = data["frames"][k]
+        out.append(b)
+    return out
 
 
 def _clone(state):
@@ -408,6 +418,166 @@ def ssm_block(out_dir, seed: int = 0):
     grid.close()
 
 
+def encdec_block(out_dir, seed: int = 0):
+    """The encdec blocks under a 2-rank ``model`` plan in fp32
+    (whisper-small smoke's widths: 4 heads, 2 a rank), beside the
+    one-process blocks on the same inputs (norms and biases drawn away
+    from their ones and zeros): ``enc_block_fwd``; ``dec_block_fwd``
+    over ``cross_kv`` of encoder states behind ``copy_to_model``, with
+    the gradients of the input, of the encoder states and of every leaf
+    cut to this rank's block; the decoder block over a cache (a prompt,
+    then one token) and the rank's kv heads of it; then the whole
+    model: the loss and its gradients, the ``cross`` sums in one
+    backward, and a decode step's collectives."""
+    from repro_torch.models import encdec as E
+    from repro_torch.sharding import partition, tp
+    grid = _grid((1, 2), ("data", "model"))
+    cfg = dataclasses.replace(get_config("whisper-small", smoke=True),
+                              compute_dtype="float32")
+    plan, rules = _tp_plan(grid, cfg)
+    gen = torch.Generator().manual_seed(seed)
+    cpu, f32 = torch.device("cpu"), torch.float32
+
+    def drawn(tree):
+        def one(name, t):
+            if name.endswith("scale"):
+                t = 1 + 0.2 * torch.randn(t.shape, generator=gen)
+            elif name.endswith(("bias", "bq", "bk", "bv")):
+                t = 0.1 * torch.randn(t.shape, generator=gen)
+            return t.detach().requires_grad_(True)
+        flat = dict(_flat_named(tree))
+        it = iter(one(n, flat[n]) for n in flat)
+        named = {n: next(it) for n in flat}
+        return _unflatten(named)
+
+    rng = np.random.default_rng(seed)
+    B, S, Se, d = 2, 6, cfg.enc_seq, cfg.d_model
+    k = grid.index(("model",))
+    out = {}
+    # the encoder block
+    full = drawn(E.init_enc_block(gen, cfg, f32, cpu))
+    axes = E.enc_block_axes(cfg)
+    local = partition.map_axes(lambda ax, t: _cut(t, plan, ax), axes, full)
+    x_np = rng.standard_normal((B, Se, d)).astype(np.float32)
+    r = torch.from_numpy(rng.standard_normal((B, Se, d)).astype(np.float32))
+    pos = torch.arange(Se)[None, :]
+    x1, x2 = _leaf(x_np), _leaf(x_np)
+    want = E.enc_block_fwd(full, x1, cfg, pos)
+    with partition.use_rules(rules, grid):
+        got = E.enc_block_fwd(local, x2, cfg, pos)
+    fa, fl, ll = (dict(_flat_named(t)) for t in (axes, full, local))
+    gw = _grads(want, r, [x1] + [fl[n] for n in fa])
+    gg = _grads(got, r, [x2] + [ll[n] for n in fa])
+    out["encoder"] = [("out", got.detach(), want.detach())] + [
+        (n, a, b if n == "x" else _cut(b, plan, fa[n]).detach())
+        for n, a, b in zip(["x"] + list(fa), gg, gw)]
+    # the decoder block over cross K/V from the encoder states
+    full = drawn(E.init_dec_block(gen, cfg, f32, cpu))
+    axes = E.dec_block_axes(cfg)
+    local = partition.map_axes(lambda ax, t: _cut(t, plan, ax), axes, full)
+    x_np = rng.standard_normal((B, S + 1, d)).astype(np.float32)
+    e_np = rng.standard_normal((B, Se, d)).astype(np.float32)
+    r = torch.from_numpy(rng.standard_normal((B, S, d)).astype(np.float32))
+    pos = torch.arange(S)[None, :]
+    x1, x2 = _leaf(x_np[:, :S]), _leaf(x_np[:, :S])
+    e1, e2 = _leaf(e_np), _leaf(e_np)
+    want = E.dec_block_fwd(full, x1, cfg, positions=pos,
+                           enc_kv=E.cross_kv(full, cfg, e1))
+    with partition.use_rules(rules, grid):
+        shared = tp.copy_to_model(e2, plan, what="cross")
+        got = E.dec_block_fwd(local, x2, cfg, positions=pos,
+                              enc_kv=E.cross_kv(local, cfg, shared))
+    fa, fl, ll = (dict(_flat_named(t)) for t in (axes, full, local))
+    names = ["x", "enc_states"] + list(fa)
+    gw = _grads(want, r, [x1, e1] + [fl[n] for n in fa])
+    gg = _grads(got, r, [x2, e2] + [ll[n] for n in fa])
+    out["decoder"] = [("out", got.detach(), want.detach())] + [
+        (n, a, b if n in ("x", "enc_states") else
+         _cut(b, plan, fa[n]).detach()) for n, a, b in zip(names, gg, gw)]
+    # the same block over a cache: the prompt, then one token
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    heads = slice(k * KV // 2, (k + 1) * KV // 2)
+    whole = [torch.zeros(B, S + 1, KV, hd) for _ in range(2)]
+    mine = [torch.zeros(B, S + 1, KV // 2, hd) for _ in range(2)]
+    out["cache"] = []
+    with torch.no_grad():
+        for at, n in ((0, S), (S, 1)):
+            xs = torch.from_numpy(x_np[:, at:at + n])
+            p = torch.arange(at, at + n)[None, :]
+            want = E.dec_block_fwd(full, xs, cfg, positions=p,
+                                   enc_kv=E.cross_kv(full, cfg, e1),
+                                   kv_cache=whole, cache_index=at)
+            with partition.use_rules(rules, grid):
+                got = E.dec_block_fwd(local, xs, cfg, positions=p,
+                                      enc_kv=E.cross_kv(local, cfg, e2),
+                                      kv_cache=mine, cache_index=at)
+            out["cache"].append((f"out{at}", got, want))
+        out["cache"] += [(n, g, w[:, :, heads]) for n, g, w in
+                         zip(("k", "v"), mine, whole)]
+    # the whole model: the loss, its gradients and a step's collectives
+    model = build_model(cfg, device="cpu")
+    full = model.init(gen)
+    full = tree_map(lambda t: t.detach().requires_grad_(True), full)
+    axes = model.param_axes()
+    local = partition.map_axes(lambda ax, t: _cut(t, plan, ax), axes, full)
+    batch = {"frame_embeds": torch.from_numpy(
+        rng.standard_normal((B, Se, d)).astype(np.float32)),
+        "tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))),
+        "labels": torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)))}
+    fa, fl, ll = (dict(_flat_named_all(t)) for t in (axes, full, local))
+    want = model.loss(full, batch)
+    gw = torch.autograd.grad(want, [fl[n] for n in fa])
+    with partition.use_rules(rules, grid):
+        grid.stats.reset()
+        got = model.loss(local, batch)
+        gg = torch.autograd.grad(got, [ll[n] for n in fa])
+        out["loss_stats"] = dict(grid.stats.calls)
+    out["model"] = [("loss", got.detach(), want.detach())] + [
+        (n, a, _cut(b, plan, fa[n]).detach()) for n, a, b in zip(fa, gg, gw)]
+    with torch.no_grad():
+        served = tp.shard_params(model.load(full), axes, plan)
+        cache = model.init_cache(B, S + 1, dtype=f32)
+        with partition.use_rules(rules, grid):
+            mine = model.init_cache(B, S + 1, dtype=f32)
+            _, mine, enc = model.prefill(served, batch, mine)
+            grid.stats.reset()
+            got, mine = model.decode(served, batch["tokens"][:, :1], mine, S,
+                                     enc)
+            out["decode_stats"] = dict(grid.stats.calls)
+        _, cache, enc = model.prefill(model.load(full), batch, cache)
+        want, cache = model.decode(model.load(full), batch["tokens"][:, :1],
+                                   cache, S, enc)
+    V = got.shape[-1]
+    out["decode"] = [("logits", got, want[..., k * V:(k + 1) * V]),
+                     ("k", mine["k"], cache["k"][..., heads, :])]
+    _save(out_dir, "encdec_block", grid.rank, out)
+    grid.close()
+
+
+def _unflatten(named):
+    """The tree of dicts of ``_flat_named``'s (name, leaf) pairs."""
+    tree = {}
+    for name, t in named.items():
+        *path, last = name.split("/")
+        at = tree
+        for p in path:
+            at = at.setdefault(p, {})
+        at[last] = t
+    return tree
+
+
+def _flat_named_all(tree, prefix=""):
+    """``_flat_named`` through lists too (an item's index in its name)."""
+    items = (sorted(tree.items()) if isinstance(tree, dict)
+             else enumerate(tree))
+    for k, v in items:
+        name = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, (dict, list)):
+            yield from _flat_named_all(v, name)
+        else:
+            yield name, v
+
+
 def _flat_named(tree, prefix=""):
     """(name, leaf) of a tree of dicts, keys sorted."""
     for k in sorted(tree):
@@ -437,9 +607,7 @@ def _combo_setup(d, arch, compute, vocab):
     data = np.load(Path(d) / "inputs.npz")
     with open(Path(d) / "params.pkl", "rb") as f:
         params = bridge.params_from_reference(pickle.load(f), "cpu")
-    batches = [{"tokens": data["tokens"][k], "labels": data["labels"][k]}
-               for k in range(data["tokens"].shape[0])]
-    return model, params, batches
+    return model, params, _batches(data)
 
 
 def train_tp(out_dir, layout: str, combos, steps: int = 3, cases=None):
@@ -490,8 +658,8 @@ def train_tp(out_dir, layout: str, combos, steps: int = 3, cases=None):
                                     if grid.rank == 0 else None),
                          "residual1": first.residuals.get("g") if compress
                          else None}
-        if grid.rank == 0 and model.cfg.family in ("moe", "ssm", "hybrid") \
-                and compute == "bfloat16":
+        if grid.rank == 0 and compute == "bfloat16" and \
+                model.cfg.family in ("moe", "ssm", "hybrid", "encdec"):
             # the port's one-card step on the same batches (the bf16
             # rule of tests/_train_tp_common.py)
             step = train.make_train_step(model, opt, shape)

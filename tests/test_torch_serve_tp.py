@@ -23,12 +23,12 @@ spills and fetches:
   prints the one-process CLI's summary;
 * what stays refused raises, naming its slice: heads that do not divide
   ``model`` (3g; attention heads, or the ssm and hybrid families' SSD
-  heads on a model axis of 3), the encdec family under ``model`` in the
-  fixed-batch session (3f; moe gets past each of these entries'
-  refusals to the grid's join, with a ``data`` axis over 1 or under
-  ``model``, and so do ssm and hybrid under a model axis of 2 in the
-  engine, its tenants and an engine on a shared transport, which then
-  refuse them for having no paged KV), a model axis in one process, a
+  heads on a model axis of 3, whisper smoke's 4 heads there too; moe
+  gets past each of these entries' refusals to the grid's join, with a
+  ``data`` axis over 1 or under ``model``, and so do ssm, hybrid and
+  encdec under a model axis of 2 in the engine, its tenants, an engine
+  on a shared transport and the fixed-batch session, the engines then
+  refusing them for having no paged KV), a model axis in one process, a
   world that does not fill a
   (data 2, model 2) grid (the rules and the serving CLI); and ``grid=``
   on another layout than the lease's, and a disaggregated cluster whose
@@ -71,8 +71,7 @@ from repro_torch.pool.lease import LeaseBinding               # noqa: E402
 from repro_torch.launch import serve as serve_cli             # noqa: E402
 from repro_torch.runtime.serve import make_lease_session      # noqa: E402
 from repro_torch.sharding import tp                           # noqa: E402
-from repro_torch.sharding.profiles import (grid_refusal,      # noqa: E402
-                                           make_rules)
+from repro_torch.sharding.profiles import grid_refusal        # noqa: E402
 
 ARCH = "qwen1.5-0.5b"
 # the engine's shape and the trace: a 6-page quota of 8-token pages
@@ -354,13 +353,13 @@ class _Joined(Exception):
 
 # the cases whose moe refusal the expert-parallel slice lifted: (world,
 # the lease's model_parallel for moe, the family kept refused and its
-# ROADMAP item: encdec under a model axis of 2, ssm and hybrid, which
-# the ssm_* rules let through under a model axis of 2, on one of 3)
+# ROADMAP item: ssm, hybrid and encdec, which their sharded slices let
+# through under a model axis of 2, on one of 3)
 LIFTED = {"data": (4, 1, "mamba2-780m", "3g"),
-          "session": (2, 1, "whisper-small", "3f"),
+          "session": (2, 1, "whisper-small", "3g"),
           "multi_tenant": (4, 1, "zamba2-7b", "3g"),
           "shared_fabric": (4, 1, "mamba2-780m", "3g"),
-          "moe": (2, 2, "whisper-small", "3f")}
+          "moe": (2, 2, "whisper-small", "3g")}
 
 
 @pytest.mark.parametrize("case", ["heads", "data", "session",
@@ -372,10 +371,10 @@ def test_what_stays_refused_names_its_slice(case, monkeypatch, capsys):
     moe's (rows over a data axis of 4 in the engine, its tenants, an
     engine on a shared transport and the fixed-batch session; moe under
     a model axis of 2), olmoe smoke now gets past the refusal to the
-    grid's join; the encdec family on a model axis of 2 through the same
-    entry is refused, naming 3f; the ssm and hybrid families get through
-    to the join on a model axis of 2 and are refused on one of 3, where
-    their 8 SSD heads do not divide it, naming 3g."""
+    grid's join; the ssm, hybrid and encdec families get through to the
+    join on a model axis of 2 and are refused on one of 3, where their
+    8 SSD heads or whisper smoke's 4 heads do not divide it, naming
+    3g."""
     qwen = build_model(get_config(ARCH, smoke=True), device="cpu")
     gen = torch.Generator().manual_seed(0)
     pool = smoke_pool("scalepool")
@@ -436,9 +435,7 @@ def test_what_stays_refused_names_its_slice(case, monkeypatch, capsys):
     def enter(model, lease):
         if case == "world_fill":
             layout = mesh_lib.Layout((2, 2), ("data", "model"))
-            why = grid_refusal(layout, make_rules(
-                qwen.cfg, ShapeConfig("s", "decode", 64, 2), layout,
-                fsdp=False), qwen.cfg, serving=True, world=2)
+            why = grid_refusal(layout, qwen.cfg, serving=True, world=2)
             raise ValueError(why)
         if case == "session":
             make_lease_session(model, ShapeConfig("s", "decode", 64, 2),
@@ -459,7 +456,7 @@ def test_what_stays_refused_names_its_slice(case, monkeypatch, capsys):
         if mp == 1:
             lease = lease_of(2, "tp-model")
             _World(monkeypatch, 4)
-        if model.cfg.family in ("ssm", "hybrid"):
+        if model.cfg.family in ("ssm", "hybrid", "encdec"):
             with pytest.raises(_Joined):
                 enter(model, lease)
             lease = lease_of(3, "tp-three", accels=3)

@@ -127,54 +127,51 @@ def test_use_rules_scopes_the_current_rules():
 
 
 def test_grid_refusal_names_the_next_slice():
-    """Tensor parallelism and FSDP run the dense, moe, ssm and hybrid
-    families' steps (moe: expert parallelism; ssm and hybrid: the mamba2
-    block's SSD heads over ``model``); what ``grid_refusal`` leaves to a
-    later slice is narrowed to heads that do not divide the ``model``
-    axis (attention heads, or SSD heads: 3g), the encdec family under a
-    ``model`` axis or FSDP (3f), and serving under a ``model`` axis."""
+    """Tensor parallelism and FSDP run every family's steps (moe: expert
+    parallelism; ssm and hybrid: the mamba2 block's SSD heads over
+    ``model``; encdec: its encoder's, decoder's and cross-attention's
+    heads); what ``grid_refusal`` leaves to a later slice is narrowed to
+    heads that do not divide the ``model`` axis (attention heads, or SSD
+    heads: 3g), and serving under a ``model`` axis in one process.  It
+    reads no rules: FSDP (``embed`` over ``data``) is refused for no
+    family."""
     shape = ShapeConfig("s", "train", 32, 8)
     layout = Layout((2, 2), ("data", "model"))
     flat = Layout((2, 2, 1), ("pod", "data", "model"))
-    dense = SMOKE_ARCHS["olmo-1b"]
-    for cfg in (dense, SMOKE_ARCHS["olmoe-1b-7b"],
-                SMOKE_ARCHS["mixtral-8x7b"]):
-        for grid in (layout, flat):
-            for fsdp in (False, True):
-                rules = profiles.make_rules(cfg, shape, grid, fsdp=fsdp)
-                assert profiles.grid_refusal(grid, rules, cfg) is None
-    assert profiles.grid_refusal(layout, None) is None
     pod = Layout((2, 1, 2), ("pod", "data", "model"))
-    for arch in ("mamba2-780m", "zamba2-7b"):
+    dense = SMOKE_ARCHS["olmo-1b"]
+    for arch in ("olmo-1b", "olmoe-1b-7b", "mixtral-8x7b", "mamba2-780m",
+                 "zamba2-7b", "whisper-small"):
         cfg = SMOKE_ARCHS[arch]
         for grid in (layout, flat, pod):
-            for fsdp in (False, True):
-                rules = profiles.make_rules(cfg, shape, grid, fsdp=fsdp)
-                assert profiles.grid_refusal(grid, rules, cfg) is None
-    cfg = SMOKE_ARCHS["whisper-small"]
-    why = profiles.grid_refusal(layout, profiles.make_rules(
-        cfg, shape, layout, fsdp=False), cfg)
-    assert "tensor parallelism" in why and "encoder-decoder" in why, why
-    assert "3f" in why, why
-    why = profiles.grid_refusal(flat, profiles.make_rules(
-        cfg, shape, flat), cfg)
-    assert "FSDP" in why and "later slice" in why, why
-    assert profiles.grid_refusal(flat, profiles.make_rules(
-        cfg, shape, flat, fsdp=False), cfg) is None
+            assert profiles.grid_refusal(grid, cfg) is None, (arch, grid)
+            assert profiles.make_rules(cfg, shape, grid).table[
+                "embed"] == "data"
+    assert profiles.grid_refusal(layout) is None
+    # whisper-small at full width (12 heads) on (data 2, model 2) and
+    # (data 1, model 4)
+    cfg = ARCHS["whisper-small"]
+    for grid in (layout, Layout((1, 4), ("data", "model"))):
+        assert profiles.grid_refusal(grid, cfg) is None
+    # heads that do not divide model: whisper smoke's 4 on 3, whisper-
+    # small's 12 on 8
+    for cfg, m in ((SMOKE_ARCHS["whisper-small"], 3),
+                   (ARCHS["whisper-small"], 8)):
+        why = profiles.grid_refusal(Layout((1, m), ("data", "model")), cfg)
+        assert "3g" in why and "later slice" in why, why
     # mamba2 smoke's 8 SSD heads on a model axis of 3: the reference's
     # rules leave ssm_heads unsharded there
     three = Layout((1, 3), ("data", "model"))
     cfg = SMOKE_ARCHS["mamba2-780m"]
     rules = profiles.make_rules(cfg, shape, three, fsdp=False)
     assert rules.table["ssm_heads"] is None
-    why = profiles.grid_refusal(three, rules, cfg)
+    why = profiles.grid_refusal(three, cfg)
     assert "SSD heads" in why and "3g" in why and "later slice" in why, why
     eight = Layout((1, 8), ("data", "model"))
-    why = profiles.grid_refusal(eight, profiles.make_rules(
-        dense, shape, eight, fsdp=False), dense)
+    why = profiles.grid_refusal(eight, dense)
     assert "seq_attn" in why and "later slice" in why
-    assert "serving" in profiles.grid_refusal(layout, None, serving=True)
-    assert profiles.grid_refusal(flat, None, serving=True) is None
+    assert "serving" in profiles.grid_refusal(layout, serving=True)
+    assert profiles.grid_refusal(flat, serving=True) is None
 
 
 @pytest.mark.parametrize("entry", ["engine", "session"])
